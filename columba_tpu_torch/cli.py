@@ -1,12 +1,14 @@
 """Command-line interface of the PyTorch port: ``build`` and ``align``.
 
 The counterpart of ``columba_tpu/cli.py`` with the same option names. The
-port covers the Vanilla index build and single-end ALL-mode alignment of
-FASTQ input to SAM (``align -a all``); every other mode raises
+port covers the Vanilla index build and the alignment of FASTQ input to SAM
+in ALL and BEST(+x) mode, single-end and paired-end, with uniform
+partitioning and a builtin scheme; every other mode raises
 ``NotImplementedError`` naming its ROADMAP item.
 
-Alignment runs on the first CUDA device when there is one, else on the CPU
-(the plain PyTorch versions of the kernels).
+Alignment runs on the CUDA device (``--device cuda``, the default) and
+raises if there is none; ``--device cpu`` runs the plain PyTorch versions
+of the kernels instead, which is how the CPU tests run it.
 
 Usage: python -m columba_tpu_torch.cli <build|align> ...
 """
@@ -52,7 +54,12 @@ def main(argv=None):
     a.add_argument("-r", "--index", required=True)
     a.add_argument("-f", "--reads", required=True)
     a.add_argument("-F", "--reads2", default=None,
-                   help="second reads file (paired-end; not ported yet)")
+                   help="second reads file (paired-end)")
+    a.add_argument("-O", "--orientation", choices=["fr", "rf", "ff"],
+                   default="fr")
+    a.add_argument("-X", "--max-insert-size", type=int, default=500)
+    a.add_argument("-N", "--min-insert-size", type=int, default=0)
+    a.add_argument("--no-inferring", action="store_true")
     a.add_argument("-o", "--output", required=True)
     a.add_argument("-e", "--max-distance", type=int, default=0,
                    help="ALL-mode max distance")
@@ -64,6 +71,8 @@ def main(argv=None):
                    help="custom search scheme folder (not ported yet)")
     a.add_argument("-d", "--dynamic-selection-path", default=None,
                    metavar="DIR", help="scheme collection (not ported yet)")
+    a.add_argument("-x", "--best-plus-x", type=int, default=0)
+    a.add_argument("-I", "--min-identity", type=int, default=95)
     a.add_argument("-K", "--kmer-size", type=int, default=10,
                    help="seed k-mer length, 0 disables (dense table caps at "
                         "13)")
@@ -74,6 +83,10 @@ def main(argv=None):
     a.add_argument("-v", "--verbose", action="store_true")
     a.add_argument("-nC", "--no-CIGAR", dest="no_cigar", action="store_true",
                    help="do not output CIGAR strings")
+    a.add_argument("-D", "--discordant", nargs="?", type=int, const=100000,
+                   default=None, metavar="N",
+                   help="allow discordant pairs, optionally at most N per "
+                        "pair")
     a.add_argument("--capacity", type=int, default=None)
     a.add_argument("--no-kmer-table", action="store_true",
                    help="disable the dense k-mer seed table")
@@ -85,11 +98,18 @@ def main(argv=None):
                    choices=["uniform", "static", "dynamic"],
                    default="uniform",
                    help="read partitioning (only uniform is ported)")
+    a.add_argument("-T", "--trim", default=None, metavar="START-END",
+                   help="trim reads to bases [START, END) before aligning "
+                        "(not ported yet)")
     a.add_argument("-i", "--in-text", type=int, default=4,
                    help="in-text verification switchpoint (0 disables)")
     a.add_argument("-s", "--sa-sparseness", type=int, default=None,
                    help="SA sampling factor to align with (a multiple of "
                         "the built factor)")
+    a.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where alignment runs: the CUDA device (raises if "
+                        "there is none) or the CPU with the kernels' plain "
+                        "PyTorch versions")
 
     args = parser.parse_args(argv)
     if args.cmd == "build":
@@ -131,15 +151,13 @@ def cmd_build(args):
 
 def _unsupported(args) -> str | None:
     """The ROADMAP item of an option the port does not run yet, or None."""
-    if args.mode != "all":
-        return "-a best (ROADMAP queue 1, item 9)"
-    if args.reads2 is not None:
-        return "paired-end -F (ROADMAP queue 1, item 9)"
     if args.partitioning != "uniform":
         return f"-p {args.partitioning} (ROADMAP queue 1, item 11)"
     if args.custom or args.dynamic_selection_path:
         return "scheme folders and collections -c/-d (ROADMAP queue 1, " \
                "item 11)"
+    if args.trim:
+        return "-T trim (ROADMAP queue 1, item 9)"
     if args.output.endswith(".rhs"):
         return "read-hit-summary output (ROADMAP queue 1, item 9)"
     return None
@@ -170,14 +188,24 @@ def cmd_align(args):
     if flavor != "vanilla":
         missing = f"{flavor} indexes (ROADMAP queue 1, items 12-13)"
     if missing is None and not (
-            emit.available() and fastq.native_reader_available()
-            and _sniff_fastq(args.reads)):
+            emit.available() and emit.pe_available()
+            and fastq.native_reader_available()
+            and _sniff_fastq(args.reads)
+            and (args.reads2 is None or _sniff_fastq(args.reads2))):
         missing = ("FASTA read input or a host without the native parser "
                    "and emitter (ROADMAP queue 1, item 9)")
     if missing is not None:
         raise NotImplementedError(f"not ported yet: {missing}")
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        try:
+            torch.zeros(1, device=device)
+        except (RuntimeError, AssertionError) as e:
+            raise RuntimeError(
+                "align --device cuda: no usable CUDA device; the port never "
+                "falls back to the CPU by itself (--device cpu runs the "
+                "kernels' plain versions)") from e
     key = (os.path.realpath(args.index),
            os.path.getmtime(os.path.join(args.index, "meta.json")),
            args.sa_sparseness, str(device))
@@ -199,9 +227,12 @@ def cmd_align(args):
 
         kmer_table = build_kmer_table_cached(index, kmer_k, args.index)
     cfg = MappingConfig(
-        scheme_name=args.scheme, metric=args.metric,
-        max_distance=args.max_distance, capacity=args.capacity,
+        scheme_name=args.scheme, metric=args.metric, mode=args.mode,
+        max_distance=args.max_distance, best_plus_x=args.best_plus_x,
+        min_identity=args.min_identity, capacity=args.capacity,
         kmer_table=kmer_table, switchpoint=args.in_text, arrays=arrays)
+    if args.reads2 is not None:
+        return _align_paired(args, arrays, index, cfg, kmer_table)
     return _align_single_fast(args, arrays, index, cfg)
 
 
@@ -235,7 +266,6 @@ def _align_single_fast(args, arrays, index, cfg):
     genome = decoded_text(arrays)
     seq_lengths = list(np.diff(arrays.seq_starts))
     ctrs = Counters()
-    kb = cfg.max_distance if args.metric == "edit" else 0
     t0 = time.time()
     state = dict(n_reads=0, n_mapped=0, n_aln=0)
     in_q: queue.Queue = queue.Queue(maxsize=6)
@@ -257,9 +287,13 @@ def _align_single_fast(args, arrays, index, cfg):
                 item = disp_q.get()
                 if item is None:
                     return
-                batch, payload = item
-                occs, _ = strategy.map_batch_all_finish(
-                    payload, index, batch.codes, cfg, counters=ctrs)
+                batch, payload, kb = item
+                if args.mode == "all":
+                    occs, _ = strategy.map_batch_all_finish(
+                        payload, index, batch.codes, cfg, counters=ctrs)
+                else:
+                    occs = strategy.map_batch_best_finish(
+                        payload, index, batch.codes, cfg, counters=ctrs)
                 nv = batch.n_valid
                 if nv < batch.codes.shape[0]:
                     occs = occs.take(occs.read_id < nv)
@@ -300,9 +334,16 @@ def _align_single_fast(args, arrays, index, cfg):
                 batch = in_q.get()
                 if batch is None:
                     break
-                payload = strategy.map_batch_all_start(index, batch.codes,
-                                                       cfg)
-                disp_q.put((batch, payload))
+                if args.mode == "all":
+                    payload = strategy.map_batch_all_start(
+                        index, batch.codes, cfg)
+                    k = cfg.max_distance
+                else:
+                    payload = strategy.map_batch_best_start(
+                        index, batch.codes, cfg, counters=ctrs)
+                    k = strategy.best_cutoff_for(cfg, batch.codes.shape[1])
+                disp_q.put((batch, payload,
+                            k if args.metric == "edit" else 0))
         finally:
             disp_q.put(None)
             emt.join()
@@ -325,6 +366,240 @@ def _align_single_fast(args, arrays, index, cfg):
     if args.log_file:
         logger.info(summary)
     ctrs.report(logger, paired=False)
+    return 0
+
+
+def _align_paired(args, arrays, index, cfg, kmer_table):
+    """Paired-end engine: both FASTQ files stream in lockstep chunks; the
+    main thread maps a chunk (every sub-batch of both sides is dispatched
+    before any is finished, so batch i's fetch and pairing overlap batch
+    i+1's device work) while a writer thread emits the chunk before."""
+    import itertools
+    import queue
+    import threading
+
+    import numpy as np
+
+    from columba_tpu_torch.counters import Counters
+    from columba_tpu_torch.index.build import decoded_text
+    from columba_tpu_torch.io import emit, fastq, sam
+    from columba_tpu_torch.logger import logger
+    from columba_tpu_torch.search import paired, pairing
+    from columba_tpu_torch.search.strategy import best_cutoff_for
+
+    pcfg = paired.PairedConfig(
+        orientation=args.orientation,
+        min_insert=args.min_insert_size,
+        max_insert=args.max_insert_size,
+        infer=not args.no_inferring,
+        discordant=args.discordant is not None,
+        max_discordant=(args.discordant if args.discordant is not None
+                        else 100000),
+    )
+    B = args.batch_size
+    # Pairs are bucketed by (len1, len2) per chunk so that device batches
+    # have one shape with mixed-length input; emission walks each chunk in
+    # original order in maximal same-shape runs, so output order matches
+    # the input. Host memory stays bounded by the chunk.
+    CHUNK = max(8 * B, 65536)
+
+    def group_k(m):
+        if args.mode == "all":
+            return cfg.max_distance
+        return best_cutoff_for(cfg, m)
+
+    def pair_keys(c1, c2):
+        """(len1 << 32 | len2) per pair: the shape-group key."""
+        return (c1["lens"].astype(np.int64) << 32) | c2["lens"]
+
+    chunks = fastq.pe_soa_chunks(args.reads, args.reads2, CHUNK)
+    pending = []
+    if pcfg.infer:
+        # infer from the first chunk's dominant shape group (the reference
+        # caps its inference sample anyway, src/parallel.cpp:402-465)
+        first = next(chunks, None)
+        if first is not None:
+            pending.append(first)
+            c1, c2 = first
+            keys = pair_keys(c1, c2)
+            vals, counts = np.unique(keys, return_counts=True)
+            key = int(vals[np.argmax(counts)])
+            idxs = np.nonzero(keys == key)[0]
+            g1 = fastq.soa_gather_codes(c1, idxs, key >> 32)
+            g2 = fastq.soa_gather_codes(c2, idxs, key & 0xffffffff)
+            pcfg = paired.infer_parameters(
+                index, g1, g2, cfg, arrays.seq_starts, kmer_table,
+                pcfg_in=pcfg)
+            print(f"[{PROGRAM}] inferred orientation={pcfg.orientation} "
+                  f"insert=[{pcfg.min_insert},{pcfg.max_insert}]",
+                  file=sys.stderr)
+
+    seq_lengths = list(np.diff(arrays.seq_starts))
+    ctrs = Counters()
+    t0 = time.time()
+    done = 0
+
+    def chunk_rows_mode(c1, c2) -> bool:
+        """The array-native result path applies when every shape group
+        stays on the rung path (cutoffs <= 6) and discordant pairing is
+        off (see paired.PERowsBest)."""
+        if args.mode != "best" or pcfg.discordant:
+            return False
+        return all(best_cutoff_for(cfg, int(m)) <= 6
+                   for m in np.unique(np.concatenate(
+                       [c1["lens"], c2["lens"]])))
+
+    def map_chunk(c1, c2):
+        """Map one chunk; returns (result, kb_of) for its emission: a
+        PERowsBest (array-native path) or a MappedPair list. Two-phase:
+        dispatch every sub-batch, then finish them in order. The
+        deep-cutoff ladder is synchronous and runs inside start."""
+        nonlocal done
+        keys = pair_keys(c1, c2)
+        n = c1["n"]
+        rows_mode = chunk_rows_mode(c1, c2)
+        mapped_all: list = [None] * n
+        cres = (paired.PERowsBest(
+            n=n, rows=None,
+            u_end1=np.full(n, -1, np.int64), u_st1=np.zeros(n, np.uint8),
+            u_mq1=np.zeros(n, np.int32),
+            u_end2=np.full(n, -1, np.int64), u_st2=np.zeros(n, np.uint8),
+            u_mq2=np.zeros(n, np.int32)) if rows_mode else None)
+        row_parts: list = []
+        kb_of: dict = {}
+        launches = []
+        for keyv in np.unique(keys):
+            idxs = np.nonzero(keys == keyv)[0]
+            m1, m2 = int(keyv >> 32), int(keyv & 0xffffffff)
+            k = group_k(m1)
+            kb_of[(m1, m2)] = k if cfg.metric == "edit" else 0
+            g1 = fastq.soa_gather_codes(c1, idxs, m1)
+            g2 = fastq.soa_gather_codes(c2, idxs, m2)
+            for off in range(0, len(idxs), B):
+                if args.mode == "best":
+                    h = paired.map_pairs_best_start(
+                        index, g1[off:off + B], g2[off:off + B],
+                        cfg, pcfg, arrays.seq_starts, kmer_table,
+                        counters=ctrs)
+                else:
+                    h = paired.map_pairs_all_start(
+                        index, g1[off:off + B], g2[off:off + B],
+                        cfg.scheme_name, k, cfg.metric, kmer_table)
+                launches.append((idxs, off, h))
+        for idxs, off, h in launches:
+            gidx = idxs[off:off + B]
+            if rows_mode:
+                rr = paired.map_pairs_best_finish(
+                    h, cfg, pcfg, arrays.seq_starts, counters=ctrs,
+                    as_rows=True)
+                rows = rr.rows
+                has_rows = np.zeros(rr.n, dtype=bool)
+                has_rows[rows.pair_id] = True
+                u1, u2 = rr.u_end1 >= 0, rr.u_end2 >= 0
+                pl = ~has_rows
+                ctrs.number_of_reads += 2 * len(gidx)
+                ctrs.total_unique_pairs += len(rows)
+                ctrs.mapped_pairs += int(has_rows.sum())
+                ctrs.unpaired_but_mapped_pairs += int((pl & u1 & u2).sum())
+                ctrs.mapped_half_pairs += int((pl & (u1 ^ u2)).sum())
+                rows.pair_id = gidx[rows.pair_id]
+                row_parts.append(rows)
+                for src, dst in ((rr.u_end1, cres.u_end1),
+                                 (rr.u_st1, cres.u_st1),
+                                 (rr.u_mq1, cres.u_mq1),
+                                 (rr.u_end2, cres.u_end2),
+                                 (rr.u_st2, cres.u_st2),
+                                 (rr.u_mq2, cres.u_mq2)):
+                    dst[gidx] = src
+            else:
+                if args.mode == "best":
+                    mapped = paired.map_pairs_best_finish(
+                        h, cfg, pcfg, arrays.seq_starts, counters=ctrs)
+                else:
+                    mapped = paired.map_pairs_all_finish(
+                        h, pcfg, arrays.seq_starts, arrays=arrays,
+                        counters=ctrs)
+                for j, mp in zip(gidx, mapped):
+                    mapped_all[j] = mp
+                    ctrs.number_of_reads += 2
+                    ctrs.total_unique_pairs += len(mp.pairs)
+                    if mp.pairs:
+                        ctrs.mapped_pairs += 1
+                    elif mp.discordant:
+                        ctrs.discordantly_mapped_pairs += 1
+                    elif mp.unpaired1 and mp.unpaired2:
+                        ctrs.unpaired_but_mapped_pairs += 1
+                    elif mp.unpaired1 or mp.unpaired2:
+                        ctrs.mapped_half_pairs += 1
+            done += len(gidx)
+            rate = done / max(time.time() - t0, 1e-9)
+            print(f"[{PROGRAM}] {done} pairs ({rate:,.0f} pairs/s)",
+                  file=sys.stderr)
+        if rows_mode:
+            allr = pairing.PairRows.concat(row_parts)
+            order = np.argsort(allr.pair_id, kind="stable")
+            cres.rows = allr.take(order)
+            return cres, kb_of
+        return mapped_all, kb_of
+
+    # writer thread: emission (traceback DP + SAM) of chunk i overlaps the
+    # device work of chunk i+1
+    out_q: queue.Queue = queue.Queue(maxsize=2)
+    errors: list = []
+    genome = decoded_text(arrays)
+
+    def _writer(out):
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    return
+                c1, c2, result, kb_of = item
+                rows_mode = isinstance(result, paired.PERowsBest)
+                keys = pair_keys(c1, c2)
+                n = c1["n"]
+                i = 0
+                while i < n:
+                    keyv = keys[i]
+                    j = i + 1
+                    # run cap bounds the native output buffer
+                    while j < n and j - i < 65536 and keys[j] == keyv:
+                        j += 1
+                    kb = kb_of[(int(keyv >> 32), int(keyv & 0xffffffff))]
+                    soa = (emit.pe_soa_from_rows(result, i, j)
+                           if rows_mode else
+                           emit.pe_soa_from_mapped(result[i:j]))
+                    out.write(emit.emit_sam_pe_soa(
+                        c1["codes"],
+                        c1["names"], c1["name_offs"][i:j + 1],
+                        c1["quals"], c1["qual_offs"][i:j + 1],
+                        c2["codes"],
+                        c2["names"], c2["name_offs"][i:j + 1],
+                        c2["quals"], c2["qual_offs"][i:j + 1],
+                        soa, arrays, genome, kb, counters=ctrs,
+                        seq_offs1=c1["seq_offs"][i:j + 1],
+                        seq_offs2=c2["seq_offs"][i:j + 1]))
+                    i = j
+        except BaseException as e:
+            errors.append(e)
+            while out_q.get() is not None:  # drain so the main loop
+                pass                        # cannot block on a dead writer
+
+    with open(args.output, "wb") as out:
+        out.write(sam.header(arrays.seq_names, seq_lengths,
+                             program_name=PROGRAM).encode())
+        wrt = threading.Thread(target=_writer, args=(out,), daemon=True)
+        wrt.start()
+        try:
+            for c1, c2 in itertools.chain(pending, chunks):
+                result, kb_of = map_chunk(c1, c2)
+                out_q.put((c1, c2, result, kb_of))
+        finally:
+            out_q.put(None)
+            wrt.join()
+        if errors:
+            raise errors[0]
+    ctrs.report(logger, paired=True)
     return 0
 
 

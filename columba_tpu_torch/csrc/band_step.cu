@@ -20,9 +20,15 @@
 // Bound: two random 64 B occ rows per active lane, as kernel A, plus
 // ~100 B of lane state in and ~200 B of child state out; the band and
 // register arithmetic is a few hundred integer ops in registers. Inactive
-// and dead lanes skip the occ reads. Templated on the band radius KB and
-// the register count W so every array stays in registers; only the
-// slice's KB = 2, W = 2 is instantiated.
+// and dead lanes skip the occ reads.
+//
+// Templated on the band radius KB and the register count W so every array
+// stays in registers: KB 0..4 x W 1..2 are instantiated (what the builtin
+// schemes give at m = 100 and 150 for k <= 4, both metrics; KB = 0 is the
+// Hamming band of one cell). Every other shape a schedule can produce
+// (KB <= 13, W <= MAX_REGS = 10) runs the same body with runtime sizes and
+// arrays sized for the maximum (KB = -1): those arrays live in local memory,
+// so that entry is slower, and it is exact.
 #include "common.cuh"
 
 namespace {
@@ -41,6 +47,8 @@ struct BandArgs {
   const signed char* pchars;    // (R*S*T, BW) per-(lane id, step) cell codes
   int T;
   int t;
+  int bw;                       // runtime band width and register count,
+  int W;                        // read by the generic entry only
   int switchpoint;
   long long* ch_ranges;         // (C, 4, 4)
   int* new_ids;                 // (C,)
@@ -53,9 +61,17 @@ struct BandArgs {
   long long C;
 };
 
-template <int KB, int W>
+constexpr int kMaxBW = 2 * 13 + 1;   // ladder cutoff 13 (BEST_CUTOFF)
+constexpr int kMaxW = 10;            // search/schedule.py MAX_REGS
+
+// KB >= 0: sizes fixed at compile time. KB < 0: the generic entry.
+template <int KB, int WT>
 __global__ void band_step_kernel(BandArgs a) {
-  constexpr int BW = 2 * KB + 1;
+  constexpr bool kGeneric = KB < 0;
+  constexpr int BWMAX = kGeneric ? kMaxBW : 2 * KB + 1;
+  constexpr int WMAX = kGeneric ? kMaxW : WT;
+  const int BW = kGeneric ? a.bw : BWMAX;
+  const int W = kGeneric ? a.W : WMAX;
   constexpr int INF = columba::INF;
   extern __shared__ int smeta[];
   for (int k = threadIdx.x; k < a.S * 7; k += blockDim.x) smeta[k] = a.mrow[k];
@@ -77,7 +93,7 @@ __global__ void band_step_kernel(BandArgs a) {
   const bool act = (meta & 1) && alive && !ghost;
   const bool is_b = ((meta >> 1) & 1) == 0;
 
-  int band0[BW], band1[BW], cm0[W], cm1[W];
+  int band0[BWMAX], band1[BWMAX], cm0[WMAX], cm1[WMAX];
 #pragma unroll
   for (int o = 0; o < BW; ++o) {
     band0[o] = a.band[(2 * i) * BW + o];
@@ -90,7 +106,7 @@ __global__ void band_step_kernel(BandArgs a) {
   }
 
   uint32_t ch[4][4] = {};
-  int newD[4][BW], reg[4][W];
+  int newD[4][BWMAX], reg[4][WMAX];
   bool calive[4] = {false, false, false, false};
   bool nar[4] = {false, false, false, false};
   bool keepv = false, died = false;
@@ -102,7 +118,7 @@ __global__ void band_step_kernel(BandArgs a) {
     // banded row update for the 4 chars
     const signed char* pc =
         a.pchars + (static_cast<long long>(ids_c) * a.T + a.t) * BW;
-    int prev[BW], code[BW], up[BW];
+    int prev[BWMAX], code[BWMAX], up[BWMAX];
 #pragma unroll
     for (int o = 0; o < BW; ++o) {
       prev[o] = is_b ? band0[o] : band1[o];
@@ -196,11 +212,11 @@ __global__ void band_step_kernel(BandArgs a) {
   }
 }
 
-template <int KB, int W>
+template <int KB, int WT>
 int launch(const BandArgs& a, cudaStream_t stream) {
   constexpr int kThreads = 128;
   const size_t smem = sizeof(int) * 7 * a.S;
-  band_step_kernel<KB, W>
+  band_step_kernel<KB, WT>
       <<<columba::grid_for(a.C, kThreads), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -227,6 +243,8 @@ extern "C" int columba_band_step(
   a.pchars = pchars;
   a.T = T;
   a.t = t;
+  a.bw = 2 * kb + 1;
+  a.W = W;
   a.switchpoint = switchpoint;
   a.ch_ranges = ch_ranges;
   a.new_ids = new_ids;
@@ -237,7 +255,19 @@ extern "C" int columba_band_step(
   a.act_out = act_out;
   a.dbv_out = dbv_out;
   a.C = C;
-  // only the slice's configuration is instantiated: kuch1 at k = 2
-  if (kb == 2 && W == 2) return launch<2, 2>(a, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (kb < 0 || W < 1 || a.bw > kMaxBW || W > kMaxW)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (W <= 2 && kb <= 4 ? 2 * kb + W : 0) {
+    case 1: return launch<0, 1>(a, stream);
+    case 2: return launch<0, 2>(a, stream);
+    case 3: return launch<1, 1>(a, stream);
+    case 4: return launch<1, 2>(a, stream);
+    case 5: return launch<2, 1>(a, stream);
+    case 6: return launch<2, 2>(a, stream);
+    case 7: return launch<3, 1>(a, stream);
+    case 8: return launch<3, 2>(a, stream);
+    case 9: return launch<4, 1>(a, stream);
+    case 10: return launch<4, 2>(a, stream);
+    default: return launch<-1, 0>(a, stream);
+  }
 }

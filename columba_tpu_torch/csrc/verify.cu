@@ -4,10 +4,13 @@
 // thread verifies one candidate: it aligns its whole read against the text
 // window [start, start + m + 3kb + 1) with the band of 4kb+1 cells held in
 // registers, free start over the first 2kb+1 columns, and writes the final
-// row. kb is a template parameter: the slice's kb = 2 and kb = 1 are
-// instantiated, any other kb is refused. Window codes come straight from the
-// flat packed text words; a position outside [0, n) reads as 4 (mismatches
-// all), and starts below 0 are plain negative int64.
+// row. kb is a template parameter for kb 0..4 (kb = 0, a band of one cell,
+// is what every k = 0 scheme pass and every Hamming run verifies with); any
+// larger kb up to 13 runs the same body with a runtime kb and arrays sized
+// for the maximum (KB = -1), which live in local memory: slower, and exact.
+// Window codes come straight from the flat packed text words; a position
+// outside [0, n) reads as 4 (mismatches all), and starts below 0 are plain
+// negative int64.
 //
 // Bound: m rows x (4kb+1) cells of integer min-plus per candidate, i.e.
 // arithmetic in registers; the text words and read bytes it reads are a few
@@ -24,13 +27,19 @@ __device__ __forceinline__ int text_code(const uint32_t* __restrict__ text,
                           3u);
 }
 
-template <int KB>
+constexpr int kMaxKB = 13;   // ladder cutoff 13 (BEST_CUTOFF)
+
+// KBT >= 0: band radius fixed at compile time. KBT < 0: the generic entry.
+template <int KBT>
 __global__ void verify_kernel(const uint32_t* __restrict__ text, long long n,
                               const uint8_t* __restrict__ patterns, int m,
                               const long long* __restrict__ rid,
                               const long long* __restrict__ win_start,
-                              int* __restrict__ out, long long B) {
-  constexpr int BW = 4 * KB + 1;
+                              int kb, int* __restrict__ out, long long B) {
+  constexpr bool kGeneric = KBT < 0;
+  constexpr int BWMAX = 4 * (kGeneric ? kMaxKB : KBT) + 1;
+  const int KB = kGeneric ? kb : KBT;
+  const int BW = 4 * KB + 1;
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= B) return;
@@ -38,7 +47,7 @@ __global__ void verify_kernel(const uint32_t* __restrict__ text, long long n,
   const long long start = win_start[i];
   // wc[a] = window column (j + a - KB) of row j; columns < 0 are the kb
   // padding cells in front of the window (code 4)
-  int wc[BW], D[BW];
+  int wc[BWMAX], D[BWMAX];
 #pragma unroll
   for (int a = 0; a < BW; ++a) {
     wc[a] = a < KB ? 4 : text_code(text, n, start + a - KB);
@@ -46,7 +55,7 @@ __global__ void verify_kernel(const uint32_t* __restrict__ text, long long n,
   }
   for (int j = 0; j < m; ++j) {
     const int pc = __ldg(pat + j);
-    int nl[BW];
+    int nl[BWMAX];
 #pragma unroll
     for (int a = 0; a < BW; ++a) {
       const int mis = (wc[a] != pc || wc[a] > 3 || pc > 3) ? 1 : 0;
@@ -69,13 +78,13 @@ __global__ void verify_kernel(const uint32_t* __restrict__ text, long long n,
   for (int a = 0; a < BW; ++a) out[i * BW + a] = D[a];
 }
 
-template <int KB>
+template <int KBT>
 void launch(const uint32_t* text, long long n, const uint8_t* patterns, int m,
-            const long long* rid, const long long* ws, int* out, long long B,
-            cudaStream_t stream) {
+            const long long* rid, const long long* ws, int kb, int* out,
+            long long B, cudaStream_t stream) {
   constexpr int kThreads = 128;
-  verify_kernel<KB><<<columba::grid_for(B, kThreads), kThreads, 0, stream>>>(
-      text, n, patterns, m, rid, ws, out, B);
+  verify_kernel<KBT><<<columba::grid_for(B, kThreads), kThreads, 0, stream>>>(
+      text, n, patterns, m, rid, ws, kb, out, B);
 }
 
 }  // namespace
@@ -86,10 +95,15 @@ extern "C" int columba_verify(const int* text_words, long long n,
                               int kb, int* out, long long B,
                               cudaStream_t stream) {
   const auto* text = reinterpret_cast<const uint32_t*>(text_words);
+  if (kb < 0 || kb > kMaxKB) return static_cast<int>(cudaErrorInvalidValue);
   switch (kb) {
-    case 1: launch<1>(text, n, patterns, m, rid, ws, out, B, stream); break;
-    case 2: launch<2>(text, n, patterns, m, rid, ws, out, B, stream); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: launch<0>(text, n, patterns, m, rid, ws, kb, out, B, stream); break;
+    case 1: launch<1>(text, n, patterns, m, rid, ws, kb, out, B, stream); break;
+    case 2: launch<2>(text, n, patterns, m, rid, ws, kb, out, B, stream); break;
+    case 3: launch<3>(text, n, patterns, m, rid, ws, kb, out, B, stream); break;
+    case 4: launch<4>(text, n, patterns, m, rid, ws, kb, out, B, stream); break;
+    default:
+      launch<-1>(text, n, patterns, m, rid, ws, kb, out, B, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

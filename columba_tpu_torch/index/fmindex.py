@@ -54,9 +54,11 @@ class FMIndex:
     dollar_host: tuple = (0, 0)
 
     @staticmethod
-    def from_arrays(arrays: IndexArrays, device="cpu") -> "FMIndex":
+    def from_arrays(arrays: IndexArrays, device) -> "FMIndex":
         """Device index from host arrays (either package's IndexArrays: both
-        are plain numpy)."""
+        are plain numpy). The caller names the device: every entry point
+        that takes the index runs where the index lies, so there is no
+        default that could put a caller on the CPU unasked."""
         n = int(arrays.n)
         blocks = arrays.occ.shape[0]
         if arrays.rocc.shape[0] != blocks or arrays.bwt.shape[0] != blocks * 8:

@@ -1,9 +1,10 @@
-"""FASTQ read input through the native chunked parser (single-end subset).
+"""FASTQ read input through the native chunked parser.
 
 The counterpart of the native-reader part of ``columba_tpu/io/fastq.py``:
-reads are parsed in C++ (``columba_tpu/native/parse.cpp``, built by
+reads are parsed in C++ (``csrc/host/parse.cpp``, built by
 ``columba_tpu_torch.native``), uppercased with non-ACGT -> N, and grouped
-into fixed-shape (B, m) code batches per read length.
+into fixed-shape (B, m) code batches per read length (single-end), or
+streamed as lockstep struct-of-arrays chunks of two files (paired-end).
 """
 
 from __future__ import annotations
@@ -213,3 +214,124 @@ def batches_native(path: str, batch_size: int, chunk_bytes: int = 8 << 20):
             bk = buckets[m]
             if bk.count:
                 yield assemble(m, bk.pieces, bk.count, batch_size)
+
+
+class SoaReader:
+    """Streaming native FASTQ parser with exact-count takes.
+
+    ``take(n)`` returns the next n records (fewer at EOF, None when
+    drained) as ONE flat struct-of-arrays dict — codes buffer +
+    seq_offs, names/name_offs, quals/qual_offs, lens — in file order.
+    The paired-end reader uses two of these in lockstep so pairs stay
+    aligned without building per-record Python objects (the reference
+    streams bounded PE blocks the same way, src/fastq.cpp:283-424).
+    """
+
+    def __init__(self, path: str, chunk_bytes: int = 8 << 20):
+        lib = _parse_lib()
+        if lib is None:
+            raise ValueError("native parser unavailable")
+        self._lib = lib
+        self._f = (gzip.open(path, "rb") if path.endswith(".gz")
+                   else open(path, "rb"))
+        self._chunk_bytes = chunk_bytes
+        self._tail = b""
+        self._eof = False
+        self._pieces: list = []   # (soa, lo) records [lo, soa["n"]) pending
+        self._avail = 0
+        self._first = True
+
+    def close(self):
+        self._f.close()
+
+    def _fill_once(self) -> bool:
+        """Parse one more byte chunk; False when the file is drained."""
+        if self._eof:
+            return False
+        data = self._f.read(self._chunk_bytes)
+        if not data:
+            self._eof = True
+        buf = self._tail + data
+        if not buf:
+            return False
+        if self._first and buf[:1] == b">":
+            raise ValueError("FASTA input: use the generic reader")
+        self._first = False
+        soa, consumed = _parse_chunk(self._lib, buf, self._eof)
+        self._tail = buf[consumed:]
+        if self._eof and self._tail:
+            raise ValueError("trailing malformed FASTQ record")
+        if soa["n"]:
+            self._pieces.append((soa, 0))
+            self._avail += soa["n"]
+        return True
+
+    def take(self, n: int):
+        while self._avail < n and self._fill_once():
+            pass
+        if self._avail == 0:
+            return None
+        k = min(n, self._avail)
+        spans = []                # (soa, lo, hi)
+        need = k
+        while need:
+            soa, lo = self._pieces[0]
+            cnt = min(need, soa["n"] - lo)
+            spans.append((soa, lo, lo + cnt))
+            need -= cnt
+            if lo + cnt == soa["n"]:
+                self._pieces.pop(0)
+            else:
+                self._pieces[0] = (soa, lo + cnt)
+        self._avail -= k
+        return _merge_spans(spans, k)
+
+
+def _merge_spans(spans, total: int) -> dict:
+    """Concatenate record spans of parse chunks into one flat SoA."""
+    def cat(buf_key, off_key):
+        parts, offs = [], np.zeros(total + 1, np.int64)
+        row, base = 0, 0
+        for soa, lo, hi in spans:
+            o = soa[off_key]
+            b0, b1 = int(o[lo]), int(o[hi])
+            parts.append(soa[buf_key][b0:b1])
+            offs[row + 1: row + 1 + (hi - lo)] = (o[lo + 1: hi + 1] - b0
+                                                  + base)
+            row += hi - lo
+            base += b1 - b0
+        return (parts[0] if len(parts) == 1
+                else np.concatenate(parts)), offs
+
+    codes, seq_offs = cat("codes", "seq_offs")
+    names, name_offs = cat("names", "name_offs")
+    quals, qual_offs = cat("quals", "qual_offs")
+    return dict(n=total, codes=codes, seq_offs=seq_offs,
+                names=names, name_offs=name_offs,
+                quals=quals, qual_offs=qual_offs,
+                lens=np.diff(seq_offs))
+
+
+def soa_gather_codes(soa: dict, idx: np.ndarray, m: int) -> np.ndarray:
+    """(len(idx), m) codes matrix for same-length records ``idx``."""
+    base = soa["seq_offs"][idx]
+    return np.ascontiguousarray(
+        soa["codes"][base[:, None] + np.arange(m)[None, :]])
+
+
+def pe_soa_chunks(path1: str, path2: str, chunk: int):
+    """Yield lockstep (soa1, soa2) chunks of ``chunk`` pairs, in file
+    order, through the native chunked parser (FASTQ only)."""
+    r1, r2 = SoaReader(path1), SoaReader(path2)
+    try:
+        while True:
+            c1 = r1.take(chunk)
+            c2 = r2.take(chunk)
+            if c1 is None and c2 is None:
+                return
+            if c1 is None or c2 is None or c1["n"] != c2["n"]:
+                raise ValueError("read files must pair up")
+            yield c1, c2
+    finally:
+        r1.close()
+        r2.close()

@@ -1,12 +1,25 @@
 """SAM helpers on the host: the header, and the banded DP with traceback
 that cross-boundary trimming re-verifies with (reference:
-src/indexhelpers.cpp, src/bitparallelmatrix.h). The records themselves are
-written by the native emitter (``io/emit.py``).
+src/indexhelpers.cpp, src/bitparallelmatrix.h), and the MAPQ rule. The
+records themselves are written by the native emitter (``io/emit.py``).
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
+
+MAX_MAPQ = 60  # reference: src/definitions.h
+
+
+def mapq(n_best: int) -> int:
+    """MAPQ = -10 log10(1 - 1/n) capped at 60 (reference indexhelpers.h)."""
+    if n_best <= 1:
+        return MAX_MAPQ
+    v = -10.0 * math.log10(1.0 - 1.0 / n_best)
+    return min(MAX_MAPQ, int(round(v)))
+
 
 def header(seq_names: list[str], seq_lengths: list[int],
            program_name: str = "ColumbaTPU", version: str = "0.1.0",

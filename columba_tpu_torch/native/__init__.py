@@ -3,13 +3,12 @@
 Two kinds of shared library land in ``columba_tpu_torch/_build/`` (listed in
 ``.gitignore``; nothing built is committed):
 
-- the host components (SA-IS, FASTQ parser, SAM emitter). Their C++ sources
-  are the JAX package's ``columba_tpu/native/*.cpp``, compiled by path with
-  g++; the sources are read, never imported, and nothing is written next to
-  them;
+- the host components (SA-IS, FASTQ parser, SAM emitter) from the port's own
+  C++ sources under ``columba_tpu_torch/csrc/host/`` (copies of the JAX
+  package's, kept in step by hand), compiled with g++;
 - the CUDA kernels under ``columba_tpu_torch/csrc/*.cu``, compiled with nvcc
-  for ``sm_90a`` into one library with a plain C interface (see
-  :func:`load_kernels`).
+  for ``sm_90a`` (one nvcc per source, all started together) and linked
+  into one library with a plain C interface (see :func:`load_kernels`).
 """
 
 from __future__ import annotations
@@ -23,12 +22,13 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
-HOST_SRC_DIR = os.path.join(os.path.dirname(_PKG), "columba_tpu", "native")
 CUDA_SRC_DIR = os.path.join(_PKG, "csrc")
+HOST_SRC_DIR = os.path.join(CUDA_SRC_DIR, "host")
 NVCC = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                     "bin", "nvcc")
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL | None] = {}
 build_seconds: dict[str, float] = {}
 build_log: dict[str, str] = {}   # compiler stderr (ptxas register report)
@@ -51,9 +51,9 @@ def _run_build(cmd: list[str], so_path: str, timeout: int) -> str:
 
 
 def load(name: str, sources: list[str]) -> ctypes.CDLL | None:
-    """Load (compiling if needed) a host library from the JAX package's C++
-    sources; None if it cannot be built (callers that have a numpy path use
-    it, the others raise)."""
+    """Load (compiling if needed) a host library from the C++ sources under
+    ``csrc/host``; None if it cannot be built (callers that have a numpy
+    path use it, the others raise)."""
     with _LOCK:
         if name in _LIBS:
             return _LIBS[name]
@@ -72,10 +72,39 @@ def load(name: str, sources: list[str]) -> ctypes.CDLL | None:
         return lib
 
 
+def _nvcc_objects(srcs: list[str]) -> tuple[list[str], str]:
+    """Compile every source to an object file, one nvcc process each, all
+    started together. Returns (object paths, the compilers' stderr)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = []
+    for src in srcs:
+        obj = os.path.join(
+            BUILD_DIR, f"{os.path.basename(src)}.{os.getpid()}.o")
+        jobs.append((src, obj, subprocess.Popen(
+            [NVCC, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+             "-I", CUDA_SRC_DIR, src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+    logs, failed = [], []
+    for src, obj, proc in jobs:
+        try:
+            _, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+            failed.append(f"{src}: timed out")
+        err = err.decode(errors="replace")
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{src}:\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return [obj for _, obj, _ in jobs], "".join(logs)
+
+
 def load_kernels() -> ctypes.CDLL:
-    """The CUDA kernels' library (every ``csrc/*.cu`` in one nvcc call),
-    built on first use. Raises if it cannot be built: a CUDA tensor has no
-    other path."""
+    """The CUDA kernels' library (every ``csrc/*.cu``), built on first use.
+    Raises if it cannot be built: a CUDA tensor has no other path."""
     with _LOCK:
         lib = _LIBS.get("kernels")
         if lib is not None:
@@ -85,16 +114,16 @@ def load_kernels() -> ctypes.CDLL:
         so_path = os.path.join(BUILD_DIR, "libcolumba_kernels.so")
         if not _fresh(so_path, deps):
             t0 = time.time()
+            objs, build_log["kernels"] = _nvcc_objects(srcs)
             try:
-                build_log["kernels"] = _run_build(
-                    [NVCC, "-gencode", "arch=compute_90a,code=sm_90a",
-                     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                     "-Xptxas", "-v", "-I", CUDA_SRC_DIR, *srcs],
-                    so_path, 900)
+                _run_build([NVCC, "-shared", *objs], so_path, 900)
             except subprocess.CalledProcessError as e:
                 raise RuntimeError(
-                    "nvcc failed:\n" + e.stderr.decode(errors="replace")
+                    "nvcc link failed:\n" + e.stderr.decode(errors="replace")
                 ) from e
+            finally:
+                for obj in objs:
+                    os.remove(obj)
             build_seconds["kernels"] = time.time() - t0
         lib = ctypes.CDLL(so_path)
         _LIBS["kernels"] = lib
@@ -109,8 +138,10 @@ class Kernel:
 
     Each entry point takes its pointers and sizes followed by the CUDA
     stream, launches on that stream without synchronising, and returns
-    ``cudaGetLastError()``. ``launches`` counts successful launches only;
-    callers reset it to measure a run.
+    ``cudaGetLastError()``, so a launch goes to the calling thread's
+    current stream. ``launches`` counts successful launches only, under a
+    lock (the dispatch thread and an emitter thread that re-dispatches may
+    both launch); callers reset it to measure a run.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list,
@@ -140,4 +171,5 @@ class Kernel:
         if rc != 0:
             raise RuntimeError(f"kernel {self.name}: CUDA error {rc} "
                                f"({self._err(rc).decode()})")
-        self.launches += 1
+        with _COUNT_LOCK:
+            self.launches += 1

@@ -11,6 +11,7 @@ Ranges are int64 tensors holding uint32 values (see ``ops/rank.py``).
 
 ``extend_all`` / ``extend_char`` take the plain PyTorch version for CPU
 tensors and launch kernel A (``csrc/extend.cu``) for CUDA tensors.
+``exact_match`` (the k = 0 pass) is kernel E (``csrc/exact.cu``) on the card.
 """
 
 from __future__ import annotations
@@ -34,6 +35,17 @@ KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_int64],                   # out, lanes
     source="columba_tpu_torch/csrc/extend.cu",
     replaces="columba_tpu/ops/extend.py:48",
+)
+
+EXACT_KERNEL = native.Kernel(
+    "exact", "columba_exact",
+    [ctypes.c_void_p, ctypes.c_int64,                    # occ_fused, blocks
+     ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+     ctypes.c_uint32, ctypes.c_uint32,                   # counts, dollar
+     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,    # patterns, m, n
+     ctypes.c_void_p, ctypes.c_int64],                   # out, rows
+    source="columba_tpu_torch/csrc/exact.cu",
+    replaces="columba_tpu/ops/extend.py:120",
 )
 
 
@@ -85,8 +97,25 @@ def extend_char_plain(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
     return torch.where((chars > 3)[..., None], torch.zeros_like(child), child)
 
 
+def exact_match_plain(index: FMIndex, patterns: torch.Tensor) -> torch.Tensor:
+    """Exact backward match of (B, m) uint8 patterns: m calls of
+    ``extend_char_plain`` by pattern[m-1], pattern[m-2], ..., from the full
+    range. Returns the (B, 4) ranges those calls leave, empty ones too."""
+    B, m = patterns.shape
+    ranges = index.full_range((B,))
+    dirs = torch.zeros(B, dtype=torch.int32, device=patterns.device)
+    for j in range(m - 1, -1, -1):
+        ranges = extend_char_plain(index, ranges, patterns[:, j].int(), dirs)
+    return ranges
+
+
+def zero_empty(ranges: torch.Tensor) -> torch.Tensor:
+    """Empty ranges (hi <= lo) as the zero range, live ones untouched."""
+    return torch.where((ranges[:, 1] > ranges[:, 0])[:, None], ranges, 0)
+
+
 # ---------------------------------------------------------------------------
-# wrappers: plain version on the CPU, kernel A on the card
+# wrappers: plain version on the CPU, kernels A and E on the card
 # ---------------------------------------------------------------------------
 
 def _check(index, ranges, dirs, chars=None):
@@ -129,3 +158,25 @@ def extend_char(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
     if not ranges.is_cuda:
         return extend_char_plain(index, ranges, chars, dirs)
     return _launch(index, ranges, dirs, chars)
+
+
+def exact_match(index: FMIndex, patterns: torch.Tensor) -> torch.Tensor:
+    """(B, m) uint8 patterns -> (B, 4) int64 ranges of their exact matches.
+
+    A live row holds exactly what m ``extend_char`` steps give; a row
+    without a match is the zero range (kernel E stops a row at its first
+    empty range, where the value m steps would leave is arbitrary)."""
+    if not patterns.is_cuda:
+        return zero_empty(exact_match_plain(index, patterns))
+    if (patterns.dtype != torch.uint8 or patterns.dim() != 2
+            or not patterns.is_contiguous()
+            or index.occ_fused.device != patterns.device):
+        raise ValueError("exact_match takes a contiguous (B, m) uint8 batch "
+                         "on the index's device")
+    B, m = patterns.shape
+    out = torch.empty((B, 4), dtype=torch.int64, device=patterns.device)
+    if B:
+        EXACT_KERNEL(index.occ_fused.data_ptr(), index.blocks,
+                     *index.counts_host, *index.dollar_host,
+                     patterns.data_ptr(), m, index.n, out.data_ptr(), B)
+    return out

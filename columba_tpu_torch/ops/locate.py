@@ -39,8 +39,10 @@ def lf_step(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
     return torch.where(rows == index.dollar[0], torch.zeros_like(lf), lf)
 
 
-def locate_rows_plain(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
-    """Sparse-SA LF-walk (plain version of kernel C)."""
+def locate_rows_plain(index: FMIndex, rows: torch.Tensor,
+                      return_steps: bool = False):
+    """Sparse-SA LF-walk (plain version of kernel C). With ``return_steps``
+    also the LF steps each row walked (what the kernel's byte count needs)."""
     steps = torch.zeros_like(rows)
     cur = rows
     for _ in range(max(index.sa_sparseness - 1, 0)):
@@ -48,7 +50,8 @@ def locate_rows_plain(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
         cur = torch.where(sampled, cur, lf_step(index, cur))
         steps = torch.where(sampled, steps, steps + 1)
     idx = rank.rank_bits(index.sa_bits, index.sa_bits_rank, cur)
-    return (rank.u32(index.sa_samples[idx]) + steps) & rank.MASK32
+    pos = (rank.u32(index.sa_samples[idx]) + steps) & rank.MASK32
+    return (pos, steps) if return_steps else pos
 
 
 def locate_rows(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import rank
 from columba_tpu_torch.search.schedule import INF
 
-KERNEL_KB = (1, 2)   # band radii instantiated in csrc/verify.cu
+KERNEL_MAX_KB = 13   # csrc/verify.cu: templated for kb 0..4, generic above
 
 KERNEL = native.Kernel(
     "verify", "columba_verify",
@@ -88,9 +88,9 @@ def verify_window(index: FMIndex, patterns: torch.Tensor, rid: torch.Tensor,
     """Fused window fetch + banded verify of (B,) candidates."""
     if not patterns.is_cuda:
         return verify_window_plain(index, patterns, rid, window_start, kb)
-    if kb not in KERNEL_KB:
-        raise NotImplementedError(
-            f"kernel D is instantiated for kb in {KERNEL_KB}, not {kb}")
+    if not 0 <= kb <= KERNEL_MAX_KB:
+        raise ValueError(f"kernel D takes kb in 0..{KERNEL_MAX_KB}, not "
+                         f"{kb}: no BEST cutoff exceeds that")
     B = rid.numel()
     if (patterns.dtype != torch.uint8 or patterns.dim() != 2
             or rid.dtype != torch.int64 or window_start.dtype != torch.int64

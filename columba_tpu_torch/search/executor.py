@@ -42,8 +42,11 @@ from columba_tpu_torch.search.schedule import INF, Schedule
 GHOST_BIT = -(1 << 31)
 GHOST_IDM = (1 << 21) - 1
 
-KERNEL_KB = (2,)   # band radii instantiated in csrc/band_step.cu
-KERNEL_W = (2,)    # colMin register counts instantiated there
+# Kernel B takes every shape a schedule can produce: band radii 0..4 with
+# 1..2 colMin registers through templated entries, the rest (up to the BEST
+# ladder's cutoff and schedule.MAX_REGS) through its generic entry.
+KERNEL_MAX_KB = 13
+KERNEL_MAX_W = 10
 
 KERNEL = native.Kernel(
     "band_step", "columba_band_step",
@@ -249,10 +252,11 @@ def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
     C, _, bw = band.shape
     kb = (bw - 1) // 2
     W = colmin.shape[-1]
-    if kb not in KERNEL_KB or W not in KERNEL_W:
-        raise NotImplementedError(
-            f"kernel B is instantiated for kb in {KERNEL_KB} and W in "
-            f"{KERNEL_W}, not kb={kb}, W={W}")
+    if bw != 2 * kb + 1 or kb > KERNEL_MAX_KB or not 1 <= W <= KERNEL_MAX_W:
+        raise ValueError(
+            f"kernel B takes band widths 2kb+1 with kb <= {KERNEL_MAX_KB} "
+            f"and 1..{KERNEL_MAX_W} registers, not bw={bw}, W={W}: no "
+            "schedule produces that")
     expect = ((ranges, torch.int64, (C, 4)), (ids, torch.int32, (C,)),
               (band, torch.int8, (C, 2, bw)), (colmin, torch.int8, (C, 2, W)),
               (mrow_t, torch.int32, (mrow_t.shape[0], 7)),

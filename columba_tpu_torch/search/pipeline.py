@@ -4,7 +4,9 @@ The counterpart of ``columba_tpu/search/pipeline.py`` for ALL mode with a
 static schedule: run the compiled scheme over the frontier, expand the
 candidate SA ranges to rows (count, then gather), locate them, dedup the
 (read, window) pairs, verify in text, and post-process on the host (cluster
-centres, dedup, redundancy filter) into occurrences.
+centres, dedup, redundancy filter) into occurrences. k = 0 without a seed
+table or without the in-text crossover takes the exact pass instead: one
+backward match per strand (kernel E), expand, locate.
 
 The device part returns fixed-shape tensors; ``match_all_finish`` copies
 them to the host in one pass (pinned buffers, one synchronisation) and
@@ -14,18 +16,33 @@ capacity spilled, which keeps the search lossless.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from columba_tpu_torch.core import alphabet
 from columba_tpu_torch.index.fmindex import FMIndex
-from columba_tpu_torch.ops import locate, verify
+from columba_tpu_torch.ops import extend, locate, verify
 from columba_tpu_torch.search import executor, schedule
 from columba_tpu_torch.search.scheme import SearchScheme
 
 
+@dataclass
+class Occurrence:
+    """One verified text occurrence of a read."""
+
+    read_id: int
+    strand: int          # 0 fwd, 1 revcomp
+    begin: int           # text start
+    end: int             # text end (exclusive)
+    distance: int
+
+
 class OccArray:
-    """Occurrences as struct-of-arrays (numpy, int64)."""
+    """Occurrences as struct-of-arrays (numpy, int64). Iteration and integer
+    indexing yield :class:`Occurrence` views for the list-based callers
+    (the paired-end object path, tests)."""
 
     __slots__ = ("read_id", "strand", "begin", "end", "distance")
 
@@ -41,11 +58,30 @@ class OccArray:
         z = np.zeros(0, dtype=np.int64)
         return OccArray(z, z, z, z, z)
 
+    @staticmethod
+    def concat(parts: list) -> "OccArray":
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            return OccArray.empty()
+        return OccArray(*(np.concatenate([getattr(p, f) for p in parts])
+                          for f in OccArray.__slots__))
+
     def take(self, idx) -> "OccArray":
         return OccArray(*(getattr(self, f)[idx] for f in OccArray.__slots__))
 
     def __len__(self):
         return self.read_id.shape[0]
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def __getitem__(self, i):
+        if isinstance(i, (int, np.integer)):
+            return Occurrence(int(self.read_id[i]), int(self.strand[i]),
+                              int(self.begin[i]), int(self.end[i]),
+                              int(self.distance[i]))
+        return self.take(i)
 
 
 # ---------------------------------------------------------------------------
@@ -202,17 +238,13 @@ def match_all_start(
 
     reads_codes: (R, m) uint8 codes. k = 0 runs through the scheme
     executor, as in the JAX package, when a seed table and the in-text
-    crossover are on; the dedicated exact pass for the other k = 0 cases,
-    and dynamic partitioning and selection, are not ported yet (ROADMAP).
+    crossover are on, and takes the exact pass otherwise. Dynamic
+    partitioning and selection are not ported yet (ROADMAP).
     """
     from columba_tpu_torch.index.kmer import table_k
 
     R, m = reads_codes.shape
     k = scheme.k
-    if k == 0 and (kmer_table is None or switchpoint <= 0):
-        raise NotImplementedError(
-            "k = 0 without seed table and crossover takes the exact pass, "
-            "which is not ported yet (ROADMAP queue 2, K14)")
     kb = k if metric == "edit" else 0
     batch = reads_codes.astype(np.uint8)
     if both_strands:
@@ -225,6 +257,11 @@ def match_all_start(
     auto_locate = max_locate is None
     if auto_locate:
         max_locate = max(1 << 16, 4 * batch.shape[0], _ml_hint_get(index))
+    if k == 0 and (kmer_table is None or switchpoint <= 0):
+        out, event = _exact_device(index, batch_dev, int(max_locate))
+        return dict(exact=dict(out=out, event=event, batch=batch_dev, R=R,
+                               max_locate=max_locate,
+                               auto_locate=auto_locate, index=index))
     sched = compile_cached(scheme, m, metric,
                            kmer_k=(table_k(kmer_table)
                                    if kmer_table is not None else 0))
@@ -244,17 +281,23 @@ def match_all_start(
             index, batch_dev, sched, int(cap), int(ml), kb, kmer_table,
             int(switchpoint), itv_cap, split_step, cap2,
             ex_split=int(ex_split), ex_cap=int(ecap))
-        event = None
-        if dev.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        return out, event
+        return out, _record_event(dev)
 
     out, event = run(capacity, ex_cap, max_locate)
     return dict(out=out, event=event, run=run, capacity=capacity,
                 ex_cap=ex_cap, auto_capacity=auto_capacity,
                 auto_locate=auto_locate, R=R, m=m, k=k, kb=kb, index=index,
                 redundancy_filter=redundancy_filter, max_locate=max_locate)
+
+
+def _record_event(dev):
+    """A CUDA event after the work dispatched so far on this thread's
+    current stream (None on the CPU): what the fetch of that work waits on."""
+    if dev.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record()
+    return event
 
 
 def fetch_tree(out: dict, event=None) -> dict:
@@ -283,6 +326,8 @@ def fetch_tree(out: dict, event=None) -> dict:
 def match_all_finish(ctx) -> tuple[OccArray, dict]:
     """Fetch + post-process a match_all_start dispatch (may run on an
     emission thread while the main thread dispatches the next batch)."""
+    if "exact" in ctx:
+        return _match_exact_finish(ctx["exact"])
     out = fetch_tree(ctx["out"], ctx["event"])
     cap, ecap, ml = ctx["capacity"], ctx["ex_cap"], ctx["max_locate"]
     n_retries = 0
@@ -315,6 +360,44 @@ def match_all_finish(ctx) -> tuple[OccArray, dict]:
         or bool(out["n_unique"] > ml),
     )
     occs = _extract_occurrences(out, R, m, k, kb, ctx["redundancy_filter"])
+    return occs, stats
+
+
+def _exact_device(index: FMIndex, batch: torch.Tensor, max_locate: int):
+    """k = 0 device step: exact backward match (kernel E on the card), then
+    the two-phase expand and locate of the scheme path. Returns the result
+    tensors and the CUDA event recorded after them."""
+    ranges = extend.exact_match(index, batch)
+    rows, cand, valid, total = stage_expand(ranges[:, 0], ranges[:, 1],
+                                            max_locate)
+    pos = locate.locate_rows(index, rows)
+    return (dict(pos=pos, cand=cand, valid=valid, total=total),
+            _record_event(batch.device))
+
+
+def _match_exact_finish(ec) -> tuple[OccArray, dict]:
+    """Fetch + retry + host-side assembly of a dispatched k = 0 pass: 4x
+    max_locate while the expansion spilled, then occurrences in (read,
+    strand, position) order."""
+    index, batch, R = ec["index"], ec["batch"], ec["R"]
+    ml = ec["max_locate"]
+    m = batch.shape[1]
+    out = fetch_tree(ec["out"], ec["event"])
+    tries = 0
+    while ec["auto_locate"] and int(out["total"]) > ml and tries < 3:
+        ml *= 4
+        _ml_hint_bump(index, ml)
+        out = fetch_tree(*_exact_device(index, batch, int(ml)))
+        tries += 1
+    total = int(out["total"])
+    pos_v = out["pos"][out["valid"]].astype(np.int64)
+    cand_v = out["cand"][out["valid"]].astype(np.int64)
+    read_id, strand = cand_v % R, cand_v // R
+    order = np.lexsort((pos_v, strand, read_id))
+    occs = OccArray(read_id[order], strand[order], pos_v[order],
+                    pos_v[order] + m, np.zeros(order.size, np.int64))
+    stats = dict(total_candidates=total, overflow=0, nodes_visited=0,
+                 locate_truncated=total > ml, retries=tries)
     return occs, stats
 
 

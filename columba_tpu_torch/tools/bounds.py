@@ -1,0 +1,124 @@
+"""The least time the card could take for one call of each kernel.
+
+For every kernel of the port, the bytes the call must move (each input
+read once, each output written once, worked out from the tensors' shapes)
+and the integer operations it does, and from them the bound: the larger of
+bytes over the card's memory rate and operations over its arithmetic rate.
+Where the work depends on the data (kernel B skips the occ rows of inactive
+lanes, kernel C walks LF until a sampled row, kernel E stops at a read's
+first empty range), the caller passes what this call's data needed, counted
+with the plain versions.
+
+Peak rates are NVIDIA's data-sheet figures for the H100 SXM at its full
+power limit: 3.35 TB/s of HBM, and 67 T operations/s outside the tensor
+cores. The data sheet gives that rate for float32; it stands in here for the
+kernels' 32-bit integer operations (the integer units are no faster, so the
+bound stays a lower bound). The operation counts are per-lane instruction
+estimates of the loops in ``csrc/*.cu``, stated beside each.
+
+Used by ``chip_smoke.py``; run nowhere else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+OCC_ROW_BYTES = 48      # 4 checkpoints + 8 packed BWT words; the pad is not read
+# one occ row: 8 words x 4 chars x (xor, not, shift, 2 and, popc, add) + setup
+OCC_ROW_OPS = 8 * 4 * 7 + 16
+# extend_lane: two occ rows + the 4 children's range arithmetic
+EXTEND_OPS = 2 * OCC_ROW_OPS + 4 * 10
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """bound_ms (the larger of the two times) and what sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / OPS_PER_S * 1e3
+    return dict(bytes=int(n_bytes), operations=int(n_ops),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def extend(ranges, dirs, chars, out) -> dict:
+    """Kernel A: per lane its range, direction and char in, two occ rows,
+    the child range(s) out."""
+    L = dirs.numel()
+    return bound(_nbytes(ranges, dirs, chars, out) + L * 2 * OCC_ROW_BYTES,
+                 L * EXTEND_OPS)
+
+
+def band_step(ranges, ids, band, colmin, mrow_t, out: dict) -> dict:
+    """Kernel B: every lane's state in and its four children out; the
+    lanes active in this step (``out['act']``) also read their cell codes
+    and two occ rows, and do the band and register arithmetic."""
+    bw, W = band.shape[-1], colmin.shape[-1]
+    n_act = int(out["act"].sum())
+    n_bytes = (_nbytes(ranges, ids, band, colmin, mrow_t, *out.values())
+               + n_act * (2 * OCC_ROW_BYTES + bw))
+    # 4 chars x bw cells x (compare, select, add, 2 min, clamp) for the
+    # row; W registers x 4 chars x (bw selects + 3); prune 4 x (bw + W + 6)
+    per_act = (EXTEND_OPS + 4 * bw * 7 + W * 4 * (bw + 3)
+               + 4 * (bw + W + 6))
+    per_lane = 20 + 4 * (2 * bw + 2 * W + 8)        # decode + child writes
+    return bound(n_bytes, n_act * per_act + ranges.shape[0] * per_lane)
+
+
+def locate(rows, steps, out) -> dict:
+    """Kernel C: per row its LF steps (``steps``, from the plain version) x
+    one occ row, a marker word per row visited, then the rank word and the
+    sample; the row in, the position out."""
+    n_steps = int(steps.sum())
+    N = rows.numel()
+    return bound(_nbytes(rows, out) + n_steps * OCC_ROW_BYTES
+                 + (n_steps + N) * 4 + N * 8,
+                 n_steps * (OCC_ROW_OPS + 12) + N * 30)
+
+
+def verify(patterns, rid, window_start, kb: int, out) -> dict:
+    """Kernel D: per candidate the m + 3kb + 1 window codes at 2 bits
+    each, the read's m bytes, its read id and window start; the final row
+    out. m rows x (4kb+1) cells x (compare, 2 add, 2 min, clamp, shift of
+    the window buffer) operations."""
+    m = patterns.shape[1]
+    B = rid.numel()
+    bw = 4 * kb + 1
+    return bound(_nbytes(rid, window_start, out)
+                 + B * ((m + 3 * kb + 1 + 3) // 4 + m),
+                 B * m * (bw * 8 + 6))
+
+
+def exact(steps_walked: int, rows: int, out) -> dict:
+    """Kernel E: per row the steps it walks (until its first empty range) x
+    (one char + two occ rows); the final range out."""
+    return bound(steps_walked * (2 * OCC_ROW_BYTES + 1) + _nbytes(out),
+                 steps_walked * (EXTEND_OPS + 8) + rows * 8)
+
+
+def exact_steps(index, batch: torch.Tensor) -> int:
+    """Steps kernel E walks on ``batch``: for each row the number of chars
+    it extends by before (and including) the step that empties its range,
+    counted with the plain extend."""
+    from columba_tpu_torch.ops import extend as ext
+
+    B, m = batch.shape
+    ranges = index.full_range((B,))
+    dirs = torch.zeros(B, dtype=torch.int32, device=batch.device)
+    alive = torch.ones(B, dtype=torch.bool, device=batch.device)
+    steps = 0
+    for j in range(m - 1, -1, -1):
+        c = batch[:, j].int()
+        # a row that meets N stops without reading its rows
+        steps += int((alive & (c <= 3)).sum())
+        ranges = ext.extend_char_plain(index, ranges, c, dirs)
+        alive &= ranges[:, 1] > ranges[:, 0]
+        if not bool(alive.any()):
+            break
+    return steps

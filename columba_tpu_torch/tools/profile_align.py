@@ -3,18 +3,26 @@
 Run from the repository root on a machine with a CUDA device:
 
     python -m columba_tpu_torch.tools.profile_align [--out DIR]
+        [--mode all|best] [--paired]
 
 It builds the smoke's workload (``tools/workload.py``: a random 128 Mbp
 genome, Vanilla index with SA sparseness 4, 100 bp reads with 1 %
-substitutions) and then measures, on ``align -a all -e 2 -S kuch1 -b 16384``
-(the CLI's defaults: 10-mer seed table, in-text switchpoint 4):
+substitutions; with ``--paired``, ``fr`` pairs of such mates) and then
+measures, on ``align -a all -e 2 -S kuch1 -b 16384`` or, with ``--mode
+best``, ``align -a best -S kuch1 -b 16384`` (the CLI's defaults: 10-mer
+seed table, in-text switchpoint 4, 95 % identity; paired-end with insert
+inference on):
 
-1. end to end: ``cli align`` of 1,048,576 reads, twice, FASTQ in and SAM
-   written, in reads/s;
-2. a stage breakdown over 131,072 reads (the smoke's count): every stage of the CLI path
-   run alone, one batch at a time, with the device synchronised around it,
-   so each figure is that stage's serial cost (the CLI overlaps parse,
-   dispatch and the emitter thread);
+1. end to end: ``cli align`` of 1,048,576 reads, or of 524,288 pairs,
+   twice, FASTQ in and SAM written, in reads/s or pairs/s;
+2. a stage breakdown over 131,072 reads or pairs (the smoke's count). The
+   stages differ from batch to batch (rungs, escalations, pairing), so one
+   ``cli align`` runs with every stage function wrapped in a timer that
+   synchronises the device before and after: the figures are each stage's
+   serial cost inside that align (the CLI overlaps parse, dispatch and the
+   emitter thread), and the wrapped align's wall time is printed beside
+   them (the synchronisation removes the overlap, so it is slower than the
+   plain align);
 3. ``torch.profiler`` over one ``cli align`` of the 131,072 reads: device
    busy time is the sum of the device-side events, i.e. the rows with
    device time and no host time (kernels, copies, memsets). The ``aten::``
@@ -44,10 +52,9 @@ import torch
 SEED = 20260817
 BATCH = 16384
 K = 2
-KMER_K = 10          # the CLI's default -K
-SWITCHPOINT = 4      # the CLI's default -i
 READS = 131_072      # breakdown, profile and memory
 E2E_READS = 1_048_576
+E2E_PAIRS = 524_288
 REPS = 2
 
 
@@ -55,85 +62,73 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def stage_breakdown(fq: str, arrays, index, table) -> dict:
-    """Serial ms of each stage of the CLI path over the reads of ``fq``.
-    Capacities are sized as ``match_all_start`` sizes them; a batch that
-    would need a lossless retry raises, since the CLI path would then run
-    twice."""
-    from columba_tpu_torch.core import alphabet
-    from columba_tpu_torch.index.build import decoded_text
-    from columba_tpu_torch.io import emit, fastq
-    from columba_tpu_torch.ops import locate, verify
-    from columba_tpu_torch.search import executor, pipeline
-    from columba_tpu_torch.search.scheme import get_scheme
+# (module path, attribute, stage name) of every stage function of the CLI
+# paths; a name may cover several functions
+STAGES = [
+    ("columba_tpu_torch.io.fastq", "_parse_chunk", "parse (native FASTQ)"),
+    ("columba_tpu_torch.search.executor", "run_scheme",
+     "search: exact prefix + band steps"),
+    ("columba_tpu_torch.ops.extend", "exact_match", "exact pass (kernel E)"),
+    ("columba_tpu_torch.search.pipeline", "stage_candidates",
+     "candidates + expand"),
+    ("columba_tpu_torch.search.pipeline", "stage_expand",
+     "candidates + expand"),
+    ("columba_tpu_torch.ops.locate", "locate_rows", "locate"),
+    ("columba_tpu_torch.search.pipeline", "stage_dedup", "dedup"),
+    ("columba_tpu_torch.ops.verify", "verify_window", "verify"),
+    ("columba_tpu_torch.search.pipeline", "fetch_tree",
+     "fetch (device -> host)"),
+    ("columba_tpu_torch.search.pipeline", "_extract_occurrences",
+     "extract occurrences + boundary trim"),
+    ("columba_tpu_torch.search.pipeline", "apply_boundary_trim",
+     "extract occurrences + boundary trim"),
+    ("columba_tpu_torch.search.pairing", "concordant_pairs",
+     "pairing (window join + best filter)"),
+    ("columba_tpu_torch.search.pairing", "best_filter",
+     "pairing (window join + best filter)"),
+    ("columba_tpu_torch.io.emit", "emit_sam_native",
+     "emit SAM (native, 3 threads)"),
+    ("columba_tpu_torch.io.emit", "emit_sam_pe_soa",
+     "emit SAM (native, 3 threads)"),
+]
 
-    dev = index.device
-    sync = torch.cuda.synchronize
-    ms = dict.fromkeys(
-        ["parse (native FASTQ)", "search: exact prefix + band steps",
-         "candidates + expand", "locate", "dedup", "verify",
-         "fetch (device -> host)", "extract occurrences + boundary trim",
-         "emit SAM (native, 3 threads)"], 0.0)
-    names = list(ms)
-    genome = decoded_text(arrays)
 
-    t0 = time.perf_counter()
-    batches = list(fastq.batches_native(fq, BATCH))
-    ms[names[0]] = (time.perf_counter() - t0) * 1e3
+def wrapped_breakdown(run_align) -> dict:
+    """Serial ms of each stage inside one ``cli align``: every stage
+    function is swapped for a wrapper that synchronises the device, times
+    the call, and synchronises again. Returns the per-stage sums, the call
+    counts and the wrapped align's wall time."""
+    import importlib
+    import threading
 
-    sched = pipeline.compile_cached(get_scheme("kuch1", K), 100, "edit",
-                                    kmer_k=KMER_K)
-    tables = executor.device_tables(sched, dev)
-    n_occ = 0
-    for b in batches:
-        R = 2 * b.codes.shape[0]
-        cap = max(1024, R * sched.num_searches // 8)
-        ml = max(1 << 16, 4 * R)
-        itv_cap, split, cap2 = pipeline.crossover_caps(cap, ml, SWITCHPOINT)
-        codes = np.concatenate([b.codes, alphabet.revcomp(b.codes, axis=-1)])
-        reads = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
-        lap = [time.perf_counter()]
+    ms: dict = {}
+    calls: dict = {}
+    lock = threading.Lock()
+    undo = []
 
-        def mark(i):
-            sync()
-            lap.append(time.perf_counter())
-            ms[names[i]] += (lap[-1] - lap[-2]) * 1e3
+    def wrap(fn, stage):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t) * 1e3
+            with lock:
+                ms[stage] = ms.get(stage, 0.0) + dt
+                calls[stage] = calls.get(stage, 0) + 1
+            return out
+        return timed
 
-        sync()
-        lap[0] = time.perf_counter()
-        res = executor.run_scheme(index, reads, sched, cap, table,
-                                  SWITCHPOINT, itv_cap, split, cap2,
-                                  itv_min_depth=16, tables=tables)
-        mark(1)
-        c_lo, c_hi, c_rid, c_estb = pipeline.stage_candidates(res, tables)
-        rows, cand, valid, total = pipeline.stage_expand(c_lo, c_hi, ml)
-        mark(2)
-        pos = locate.locate_rows(index, rows)
-        mark(3)
-        rid_v, win_v, vlive, n_uniq = pipeline.stage_dedup(
-            c_rid[cand], pos + c_estb[cand] - K, valid, ml)
-        mark(4)
-        final_rows = verify.verify_window(index, reads, rid_v, win_v, K)
-        mark(5)
-        out = pipeline.fetch_tree(dict(
-            rid=rid_v, win_start=win_v, final_rows=final_rows, valid=vlive,
-            total=total, n_unique=n_uniq, overflow=res.overflow))
-        mark(6)
-        if int(out["overflow"]) or int(out["total"]) > ml \
-                or int(out["n_unique"]) > ml:
-            raise RuntimeError("a batch needs a lossless retry; the "
-                               "breakdown covers the path without one")
-        occs = pipeline._extract_occurrences(out, b.codes.shape[0], 100, K, K)
-        occs = pipeline.apply_boundary_trim(occs, b.codes, arrays, K, K)
-        mark(7)
-        nv = b.n_valid
-        occs = occs.take(occs.read_id < nv)
-        emit.emit_sam_native(b.codes[:nv], b.names_buf, b.name_offs,
-                             b.quals_buf, b.qual_offs, occs, arrays, genome,
-                             K, n_threads=3)
-        mark(8)
-        n_occ += len(occs)
-    return dict(ms=ms, batches=len(batches), occurrences=n_occ)
+    for mod_name, attr, stage in STAGES:
+        mod = importlib.import_module(mod_name)
+        undo.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, wrap(getattr(mod, attr), stage))
+    try:
+        wall = run_align()
+    finally:
+        for mod, attr, fn in undo:
+            setattr(mod, attr, fn)
+    return dict(ms=ms, calls=calls, wall=wall)
 
 
 def device_busy(prof) -> tuple[float, list]:
@@ -150,14 +145,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="chiprun_out/profile",
                     help="directory for the profiler table")
+    ap.add_argument("--mode", choices=["all", "best"], default="all")
+    ap.add_argument("--paired", action="store_true",
+                    help="paired-end: fr pairs of 100 bp mates")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_align: no CUDA device")
+    torch.cuda.init()        # raises where there is no CUDA device
 
     from columba_tpu_torch import cli, native
     from columba_tpu_torch.index.build import decoded_text, load_index
-    from columba_tpu_torch.index.fmindex import FMIndex
-    from columba_tpu_torch.index.kmer import build_kmer_table_cached
     from columba_tpu_torch.tools import workload
 
     smi = subprocess.run(
@@ -167,7 +162,6 @@ def main(argv=None) -> int:
     log(f"card: {smi}; torch {torch.__version__}")
     native.load_kernels()
     os.makedirs(args.out, exist_ok=True)
-    dev = torch.device("cuda:0")
 
     with tempfile.TemporaryDirectory(prefix="columba_profile_") as wd:
         rng = np.random.default_rng(SEED)
@@ -178,19 +172,30 @@ def main(argv=None) -> int:
         log(f"cli build of {workload.GENOME_N} bp: "
             f"{time.perf_counter() - t0:.3f} s")
         arrays = load_index(idx)
-        reads = workload.sample_reads(decoded_text(arrays), arrays.seq_starts,
-                                      E2E_READS, rng)[0]
-        fq, fq_e = os.path.join(wd, "reads.fq"), os.path.join(wd, "e2e.fq")
-        workload.write_fastq(fq, reads[:READS], "r")
-        workload.write_fastq(fq_e, reads, "r")
-        argv_al = ["align", "-r", idx, "-a", "all", "-e", str(K), "-S",
-                   "kuch1", "-b", str(BATCH)]
+        n_e2e = E2E_PAIRS if args.paired else E2E_READS
+        unit = "pairs" if args.paired else "reads"
+        what = (f"{'PE' if args.paired else 'SE'} "
+                f"{'ALL k=' + str(K) if args.mode == 'all' else 'BEST'}")
+        sampler = workload.sample_pairs if args.paired \
+            else workload.sample_reads
+        sample = sampler(decoded_text(arrays), arrays.seq_starts, n_e2e, rng)
+        mates = sample[:2] if args.paired else sample[:1]
+        fq, fq_e = [], []
+        for i, codes in enumerate(mates):
+            fq.append(os.path.join(wd, f"reads{i}.fq"))
+            fq_e.append(os.path.join(wd, f"e2e{i}.fq"))
+            workload.write_fastq(fq[-1], codes[:READS], "r")
+            workload.write_fastq(fq_e[-1], codes, "r")
+        argv_al = ["align", "-r", idx, "-S", "kuch1", "-b", str(BATCH)] + (
+            ["-a", "all", "-e", str(K)] if args.mode == "all"
+            else ["-a", "best"])
         sam = os.path.join(wd, "out.sam")
 
-        def align(path: str) -> float:
+        def align(paths: list) -> float:
             torch.cuda.synchronize()
             t = time.perf_counter()
-            assert cli.main(argv_al + ["-f", path, "-o", sam]) == 0
+            assert cli.main(argv_al + ["-f", paths[0], "-o", sam] + (
+                ["-F", paths[1]] if args.paired else [])) == 0
             torch.cuda.synchronize()
             return time.perf_counter() - t
 
@@ -199,20 +204,18 @@ def main(argv=None) -> int:
         # 1. end to end
         for rep in range(REPS):
             dt = align(fq_e)
-            log(f"{smi}: e2e {E2E_READS} reads in {dt:.4f} s = "
-                f"{E2E_READS / dt:.1f} reads/s, "
+            log(f"{smi}: {what} e2e {n_e2e} {unit} in {dt:.4f} s = "
+                f"{n_e2e / dt:.1f} {unit}/s, "
                 f"{os.path.getsize(sam)} SAM bytes (rep {rep})")
 
         # 2. stage breakdown
-        index = FMIndex.from_arrays(arrays, dev)
-        table = build_kmer_table_cached(index, KMER_K, idx)
-        bd = stage_breakdown(fq, arrays, index, table)
-        log(f"{smi}: stage breakdown over {READS} reads, "
-            f"{bd['batches']} batches of {BATCH}, synchronous, "
-            f"{bd['occurrences']} occurrences")
-        for name, v in bd["ms"].items():
-            log(f"  {name}: {v:.2f} ms")
-        log(f"  sum: {sum(bd['ms'].values()):.2f} ms")
+        wb = wrapped_breakdown(lambda: align(fq))
+        log(f"{smi}: {what} stage breakdown inside one align of {READS} "
+            f"{unit} (every stage call synchronised and timed; wall "
+            f"{wb['wall']:.4f} s)")
+        for name, v in sorted(wb["ms"].items(), key=lambda kv: -kv[1]):
+            log(f"  {name}: {v:.2f} ms in {wb['calls'][name]} calls")
+        log(f"  sum: {sum(wb['ms'].values()):.2f} ms")
 
         # 3. profiled align
         from torch.profiler import ProfilerActivity, profile
@@ -221,7 +224,8 @@ def main(argv=None) -> int:
                                  ProfilerActivity.CUDA]) as prof:
             wall = align(fq)
         busy, rows = device_busy(prof)
-        log(f"{smi}: profiled align of {READS} reads: wall {wall:.4f} s; "
+        log(f"{smi}: {what} profiled align of {READS} {unit}: wall "
+            f"{wall:.4f} s; "
             f"device busy {busy:.3f} ms (sum of device-side events), busy "
             f"share {busy / 1e3 / wall:.4f}, idle share "
             f"{1 - busy / 1e3 / wall:.4f}")
@@ -235,8 +239,8 @@ def main(argv=None) -> int:
         # 4. peak device memory of one align
         torch.cuda.reset_peak_memory_stats()
         align(fq)
-        log(f"{smi}: peak device memory allocated during one align of "
-            f"{READS} reads: {torch.cuda.max_memory_allocated()} bytes")
+        log(f"{smi}: {what} peak device memory allocated during one align "
+            f"of {READS} {unit}: {torch.cuda.max_memory_allocated()} bytes")
     return 0
 
 

@@ -3,7 +3,10 @@
 The genome is uniform random with runs of N, split into equal sequences and
 written as FASTA; reads are sampled as ``bench.py`` samples them (uniform
 loci inside one sequence, substitutions at a fixed rate, half
-reverse-complemented) and written as FASTQ. Everything comes from the
+reverse-complemented) and written as FASTQ. Pairs are the two ends of
+fragments sampled the same way (``fr``: mate 1 forward at the fragment's
+start, mate 2 reverse-complemented at its end; half of the fragments come
+from the reverse strand, which swaps the mates). Everything comes from the
 numpy generator passed in, so a seed fixes the workload.
 """
 
@@ -53,6 +56,38 @@ def sample_reads(text: np.ndarray, starts: np.ndarray, n: int, rng,
     comp = np.array([3, 2, 1, 0], np.uint8)
     reads[flip] = comp[reads[flip]][:, ::-1]
     return reads.astype(np.uint8), pos, errs.sum(axis=1), flip
+
+
+def sample_pairs(text: np.ndarray, starts: np.ndarray, n: int, rng,
+                 m: int = READ_LEN, err_rate: float = ERR_RATE,
+                 frag_min: int = 200, frag_max: int = 450):
+    """``fr`` pairs of ``m`` bp mates from fragments kept inside one
+    sequence, fragment lengths uniform in [frag_min, frag_max]. Returns
+    (mate-1 codes (n, m), mate-2 codes (n, m), begin of the forward-strand
+    mate, begin of the reverse-strand mate, substitution counts of mate 1
+    and of mate 2, swapped flags). Where ``swapped`` is false mate 1 is the
+    forward-strand one, else mate 2."""
+    comp = np.array([3, 2, 1, 0], np.uint8)
+    frag = rng.integers(frag_min, frag_max + 1, n)
+    seq = rng.integers(0, len(starts) - 1, n)
+    lo, hi = starts[seq], starts[seq + 1] - frag
+    pos_f = lo + (rng.random(n) * (hi - lo)).astype(np.int64)
+    pos_r = pos_f + frag - m
+    cols = np.arange(m)[None, :]
+    mates = []
+    for pos in (pos_f, pos_r):
+        reads = text[pos[:, None] + cols]
+        errs = rng.random((n, m)) < err_rate
+        reads = np.where(errs, (reads + rng.integers(1, 4, (n, m))) % 4,
+                         reads).astype(np.uint8)
+        mates.append((reads, errs.sum(axis=1)))
+    (fwd, nsub_f), (rev, nsub_r) = mates
+    rev = comp[rev][:, ::-1]
+    swapped = rng.random(n) < 0.5
+    sw = swapped[:, None]
+    return (np.where(sw, rev, fwd), np.where(sw, fwd, rev), pos_f, pos_r,
+            np.where(swapped, nsub_r, nsub_f),
+            np.where(swapped, nsub_f, nsub_r), swapped)
 
 
 def write_fastq(path: str, reads: np.ndarray, prefix: str) -> None:

@@ -6,8 +6,13 @@ write identical index arrays, and ``cli align -a all`` on the same FASTQ
 must write byte-identical SAM records (the header differs only in the
 @PG line's program name). The port aligns in two batches and the JAX
 package in one: records do not depend on the batch size, and one JAX batch
-halves its share of the run time. The static test parses every module of
-the port and fails on any import of JAX or of the JAX package.
+halves its share of the run time. The same holds for BEST(+x) single-end
+and for paired-end BEST and ALL (50 bp mates at 96 % identity, so the
+cutoff is 2 and the rungs are (0,0) -> (2,2); ``-e 0`` takes the exact pass
+on both sides). The port runs with ``--device cpu``; without it, it must
+raise here, where there is no card. The static test parses every module
+of the port and fails on any import of JAX or of the JAX package, and on
+any call that builds a path into the JAX package.
 """
 
 import ast
@@ -25,6 +30,7 @@ torch.set_num_threads(1)
 
 PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "columba_tpu_torch")
+CPU = {"jax": [], "torch": ["--device", "cpu"]}
 ARRAYS = ["text", "bwt", "rbwt", "occ", "rocc", "counts", "sa_samples",
           "sa_bits", "sa_bits_rank", "seq_starts"]
 
@@ -89,7 +95,8 @@ def test_align_identical_sam(built):
         out[name] = str(wd / f"{name}.sam")
         assert cli.main(["align", "-r", idx[name], "-f", str(wd / "r.fq"),
                          "-o", out[name], "-a", "all", "-e", "2", "-S",
-                         "kuch1", "-K", "6", "-b", bsize]) == 0
+                         "kuch1", "-K", "6", "-b", bsize]
+                        + CPU[name]) == 0
     lines = {k: open(v).read().splitlines() for k, v in out.items()}
     body = {k: [ln for ln in v if not ln.startswith("@")]
             for k, v in lines.items()}
@@ -104,11 +111,123 @@ def test_align_identical_sam(built):
         [c for c in pg["torch"] if not c.startswith(("ID:", "PN:"))]
 
 
-def test_align_refuses_modes_not_ported(built):
+@pytest.mark.parametrize("opts", [["-p", "dynamic"], ["-T", "0-50"]])
+def test_align_refuses_modes_not_ported(built, opts):
     wd, idx = built
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["align", "-r", idx["torch"], "-f", str(wd / "r.fq"),
-                   "-o", str(wd / "x.sam"), "-a", "best"])
+                   "-o", str(wd / "x.sam"), "-a", "all", "-e", "2",
+                   "--device", "cpu"] + opts)
+
+
+def test_align_needs_the_card_unless_told(built):
+    """Without --device cpu the align must raise where there is no usable
+    CUDA device; it never falls back to the plain versions by itself."""
+    wd, idx = built
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    out = wd / "nocard.sam"
+    with pytest.raises(RuntimeError, match="no usable CUDA device"):
+        tcli.main(["align", "-r", idx["torch"], "-f", str(wd / "r.fq"),
+                   "-o", str(out), "-a", "all", "-e", "2", "-K", "6"])
+    assert not out.exists()
+
+
+@pytest.fixture(scope="module")
+def pairs(built):
+    """256 FR pairs of 50 bp mates (fragments of 150-300 bp, up to 3
+    substitutions per mate, half with the mates swapped), among them a
+    read with N, pairs at the text ends, and pairs that cannot pair."""
+    wd, idx = built
+    from columba_tpu.index.build import load_index, unpack_2bit
+
+    arrays = load_index(idx["jax"])
+    text = unpack_2bit(arrays.text, arrays.n)
+    rng = np.random.default_rng(53)
+    m, R = 50, 256
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    frag = rng.integers(150, 300, R)
+    seq = rng.integers(0, 2, R)
+    lo, hi = arrays.seq_starts[seq], arrays.seq_starts[seq + 1] - frag
+    pos = lo + (rng.random(R) * (hi - lo)).astype(np.int64)
+    pos[:2] = [0, arrays.n - frag[1]]
+    r1 = text[pos[:, None] + np.arange(m)].copy()
+    r2 = comp[text[(pos + frag - m)[:, None] + np.arange(m)]][:, ::-1].copy()
+    for rr in (r1, r2):
+        for r in rr:
+            k = rng.integers(0, 4)
+            r[rng.integers(0, m, k)] = rng.integers(0, 4, k)
+    r1[7, 20] = 4
+    flip = rng.random(R) < 0.5
+    r1[flip], r2[flip] = r2[flip].copy(), r1[flip].copy()
+    r2[10] = rng.integers(0, 4, m)          # mate 2 unmappable
+    r1[11] = text[2000:2050]                # both exact, far apart, same
+    r2[11] = text[5000:5050]                # strand: discordant only
+    r1[12] = rng.integers(0, 4, m)          # both unmappable
+    r2[12] = rng.integers(0, 4, m)
+    lut = np.frombuffer(b"ACGTN", np.uint8)
+    for name, rr in (("p1", r1), ("p2", r2)):
+        with open(wd / f"{name}.fq", "w") as f:
+            for i, r in enumerate(rr):
+                f.write(f"@q{i}/{name[1]}\n{lut[r].tobytes().decode()}\n+\n"
+                        f"{'I' * m}\n")
+    return str(wd / "p1.fq"), str(wd / "p2.fq")
+
+
+@pytest.mark.parametrize("tag,opts,paired", [
+    ("se_best", ["-a", "best", "-I", "96"], False),
+    ("se_best_x1", ["-a", "best", "-I", "96", "-x", "1", "-XA"], False),
+    ("se_all_exact", ["-a", "all", "-e", "0", "--no-kmer-table"], False),
+    ("pe_best", ["-a", "best", "-I", "96"], True),
+    ("pe_best_x1_disc", ["-a", "best", "-I", "96", "-x", "1", "-D"], True),
+    ("pe_all_e0", ["-a", "all", "-e", "0", "--no-inferring", "-X", "400"],
+     True),
+    ("pe_all_e1_disc", ["-a", "all", "-e", "1", "-D", "-X", "400", "-N",
+                        "60"], True),
+])
+def test_align_modes_identical_sam(built, pairs, tag, opts, paired):
+    """Byte-identical SAM records from the two packages in BEST(+x) mode,
+    through the exact pass, and paired-end in BEST and ALL mode."""
+    wd, idx = built
+    out = {}
+    for name, cli in (("jax", jcli), ("torch", tcli)):
+        out[name] = str(wd / f"{tag}.{name}.sam")
+        argv = ["align", "-r", idx[name], "-f", pairs[0], "-o", out[name],
+                "-S", "kuch1", "-K", "6", "-b", "256"] + opts + CPU[name]
+        if paired:
+            argv += ["-F", pairs[1]]
+        assert cli.main(argv) == 0
+    body = {k: [ln for ln in open(v).read().splitlines()
+                if not ln.startswith("@")] for k, v in out.items()}
+    assert body["jax"] == body["torch"]
+    n_rec = len(body["torch"])
+    assert n_rec >= (512 if paired else 256)
+    mapped = [ln for ln in body["torch"] if ln.split("\t")[2] != "*"]
+    assert len(mapped) > (40 if "e0" in tag or "exact" in tag else 200)
+    if paired:
+        flags = np.array([int(ln.split("\t")[1]) for ln in body["torch"]])
+        assert (flags & 2).any() and (flags & 8).any()    # proper, unpaired
+
+
+def _path_into_jax_package(tree):
+    """Calls that build a path with a component or prefix ``columba_tpu``:
+    ``os.path.join(..., "columba_tpu", ...)``, ``Path(...)``, ``open(...)``,
+    ``glob(...)`` with such a constant string argument."""
+    def into(s):
+        parts = s.replace("\\", "/").split("/")
+        return "columba_tpu" in parts
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        fname = f.attr if isinstance(f, ast.Attribute) else getattr(f, "id", "")
+        if fname not in ("join", "Path", "PurePath", "open", "glob",
+                         "listdir", "CDLL", "abspath", "realpath"):
+            continue
+        for arg in node.args:
+            if (isinstance(arg, ast.Constant) and isinstance(arg.value, str)
+                    and into(arg.value)):
+                yield fname, arg.value
 
 
 def _imports(tree):
@@ -125,11 +244,21 @@ def test_port_imports_no_jax():
         dirs[:] = [x for x in dirs if x != "_build"]   # build output only
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) >= 20
+    files.append(os.path.join(os.path.dirname(PORT), "chip_smoke.py"))
     bad = []
     for path in files:
         with open(path) as f:
-            for mod in _imports(ast.parse(f.read(), path)):
-                root = mod.split(".")[0]
-                if root in ("jax", "jaxlib", "columba_tpu"):
-                    bad.append((path, mod))
+            tree = ast.parse(f.read(), path)
+        for mod in _imports(tree):
+            root = mod.split(".")[0]
+            if root in ("jax", "jaxlib", "columba_tpu"):
+                bad.append((path, mod))
+        bad += [(path, hit) for hit in _path_into_jax_package(tree)]
     assert not bad, bad
+    # the check itself catches the path the port once built
+    old = ast.parse('import os\nD = os.path.join(os.path.dirname(P), '
+                    '"columba_tpu", "native")\n')
+    assert list(_path_into_jax_package(old)) == [("join", "columba_tpu")]
+    # and the port holds its own host sources
+    for src in ("emit.cpp", "parse.cpp", "sais.cpp"):
+        assert os.path.exists(os.path.join(PORT, "csrc", "host", src))

@@ -61,7 +61,8 @@ def world():
     rng = np.random.default_rng(31)
     g = repeat_genome(rng)
     arrays = build_index_from_codes(g)
-    jfm, tfm = JFMIndex.from_arrays(arrays), TFMIndex.from_arrays(arrays)
+    jfm = JFMIndex.from_arrays(arrays)
+    tfm = TFMIndex.from_arrays(arrays, "cpu")
     return dict(g=g, jfm=jfm, tfm=tfm,
                 jtab=jkmer.build_kmer_table(jfm, 6),
                 ttab=tkmer.build_kmer_table(tfm, 6),
@@ -116,3 +117,37 @@ def test_run_scheme(world, kmer_k, switchpoint, capacity, ex_split, ex_cap):
     if (kmer_k, switchpoint, capacity) == (6, 4, 2048):
         # the repeats must drive both the band steps and the crossover
         assert int(want.nodes_visited) > 0 and n > 0
+
+
+@pytest.mark.parametrize("metric,k,m", [
+    ("hamming", 2, 48),      # kb = 0: a band of one cell, no deletion scan
+    ("edit", 1, 48),         # kb = 1
+    ("edit", 3, 60),         # kb = 3
+])
+def test_run_scheme_band_radii(world, metric, k, m):
+    """The band step (band_step_plain against the JAX step) at the other
+    band radii the port reaches, on short reads: every FrontierResult field
+    of a whole run_scheme, band path only and with the crossover."""
+    rng = np.random.default_rng(33 + k)
+    batch = sample_batch(rng, world["g"], 24, m=m, max_err=k)
+    jsched = jpipe.compile_cached(jscheme("kuch1", k), m, metric, kmer_k=6)
+    tsched = tpipe.compile_cached(tscheme("kuch1", k), m, metric, kmer_k=6)
+    assert tsched.bw == (2 * k + 1 if metric == "edit" else 1)
+    capacity = 1024
+    itv_cap, split, cap2 = jpipe.crossover_caps(capacity, 4096, 4)
+    kw = dict(switchpoint=4, itv_cap=itv_cap, split_step=split,
+              capacity2=cap2, itv_min_depth=16)
+    want = jax.jit(lambda b, tab, tables: jexec.run_scheme(
+        world["jfm"], b, jsched, capacity, tab, tables=tables, **kw))(
+            jnp.asarray(batch.astype(np.int32)), world["jtab"],
+            jpipe.device_tables(jsched))
+    got = texec.run_scheme(world["tfm"], torch.from_numpy(batch), tsched,
+                           capacity, world["ttab"], **kw)
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(want, f)).astype(np.int64),
+            getattr(got, f).numpy().astype(np.int64), err_msg=f)
+    n = int(want.itv_count)
+    np.testing.assert_array_equal(np.asarray(want.itv)[:n].astype(np.int64),
+                                  got.itv[:n].numpy())
+    assert int(want.nodes_visited) > 0 and int(want.overflow) == 0

@@ -35,7 +35,8 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module")
 def both(small_index):
     g, arrays = small_index
-    return g, JFMIndex.from_arrays(arrays), TFMIndex.from_arrays(arrays)
+    return (g, JFMIndex.from_arrays(arrays),
+            TFMIndex.from_arrays(arrays, "cpu"))
 
 
 def _t(a):
@@ -128,7 +129,8 @@ def test_locate_rows(both, f):
     g, jfm, tfm = both
     if f == 1:
         arrays = build_index_from_codes(g, sa_sparseness=1)
-        jfm, tfm = JFMIndex.from_arrays(arrays), TFMIndex.from_arrays(arrays)
+        jfm = JFMIndex.from_arrays(arrays)
+        tfm = TFMIndex.from_arrays(arrays, "cpu")
     rows = np.arange(tfm.n + 1)
     np.testing.assert_array_equal(
         _np(jax.jit(lambda r: jlocate.locate_rows(jfm, r))(
@@ -159,3 +161,59 @@ def test_gather_and_verify_window(both):
     t_rows = tverify.verify_window(tfm, _t(reads.astype(np.uint8)), _t(rid),
                                    _t(starts), kb)
     np.testing.assert_array_equal(_np(j_rows), t_rows.numpy())
+
+
+@pytest.mark.parametrize("kb", [0, 1, 3])
+def test_verify_window_band_radii(both, kb):
+    """The banded verify at the other band radii the port reaches: kb = 0
+    (every k = 0 scheme pass and every Hamming run) and edit k = 1, 3, on
+    short reads."""
+    g, jfm, tfm = both
+    rng = np.random.default_rng(30 + kb)
+    n, m, B = tfm.n, 40, 300
+    starts = rng.integers(-kb, n - m, B)
+    starts[:2 * kb + 1] = np.arange(-kb, kb + 1)         # below / at 0
+    starts[8:24] = n - m + rng.integers(-5, 20, 16)       # near / past n
+    reads = g[np.clip(starts[:32, None] + kb + np.arange(m), 0, n - 1)]
+    for r in reads[4:]:
+        e = rng.integers(0, kb + 2)
+        r[rng.integers(0, m, e)] = rng.integers(0, 4, e)
+    reads[::5, 17] = 4                                    # reads with N
+    rid = rng.integers(0, 32, B)
+    rid[:32] = np.arange(32)                  # each read at its own window
+    wrapped = (starts & 0xFFFFFFFF).astype(np.uint32)
+    j_rows = jax.jit(lambda p, r, s: jverify.verify_window(jfm, p, r, s, kb))(
+        jnp.asarray(reads.astype(np.int32)), jnp.asarray(rid),
+        jnp.asarray(wrapped))
+    t_rows = tverify.verify_window_plain(tfm, _t(reads.astype(np.uint8)),
+                                         _t(rid), _t(starts), kb)
+    assert t_rows.shape == (B, 4 * kb + 1)
+    np.testing.assert_array_equal(_np(j_rows), t_rows.numpy())
+    assert int((t_rows.min(dim=1).values <= kb).sum()) > 0
+
+
+@pytest.mark.parametrize("with_n", [False, True])
+def test_exact_match(both, with_n):
+    """m backward extend_char steps over both strands, reads that match,
+    reads that stop early, and (with_n) reads with N."""
+    g, jfm, tfm = both
+    rng = np.random.default_rng(28)
+    m, R = 40, 300
+    starts = rng.integers(0, len(g) - m, R)
+    starts[:2] = [0, len(g) - m]
+    reads = g[starts[:, None] + np.arange(m)].copy()
+    miss = rng.random(R) < 0.4
+    reads[miss, rng.integers(0, m, int(miss.sum()))] ^= 1
+    if with_n:
+        reads[::7, rng.integers(0, m)] = 4
+    batch = np.concatenate([reads, np.where(reads > 3, 4, 3 - reads)[:, ::-1]])
+    want = jax.jit(lambda b: jextend.exact_match(jfm, b))(
+        jnp.asarray(batch.astype(np.int32)))
+    got = textend.exact_match_plain(tfm, _t(batch.astype(np.uint8)))
+    np.testing.assert_array_equal(_np(want), got.numpy())
+    live = got[:, 1] > got[:, 0]
+    assert 0 < int(live.sum()) < 2 * R
+    # the wrapper (kernel E's contract): live rows as they are, empty rows 0
+    wrapped = textend.exact_match(tfm, _t(batch.astype(np.uint8)))
+    assert torch.equal(wrapped[live], got[live])
+    assert int(wrapped[~live].abs().sum()) == 0

@@ -7,7 +7,8 @@ attempt overflows both capacities at once: reads from a repeated region
 overflow the two-stage exact loop's ``ex_cap`` (4x capacity retry) and
 reads from a long homopolymer run spill the locate capacity (4x
 max_locate retry). One batch covers both so that the JAX side compiles
-two shapes instead of four.
+two shapes instead of four. The k = 0 test takes the exact pass (no seed
+table): reads of a homopolymer run spill its locate capacity too.
 """
 
 import numpy as np
@@ -38,7 +39,8 @@ def test_match_all_lossless_retries():
                             sample_batch(rng, rep, 64)[:64]])
     kw = dict(metric="edit", switchpoint=4, ex_split=6, ex_cap=128)
     arrays = build_index_from_codes(g)
-    jfm, tfm = JFMIndex.from_arrays(arrays), TFMIndex.from_arrays(arrays)
+    jfm = JFMIndex.from_arrays(arrays)
+    tfm = TFMIndex.from_arrays(arrays, "cpu")
     j_ctx = jpipe.match_all_start(jfm, reads, jscheme("kuch1", 2),
                                   kmer_table=jkmer.build_kmer_table(jfm, 6),
                                   **kw)
@@ -56,3 +58,46 @@ def test_match_all_lossless_retries():
         np.testing.assert_array_equal(getattr(j_occ, f), getattr(t_occ, f),
                                       err_msg=f)
     assert len(t_occ) > 0
+
+
+def test_match_all_exact_pass():
+    """k = 0 without a seed table: the exact branch of match_all, with its
+    4x locate-spill retries, gives the JAX package's OccArray and stats."""
+    rng = np.random.default_rng(43)
+    g = np.concatenate([rng.integers(0, 4, 6000).astype(np.uint8),
+                        np.zeros(1500, np.uint8),
+                        rng.integers(0, 4, 2500).astype(np.uint8)])
+    g[8500:8800] = g[1000:1300]                       # a repeat: 2 loci
+    m, R = 40, 64
+    starts = rng.integers(0, len(g) - m, R)
+    starts[:4] = [0, len(g) - m, 1000, 1100]
+    reads = g[starts[:, None] + np.arange(m)].copy()
+    reads[8:24, rng.integers(0, m, 16)] ^= 1          # no exact match
+    reads[5, 11] = 4                                  # a read with N
+    flip = rng.random(R) < 0.5
+    reads[flip] = np.where(reads[flip] > 3, 4, 3 - reads[flip])[:, ::-1]
+    reads[30:33] = 0                                  # homopolymer: spill
+    arrays = build_index_from_codes(g)
+    jfm = JFMIndex.from_arrays(arrays)
+    tfm = TFMIndex.from_arrays(arrays, "cpu")
+    kw = dict(metric="edit", max_locate=None)
+    j_ctx = jpipe.match_all_start(jfm, reads, jscheme("kuch1", 0), **kw)
+    t_ctx = tpipe.match_all_start(tfm, reads, tscheme("kuch1", 0), **kw)
+    assert "exact" in j_ctx and "exact" in t_ctx
+    # shrink the first attempt's capacity on both sides: the reads inside
+    # the homopolymer run spill it, and the 4x retries make up for it
+    for ctx in (j_ctx, t_ctx):
+        ctx["exact"]["max_locate"] = 2048
+    j_ctx["exact"]["out"] = jpipe._exact_device(jfm, j_ctx["exact"]["batch"],
+                                                2048)
+    t_ctx["exact"]["out"], t_ctx["exact"]["event"] = tpipe._exact_device(
+        tfm, t_ctx["exact"]["batch"], 2048)
+    j_occ, j_stats = jpipe.match_all_finish(j_ctx)
+    t_occ, t_stats = tpipe.match_all_finish(t_ctx)
+    assert t_stats == j_stats
+    assert j_stats["retries"] >= 1 and not j_stats["locate_truncated"]
+    for f in ("read_id", "strand", "begin", "end", "distance"):
+        np.testing.assert_array_equal(getattr(j_occ, f), getattr(t_occ, f),
+                                      err_msg=f)
+    assert len(t_occ) > 3 * 1400                      # the homopolymer rows
+    assert set(np.unique(t_occ.strand)) == {0, 1}
