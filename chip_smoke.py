@@ -4,7 +4,7 @@ Run from the repository root with ``python3 chip_smoke.py`` on a machine with
 a CUDA device. It
 
 1. prints the card (torch name, and nvidia-smi's name and power limit);
-2. builds the five CUDA kernels from ``columba_tpu_torch/csrc`` into
+2. builds the eight CUDA kernels from ``columba_tpu_torch/csrc`` into
    ``columba_tpu_torch/_build`` (one nvcc per source, started together) and
    prints ptxas's registers and spills per entry;
 3. generates a random genome from a fixed seed (128 Mbp in 4 sequences, with
@@ -16,8 +16,12 @@ a CUDA device. It
    least time the card could take for the same call
    (``columba_tpu_torch/tools/bounds.py``). Kernels B and D are also held
    against their plain versions at the other band radii the paths reach and
-   through their generic entries;
-5. drives five paths through ``cli align``, each with every kernel's launch
+   through their generic entries; kernel F (dynamic partitioning) with and
+   without the seed table, kernel G (per-read tables) on F's boundaries,
+   kernel B's per-lane entry at kb 2 and 4 on G's tables, kernel E with
+   per-row lengths on the part patterns of scheme selection, and kernel H
+   (the row gather) at 262,144 lanes beside ``torch.index_select``;
+5. drives eight paths through ``cli align``, each with every kernel's launch
    count reset just before and read just after, with its peak device memory:
 
    - SE ALL: ``-a all -e 2 -S kuch1 -b 16384`` on 65,536 sampled 100 bp reads
@@ -29,6 +33,16 @@ a CUDA device. It
      takes the exact pass (kernel E) on both sides;
    - PE ALL at ``-e 2`` on the first 32,768 pairs: the band-only path (no
      in-text crossover, half-size frontier, two-stage exact loop);
+   - SE ALL ``-p dynamic -e 2`` on the SE ALL path's FASTQ: kernels F and G
+     and kernel B's per-lane entry; its records must be those of SE ALL;
+   - SE BEST ``-d DIR`` on the same FASTQ, with a collection of two schemes
+     per k written from ``schemes/kuch_k+1`` and its mirror: the selection
+     probe (kernel E with lengths) and the masked combined pass;
+   - PE BEST ``-p static -c schemes/kuch_k+1 -nD`` on 16,384 pairs: the
+     scheme folder's own static fractions;
+
+   and then the row-gather bench (``columba_tpu_torch.tools.gather_bench``,
+   kernel H's entry point) at 262,144 lanes;
 6. checks each path's output against the sampled loci (nothing with few
    enough substitutions may be missing), that every kernel launched on the
    paths that should reach it, and that one batch run through the plain
@@ -58,6 +72,8 @@ SEED = 20260817
 N_READS = 131_072
 N_READS_ALL = 65_536     # the SE ALL path's share of the reads
 N_PAIRS_E2 = 32_768      # the PE ALL -e 2 path's share of the pairs
+N_PAIRS_STATIC = 16_384  # the PE BEST -p static path's share of the pairs
+GATHER_LANES = 262_144   # kernel H's check and the gather bench path
 READ_LEN = 100
 K = 2
 BEST_CUT = 4             # BEST cutoff of kuch1 at 100 bp and 95 % identity
@@ -71,7 +87,18 @@ PATH_KERNELS = {
     "pe_best": ("extend", "band_step", "locate", "verify"),
     "pe_all_e0": ("exact", "locate"),
     "pe_all_e2": ("extend", "band_step", "locate", "verify"),
+    "se_all_dynamic": ("extend", "band_step", "locate", "verify", "dynpart",
+                       "dyn_tables"),
+    "se_best_d": ("extend", "band_step", "locate", "verify", "exact"),
+    "pe_best_static": ("extend", "band_step", "locate", "verify"),
 }
+# the entries of kernels B and E each path must go through (see
+# native.Kernel.by_entry), as "kernel.entry"
+PATH_ENTRIES = {
+    "se_all_dynamic": ("band_step.per_lane",),
+    "se_best_d": ("exact.lengths",),
+}
+SCHEMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "schemes")
 
 
 def log(msg: str) -> None:
@@ -197,6 +224,7 @@ def kernel_checks(index, arrays, reads, table) -> dict:
         a, b = kern(), plain()
         torch.cuda.synchronize()
         diff = _max_abs(a, b)
+        del b
         if diff != 0:
             raise AssertionError(f"kernel {name} differs from its plain "
                                  f"version: max abs error {diff}")
@@ -266,6 +294,157 @@ def kernel_checks(index, arrays, reads, table) -> dict:
             plain_reps=2)
         log(f"kernel verify at kb={kb} ({what}; {ml} candidates): equal to "
             f"plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms")
+    report.update(new_kernel_checks(index, batch, table, all_ranges, rng,
+                                    check))
+    return report
+
+
+def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
+    """Kernels F, G and H, kernel B's per-lane entry and kernel E with
+    lengths against their plain versions at the shapes of the dynamic
+    partitioning and scheme selection paths (32,768 rows x 100 bp)."""
+    from columba_tpu_torch.search import dynschedule, executor, pipeline
+    from columba_tpu_torch.search import schedule
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import bounds, gather_bench
+
+    dev = index.device
+    R = batch.shape[0]
+    report = {}
+
+    def note(name, shape, rep, b, library_ms=None):
+        rep.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                   bound_bytes=b["bytes"], bound_operations=b["operations"],
+                   library_ms=library_ms)
+        report[name] = rep
+        log(f"kernel {name} ({shape}): equal to plain; {rep['ms']:.4f} ms vs "
+            f"plain {rep['plain_ms']:.4f} ms; bound {b['bound_ms']:.5f} ms "
+            f"by {b['bound_by']} ({b['bytes']} bytes, {b['operations']} "
+            f"operations), share {b['bound_ms'] / rep['ms']:.4f}")
+
+    # kernel F: kuch1 k = 2 with the 10-mer table, and once without a table
+    scheme = get_scheme("kuch1", K)
+    p = scheme.num_parts
+    pts, rep = check(
+        "dynpart",
+        lambda: dynschedule.dynamic_partition(index, batch, scheme, table),
+        lambda: dynschedule.dynamic_partition_plain(index, batch, scheme,
+                                                    table), plain_reps=1)
+    note("dynpart", f"{R} rows x {READ_LEN} bp, kuch1 k={K}, p={p}, table "
+         f"K=10", rep, bounds.dynpart(batch, p, 10, True, pts))
+    pts1, rep1 = check(
+        "dynpart",
+        lambda: dynschedule.dynamic_partition(index, batch, scheme, None),
+        lambda: dynschedule.dynamic_partition_plain(index, batch, scheme,
+                                                    None), plain_reps=1)
+    b1 = bounds.dynpart(batch, p, 1, False, pts1)
+    log(f"kernel dynpart without a table (K = 1, {READ_LEN - p} steps): "
+        f"equal to plain; {rep1['ms']:.4f} ms vs plain "
+        f"{rep1['plain_ms']:.4f} ms; bound {b1['bound_ms']:.5f} ms by "
+        f"{b1['bound_by']}; boundaries differ from the seeded run's in "
+        f"{int((pts != pts1).any(dim=1).sum())} of {R} rows")
+
+    # kernel G on F's boundaries (the clamp folded in), then kernel B's
+    # per-lane entry on G's tables, at kb 2 and at kb 4
+    for k in (K, BEST_CUT):
+        sc = get_scheme("kuch1", k)
+        st = dynschedule.scheme_static(sc, READ_LEN, "edit")
+        pts_k = pts if k == K else dynschedule.dynamic_partition(
+            index, batch, sc, table)
+        dyn, rep = check(
+            "dyn_tables",
+            lambda: dynschedule.build_tables(st, pts_k, batch),
+            lambda: dynschedule.build_tables_plain(st, pts_k, batch),
+            reps=10, plain_reps=1)
+        phases = dynschedule._static_on(st, dev)["phases"]
+        b = bounds.dyn_tables(pts_k, batch, phases, dyn)
+        shape = (f"{R} rows x {st.num_searches} searches, T={st.t_max}, "
+                 f"kb={st.kb}")
+        if k == K:
+            note("dyn_tables", shape, rep, b)
+        else:
+            log(f"kernel dyn_tables ({shape}): equal to plain; "
+                f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; "
+                f"bound {b['bound_ms']:.5f} ms ({b['bytes']} bytes)")
+        S, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
+        C = max(1024, R * S // 8)
+        t = T - READ_LEN // 3          # inside the last part's band steps
+        ids = torch.from_numpy(rng.integers(0, R * S, C).astype(
+            np.int32)).to(dev)
+        band = torch.from_numpy(rng.integers(0, 4, (C, 2, bw)).astype(
+            np.int8)).to(dev)
+        colmin = torch.from_numpy(rng.integers(0, 3, (C, 2, 1)).astype(
+            np.int8)).to(dev)
+        args = (index, all_ranges[:C].contiguous(), ids, band, colmin, None,
+                dyn["pchars"], T, t, 4, dyn["meta"].reshape(-1))
+        out, rep = check("band_step", lambda: executor.band_step(*args),
+                         lambda: executor.band_step_plain(*args),
+                         plain_reps=3)
+        if not bool(out["act"].any()):
+            raise AssertionError("no lane active in the per-lane band step")
+        b = bounds.band_step(*args[1:6], out)
+        shape = f"per-lane entry, C={C} lanes, kb={st.kb}, W=1"
+        if k == K:
+            note("band_step.per_lane", shape, rep, b)
+        else:
+            log(f"kernel band_step ({shape}): equal to plain; "
+                f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms")
+        del dyn, args, out
+
+    # kernel E with lengths: the R x p part patterns of scheme selection at
+    # the BEST cutoff, as select_schemes makes them on the -d path
+    p = get_scheme("kuch1", BEST_CUT).num_parts
+    cuts = schedule.uniform_partition(READ_LEN, p)
+    lens = np.diff(cuts)
+    pos = np.full((p, lens.max()), -1, np.int64)
+    for i in range(p):
+        pos[i, :lens[i]] = np.arange(cuts[i], cuts[i + 1])
+    pos = torch.from_numpy(pos).to(dev)
+    pats = torch.where((pos >= 0)[None], batch[:, pos.clamp(min=0)], 5)
+    pats = pats.reshape(R * p, -1).contiguous()
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(dev).repeat(R)
+    from columba_tpu_torch.ops import extend
+    out, rep = check(
+        "exact", lambda: extend.exact_match(index, pats, lengths),
+        lambda: extend.zero_empty(extend.exact_match_plain(index, pats,
+                                                           lengths)),
+        plain_reps=2)
+    want = pipeline.part_exact_ranges(index, batch, cuts).reshape(-1, 4)
+    if not torch.equal(out, want):
+        raise AssertionError("part_exact_ranges differs from kernel E on "
+                             "its patterns")
+    note("exact.lengths", f"{R * p} part patterns of {lens.min()}-"
+         f"{lens.max()} chars", rep,
+         bounds.exact(bounds.exact_steps(index, pats, lengths), R * p, out))
+
+    # kernel H: 64 B rows of a 2,000,000-row table at 262,144 lanes. The
+    # timed calls cycle through 16 index sets (268 MB of rows), so that no
+    # call finds its rows in the 50 MB L2 cache.
+    tab = torch.from_numpy(rng.integers(
+        0, 2 ** 31, (gather_bench.ROWS, 16)).astype(np.int32)).to(dev)
+    idx_sets = [torch.from_numpy(rng.integers(
+        0, gather_bench.ROWS, GATHER_LANES)).to(dev) for _ in range(16)]
+    idx = idx_sets[0]
+
+    def cycling(fn):
+        state = [0]
+
+        def call():
+            state[0] += 1
+            return fn(tab, idx_sets[state[0] % len(idx_sets)])
+        return call
+
+    out = gather_bench.gather_rows(tab, idx)
+    rep = dict(
+        max_abs_err=_max_abs(out, gather_bench.gather_rows_plain(tab, idx)),
+        ms=cuda_time(cycling(gather_bench.gather_rows), 64),
+        plain_ms=cuda_time(cycling(gather_bench.gather_rows_plain), 64))
+    if rep["max_abs_err"] != 0:
+        raise AssertionError("kernel gather differs from its plain version")
+    lib = cuda_time(cycling(lambda t, i: torch.index_select(t, 0, i)), 64)
+    note("gather", f"{GATHER_LANES} lanes, 64 B rows of {gather_bench.ROWS}, "
+         f"one thread per row", rep, bounds.gather(tab, idx, out), lib)
+    log(f"library call torch.index_select: {lib:.4f} ms")
     return report
 
 
@@ -276,8 +455,8 @@ def ptxas_report(build_log: str) -> list:
     out, entry, frame = [], "", ""
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
-            m = re.search(r"\d([a-z_]+_kernel)(?:ILi(n?\d+)E(?:Li(n?\d+)E)?)?",
-                          ln)
+            m = re.search(r"\d([a-z_]+_kernel)(?:ILi(n?\d+)E(?:Li(n?\d+)E)?"
+                          r"(?:Lb(\d)E)?)?", ln)
             args = [a.replace("n", "-") for a in m.groups()[1:] if a]
             entry = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "bytes stack frame" in ln:
@@ -331,19 +510,23 @@ def plain_patch():
     """Swap every kernel wrapper of the paths for its plain version (module
     attributes the pipeline calls through); returns the undo."""
     from columba_tpu_torch.ops import extend, locate, rank, verify
-    from columba_tpu_torch.search import executor
+    from columba_tpu_torch.search import dynschedule, executor
 
     def locate_plain(index, rows):
         if index.sa_sparseness == 1:
             return rank.u32(index.sa_samples[rows])
         return locate.locate_rows_plain(index, rows)
 
-    def exact_plain(index, patterns):
-        return extend.zero_empty(extend.exact_match_plain(index, patterns))
+    def exact_plain(index, patterns, lengths=None):
+        return extend.zero_empty(extend.exact_match_plain(index, patterns,
+                                                          lengths))
 
     saved = [(extend, "extend_char", extend.extend_char_plain),
              (extend, "exact_match", exact_plain),
              (executor, "band_step", executor.band_step_plain),
+             (dynschedule, "dynamic_partition",
+              dynschedule.dynamic_partition_plain),
+             (dynschedule, "build_tables", dynschedule.build_tables_plain),
              (locate, "locate_rows", locate_plain),
              (verify, "verify_window", verify.verify_window_plain)]
     undo = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
@@ -365,7 +548,7 @@ def main() -> int:
     from columba_tpu_torch.index.fmindex import FMIndex
     from columba_tpu_torch.index.kmer import build_kmer_table_cached
     from columba_tpu_torch.search import pipeline
-    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
     from columba_tpu_torch.tools import workload
 
     t_all = time.time()
@@ -417,7 +600,11 @@ def main() -> int:
             "pe_best": (fq("p1", m1), fq("p2", m2)),
             "pe_all_e0": (fq("e1", m1[exact_pairs]), fq("e2", m2[exact_pairs])),
             "pe_all_e2": (fq("b1", m1[:N_PAIRS_E2]), fq("b2", m2[:N_PAIRS_E2])),
+            "pe_best_static": (fq("s1", m1[:N_PAIRS_STATIC]),
+                               fq("s2", m2[:N_PAIRS_STATIC])),
         }
+        # the dynamic and the collection path read the SE ALL path's FASTQ
+        files["se_all_dynamic"] = files["se_best_d"] = files["se_all"]
         warm = {
             "se_all": (fq("w", reads[:WARMUP_READS], "w"), None),
             "pe_best": (fq("w1", m1[:WARMUP_READS], "w"),
@@ -426,17 +613,33 @@ def main() -> int:
         warm["se_best"] = warm["se_all"]
         warm["pe_all_e0"] = (fq("we1", m1[exact_pairs[:4096]], "w"),
                              fq("we2", m2[exact_pairs[:4096]], "w"))
-        warm["pe_all_e2"] = warm["pe_best"]
+        warm["pe_all_e2"] = warm["pe_best_static"] = warm["pe_best"]
+        warm["se_all_dynamic"] = warm["se_best_d"] = warm["se_all"]
+        # a collection of two schemes per k: kuch_k+1's searches and their
+        # mirror, in the layout -d reads (<dir>/<k>/scheme<x>.txt)
+        multi = os.path.join(wd, "collection")
+        for k in range(1, BEST_CUT + 1):
+            os.makedirs(os.path.join(multi, str(k)))
+            base = get_scheme("kuch1", k)
+            for x, sc in enumerate((base, base.mirrored()), 1):
+                with open(os.path.join(multi, str(k), f"scheme{x}.txt"),
+                          "w") as f:
+                    f.write(str(sc) + "\n")
         argv_of = {
             "se_all": ["-a", "all", "-e", str(K)],
             "se_best": ["-a", "best"],
             "pe_best": ["-a", "best"],
             "pe_all_e0": ["-a", "all", "-e", "0"],
             "pe_all_e2": ["-a", "all", "-e", str(K)],
+            "se_all_dynamic": ["-a", "all", "-e", str(K), "-p", "dynamic"],
+            "se_best_d": ["-a", "best", "-d", multi],
+            "pe_best_static": ["-a", "best", "-p", "static", "-nD", "-c",
+                               os.path.join(SCHEMES, "kuch_k+1")],
         }
         n_of = {"se_all": N_READS_ALL, "se_best": N_READS,
                 "pe_best": N_READS, "pe_all_e0": len(exact_pairs),
-                "pe_all_e2": N_PAIRS_E2}
+                "pe_all_e2": N_PAIRS_E2, "se_all_dynamic": N_READS_ALL,
+                "se_best_d": N_READS_ALL, "pe_best_static": N_PAIRS_STATIC}
 
         index = FMIndex.from_arrays(arrays, dev)
         table = build_kmer_table_cached(index, 10, idx)
@@ -456,13 +659,13 @@ def main() -> int:
             assert rc == 0
             return err.getvalue()
 
-        launches_by_path = {}
+        launches_by_path, entries_by_path = {}, {}
         for path in PATH_KERNELS:
             t0 = time.time()
             align(path, warm[path], "warm")
             t_warm = time.time() - t0
             for k in native.KERNELS.values():
-                k.launches = 0
+                k.reset()
             log_path = os.path.join(wd, path + ".log")
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
@@ -472,6 +675,9 @@ def main() -> int:
             dt = time.time() - t0
             launches = {k: v.launches for k, v in native.KERNELS.items()}
             launches_by_path[path] = launches
+            entries = {f"{k}.{e}": n for k, v in native.KERNELS.items()
+                       for e, n in v.by_entry.items()}
+            entries_by_path[path] = entries
             peak = torch.cuda.max_memory_allocated()
             with open(log_path) as f:
                 retries = int(re.search(
@@ -481,14 +687,37 @@ def main() -> int:
                 f"{dt:.3f} s = {n_of[path] / dt:.1f} {unit}/s (FASTQ -> SAM, "
                 f"genome {workload.GENOME_N} bp, {smi}; warm-up "
                 f"{t_warm:.1f} s); lossless retries {retries}; peak device "
-                f"memory {peak} bytes; kernel launches {launches}")
+                f"memory {peak} bytes; kernel launches {launches}"
+                + (f", of them by entry {entries}" if entries else ""))
             for ln in err.splitlines():
                 if "inferred" in ln:
                     log(f"  {ln}")
             missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+            missing += [e for e in PATH_ENTRIES.get(path, ())
+                        if entries.get(e, 0) == 0]
             if missing:
                 raise AssertionError(f"kernels not launched on path {path}: "
                                      f"{missing}")
+
+        # kernel H's path: the gather bench, its entry point, at one size
+        from columba_tpu_torch.tools import gather_bench
+
+        for k in native.KERNELS.values():
+            k.reset()
+        gather_rows = gather_bench.run(lanes=(GATHER_LANES,),
+                                       row_words=(16, 4), reps=5)
+        launches = {k: v.launches for k, v in native.KERNELS.items()}
+        launches_by_path["gather_bench"] = launches
+        entries_by_path["gather_bench"] = {}
+        for r in gather_rows:
+            log(f"path gather_bench: {r['impl']}, {r['row_bytes']} B rows, "
+                f"{r['lanes']} lanes, chain of {gather_bench.CHAIN}: "
+                f"{r['chain_ms']:.4f} ms = {r['mrows_per_s']:.1f} M rows/s, "
+                f"{r['gbps']:.2f} GB/s; one gather alone "
+                f"{r['alone_ms']:.4f} ms = {r['alone_mrows_per_s']:.1f} M "
+                f"rows/s ({smi})")
+        if launches["gather"] == 0:
+            raise AssertionError("kernel gather not launched by its bench")
 
         # -- checks of what came out --
         def se_key(q, rn, rev):
@@ -498,45 +727,69 @@ def main() -> int:
         want_p1 = pos - starts[seq_of] + 1
 
         # SE ALL: every read with <= K substitutions at its locus
-        q, rn, p1, fl, nm = parse_sam(os.path.join(wd, "se_all.sam"))
-        want = np.nonzero(nsub[:N_READS_ALL] <= K)[0]
-        dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
-                          se_key(want, seq_of[want], flip[want]),
-                          want_p1[want])
-        # an error at a read end has equal-cost alignments that begin up to
-        # k bases away; the traceback may pick one
-        lost = want[dist > K]
-        log(f"SE ALL lossless check: {len(want)} reads with <= {K} "
-            f"substitutions; {int((dist == 0).sum())} at their exact begin, "
-            f"{int(((dist > 0) & (dist <= K)).sum())} within {K} (end "
-            f"errors), {len(lost)} missing")
-        if len(lost):
-            raise AssertionError(f"SE ALL: reads not found at their locus: "
-                                 f"{lost[:10].tolist()}")
+        def se_all_check(tag, label):
+            recs = parse_sam(os.path.join(wd, tag + ".sam"))
+            q, rn, p1, fl, nm = recs
+            want = np.nonzero(nsub[:N_READS_ALL] <= K)[0]
+            dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
+                              se_key(want, seq_of[want], flip[want]),
+                              want_p1[want])
+            # an error at a read end has equal-cost alignments that begin up
+            # to k bases away; the traceback may pick one
+            lost = want[dist > K]
+            log(f"{label} lossless check: {len(want)} reads with <= {K} "
+                f"substitutions; {int((dist == 0).sum())} at their exact "
+                f"begin, {int(((dist > 0) & (dist <= K)).sum())} within {K} "
+                f"(end errors), {len(lost)} missing")
+            if len(lost):
+                raise AssertionError(f"{label}: reads not found at their "
+                                     f"locus: {lost[:10].tolist()}")
+            return recs
+
+        uni = se_all_check("se_all", "SE ALL")
+        dyn = se_all_check("se_all_dynamic", "SE ALL -p dynamic")
+        # both runs are lossless at k, so they report the same occurrences
+        occ_sets = [np.unique(np.stack([q, rn, p1, fl & 16, nm], axis=1),
+                              axis=0) for q, rn, p1, fl, nm in (uni, dyn)]
+        same = (occ_sets[0].shape == occ_sets[1].shape
+                and bool((occ_sets[0] == occ_sets[1]).all()))
+        log(f"SE ALL -p dynamic against SE ALL (uniform) on the same FASTQ: "
+            f"{len(occ_sets[1])} and {len(occ_sets[0])} distinct (read, "
+            f"sequence, position, strand, NM) records, "
+            f"{'the same set' if same else 'DIFFERENT sets'}")
+        if not same:
+            raise AssertionError("SE ALL -p dynamic reports another "
+                                 "occurrence set than the uniform run")
 
         # SE BEST: every read with n <= cutoff substitutions has a record,
         # its best NM is <= n, and where it equals n the true locus is there
-        q, rn, p1, fl, nm = parse_sam(os.path.join(wd, "se_best.sam"))
-        best_nm = np.full(N_READS, 1 << 40, np.int64)
-        np.minimum.at(best_nm, q, nm)
-        want = np.nonzero(nsub <= BEST_CUT)[0]
-        unmapped = want[best_nm[want] > BEST_CUT]
-        worse = want[best_nm[want] > nsub[want]]
-        at_n = want[best_nm[want] == nsub[want]]
-        dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
-                          se_key(at_n, seq_of[at_n], flip[at_n]),
-                          want_p1[at_n])
-        lost = at_n[dist > nsub[at_n]]
-        log(f"SE BEST check: {len(want)} reads with <= {BEST_CUT} "
-            f"substitutions; {len(unmapped)} without a record, {len(worse)} "
-            f"with best NM above their substitutions, {len(at_n)} with best "
-            f"NM equal to them of which {len(lost)} miss their locus; "
-            f"{len(want) - len(at_n) - len(worse)} have a better hit "
-            f"elsewhere; {len(q)} records")
-        if len(unmapped) or len(worse) or len(lost):
-            raise AssertionError(
-                f"SE BEST: unmapped {unmapped[:5].tolist()}, worse "
-                f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
+        def se_best_check(tag, label, n_reads):
+            q, rn, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"))
+            best_nm = np.full(n_reads, 1 << 40, np.int64)
+            np.minimum.at(best_nm, q, nm)
+            want = np.nonzero(nsub[:n_reads] <= BEST_CUT)[0]
+            unmapped = want[best_nm[want] > BEST_CUT]
+            worse = want[best_nm[want] > nsub[want]]
+            at_n = want[best_nm[want] == nsub[want]]
+            dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
+                              se_key(at_n, seq_of[at_n], flip[at_n]),
+                              want_p1[at_n])
+            lost = at_n[dist > nsub[at_n]]
+            log(f"{label} check: {len(want)} reads with <= {BEST_CUT} "
+                f"substitutions; {len(unmapped)} without a record, "
+                f"{len(worse)} with best NM above their substitutions, "
+                f"{len(at_n)} with best NM equal to them of which "
+                f"{len(lost)} miss their locus; "
+                f"{len(want) - len(at_n) - len(worse)} have a better hit "
+                f"elsewhere; {len(q)} records")
+            if len(unmapped) or len(worse) or len(lost):
+                raise AssertionError(
+                    f"{label}: unmapped {unmapped[:5].tolist()}, worse "
+                    f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
+
+        se_best_check("se_best", "SE BEST", N_READS)
+        se_best_check("se_best_d", "SE BEST -d (two-scheme collection)",
+                      N_READS_ALL)
 
         # PE: a pair is found when both mates have a proper-pair record at
         # their true loci. Mate 1 is the forward-strand mate unless swapped.
@@ -589,11 +842,28 @@ def main() -> int:
         if not found.all():
             raise AssertionError(f"PE ALL -e {K}: pairs not found: "
                                  f"{want[~found][:10].tolist()}")
+        want = want[want < N_PAIRS_STATIC]
+        found, n_proper = pe_check(os.path.join(wd, "pe_best_static.sam"),
+                                   want, want, 2)
+        log(f"PE BEST -p static -c -nD check: {len(want)} pairs with <= 2 "
+            f"substitutions in each mate; {int(found.sum())} reported as a "
+            f"proper pair at both true loci, {int((~found).sum())} missing; "
+            f"{n_proper} proper-pair records")
+        if not found.all():
+            raise AssertionError(f"PE BEST -p static: pairs not found: "
+                                 f"{want[~found][:10].tolist()}")
 
         # one batch again through the plain versions on the card: the scheme
-        # path at k = 2 and the exact pass at k = 0
-        for k, kw in ((K, dict(kmer_table=table, switchpoint=4)), (0, {})):
+        # path at k = 2, the exact pass at k = 0, dynamic partitioning, and
+        # scheme selection over kuch1 and its mirror
+        for k, kw in ((K, dict(kmer_table=table, switchpoint=4)), (0, {}),
+                      (K, dict(kmer_table=table, switchpoint=4,
+                               partitioning="dynamic")),
+                      (K, dict(kmer_table=table, switchpoint=4,
+                               selection=True))):
             scheme = get_scheme("kuch1", k)
+            if kw.pop("selection", False):
+                scheme = get_multi_scheme("kuch1", k)
             occ_k, _ = pipeline.match_all(index, reads[:BATCH], scheme, **kw)
             restore = plain_patch()
             try:
@@ -605,22 +875,33 @@ def main() -> int:
                 if not np.array_equal(getattr(occ_k, f), getattr(occ_p, f)):
                     raise AssertionError(
                         f"plain-path OccArray differs in {f} at k = {k}")
-            log(f"plain versions on the card, k = {k}: identical OccArray "
-                f"for one batch ({len(occ_k)} occurrences)")
+            what = ("scheme selection" if isinstance(scheme, list) else
+                    kw.get("partitioning", "uniform") + " partitioning")
+            log(f"plain versions on the card, k = {k}, {what}: identical "
+                f"OccArray for one batch ({len(occ_k)} occurrences)")
 
+    # one record per kernel, and one more for each named entry of kernels B
+    # and E (its launches are a share of its kernel's)
+    replaces = {"band_step.per_lane": "columba_tpu/search/executor.py:600",
+                "exact.lengths": "columba_tpu/search/pipeline.py:381"}
     kernels = []
     for k in native.KERNELS.values():
-        r = report[k.name]
-        by_path = {p: ln[k.name] for p, ln in launches_by_path.items()}
-        if sum(by_path.values()) == 0:
-            raise AssertionError(f"kernel {k.name} launched on no path")
-        kernels.append(dict(
-            name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], bound_bytes=r["bound_bytes"],
-            bound_operations=r["bound_operations"]))
+        entries = [k.name] + [n for n in report if n.startswith(k.name + ".")]
+        for entry in entries:
+            r = report[entry]
+            counts = launches_by_path if entry == k.name else entries_by_path
+            by_path = {p: ln.get(entry, 0) for p, ln in counts.items()}
+            if sum(by_path.values()) == 0:
+                raise AssertionError(f"kernel {entry} launched on no path")
+            kernels.append(dict(
+                name=entry, route="cuda", source=k.source,
+                replaces=replaces.get(entry, k.replaces),
+                launches=sum(by_path.values()), launches_by_path=by_path,
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                bound_bytes=r["bound_bytes"],
+                bound_operations=r["bound_operations"]))
     log(f"total smoke time {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 The counterpart of ``columba_tpu/cli.py`` with the same option names. The
 port covers the Vanilla index build and the alignment of FASTQ input to SAM
-in ALL and BEST(+x) mode, single-end and paired-end, with uniform
-partitioning and a builtin scheme; every other mode raises
+in ALL and BEST(+x) mode, single-end and paired-end, with uniform, static or
+dynamic partitioning, builtin schemes, scheme folders (``-c``) and scheme
+collections with per-read selection (``-d``); what is still missing raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 Alignment runs on the CUDA device (``--device cuda``, the default) and
@@ -68,9 +69,12 @@ def main(argv=None):
                    default="edit")
     a.add_argument("-S", "--scheme", default="kuch1")
     a.add_argument("-c", "--custom", default=None, metavar="DIR",
-                   help="custom search scheme folder (not ported yet)")
+                   help="custom search scheme folder (reference -c; "
+                        "dynamic selection via mirror unless -nD)")
     a.add_argument("-d", "--dynamic-selection-path", default=None,
-                   metavar="DIR", help="scheme collection (not ported yet)")
+                   metavar="DIR",
+                   help="folder of scheme<x>.txt collections per k for "
+                        "dynamic selection (reference -d)")
     a.add_argument("-x", "--best-plus-x", type=int, default=0)
     a.add_argument("-I", "--min-identity", type=int, default=95)
     a.add_argument("-K", "--kmer-size", type=int, default=10,
@@ -94,10 +98,19 @@ def main(argv=None):
                    help="fold secondary alignments into the XA tag")
     a.add_argument("-nU", "--no-unmapped", action="store_true",
                    help="do not output unmapped reads")
+    a.add_argument("-nD", "--no-dynamic-selection", action="store_true",
+                   help="disable per-read dynamic scheme selection")
+    a.add_argument("--probe-selection", action="store_true",
+                   help="force the per-read exact-range probe for the "
+                        "builtin 'columba' set (identical output)")
+    # Partitioning does not change the reported occurrences, only the shape
+    # of the search. The reference defaults to dynamic; here, as in the JAX
+    # package, the compiled uniform schedule is the default and dynamic and
+    # static are options.
     a.add_argument("-p", "--partitioning",
                    choices=["uniform", "static", "dynamic"],
                    default="uniform",
-                   help="read partitioning (only uniform is ported)")
+                   help="read partitioning strategy (default: uniform)")
     a.add_argument("-T", "--trim", default=None, metavar="START-END",
                    help="trim reads to bases [START, END) before aligning "
                         "(not ported yet)")
@@ -151,11 +164,6 @@ def cmd_build(args):
 
 def _unsupported(args) -> str | None:
     """The ROADMAP item of an option the port does not run yet, or None."""
-    if args.partitioning != "uniform":
-        return f"-p {args.partitioning} (ROADMAP queue 1, item 11)"
-    if args.custom or args.dynamic_selection_path:
-        return "scheme folders and collections -c/-d (ROADMAP queue 1, " \
-               "item 11)"
     if args.trim:
         return "-T trim (ROADMAP queue 1, item 9)"
     if args.output.endswith(".rhs"):
@@ -218,6 +226,16 @@ def cmd_align(args):
         ent = (arrays, FMIndex.from_arrays(arrays, device))
         _DEVICE_INDEX_CACHE[key] = ent
     arrays, index = ent
+    # scheme source precedence mirrors Parameters::createStrategy
+    # (src/parameters/alignparameters.cpp:1313-1345): -d > -c > -S
+    dynamic_selection = (args.scheme == "columba"
+                         and not args.no_dynamic_selection)
+    if args.dynamic_selection_path:
+        args.scheme = args.dynamic_selection_path
+        dynamic_selection = True
+    elif args.custom:
+        args.scheme = args.custom
+        dynamic_selection = not args.no_dynamic_selection
     kmer_table = None
     kmer_k = max(0, min(int(args.kmer_size), 13))
     if kmer_k != args.kmer_size:
@@ -230,7 +248,10 @@ def cmd_align(args):
         scheme_name=args.scheme, metric=args.metric, mode=args.mode,
         max_distance=args.max_distance, best_plus_x=args.best_plus_x,
         min_identity=args.min_identity, capacity=args.capacity,
-        kmer_table=kmer_table, switchpoint=args.in_text, arrays=arrays)
+        kmer_table=kmer_table, dynamic_selection=dynamic_selection,
+        probe_selection=args.probe_selection,
+        partitioning=args.partitioning, switchpoint=args.in_text,
+        arrays=arrays)
     if args.reads2 is not None:
         return _align_paired(args, arrays, index, cfg, kmer_table)
     return _align_single_fast(args, arrays, index, cfg)

@@ -17,6 +17,13 @@
 // The step's per-search scalars (S rows of 7 packed int32 words) sit in
 // shared memory; each lane decodes its own row by search id.
 //
+// Per-lane entry (DYN, dynamic partitioning): every (read, search) has its
+// own schedule, so a lane reads its own packed word at dyn_meta[id * T + t]
+// (the layout of search/dynschedule.py: creset at bit 2, colo + 1 at bits
+// 3-8, ub at bit 9, back depth at bit 17) and derives the ops of its single
+// register from it (W = 1: dynamic partitions keep every part longer than
+// 2k, so windows never overlap). Same body, no shared memory.
+//
 // Bound: two random 64 B occ rows per active lane, as kernel A, plus
 // ~100 B of lane state in and ~200 B of child state out; the band and
 // register arithmetic is a few hundred integer ops in registers. Inactive
@@ -44,6 +51,7 @@ struct BandArgs {
   const signed char* colmin;    // (C, 2, W)
   const int* mrow;              // (S, 7) this step's packed scalars
   int S;
+  const int* dyn_meta;          // (R*S*T,) per-lane words (per-lane entry)
   const signed char* pchars;    // (R*S*T, BW) per-(lane id, step) cell codes
   int T;
   int t;
@@ -65,7 +73,7 @@ constexpr int kMaxBW = 2 * 13 + 1;   // ladder cutoff 13 (BEST_CUTOFF)
 constexpr int kMaxW = 10;            // search/schedule.py MAX_REGS
 
 // KB >= 0: sizes fixed at compile time. KB < 0: the generic entry.
-template <int KB, int WT>
+template <int KB, int WT, bool DYN>
 __global__ void band_step_kernel(BandArgs a) {
   constexpr bool kGeneric = KB < 0;
   constexpr int BWMAX = kGeneric ? kMaxBW : 2 * KB + 1;
@@ -74,8 +82,11 @@ __global__ void band_step_kernel(BandArgs a) {
   const int W = kGeneric ? a.W : WMAX;
   constexpr int INF = columba::INF;
   extern __shared__ int smeta[];
-  for (int k = threadIdx.x; k < a.S * 7; k += blockDim.x) smeta[k] = a.mrow[k];
-  __syncthreads();
+  if (!DYN) {
+    for (int k = threadIdx.x; k < a.S * 7; k += blockDim.x)
+      smeta[k] = a.mrow[k];
+    __syncthreads();
+  }
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= a.C) return;
@@ -85,11 +96,32 @@ __global__ void band_step_kernel(BandArgs a) {
   const int ids = a.ids[i];
   const bool ghost = ids < 0;
   const int ids_c = ids & kGhostIdMask;
-  const int* mr = smeta + (ids_c % a.S) * 7;
+  // the step's scalars of this lane: meta word, register ops and inits
+  int mr[7];
+  int cacc, cfro, ub, dbv;
+  if (DYN) {
+    const int word = a.dyn_meta[static_cast<long long>(ids_c) * a.T + a.t];
+    const int colo = ((word >> 3) & 63) - 1;
+    mr[0] = word;
+    mr[1] = colo >= 0 ? (colo | (((word >> 2) & 1) << 6)) : 63;
+    mr[2] = mr[3] = 0;
+    mr[4] = 63;
+    mr[5] = mr[6] = 0;
+    cacc = colo >= 0 ? 0 : 15;
+    cfro = 0;
+    ub = (word >> 9) & 255;
+    dbv = (word >> 17) & 4095;
+  } else {
+    const int* row = smeta + (ids_c % a.S) * 7;
+#pragma unroll
+    for (int k = 0; k < 7; ++k) mr[k] = row[k];
+    cacc = (mr[0] >> 2) & 15;
+    cfro = (mr[0] >> 6) & 15;
+    ub = (mr[0] >> 10) & 255;
+    dbv = (mr[0] >> 18) & 4095;
+  }
   const int meta = mr[0];
   const bool alive = p_hi > p_lo;
-  const int cacc = (meta >> 2) & 15, cfro = (meta >> 6) & 15;
-  const int ub = (meta >> 10) & 255, dbv = (meta >> 18) & 4095;
   const bool act = (meta & 1) && alive && !ghost;
   const bool is_b = ((meta >> 1) & 1) == 0;
 
@@ -212,11 +244,11 @@ __global__ void band_step_kernel(BandArgs a) {
   }
 }
 
-template <int KB, int WT>
+template <int KB, int WT, bool DYN = false>
 int launch(const BandArgs& a, cudaStream_t stream) {
   constexpr int kThreads = 128;
-  const size_t smem = sizeof(int) * 7 * a.S;
-  band_step_kernel<KB, WT>
+  const size_t smem = DYN ? 0 : sizeof(int) * 7 * a.S;
+  band_step_kernel<KB, WT, DYN>
       <<<columba::grid_for(a.C, kThreads), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -227,7 +259,8 @@ extern "C" int columba_band_step(
     const int* occ, long long blocks, unsigned c0, unsigned c1, unsigned c2,
     unsigned c3, unsigned d0, unsigned d1, const long long* ranges,
     const int* ids, const signed char* band, const signed char* colmin,
-    const int* mrow, int S, const signed char* pchars, int T, int t, int kb,
+    const int* mrow, int S, const int* dyn_meta, const signed char* pchars,
+    int T, int t, int kb,
     int W, int switchpoint, long long* ch_ranges, int* new_ids,
     signed char* ch_band, signed char* ch_colmin, unsigned char* ch_alive,
     unsigned char* narrow, unsigned char* act_out, int* dbv_out, long long C,
@@ -240,6 +273,7 @@ extern "C" int columba_band_step(
   a.colmin = colmin;
   a.mrow = mrow;
   a.S = S;
+  a.dyn_meta = dyn_meta;
   a.pchars = pchars;
   a.T = T;
   a.t = t;
@@ -257,6 +291,17 @@ extern "C" int columba_band_step(
   a.C = C;
   if (kb < 0 || W < 1 || a.bw > kMaxBW || W > kMaxW)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (dyn_meta != nullptr) {    // per-lane entry: one register
+    if (W != 1) return static_cast<int>(cudaErrorInvalidValue);
+    switch (kb) {
+      case 0: return launch<0, 1, true>(a, stream);
+      case 1: return launch<1, 1, true>(a, stream);
+      case 2: return launch<2, 1, true>(a, stream);
+      case 3: return launch<3, 1, true>(a, stream);
+      case 4: return launch<4, 1, true>(a, stream);
+      default: return launch<-1, 0, true>(a, stream);
+    }
+  }
   switch (W <= 2 && kb <= 4 ? 2 * kb + W : 0) {
     case 1: return launch<0, 1>(a, stream);
     case 2: return launch<0, 2>(a, stream);

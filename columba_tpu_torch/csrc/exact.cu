@@ -15,6 +15,11 @@
 // is written as the zero range; a live row holds exactly what m calls of
 // extend_char give.
 //
+// With per-row lengths (the part patterns of part_exact_ranges, padded to the
+// longest part) a row reads pattern[length-1], ..., pattern[0] and stops
+// after length steps; a null pointer means every row has m chars. A row of
+// length 0 keeps the full range.
+//
 // Bound: latency, not bandwidth. A row does up to m dependent steps, each
 // two random 48 B row reads (three 16 B loads per fused occ row) whose
 // addresses come from the step before, so nothing of one row overlaps; the
@@ -26,7 +31,8 @@
 namespace {
 
 __global__ void exact_kernel(columba::FmParams p,
-                             const uint8_t* __restrict__ patterns, int m,
+                             const uint8_t* __restrict__ patterns,
+                             const int* __restrict__ lengths, int m,
                              uint32_t n, long long* __restrict__ out,
                              long long rows) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -34,7 +40,8 @@ __global__ void exact_kernel(columba::FmParams p,
   if (i >= rows) return;
   const uint8_t* pat = patterns + i * m;
   uint32_t r[4] = {0u, n + 1u, 0u, n + 1u};
-  for (int j = m - 1; j >= 0; --j) {
+  const int len = lengths == nullptr ? m : min(__ldg(lengths + i), m);
+  for (int j = len - 1; j >= 0; --j) {
     const int c = __ldg(pat + j);
     if (c > 3) {                      // N never matches
       r[0] = r[1] = r[2] = r[3] = 0u;
@@ -64,13 +71,14 @@ __global__ void exact_kernel(columba::FmParams p,
 extern "C" int columba_exact(const int* occ, long long blocks, unsigned c0,
                              unsigned c1, unsigned c2, unsigned c3,
                              unsigned d0, unsigned d1,
-                             const unsigned char* patterns, int m,
-                             long long n, long long* out, long long rows,
+                             const unsigned char* patterns,
+                             const int* lengths, int m, long long n,
+                             long long* out, long long rows,
                              cudaStream_t stream) {
   const columba::FmParams p =
       columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1);
   constexpr int kThreads = 64;
   exact_kernel<<<columba::grid_for(rows, kThreads), kThreads, 0, stream>>>(
-      p, patterns, m, static_cast<uint32_t>(n), out, rows);
+      p, patterns, lengths, m, static_cast<uint32_t>(n), out, rows);
   return static_cast<int>(cudaGetLastError());
 }

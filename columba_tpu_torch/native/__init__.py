@@ -141,7 +141,9 @@ class Kernel:
     ``cudaGetLastError()``, so a launch goes to the calling thread's
     current stream. ``launches`` counts successful launches only, under a
     lock (the dispatch thread and an emitter thread that re-dispatches may
-    both launch); callers reset it to measure a run.
+    both launch); ``by_entry`` splits the same launches by the entry the
+    wrapper names (kernel B's per-lane entry, kernel E with lengths).
+    Callers :meth:`reset` the counts to measure a run.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list,
@@ -152,10 +154,16 @@ class Kernel:
         self.source = source        # CUDA source, relative to the repo
         self.replaces = replaces    # the JAX function it ports (file:line)
         self.launches = 0
+        self.by_entry: dict[str, int] = {}
         self._fn = None
         KERNELS[name] = self
 
-    def __call__(self, *args) -> None:
+    def reset(self) -> None:
+        with _COUNT_LOCK:
+            self.launches = 0
+            self.by_entry = {}
+
+    def __call__(self, *args, entry: str = "") -> None:
         import torch
 
         if self._fn is None:
@@ -173,3 +181,5 @@ class Kernel:
                                f"({self._err(rc).decode()})")
         with _COUNT_LOCK:
             self.launches += 1
+            if entry:
+                self.by_entry[entry] = self.by_entry.get(entry, 0) + 1

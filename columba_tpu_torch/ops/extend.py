@@ -42,7 +42,8 @@ EXACT_KERNEL = native.Kernel(
     [ctypes.c_void_p, ctypes.c_int64,                    # occ_fused, blocks
      ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
      ctypes.c_uint32, ctypes.c_uint32,                   # counts, dollar
-     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,    # patterns, m, n
+     ctypes.c_void_p, ctypes.c_void_p,                   # patterns, lengths
+     ctypes.c_int32, ctypes.c_int64,                     # m, n
      ctypes.c_void_p, ctypes.c_int64],                   # out, rows
     source="columba_tpu_torch/csrc/exact.cu",
     replaces="columba_tpu/ops/extend.py:120",
@@ -97,15 +98,25 @@ def extend_char_plain(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
     return torch.where((chars > 3)[..., None], torch.zeros_like(child), child)
 
 
-def exact_match_plain(index: FMIndex, patterns: torch.Tensor) -> torch.Tensor:
+def exact_match_plain(index: FMIndex, patterns: torch.Tensor,
+                      lengths: torch.Tensor | None = None) -> torch.Tensor:
     """Exact backward match of (B, m) uint8 patterns: m calls of
     ``extend_char_plain`` by pattern[m-1], pattern[m-2], ..., from the full
-    range. Returns the (B, 4) ranges those calls leave, empty ones too."""
+    range. With per-row ``lengths`` (B,) step i reads pattern[length-1-i] and
+    a row stops after its length steps (the rest of the row is padding).
+    Returns the (B, 4) ranges those calls leave, empty ones too."""
     B, m = patterns.shape
     ranges = index.full_range((B,))
     dirs = torch.zeros(B, dtype=torch.int32, device=patterns.device)
-    for j in range(m - 1, -1, -1):
-        ranges = extend_char_plain(index, ranges, patterns[:, j].int(), dirs)
+    for i in range(m):
+        if lengths is None:
+            ranges = extend_char_plain(index, ranges,
+                                       patterns[:, m - 1 - i].int(), dirs)
+            continue
+        j = lengths.long() - 1 - i
+        c = patterns.gather(1, j.clamp(0, m - 1)[:, None])[:, 0].int()
+        new = extend_char_plain(index, ranges, c, dirs)
+        ranges = torch.where((j >= 0)[:, None], new, ranges)
     return ranges
 
 
@@ -160,23 +171,35 @@ def extend_char(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
     return _launch(index, ranges, dirs, chars)
 
 
-def exact_match(index: FMIndex, patterns: torch.Tensor) -> torch.Tensor:
-    """(B, m) uint8 patterns -> (B, 4) int64 ranges of their exact matches.
+def exact_match(index: FMIndex, patterns: torch.Tensor,
+                lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, m) uint8 patterns -> (B, 4) int64 ranges of their exact matches;
+    ``lengths`` (B,) int32 gives each row's own length (None: m).
 
-    A live row holds exactly what m ``extend_char`` steps give; a row
+    A live row holds exactly what its ``extend_char`` steps give; a row
     without a match is the zero range (kernel E stops a row at its first
-    empty range, where the value m steps would leave is arbitrary)."""
+    empty range, where the value the remaining steps would leave is
+    arbitrary)."""
     if not patterns.is_cuda:
-        return zero_empty(exact_match_plain(index, patterns))
+        return zero_empty(exact_match_plain(index, patterns, lengths))
     if (patterns.dtype != torch.uint8 or patterns.dim() != 2
             or not patterns.is_contiguous()
             or index.occ_fused.device != patterns.device):
         raise ValueError("exact_match takes a contiguous (B, m) uint8 batch "
                          "on the index's device")
     B, m = patterns.shape
+    if lengths is not None and (
+            lengths.dtype != torch.int32 or lengths.shape != (B,)
+            or not lengths.is_contiguous()
+            or lengths.device != patterns.device):
+        raise ValueError("exact_match lengths must be a contiguous (B,) "
+                         "int32 tensor on the patterns' device")
     out = torch.empty((B, 4), dtype=torch.int64, device=patterns.device)
     if B:
         EXACT_KERNEL(index.occ_fused.data_ptr(), index.blocks,
                      *index.counts_host, *index.dollar_host,
-                     patterns.data_ptr(), m, index.n, out.data_ptr(), B)
+                     patterns.data_ptr(),
+                     lengths.data_ptr() if lengths is not None else None,
+                     m, index.n, out.data_ptr(), B,
+                     entry="lengths" if lengths is not None else "")
     return out

@@ -55,7 +55,7 @@ KERNEL = native.Kernel(
      ctypes.c_uint32, ctypes.c_uint32,                   # counts, dollar
      ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
      ctypes.c_void_p, ctypes.c_void_p,                   # band, colmin
-     ctypes.c_void_p, ctypes.c_int32,                    # mrow_t, S
+     ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
      ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,    # pchars, T, t
      ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
      ctypes.c_void_p, ctypes.c_void_p,                   # ch_ranges, new_ids
@@ -158,27 +158,47 @@ def _band_row_update(prev: torch.Tensor, pchars: torch.Tensor,
     return torch.stack(rows, dim=1).to(torch.int8)
 
 
+def _lane_scalars(ids_c, mrow_t, dyn_meta, T: int, t: int):
+    """Each lane's packed scalars of step t as (C, 7) int64 rows in the
+    static layout's order [meta, 3 cops, 3 cini], and its cacc, cfro, ub and
+    back depth. Static schedules: the step's (S, 7) row of the lane's
+    search. Per-lane schedules (``dyn_meta``, dynamic partitioning): the
+    lane's own word at ``ids * T + t`` in the layout of
+    ``search/dynschedule.py`` (creset at bit 2, colo + 1 at bits 3-8, ub at
+    bit 9, back depth at bit 17), translated into the ops of its single
+    register."""
+    if dyn_meta is None:
+        mr = mrow_t.long()[ids_c % mrow_t.shape[0]]
+        meta = mr[:, 0]
+        return (mr, (meta >> 2) & 15, (meta >> 6) & 15, (meta >> 10) & 255,
+                (meta >> 18) & 4095)
+    meta = dyn_meta.long()[ids_c * T + t]
+    colo = ((meta >> 3) & 63) - 1
+    zero = torch.zeros_like(meta)
+    cops = torch.where(colo >= 0, colo | (((meta >> 2) & 1) << 6), 63)
+    mr = torch.stack([meta, cops, zero, zero, zero + 63, zero, zero], dim=1)
+    return (mr, torch.where(colo >= 0, 0, 15), zero, (meta >> 9) & 255,
+            (meta >> 17) & 4095)
+
+
 def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
-                    pchars, T: int, t: int, switchpoint: int) -> dict:
+                    pchars, T: int, t: int, switchpoint: int,
+                    dyn_meta=None) -> dict:
     """Plain version of kernel B: one band step's per-lane arithmetic.
 
     Returns the children's state (``ch_ranges`` (C,4,4), ``ch_band``
     (C,4,2,BW), ``ch_colmin`` (C,4,2,W)), ``new_ids`` (ghost marks),
     ``ch_alive`` and ``narrow`` (C,4) flags, and per-lane ``act`` and
-    ``dbv`` (back depth)."""
+    ``dbv`` (back depth). With ``dyn_meta`` the lanes read their own
+    schedule words and ``mrow_t`` is not read (see :func:`_lane_scalars`)."""
     C, _, bw = band.shape
     W = colmin.shape[-1]
-    S = mrow_t.shape[0]
     dev = ranges.device
     ghost = ids < 0
     ids_c = (ids & GHOST_IDM).long()
     alive = ranges[:, 1] > ranges[:, 0]
-    mr = mrow_t.long()[ids_c % S]                           # (C, 7)
+    mr, cacc, cfro, ub, dbv = _lane_scalars(ids_c, mrow_t, dyn_meta, T, t)
     meta = mr[:, 0]
-    cacc = (meta >> 2) & 15
-    cfro = (meta >> 6) & 15
-    ub = (meta >> 10) & 255
-    dbv = (meta >> 18) & 4095
     act = ((meta & 1) == 1) & alive & ~ghost
     sd = (meta >> 1) & 1
     is_b = sd == 0
@@ -243,15 +263,24 @@ def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
 
 
 def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
-              T: int, t: int, switchpoint: int) -> dict:
+              T: int, t: int, switchpoint: int, dyn_meta=None) -> dict:
     """One band step's per-lane arithmetic: the plain version for CPU
-    tensors, kernel B for CUDA tensors (same outputs)."""
+    tensors, kernel B for CUDA tensors (same outputs). ``dyn_meta``
+    (R*S*T,) int32 selects the per-lane entry (one register; ``mrow_t`` is
+    then None)."""
     if not ranges.is_cuda:
         return band_step_plain(index, ranges, ids, band, colmin, mrow_t,
-                               pchars, T, t, switchpoint)
+                               pchars, T, t, switchpoint, dyn_meta)
     C, _, bw = band.shape
     kb = (bw - 1) // 2
     W = colmin.shape[-1]
+    if dyn_meta is not None:
+        if W != 1 or mrow_t is not None:
+            raise ValueError("kernel B's per-lane entry takes one register "
+                             "and no step row")
+        scalars = (dyn_meta, torch.int32, (dyn_meta.shape[0],))
+    else:
+        scalars = (mrow_t, torch.int32, (mrow_t.shape[0], 7))
     if bw != 2 * kb + 1 or kb > KERNEL_MAX_KB or not 1 <= W <= KERNEL_MAX_W:
         raise ValueError(
             f"kernel B takes band widths 2kb+1 with kb <= {KERNEL_MAX_KB} "
@@ -259,8 +288,7 @@ def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
             "schedule produces that")
     expect = ((ranges, torch.int64, (C, 4)), (ids, torch.int32, (C,)),
               (band, torch.int8, (C, 2, bw)), (colmin, torch.int8, (C, 2, W)),
-              (mrow_t, torch.int32, (mrow_t.shape[0], 7)),
-              (pchars, torch.int8, (pchars.shape[0], bw)))
+              scalars, (pchars, torch.int8, (pchars.shape[0], bw)))
     for tns, dt, shape in expect:
         if (tns.dtype != dt or tuple(tns.shape) != shape
                 or not tns.is_contiguous() or tns.device != ranges.device):
@@ -281,12 +309,16 @@ def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
     if C:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
                *index.dollar_host, ranges.data_ptr(), ids.data_ptr(),
-               band.data_ptr(), colmin.data_ptr(), mrow_t.data_ptr(),
-               mrow_t.shape[0], pchars.data_ptr(), T, t, kb, W, switchpoint,
+               band.data_ptr(), colmin.data_ptr(),
+               mrow_t.data_ptr() if dyn_meta is None else None,
+               mrow_t.shape[0] if dyn_meta is None else 0,
+               dyn_meta.data_ptr() if dyn_meta is not None else None,
+               pchars.data_ptr(), T, t, kb, W, switchpoint,
                out["ch_ranges"].data_ptr(), out["new_ids"].data_ptr(),
                out["ch_band"].data_ptr(), out["ch_colmin"].data_ptr(),
                out["ch_alive"].data_ptr(), out["narrow"].data_ptr(),
-               out["act"].data_ptr(), out["dbv"].data_ptr(), C)
+               out["act"].data_ptr(), out["dbv"].data_ptr(), C,
+               entry="per_lane" if dyn_meta is not None else "")
     return out
 
 
@@ -332,6 +364,8 @@ def run_scheme(
     tables: dict | None = None,
     ex_split: int = 0,
     ex_cap: int = 0,
+    search_mask: torch.Tensor | None = None,
+    dyn: dict | None = None,
 ) -> FrontierResult:
     """Execute one compiled scheme over a read batch.
 
@@ -341,7 +375,12 @@ def run_scheme(
     loop (after ``ex_split`` steps the survivors are compacted into
     ``ex_cap`` lanes, overflow counted). split_step/capacity2: two-stage
     band loop (after ``split_step`` steps the frontier shrinks to
-    ``capacity2``).
+    ``capacity2``). search_mask: optional (R, S) bool, the searches that
+    live per read (dynamic scheme selection); the others start empty.
+    dyn: per-(read, search) schedule tables of
+    ``dynschedule.build_tables`` (dynamic partitioning); every lane then
+    starts from the full range without k-mer seeding, reads its own exact
+    steps, band words and cell codes, and has one colMin register.
     """
     from columba_tpu_torch.index import kmer as kmer_mod
 
@@ -354,14 +393,22 @@ def run_scheme(
         raise ValueError(
             f"batch of {R} rows x {S} searches exceeds the 2^21 lane-id "
             "space (ghost encoding); lower the batch size")
-    if tables is None:
-        tables = device_tables(sched, dev)
-    T, E, W = sched.t_max, sched.e_max, int(sched.W)
+    if dyn is not None:
+        # single register: dynamic partitions are clamped to parts longer
+        # than 2k, so colMin windows never overlap
+        T, E, W = dyn["meta"].shape[1], dyn["ex_pos"].shape[1], 1
+    else:
+        if tables is None:
+            tables = device_tables(sched, dev)
+        T, E, W = sched.t_max, sched.e_max, int(sched.W)
     L = R * S
     i64 = dict(dtype=torch.int64, device=dev)
     ids0 = torch.arange(L, dtype=torch.int32, device=dev)  # rid * S + sid
+    kmer_eff = 0 if dyn is not None else sched.kmer_k
 
-    if sched.kmer_k > 0:
+    if dyn is not None:
+        ranges0 = index.full_range((L,))
+    elif sched.kmer_k > 0:
         if kmer_table is None:
             raise ValueError("schedule compiled with k-mer seeding but no "
                              "table given")
@@ -372,6 +419,8 @@ def run_scheme(
         ranges0 = torch.stack(cols, dim=1).reshape(L, 4)
     else:
         ranges0 = index.full_range((L,))
+    if search_mask is not None:
+        ranges0 = torch.where(search_mask.reshape(-1)[:, None], ranges0, 0)
     ranges0 = torch.where((ranges0[:, 1] > ranges0[:, 0])[:, None],
                           ranges0, 0)
 
@@ -384,15 +433,29 @@ def run_scheme(
 
     # ---------------- exact prefix ----------------
     if E > 0:
-        ex_pos = tables["ex_pos"].repeat(1, R)               # (E, L)
-        ex_dir = tables["ex_dir"].repeat(1, R)
-        db_ex = tables["db_ex"].repeat(1, R).long()
-        ex_chars = reads[:, tables["ex_pos"].clamp(min=0).long()]  # (R,E,S)
-        ex_chars = ex_chars.permute(1, 0, 2).reshape(E, L).int()
-        ex_chars = torch.where(ex_pos >= 0, ex_chars, 0)
         # gate the crossover on matched depth: shorter segments are not
         # specific and would flood locate/verify with junk windows
-        gate_t = max(0, itv_min_depth - sched.kmer_k - 1)
+        gate_t = max(0, itv_min_depth - kmer_eff - 1)
+        if dyn is not None:
+            # per-read schedules pad every lane to E = m steps: keep the
+            # steps in which some lane extends, and those up to the gate
+            # step, where the narrow lanes that wait are drained. The steps
+            # after them change nothing.
+            n_ex = int((dyn["ex_pos"] >= 0).any(dim=0).sum())
+            E = min(E, max(n_ex, gate_t + 1))
+            ex_pos = dyn["ex_pos"][:, :E].t().contiguous()   # (E, L)
+            ex_dir = dyn["ex_dir"][:, :E].t().contiguous()
+            db_ex = dyn["db_ex_steps"][:, :E].t().long()
+            ex_chars = reads[(ids0 // S).long()[:, None],
+                             dyn["ex_pos"][:, :E].clamp(0, m - 1).long()]
+            ex_chars = ex_chars.t().int().contiguous()
+        else:
+            ex_pos = tables["ex_pos"].repeat(1, R)           # (E, L)
+            ex_dir = tables["ex_dir"].repeat(1, R)
+            db_ex = tables["db_ex"].repeat(1, R).long()
+            ex_chars = reads[:, tables["ex_pos"].clamp(min=0).long()]
+            ex_chars = ex_chars.permute(1, 0, 2).reshape(E, L).int()
+        ex_chars = torch.where(ex_pos >= 0, ex_chars, 0)
 
         def run_ex(pos_t, dir_t, db_t, chars_t, ids_v, t_off, ranges,
                    drows):
@@ -454,27 +517,37 @@ def run_scheme(
     if switchpoint > 0:
         width = ranges0[:, 1] - ranges0[:, 0]
         narrow = (width > 0) & (width <= switchpoint)
+        db_exact = (dyn["db_exact"] if dyn is not None
+                    else tables["db_exact"].repeat(R))
         rows = torch.stack([ranges0[:, 0], ranges0[:, 1], ids0.long(),
-                            tables["db_exact"].repeat(R).long()], dim=1)
+                            db_exact.long()], dim=1)
         itv_cnt = _append(itv_buf, itv_cnt, rows, narrow, M)
         ranges0 = torch.where(narrow[:, None], 0, ranges0)
 
+    if dyn is not None:
+        band_init = dyn["band_init"]
+        colmin_init = dyn["colmin_init"].reshape(L, 2, 1)
+    else:
+        band_init = tables["band_init"].repeat(R, 1, 1)
+        colmin_init = tables["colmin_init"].repeat(R, 1, 1)
     (ranges, ids, band, colmin), n_alive0 = _compact(
         ranges0[:, 1] > ranges0[:, 0], C,
-        [ranges0, ids0, tables["band_init"].repeat(R, 1, 1),
-         tables["colmin_init"].repeat(R, 1, 1)],
-        [0, 0, INF, INF])
+        [ranges0, ids0, band_init, colmin_init], [0, 0, INF, INF])
     overflow = torch.clamp(n_alive0 - C, min=0) + overflow_ex
     visits = torch.zeros((), **i64)
 
     # ---------------- lockstep band steps ----------------
     if T > 0:
-        posw = tables["posw"]                                # (S, T, BW)
-        pchars = reads[:, posw].to(torch.int8)               # (R, S, T, BW)
-        code = tables["code"]
-        pchars = torch.where(code[None] == 0, pchars, code[None])
-        pchars = pchars.reshape(R * S * T, bw).contiguous()
-        mrow = tables["mrow"]
+        if dyn is not None:
+            pchars = dyn["pchars"]
+            dyn_meta = dyn["meta"].reshape(-1)               # (R*S*T,)
+        else:
+            posw = tables["posw"]                            # (S, T, BW)
+            pchars = reads[:, posw].to(torch.int8)           # (R, S, T, BW)
+            code = tables["code"]
+            pchars = torch.where(code[None] == 0, pchars, code[None])
+            pchars = pchars.reshape(R * S * T, bw).contiguous()
+            mrow, dyn_meta = tables["mrow"], None
 
         def run_steps(state, overflow, visits, itv_cnt, t_lo, t_hi):
             ranges, ids, band, colmin = state
@@ -482,8 +555,9 @@ def run_scheme(
             for t in range(t_lo, t_hi):
                 if not _any_alive(ranges):
                     break
-                o = band_step(index, ranges, ids, band, colmin, mrow[t],
-                              pchars, T, t, switchpoint)
+                o = band_step(index, ranges, ids, band, colmin,
+                              mrow[t] if dyn_meta is None else None,
+                              pchars, T, t, switchpoint, dyn_meta)
                 visits = visits + o["act"].sum() * 4
                 if switchpoint > 0:
                     ch = o["ch_ranges"]
@@ -526,16 +600,22 @@ def run_scheme(
     itv_cnt = _append(itv_buf, itv_cnt, grows, ghost, M)
     ids = (ids & GHOST_IDM).long()
     sid = ids % S
-    # completion bound: each side's last window register (15 = none => 0)
-    freg = tables["final_reg"][sid]                           # (Cf, 2)
-    cm_b = torch.zeros_like(sid)
-    cm_f = torch.zeros_like(sid)
-    for w in range(W):
-        cm_b = torch.where(freg[:, 0] == w, colmin[:, 0, w].long(), cm_b)
-        cm_f = torch.where(freg[:, 1] == w, colmin[:, 1, w].long(), cm_f)
+    # completion bound: each side's last window register (15 = none => 0);
+    # per-lane schedules have the one register on both sides
+    if dyn is not None:
+        cm_b, cm_f = colmin[:, 0, 0].long(), colmin[:, 1, 0].long()
+        u_last = dyn["u_last"].long()
+    else:
+        freg = tables["final_reg"][sid]                       # (Cf, 2)
+        cm_b = torch.zeros_like(sid)
+        cm_f = torch.zeros_like(sid)
+        for w in range(W):
+            cm_b = torch.where(freg[:, 0] == w, colmin[:, 0, w].long(), cm_b)
+            cm_f = torch.where(freg[:, 1] == w, colmin[:, 1, w].long(), cm_f)
+        u_last = tables["u_last"]
     ed_lb = cm_b + cm_f
     alive = (ranges[:, 1] > ranges[:, 0]) & ~ghost
-    done = alive & (ed_lb <= tables["u_last"][sid])
+    done = alive & (ed_lb <= u_last[sid])
     return FrontierResult(
         ranges=ranges, rid=ids // S, sid=sid, ed_lb=ed_lb, done=done,
         overflow=overflow, nodes_visited=visits, itv=itv_buf[:M],

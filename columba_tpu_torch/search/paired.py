@@ -259,7 +259,8 @@ def _dispatch_side(index, reads, cut, cfg, kmer_table):
     return pipeline.match_all_start(
         index, reads, strategy._scheme_for(cfg, cut), metric=cfg.metric,
         capacity=cfg.capacity, max_locate=cfg.max_locate,
-        kmer_table=kmer_table, switchpoint=cfg.switchpoint)
+        kmer_table=kmer_table, partitioning=cfg.partitioning,
+        switchpoint=cfg.switchpoint)
 
 
 @dataclass
@@ -564,7 +565,8 @@ def map_pairs_best(
             occs, stats = pipeline.match_all(
                 index, reads[idxs], scheme, metric=cfg.metric,
                 capacity=cfg.capacity, max_locate=cfg.max_locate,
-                kmer_table=kmer_table, switchpoint=cfg.switchpoint)
+                kmer_table=kmer_table, partitioning=cfg.partitioning,
+                switchpoint=cfg.switchpoint)
             if counters is not None:
                 counters.add_device_stats(stats)
             if cfg.arrays is not None:

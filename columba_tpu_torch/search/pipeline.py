@@ -1,7 +1,10 @@
 """End-to-end matching pipeline: executor -> locate -> verify -> occurrences.
 
-The counterpart of ``columba_tpu/search/pipeline.py`` for ALL mode with a
-static schedule: run the compiled scheme over the frontier, expand the
+The counterpart of ``columba_tpu/search/pipeline.py`` for ALL mode: pick the
+schedule (uniform or static partition, compiled once; or dynamic
+partitioning, whose per-read tables kernels F and G make on the device
+before every run; a list of schemes adds the per-read scheme selection
+probe), run the scheme over the frontier, expand the
 candidate SA ranges to rows (count, then gather), locate them, dedup the
 (read, window) pairs, verify in text, and post-process on the host (cluster
 centres, dedup, redundancy filter) into occurrences. k = 0 without a seed
@@ -24,7 +27,7 @@ import torch
 from columba_tpu_torch.core import alphabet
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import extend, locate, verify
-from columba_tpu_torch.search import executor, schedule
+from columba_tpu_torch.search import dynschedule, executor, schedule
 from columba_tpu_torch.search.scheme import SearchScheme
 
 
@@ -95,20 +98,27 @@ def crossover_caps(capacity: int, max_locate: int, switchpoint: int):
     return 0, 0, 0
 
 
-def stage_candidates(res: executor.FrontierResult, tables: dict):
+def stage_candidates(res: executor.FrontierResult, tables: dict, S: int,
+                     dyn: dict | None = None):
     """Completed frontier lanes + in-text rows [f_lo, f_hi, ids, depth] ->
     one candidate list (c_lo, c_hi, c_rid, c_estb); estb is the read
-    start's offset from the back-side text depth."""
-    S = tables["pivot"].shape[0]
+    start's offset from the back-side text depth. The back depth and pivot
+    are per search (``tables``) or, under dynamic partitioning, per (read,
+    search) lane (``dyn``)."""
     fr_lo = torch.where(res.done, res.ranges[:, 0], 0)
     fr_hi = torch.where(res.done, res.ranges[:, 1], 0)
-    fr_estb = tables["t_back"][res.sid] - tables["pivot"][res.sid]
     itv = res.itv
     iv_valid = torch.arange(itv.shape[0], device=itv.device) < res.itv_count
     iv_lo = torch.where(iv_valid, itv[:, 0], 0)
     iv_hi = torch.where(iv_valid, itv[:, 1], 0)
     iv_ids = itv[:, 2]
-    iv_estb = itv[:, 3] - tables["pivot"][iv_ids % S]
+    if dyn is not None:
+        lane_fr = res.rid * S + res.sid
+        fr_estb = (dyn["t_back"][lane_fr] - dyn["pivot"][lane_fr]).long()
+        iv_estb = itv[:, 3] - dyn["pivot"][iv_ids].long()
+    else:
+        fr_estb = tables["t_back"][res.sid] - tables["pivot"][res.sid]
+        iv_estb = itv[:, 3] - tables["pivot"][iv_ids % S]
     return (torch.cat([fr_lo, iv_lo]), torch.cat([fr_hi, iv_hi]),
             torch.cat([res.rid, iv_ids // S]), torch.cat([fr_estb, iv_estb]))
 
@@ -160,16 +170,19 @@ def match_device_core(index: FMIndex, reads: torch.Tensor,
                       switchpoint: int = 0, itv_cap: int = 0,
                       split_step: int = 0, capacity2: int = 0,
                       max_verify: int | None = None, itv_min_depth: int = 16,
-                      ex_split: int = 0, ex_cap: int = 0) -> dict:
+                      ex_split: int = 0, ex_cap: int = 0, search_mask=None,
+                      dyn: dict | None = None) -> dict:
     """Device-side match step: reads (R, m) uint8 on the index's device."""
     if max_verify is None:
         max_verify = max_locate
-    tables = executor.device_tables(sched, reads.device)
+    tables = (executor.device_tables(sched, reads.device) if dyn is None
+              else None)
     res = executor.run_scheme(
         index, reads, sched, capacity, kmer_table, switchpoint, itv_cap,
         split_step, capacity2, itv_min_depth=itv_min_depth, tables=tables,
-        ex_split=ex_split, ex_cap=ex_cap)
-    c_lo, c_hi, c_rid, c_estb = stage_candidates(res, tables)
+        ex_split=ex_split, ex_cap=ex_cap, search_mask=search_mask, dyn=dyn)
+    c_lo, c_hi, c_rid, c_estb = stage_candidates(res, tables,
+                                                 sched.num_searches, dyn)
     rows, cand, valid, total = stage_expand(c_lo, c_hi, max_locate)
     pos = locate.locate_rows(index, rows)
     win_start = pos + c_estb[cand] - kb          # signed: may be < 0
@@ -191,12 +204,86 @@ _SCHED_CACHE: dict = {}
 
 
 def compile_cached(scheme: SearchScheme, m: int, metric: str,
-                   kmer_k: int = 0) -> schedule.Schedule:
-    key = (scheme, m, metric, kmer_k)
+                   kmer_k: int = 0,
+                   partitioning: str = "uniform") -> schedule.Schedule:
+    key = (scheme, m, metric, kmer_k, partitioning)
     if key not in _SCHED_CACHE:
+        partition = None
+        if partitioning == "static" and scheme.static_fracs:
+            partition = schedule.static_partition(m, scheme.static_fracs)
         _SCHED_CACHE[key] = schedule.compile_schedule(
-            scheme, m, metric=metric, kmer_k=kmer_k)
+            scheme, m, partition=partition, metric=metric, kmer_k=kmer_k)
     return _SCHED_CACHE[key]
+
+
+_SCHEME_STATIC_CACHE: dict = {}
+
+
+def _scheme_static_cached(scheme: SearchScheme, m: int, metric: str):
+    key = (scheme, m, metric)
+    if key not in _SCHEME_STATIC_CACHE:
+        _SCHEME_STATIC_CACHE[key] = dynschedule.scheme_static(scheme, m,
+                                                              metric)
+    return _SCHEME_STATIC_CACHE[key]
+
+
+def part_exact_ranges(index: FMIndex, reads: torch.Tensor,
+                      pts) -> torch.Tensor:
+    """Exact-match ranges of every partition part, batched (kernel E with
+    per-row lengths on the card).
+
+    reads: (R, m) uint8; pts: part boundaries (p+1,). Returns (R, p, 4)
+    int64; a part without a match has the zero range. The analogue of the
+    reference's calculateExactMatchRanges (src/searchstrategy.cpp:158-190);
+    feeds dynamic scheme selection.
+    """
+    R, m = reads.shape
+    pl = [int(x) for x in pts]
+    p = len(pl) - 1
+    lens = [pl[i + 1] - pl[i] for i in range(p)]
+    maxlen = max(lens)
+    # patterns (R*p, maxlen): part i of read r, padded with 5
+    pos = np.full((p, maxlen), -1, dtype=np.int64)
+    for i in range(p):
+        pos[i, :lens[i]] = np.arange(pl[i], pl[i + 1])
+    pos = torch.from_numpy(pos).to(reads.device)
+    chars = torch.where((pos >= 0)[None], reads[:, pos.clamp(0, m - 1)], 5)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=reads.device)
+    flat = chars.reshape(R * p, maxlen).to(torch.uint8).contiguous()
+    rng = extend.exact_match(index, flat, lengths.repeat(R))
+    return rng.reshape(R, p, 4)
+
+
+def select_schemes(index: FMIndex, batch: torch.Tensor,
+                   schemes: list[SearchScheme]):
+    """Dynamic per-read scheme selection.
+
+    Returns (combined scheme, search_mask (R, S_total) bool, choice (R,)),
+    the last two as numpy arrays: the exact ranges of the uniform parts
+    come to the host (one synchronisation) and the choice is made there.
+    The rule mirrors the reference (src/searchstrategy.h:2505-2537): pick
+    the scheme whose critical search starts at the part with the fewest
+    exact matches; scheme 0 when the total exact count is <= #parts.
+    """
+    k = schemes[0].k
+    p = schemes[0].num_parts
+    m = batch.shape[1]
+    pts = schedule.uniform_partition(m, p)
+    ranges = part_exact_ranges(index, batch, pts).cpu().numpy()
+    widths = ranges[:, :, 1] - ranges[:, :, 0]           # (R, p) int64
+    crit = np.array([sc.critical_part_index for sc in schemes])
+    crit_w = widths[:, crit]                             # (R, n_schemes)
+    choice = np.argmin(crit_w, axis=1)
+    choice = np.where(widths.sum(axis=1) <= p, 0, choice)
+
+    all_searches = tuple(s for sc in schemes for s in sc.searches)
+    combined = SearchScheme(all_searches, k=k,
+                            name="+".join(sc.name for sc in schemes))
+    scheme_of = np.concatenate([
+        np.full(len(sc.searches), i) for i, sc in enumerate(schemes)
+    ])
+    mask = scheme_of[None, :] == choice[:, None]         # (R, S_total)
+    return combined, mask, choice
 
 
 def match_all(*args, **kwargs) -> tuple[OccArray, dict]:
@@ -229,6 +316,8 @@ def match_all_start(
     both_strands: bool = True,
     redundancy_filter: bool = True,
     kmer_table=None,
+    partitioning: str = "uniform",
+    partition_pts=None,
     switchpoint: int = 0,
     ex_split: int = 0,
     ex_cap: int = 0,
@@ -238,13 +327,17 @@ def match_all_start(
 
     reads_codes: (R, m) uint8 codes. k = 0 runs through the scheme
     executor, as in the JAX package, when a seed table and the in-text
-    crossover are on, and takes the exact pass otherwise. Dynamic
-    partitioning and selection are not ported yet (ROADMAP).
+    crossover are on, and takes the exact pass otherwise. ``scheme`` may be
+    a list of schemes with one part count: each read then runs the one
+    :func:`select_schemes` picks for it. ``partitioning``: "uniform",
+    "static" (the scheme's own fractions) or "dynamic" (per-read greedy
+    boundaries, kernels F and G); ``partition_pts`` (rows, p+1) gives the
+    boundaries of every row (both strands) directly.
     """
     from columba_tpu_torch.index.kmer import table_k
 
     R, m = reads_codes.shape
-    k = scheme.k
+    k = scheme[0].k if isinstance(scheme, (list, tuple)) else scheme.k
     kb = k if metric == "edit" else 0
     batch = reads_codes.astype(np.uint8)
     if both_strands:
@@ -262,17 +355,51 @@ def match_all_start(
         return dict(exact=dict(out=out, event=event, batch=batch_dev, R=R,
                                max_locate=max_locate,
                                auto_locate=auto_locate, index=index))
+    search_mask = mask_np = None
+    if isinstance(scheme, (list, tuple)):
+        scheme, mask_np, _ = select_schemes(index, batch_dev, list(scheme))
+        search_mask = torch.from_numpy(mask_np).to(dev)
+
+    if (partitioning == "dynamic" and partition_pts is None
+            and m < scheme.num_parts * (2 * kb + 1)):
+        # per-read schedules need every part >= 2*kb+1 (the overshoot
+        # construction); a read too short for that takes the static
+        # compiler's short-part path (rotating colMin registers)
+        partitioning = "uniform"
+    make_dyn = None
+    if partitioning == "dynamic" or partition_pts is not None:
+        st = _scheme_static_cached(scheme, m, metric)
+        if partition_pts is not None:
+            pts_dev = torch.from_numpy(np.ascontiguousarray(
+                partition_pts, dtype=np.int32)).to(dev)
+
+        def make_dyn():
+            # partition, tables and match run one after another on the
+            # stream; the tables live only as long as the run that reads
+            # them (a retry makes them again)
+            pts = (pts_dev if partition_pts is not None else
+                   dynschedule.dynamic_partition(index, batch_dev, scheme,
+                                                 kmer_table))
+            return dynschedule.build_tables(st, pts, batch_dev)
+
     sched = compile_cached(scheme, m, metric,
                            kmer_k=(table_k(kmer_table)
-                                   if kmer_table is not None else 0))
+                                   if kmer_table is not None
+                                   and make_dyn is None else 0),
+                           partitioning="uniform" if make_dyn is not None
+                           else partitioning)
     auto_capacity = capacity is None
     if auto_capacity:
         # seeded exact prefixes kill most (read, search) lanes before the
-        # band phase; with the crossover off survivors stay to the end
+        # band phase; with the crossover off survivors stay to the end.
+        # Under scheme selection only one scheme's searches live per read.
+        live_s = sched.num_searches
+        if mask_np is not None:
+            live_s = int(mask_np.sum(axis=1).max())
         div = 2 if switchpoint == 0 else 8
-        capacity = max(1024, batch.shape[0] * sched.num_searches // div)
+        capacity = max(1024, batch.shape[0] * live_s // div)
     if (switchpoint == 0 and ex_split == 0 and kmer_table is not None
-            and sched.kmer_k > 0 and sched.e_max > 8):
+            and make_dyn is None and sched.kmer_k > 0 and sched.e_max > 8):
         ex_split, ex_cap = 8, capacity
 
     def run(cap, ecap, ml):
@@ -280,7 +407,9 @@ def match_all_start(
         out = match_device_core(
             index, batch_dev, sched, int(cap), int(ml), kb, kmer_table,
             int(switchpoint), itv_cap, split_step, cap2,
-            ex_split=int(ex_split), ex_cap=int(ecap))
+            ex_split=int(ex_split), ex_cap=int(ecap),
+            search_mask=search_mask,
+            dyn=make_dyn() if make_dyn is not None else None)
         return out, _record_event(dev)
 
     out, event = run(capacity, ex_cap, max_locate)

@@ -127,9 +127,17 @@ def uniform_partition(m: int, p: int) -> np.ndarray:
     return np.array([(i * m) // p for i in range(p + 1)], dtype=np.int64)
 
 
+def static_partition(m: int, fracs) -> np.ndarray:
+    """Per-scheme optimal static boundaries
+    (reference: src/searchstrategy.cpp:221-238 ``partitionOptimalStatic``)."""
+    pts = [0] + [int(f * m) for f in fracs] + [m]
+    return np.array(pts, dtype=np.int64)
+
+
 def compile_schedule(
     scheme: SearchScheme,
     m: int,
+    partition: np.ndarray | None = None,
     metric: str = "edit",
     kmer_k: int = 0,
 ) -> Schedule:
@@ -142,7 +150,9 @@ def compile_schedule(
     kb = k if metric == "edit" else 0
     bw = 2 * kb + 1
     p = scheme.num_parts
-    pts = uniform_partition(m, p)
+    pts = uniform_partition(m, p) if partition is None else np.asarray(partition)
+    if not (len(pts) == p + 1 and pts[0] == 0 and pts[-1] == m):
+        raise ValueError(f"partition {pts} does not cut [0, {m}) in {p} parts")
     part_lens = np.diff(pts)
     if part_lens.min() < 1:
         raise ValueError(

@@ -107,6 +107,11 @@ class Search:
     def max_errors(self) -> int:
         return self.upper[-1]
 
+    def mirrored(self) -> "Search":
+        """π mirrored around the center (reference: src/search.h:488-494)."""
+        p = len(self.pi)
+        return Search(tuple(p - 1 - x for x in self.pi), self.lower, self.upper)
+
     def __str__(self):
         fmt = lambda v: "{" + ",".join(map(str, v)) + "}"
         return f"{fmt(self.pi)} {fmt(self.lower)} {fmt(self.upper)}"
@@ -164,6 +169,29 @@ class SearchScheme:
 
     def is_valid(self) -> bool:
         return not self.uncovered_distributions()
+
+    @cached_property
+    def critical_search_index(self) -> int:
+        """Index of the search with lexicographically largest U-string
+        (reference: src/search.h:525-539)."""
+        return max(
+            range(len(self.searches)), key=lambda i: self.searches[i].upper
+        )
+
+    @property
+    def critical_part_index(self) -> int:
+        """Starting part of the critical search (the part whose exact-match
+        count drives dynamic scheme selection,
+        reference: src/searchstrategy.h:2505-2537)."""
+        return self.searches[self.critical_search_index].pi[0]
+
+    def mirrored(self) -> "SearchScheme":
+        """All searches with pi mirrored (reference mirrorPiStrings). The
+        partitioning data does not carry over, as in the JAX package."""
+        return SearchScheme(
+            tuple(s.mirrored() for s in self.searches), k=self.k,
+            name=self.name + "-mirror",
+        )
 
     def __str__(self):
         return "\n".join(str(s) for s in self.searches)
@@ -224,6 +252,33 @@ def load_scheme_folder(folder: str, k: int) -> SearchScheme:
     return scheme
 
 
+def load_multi_scheme_folder(folder: str, k: int) -> list[SearchScheme]:
+    """Load ``<folder>/<k>/scheme1.txt scheme2.txt ...``: the reference's
+    dynamic-selection collection layout (-d; src/searchstrategy.h:2390-2445
+    ``MultipleSchemes::getSchemesFromFolder``). All schemes must share one
+    part count."""
+    schemes = []
+    x = 1
+    while True:
+        path = os.path.join(folder, str(k), f"scheme{x}.txt")
+        if not os.path.exists(path):
+            break
+        with open(path) as f:
+            sc = parse_scheme_text(f.read(), k=k, name=f"scheme{x}")
+        if not sc.is_valid():
+            raise ValueError(f"scheme{x} k={k} in {folder} is not lossless")
+        schemes.append(sc)
+        x += 1
+    if not schemes:
+        raise ValueError(
+            f"no {folder}/{k}/scheme1.txt: expected the reference's "
+            "dynamic-selection collection layout")
+    p = schemes[0].num_parts
+    if any(sc.num_parts != p for sc in schemes):
+        raise ValueError(f"schemes in {folder}/{k} differ in part count")
+    return schemes
+
+
 # ---------------------------------------------------------------------------
 # Generators / registry
 # ---------------------------------------------------------------------------
@@ -266,6 +321,32 @@ _BUILTIN_DIRS = {
     "minU": "minU",
     "columba": "columba",
 }
+
+
+@functools.lru_cache(maxsize=256)
+def get_multi_scheme(name: str, k: int) -> list[SearchScheme]:
+    """Candidate scheme list for dynamic per-read selection.
+
+    'columba' mirrors the reference's DynamicColumbaStrategy
+    (src/searchstrategy.h:3666-3736): minU schemes + their mirrors + the
+    extra mid-anchored schemes for even k. Any other name yields
+    [scheme, scheme.mirrored()] (the reference's custom dynamic selection).
+    """
+    if name == "columba":
+        base = get_scheme("columba", k) if k >= 1 else exact_scheme()
+        out = [base, base.mirrored()]
+        if k in (2, 4, 6):
+            mid = load_scheme_folder(os.path.join(_SCHEME_DIR, "columba_mid"), k)
+            out.append(mid)
+            if k == 6:
+                out.append(mid.mirrored())
+        return out
+    if os.path.isdir(name) and os.path.exists(
+        os.path.join(name, str(k), "scheme1.txt")
+    ):
+        return load_multi_scheme_folder(name, k)
+    base = get_scheme(name, k)
+    return [base, base.mirrored()]
 
 
 @functools.lru_cache(maxsize=512)

@@ -1,7 +1,7 @@
 """Mapping strategies: single-end ALL and BEST(+x) modes over read batches.
 
 The counterpart of ``columba_tpu/search/strategy.py`` (without its Python
-SAM emitters, dynamic scheme selection and the textless branch): ALL mode
+SAM emitters and the textless branch): ALL mode
 reports every occurrence with ed <= k; BEST mode finds each read's best
 distance stratum up to a cutoff derived from the minimum identity, then
 reports occurrences within [best, best + x]. Cutoffs <= 6 run one ALL pass
@@ -18,7 +18,7 @@ import numpy as np
 
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.search import pipeline
-from columba_tpu_torch.search.scheme import get_scheme
+from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
 
 BEST_CUTOFF = 13  # reference BEST_CUTOFF_COLUMBA (src/definitions.h)
 
@@ -71,6 +71,9 @@ class MappingConfig:
     max_distance: int = 2     # ALL mode k (reference -e)
     best_plus_x: int = 0      # BEST +x strata
     min_identity: int = 95
+    dynamic_selection: bool = False  # per-read scheme choice (-c/-d)
+    probe_selection: bool = False    # force the probe for builtin 'columba'
+    partitioning: str = "uniform"    # "uniform" | "static" | "dynamic"
     switchpoint: int = 4      # in-text crossover (reference -i, default 4)
     capacity: int | None = None
     max_locate: int | None = None  # None: scale with batch + spill retry
@@ -89,16 +92,29 @@ class MappedRead:
 
 
 def _scheme_for(cfg: MappingConfig, k: int):
-    """The scheme of one pass at cut k. The builtin 'columba' set collapses
-    to its base scheme, as in the JAX package without probe selection (the
-    occurrence set is identical: every scheme of the set is lossless)."""
+    """The scheme of one pass at cut k, or the list of schemes that
+    per-read selection picks from.
+
+    The builtin 'columba' selection set collapses to its base scheme unless
+    probe selection is forced: in a lockstep batch the masked combined pass
+    costs the union of all schemes' searches, so the per-read choice saves
+    nothing, and the occurrence set is identical either way (every scheme
+    of the set is lossless at k). Scheme folders (-d, -c) keep the probe."""
+    if k == 0:
+        return get_scheme(cfg.scheme_name, 0)
+    if cfg.scheme_name == "columba":
+        if cfg.probe_selection:
+            return get_multi_scheme("columba", k)
+        return get_scheme("columba", k)
+    if cfg.dynamic_selection:
+        return get_multi_scheme(cfg.scheme_name, k)
     return get_scheme(cfg.scheme_name, k)
 
 
 def _match_kwargs(cfg: MappingConfig) -> dict:
     return dict(metric=cfg.metric, capacity=cfg.capacity,
                 max_locate=cfg.max_locate, kmer_table=cfg.kmer_table,
-                switchpoint=cfg.switchpoint)
+                partitioning=cfg.partitioning, switchpoint=cfg.switchpoint)
 
 
 def map_batch_all_start(index: FMIndex, reads: np.ndarray,

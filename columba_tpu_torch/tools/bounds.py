@@ -7,7 +7,8 @@ bytes over the card's memory rate and operations over its arithmetic rate.
 Where the work depends on the data (kernel B skips the occ rows of inactive
 lanes, kernel C walks LF until a sampled row, kernel E stops at a read's
 first empty range), the caller passes what this call's data needed, counted
-with the plain versions.
+with the plain versions. Kernels F, G and H do the same work whatever the
+data.
 
 Peak rates are NVIDIA's data-sheet figures for the H100 SXM at its full
 power limit: 3.35 TB/s of HBM, and 67 T operations/s outside the tensor
@@ -58,10 +59,13 @@ def extend(ranges, dirs, chars, out) -> dict:
 def band_step(ranges, ids, band, colmin, mrow_t, out: dict) -> dict:
     """Kernel B: every lane's state in and its four children out; the
     lanes active in this step (``out['act']``) also read their cell codes
-    and two occ rows, and do the band and register arithmetic."""
+    and two occ rows, and do the band and register arithmetic. The step's
+    scalars are the (S, 7) row, or with ``mrow_t`` None (the per-lane
+    entry) one 4-byte word per lane."""
     bw, W = band.shape[-1], colmin.shape[-1]
     n_act = int(out["act"].sum())
     n_bytes = (_nbytes(ranges, ids, band, colmin, mrow_t, *out.values())
+               + (4 * ranges.shape[0] if mrow_t is None else 0)
                + n_act * (2 * OCC_ROW_BYTES + bw))
     # 4 chars x bw cells x (compare, select, add, 2 min, clamp) for the
     # row; W registers x 4 chars x (bw selects + 3); prune 4 x (bw + W + 6)
@@ -102,23 +106,65 @@ def exact(steps_walked: int, rows: int, out) -> dict:
                  steps_walked * (EXTEND_OPS + 8) + rows * 8)
 
 
-def exact_steps(index, batch: torch.Tensor) -> int:
+def exact_steps(index, batch: torch.Tensor, lengths=None) -> int:
     """Steps kernel E walks on ``batch``: for each row the number of chars
     it extends by before (and including) the step that empties its range,
-    counted with the plain extend."""
+    counted with the plain extend. ``lengths``: the rows' own lengths."""
     from columba_tpu_torch.ops import extend as ext
 
     B, m = batch.shape
     ranges = index.full_range((B,))
     dirs = torch.zeros(B, dtype=torch.int32, device=batch.device)
     alive = torch.ones(B, dtype=torch.bool, device=batch.device)
+    if lengths is None:
+        lengths = torch.full((B,), m, dtype=torch.int64, device=batch.device)
     steps = 0
-    for j in range(m - 1, -1, -1):
-        c = batch[:, j].int()
+    for i in range(m):
+        j = lengths.long() - 1 - i
+        alive &= j >= 0
+        c = batch.gather(1, j.clamp(0, m - 1)[:, None])[:, 0].int()
         # a row that meets N stops without reading its rows
         steps += int((alive & (c <= 3)).sum())
-        ranges = ext.extend_char_plain(index, ranges, c, dirs)
+        new = ext.extend_char_plain(index, ranges, c, dirs)
+        ranges = torch.where(alive[:, None], new, ranges)
         alive &= ranges[:, 1] > ranges[:, 0]
         if not bool(alive.any()):
             break
     return steps
+
+
+def dynpart(reads, p: int, K: int, seeded: bool, pts) -> dict:
+    """Kernel F: per read its m chars in, the p seed ranges (a 32 B table
+    row each, or without a table one extension of the full range: two occ
+    rows), then m - p*K steps of two occ rows each (a thread walks them all,
+    whatever its ranges); p + 1 boundaries out. Each step scans the p parts
+    (width, two compares, a product, a compare) before it extends."""
+    R, m = reads.shape
+    steps = R * max(m - p * K, 0)
+    seed_bytes = R * p * (32 if seeded else 2 * OCC_ROW_BYTES)
+    seed_ops = R * p * (2 * K if seeded else EXTEND_OPS)
+    return bound(_nbytes(reads, pts) + seed_bytes
+                 + steps * 2 * OCC_ROW_BYTES,
+                 seed_ops + steps * (EXTEND_OPS + 8 * p + 16))
+
+
+def dyn_tables(pts, reads, phases, out: dict) -> dict:
+    """Kernel G: boundaries, reads and the scheme's phase table in, every
+    table out (u_last is the scheme's own and is not written). Per (read,
+    search): a p-phase prologue; per band step the phase search (p), about
+    30 operations for the word and 10 per band cell; per exact step two
+    loops over the phases."""
+    written = [v for k, v in out.items() if k != "u_last"]
+    L, T = out["meta"].shape
+    E = out["ex_pos"].shape[1]
+    bw = out["pchars"].shape[1]
+    p = pts.shape[1] - 1
+    return bound(_nbytes(pts, reads, phases, *written),
+                 L * (20 * p + T * (p + 30 + 10 * bw) + E * (3 * p + 12)))
+
+
+def gather(table, idx, out) -> dict:
+    """Kernel H: per lane its index and its row in, the row out; a move and
+    a clamp per 16 B chunk."""
+    return bound(_nbytes(idx, out, out),     # the row is read and written
+                 idx.numel() * (table.shape[1] // 4) * 4)

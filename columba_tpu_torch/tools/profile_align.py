@@ -3,7 +3,7 @@
 Run from the repository root on a machine with a CUDA device:
 
     python -m columba_tpu_torch.tools.profile_align [--out DIR]
-        [--mode all|best] [--paired]
+        [--mode all|best] [--paired] [--partitioning uniform|static|dynamic]
 
 It builds the smoke's workload (``tools/workload.py``: a random 128 Mbp
 genome, Vanilla index with SA sparseness 4, 100 bp reads with 1 %
@@ -11,7 +11,9 @@ substitutions; with ``--paired``, ``fr`` pairs of such mates) and then
 measures, on ``align -a all -e 2 -S kuch1 -b 16384`` or, with ``--mode
 best``, ``align -a best -S kuch1 -b 16384`` (the CLI's defaults: 10-mer
 seed table, in-text switchpoint 4, 95 % identity; paired-end with insert
-inference on):
+inference on; ``--partitioning`` passes ``-p``, and under ``dynamic`` the
+stage breakdown shows the partition and table stage, kernels F and G,
+beside search):
 
 1. end to end: ``cli align`` of 1,048,576 reads, or of 524,288 pairs,
    twice, FASTQ in and SAM written, in reads/s or pairs/s;
@@ -66,6 +68,12 @@ def log(msg: str) -> None:
 # paths; a name may cover several functions
 STAGES = [
     ("columba_tpu_torch.io.fastq", "_parse_chunk", "parse (native FASTQ)"),
+    ("columba_tpu_torch.search.dynschedule", "dynamic_partition",
+     "partition + tables (kernels F, G)"),
+    ("columba_tpu_torch.search.dynschedule", "build_tables",
+     "partition + tables (kernels F, G)"),
+    ("columba_tpu_torch.search.pipeline", "select_schemes",
+     "scheme selection probe (kernel E with lengths)"),
     ("columba_tpu_torch.search.executor", "run_scheme",
      "search: exact prefix + band steps"),
     ("columba_tpu_torch.ops.extend", "exact_match", "exact pass (kernel E)"),
@@ -148,6 +156,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=["all", "best"], default="all")
     ap.add_argument("--paired", action="store_true",
                     help="paired-end: fr pairs of 100 bp mates")
+    ap.add_argument("--partitioning", default="uniform",
+                    choices=["uniform", "static", "dynamic"],
+                    help="the align's -p")
     args = ap.parse_args(argv)
     torch.cuda.init()        # raises where there is no CUDA device
 
@@ -175,7 +186,8 @@ def main(argv=None) -> int:
         n_e2e = E2E_PAIRS if args.paired else E2E_READS
         unit = "pairs" if args.paired else "reads"
         what = (f"{'PE' if args.paired else 'SE'} "
-                f"{'ALL k=' + str(K) if args.mode == 'all' else 'BEST'}")
+                f"{'ALL k=' + str(K) if args.mode == 'all' else 'BEST'}"
+                f" -p {args.partitioning}")
         sampler = workload.sample_pairs if args.paired \
             else workload.sample_reads
         sample = sampler(decoded_text(arrays), arrays.seq_starts, n_e2e, rng)
@@ -188,7 +200,7 @@ def main(argv=None) -> int:
             workload.write_fastq(fq_e[-1], codes, "r")
         argv_al = ["align", "-r", idx, "-S", "kuch1", "-b", str(BATCH)] + (
             ["-a", "all", "-e", str(K)] if args.mode == "all"
-            else ["-a", "best"])
+            else ["-a", "best"]) + ["-p", args.partitioning]
         sam = os.path.join(wd, "out.sam")
 
         def align(paths: list) -> float:

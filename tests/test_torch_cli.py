@@ -9,7 +9,9 @@ package in one: records do not depend on the batch size, and one JAX batch
 halves its share of the run time. The same holds for BEST(+x) single-end
 and for paired-end BEST and ALL (50 bp mates at 96 % identity, so the
 cutoff is 2 and the rungs are (0,0) -> (2,2); ``-e 0`` takes the exact pass
-on both sides). The port runs with ``--device cpu``; without it, it must
+on both sides), and for dynamic and static partitioning, scheme folders
+(``-c``), scheme collections (``-d``) and the forced selection probe. The
+port runs with ``--device cpu``; without it, it must
 raise here, where there is no card. The static test parses every module
 of the port and fails on any import of JAX or of the JAX package, and on
 any call that builds a path into the JAX package.
@@ -30,6 +32,7 @@ torch.set_num_threads(1)
 
 PORT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "columba_tpu_torch")
+SCHEMES = os.path.join(os.path.dirname(PORT), "schemes")
 CPU = {"jax": [], "torch": ["--device", "cpu"]}
 ARRAYS = ["text", "bwt", "rbwt", "occ", "rocc", "counts", "sa_samples",
           "sa_bits", "sa_bits_rank", "seq_starts"]
@@ -111,7 +114,7 @@ def test_align_identical_sam(built):
         [c for c in pg["torch"] if not c.startswith(("ID:", "PN:"))]
 
 
-@pytest.mark.parametrize("opts", [["-p", "dynamic"], ["-T", "0-50"]])
+@pytest.mark.parametrize("opts", [["-o", "hits.rhs"], ["-T", "0-50"]])
 def test_align_refuses_modes_not_ported(built, opts):
     wd, idx = built
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -184,11 +187,31 @@ def pairs(built):
      True),
     ("pe_all_e1_disc", ["-a", "all", "-e", "1", "-D", "-X", "400", "-N",
                         "60"], True),
+    ("se_all_dynamic", ["-a", "all", "-e", "2", "-p", "dynamic"], False),
+    ("pe_best_static_c", ["-a", "best", "-I", "96", "-p", "static", "-c",
+                          os.path.join(SCHEMES, "kuch_k+1")], True),
+    ("se_all_static_c_nD", ["-a", "all", "-e", "2", "-p", "static", "-nD",
+                            "-c", os.path.join(SCHEMES, "kuch_k+1")], False),
+    ("se_best_d", ["-a", "best", "-I", "96", "-d", "@COLLECTION@"], False),
+    ("se_all_probe", ["-a", "all", "-e", "2", "-S", "columba",
+                      "--probe-selection", "-p", "dynamic"], False),
 ])
 def test_align_modes_identical_sam(built, pairs, tag, opts, paired):
     """Byte-identical SAM records from the two packages in BEST(+x) mode,
-    through the exact pass, and paired-end in BEST and ALL mode."""
+    through the exact pass, paired-end in BEST and ALL mode, and with
+    dynamic and static partitioning, a scheme folder with its mirror (-c)
+    and alone with its static fractions (-c -nD), a scheme collection (-d: kuch_k+1's searches twice, as the JAX package's
+    own CLI test builds it) and the forced probe of the columba set."""
     wd, idx = built
+    if "@COLLECTION@" in opts:
+        multi = wd / "multi"
+        for k in (1, 2):
+            (multi / str(k)).mkdir(parents=True, exist_ok=True)
+            text = open(os.path.join(SCHEMES, "kuch_k+1", str(k),
+                                     "searches.txt")).read()
+            (multi / str(k) / "scheme1.txt").write_text(text)
+            (multi / str(k) / "scheme2.txt").write_text(text)
+        opts = [str(multi) if o == "@COLLECTION@" else o for o in opts]
     out = {}
     for name, cli in (("jax", jcli), ("torch", tcli)):
         out[name] = str(wd / f"{tag}.{name}.sam")
@@ -244,6 +267,9 @@ def test_port_imports_no_jax():
         dirs[:] = [x for x in dirs if x != "_build"]   # build output only
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) >= 20
+    for need in ("search/dynschedule.py", "tools/gather_bench.py",
+                 "tools/profile_align.py", "native/__init__.py"):
+        assert any(f.replace(os.sep, "/").endswith(need) for f in files), need
     files.append(os.path.join(os.path.dirname(PORT), "chip_smoke.py"))
     bad = []
     for path in files:

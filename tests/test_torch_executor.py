@@ -151,3 +151,57 @@ def test_run_scheme_band_radii(world, metric, k, m):
     np.testing.assert_array_equal(np.asarray(want.itv)[:n].astype(np.int64),
                                   got.itv[:n].numpy())
     assert int(want.nodes_visited) > 0 and int(want.overflow) == 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_run_scheme_dyn(world, masked):
+    """run_scheme under per-read schedules (dynamic partitioning): full-range
+    start without k-mer seeding, the per-lane exact loop, kernel B's per-lane
+    scalars in band_step_plain, one register, the per-lane tail. With a
+    search mask (dynamic scheme selection) the masked searches start empty.
+    Every FrontierResult field and the in-text rows equal the JAX run."""
+    from columba_tpu.search import dynschedule as jdyn
+    from columba_tpu_torch.search import dynschedule as tdyn
+
+    from tests.test_torch_dynschedule import random_pts
+
+    rng = np.random.default_rng(34)
+    batch = world["batch"]
+    m, k = 100, 2
+    jsc, tsc = jscheme("kuch1", k), tscheme("kuch1", k)
+    pts = random_pts(rng, len(batch), jsc.num_parts, m, k)
+    mask = (rng.random((len(batch), len(jsc.searches))) < 0.6
+            if masked else None)
+    jsched = jpipe.compile_cached(jsc, m, "edit", kmer_k=0)
+    tsched = tpipe.compile_cached(tsc, m, "edit", kmer_k=0)
+    jst = jdyn.scheme_static(jsc, m, "edit")
+    tst = tdyn.scheme_static(tsc, m, "edit")
+    capacity = 2048
+    itv_cap, split, cap2 = jpipe.crossover_caps(capacity, 4096, 4)
+    kw = dict(switchpoint=4, itv_cap=itv_cap, split_step=split,
+              capacity2=cap2, itv_min_depth=16)
+
+    def jrun(b, p_, mk):
+        dyn = jdyn.build_tables(jst, p_, b)
+        return jexec.run_scheme(world["jfm"], b, jsched, capacity, None,
+                                search_mask=mk, dyn=dyn, **kw)
+
+    want = jax.jit(jrun)(jnp.asarray(batch.astype(np.int32)),
+                         jnp.asarray(pts),
+                         None if mask is None else jnp.asarray(mask))
+    tb = torch.from_numpy(batch)
+    dyn = tdyn.build_tables(tst, torch.from_numpy(pts), tb)
+    got = texec.run_scheme(
+        world["tfm"], tb, tsched, capacity, None, dyn=dyn,
+        search_mask=None if mask is None else torch.from_numpy(mask), **kw)
+    for f in FIELDS:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(want, f)).astype(np.int64),
+            getattr(got, f).numpy().astype(np.int64), err_msg=f)
+    n = int(want.itv_count)
+    np.testing.assert_array_equal(np.asarray(want.itv)[:n].astype(np.int64),
+                                  got.itv[:n].numpy())
+    # bands and registers of the final frontier: the packed JAX state is
+    # not returned, so the band path shows in visits, ed_lb and done
+    assert int(want.nodes_visited) > 0 and n > 0
+    assert bool(np.asarray(want.done).any())

@@ -16,8 +16,9 @@ from columba_tpu_torch.index import kmer
 from columba_tpu_torch.index.build import build_index_from_codes
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import extend, locate, verify
-from columba_tpu_torch.search import executor, pipeline
-from columba_tpu_torch.search.scheme import get_scheme
+from columba_tpu_torch.search import dynschedule, executor, pipeline
+from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
+from columba_tpu_torch.tools import gather_bench
 
 pytestmark = pytest.mark.cuda
 
@@ -225,6 +226,207 @@ def test_scheme_kernels_vs_plain(setup, gpu, kmer_k, switchpoint, capacity):
     for f in ("ranges", "rid", "sid", "ed_lb", "done", "overflow",
               "nodes_visited", "itv", "itv_count", "searches_started"):
         assert torch.equal(getattr(out[0], f).cpu(), getattr(out[1], f)), f
+
+
+def _reads(rng, g, R, m, err):
+    starts = rng.integers(0, len(g) - m, R)
+    reads = g[starts[:, None] + np.arange(m)].copy()
+    for r in reads:
+        n = rng.integers(0, err + 1)
+        r[rng.integers(0, m, n)] = rng.integers(0, 4, n)
+    reads[::17, m // 2] = 4                      # reads with N
+    reads[3] = 0                                 # a homopolymer
+    return np.concatenate([reads, alphabet.revcomp(reads, axis=-1)])
+
+
+def test_exact_kernel_lengths(setup, gpu):
+    """Kernel E with per-row lengths: each row matches its first `length`
+    chars backward; the padding behind them is never read."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(22)
+    m, B = 40, 4096
+    starts = rng.integers(0, len(g) - m, B)
+    pats = g[starts[:, None] + np.arange(m)].copy()
+    lengths = rng.integers(0, m + 1, B).astype(np.int32)
+    lengths[:3] = [0, 1, m]
+    pats[rng.random(B) < 0.3, 2] ^= 1
+    pats[::11, 1] = 4
+    for i, n in enumerate(lengths):
+        pats[i, n:] = 5
+    tp = torch.from_numpy(pats).to(gpu)
+    tl = torch.from_numpy(lengths).to(gpu)
+    got = extend.exact_match(fm, tp, tl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, extend.zero_empty(
+        extend.exact_match_plain(fm, tp, tl)))
+    live = int((got[:, 1] > got[:, 0]).sum())
+    assert 0 < live < B
+    # through part_exact_ranges and select_schemes, against the CPU
+    batch = _reads(rng, g, 128, 100, 2)
+    pts = [0, 30, 71, 100]
+    assert torch.equal(
+        pipeline.part_exact_ranges(fm, torch.from_numpy(batch).to(gpu),
+                                   pts).cpu(),
+        pipeline.part_exact_ranges(cpu_fm, torch.from_numpy(batch), pts))
+    sets = get_multi_scheme("columba", 2)
+    _, mask_g, choice_g = pipeline.select_schemes(
+        fm, torch.from_numpy(batch).to(gpu), sets)
+    _, mask_c, choice_c = pipeline.select_schemes(
+        cpu_fm, torch.from_numpy(batch), sets)
+    assert np.array_equal(mask_g, mask_c) and np.array_equal(choice_g,
+                                                             choice_c)
+
+
+@pytest.mark.parametrize("name,k,table_k,m", [
+    ("kuch1", 2, 6, 100), ("kuch1", 2, 0, 100), ("kuch1", 4, 6, 100),
+    ("kuch1", 4, 6, 40), ("pigeon", 3, 6, 90), ("columba", 13, 0, 150)])
+def test_dynpart_kernel(setup, gpu, name, k, table_k, m):
+    """Kernel F equals the plain partition scan: seeded from the k-mer table
+    and from single characters, with kuch_k+1's weights and seed fractions
+    and without, and at the largest part count (p = 15)."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(23 + k)
+    batch = torch.from_numpy(_reads(rng, g, 256, m, k)).to(gpu)
+    table = kmer.build_kmer_table(fm, table_k) if table_k else None
+    scheme = get_scheme(name, k)
+    got = dynschedule.dynamic_partition(fm, batch, scheme, table)
+    torch.cuda.synchronize()
+    want = dynschedule.dynamic_partition_plain(fm, batch, scheme, table)
+    assert torch.equal(got, want)
+    assert len({tuple(r) for r in got.cpu().tolist()}) > 1
+    cpu_table = table.cpu() if table is not None else None
+    assert torch.equal(got.cpu(), dynschedule.dynamic_partition(
+        cpu_fm, batch.cpu(), scheme, cpu_table))
+
+
+def test_dynpart_kernel_wide_ranges(gpu):
+    """Widths above 2^31 / weight: on a low-complexity genome of 60 Mbp the
+    single-character seed ranges are about 30 M wide, so kuch1's weights
+    at k = 4 (100, 5, 1, 6, 105) wrap the 32-bit product; kernel F must wrap
+    as the plain scan does."""
+    rng = np.random.default_rng(24)
+    g = rng.integers(0, 2, 60_000_000).astype(np.uint8)      # A and C only
+    arrays = build_index_from_codes(g, sa_sparseness=64)
+    fm = FMIndex.from_arrays(arrays, gpu)
+    starts = rng.integers(0, len(g) - 100, 512)
+    batch = torch.from_numpy(np.ascontiguousarray(
+        g[starts[:, None] + np.arange(100)])).to(gpu)
+    scheme = get_scheme("kuch1", 4)
+    got = dynschedule.dynamic_partition(fm, batch, scheme, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dynschedule.dynamic_partition_plain(
+        fm, batch, scheme, None))
+    width = int(fm.counts_host[1] - fm.counts_host[0])
+    assert width * scheme.weights[0] >= 1 << 31  # the product does wrap
+
+
+@pytest.mark.parametrize("name,k,metric,m", [
+    ("kuch1", 2, "edit", 100), ("kuch1", 4, "edit", 100),
+    ("kuch1", 2, "hamming", 100), ("columba", 5, "edit", 150),
+    ("columba", 13, "edit", 250)])
+def test_dyn_tables_kernel(setup, gpu, name, k, metric, m):
+    """Kernel G equals build_tables_plain on every key, on random boundaries
+    that need the clamp and on clamped ones."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(25 + k)
+    R = 64
+    batch = torch.from_numpy(_reads(rng, g, R // 2, m, 2)).to(gpu)
+    scheme = get_scheme(name, k)
+    st = dynschedule.scheme_static(scheme, m, metric)
+    p = scheme.num_parts
+    raw = np.sort(rng.integers(0, m + 1, (R, p + 1)), axis=1).astype(np.int32)
+    raw[:, 0], raw[:, p] = 0, m
+    raw_d = torch.from_numpy(raw).to(gpu)
+    clamped = dynschedule.clamp_partition(raw_d, m, st.kb)
+    for pts in (raw_d, clamped):
+        got = dynschedule.build_tables(st, pts, batch)
+        torch.cuda.synchronize()
+        want = dynschedule.build_tables_plain(st, pts, batch)
+        assert set(got) == set(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype, key
+            assert torch.equal(got[key], want[key]), key
+    assert bool((got["meta"] & 1).any()) and bool((got["ex_pos"] >= 0).any())
+
+
+@pytest.mark.parametrize("k,metric", [(0, "edit"), (1, "edit"), (2, "edit"),
+                                      (3, "edit"), (4, "edit"), (5, "edit"),
+                                      (2, "hamming")])
+def test_band_step_per_lane(setup, gpu, k, metric):
+    """Kernel B's per-lane entry (kb 0..4 templated, kb 5 generic) on kernel
+    G's tables and random lane states equals band_step_plain with the same
+    switch, at steps where searches idle, reset and accumulate."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(26 + k)
+    m, R = 100, 128
+    scheme = get_scheme("columba" if k > 4 else "kuch1", max(k, 1))
+    st = dynschedule.scheme_static(scheme, m, metric if k else "hamming")
+    batch = torch.from_numpy(_reads(rng, g, R // 2, m, 2)).to(gpu)
+    table = kmer.build_kmer_table(fm, 6)
+    pts = dynschedule.dynamic_partition(fm, batch, scheme, table)
+    dyn = dynschedule.build_tables(st, pts, batch)
+    S, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
+    C = 4096
+    ranges = _ranges(rng, cpu_fm.n, C).to(gpu)
+    ids = rng.integers(0, R * S, C).astype(np.int64)
+    ghost = rng.random(C) < 0.1
+    ids = np.where(ghost, ids | (rng.integers(0, 1024, C) << 21) | (1 << 31),
+                   ids).astype(np.uint32).view(np.int32)
+    band = torch.from_numpy(np.where(
+        rng.random((C, 2, bw)) < 0.5, rng.integers(0, 4, (C, 2, bw)),
+        rng.integers(0, 64, (C, 2, bw))).astype(np.int8)).to(gpu)
+    colmin = torch.from_numpy(rng.integers(0, 64, (C, 2, 1)).astype(
+        np.int8)).to(gpu)
+    seen_alive = False
+    for t in (0, T // 3, T // 2, T - 20, T - 1):
+        args = (fm, ranges, torch.from_numpy(ids).to(gpu), band, colmin, None,
+                dyn["pchars"], T, t, 4 if k % 2 else 0,
+                dyn["meta"].reshape(-1))
+        got = executor.band_step(*args)
+        torch.cuda.synchronize()
+        want = executor.band_step_plain(*args)
+        for key in want:
+            assert torch.equal(got[key], want[key]), (key, t)
+        seen_alive |= bool((got["ch_alive"] & got["act"][:, None]).any())
+    assert seen_alive
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_dyn_scheme_kernels_vs_plain(setup, gpu, masked):
+    """match_all with dynamic partitioning (kernels F, G, A, B per-lane, C,
+    D) and with a scheme list (kernel E with lengths, the search mask) on
+    the card equals the plain versions on the CPU."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(27)
+    reads = _reads(rng, g, 96, 100, 2)[:96]
+    scheme = (get_multi_scheme("columba", 2) if masked
+              else get_scheme("kuch1", 2))
+    out = []
+    for index in (fm, cpu_fm):
+        table = kmer.build_kmer_table(index, 6)
+        out.append(pipeline.match_all(index, reads, scheme, kmer_table=table,
+                                      partitioning="dynamic", switchpoint=4))
+    assert out[0][1] == out[1][1]
+    for f in ("read_id", "strand", "begin", "end", "distance"):
+        assert np.array_equal(getattr(out[0][0], f), getattr(out[1][0], f)), f
+    assert len(out[0][0]) >= 96
+
+
+@pytest.mark.parametrize("words", [4, 8, 16])
+def test_gather_kernel(gpu, words):
+    """Kernel H equals table[idx] for rows of 16, 32 and 64 B; indices past
+    the table clamp."""
+    rng = np.random.default_rng(28)
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (5000, words),
+                                          dtype=np.int64).astype(np.int32)
+                             ).to(gpu)
+    idx = torch.from_numpy(rng.integers(0, 5000, 10001)).to(gpu)
+    idx[:3] = torch.tensor([0, 4999, 7000], device=gpu)
+    got = gather_bench.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_bench.gather_rows_plain(table, idx))
+    assert torch.equal(got.cpu(), gather_bench.gather_rows(table.cpu(),
+                                                           idx.cpu()))
 
 
 def test_launch_counters(setup, gpu):

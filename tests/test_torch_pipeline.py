@@ -8,10 +8,14 @@ overflow the two-stage exact loop's ``ex_cap`` (4x capacity retry) and
 reads from a long homopolymer run spill the locate capacity (4x
 max_locate retry). One batch covers both so that the JAX side compiles
 two shapes instead of four. The k = 0 test takes the exact pass (no seed
-table): reads of a homopolymer run spill its locate capacity too.
+table): reads of a homopolymer run spill its locate capacity too. The
+partitioning test runs ``match_all`` with given boundaries, with dynamic
+partitioning (seeded from the k-mer table and without it) and with the
+scheme's static fractions.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from columba_tpu.index import kmer as jkmer
@@ -101,3 +105,59 @@ def test_match_all_exact_pass():
                                       err_msg=f)
     assert len(t_occ) > 3 * 1400                      # the homopolymer rows
     assert set(np.unique(t_occ.strand)) == {0, 1}
+
+
+@pytest.fixture(scope="module")
+def part_world():
+    rng = np.random.default_rng(44)
+    g = repeat_genome(rng)
+    arrays = build_index_from_codes(g)
+    jfm = JFMIndex.from_arrays(arrays)
+    tfm = TFMIndex.from_arrays(arrays, "cpu")
+    return dict(jfm=jfm, tfm=tfm, jtab=jkmer.build_kmer_table(jfm, 6),
+                ttab=tkmer.build_kmer_table(tfm, 6),
+                reads=sample_batch(rng, g, 64)[:64], rng=rng)
+
+
+@pytest.mark.parametrize("mode", ["partition_pts", "dynamic",
+                                  "dynamic_no_table", "dynamic_short",
+                                  "static"])
+def test_match_all_partitioning(part_world, mode):
+    """match_all with per-read boundaries, dynamic and static partitioning:
+    OccArray and stats of the JAX package, and the occurrence set of the
+    uniform run (every partition is lossless at k)."""
+    from tests.test_torch_dynschedule import random_pts
+
+    w = part_world
+    reads = w["reads"]
+    kw = dict(metric="edit", switchpoint=4)
+    jkw, tkw = dict(kw), dict(kw)
+    if mode == "partition_pts":
+        pts = random_pts(np.random.default_rng(45), 2 * len(reads), 3, 100, 2)
+        jkw.update(partition_pts=pts)
+        tkw.update(partition_pts=pts)
+    elif mode == "static":
+        jkw.update(partitioning="static", kmer_table=w["jtab"])
+        tkw.update(partitioning="static", kmer_table=w["ttab"])
+    else:
+        jkw.update(partitioning="dynamic")
+        tkw.update(partitioning="dynamic")
+        if mode != "dynamic_no_table":
+            jkw.update(kmer_table=w["jtab"])
+            tkw.update(kmer_table=w["ttab"])
+    if mode == "dynamic_short":
+        # m < p * (2kb + 1): falls back to the uniform static schedule
+        reads = reads[:, :14]
+    j_occ, j_stats = jpipe.match_all(w["jfm"], reads, jscheme("kuch1", 2),
+                                     **jkw)
+    t_occ, t_stats = tpipe.match_all(w["tfm"], reads, tscheme("kuch1", 2),
+                                     **tkw)
+    assert t_stats == j_stats
+    for f in ("read_id", "strand", "begin", "end", "distance"):
+        np.testing.assert_array_equal(getattr(j_occ, f), getattr(t_occ, f),
+                                      err_msg=f)
+    u_occ, _ = tpipe.match_all(w["tfm"], reads, tscheme("kuch1", 2),
+                               kmer_table=w["ttab"], **kw)
+    key = lambda o: set(zip(o.read_id.tolist(), o.strand.tolist(),
+                            o.end.tolist(), o.distance.tolist()))
+    assert key(t_occ) == key(u_occ) and len(t_occ) >= 64
