@@ -5,8 +5,9 @@ a CUDA device. It
 
 1. prints the card (torch name, and nvidia-smi's name and power limit);
 2. builds the eight CUDA kernels from ``columba_tpu_torch/csrc`` into
-   ``columba_tpu_torch/_build`` (one nvcc per source, started together) and
-   prints ptxas's registers and spills per entry;
+   ``columba_tpu_torch/_build`` (one nvcc per source, started together;
+   kernel B's RLC entries are a source of their own) and prints ptxas's
+   registers and spills per entry;
 3. generates a random genome from a fixed seed (128 Mbp in 4 sequences, with
    runs of N), writes it as FASTA and builds the index with the port's
    ``cli build`` (default SA sparseness 4, so locate walks LF);
@@ -46,7 +47,28 @@ a CUDA device. It
 6. checks each path's output against the sampled loci (nothing with few
    enough substitutions may be missing), that every kernel launched on the
    paths that should reach it, and that one batch run through the plain
-   versions on the card gives the same occurrences as the kernels.
+   versions on the card gives the same occurrences as the kernels;
+7. on the RLC index: writes the JAX package's pan-genome (128 Mbp in one
+   sequence, 20 haplotypes of one 6.4 Mbp base at 0.1 % SNP divergence,
+   seed 20260820), builds it with ``cli build --rlc`` and ``--rlc
+   --textless`` (two processes at once), prints each flavor's index bytes
+   on disk and on the card, holds the RLC entries of kernels A, B, C and E
+   (``extend.rlc``, ``band_step.rlc``, ``band_step.textless``,
+   ``locate.rlc``, ``exact.rlc``) against their plain versions at the
+   paths' shapes with their bounds, and drives five more paths:
+
+   - ``rlc_se_all``: ``-a all -e 2 -S kuch1 -b 16384 -nD`` (the JAX
+     package's RLC bench) on 65,536 reads of the pan-genome;
+   - ``rlc_se_best``: ``-a best`` on the same reads;
+   - ``rlc_pe_best``: ``-a best -F`` on 16,384 ``fr`` pairs (fragments of
+     250-450 bp), whose rung (0,0) is the exact pass (``exact.rlc``);
+   - ``tl_se_all`` and ``tl_se_best``: the same SE commands on the textless
+     index (the frontier pass with witness slots, phi locate on the host);
+
+   with the same checks (SE ALL: every read with <= 2 substitutions at its
+   locus; BEST: its best distance; PE: its pair, unless another haplotype
+   holds a better one), and one batch of the RLC and of the textless index
+   through the plain versions on the card.
 
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
@@ -79,6 +101,10 @@ K = 2
 BEST_CUT = 4             # BEST cutoff of kuch1 at 100 bp and 95 % identity
 BATCH = 16384
 WARMUP_READS = 16384
+N_RLC_READS = 65_536     # each SE path on the pan-genome's RLC indexes
+N_RLC_PAIRS = 16_384     # the PE BEST path on the with-text RLC index
+RLC_WARMUP = 4096
+PLAIN_TL_READS = 4096    # the textless batch through the plain versions
 
 # the kernels each path must launch at least once
 PATH_KERNELS = {
@@ -91,13 +117,26 @@ PATH_KERNELS = {
                        "dyn_tables"),
     "se_best_d": ("extend", "band_step", "locate", "verify", "exact"),
     "pe_best_static": ("extend", "band_step", "locate", "verify"),
+    "rlc_se_all": ("extend", "band_step", "locate", "verify"),
+    "rlc_se_best": ("extend", "band_step", "locate", "verify"),
+    "rlc_pe_best": ("extend", "band_step", "locate", "verify", "exact"),
+    "tl_se_all": ("extend", "band_step"),
+    "tl_se_best": ("extend", "band_step"),
 }
-# the entries of kernels B and E each path must go through (see
+# the entries of kernels A, B, C and E each path must go through (see
 # native.Kernel.by_entry), as "kernel.entry"
+_RLC_ENTRIES = ("extend.rlc", "band_step.rlc", "locate.rlc")
 PATH_ENTRIES = {
     "se_all_dynamic": ("band_step.per_lane",),
     "se_best_d": ("exact.lengths",),
+    "rlc_se_all": _RLC_ENTRIES,
+    "rlc_se_best": _RLC_ENTRIES,
+    "rlc_pe_best": _RLC_ENTRIES + ("exact.rlc",),
+    "tl_se_all": ("extend.rlc", "band_step.textless"),
+    "tl_se_best": ("extend.rlc", "band_step.textless"),
 }
+RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
+             "tl_se_best")
 SCHEMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "schemes")
 
 
@@ -130,15 +169,43 @@ def _max_abs(a, b) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
-def _band_args(index, sched, batch, ranges, rng, switchpoint):
+def check_kernel(name, kern, plain, reps=20, plain_reps=5):
+    """Kernel against its plain version on the same inputs (exact), then
+    both timed; returns the kernel's output and the record."""
+    a, b = kern(), plain()
+    torch.cuda.synchronize()
+    diff = _max_abs(a, b)
+    del b
+    if diff != 0:
+        raise AssertionError(f"kernel {name} differs from its plain "
+                             f"version: max abs error {diff}")
+    return a, dict(max_abs_err=diff, ms=cuda_time(kern, reps),
+                   plain_ms=cuda_time(plain, plain_reps))
+
+
+def note_kernel(report, name, shape, rep, b, library_ms=None):
+    """Adds the bound to a check's record, files it under ``name``, logs
+    it."""
+    rep.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+               bound_bytes=b["bytes"], bound_operations=b["operations"],
+               library_ms=library_ms)
+    report[name] = rep
+    log(f"kernel {name} ({shape}): equal to plain; {rep['ms']:.4f} ms vs "
+        f"plain {rep['plain_ms']:.4f} ms; bound {b['bound_ms']:.5f} ms "
+        f"by {b['bound_by']} ({b['bytes']} bytes, {b['operations']} "
+        f"operations), share {b['bound_ms'] / rep['ms']:.4f}")
+
+
+def _band_args(index, sched, batch, ranges, rng, switchpoint, div=8):
     """One band step's inputs at the shapes ``match_all`` gives a batch:
-    capacity C = rows x searches / 8, real ranges, the schedule's own step
-    tables and cell codes, random band and register state."""
+    capacity C = rows x searches / div (8 with the in-text crossover, 2
+    without), real ranges, the schedule's own step tables and cell codes,
+    random band and register state."""
     from columba_tpu_torch.search import executor
 
     dev = index.device
     R, S = batch.shape[0], sched.num_searches
-    C = max(1024, R * S // 8)
+    C = max(1024, R * S // div)
     tables = executor.device_tables(sched, dev)
     t = sched.t_max // 2
     ids = torch.from_numpy(rng.integers(0, R * S, C).astype(np.int32)).to(dev)
@@ -220,17 +287,7 @@ def kernel_checks(index, arrays, reads, table) -> dict:
               "verify": f"{ml} candidates, m={READ_LEN}, kb={K}",
               "exact": f"{R} rows x {READ_LEN} bp"}
 
-    def check(name, kern, plain, reps=20, plain_reps=5):
-        a, b = kern(), plain()
-        torch.cuda.synchronize()
-        diff = _max_abs(a, b)
-        del b
-        if diff != 0:
-            raise AssertionError(f"kernel {name} differs from its plain "
-                                 f"version: max abs error {diff}")
-        return a, dict(max_abs_err=diff, ms=cuda_time(kern, reps),
-                       plain_ms=cuda_time(plain, plain_reps))
-
+    check = check_kernel
     report = {}
     for name, (kern, plain) in cases.items():
         out, rep = check(name, kern, plain,
@@ -313,14 +370,7 @@ def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
     report = {}
 
     def note(name, shape, rep, b, library_ms=None):
-        rep.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"],
-                   bound_bytes=b["bytes"], bound_operations=b["operations"],
-                   library_ms=library_ms)
-        report[name] = rep
-        log(f"kernel {name} ({shape}): equal to plain; {rep['ms']:.4f} ms vs "
-            f"plain {rep['plain_ms']:.4f} ms; bound {b['bound_ms']:.5f} ms "
-            f"by {b['bound_by']} ({b['bytes']} bytes, {b['operations']} "
-            f"operations), share {b['bound_ms'] / rep['ms']:.4f}")
+        note_kernel(report, name, shape, rep, b, library_ms)
 
     # kernel F: kuch1 k = 2 with the 10-mer table, and once without a table
     scheme = get_scheme("kuch1", K)
@@ -448,6 +498,133 @@ def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
     return report
 
 
+def rlc_lane_states(index, batch, rng, L, max_len=24):
+    """Valid lane states of an RLC index at the exact prefix's shapes: each
+    lane matches a random stretch (0 to ``max_len`` chars) of a read of
+    ``batch`` by extensions in random directions from the full range,
+    through kernel A's RLC entry; a lane whose stretch does not occur ends
+    all zero."""
+    from columba_tpu_torch.ops import extend
+
+    dev = index.device
+    R, m = batch.shape
+    row = torch.from_numpy(rng.integers(0, R, L)).to(dev)
+    lo = torch.from_numpy(rng.integers(max_len, m - max_len, L)).to(dev)
+    hi = lo.clone()
+    length = torch.from_numpy(rng.integers(0, max_len + 1, L)).to(dev)
+    ranges = index.full_range((L,))
+    for step in range(max_len):
+        fwd = torch.from_numpy(rng.integers(0, 2, L).astype(bool)).to(dev)
+        chars = batch[row, torch.where(fwd, hi, lo - 1)].int()
+        new = extend.extend_char(index, ranges, chars, fwd.int())
+        act = step < length
+        ranges = torch.where(act[:, None], new, ranges)
+        lo = torch.where(act & ~fwd, lo - 1, lo)
+        hi = torch.where(act & fwd, hi + 1, hi)
+    return ranges.contiguous()
+
+
+def rlc_kernel_checks(bm, tl, batch) -> dict:
+    """The RLC entries of kernels A, B, C and E against their plain versions
+    on the card, at the shapes of the RLC paths (a batch of 16,384 reads of
+    the pan-genome, both strands: 32,768 rows), with their bounds."""
+    from columba_tpu_torch.ops import bextend, blocate, extend, locate
+    from columba_tpu_torch.search import executor, pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import bounds
+
+    dev = bm.device
+    rng = np.random.default_rng(SEED + 3)
+    R = batch.shape[0]
+    report = {}
+    sched = pipeline.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit")
+    S = sched.num_searches
+
+    # kernel A (extend.rlc): the exact prefix's R x S lanes, 8 wide
+    L = R * S
+    states = rlc_lane_states(bm, batch, rng, L)
+    dirs = torch.from_numpy(rng.integers(0, 2, L).astype(np.int32)).to(dev)
+    chars = batch[torch.from_numpy(rng.integers(0, R, L)).to(dev),
+                  torch.from_numpy(rng.integers(0, READ_LEN, L)).to(dev)]
+    chars = chars.int().contiguous()
+    out, rep = check_kernel(
+        "extend.rlc", lambda: extend.extend_char(bm, states, chars, dirs),
+        lambda: extend.extend_char_plain(bm, states, chars, dirs),
+        plain_reps=2)
+    stats = {}
+    bextend.extend_char_plain(bm, states, chars, dirs, stats)
+    note_kernel(report, "extend.rlc",
+                f"{L} lanes x 8, {int((states[:, 1] > states[:, 0]).sum())}"
+                f" live, extend_char", rep,
+                bounds.extend_rlc(states, dirs, chars, out, stats))
+    all4 = extend.extend_all(bm, states[:4096], dirs[:4096])
+    if not torch.equal(all4, extend.extend_all_plain(bm, states[:4096],
+                                                     dirs[:4096])):
+        raise AssertionError("kernel extend.rlc (extend_all) differs")
+    L12 = min(L, 16384)
+    tl_states = rlc_lane_states(tl, batch, rng, L12)
+    _, rep12 = check_kernel(
+        "extend.rlc",
+        lambda: extend.extend_char(tl, tl_states, chars[:L12], dirs[:L12]),
+        lambda: extend.extend_char_plain(tl, tl_states, chars[:L12],
+                                         dirs[:L12]), plain_reps=2)
+    log(f"kernel extend.rlc on 12-wide textless lanes ({L12}): equal to "
+        f"plain; {rep12['ms']:.4f} ms vs plain {rep12['plain_ms']:.4f} ms")
+
+    # kernel B (band_step.rlc): C = R x S / 8 lanes with the crossover on
+    ba = _band_args(bm, sched, batch, states, rng, 4)
+    out, rep = check_kernel("band_step.rlc",
+                            lambda: executor.band_step(*ba),
+                            lambda: executor.band_step_plain(*ba),
+                            plain_reps=2)
+    note_kernel(report, "band_step.rlc",
+                f"C={ba[1].shape[0]} lanes x 8, kb={K}, W={sched.W}", rep,
+                bounds.band_step_rlc(*ba[1:6], out, bounds.rlc_band_stats(
+                    bm, ba[1], ba[2], ba[5], out)))
+
+    # kernel B (band_step.textless): C = R x S / 2 lanes, 12 wide, 2W
+    # colMin slots, no crossover
+    C = max(1024, R * S // 2)
+    tl_states = rlc_lane_states(tl, batch, rng, C)
+    tb = list(_band_args(tl, sched, batch, tl_states, rng, 0, div=2))
+    tb[4] = torch.from_numpy(rng.integers(0, 3, (C, 2, 2 * sched.W)).astype(
+        np.int8)).to(dev)
+    tb = tuple(tb) + (None, True)
+    out, rep = check_kernel("band_step.textless",
+                            lambda: executor.band_step(*tb),
+                            lambda: executor.band_step_plain(*tb),
+                            plain_reps=2)
+    note_kernel(report, "band_step.textless",
+                f"C={C} lanes x 12, kb={K}, W={sched.W} (+{sched.W} "
+                f"witness slots)", rep,
+                bounds.band_step_rlc(*tb[1:6], out, bounds.rlc_band_stats(
+                    tl, tb[1], tb[2], tb[5], out)))
+
+    # kernel E (exact.rlc): the batch's 32,768 rows x 100 bp
+    out, rep = check_kernel(
+        "exact.rlc", lambda: extend.exact_match(bm, batch),
+        lambda: extend.zero_empty(extend.exact_match_plain(bm, batch)),
+        reps=10, plain_reps=1)
+    stats = {}
+    steps = bounds.exact_steps(bm, batch, stats=stats)
+    note_kernel(report, "exact.rlc", f"{R} rows x {READ_LEN} bp, "
+                f"{int((out[:, 1] > out[:, 0]).sum())} matched", rep,
+                bounds.exact_rlc(steps, stats, out))
+
+    # kernel C (locate.rlc): max_locate = max(65,536, 4 R) random rows
+    ml = max(1 << 16, 4 * R)
+    rows = torch.from_numpy(rng.integers(0, bm.n + 1, ml)).to(dev)
+    out, rep = check_kernel("locate.rlc", lambda: locate.locate_rows(bm, rows),
+                            lambda: blocate.locate_rows_plain(bm, rows),
+                            plain_reps=2)
+    stats = {}
+    blocate.locate_rows_plain(bm, rows, stats)
+    note_kernel(report, "locate.rlc",
+                f"{ml} rows, {stats['steps'] / ml:.2f} LF steps a row", rep,
+                bounds.locate_rlc(rows, stats, out))
+    return report
+
+
 def ptxas_report(build_log: str) -> list:
     """One line per kernel entry of nvcc's ``-Xptxas -v`` output: the entry
     (template arguments in <>, -1 = the generic entry), its registers, and
@@ -456,7 +633,7 @@ def ptxas_report(build_log: str) -> list:
     for ln in build_log.splitlines():
         if "Compiling entry function" in ln:
             m = re.search(r"\d([a-z_]+_kernel)(?:ILi(n?\d+)E(?:Li(n?\d+)E)?"
-                          r"(?:Lb(\d)E)?)?", ln)
+                          r"(?:Lb(\d)E)?(?:Li(\d+)E)?)?", ln)
             args = [a.replace("n", "-") for a in m.groups()[1:] if a]
             entry = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "bytes stack frame" in ln:
@@ -470,8 +647,9 @@ def ptxas_report(build_log: str) -> list:
     return out
 
 
-def parse_sam(path: str):
-    """(qname index, rname index, pos1, flag, NM) of every mapped record."""
+def parse_sam(path: str, seq_ids: dict | None = None):
+    """(qname index, rname index, pos1, flag, NM) of every mapped record;
+    a sequence's index is its number in ``chrN`` or ``seq_ids[name]``."""
     q, rn, p, fl, nm = [], [], [], [], []
     with open(path) as f:
         for line in f:
@@ -481,11 +659,35 @@ def parse_sam(path: str):
             if c[2] == "*":
                 continue
             q.append(int(c[0][1:]))
-            rn.append(int(c[2][3:]))
+            rn.append(seq_ids[c[2]] if seq_ids else int(c[2][3:]))
             p.append(int(c[3]))
             fl.append(int(c[1]))
             nm.append(int(line[line.index("NM:i:") + 5:].split("\t", 1)[0]))
     return tuple(np.array(v, np.int64) for v in (q, rn, p, fl, nm))
+
+
+def proper_pairs(path: str) -> dict:
+    """pair number -> [(mate 1 pos1, mate 2 pos1, NM total)] of the proper
+    pairs a PE SAM reports (mates matched by RNEXT/PNEXT)."""
+    mates = ({}, {})
+    with open(path) as f:
+        for line in f:
+            if line.startswith("@"):
+                continue
+            c = line.split("\t", 8)
+            flag = int(c[1])
+            if not flag & 2:
+                continue
+            nm = int(line[line.index("NM:i:") + 5:].split("\t", 1)[0])
+            mates[0 if flag & 64 else 1].setdefault(int(c[0][1:]), []).append(
+                (int(c[3]), int(c[7]), nm))
+    out = {}
+    for q, recs in mates[0].items():
+        for pos, pnext, nm in recs:
+            for pos2, pnext2, nm2 in mates[1].get(q, []):
+                if pos2 == pnext and pnext2 == pos:
+                    out.setdefault(q, []).append((pos, pos2, nm + nm2))
+    return out
 
 
 def nearest(recs, want_key, want_p1):
@@ -509,10 +711,13 @@ def nearest(recs, want_key, want_p1):
 def plain_patch():
     """Swap every kernel wrapper of the paths for its plain version (module
     attributes the pipeline calls through); returns the undo."""
-    from columba_tpu_torch.ops import extend, locate, rank, verify
+    from columba_tpu_torch.index.bmove import BMoveIndex
+    from columba_tpu_torch.ops import blocate, extend, locate, rank, verify
     from columba_tpu_torch.search import dynschedule, executor
 
     def locate_plain(index, rows):
+        if isinstance(index, BMoveIndex):
+            return blocate.locate_rows_plain(index, rows)
         if index.sa_sparseness == 1:
             return rank.u32(index.sa_samples[rows])
         return locate.locate_rows_plain(index, rows)
@@ -537,6 +742,189 @@ def plain_patch():
         for mod, name, fn in undo:
             setattr(mod, name, fn)
     return restore
+
+
+def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
+                index_of) -> dict:
+    """The RLC and textless indexes: the pan-genome's FASTA, both ``cli
+    build`` runs (two processes at once), index bytes, the RLC entries'
+    kernel checks, the five RLC paths through ``drive`` (which fills the
+    launch tables), their output checks and one batch of each flavor
+    through the plain versions. Returns the kernel records."""
+    from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import workload
+
+    t0 = time.time()
+    pan = workload.pan_genome()
+    n = len(pan)
+    pan_fa = os.path.join(wd, "pan.fa")
+    workload.write_fasta(pan_fa, pan, "pan")
+    log(f"pan-genome: {n} bp in one sequence, {workload.PAN_HAPLOTYPES} "
+        f"haplotypes of one base at {workload.PAN_SNP_RATE} SNP divergence "
+        f"(seed {workload.PAN_SEED}), FASTA in {time.time() - t0:.1f} s")
+    idx_of = {"rlc": os.path.join(wd, "pan_rlc.cidx"),
+              "textless": os.path.join(wd, "pan_tl.cidx")}
+    t0 = time.time()
+    procs = {}
+    try:
+        for f, extra in (("rlc", ["--rlc"]),
+                         ("textless", ["--rlc", "--textless"])):
+            procs[f] = subprocess.Popen(
+                [sys.executable, "-m", "columba_tpu_torch.cli", "build",
+                 "-r", idx_of[f], "-f", pan_fa, *extra],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for f, proc in procs.items():
+            _, err = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli build ({f}) failed:\n{err[-4000:]}")
+            log(f"  {err.strip().splitlines()[-1]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"cli build --rlc and --rlc --textless (two processes at once): "
+        f"{time.time() - t0:.1f} s")
+
+    def disk(path):
+        return sum(os.path.getsize(os.path.join(path, f))
+                   for f in os.listdir(path))
+
+    log(f"index bytes on disk: Vanilla (-s 4, the random genome of the same "
+        f"length) {disk(vanilla_idx)}, rlc {disk(idx_of['rlc'])}, textless "
+        f"{disk(idx_of['textless'])}")
+    arrays = {f: load_bmove(idx_of[f]) for f in idx_of}
+    bm = BMoveIndex.from_arrays(arrays["rlc"], dev)
+    tl = BMoveIndex.from_arrays(arrays["textless"], dev)
+    phi = arrays["textless"].phi_fwd.nbytes + arrays["textless"].phi_rev.nbytes
+    log(f"pan-genome runs: fwd {bm.r_fwd} (r/n {bm.r_fwd / n:.4f}), rev "
+        f"{bm.r_rev}; index bytes on the card: rlc {bm.nbytes()}, textless "
+        f"{tl.nbytes()} (its phi tables stay on the host: {phi} bytes)")
+
+    rng = np.random.default_rng(SEED + 2)
+    starts = np.array([0, n], np.int64)
+    reads, pos, nsub, flip = workload.sample_reads(pan, starts, N_RLC_READS,
+                                                   rng, READ_LEN)
+    m1, m2, pos_f, pos_r, nsub1, nsub2, swapped = workload.sample_pairs(
+        pan, starts, N_RLC_PAIRS, rng, READ_LEN, frag_min=250, frag_max=450)
+    batch = torch.from_numpy(np.concatenate(
+        [reads[:BATCH], reads[:BATCH, ::-1] ^ 3])).to(dev)
+    report = rlc_kernel_checks(bm, tl, batch)
+    del batch
+
+    def fq(tag, codes, prefix="r"):
+        path = os.path.join(wd, tag + ".fq")
+        workload.write_fastq(path, codes, prefix)
+        return path
+
+    se = (fq("pan_se", reads), None)
+    se_warm = (fq("pan_w", reads[:RLC_WARMUP], "w"), None)
+    for path in RLC_PATHS:
+        index_of[path] = idx_of["textless" if path.startswith("tl")
+                                else "rlc"]
+        files[path], warm[path], n_of[path] = se, se_warm, N_RLC_READS
+    files["rlc_pe_best"] = (fq("pan_p1", m1), fq("pan_p2", m2))
+    warm["rlc_pe_best"] = (fq("pan_w1", m1[:RLC_WARMUP], "w"),
+                           fq("pan_w2", m2[:RLC_WARMUP], "w"))
+    n_of["rlc_pe_best"] = N_RLC_PAIRS
+    all_k = ["-a", "all", "-e", str(K), "-nD"]   # the JAX package's bench
+    argv_of.update(rlc_se_all=all_k, tl_se_all=all_k,
+                   rlc_se_best=["-a", "best"], tl_se_best=["-a", "best"],
+                   rlc_pe_best=["-a", "best"])
+    for path in RLC_PATHS:
+        drive(path, f"pan-genome {n} bp, {path.split('_')[0]} index")
+
+    # -- checks of what came out: the pan-genome is one sequence --
+    seq_ids = {"pan": 0}
+
+    def key(q, rev):
+        return q * 2 + rev
+
+    want_p1 = pos + 1
+    for tag in ("rlc_se_all", "tl_se_all"):
+        q, _, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"), seq_ids)
+        want = np.nonzero(nsub <= K)[0]
+        dist, _ = nearest((key(q, (fl & 16) > 0), p1, nm),
+                          key(want, flip[want]), want_p1[want])
+        lost = want[dist > K]
+        log(f"{tag} lossless check: {len(want)} reads with <= {K} "
+            f"substitutions; {int((dist == 0).sum())} at their exact begin, "
+            f"{int(((dist > 0) & (dist <= K)).sum())} within {K} (end "
+            f"errors), {len(lost)} missing; {len(q)} records")
+        if len(lost):
+            raise AssertionError(f"{tag}: reads not found at their locus: "
+                                 f"{lost[:10].tolist()}")
+    for tag in ("rlc_se_best", "tl_se_best"):
+        q, _, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"), seq_ids)
+        best_nm = np.full(N_RLC_READS, 1 << 40, np.int64)
+        np.minimum.at(best_nm, q, nm)
+        want = np.nonzero(nsub <= BEST_CUT)[0]
+        unmapped = want[best_nm[want] > BEST_CUT]
+        worse = want[best_nm[want] > nsub[want]]
+        at_n = want[best_nm[want] == nsub[want]]
+        dist, _ = nearest((key(q, (fl & 16) > 0), p1, nm),
+                          key(at_n, flip[at_n]), want_p1[at_n])
+        lost = at_n[dist > nsub[at_n]]
+        log(f"{tag} check: {len(want)} reads with <= {BEST_CUT} "
+            f"substitutions; {len(unmapped)} without a record, {len(worse)} "
+            f"with best NM above their substitutions, {len(at_n)} with best "
+            f"NM equal to them of which {len(lost)} miss their locus; "
+            f"{len(q)} records")
+        if len(unmapped) or len(worse) or len(lost):
+            raise AssertionError(
+                f"{tag}: unmapped {unmapped[:5].tolist()}, worse "
+                f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
+    # PE BEST reports the pairs of least total distance; on the pan-genome
+    # another haplotype may hold a better pair than the sampled one, so a
+    # pair is missing when its best reported total is above its
+    # substitutions, or equal to them without the sampled loci among the
+    # pairs at that total
+    pairs = proper_pairs(os.path.join(wd, "rlc_pe_best.sam"))
+    want = np.nonzero((nsub1 <= 2) & (nsub2 <= 2))[0]
+    t1 = np.where(swapped, pos_r, pos_f) + 1      # mate 1's sampled pos1
+    t2 = np.where(swapped, pos_f, pos_r) + 1
+    missing, better = [], 0
+    for i in want:
+        got = pairs.get(int(i), [])
+        best = min((tot for *_, tot in got), default=1 << 30)
+        true_tot = int(nsub1[i] + nsub2[i])
+        if best < true_tot:
+            better += 1
+        elif best > true_tot or not any(
+                tot == best and abs(a - t1[i]) <= 2 and abs(b - t2[i]) <= 2
+                for a, b, tot in got):
+            missing.append(int(i))
+    log(f"rlc_pe_best check: {len(want)} pairs with <= 2 substitutions in "
+        f"each mate; {len(want) - better - len(missing)} reported as a "
+        f"proper pair at both sampled loci, {better} with a better pair "
+        f"elsewhere, {len(missing)} missing; {len(pairs)} pairs with a "
+        f"proper pair")
+    if missing:
+        raise AssertionError(f"rlc_pe_best: pairs not found: {missing[:10]}")
+
+    # one batch of each flavor again through the plain versions on the card
+    scheme = get_scheme("kuch1", K)
+    for what, index, kw, nr in (
+            ("RLC, switchpoint 4", bm, dict(switchpoint=4), BATCH),
+            ("textless", tl, dict(host_arrays=arrays["textless"]),
+             PLAIN_TL_READS)):
+        occ_k, _ = pipeline.match_all(index, reads[:nr], scheme, **kw)
+        restore = plain_patch()
+        try:
+            occ_p, _ = pipeline.match_all(index, reads[:nr], scheme, **kw)
+        finally:
+            restore()
+        for f in ("read_id", "strand", "begin", "end", "distance"):
+            if not np.array_equal(getattr(occ_k, f), getattr(occ_p, f)):
+                raise AssertionError(f"plain-path OccArray differs in {f} "
+                                     f"on the {what} index")
+        log(f"plain versions on the card, {what} index, k = {K}: identical "
+            f"OccArray for one batch of {nr} reads ({len(occ_k)} "
+            f"occurrences)")
+    return report
 
 
 def main() -> int:
@@ -647,9 +1035,12 @@ def main() -> int:
             f"{table.nbytes} bytes")
         report = kernel_checks(index, arrays, reads, table)
 
+        index_of = {}                # path -> index dir (default: idx)
+
         def align(path, files_, out_tag, extra=()):
-            argv = ["align", "-r", idx, "-S", "kuch1", "-b", str(BATCH),
-                    "-f", files_[0], "-o", os.path.join(wd, out_tag + ".sam"),
+            argv = ["align", "-r", index_of.get(path, idx), "-S", "kuch1",
+                    "-b", str(BATCH), "-f", files_[0],
+                    "-o", os.path.join(wd, out_tag + ".sam"),
                     *argv_of[path], *extra]
             if files_[1] is not None:
                 argv += ["-F", files_[1]]
@@ -660,7 +1051,10 @@ def main() -> int:
             return err.getvalue()
 
         launches_by_path, entries_by_path = {}, {}
-        for path in PATH_KERNELS:
+
+        def drive(path, genome_what):
+            """One path: a warm-up align, then the counted and timed one
+            with every launch count reset just before."""
             t0 = time.time()
             align(path, warm[path], "warm")
             t_warm = time.time() - t0
@@ -685,7 +1079,7 @@ def main() -> int:
             unit = "pairs" if files[path][1] else "reads"
             log(f"path {path}: {n_of[path]} {unit} x {READ_LEN} bp in "
                 f"{dt:.3f} s = {n_of[path] / dt:.1f} {unit}/s (FASTQ -> SAM, "
-                f"genome {workload.GENOME_N} bp, {smi}; warm-up "
+                f"{genome_what}, {smi}; warm-up "
                 f"{t_warm:.1f} s); lossless retries {retries}; peak device "
                 f"memory {peak} bytes; kernel launches {launches}"
                 + (f", of them by entry {entries}" if entries else ""))
@@ -698,6 +1092,10 @@ def main() -> int:
             if missing:
                 raise AssertionError(f"kernels not launched on path {path}: "
                                      f"{missing}")
+
+        for path in PATH_KERNELS:
+            if path not in RLC_PATHS:
+                drive(path, f"genome {workload.GENOME_N} bp")
 
         # kernel H's path: the gather bench, its entry point, at one size
         from columba_tpu_torch.tools import gather_bench
@@ -880,10 +1278,19 @@ def main() -> int:
             log(f"plain versions on the card, k = {k}, {what}: identical "
                 f"OccArray for one batch ({len(occ_k)} occurrences)")
 
-    # one record per kernel, and one more for each named entry of kernels B
-    # and E (its launches are a share of its kernel's)
+        del index, table         # card memory for the RLC indexes
+        report.update(rlc_section(
+            wd, dev, smi, idx, drive, files, warm, argv_of, n_of, index_of))
+
+    # one record per kernel, and one more for each named entry of kernels
+    # A, B, C and E (its launches are a share of its kernel's)
     replaces = {"band_step.per_lane": "columba_tpu/search/executor.py:600",
-                "exact.lengths": "columba_tpu/search/pipeline.py:381"}
+                "exact.lengths": "columba_tpu/search/pipeline.py:381",
+                "extend.rlc": "columba_tpu/ops/bextend.py:103",
+                "band_step.rlc": "columba_tpu/search/executor.py:587",
+                "band_step.textless": "columba_tpu/search/pipeline.py:770",
+                "exact.rlc": "columba_tpu/ops/bextend.py:259",
+                "locate.rlc": "columba_tpu/ops/blocate.py:40"}
     kernels = []
     for k in native.KERNELS.values():
         entries = [k.name] + [n for n in report if n.startswith(k.name + ".")]
@@ -894,7 +1301,8 @@ def main() -> int:
             if sum(by_path.values()) == 0:
                 raise AssertionError(f"kernel {entry} launched on no path")
             kernels.append(dict(
-                name=entry, route="cuda", source=k.source,
+                name=entry, route="cuda",
+                source=k.source_of(entry.partition(".")[2]),
                 replaces=replaces.get(entry, k.replaces),
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -1,10 +1,14 @@
 """Command-line interface of the PyTorch port: ``build`` and ``align``.
 
 The counterpart of ``columba_tpu/cli.py`` with the same option names. The
-port covers the Vanilla index build and the alignment of FASTQ input to SAM
-in ALL and BEST(+x) mode, single-end and paired-end, with uniform, static or
-dynamic partitioning, builtin schemes, scheme folders (``-c``) and scheme
-collections with per-read selection (``-d``); what is still missing raises
+port covers the Vanilla and RLC index builds (``--rlc``, ``--rlc
+--textless``) and the alignment of FASTQ input to SAM in ALL and BEST(+x)
+mode, single-end and paired-end, with uniform, static or dynamic
+partitioning, builtin schemes, scheme folders (``-c``) and scheme
+collections with per-read selection (``-d``). On the RLC index dynamic
+partitioning and per-read selection are not ported yet; the textless index
+aligns single-end only, without CIGARs and without in-text verification,
+as in the JAX package. What is still missing raises
 ``NotImplementedError`` naming its ROADMAP item.
 
 Alignment runs on the CUDA device (``--device cuda``, the default) and
@@ -43,9 +47,12 @@ def main(argv=None):
                    help="RNG seed for non-ACGT replacement (seed-length 0)")
     b.add_argument("--write-preprocessed", action="store_true")
     b.add_argument("--rlc", action="store_true",
-                   help="run-length-compressed flavor (not ported yet)")
+                   help="build the run-length-compressed (b-move) flavor")
     b.add_argument("--textless", action="store_true",
-                   help="textless RLC flavor (not ported yet)")
+                   help="with --rlc: drop the packed text and the strided "
+                        "SA samples, so the index scales with the BWT run "
+                        "count; alignment then reports positions without "
+                        "CIGARs and forces -i 0")
     b.add_argument("-B", "--max-block-bp", type=int, default=None,
                    help="block-partitioned index (not ported yet)")
     b.add_argument("--log-file", default=None)
@@ -87,6 +94,10 @@ def main(argv=None):
     a.add_argument("-v", "--verbose", action="store_true")
     a.add_argument("-nC", "--no-CIGAR", dest="no_cigar", action="store_true",
                    help="do not output CIGAR strings")
+    a.add_argument("-aC", "--activate-CIGAR", dest="activate_cigar",
+                   action="store_true",
+                   help="force CIGAR output (the RLC flavor defaults to "
+                        "none)")
     a.add_argument("-D", "--discordant", nargs="?", type=int, const=100000,
                    default=None, metavar="N",
                    help="allow discordant pairs, optionally at most N per "
@@ -137,10 +148,6 @@ def cmd_build(args):
     logger.verbose = args.verbose
     if args.log_file:
         logger.set_log_file(args.log_file)
-    if args.rlc or args.textless:
-        raise NotImplementedError(
-            "RLC / textless indexes are not ported yet (ROADMAP queue 1, "
-            "item 13)")
     if args.max_block_bp is not None:
         raise NotImplementedError(
             "blocked indexes are not ported yet (ROADMAP queue 1, item 12)")
@@ -151,28 +158,53 @@ def cmd_build(args):
     if not fastas:
         raise SystemExit("build: provide FASTA files via -f and/or -F")
     t0 = time.time()
-    arrays = build_index(
-        fastas, out_dir=args.index,
-        sa_sparseness=1 if args.all_sa_sparseness else args.sa_sparseness,
-        seed=args.seed, write_preprocessed_fasta=args.write_preprocessed,
-        seed_length=args.seed_length,
-    )
-    print(f"[{PROGRAM} build] n={arrays.n} seqs={len(arrays.seq_names)} in "
-          f"{time.time() - t0:.1f}s -> {args.index}", file=sys.stderr)
+    extra = ""
+    if args.rlc:
+        from columba_tpu_torch.index.bmove import build_bmove
+
+        arrays = build_bmove(fastas, out_dir=args.index, seed=args.seed,
+                             textless=args.textless)
+        extra = (f" runs={arrays.meta['runs_fwd']}"
+                 f" (r/n={arrays.meta['runs_fwd'] / max(arrays.n, 1):.3f})"
+                 + (" textless" if args.textless else ""))
+    elif args.textless:
+        raise SystemExit("build: --textless requires --rlc")
+    else:
+        arrays = build_index(
+            fastas, out_dir=args.index,
+            sa_sparseness=1 if args.all_sa_sparseness else args.sa_sparseness,
+            seed=args.seed, write_preprocessed_fasta=args.write_preprocessed,
+            seed_length=args.seed_length,
+        )
+    print(f"[{PROGRAM} build] n={arrays.n} seqs={len(arrays.seq_names)}"
+          f"{extra} in {time.time() - t0:.1f}s -> {args.index}",
+          file=sys.stderr)
     return 0
 
 
-def _unsupported(args) -> str | None:
-    """The ROADMAP item of an option the port does not run yet, or None."""
+def _unsupported(args, flavor: str, textless: bool) -> str | None:
+    """The ROADMAP item of an option the port does not run yet on this
+    index flavor, or None."""
     if args.trim:
         return "-T trim (ROADMAP queue 1, item 9)"
     if args.output.endswith(".rhs"):
         return "read-hit-summary output (ROADMAP queue 1, item 9)"
+    if flavor not in ("vanilla", "rlc"):
+        return f"{flavor} indexes (ROADMAP queue 1, item 12)"
+    if flavor == "rlc" and not textless:
+        # the RLC entries of kernel F and of kernel E with lengths
+        if args.partitioning == "dynamic":
+            return "-p dynamic on the RLC index (ROADMAP queue 1, item 13b)"
+        if (args.dynamic_selection_path or args.probe_selection
+                or (args.custom and not args.no_dynamic_selection)):
+            return ("per-read scheme selection (-d, -c without -nD, "
+                    "--probe-selection) on the RLC index (ROADMAP queue 1, "
+                    "item 13b)")
     return None
 
 
-# (path, meta mtime, sa_sparseness, device) -> (arrays, device index): a
-# repeated in-process align reuses the resident index. One entry.
+# (path, meta mtime, flavor, sa_sparseness, device) -> (arrays, device
+# index): a repeated in-process align reuses the resident index. One entry.
 _DEVICE_INDEX_CACHE: dict = {}
 
 
@@ -181,6 +213,7 @@ def cmd_align(args):
 
     import torch
 
+    from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
     from columba_tpu_torch.index.build import load_index, subsample_sa
     from columba_tpu_torch.index.fmindex import FMIndex
     from columba_tpu_torch.io import emit, fastq
@@ -190,11 +223,26 @@ def cmd_align(args):
     logger.verbose = args.verbose
     if args.log_file:
         logger.set_log_file(args.log_file)
-    missing = _unsupported(args)
     with open(os.path.join(args.index, "meta.json")) as f:
-        flavor = json.load(f).get("flavor", "vanilla")
-    if flavor != "vanilla":
-        missing = f"{flavor} indexes (ROADMAP queue 1, items 12-13)"
+        meta = json.load(f)
+    flavor = meta.get("flavor", "vanilla")
+    rlc = flavor == "rlc"
+    textless = rlc and bool(meta.get("textless", False))
+    if textless:
+        # as columba_tpu/cli.py:271-284
+        if args.activate_cigar:
+            raise SystemExit(
+                "align: -aC needs the genome text; this RLC index was "
+                "built --textless")
+        if args.reads2 is not None:
+            raise SystemExit(
+                "align: paired-end needs in-text windows; use a with-text "
+                "RLC or Vanilla index (textless index given)")
+        if args.in_text:
+            logger.verbose_msg("textless index: in-text verification "
+                               "disabled (-i 0)")
+            args.in_text = 0
+    missing = _unsupported(args, flavor, textless)
     if missing is None and not (
             emit.available() and emit.pe_available()
             and fastq.native_reader_available()
@@ -216,16 +264,23 @@ def cmd_align(args):
                 "kernels' plain versions)") from e
     key = (os.path.realpath(args.index),
            os.path.getmtime(os.path.join(args.index, "meta.json")),
-           args.sa_sparseness, str(device))
+           flavor, textless, args.sa_sparseness, str(device))
     ent = _DEVICE_INDEX_CACHE.get(key)
     if ent is None:
-        arrays = load_index(args.index)
-        if args.sa_sparseness is not None:
-            arrays = subsample_sa(arrays, args.sa_sparseness)
-        _DEVICE_INDEX_CACHE.clear()
-        ent = (arrays, FMIndex.from_arrays(arrays, device))
+        _DEVICE_INDEX_CACHE.clear()      # one resident index at a time
+        if rlc:
+            arrays = load_bmove(args.index)
+            ent = (arrays, BMoveIndex.from_arrays(arrays, device))
+        else:
+            arrays = load_index(args.index)
+            if args.sa_sparseness is not None:
+                arrays = subsample_sa(arrays, args.sa_sparseness)
+            ent = (arrays, FMIndex.from_arrays(arrays, device))
         _DEVICE_INDEX_CACHE[key] = ent
     arrays, index = ent
+    # CIGAR defaults as in the reference: on for Vanilla (-nC disables),
+    # off for RLC (-aC enables), src/parameters/alignparameters.cpp:131-160
+    args.with_cigar = args.activate_cigar if rlc else not args.no_cigar
     # scheme source precedence mirrors Parameters::createStrategy
     # (src/parameters/alignparameters.cpp:1313-1345): -d > -c > -S
     dynamic_selection = (args.scheme == "columba"
@@ -240,7 +295,7 @@ def cmd_align(args):
     kmer_k = max(0, min(int(args.kmer_size), 13))
     if kmer_k != args.kmer_size:
         logger.warning(f"kmer-size clamped to {kmer_k} (dense table)")
-    if not args.no_kmer_table and kmer_k > 0:
+    if not args.no_kmer_table and not rlc and kmer_k > 0:
         from columba_tpu_torch.index.kmer import build_kmer_table_cached
 
         kmer_table = build_kmer_table_cached(index, kmer_k, args.index)
@@ -254,6 +309,8 @@ def cmd_align(args):
         arrays=arrays)
     if args.reads2 is not None:
         return _align_paired(args, arrays, index, cfg, kmer_table)
+    if textless:
+        return _align_textless(args, arrays, index, cfg)
     return _align_single_fast(args, arrays, index, cfg)
 
 
@@ -323,7 +380,7 @@ def _align_single_fast(args, arrays, index, cfg):
                     batch.quals_buf, batch.qual_offs, occs, arrays, genome,
                     kb, xa_tag=args.xa_tag,
                     unmapped_records=not args.no_unmapped,
-                    with_cigar=not args.no_cigar, n_threads=3, counters=ctrs)
+                    with_cigar=args.with_cigar, n_threads=3, counters=ctrs)
                 out.write(data)
                 n_mapped = int(np.unique(occs.read_id).size)
                 state["n_reads"] += nv
@@ -383,6 +440,60 @@ def _align_single_fast(args, arrays, index, cfg):
         f"{state['n_aln'] / max(state['n_reads'], 1):.2f} per read, "
         f"total {time.time() - t0:.1f}s"
     )
+    print(f"[{PROGRAM}] {summary}", file=sys.stderr)
+    if args.log_file:
+        logger.info(summary)
+    ctrs.report(logger, paired=False)
+    return 0
+
+
+def _align_textless(args, arrays, index, cfg):
+    """Single-end alignment on the textless RLC index: batches from the
+    native FASTQ parser in input order, each mapped (the frontier pass on
+    the device, phi locate on the host) and written by the textless
+    emitter ('*' CIGARs, no genome text), one after another."""
+    import numpy as np
+
+    from columba_tpu_torch.counters import Counters
+    from columba_tpu_torch.io import fastq, sam
+    from columba_tpu_torch.logger import logger
+    from columba_tpu_torch.search import strategy
+
+    seq_lengths = list(np.diff(arrays.seq_starts))
+    ctrs = Counters()
+    t0 = time.time()
+    n_reads = n_mapped = n_aln = 0
+    with open(args.output, "w") as out:
+        out.write(sam.header(arrays.seq_names, seq_lengths,
+                             program_name=PROGRAM,
+                             command_line=" ".join(sys.argv)))
+        for batch in fastq.batches_native(args.reads, args.batch_size):
+            if args.mode == "all":
+                occs = strategy.map_batch_all_finish(
+                    strategy.map_batch_all_start(index, batch.codes, cfg),
+                    index, batch.codes, cfg, counters=ctrs)[0]
+            else:
+                occs = strategy.map_batch_best_arr(index, batch.codes, cfg,
+                                                   counters=ctrs)
+            nv = batch.n_valid
+            occs = occs.take(occs.read_id < nv)
+            out.write(strategy.emit_sam_textless(
+                batch, occs, arrays, unmapped_records=not args.no_unmapped))
+            mapped = int(np.unique(occs.read_id).size)
+            n_reads += nv
+            n_mapped += mapped
+            n_aln += len(occs)
+            ctrs.number_of_reads += nv
+            ctrs.mapped_reads += mapped
+            ctrs.total_unique_matches += len(occs)
+            ctrs.total_reported_positions += len(occs)
+            rate = n_reads / max(time.time() - t0, 1e-9)
+            print(f"[{PROGRAM}] {n_reads} reads, {n_mapped} mapped "
+                  f"({rate:,.0f} reads/s)", file=sys.stderr)
+    pct = 100.0 * n_mapped / max(n_reads, 1)
+    summary = (f"done: {n_reads} reads, {pct:.2f}% mapped, {n_aln} "
+               f"alignments, {n_aln / max(n_reads, 1):.2f} per read, total "
+               f"{time.time() - t0:.1f}s")
     print(f"[{PROGRAM}] {summary}", file=sys.stderr)
     if args.log_file:
         logger.info(summary)

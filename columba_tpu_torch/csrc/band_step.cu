@@ -1,259 +1,10 @@
-// Kernel B: the per-lane arithmetic of one band step of the scheme executor.
-//
-// Replaces the lane-local part of columba_tpu/search/executor.py
-// make_step.step (with _band_row_update): for each frontier lane it
-//   1. extends the lane's range pair by all 4 chars (extend_lane),
-//   2. updates the active side's banded edit row for each char on int8
-//      cells (diag/up, left-to-right deletion scan, saturation at INF),
-//   3. updates the W colMin registers from the step's packed 7-bit ops,
-//   4. prunes each child by min(row min, fresh window register) + the other
-//      side's completed register <= U, splits narrow children (width <=
-//      switchpoint, drained to in-text verification) from alive ones,
-//   5. marks a lane whose children all die as a ghost (id bit 31, death
-//      depth in bits 21-30),
-// and writes the 4 children's state. The order-keeping 4C -> C compaction
-// and the drain append stay in PyTorch (search/executor.py).
-//
-// The step's per-search scalars (S rows of 7 packed int32 words) sit in
-// shared memory; each lane decodes its own row by search id.
-//
-// Per-lane entry (DYN, dynamic partitioning): every (read, search) has its
-// own schedule, so a lane reads its own packed word at dyn_meta[id * T + t]
-// (the layout of search/dynschedule.py: creset at bit 2, colo + 1 at bits
-// 3-8, ub at bit 9, back depth at bit 17) and derives the ops of its single
-// register from it (W = 1: dynamic partitions keep every part longer than
-// 2k, so windows never overlap). Same body, no shared memory.
-//
-// Bound: two random 64 B occ rows per active lane, as kernel A, plus
-// ~100 B of lane state in and ~200 B of child state out; the band and
-// register arithmetic is a few hundred integer ops in registers. Inactive
-// and dead lanes skip the occ reads.
-//
-// Templated on the band radius KB and the register count W so every array
-// stays in registers: KB 0..4 x W 1..2 are instantiated (what the builtin
-// schemes give at m = 100 and 150 for k <= 4, both metrics; KB = 0 is the
-// Hamming band of one cell). Every other shape a schedule can produce
-// (KB <= 13, W <= MAX_REGS = 10) runs the same body with runtime sizes and
-// arrays sized for the maximum (KB = -1): those arrays live in local memory,
-// so that entry is slower, and it is exact.
-#include "common.cuh"
+// Kernel B, Vanilla entries: the static-schedule entries (kb 0..4 x W 1..2
+// templated, a generic entry above) and the per-lane entry of dynamic
+// partitioning. The body and its notes are in band_step.cuh.
+#include "band_step.cuh"
 
-namespace {
-
-constexpr int kGhostBit = -2147483647 - 1;   // bit 31
-constexpr int kGhostIdMask = (1 << 21) - 1;
-
-struct BandArgs {
-  columba::FmParams fm;
-  const long long* ranges;      // (C, 4)
-  const int* ids;               // (C,)
-  const signed char* band;      // (C, 2, BW)
-  const signed char* colmin;    // (C, 2, W)
-  const int* mrow;              // (S, 7) this step's packed scalars
-  int S;
-  const int* dyn_meta;          // (R*S*T,) per-lane words (per-lane entry)
-  const signed char* pchars;    // (R*S*T, BW) per-(lane id, step) cell codes
-  int T;
-  int t;
-  int bw;                       // runtime band width and register count,
-  int W;                        // read by the generic entry only
-  int switchpoint;
-  long long* ch_ranges;         // (C, 4, 4)
-  int* new_ids;                 // (C,)
-  signed char* ch_band;         // (C, 4, 2, BW)
-  signed char* ch_colmin;       // (C, 4, 2, W)
-  unsigned char* ch_alive;      // (C, 4)
-  unsigned char* narrow;        // (C, 4)
-  unsigned char* act_out;       // (C,)
-  int* dbv_out;                 // (C,)
-  long long C;
-};
-
-constexpr int kMaxBW = 2 * 13 + 1;   // ladder cutoff 13 (BEST_CUTOFF)
-constexpr int kMaxW = 10;            // search/schedule.py MAX_REGS
-
-// KB >= 0: sizes fixed at compile time. KB < 0: the generic entry.
-template <int KB, int WT, bool DYN>
-__global__ void band_step_kernel(BandArgs a) {
-  constexpr bool kGeneric = KB < 0;
-  constexpr int BWMAX = kGeneric ? kMaxBW : 2 * KB + 1;
-  constexpr int WMAX = kGeneric ? kMaxW : WT;
-  const int BW = kGeneric ? a.bw : BWMAX;
-  const int W = kGeneric ? a.W : WMAX;
-  constexpr int INF = columba::INF;
-  extern __shared__ int smeta[];
-  if (!DYN) {
-    for (int k = threadIdx.x; k < a.S * 7; k += blockDim.x)
-      smeta[k] = a.mrow[k];
-    __syncthreads();
-  }
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= a.C) return;
-
-  const long long* rg = a.ranges + 4 * i;
-  const long long p_lo = rg[0], p_hi = rg[1], p_rlo = rg[2], p_rhi = rg[3];
-  const int ids = a.ids[i];
-  const bool ghost = ids < 0;
-  const int ids_c = ids & kGhostIdMask;
-  // the step's scalars of this lane: meta word, register ops and inits
-  int mr[7];
-  int cacc, cfro, ub, dbv;
-  if (DYN) {
-    const int word = a.dyn_meta[static_cast<long long>(ids_c) * a.T + a.t];
-    const int colo = ((word >> 3) & 63) - 1;
-    mr[0] = word;
-    mr[1] = colo >= 0 ? (colo | (((word >> 2) & 1) << 6)) : 63;
-    mr[2] = mr[3] = 0;
-    mr[4] = 63;
-    mr[5] = mr[6] = 0;
-    cacc = colo >= 0 ? 0 : 15;
-    cfro = 0;
-    ub = (word >> 9) & 255;
-    dbv = (word >> 17) & 4095;
-  } else {
-    const int* row = smeta + (ids_c % a.S) * 7;
-#pragma unroll
-    for (int k = 0; k < 7; ++k) mr[k] = row[k];
-    cacc = (mr[0] >> 2) & 15;
-    cfro = (mr[0] >> 6) & 15;
-    ub = (mr[0] >> 10) & 255;
-    dbv = (mr[0] >> 18) & 4095;
-  }
-  const int meta = mr[0];
-  const bool alive = p_hi > p_lo;
-  const bool act = (meta & 1) && alive && !ghost;
-  const bool is_b = ((meta >> 1) & 1) == 0;
-
-  int band0[BWMAX], band1[BWMAX], cm0[WMAX], cm1[WMAX];
-#pragma unroll
-  for (int o = 0; o < BW; ++o) {
-    band0[o] = a.band[(2 * i) * BW + o];
-    band1[o] = a.band[(2 * i + 1) * BW + o];
-  }
-#pragma unroll
-  for (int w = 0; w < W; ++w) {
-    cm0[w] = a.colmin[(2 * i) * W + w];
-    cm1[w] = a.colmin[(2 * i + 1) * W + w];
-  }
-
-  uint32_t ch[4][4] = {};
-  int newD[4][BWMAX], reg[4][WMAX];
-  bool calive[4] = {false, false, false, false};
-  bool nar[4] = {false, false, false, false};
-  bool keepv = false, died = false;
-  if (act) {
-    columba::extend_lane(a.fm, static_cast<uint32_t>(p_lo),
-                         static_cast<uint32_t>(p_hi),
-                         static_cast<uint32_t>(p_rlo),
-                         static_cast<uint32_t>(p_rhi), is_b ? 0 : 1, ch);
-    // banded row update for the 4 chars
-    const signed char* pc =
-        a.pchars + (static_cast<long long>(ids_c) * a.T + a.t) * BW;
-    int prev[BWMAX], code[BWMAX], up[BWMAX];
-#pragma unroll
-    for (int o = 0; o < BW; ++o) {
-      prev[o] = is_b ? band0[o] : band1[o];
-      code[o] = pc[o];
-    }
-#pragma unroll
-    for (int o = 0; o < BW; ++o) up[o] = (o + 1 < BW ? prev[o + 1] : INF) + 1;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      int d = 0;
-#pragma unroll
-      for (int o = 0; o < BW; ++o) {
-        const int mis = code[o] == c ? 0 : (code[o] >= 0 ? 1 : INF);
-        const int nl = min(prev[o] + mis, up[o]);
-        d = o == 0 ? nl : min(nl, d + 1);
-        newD[c][o] = code[o] >= -1 ? min(d, INF) : INF;
-      }
-    }
-    // colMin registers: 7-bit op per register = cell (63 idle) | reset<<6
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      const int op = (mr[1 + w / 4] >> (7 * (w % 4))) & 127;
-      const int ini = (mr[4 + w / 4] >> (7 * (w % 4))) & 127;
-      const int cell = op & 63;
-      const int cur = is_b ? cm0[w] : cm1[w];
-      const int base = (op & 64) ? min(INF, ini) : cur;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        int acc = INF;
-#pragma unroll
-        for (int o = 0; o < BW; ++o) acc = cell == o ? newD[c][o] : acc;
-        reg[c][w] = cell < 63 ? min(base, acc) : cur;
-      }
-    }
-    // prune
-    int cm_other = 0;
-#pragma unroll
-    for (int w = 0; w < W; ++w)
-      cm_other = cfro == w ? (is_b ? cm1[w] : cm0[w]) : cm_other;
-    bool any_surv = false;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const uint32_t width = ch[c][1] - ch[c][0];
-      int rowmin = newD[c][0];
-#pragma unroll
-      for (int o = 1; o < BW; ++o) rowmin = min(rowmin, newD[c][o]);
-      int col = INF;
-#pragma unroll
-      for (int w = 0; w < W; ++w) col = cacc == w ? reg[c][w] : col;
-      const bool ok = width > 0 && min(rowmin, col) + cm_other <= ub;
-      nar[c] = a.switchpoint > 0 && ok &&
-               width <= static_cast<uint32_t>(a.switchpoint);
-      calive[c] = ok && !nar[c];
-      any_surv = any_surv || ok;
-    }
-    died = !any_surv;
-    keepv = !died;
-  }
-
-  a.new_ids[i] = died ? (ids | kGhostBit | (min(dbv, 1023) << 21)) : ids;
-  a.act_out[i] = act;
-  a.dbv_out[i] = dbv;
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const long long o4 = 4 * i + c;
-    a.ch_alive[o4] = keepv ? calive[c] : (c == 0 && alive);
-    a.narrow[o4] = nar[c];
-    long long* cr = a.ch_ranges + 4 * o4;
-    if (keepv) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) cr[k] = ch[c][k];
-    } else {
-      const bool par = c == 0 && alive;
-      cr[0] = par ? p_lo : 0;
-      cr[1] = par ? p_hi : 0;
-      cr[2] = par ? p_rlo : 0;
-      cr[3] = par ? p_rhi : 0;
-    }
-    signed char* cb = a.ch_band + o4 * 2 * BW;
-#pragma unroll
-    for (int o = 0; o < BW; ++o) {
-      cb[o] = (keepv && is_b) ? newD[c][o] : band0[o];
-      cb[BW + o] = (keepv && !is_b) ? newD[c][o] : band1[o];
-    }
-    signed char* cc = a.ch_colmin + o4 * 2 * W;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      cc[w] = (keepv && is_b) ? reg[c][w] : cm0[w];
-      cc[W + w] = (keepv && !is_b) ? reg[c][w] : cm1[w];
-    }
-  }
-}
-
-template <int KB, int WT, bool DYN = false>
-int launch(const BandArgs& a, cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  const size_t smem = DYN ? 0 : sizeof(int) * 7 * a.S;
-  band_step_kernel<KB, WT, DYN>
-      <<<columba::grid_for(a.C, kThreads), kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+using columba_band::BandArgs;
+using columba_band::launch;
 
 extern "C" int columba_band_step(
     const int* occ, long long blocks, unsigned c0, unsigned c1, unsigned c2,
@@ -265,32 +16,14 @@ extern "C" int columba_band_step(
     signed char* ch_band, signed char* ch_colmin, unsigned char* ch_alive,
     unsigned char* narrow, unsigned char* act_out, int* dbv_out, long long C,
     cudaStream_t stream) {
-  BandArgs a;
+  BandArgs a{};
   a.fm = columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1);
-  a.ranges = ranges;
-  a.ids = ids;
-  a.band = band;
-  a.colmin = colmin;
-  a.mrow = mrow;
-  a.S = S;
-  a.dyn_meta = dyn_meta;
-  a.pchars = pchars;
-  a.T = T;
-  a.t = t;
-  a.bw = 2 * kb + 1;
-  a.W = W;
-  a.switchpoint = switchpoint;
-  a.ch_ranges = ch_ranges;
-  a.new_ids = new_ids;
-  a.ch_band = ch_band;
-  a.ch_colmin = ch_colmin;
-  a.ch_alive = ch_alive;
-  a.narrow = narrow;
-  a.act_out = act_out;
-  a.dbv_out = dbv_out;
-  a.C = C;
-  if (kb < 0 || W < 1 || a.bw > kMaxBW || W > kMaxW)
+  if (!columba_band::common_args(a, ranges, ids, band, colmin, mrow, S,
+                                 pchars, T, t, kb, W, switchpoint, ch_ranges,
+                                 new_ids, ch_band, ch_colmin, ch_alive,
+                                 narrow, act_out, dbv_out, C))
     return static_cast<int>(cudaErrorInvalidValue);
+  a.dyn_meta = dyn_meta;
   if (dyn_meta != nullptr) {    // per-lane entry: one register
     if (W != 1) return static_cast<int>(cudaErrorInvalidValue);
     switch (kb) {
@@ -302,17 +35,5 @@ extern "C" int columba_band_step(
       default: return launch<-1, 0, true>(a, stream);
     }
   }
-  switch (W <= 2 && kb <= 4 ? 2 * kb + W : 0) {
-    case 1: return launch<0, 1>(a, stream);
-    case 2: return launch<0, 2>(a, stream);
-    case 3: return launch<1, 1>(a, stream);
-    case 4: return launch<1, 2>(a, stream);
-    case 5: return launch<2, 1>(a, stream);
-    case 6: return launch<2, 2>(a, stream);
-    case 7: return launch<3, 1>(a, stream);
-    case 8: return launch<3, 2>(a, stream);
-    case 9: return launch<4, 1>(a, stream);
-    case 10: return launch<4, 2>(a, stream);
-    default: return launch<-1, 0>(a, stream);
-  }
+  return columba_band::launch_static<4>(a, kb, W, stream);
 }

@@ -20,6 +20,13 @@
 // after length steps; a null pointer means every row has m chars. A row of
 // length 0 keeps the full range.
 //
+// RLC entry ("rlc", K18 inside K14): the same body on 8-wide RLC lanes
+// (Lane<8> of common.cuh) from the RLC full range; a step computes only the
+// chosen character's child (the other side needs all four widths, and they
+// come from the two endpoint rows anyway) and walks that child's run hints.
+// An empty child is zero there, so the row stops at the same step. Per-row
+// lengths are not taken on RLC (scheme selection on RLC is not ported).
+//
 // Bound: latency, not bandwidth. A row does up to m dependent steps, each
 // two random 48 B row reads (three 16 B loads per fused occ row) whose
 // addresses come from the step before, so nothing of one row overlaps; the
@@ -30,7 +37,8 @@
 
 namespace {
 
-__global__ void exact_kernel(columba::FmParams p,
+template <int RW>
+__global__ void exact_kernel(columba::FmParams fm, columba::BmParams bm,
                              const uint8_t* __restrict__ patterns,
                              const int* __restrict__ lengths, int m,
                              uint32_t n, long long* __restrict__ out,
@@ -39,31 +47,44 @@ __global__ void exact_kernel(columba::FmParams p,
                       threadIdx.x;
   if (i >= rows) return;
   const uint8_t* pat = patterns + i * m;
-  uint32_t r[4] = {0u, n + 1u, 0u, n + 1u};
+  uint32_t r[RW];
+  r[0] = r[2] = 0u;
+  r[1] = r[3] = n + 1u;
+  if (RW > 4) {
+    r[4] = r[6] = 0u;
+    r[5] = bm.r_fwd - 1u;
+    r[7] = bm.r_rev - 1u;
+  }
   const int len = lengths == nullptr ? m : min(__ldg(lengths + i), m);
   for (int j = len - 1; j >= 0; --j) {
     const int c = __ldg(pat + j);
     if (c > 3) {                      // N never matches
-      r[0] = r[1] = r[2] = r[3] = 0u;
+#pragma unroll
+      for (int k = 0; k < RW; ++k) r[k] = 0u;
       break;
     }
-    uint32_t ch[4][4];
-    columba::extend_lane(p, r[0], r[1], r[2], r[3], 0, ch);
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (s == c) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) r[k] = ch[s][k];
-      }
-    }
+    columba::Lane<RW> lane;
+    lane.init(fm, bm, r, 0);
+    columba::child_of<RW>(lane, bm, c, r);
     if (r[1] <= r[0]) {               // empty: later steps cannot revive it
-      r[0] = r[1] = r[2] = r[3] = 0u;
+#pragma unroll
+      for (int k = 0; k < RW; ++k) r[k] = 0u;
       break;
     }
   }
-  long long* o = out + 4 * i;
+  long long* o = out + RW * i;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) o[k] = r[k];
+  for (int k = 0; k < RW; ++k) o[k] = r[k];
+}
+
+template <int RW>
+int launch(const columba::FmParams& fm, const columba::BmParams& bm,
+           const unsigned char* patterns, const int* lengths, int m,
+           uint32_t n, long long* out, long long rows, cudaStream_t stream) {
+  constexpr int kThreads = 64;
+  exact_kernel<RW><<<columba::grid_for(rows, kThreads), kThreads, 0,
+                     stream>>>(fm, bm, patterns, lengths, m, n, out, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -75,10 +96,20 @@ extern "C" int columba_exact(const int* occ, long long blocks, unsigned c0,
                              const int* lengths, int m, long long n,
                              long long* out, long long rows,
                              cudaStream_t stream) {
-  const columba::FmParams p =
+  const columba::FmParams fm =
       columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1);
-  constexpr int kThreads = 64;
-  exact_kernel<<<columba::grid_for(rows, kThreads), kThreads, 0, stream>>>(
-      p, patterns, lengths, m, static_cast<uint32_t>(n), out, rows);
-  return static_cast<int>(cudaGetLastError());
+  return launch<4>(fm, columba::BmParams{}, patterns, lengths, m,
+                   static_cast<uint32_t>(n), out, rows, stream);
+}
+
+extern "C" int columba_exact_rlc(const int* fused, unsigned r_fwd,
+                                 unsigned r_rev, unsigned f0, unsigned f1,
+                                 unsigned f2, unsigned f3, unsigned n,
+                                 const unsigned char* patterns, int m,
+                                 long long* out, long long rows,
+                                 cudaStream_t stream) {
+  const columba::BmParams bm =
+      columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
+  return launch<8>(columba::FmParams{}, bm, patterns, nullptr, m, n, out,
+                   rows, stream);
 }

@@ -11,6 +11,15 @@
 // One thread per row keeps many independent chains in flight, and the walk
 // stops at the first sampled row instead of running all f-1 masked steps
 // as the lockstep JAX loop does.
+//
+// RLC entry ("rlc", K19): replaces columba_tpu/ops/blocate.py run_of_rows +
+// locate_rows. One thread per row: a binary search for the row's run (about
+// log2 r dependent 4 B reads of START), then the LF walk: each step is the
+// run's LF position plus the row's offset in the run, and the run hint
+// fast-forwards (4 B END reads) to the run holding the new row; it stops at
+// a run head, a run tail or a row that is 0 mod the stride (at most stride
+// steps), reads that sample and adds the steps, capped at n. Bound: the
+// chain of dependent reads, as the Vanilla entry.
 #include "common.cuh"
 
 namespace {
@@ -50,7 +59,63 @@ __global__ void locate_kernel(const uint32_t* __restrict__ occ, uint4 counts,
   out[i] = static_cast<uint32_t>(__ldg(samples + rk) + steps);
 }
 
+__global__ void locate_rlc_kernel(columba::BmParams p,
+                                  const uint32_t* __restrict__ sa_stride,
+                                  int shift, const long long* __restrict__ rows,
+                                  long long* __restrict__ out, long long N) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= N) return;
+  uint32_t pos = static_cast<uint32_t>(rows[i]);
+  int lo = 0, hi = static_cast<int>(p.r_fwd) - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (columba::bm_col(p, mid, 0) <= pos) lo = mid;
+    else hi = mid - 1;
+  }
+  int run = lo;
+  const uint32_t smask = (1u << shift) - 1u;
+  uint32_t steps = 0, val;
+  while (true) {
+    const uint4 w0 = columba::bm_word(p, run, 0);   // START END LF_POS LF_RUN
+    const bool head = pos == w0.x;
+    const bool tail = pos == w0.y - 1u;
+    if (head || tail) {
+      const uint4 w1 = columba::bm_word(p, run, 1);
+      val = head ? w1.y : w1.z;                     // SA_FIRST / SA_LAST
+      break;
+    }
+    if ((pos & smask) == 0u) {
+      val = __ldg(sa_stride + (pos >> shift));
+      break;
+    }
+    pos = w0.z + (pos - w0.x);
+    run = static_cast<int>(w0.w);
+    while (columba::bm_col(p, run, 1) <= pos) ++run;
+    ++steps;
+  }
+  val += steps;
+  out[i] = val < p.n ? val : p.n;
+}
+
 }  // namespace
+
+extern "C" int columba_locate_rlc(const int* fused, unsigned r_fwd,
+                                  unsigned r_rev, unsigned f0, unsigned f1,
+                                  unsigned f2, unsigned f3, unsigned n,
+                                  const int* sa_stride, int stride,
+                                  const long long* rows, long long* out,
+                                  long long N, cudaStream_t stream) {
+  const columba::BmParams p =
+      columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
+  int shift = 0;
+  while ((1 << shift) < stride) ++shift;
+  if ((1 << shift) != stride) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kThreads = 128;
+  locate_rlc_kernel<<<columba::grid_for(N, kThreads), kThreads, 0, stream>>>(
+      p, reinterpret_cast<const uint32_t*>(sa_stride), shift, rows, out, N);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int columba_locate(const int* occ, unsigned c0, unsigned c1,
                               unsigned c2, unsigned c3, unsigned dollar,

@@ -100,6 +100,12 @@ class FMIndex:
         return sum(getattr(self, f.name).nbytes for f in fields(self)
                    if isinstance(getattr(self, f.name), torch.Tensor))
 
+    @property
+    def range_width(self) -> int:
+        """Values per lane range: [f_lo, f_hi, r_lo, r_hi) (8 or 12 on the
+        RLC index, ``index/bmove.py``)."""
+        return 4
+
     def full_range(self, batch_shape=()) -> torch.Tensor:
         """The whole-index range pair [0, n+1, 0, n+1) broadcast to batch."""
         r = torch.tensor([0, self.n + 1, 0, self.n + 1], dtype=torch.int64,

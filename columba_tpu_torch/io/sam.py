@@ -1,7 +1,10 @@
 """SAM helpers on the host: the header, and the banded DP with traceback
 that cross-boundary trimming re-verifies with (reference:
 src/indexhelpers.cpp, src/bitparallelmatrix.h), and the MAPQ rule. The
-records themselves are written by the native emitter (``io/emit.py``).
+records themselves are written by the native emitter (``io/emit.py``),
+except on the textless RLC index, whose emitter
+(``strategy.emit_sam_textless``) formats them with :func:`record` and
+:func:`unmapped_record`.
 """
 
 from __future__ import annotations
@@ -9,6 +12,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from columba_tpu_torch.core import alphabet
 
 MAX_MAPQ = 60  # reference: src/definitions.h
 
@@ -135,3 +140,17 @@ def best_in_window(pattern: np.ndarray, window: np.ndarray, kb: int):
         return None
     b, ed, _, c, cigar = min(results)
     return b, c, ed, cigar
+
+
+def record(qname: str, flag: int, rname: str, pos1: int, mq: int, cigar: str,
+           seq_codes: np.ndarray, qual: str, distance: int) -> str:
+    seq = alphabet.decode(seq_codes)
+    return (
+        f"{qname}\t{flag}\t{rname}\t{pos1}\t{mq}\t{cigar}\t*\t0\t0\t"
+        f"{seq}\t{qual}\tAS:i:{distance}\tNM:i:{distance}\tPG:Z:Columba\n"
+    )
+
+
+def unmapped_record(qname: str, seq_codes: np.ndarray, qual: str) -> str:
+    seq = alphabet.decode(seq_codes)
+    return f"{qname}\t4\t*\t0\t0\t*\t*\t0\t0\t{seq}\t{qual}\tPG:Z:Columba\n"

@@ -102,25 +102,37 @@ def _nvcc_objects(srcs: list[str]) -> tuple[list[str], str]:
     return [obj for _, obj, _ in jobs], "".join(logs)
 
 
+_BUILD_ERROR: list = []
+
+
 def load_kernels() -> ctypes.CDLL:
     """The CUDA kernels' library (every ``csrc/*.cu``), built on first use.
-    Raises if it cannot be built: a CUDA tensor has no other path."""
+    Raises if it cannot be built: a CUDA tensor has no other path. A failed
+    build raises again on every later call without compiling again."""
     with _LOCK:
         lib = _LIBS.get("kernels")
         if lib is not None:
             return lib
+        if _BUILD_ERROR:
+            raise RuntimeError("the CUDA kernels failed to build earlier in "
+                               "this process") from _BUILD_ERROR[0]
         srcs = sorted(glob.glob(os.path.join(CUDA_SRC_DIR, "*.cu")))
         deps = srcs + glob.glob(os.path.join(CUDA_SRC_DIR, "*.cuh"))
         so_path = os.path.join(BUILD_DIR, "libcolumba_kernels.so")
         if not _fresh(so_path, deps):
             t0 = time.time()
-            objs, build_log["kernels"] = _nvcc_objects(srcs)
+            try:
+                objs, build_log["kernels"] = _nvcc_objects(srcs)
+            except RuntimeError as e:
+                _BUILD_ERROR.append(e)
+                raise
             try:
                 _run_build([NVCC, "-shared", *objs], so_path, 900)
             except subprocess.CalledProcessError as e:
-                raise RuntimeError(
-                    "nvcc link failed:\n" + e.stderr.decode(errors="replace")
-                ) from e
+                err = RuntimeError(
+                    "nvcc link failed:\n" + e.stderr.decode(errors="replace"))
+                _BUILD_ERROR.append(err)
+                raise err from e
             finally:
                 for obj in objs:
                     os.remove(obj)
@@ -134,7 +146,7 @@ KERNELS: dict[str, "Kernel"] = {}
 
 
 class Kernel:
-    """One CUDA kernel's C entry point and its launch count.
+    """One CUDA kernel's C entry points and its launch count.
 
     Each entry point takes its pointers and sizes followed by the CUDA
     stream, launches on that stream without synchronising, and returns
@@ -142,21 +154,30 @@ class Kernel:
     current stream. ``launches`` counts successful launches only, under a
     lock (the dispatch thread and an emitter thread that re-dispatches may
     both launch); ``by_entry`` splits the same launches by the entry the
-    wrapper names (kernel B's per-lane entry, kernel E with lengths).
+    wrapper names (kernel B's per-lane entry, kernel E with lengths, the
+    RLC entries). An entry named in ``symbols`` (entry -> (C symbol,
+    argtypes) or (C symbol, argtypes, CUDA source) where the entry is built
+    from a source of its own) has a C function of its own, with the
+    index-specific arguments of the RLC index; the other entries share the
+    main symbol and source.
     Callers :meth:`reset` the counts to measure a run.
     """
 
     def __init__(self, name: str, symbol: str, argtypes: list,
-                 source: str, replaces: str):
+                 source: str, replaces: str, symbols: dict | None = None):
         self.name = name
-        self.symbol = symbol
-        self.argtypes = argtypes
+        self.symbols = {"": (symbol, argtypes, source), **(symbols or {})}
         self.source = source        # CUDA source, relative to the repo
         self.replaces = replaces    # the JAX function it ports (file:line)
         self.launches = 0
         self.by_entry: dict[str, int] = {}
-        self._fn = None
+        self._fns: dict[str, object] = {}
         KERNELS[name] = self
+
+    def source_of(self, entry: str) -> str:
+        """The CUDA source an entry's C function is built from."""
+        spec = self.symbols.get(entry, self.symbols[""])
+        return spec[2] if len(spec) > 2 else self.source
 
     def reset(self) -> None:
         with _COUNT_LOCK:
@@ -166,16 +187,19 @@ class Kernel:
     def __call__(self, *args, entry: str = "") -> None:
         import torch
 
-        if self._fn is None:
+        key = entry if entry in self.symbols else ""
+        fn = self._fns.get(key)
+        if fn is None:
             lib = load_kernels()
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+            symbol, argtypes = self.symbols[key][:2]
+            fn = getattr(lib, symbol)
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             lib.columba_error_string.argtypes = [ctypes.c_int]
             lib.columba_error_string.restype = ctypes.c_char_p
             self._err = lib.columba_error_string
-            self._fn = fn
-        rc = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+            self._fns[key] = fn
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"kernel {self.name}: CUDA error {rc} "
                                f"({self._err(rc).decode()})")

@@ -12,6 +12,10 @@ Ranges are int64 tensors holding uint32 values (see ``ops/rank.py``).
 ``extend_all`` / ``extend_char`` take the plain PyTorch version for CPU
 tensors and launch kernel A (``csrc/extend.cu``) for CUDA tensors.
 ``exact_match`` (the k = 0 pass) is kernel E (``csrc/exact.cu``) on the card.
+On the RLC index (``index/bmove.py``) ranges are 8 or 12 wide and the three
+functions dispatch, as ``columba_tpu/ops/extend.py:55-58,105-108`` do, to the
+plain versions of ``ops/bextend.py`` on the CPU and to the RLC entries of
+kernels A and E (``extend.rlc``, ``exact.rlc``) on the card.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import ctypes
 import torch
 
 from columba_tpu_torch import native
+from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
-from columba_tpu_torch.ops import rank
+from columba_tpu_torch.ops import bextend, rank
 
 MASK32 = rank.MASK32
 
@@ -35,6 +40,10 @@ KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_int64],                   # out, lanes
     source="columba_tpu_torch/csrc/extend.cu",
     replaces="columba_tpu/ops/extend.py:48",
+    symbols={"rlc": ("columba_extend_rlc", [
+        *bextend.BM_ARGTYPES,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ranges/dirs/chars
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32])},  # out, lanes, rw
 )
 
 EXACT_KERNEL = native.Kernel(
@@ -47,6 +56,10 @@ EXACT_KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_int64],                   # out, rows
     source="columba_tpu_torch/csrc/exact.cu",
     replaces="columba_tpu/ops/extend.py:120",
+    symbols={"rlc": ("columba_exact_rlc", [
+        *bextend.BM_ARGTYPES,
+        ctypes.c_void_p, ctypes.c_int32,                    # patterns, m
+        ctypes.c_void_p, ctypes.c_int64])},                 # out, rows
 )
 
 
@@ -64,7 +77,10 @@ def _occ_dir(index: FMIndex, pos, dirs):
 
 
 def extend_all_plain(index: FMIndex, ranges, dirs) -> torch.Tensor:
-    """(..., 4) ranges, (...,) dirs -> (..., 4 chars, 4) child ranges."""
+    """(..., 4) ranges, (...,) dirs -> (..., 4 chars, 4) child ranges
+    (on the RLC index (L, rw) -> (L, 4, rw), ``bextend.extend_all_plain``)."""
+    if isinstance(index, BMoveIndex):
+        return bextend.extend_all_plain(index, ranges, dirs)
     f_lo, f_hi, r_lo, r_hi = ranges.unbind(-1)
     bwd = dirs == 0
     a_lo = torch.where(bwd, f_lo, r_lo)
@@ -91,6 +107,8 @@ def extend_all_plain(index: FMIndex, ranges, dirs) -> torch.Tensor:
 
 def extend_char_plain(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
     """Each lane extended by its own char; N (> 3) gives an empty range."""
+    if isinstance(index, BMoveIndex):
+        return bextend.extend_char_plain(index, ranges, chars, dirs)
     all4 = extend_all_plain(index, ranges, dirs)            # (..., 4, 4)
     safe = chars.long().clamp(0, 3)
     child = all4.gather(-2, safe[..., None, None].expand(
@@ -108,6 +126,8 @@ def exact_match_plain(index: FMIndex, patterns: torch.Tensor,
     B, m = patterns.shape
     ranges = index.full_range((B,))
     dirs = torch.zeros(B, dtype=torch.int32, device=patterns.device)
+    if isinstance(index, BMoveIndex) and lengths is not None:
+        raise NotImplementedError(_RLC_LENGTHS)
     for i in range(m):
         if lengths is None:
             ranges = extend_char_plain(index, ranges,
@@ -120,6 +140,11 @@ def exact_match_plain(index: FMIndex, patterns: torch.Tensor,
     return ranges
 
 
+_RLC_LENGTHS = ("exact_match with per-row lengths on the RLC index (scheme "
+                "selection on RLC) is not ported yet (ROADMAP queue 1, item "
+                "13b)")
+
+
 def zero_empty(ranges: torch.Tensor) -> torch.Tensor:
     """Empty ranges (hi <= lo) as the zero range, live ones untouched."""
     return torch.where((ranges[:, 1] > ranges[:, 0])[:, None], ranges, 0)
@@ -129,43 +154,52 @@ def zero_empty(ranges: torch.Tensor) -> torch.Tensor:
 # wrappers: plain version on the CPU, kernels A and E on the card
 # ---------------------------------------------------------------------------
 
+def _table(index) -> torch.Tensor:
+    return index.fused if isinstance(index, BMoveIndex) else index.occ_fused
+
+
 def _check(index, ranges, dirs, chars=None):
     L = dirs.numel()
-    if ranges.dtype != torch.int64 or ranges.shape != (L, 4):
-        raise ValueError(f"ranges must be ({L}, 4) int64, got "
+    rw = index.range_width
+    if ranges.dtype != torch.int64 or ranges.shape != (L, rw):
+        raise ValueError(f"ranges must be ({L}, {rw}) int64, got "
                          f"{tuple(ranges.shape)} {ranges.dtype}")
     for name, t in (("dirs", dirs), ("chars", chars)):
         if t is not None and (t.dtype != torch.int32 or t.dim() != 1):
             raise ValueError(f"{name} must be 1-D int32")
-    for t in (ranges, dirs, chars, index.occ_fused):
+    for t in (ranges, dirs, chars, _table(index)):
         if t is not None and (t.device != ranges.device
                               or not t.is_contiguous()):
             raise ValueError("kernel A inputs must be contiguous on one "
                              "device")
-    return L
+    return L, rw
 
 
 def _launch(index, ranges, dirs, chars):
-    L = _check(index, ranges, dirs, chars)
-    out = torch.empty((L, 4 if chars is not None else 16), dtype=torch.int64,
-                      device=ranges.device)
-    if L:
+    L, rw = _check(index, ranges, dirs, chars)
+    out = torch.empty((L, rw if chars is not None else 4 * rw),
+                      dtype=torch.int64, device=ranges.device)
+    cptr = chars.data_ptr() if chars is not None else None
+    if L and isinstance(index, BMoveIndex):
+        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), dirs.data_ptr(),
+               cptr, out.data_ptr(), L, rw, entry="rlc")
+    elif L:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
                *index.dollar_host, ranges.data_ptr(), dirs.data_ptr(),
-               chars.data_ptr() if chars is not None else None,
-               out.data_ptr(), L)
+               cptr, out.data_ptr(), L)
     return out
 
 
 def extend_all(index: FMIndex, ranges, dirs) -> torch.Tensor:
-    """(L, 4) int64 ranges, (L,) int32 dirs -> (L, 4, 4)."""
+    """(L, rw) int64 ranges, (L,) int32 dirs -> (L, 4, rw) (rw = 4, or 8 or
+    12 on the RLC index)."""
     if not ranges.is_cuda:
         return extend_all_plain(index, ranges, dirs)
-    return _launch(index, ranges, dirs, None).view(-1, 4, 4)
+    return _launch(index, ranges, dirs, None).view(-1, 4, index.range_width)
 
 
 def extend_char(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
-    """(L, 4) int64 ranges, (L,) int32 chars and dirs -> (L, 4)."""
+    """(L, rw) int64 ranges, (L,) int32 chars and dirs -> (L, rw)."""
     if not ranges.is_cuda:
         return extend_char_plain(index, ranges, chars, dirs)
     return _launch(index, ranges, dirs, chars)
@@ -173,21 +207,33 @@ def extend_char(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
 
 def exact_match(index: FMIndex, patterns: torch.Tensor,
                 lengths: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, m) uint8 patterns -> (B, 4) int64 ranges of their exact matches;
-    ``lengths`` (B,) int32 gives each row's own length (None: m).
+    """(B, m) uint8 patterns -> (B, rw) int64 ranges of their exact
+    matches; ``lengths`` (B,) int32 gives each row's own length (None: m;
+    the Vanilla index only).
 
     A live row holds exactly what its ``extend_char`` steps give; a row
     without a match is the zero range (kernel E stops a row at its first
     empty range, where the value the remaining steps would leave is
-    arbitrary)."""
+    arbitrary; on the RLC index it is zero anyway)."""
     if not patterns.is_cuda:
         return zero_empty(exact_match_plain(index, patterns, lengths))
     if (patterns.dtype != torch.uint8 or patterns.dim() != 2
             or not patterns.is_contiguous()
-            or index.occ_fused.device != patterns.device):
+            or _table(index).device != patterns.device):
         raise ValueError("exact_match takes a contiguous (B, m) uint8 batch "
                          "on the index's device")
     B, m = patterns.shape
+    if isinstance(index, BMoveIndex):
+        if lengths is not None:
+            raise NotImplementedError(_RLC_LENGTHS)
+        if index.textless:
+            raise ValueError("kernel E's RLC entry takes 8-wide lanes; the "
+                             "textless index runs k = 0 through the frontier")
+        out = torch.empty((B, 8), dtype=torch.int64, device=patterns.device)
+        if B:
+            EXACT_KERNEL(*bextend.bm_args(index), patterns.data_ptr(), m,
+                         out.data_ptr(), B, entry="rlc")
+        return out
     if lengths is not None and (
             lengths.dtype != torch.int32 or lengths.shape != (B,)
             or not lengths.is_contiguous()

@@ -4,7 +4,10 @@ The counterpart of ``columba_tpu/ops/locate.py``. A dense suffix array
 (sparseness 1) is one gather. A sparse one walks LF from each row until a
 marked row (SA[i] % f == 0 sampling bounds the walk at f-1 steps), then
 reads the sample and adds the step count: the plain PyTorch version below
-on the CPU, kernel C (``csrc/locate.cu``) on the card.
+on the CPU, kernel C (``csrc/locate.cu``) on the card. On the RLC index
+``locate_rows`` dispatches, as ``columba_tpu/ops/locate.py:40-43`` does, to
+``ops/blocate.py`` on the CPU and to kernel C's RLC entry (``locate.rlc``)
+on the card.
 """
 
 from __future__ import annotations
@@ -14,8 +17,9 @@ import ctypes
 import torch
 
 from columba_tpu_torch import native
+from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
-from columba_tpu_torch.ops import rank
+from columba_tpu_torch.ops import bextend, blocate, rank
 
 KERNEL = native.Kernel(
     "locate", "columba_locate",
@@ -27,6 +31,10 @@ KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64],  # rows, out, count
     source="columba_tpu_torch/csrc/locate.cu",
     replaces="columba_tpu/ops/locate.py:38",
+    symbols={"rlc": ("columba_locate_rlc", [
+        *bextend.BM_ARGTYPES,
+        ctypes.c_void_p, ctypes.c_int32,                    # sa_stride, stride
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64])},  # rows, out, N
 )
 
 
@@ -56,6 +64,8 @@ def locate_rows_plain(index: FMIndex, rows: torch.Tensor,
 
 def locate_rows(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
     """Text position SA[row] (int64) for each (N,) int64 row."""
+    if isinstance(index, BMoveIndex):
+        return _locate_rlc(index, rows)
     if index.sa_sparseness == 1:
         # dense SA: sa_samples IS the suffix array in row order
         return rank.u32(index.sa_samples[rows])
@@ -73,4 +83,22 @@ def locate_rows(index: FMIndex, rows: torch.Tensor) -> torch.Tensor:
                index.sa_bits_rank.data_ptr(), index.sa_samples.data_ptr(),
                index.sa_sparseness, rows.data_ptr(), out.data_ptr(),
                rows.numel())
+    return out
+
+
+def _locate_rlc(index: BMoveIndex, rows: torch.Tensor) -> torch.Tensor:
+    if not rows.is_cuda:
+        return blocate.locate_rows_plain(index, rows)
+    if rows.dtype != torch.int64 or rows.dim() != 1 or not rows.is_contiguous():
+        raise ValueError("rows must be a contiguous 1-D int64 tensor")
+    if index.textless or index.sa_stride.numel() == 0:
+        raise ValueError("the textless RLC index has no SA samples: it "
+                         "locates on the host (pipeline._match_textless)")
+    if index.fused.device != rows.device:
+        raise ValueError("index and rows must be on one device")
+    out = torch.empty_like(rows)
+    if rows.numel():
+        KERNEL(*bextend.bm_args(index), index.sa_stride.data_ptr(),
+               index.stride, rows.data_ptr(), out.data_ptr(), rows.numel(),
+               entry="rlc")
     return out

@@ -12,7 +12,9 @@ uint32 starts (``NEG_T``).
 
 ``verify_window`` runs the plain PyTorch version (``gather_window`` +
 ``verify_window_plain``) on the CPU and kernel D (``csrc/verify.cu``),
-which fuses the window fetch into the DP, on the card.
+which fuses the window fetch into the DP, on the card. It reads only the
+index's flat packed text and its length, so it takes the Vanilla index and
+the with-text RLC index (``index/bmove.py``) alike.
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ import ctypes
 import torch
 
 from columba_tpu_torch import native
-from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import rank
 from columba_tpu_torch.search.schedule import INF
 
@@ -39,7 +40,7 @@ KERNEL = native.Kernel(
 )
 
 
-def gather_window(index: FMIndex, starts: torch.Tensor,
+def gather_window(index, starts: torch.Tensor,
                   width: int) -> torch.Tensor:
     """Text codes (B, width) from signed int64 ``starts``; positions
     outside [0, n) give 4."""
@@ -50,7 +51,7 @@ def gather_window(index: FMIndex, starts: torch.Tensor,
     return torch.where(inb, codes, 4)
 
 
-def verify_window_plain(index: FMIndex, patterns, rid, window_start,
+def verify_window_plain(index, patterns, rid, window_start,
                         kb: int) -> torch.Tensor:
     """(R, m) uint8 reads, (B,) rid and int64 window starts -> (B, 4kb+1)
     int32 final DP rows: entry a is the distance of the best alignment
@@ -83,7 +84,7 @@ def verify_window_plain(index: FMIndex, patterns, rid, window_start,
     return torch.stack(D, dim=1)
 
 
-def verify_window(index: FMIndex, patterns: torch.Tensor, rid: torch.Tensor,
+def verify_window(index, patterns: torch.Tensor, rid: torch.Tensor,
                   window_start: torch.Tensor, kb: int) -> torch.Tensor:
     """Fused window fetch + banded verify of (B,) candidates."""
     if not patterns.is_cuda:
@@ -97,6 +98,9 @@ def verify_window(index: FMIndex, patterns: torch.Tensor, rid: torch.Tensor,
             or window_start.shape != rid.shape):
         raise ValueError("verify_window takes (R, m) uint8 patterns and (B,) int64 "
                          "rid and window starts")
+    if index.text.numel() * 16 < index.n:
+        raise ValueError("kernel D needs the packed text; the textless RLC "
+                         "index has none")
     for t in (patterns, rid, window_start, index.text):
         if t.device != patterns.device or not t.is_contiguous():
             raise ValueError("kernel D inputs must be contiguous on one "

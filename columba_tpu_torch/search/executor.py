@@ -21,6 +21,16 @@ intermediate array compares equal with the reference.
 
 Both loops stop before a step when no lane is alive, as the JAX
 while-loops do; each check copies one flag to the host.
+
+On the RLC index (``index/bmove.py``) a lane's range is ``rw`` = 8 values
+(the range pair and its run hints) or 12 on the textless index (plus a
+toehold sample); the in-text rows stay ``[f_lo, f_hi, ids, depth]``. Kernel
+B then takes its RLC entry (``band_step.rlc``) or its textless entry
+(``band_step.textless``), and a child that does not stay in the frontier has
+zero hints (only the frontier reads them). ``track_arg`` (the textless pass)
+gives every colMin register a shadow slot at ``[W, 2W)`` per side: the back
+depth (mod 64) at which its value last strictly fell, read out as
+``FrontierResult.arg_b``.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ import numpy as np
 import torch
 
 from columba_tpu_torch import native
+from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
-from columba_tpu_torch.ops import extend, rank
+from columba_tpu_torch.ops import bextend, extend, rank
 from columba_tpu_torch.search.schedule import INF, Schedule
 
 # Ghost-lane ids (boundary-harvest deaths kept inert in the frontier): bit
@@ -48,6 +59,20 @@ GHOST_IDM = (1 << 21) - 1
 KERNEL_MAX_KB = 13
 KERNEL_MAX_W = 10
 
+_BAND_OUT = [ctypes.c_void_p, ctypes.c_void_p,          # ch_ranges, new_ids
+             ctypes.c_void_p, ctypes.c_void_p,          # ch_band, ch_colmin
+             ctypes.c_void_p, ctypes.c_void_p,          # ch_alive, narrow
+             ctypes.c_void_p, ctypes.c_void_p,          # act, dbv
+             ctypes.c_int64]                            # lanes
+_BAND_RLC = ("columba_band_step_rlc", [
+    *bextend.BM_ARGTYPES,
+    ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
+    ctypes.c_void_p, ctypes.c_void_p,                   # band, colmin
+    ctypes.c_void_p, ctypes.c_int32,                    # mrow_t, S
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,    # pchars, T, t
+    ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
+    *_BAND_OUT, ctypes.c_int32],                        # ..., rw
+    "columba_tpu_torch/csrc/band_step_rlc.cu")
 KERNEL = native.Kernel(
     "band_step", "columba_band_step",
     [ctypes.c_void_p, ctypes.c_int64,                    # occ_fused, blocks
@@ -58,13 +83,10 @@ KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
      ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,    # pchars, T, t
      ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
-     ctypes.c_void_p, ctypes.c_void_p,                   # ch_ranges, new_ids
-     ctypes.c_void_p, ctypes.c_void_p,                   # ch_band, ch_colmin
-     ctypes.c_void_p, ctypes.c_void_p,                   # ch_alive, narrow
-     ctypes.c_void_p, ctypes.c_void_p,                   # act, dbv
-     ctypes.c_int64],                                    # lanes
+     *_BAND_OUT],
     source="columba_tpu_torch/csrc/band_step.cu",
     replaces="columba_tpu/search/executor.py:587",
+    symbols={"rlc": _BAND_RLC, "textless": _BAND_RLC},
 )
 
 
@@ -72,7 +94,7 @@ KERNEL = native.Kernel(
 class FrontierResult:
     """Final frontier after a scheme run (candidate hits where done)."""
 
-    ranges: torch.Tensor      # (C, 4) int64 SA range pairs
+    ranges: torch.Tensor      # (C, rw) int64 SA range pairs (+ RLC hints)
     rid: torch.Tensor         # (C,) read row
     sid: torch.Tensor         # (C,) search id
     ed_lb: torch.Tensor       # (C,) colMin_back + colMin_fwd
@@ -82,6 +104,10 @@ class FrontierResult:
     itv: torch.Tensor         # (M, 4) int64 rows [f_lo, f_hi, ids, depth]
     itv_count: torch.Tensor   # () valid rows (clamped to M)
     searches_started: torch.Tensor  # () lanes entering the band phase
+    arg_b: torch.Tensor       # (C,) int8 back depth (mod 64) of the final
+                              # back window's minimum (track_arg runs; -1
+                              # where the back side has no window or
+                              # without track_arg)
 
 
 def host_tables(sched: Schedule) -> dict:
@@ -183,16 +209,21 @@ def _lane_scalars(ids_c, mrow_t, dyn_meta, T: int, t: int):
 
 def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
                     pchars, T: int, t: int, switchpoint: int,
-                    dyn_meta=None) -> dict:
+                    dyn_meta=None, track_arg: bool = False) -> dict:
     """Plain version of kernel B: one band step's per-lane arithmetic.
 
-    Returns the children's state (``ch_ranges`` (C,4,4), ``ch_band``
-    (C,4,2,BW), ``ch_colmin`` (C,4,2,W)), ``new_ids`` (ghost marks),
+    Returns the children's state (``ch_ranges`` (C,4,rw), ``ch_band``
+    (C,4,2,BW), ``ch_colmin`` (C,4,2,Wp)), ``new_ids`` (ghost marks),
     ``ch_alive`` and ``narrow`` (C,4) flags, and per-lane ``act`` and
     ``dbv`` (back depth). With ``dyn_meta`` the lanes read their own
-    schedule words and ``mrow_t`` is not read (see :func:`_lane_scalars`)."""
+    schedule words and ``mrow_t`` is not read (see :func:`_lane_scalars`).
+    With ``track_arg`` the last W of the Wp = 2W colMin slots per side are
+    the registers' shadow slots (``columba_tpu/search/executor.py:652-675``):
+    a reset restarts the witness at the back depth mod 64, a strict
+    decrease moves it there, a tie keeps it."""
     C, _, bw = band.shape
-    W = colmin.shape[-1]
+    Wp = colmin.shape[-1]
+    W = Wp // 2 if track_arg else Wp
     dev = ranges.device
     ghost = ids < 0
     ids_c = (ids & GHOST_IDM).long()
@@ -212,19 +243,25 @@ def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
     cm0, cm1 = colmin[:, 0].long(), colmin[:, 1].long()
     cm_sd = torch.where(is_b[:, None], cm0, cm1)
     cm_other = torch.where(is_b[:, None], cm1, cm0)
-    regs = []
+    dbv_mod = dbv & 63
+    regs, args = [], []
     for w in range(W):
         op = (mr[:, 1 + w // 4] >> (7 * (w % 4))) & 127
         ini = (mr[:, 4 + w // 4] >> (7 * (w % 4))) & 127
         cell = op & 63
-        base = torch.where((op & 64) != 0, ini.clamp(max=INF), cm_sd[:, w])
+        rst = (op & 64) != 0
+        base = torch.where(rst, ini.clamp(max=INF), cm_sd[:, w])
         acc = torch.full((C, 4), INF, dtype=torch.int64, device=dev)
         for o in range(bw):
             acc = torch.where((cell == o)[:, None], nD[:, :, o], acc)
-        regs.append(torch.where((cell < 63)[:, None],
-                                torch.minimum(base[:, None], acc),
+        valid = (cell < 63)[:, None]
+        regs.append(torch.where(valid, torch.minimum(base[:, None], acc),
                                 cm_sd[:, w, None]))
-    reg = torch.stack(regs, dim=2)                          # (C, 4, W)
+        if track_arg:
+            prev_arg = torch.where(rst, dbv_mod, cm_sd[:, W + w])
+            args.append(torch.where(valid & (acc < base[:, None]),
+                                    dbv_mod[:, None], prev_arg[:, None]))
+    reg = torch.stack(regs + args, dim=2)                   # (C, 4, Wp)
 
     width = (children[..., 1] - children[..., 0]) & rank.MASK32
     col = torch.full((C, 4), INF, dtype=torch.int64, device=dev)
@@ -247,6 +284,10 @@ def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
     slot0 = torch.zeros((C, 4), dtype=torch.bool, device=dev)
     slot0[:, 0] = alive
     ch_alive = torch.where(keepv[:, None], calive, slot0)
+    if ranges.shape[1] > 4:
+        # RLC: only the children that stay in the frontier keep their hints
+        children[..., 4:] = torch.where(calive[..., None], children[..., 4:],
+                                        0)
     ch_ranges = torch.where(keepv[:, None, None], children,
                             torch.where(slot0[..., None], ranges[:, None], 0))
     kb_ = (is_b & keepv)[:, None, None]
@@ -263,17 +304,29 @@ def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
 
 
 def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
-              T: int, t: int, switchpoint: int, dyn_meta=None) -> dict:
+              T: int, t: int, switchpoint: int, dyn_meta=None,
+              track_arg: bool = False) -> dict:
     """One band step's per-lane arithmetic: the plain version for CPU
     tensors, kernel B for CUDA tensors (same outputs). ``dyn_meta``
     (R*S*T,) int32 selects the per-lane entry (one register; ``mrow_t`` is
-    then None)."""
+    then None). On the RLC index the lanes are 8 wide (RLC entry) or, with
+    ``track_arg``, 12 wide with 2W colMin slots (textless entry)."""
     if not ranges.is_cuda:
         return band_step_plain(index, ranges, ids, band, colmin, mrow_t,
-                               pchars, T, t, switchpoint, dyn_meta)
+                               pchars, T, t, switchpoint, dyn_meta, track_arg)
     C, _, bw = band.shape
     kb = (bw - 1) // 2
-    W = colmin.shape[-1]
+    Wp = colmin.shape[-1]
+    W = Wp // 2 if track_arg else Wp
+    rw = index.range_width
+    rlc = isinstance(index, BMoveIndex)
+    if rlc and (dyn_meta is not None or track_arg != index.textless):
+        raise ValueError("kernel B takes per-lane schedules on the Vanilla "
+                         "index only, and track_arg exactly on the textless "
+                         "index")
+    if not rlc and track_arg:
+        raise ValueError("kernel B tracks colMin witnesses on the textless "
+                         "index only")
     if dyn_meta is not None:
         if W != 1 or mrow_t is not None:
             raise ValueError("kernel B's per-lane entry takes one register "
@@ -286,8 +339,9 @@ def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
             f"kernel B takes band widths 2kb+1 with kb <= {KERNEL_MAX_KB} "
             f"and 1..{KERNEL_MAX_W} registers, not bw={bw}, W={W}: no "
             "schedule produces that")
-    expect = ((ranges, torch.int64, (C, 4)), (ids, torch.int32, (C,)),
-              (band, torch.int8, (C, 2, bw)), (colmin, torch.int8, (C, 2, W)),
+    expect = ((ranges, torch.int64, (C, rw)), (ids, torch.int32, (C,)),
+              (band, torch.int8, (C, 2, bw)),
+              (colmin, torch.int8, (C, 2, Wp)),
               scalars, (pchars, torch.int8, (pchars.shape[0], bw)))
     for tns, dt, shape in expect:
         if (tns.dtype != dt or tuple(tns.shape) != shape
@@ -297,27 +351,31 @@ def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
                              "on the lanes' device")
     dev = ranges.device
     out = dict(
-        ch_ranges=torch.empty((C, 4, 4), dtype=torch.int64, device=dev),
+        ch_ranges=torch.empty((C, 4, rw), dtype=torch.int64, device=dev),
         new_ids=torch.empty(C, dtype=torch.int32, device=dev),
         ch_band=torch.empty((C, 4, 2, bw), dtype=torch.int8, device=dev),
-        ch_colmin=torch.empty((C, 4, 2, W), dtype=torch.int8, device=dev),
+        ch_colmin=torch.empty((C, 4, 2, Wp), dtype=torch.int8, device=dev),
         ch_alive=torch.empty((C, 4), dtype=torch.bool, device=dev),
         narrow=torch.empty((C, 4), dtype=torch.bool, device=dev),
         act=torch.empty(C, dtype=torch.bool, device=dev),
         dbv=torch.empty(C, dtype=torch.int32, device=dev),
     )
-    if C:
+    outs = [out[k].data_ptr() for k in ("ch_ranges", "new_ids", "ch_band",
+                                        "ch_colmin", "ch_alive", "narrow",
+                                        "act", "dbv")]
+    if C and rlc:
+        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), ids.data_ptr(),
+               band.data_ptr(), colmin.data_ptr(), mrow_t.data_ptr(),
+               mrow_t.shape[0], pchars.data_ptr(), T, t, kb, W, switchpoint,
+               *outs, C, rw, entry="textless" if index.textless else "rlc")
+    elif C:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
                *index.dollar_host, ranges.data_ptr(), ids.data_ptr(),
                band.data_ptr(), colmin.data_ptr(),
                mrow_t.data_ptr() if dyn_meta is None else None,
                mrow_t.shape[0] if dyn_meta is None else 0,
                dyn_meta.data_ptr() if dyn_meta is not None else None,
-               pchars.data_ptr(), T, t, kb, W, switchpoint,
-               out["ch_ranges"].data_ptr(), out["new_ids"].data_ptr(),
-               out["ch_band"].data_ptr(), out["ch_colmin"].data_ptr(),
-               out["ch_alive"].data_ptr(), out["narrow"].data_ptr(),
-               out["act"].data_ptr(), out["dbv"].data_ptr(), C,
+               pchars.data_ptr(), T, t, kb, W, switchpoint, *outs, C,
                entry="per_lane" if dyn_meta is not None else "")
     return out
 
@@ -366,6 +424,7 @@ def run_scheme(
     ex_cap: int = 0,
     search_mask: torch.Tensor | None = None,
     dyn: dict | None = None,
+    track_arg: bool = False,
 ) -> FrontierResult:
     """Execute one compiled scheme over a read batch.
 
@@ -381,6 +440,8 @@ def run_scheme(
     ``dynschedule.build_tables`` (dynamic partitioning); every lane then
     starts from the full range without k-mer seeding, reads its own exact
     steps, band words and cell codes, and has one colMin register.
+    track_arg: shadow slots for the colMin registers' witnesses (the
+    textless pass; ``FrontierResult.arg_b``).
     """
     from columba_tpu_torch.index import kmer as kmer_mod
 
@@ -401,6 +462,14 @@ def run_scheme(
         if tables is None:
             tables = device_tables(sched, dev)
         T, E, W = sched.t_max, sched.e_max, int(sched.W)
+    if track_arg and dyn is not None:
+        raise NotImplementedError("track_arg with per-read schedules")
+    Wp = 2 * W if track_arg else W
+    rw = index.range_width
+    if rw != 4 and kmer_table is not None:
+        raise NotImplementedError(
+            "the k-mer seed table is 4 wide (no run hints); pass "
+            "kmer_table=None for the RLC index")
     L = R * S
     i64 = dict(dtype=torch.int64, device=dev)
     ids0 = torch.arange(L, dtype=torch.int32, device=dev)  # rid * S + sid
@@ -500,7 +569,7 @@ def run_scheme(
             # back into the full lane layout (stage-1 survivors had no
             # drain row, so this cannot clobber one)
             back = torch.where(live1, srcc, L)
-            ranges0 = torch.zeros((L + 1, 4), **i64)
+            ranges0 = torch.zeros((L + 1, rw), **i64)
             ranges0[back] = r2
             ranges0 = ranges0[:L]
             drows0 = torch.cat([drows0, torch.zeros((1, 4), **i64)])
@@ -530,6 +599,9 @@ def run_scheme(
     else:
         band_init = tables["band_init"].repeat(R, 1, 1)
         colmin_init = tables["colmin_init"].repeat(R, 1, 1)
+    if track_arg:
+        colmin_init = torch.cat([colmin_init, torch.zeros_like(colmin_init)],
+                                dim=-1)
     (ranges, ids, band, colmin), n_alive0 = _compact(
         ranges0[:, 1] > ranges0[:, 0], C,
         [ranges0, ids0, band_init, colmin_init], [0, 0, INF, INF])
@@ -557,7 +629,7 @@ def run_scheme(
                     break
                 o = band_step(index, ranges, ids, band, colmin,
                               mrow[t] if dyn_meta is None else None,
-                              pchars, T, t, switchpoint, dyn_meta)
+                              pchars, T, t, switchpoint, dyn_meta, track_arg)
                 visits = visits + o["act"].sum() * 4
                 if switchpoint > 0:
                     ch = o["ch_ranges"]
@@ -570,10 +642,10 @@ def run_scheme(
                                       o["narrow"].reshape(-1), M)
                 (ranges, ids, band, colmin), n = _compact(
                     o["ch_alive"].reshape(-1), cap,
-                    [o["ch_ranges"].reshape(4 * cap, 4),
+                    [o["ch_ranges"].reshape(4 * cap, rw),
                      o["new_ids"].repeat_interleave(4),
                      o["ch_band"].reshape(4 * cap, 2, bw),
-                     o["ch_colmin"].reshape(4 * cap, 2, W)])
+                     o["ch_colmin"].reshape(4 * cap, 2, Wp)])
                 overflow = overflow + torch.clamp(n - cap, min=0)
             return (ranges, ids, band, colmin), overflow, visits, itv_cnt
 
@@ -602,6 +674,7 @@ def run_scheme(
     sid = ids % S
     # completion bound: each side's last window register (15 = none => 0);
     # per-lane schedules have the one register on both sides
+    arg_b = torch.full(sid.shape, -1, dtype=torch.int8, device=dev)
     if dyn is not None:
         cm_b, cm_f = colmin[:, 0, 0].long(), colmin[:, 1, 0].long()
         u_last = dyn["u_last"].long()
@@ -612,6 +685,9 @@ def run_scheme(
         for w in range(W):
             cm_b = torch.where(freg[:, 0] == w, colmin[:, 0, w].long(), cm_b)
             cm_f = torch.where(freg[:, 1] == w, colmin[:, 1, w].long(), cm_f)
+            if track_arg:
+                arg_b = torch.where(freg[:, 0] == w, colmin[:, 0, W + w],
+                                    arg_b)
         u_last = tables["u_last"]
     ed_lb = cm_b + cm_f
     alive = (ranges[:, 1] > ranges[:, 0]) & ~ghost
@@ -619,4 +695,4 @@ def run_scheme(
     return FrontierResult(
         ranges=ranges, rid=ids // S, sid=sid, ed_lb=ed_lb, done=done,
         overflow=overflow, nodes_visited=visits, itv=itv_buf[:M],
-        itv_count=itv_cnt, searches_started=n_alive0)
+        itv_count=itv_cnt, searches_started=n_alive0, arg_b=arg_b)

@@ -358,7 +358,7 @@ def map_pairs_best_finish(
             occ, stats = pipeline.match_all_finish(ctx)
             if counters is not None:
                 counters.add_device_stats(stats)
-            if cfg.arrays is not None:
+            if strategy._trims(cfg):
                 kbs = full_cut if cfg.metric == "edit" else 0
                 occ = pipeline.apply_boundary_trim(occ, reads, cfg.arrays,
                                                    kbs, full_cut)

@@ -14,7 +14,17 @@ backward match per strand (kernel E), expand, locate.
 The device part returns fixed-shape tensors; ``match_all_finish`` copies
 them to the host in one pass (pinned buffers, one synchronisation) and
 re-runs with 4x capacities while a frontier overflowed or the locate/verify
-capacity spilled, which keeps the search lossless.
+capacity spilled, which keeps the search lossless. The re-runs have no cap
+on their count: the JAX package stops after three, and on a repeat-rich
+genome (a pan-genome's 20-fold loci, where the frontier's second stage of
+capacity / 16 and the locate cap both spill) it then drops occurrences
+with a warning (ROADMAP queue 3).
+
+The RLC index (``index/bmove.py``) takes the same path with 8-wide lanes
+and no seed table. The textless RLC index has no text and no SA samples:
+its pass is the frontier alone (kernel B's textless entry), and the done
+lanes' toehold samples are expanded into text positions on the host with
+the phi tables (:func:`_match_textless`, numpy).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import numpy as np
 import torch
 
 from columba_tpu_torch.core import alphabet
+from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import extend, locate, verify
 from columba_tpu_torch.search import dynschedule, executor, schedule
@@ -321,6 +332,7 @@ def match_all_start(
     switchpoint: int = 0,
     ex_split: int = 0,
     ex_cap: int = 0,
+    host_arrays=None,
 ) -> dict:
     """Dispatch ALL-mode matching of a read batch (every occurrence with
     ed <= k); returns the context for :func:`match_all_finish`.
@@ -332,7 +344,8 @@ def match_all_start(
     :func:`select_schemes` picks for it. ``partitioning``: "uniform",
     "static" (the scheme's own fractions) or "dynamic" (per-read greedy
     boundaries, kernels F and G); ``partition_pts`` (rows, p+1) gives the
-    boundaries of every row (both strands) directly.
+    boundaries of every row (both strands) directly. ``host_arrays``: the
+    textless index's host arrays (its phi tables locate on the host).
     """
     from columba_tpu_torch.index.kmer import table_k
 
@@ -346,6 +359,32 @@ def match_all_start(
     batch_dev = torch.from_numpy(np.ascontiguousarray(batch))
     if dev.type == "cuda":
         batch_dev = batch_dev.pin_memory().to(dev, non_blocking=True)
+
+    if getattr(index, "textless", False):
+        if isinstance(scheme, (list, tuple)):
+            # per-read selection only saves work (every scheme of a
+            # collection is lossless at k): the textless pass runs the
+            # collection's first scheme
+            scheme = scheme[0]
+            k = scheme.k
+        # k = 0 runs the exact scheme through the same frontier-only pass
+        if host_arrays is None or getattr(host_arrays, "phi_fwd",
+                                          None) is None:
+            raise ValueError("textless RLC matching needs host_arrays "
+                             "with phi tables")
+        sched = compile_cached(scheme, m, metric, kmer_k=0,
+                               partitioning="uniform")
+        if capacity is None:
+            capacity = max(1024, batch.shape[0] * sched.num_searches // 2)
+        return dict(result=_match_textless(index, host_arrays, batch_dev, R,
+                                           k, kb, sched, capacity,
+                                           auto_capacity=True))
+    if isinstance(index, BMoveIndex) and (
+            isinstance(scheme, (list, tuple)) or partitioning == "dynamic"
+            or partition_pts is not None):
+        raise NotImplementedError(
+            "per-read scheme selection and dynamic partitioning on the RLC "
+            "index are not ported yet (ROADMAP queue 1, item 13b)")
 
     auto_locate = max_locate is None
     if auto_locate:
@@ -455,12 +494,14 @@ def fetch_tree(out: dict, event=None) -> dict:
 def match_all_finish(ctx) -> tuple[OccArray, dict]:
     """Fetch + post-process a match_all_start dispatch (may run on an
     emission thread while the main thread dispatches the next batch)."""
+    if "result" in ctx:
+        return ctx["result"]
     if "exact" in ctx:
         return _match_exact_finish(ctx["exact"])
     out = fetch_tree(ctx["out"], ctx["event"])
     cap, ecap, ml = ctx["capacity"], ctx["ex_cap"], ctx["max_locate"]
     n_retries = 0
-    for _ in range(3):
+    while True:
         # lossless retries: frontier/compaction overflow -> 4x capacities;
         # locate/verify spill -> 4x max_locate. Only auto-sized knobs grow.
         grow_cap = ctx["auto_capacity"] and int(out["overflow"]) > 0
@@ -513,7 +554,7 @@ def _match_exact_finish(ec) -> tuple[OccArray, dict]:
     m = batch.shape[1]
     out = fetch_tree(ec["out"], ec["event"])
     tries = 0
-    while ec["auto_locate"] and int(out["total"]) > ml and tries < 3:
+    while ec["auto_locate"] and int(out["total"]) > ml:
         ml *= 4
         _ml_hint_bump(index, ml)
         out = fetch_tree(*_exact_device(index, batch, int(ml)))
@@ -528,6 +569,152 @@ def _match_exact_finish(ec) -> tuple[OccArray, dict]:
     stats = dict(total_candidates=total, overflow=0, nodes_visited=0,
                  locate_truncated=total > ml, retries=tries)
     return occs, stats
+
+
+def _textless_device(index: BMoveIndex, batch: torch.Tensor, sched,
+                     capacity: int):
+    """Textless RLC device step: the scheme run only, no locate or verify
+    (both need O(n) structures); done lanes carry toehold samples in their
+    range vectors, and ``track_arg`` keeps the matched-length witness so
+    edit begins come out exact. Returns the result tensors and the CUDA
+    event recorded after them."""
+    tables = executor.device_tables(sched, batch.device)
+    res = executor.run_scheme(index, batch, sched, int(capacity), None, 0,
+                              0, 0, 0, tables=tables, track_arg=True)
+    return (dict(ranges=res.ranges, rid=res.rid, sid=res.sid,
+                 ed_lb=res.ed_lb, done=res.done, overflow=res.overflow,
+                 nodes=res.nodes_visited, harvest=res.itv_count,
+                 searches=res.searches_started, arg_b=res.arg_b),
+            _record_event(batch.device))
+
+
+def _phi_eval(vals: np.ndarray, xs: np.ndarray, ys: np.ndarray):
+    j = np.searchsorted(xs, vals, side="right") - 1
+    return ys[j] + (vals - xs[j])
+
+
+def _phi_enumerate(seed, offs, widths, phi: np.ndarray):
+    """Enumerate every row of each candidate interval from one in-range
+    sample (value ``seed``, 0-based interval offset ``offs``, interval width
+    ``widths``): phi walks up (rows offs-1..0), phi-inverse walks down (rows
+    offs+1..w-1), vectorized across candidates; the pass count is the
+    longest chain. Returns flat (candidate index, value) arrays. The
+    analogue of the reference's toehold + phi enumeration
+    (src/bmove/bmove.cpp:503-547, plcp.h:59-130): the known width and
+    offset replace its PLCP stop condition."""
+    xs, ys, xsi, ysi = (phi[:, 0].astype(np.int64),
+                        phi[:, 1].astype(np.int64),
+                        phi[:, 2].astype(np.int64),
+                        phi[:, 3].astype(np.int64))
+    n_c = len(seed)
+    out_idx = [np.arange(n_c)]
+    out_val = [seed.astype(np.int64)]
+    for steps, txs, tys in ((offs, xs, ys), (widths - 1 - offs, xsi, ysi)):
+        live = np.nonzero(steps > 0)[0]
+        vals = seed[live].astype(np.int64)
+        rem = steps[live].copy()
+        while live.size:
+            vals = _phi_eval(vals, txs, tys)
+            out_idx.append(live.copy())
+            out_val.append(vals.copy())
+            rem -= 1
+            keep = rem > 0
+            live, vals, rem = live[keep], vals[keep], rem[keep]
+    return np.concatenate(out_idx), np.concatenate(out_val)
+
+
+def _match_textless(index: BMoveIndex, host_arrays, batch_dev, R: int,
+                    k: int, kb: int, sched, capacity: int,
+                    auto_capacity: bool = True):
+    """Textless RLC matching: the frontier-only device pass, then locate
+    by phi on the host (numpy). Distances are the searches' extent
+    distances (``ed_lb`` of done lanes); begins are extent starts plus the
+    back overshoot the lane consumed, recovered from its matched-length
+    witness (``arg_b``); occurrences of one (read, strand) within
+    max(2kb, 1) - 1 of each other collapse to the first. This is the
+    reference's RLC no-CIGAR reporting mode and the JAX package's rule
+    (``columba_tpu/search/pipeline.py:832-933``), kept as it is."""
+    cap = int(capacity)
+    out = fetch_tree(*_textless_device(index, batch_dev, sched, cap))
+    retries = 0
+    while auto_capacity and int(out["overflow"]) > 0:
+        cap *= 4
+        retries += 1
+        out = fetch_tree(*_textless_device(index, batch_dev, sched, cap))
+
+    sel = out["done"]
+    ranges = out["ranges"][sel]
+    rid = out["rid"][sel].astype(np.int64)
+    sid = out["sid"][sel].astype(np.int64)
+    ed = out["ed_lb"][sel].astype(np.int64)
+    arg_b = out["arg_b"][sel].astype(np.int64)
+    stats = dict(
+        total_candidates=0, overflow=int(out["overflow"]),
+        nodes_visited=int(out["nodes"]),
+        itv_started=0, searches_started=int(out["searches"]),
+        # harvest rows carry no toehold; without text they cannot be
+        # located (text-boundary deaths only): counted, not reported
+        aborted_in_text=int(out["harvest"]),
+        locate_truncated=False, retries=retries,
+    )
+    if not sel.any():
+        return OccArray.empty(), stats
+
+    n = index.n
+    flag = ranges[:, 10]
+    lo = np.where(flag == 0, ranges[:, 0], ranges[:, 2])
+    hi = np.where(flag == 0, ranges[:, 1], ranges[:, 3])
+    w = hi - lo
+    tv = ranges[:, 8]
+    toff = ranges[:, 9]
+    # the extent's text length is the search's extension count; the begin
+    # correction is the back overshoot the lane actually consumed (0 where
+    # the back side is exact only, arg_b = -1)
+    active = np.asarray(sched.active)
+    ex_pos = np.asarray(sched.ex_pos)
+    t_total = (ex_pos >= 0).sum(axis=1) + active.sum(axis=1)   # (S,)
+    t_back_s = np.asarray(sched.t_back, dtype=np.int64)
+
+    # enumerate each side's interval with its own phi tables
+    parts = []
+    for f, phi in ((0, host_arrays.phi_fwd), (1, host_arrays.phi_rev)):
+        m_ = flag == f
+        if not m_.any():
+            continue
+        seed = tv[m_] if f == 0 else (n - 1 - tv[m_])
+        ci, vals = _phi_enumerate(seed, toff[m_], w[m_], phi)
+        src = np.nonzero(m_)[0][ci]
+        if f == 1:
+            # rev SA value -> fwd extent start
+            ends = n - 1 - vals
+            vals = ends - (t_total[sid[src]] - 1)
+        parts.append((src, vals))
+    src = np.concatenate([p[0] for p in parts])
+    starts = np.concatenate([p[1] for p in parts])
+    stats["total_candidates"] = int(len(src))
+
+    corr = (t_back_s[sid[src]] - arg_b[src]) & 63
+    corr = np.where(arg_b[src] < 0, 0, corr)
+    begin = np.clip(starts + corr, 0, n - 1)
+    read = rid[src] % R
+    strand = rid[src] // R
+    dist = ed[src]
+    m_read = int(batch_dev.shape[1])
+    # dedup + redundancy collapse: same (read, strand) within +-kb keeps
+    # the lowest distance
+    order = np.lexsort((dist, begin, strand, read))
+    read, strand, begin, dist = (read[order], strand[order], begin[order],
+                                 dist[order])
+    keep = np.ones(len(read), dtype=bool)
+    if len(read) > 1:
+        same = (read[1:] == read[:-1]) & (strand[1:] == strand[:-1])
+        near = begin[1:] - begin[:-1] <= max(2 * kb, 1) - 1
+        # a chain of near rows collapses to its first (lowest begin, then
+        # lowest distance)
+        keep[1:] = ~(same & near)
+    read, strand, begin, dist = (read[keep], strand[keep], begin[keep],
+                                 dist[keep])
+    return OccArray(read, strand, begin, begin + m_read, dist), stats
 
 
 def _extract_occurrences(out, R, m, k, kb, redundancy_filter=True) -> OccArray:

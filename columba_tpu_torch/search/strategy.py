@@ -1,13 +1,14 @@
 """Mapping strategies: single-end ALL and BEST(+x) modes over read batches.
 
-The counterpart of ``columba_tpu/search/strategy.py`` (without its Python
-SAM emitters and the textless branch): ALL mode
+The counterpart of ``columba_tpu/search/strategy.py`` (its Python SAM
+emitter only for the textless RLC index, :func:`emit_sam_textless`): ALL mode
 reports every occurrence with ed <= k; BEST mode finds each read's best
 distance stratum up to a cutoff derived from the minimum identity, then
 reports occurrences within [best, best + x]. Cutoffs <= 6 run one ALL pass
 at the cutoff and filter; deeper cutoffs walk distance strata (the
 reference's stratum jumps: step 2 below distance 5, else 4) on the reads
-still unresolved.
+still unresolved. The textless RLC index has no text: its occurrences are
+not trimmed at sequence boundaries.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from columba_tpu_torch.core import alphabet
 from columba_tpu_torch.index.fmindex import FMIndex
+from columba_tpu_torch.io import sam
 from columba_tpu_torch.search import pipeline
 from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
 
@@ -78,8 +81,10 @@ class MappingConfig:
     capacity: int | None = None
     max_locate: int | None = None  # None: scale with batch + spill retry
     kmer_table: object = None  # optional device seed table
-    arrays: object = None      # host IndexArrays; enables cross-boundary
-                               # occurrence trimming on multi-sequence texts
+    arrays: object = None      # host IndexArrays / BMoveArrays; enables
+                               # cross-boundary occurrence trimming on
+                               # multi-sequence texts (and holds the
+                               # textless index's phi tables)
 
 
 @dataclass
@@ -114,7 +119,15 @@ def _scheme_for(cfg: MappingConfig, k: int):
 def _match_kwargs(cfg: MappingConfig) -> dict:
     return dict(metric=cfg.metric, capacity=cfg.capacity,
                 max_locate=cfg.max_locate, kmer_table=cfg.kmer_table,
-                partitioning=cfg.partitioning, switchpoint=cfg.switchpoint)
+                partitioning=cfg.partitioning, switchpoint=cfg.switchpoint,
+                host_arrays=cfg.arrays)
+
+
+def _trims(cfg: MappingConfig) -> bool:
+    """Whether occurrences are trimmed at sequence boundaries: needs the
+    host arrays with text (not the textless RLC index)."""
+    return cfg.arrays is not None and not getattr(cfg.arrays, "textless",
+                                                  False)
 
 
 def map_batch_all_start(index: FMIndex, reads: np.ndarray,
@@ -132,7 +145,7 @@ def map_batch_all_finish(ctx, index: FMIndex, reads: np.ndarray,
     occs, stats = pipeline.match_all_finish(ctx)
     if counters is not None:
         counters.add_device_stats(stats)
-    if cfg.arrays is not None:
+    if _trims(cfg):
         kb = cfg.max_distance if cfg.metric == "edit" else 0
         occs = pipeline.apply_boundary_trim(occs, reads, cfg.arrays, kb,
                                             cfg.max_distance)
@@ -210,7 +223,7 @@ def _trim_full(occs, reads, cfg, cutoff):
     cutoff): trim's eligibility windows and re-verify budget scale with
     kb, so pinning kb to the cutoff makes per-read trim results identical
     across rungs — the rung-finality argument needs that invariance."""
-    if cfg.arrays is None:
+    if not _trims(cfg):
         return occs
     kbs = cutoff if cfg.metric == "edit" else 0
     return pipeline.apply_boundary_trim(occs, reads, cfg.arrays, kbs,
@@ -278,7 +291,7 @@ def _ladder_best_arr(index: FMIndex, reads: np.ndarray, cfg: MappingConfig,
                                          **_match_kwargs(cfg))
         if counters is not None:
             counters.add_device_stats(stats)
-        if cfg.arrays is not None:
+        if _trims(cfg):
             kbs = k if cfg.metric == "edit" else 0
             occs = pipeline.apply_boundary_trim(occs, reads[sub],
                                                 cfg.arrays, kbs, k)
@@ -337,3 +350,44 @@ def map_batch_best(
 ) -> list[MappedRead]:
     occs = map_batch_best_arr(index, reads, cfg, counters)
     return _group_mapped(occs, len(reads))
+
+
+def emit_sam_textless(batch, occs, arrays,
+                      unmapped_records: bool = True) -> str:
+    """SAM records of one read batch (``io.fastq.RecordBatch``) without
+    genome text: '*' CIGARs, begins straight from the phi locate, distances
+    from the search; per read the occurrences by (distance, begin, strand),
+    the first primary (the textless RLC reporting mode of
+    ``columba_tpu/search/strategy.py:566-603``; the reference's RLC flavor
+    likewise defaults to no CIGAR, src/parameters/alignparameters.cpp:
+    131-160)."""
+    starts = arrays.seq_starts
+    names = batch.names_buf.decode()
+    quals = batch.quals_buf.decode()
+    per_read: dict = {}
+    for i in range(len(occs)):
+        per_read.setdefault(int(occs.read_id[i]), []).append(occs[i])
+    lines = []
+    for r in range(batch.n_valid):
+        name = names[batch.name_offs[r]:batch.name_offs[r + 1]]
+        qual = quals[batch.qual_offs[r]:batch.qual_offs[r + 1]]
+        codes = batch.codes[r]
+        found = per_read.get(r)
+        if not found:
+            if unmapped_records:
+                lines.append(sam.unmapped_record(name, codes, qual))
+            continue
+        found.sort(key=lambda o: (o.distance, o.begin, o.strand))
+        best_ed = found[0].distance
+        mq = sam.mapq(max(sum(1 for o in found if o.distance == best_ed), 1))
+        for rank_i, o in enumerate(found):
+            seq_codes = codes if o.strand == 0 else alphabet.revcomp(codes)
+            sidx = int(np.searchsorted(starts, o.begin, side="right") - 1)
+            sidx = max(0, min(sidx, len(arrays.seq_names) - 1))
+            flag = (16 if o.strand else 0) | (256 if rank_i > 0 else 0)
+            lines.append(sam.record(
+                name, flag, arrays.seq_names[sidx],
+                o.begin - int(starts[sidx]) + 1,
+                mq if o.distance == best_ed else 0, "*", seq_codes,
+                qual if o.strand == 0 else qual[::-1], o.distance))
+    return "".join(lines)

@@ -6,8 +6,10 @@ and the integer operations it does, and from them the bound: the larger of
 bytes over the card's memory rate and operations over its arithmetic rate.
 Where the work depends on the data (kernel B skips the occ rows of inactive
 lanes, kernel C walks LF until a sampled row, kernel E stops at a read's
-first empty range), the caller passes what this call's data needed, counted
-with the plain versions. Kernels F, G and H do the same work whatever the
+first empty range, and on the RLC index every run-hint walk and binary
+search has its own length), the caller passes what this call's data
+needed, counted with the plain versions (``stats`` of ``ops/bextend.py``
+and ``ops/blocate.py``). Kernels F, G and H do the same work whatever the
 data.
 
 Peak rates are NVIDIA's data-sheet figures for the H100 SXM at its full
@@ -32,6 +34,17 @@ OCC_ROW_BYTES = 48      # 4 checkpoints + 8 packed BWT words; the pad is not rea
 OCC_ROW_OPS = 8 * 4 * 7 + 16
 # extend_lane: two occ rows + the 4 children's range arithmetic
 EXTEND_OPS = 2 * OCC_ROW_OPS + 4 * 10
+
+
+# RLC index: an endpoint read is four of a run row's five 16 B words
+BM_ROW_BYTES = 64
+# per lane: unpack the two rows, 4 chars x (occ, width, lo), the other side
+BM_LANE_OPS = 60
+# per child whose hints are walked: two LF-run reads, four walk set-ups,
+# the selects into the child's columns
+BM_CHILD_OPS = 40
+WALK_OPS = 4         # per 4 B read of a walk: compare, add, address
+PROBE_OPS = 6        # per binary-search probe: mid, read, compare, 2 selects
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -106,10 +119,14 @@ def exact(steps_walked: int, rows: int, out) -> dict:
                  steps_walked * (EXTEND_OPS + 8) + rows * 8)
 
 
-def exact_steps(index, batch: torch.Tensor, lengths=None) -> int:
+def exact_steps(index, batch: torch.Tensor, lengths=None,
+                stats: dict | None = None) -> int:
     """Steps kernel E walks on ``batch``: for each row the number of chars
     it extends by before (and including) the step that empties its range,
-    counted with the plain extend. ``lengths``: the rows' own lengths."""
+    counted with the plain extend. ``lengths``: the rows' own lengths. On
+    the RLC index ``stats`` also gets the walks of those steps."""
+    from columba_tpu_torch.index.bmove import BMoveIndex
+    from columba_tpu_torch.ops import bextend
     from columba_tpu_torch.ops import extend as ext
 
     B, m = batch.shape
@@ -125,7 +142,10 @@ def exact_steps(index, batch: torch.Tensor, lengths=None) -> int:
         c = batch.gather(1, j.clamp(0, m - 1)[:, None])[:, 0].int()
         # a row that meets N stops without reading its rows
         steps += int((alive & (c <= 3)).sum())
-        new = ext.extend_char_plain(index, ranges, c, dirs)
+        if isinstance(index, BMoveIndex):
+            new = bextend.extend_char_plain(index, ranges, c, dirs, stats)
+        else:
+            new = ext.extend_char_plain(index, ranges, c, dirs)
         ranges = torch.where(alive[:, None], new, ranges)
         alive &= ranges[:, 1] > ranges[:, 0]
         if not bool(alive.any()):
@@ -168,3 +188,76 @@ def gather(table, idx, out) -> dict:
     a clamp per 16 B chunk."""
     return bound(_nbytes(idx, out, out),     # the row is read and written
                  idx.numel() * (table.shape[1] // 4) * 4)
+
+
+def _rlc_walks(stats: dict) -> tuple:
+    """(bytes, operations) of the 4 B reads the run-hint walks, binary
+    searches and LF-run reads in ``stats`` made."""
+    walk, probes = stats.get("walk", 0), stats.get("probes", 0)
+    hint_rows = stats.get("hint_rows", 0)
+    return ((walk + probes + hint_rows) * 4,
+            walk * WALK_OPS + probes * PROBE_OPS
+            + hint_rows // 2 * BM_CHILD_OPS)
+
+
+def extend_rlc(ranges, dirs, chars, out, stats: dict) -> dict:
+    """Kernel A's RLC entry: per lane its range, direction and char in, two
+    endpoint reads, the walks of the children it writes (``stats``), the
+    child range(s) out."""
+    L = dirs.numel()
+    wb, wo = _rlc_walks(stats)
+    return bound(_nbytes(ranges, dirs, chars, out) + L * 2 * BM_ROW_BYTES
+                 + wb, L * BM_LANE_OPS + wo)
+
+
+def rlc_band_stats(index, ranges, ids, mrow_t, out: dict) -> dict:
+    """The walks kernel B's RLC entries make in one step: the hints of the
+    children that stay in the frontier, of the lanes that keep theirs,
+    counted with the plain extension."""
+    from columba_tpu_torch.ops import bextend
+
+    S = mrow_t.shape[0]
+    side = (mrow_t.long()[(ids.long() & ((1 << 21) - 1)) % S, 0] >> 1) & 1
+    keep = out["act"] & (out["new_ids"] >= 0)
+    stats: dict = {}
+    bextend.extend_all_plain(
+        index, torch.where(out["act"][:, None], ranges, 0), side,
+        out["ch_alive"] & keep[:, None], stats)
+    return stats
+
+
+def band_step_rlc(ranges, ids, band, colmin, mrow_t, out: dict,
+                  stats: dict) -> dict:
+    """Kernel B's RLC and textless entries: as :func:`band_step`, with two
+    endpoint reads per active lane in place of the occ rows and the walks
+    of the children that stay (``stats``, :func:`rlc_band_stats`)."""
+    bw, Wp = band.shape[-1], colmin.shape[-1]
+    n_act = int(out["act"].sum())
+    wb, wo = _rlc_walks(stats)
+    n_bytes = (_nbytes(ranges, ids, band, colmin, mrow_t, *out.values())
+               + n_act * (2 * BM_ROW_BYTES + bw) + wb)
+    per_act = (BM_LANE_OPS + 4 * bw * 7 + Wp * 4 * (bw + 3)
+               + 4 * (bw + Wp + 6))
+    per_lane = 20 + 4 * (2 * bw + 2 * Wp + 8)
+    return bound(n_bytes, n_act * per_act + ranges.shape[0] * per_lane + wo)
+
+
+def exact_rlc(steps_walked: int, stats: dict, out) -> dict:
+    """Kernel E's RLC entry: per step walked one char and two endpoint
+    reads, then the chosen child's walks (``stats``); the range out."""
+    wb, wo = _rlc_walks(stats)
+    return bound(steps_walked * (2 * BM_ROW_BYTES + 1) + wb + _nbytes(out),
+                 steps_walked * (BM_LANE_OPS + 8) + wo)
+
+
+def locate_rlc(rows, stats: dict, out) -> dict:
+    """Kernel C's RLC entry: per row the binary search for its run (4 B a
+    probe), then per row visited the run's first word (16 B), the LF walk's
+    END reads (``stats["walk"]``), and one 16 B sample read; row in,
+    position out."""
+    N = rows.numel()
+    steps, walk = stats.get("steps", 0), stats.get("walk", 0)
+    probes = stats.get("probes", 0)
+    return bound(_nbytes(rows, out) + probes * 4 + (N + steps) * 16
+                 + walk * 4 + N * 16,
+                 probes * PROBE_OPS + (N + steps) * 12 + walk * WALK_OPS)

@@ -4,10 +4,14 @@ Run from the repository root on a machine with a CUDA device:
 
     python -m columba_tpu_torch.tools.profile_align [--out DIR]
         [--mode all|best] [--paired] [--partitioning uniform|static|dynamic]
+        [--flavor vanilla|rlc|textless]
 
 It builds the smoke's workload (``tools/workload.py``: a random 128 Mbp
 genome, Vanilla index with SA sparseness 4, 100 bp reads with 1 %
-substitutions; with ``--paired``, ``fr`` pairs of such mates) and then
+substitutions; with ``--paired``, ``fr`` pairs of such mates; with
+``--flavor rlc`` or ``textless`` the 128 Mbp pan-genome of 20 haplotypes
+and its ``--rlc`` or ``--rlc --textless`` index, aligned with ``-nD`` as
+the JAX package's RLC bench does) and then
 measures, on ``align -a all -e 2 -S kuch1 -b 16384`` or, with ``--mode
 best``, ``align -a best -S kuch1 -b 16384`` (the CLI's defaults: 10-mer
 seed table, in-text switchpoint 4, 95 % identity; paired-end with insert
@@ -15,8 +19,11 @@ inference on; ``--partitioning`` passes ``-p``, and under ``dynamic`` the
 stage breakdown shows the partition and table stage, kernels F and G,
 beside search):
 
-1. end to end: ``cli align`` of 1,048,576 reads, or of 524,288 pairs,
-   twice, FASTQ in and SAM written, in reads/s or pairs/s;
+1. end to end: ``cli align`` of 1,048,576 reads, or of 524,288 pairs
+   (RLC: 262,144 reads or 131,072 pairs, textless 131,072 reads: the
+   pan-genome's ~18 records a read, and the textless path's Python
+   emitter, make each read cost more), twice, FASTQ in and SAM written, in
+   reads/s or pairs/s;
 2. a stage breakdown over 131,072 reads or pairs (the smoke's count). The
    stages differ from batch to batch (rungs, escalations, pairing), so one
    ``cli align`` runs with every stage function wrapped in a timer that
@@ -55,8 +62,8 @@ SEED = 20260817
 BATCH = 16384
 K = 2
 READS = 131_072      # breakdown, profile and memory
-E2E_READS = 1_048_576
-E2E_PAIRS = 524_288
+E2E_READS = {"vanilla": 1_048_576, "rlc": 262_144, "textless": 131_072}
+E2E_PAIRS = {"vanilla": 524_288, "rlc": 131_072}    # textless is SE only
 REPS = 2
 
 
@@ -98,6 +105,10 @@ STAGES = [
      "emit SAM (native, 3 threads)"),
     ("columba_tpu_torch.io.emit", "emit_sam_pe_soa",
      "emit SAM (native, 3 threads)"),
+    ("columba_tpu_torch.search.pipeline", "_phi_enumerate",
+     "phi locate (textless, host numpy)"),
+    ("columba_tpu_torch.search.strategy", "emit_sam_textless",
+     "emit SAM (textless, Python)"),
 ]
 
 
@@ -159,7 +170,13 @@ def main(argv=None) -> int:
     ap.add_argument("--partitioning", default="uniform",
                     choices=["uniform", "static", "dynamic"],
                     help="the align's -p")
+    ap.add_argument("--flavor", default="vanilla",
+                    choices=["vanilla", "rlc", "textless"],
+                    help="the index: Vanilla on the random genome, or RLC / "
+                         "textless RLC on the pan-genome")
     args = ap.parse_args(argv)
+    if args.paired and args.flavor not in E2E_PAIRS:
+        ap.error(f"--paired does not run on a {args.flavor} index")
     torch.cuda.init()        # raises where there is no CUDA device
 
     from columba_tpu_torch import cli, native
@@ -177,20 +194,31 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="columba_profile_") as wd:
         rng = np.random.default_rng(SEED)
         fa, idx = os.path.join(wd, "genome.fa"), os.path.join(wd, "g.cidx")
-        workload.write_genome(fa, rng)
+        if args.flavor == "vanilla":
+            workload.write_genome(fa, rng)
+            build = []
+        else:
+            pan = workload.pan_genome()
+            workload.write_fasta(fa, pan, "pan")
+            build = ["--rlc"] + (["--textless"] if args.flavor == "textless"
+                                 else [])
         t0 = time.perf_counter()
-        assert cli.main(["build", "-r", idx, "-f", fa]) == 0
-        log(f"cli build of {workload.GENOME_N} bp: "
+        assert cli.main(["build", "-r", idx, "-f", fa] + build) == 0
+        log(f"cli build {' '.join(build)} of {workload.GENOME_N} bp: "
             f"{time.perf_counter() - t0:.3f} s")
-        arrays = load_index(idx)
-        n_e2e = E2E_PAIRS if args.paired else E2E_READS
+        if args.flavor == "vanilla":
+            arrays = load_index(idx)
+            text, starts = decoded_text(arrays), arrays.seq_starts
+        else:
+            text, starts = pan, np.array([0, len(pan)], np.int64)
+        n_e2e = (E2E_PAIRS if args.paired else E2E_READS)[args.flavor]
         unit = "pairs" if args.paired else "reads"
-        what = (f"{'PE' if args.paired else 'SE'} "
+        what = (f"{args.flavor} {'PE' if args.paired else 'SE'} "
                 f"{'ALL k=' + str(K) if args.mode == 'all' else 'BEST'}"
                 f" -p {args.partitioning}")
         sampler = workload.sample_pairs if args.paired \
             else workload.sample_reads
-        sample = sampler(decoded_text(arrays), arrays.seq_starts, n_e2e, rng)
+        sample = sampler(text, starts, n_e2e, rng)
         mates = sample[:2] if args.paired else sample[:1]
         fq, fq_e = [], []
         for i, codes in enumerate(mates):
@@ -200,7 +228,8 @@ def main(argv=None) -> int:
             workload.write_fastq(fq_e[-1], codes, "r")
         argv_al = ["align", "-r", idx, "-S", "kuch1", "-b", str(BATCH)] + (
             ["-a", "all", "-e", str(K)] if args.mode == "all"
-            else ["-a", "best"]) + ["-p", args.partitioning]
+            else ["-a", "best"]) + ["-p", args.partitioning] + (
+            ["-nD"] if args.flavor != "vanilla" else [])
         sam = os.path.join(wd, "out.sam")
 
         def align(paths: list) -> float:

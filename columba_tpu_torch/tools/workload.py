@@ -1,7 +1,9 @@
 """The smoke and profile workload: a random genome and reads sampled from it.
 
 The genome is uniform random with runs of N, split into equal sequences and
-written as FASTA; reads are sampled as ``bench.py`` samples them (uniform
+written as FASTA. The repeat-rich one of the RLC index (:func:`pan_genome`)
+is a pan-genome of 20 near-identical haplotypes in one sequence. Reads are
+sampled as ``bench.py`` samples them (uniform
 loci inside one sequence, substitutions at a fixed rate, half
 reverse-complemented) and written as FASTQ. Pairs are the two ends of
 fragments sampled the same way (``fr``: mate 1 forward at the fragment's
@@ -18,6 +20,40 @@ GENOME_N = 128_000_000       # bench.py's genome size
 N_SEQS = 4
 READ_LEN = 100
 ERR_RATE = 0.01
+PAN_SEED = 20260820          # the JAX package's pan-genome seed
+PAN_HAPLOTYPES = 20
+PAN_SNP_RATE = 0.001
+
+
+def pan_genome(n: int = GENOME_N) -> np.ndarray:
+    """Repeat-rich pan-genome: a random base of n / 20 bp and 19 copies of
+    it, each with 0.1 % SNPs, concatenated (every locus occurs about 20
+    times). The construction, seed and draws of the JAX package's
+    ``tools/bench_matrix.py:63-88`` (``pan_genome``), so the same genome.
+    Returns uint8 codes 0..3."""
+    base_n = n // PAN_HAPLOTYPES
+    rng = np.random.default_rng(PAN_SEED)
+    base = rng.integers(0, 4, size=base_n).astype(np.uint8)
+    haps = [base]
+    for _ in range(PAN_HAPLOTYPES - 1):
+        h = base.copy()
+        snps = rng.random(base_n) < PAN_SNP_RATE
+        h[snps] = (h[snps] + rng.integers(1, 4, snps.sum())) % 4
+        haps.append(h)
+    return np.concatenate(haps)
+
+
+def write_fasta(path: str, codes: np.ndarray, name: str = "pan") -> None:
+    """One sequence as FASTA, 80 bases a line."""
+    lut = np.frombuffer(b"ACGTN", dtype=np.uint8)
+    seq = lut[codes]
+    full = len(seq) // 80 * 80
+    lines = np.concatenate([seq[:full].reshape(-1, 80),
+                            np.full((full // 80, 1), 10, np.uint8)], axis=1)
+    with open(path, "wb") as f:
+        f.write(f">{name}\n".encode() + lines.tobytes())
+        if full < len(seq):
+            f.write(seq[full:].tobytes() + b"\n")
 
 
 def write_genome(path: str, rng, n: int = GENOME_N,

@@ -288,3 +288,121 @@ def test_port_imports_no_jax():
     # and the port holds its own host sources
     for src in ("emit.cpp", "parse.cpp", "sais.cpp"):
         assert os.path.exists(os.path.join(PORT, "csrc", "host", src))
+
+
+def test_kernel_entries_name_their_sources():
+    """Each kernel entry's C function is defined in the CUDA source it names
+    (the smoke's record reports that source): kernel B's RLC and textless
+    entries in band_step_rlc.cu, the other entries in their kernel's file."""
+    import importlib
+
+    from columba_tpu_torch import native
+    for mod in ("ops.extend", "ops.locate", "ops.verify", "search.executor",
+                "search.dynschedule", "tools.gather_bench"):
+        importlib.import_module("columba_tpu_torch." + mod)
+    root = os.path.dirname(PORT)
+    seen = 0
+    for k in native.KERNELS.values():
+        for entry, (symbol, *_) in k.symbols.items():
+            with open(os.path.join(root, k.source_of(entry))) as f:
+                assert f"{symbol}(" in f.read(), (k.name, entry)
+            seen += 1
+    assert seen == 13      # 8 kernels, 5 RLC entries
+    band = native.KERNELS["band_step"]
+    assert band.source_of("textless").endswith("csrc/band_step_rlc.cu")
+    assert band.source_of("per_lane") == band.source
+
+
+# ---------------------------------------------------------------------------
+# RLC (b-move) and textless indexes
+# ---------------------------------------------------------------------------
+
+BM_ARRAYS = ["fused_fwd", "fused_rev", "first_row", "text", "sa_stride",
+             "seq_starts", "phi_fwd", "phi_rev"]
+
+
+@pytest.fixture(scope="module")
+def built_rlc(built):
+    """``cli build --rlc`` and ``--rlc --textless`` of both packages on the
+    FASTA of ``built``."""
+    wd, _ = built
+    idx = {}
+    for flavor, extra in (("rlc", ["--rlc"]),
+                          ("textless", ["--rlc", "--textless"])):
+        for name, cli in (("jax", jcli), ("torch", tcli)):
+            idx[flavor, name] = str(wd / f"{name}.{flavor}.cidx")
+            assert cli.main(["build", "-r", idx[flavor, name], "-f",
+                             str(wd / "g.fa")] + extra) == 0
+    return idx
+
+
+@pytest.mark.parametrize("flavor", ["rlc", "textless"])
+def test_build_rlc_identical_arrays(built_rlc, flavor):
+    for name in BM_ARRAYS:
+        a = np.load(os.path.join(built_rlc[flavor, "jax"], name + ".npy"))
+        b = np.load(os.path.join(built_rlc[flavor, "torch"], name + ".npy"))
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    metas = [json.load(open(os.path.join(built_rlc[flavor, k], "meta.json")))
+             for k in ("jax", "torch")]
+    assert metas[0] == metas[1]
+    assert metas[0]["textless"] == (flavor == "textless")
+
+
+@pytest.mark.parametrize("tag,flavor,opts,paired", [
+    ("rlc_se_all", "rlc", ["-a", "all", "-e", "2"], False),
+    ("rlc_se_all_aC", "rlc", ["-a", "all", "-e", "2", "-aC"], False),
+    ("rlc_se_best", "rlc", ["-a", "best", "-I", "96"], False),
+    ("rlc_pe_best", "rlc", ["-a", "best", "-I", "96"], True),
+    ("rlc_pe_all_e0", "rlc", ["-a", "all", "-e", "0", "--no-inferring",
+                              "-X", "400"], True),
+    ("tl_se_all", "textless", ["-a", "all", "-e", "2"], False),
+    ("tl_se_best", "textless", ["-a", "best", "-I", "96"], False),
+    ("tl_se_all_e0", "textless", ["-a", "all", "-e", "0"], False),
+])
+def test_align_rlc_identical_sam(built_rlc, pairs, tag, flavor, opts, paired):
+    """Byte-identical SAM records from the two packages on the with-text RLC
+    index (SE ALL with and without CIGARs, SE BEST, PE BEST through the
+    exact rung, PE ALL -e 0: the exact pass) and on the textless index (SE
+    ALL, SE BEST, -e 0 through the frontier)."""
+    wd = os.path.dirname(built_rlc[flavor, "jax"])
+    out = {}
+    for name, cli in (("jax", jcli), ("torch", tcli)):
+        out[name] = os.path.join(wd, f"{tag}.{name}.sam")
+        argv = ["align", "-r", built_rlc[flavor, name], "-f", pairs[0],
+                "-o", out[name], "-S", "kuch1", "-b", "256"] + opts + CPU[name]
+        if paired:
+            argv += ["-F", pairs[1]]
+        assert cli.main(argv) == 0
+    body = {k: [ln for ln in open(v).read().splitlines()
+                if not ln.startswith("@")] for k, v in out.items()}
+    assert body["jax"] == body["torch"]
+    assert len(body["torch"]) >= (512 if paired else 256)
+    mapped = [ln.split("\t") for ln in body["torch"]
+              if ln.split("\t")[2] != "*"]
+    assert len(mapped) > (40 if "e0" in tag else 200)
+    cigars = {c[5] for c in mapped}
+    if paired or "-aC" in opts:
+        assert "*" not in cigars
+    else:
+        assert cigars == {"*"}        # RLC: no CIGAR unless -aC
+
+
+@pytest.mark.parametrize("flavor,opts,exc", [
+    ("textless", ["-F", "@P2@"], SystemExit),
+    ("textless", ["-aC"], SystemExit),
+    ("rlc", ["-p", "dynamic"], NotImplementedError),
+    ("rlc", ["-d", SCHEMES], NotImplementedError),
+])
+def test_align_rlc_refusals(built_rlc, pairs, flavor, opts, exc):
+    """Textless refuses paired-end and -aC as the JAX package does; on the
+    RLC index -p dynamic and per-read selection are not ported yet and
+    name their ROADMAP item."""
+    opts = [pairs[1] if o == "@P2@" else o for o in opts]
+    wd = os.path.dirname(built_rlc[flavor, "torch"])
+    with pytest.raises(exc) as err:
+        tcli.main(["align", "-r", built_rlc[flavor, "torch"], "-f", pairs[0],
+                   "-o", os.path.join(wd, "refused.sam"), "-a", "all", "-e",
+                   "2", "--device", "cpu"] + opts)
+    if exc is NotImplementedError:
+        assert "ROADMAP" in str(err.value)

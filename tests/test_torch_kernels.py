@@ -469,3 +469,187 @@ def test_launch_counters_from_threads(setup, gpu):
     assert not any(t.is_alive() for t in threads)
     assert ok == [True] * n_threads
     assert locate.KERNEL.launches == before + n_threads * n_calls
+
+
+# ---------------------------------------------------------------------------
+# RLC (b-move) entries of kernels A, B, C and E
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rlc_setup(gpu):
+    """A repeat-rich genome (six near-identical haplotypes, long BWT runs,
+    and a random tail), its with-text and textless RLC indexes on the CPU
+    and on the card."""
+    from columba_tpu_torch.index.bmove import BMoveIndex, build_bmove_from_codes
+
+    rng = np.random.default_rng(40)
+    base = rng.integers(0, 4, 8000).astype(np.uint8)
+    haps = [base]
+    for _ in range(5):
+        h = base.copy()
+        snp = rng.random(len(h)) < 0.004
+        h[snp] = (h[snp] + rng.integers(1, 4, int(snp.sum()))) % 4
+        haps.append(h)
+    g = np.concatenate(haps + [rng.integers(0, 4, 12000).astype(np.uint8)])
+    out = {}
+    for name, tl in (("rlc", False), ("textless", True)):
+        arrays = build_bmove_from_codes(g, textless=tl)
+        out[name] = (arrays, BMoveIndex.from_arrays(arrays, "cpu"),
+                     BMoveIndex.from_arrays(arrays, gpu))
+    return g, out
+
+
+def _rlc_states(index, rng, L, steps=12):
+    """Valid lane states of the RLC index: random walks of extensions with
+    direction flips from the full range (a dead child restarts there), every
+    step's lanes collected, and a few dead (all-zero) lanes."""
+    from columba_tpu_torch.ops import bextend
+
+    full = index.full_range((L,))
+    cur, seen = full, [full]
+    for _ in range(steps):
+        dirs = torch.from_numpy(rng.integers(0, 2, L).astype(np.int32))
+        ch = bextend.extend_all_plain(index, cur, dirs)
+        pick = torch.from_numpy(rng.integers(0, 4, L))
+        nxt = ch[torch.arange(L), pick]
+        cur = torch.where((nxt[:, 1] > nxt[:, 0])[:, None], nxt, full)
+        seen.append(cur)
+    states = torch.cat(seen)
+    states[::97] = 0
+    return states
+
+
+@pytest.mark.parametrize("flavor", ["rlc", "textless"])
+def test_rlc_extend_kernel(rlc_setup, gpu, flavor):
+    """Kernel A's RLC entry (8 and 12 wide) equals bextend's plain version on
+    every column, run hints and toeholds included."""
+    _, idx = rlc_setup
+    _, cpu_bm, bm = idx[flavor]
+    rng = np.random.default_rng(41)
+    states = _rlc_states(cpu_bm, rng, 1024)
+    L = states.shape[0]
+    dirs = torch.from_numpy(rng.integers(0, 2, L).astype(np.int32))
+    chars = torch.from_numpy(rng.integers(-1, 5, L).astype(np.int32))
+    r, d, c = states.to(gpu), dirs.to(gpu), chars.to(gpu)
+    before = extend.KERNEL.by_entry.get("rlc", 0)
+    got = extend.extend_all(bm, r, d)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), extend.extend_all_plain(cpu_bm, states,
+                                                          dirs))
+    got = extend.extend_char(bm, r, c, d)
+    assert torch.equal(got.cpu(), extend.extend_char_plain(cpu_bm, states,
+                                                           c.cpu(), dirs))
+    assert extend.KERNEL.by_entry["rlc"] == before + 2
+
+
+def test_rlc_locate_kernel(rlc_setup, gpu):
+    """Kernel C's RLC entry on every row: run heads and tails, strided rows,
+    row 0 and row n among them."""
+    _, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rows = torch.arange(cpu_bm.n + 1, dtype=torch.int64)
+    got = locate.locate_rows(bm, rows.to(gpu))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), locate.locate_rows(cpu_bm, rows))
+    assert sorted(got.cpu().tolist())[-2:] == [cpu_bm.n - 1, cpu_bm.n]
+
+
+def test_rlc_exact_kernel(rlc_setup, gpu):
+    """Kernel E's RLC entry equals m plain extend_char steps (zero where
+    they end empty)."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rng = np.random.default_rng(42)
+    m, R = 60, 1024
+    starts = rng.integers(0, len(g) - m, R)
+    reads = g[starts[:, None] + np.arange(m)].copy()
+    miss = rng.random(R) < 0.3
+    reads[miss, rng.integers(0, m, int(miss.sum()))] ^= 1
+    reads[::9, rng.integers(0, m)] = 4
+    batch = torch.from_numpy(np.concatenate(
+        [reads, alphabet.revcomp(reads, axis=-1)]))
+    got = extend.exact_match(bm, batch.to(gpu))
+    torch.cuda.synchronize()
+    want = extend.exact_match(cpu_bm, batch)
+    assert torch.equal(got.cpu(), want)
+    live = int((want[:, 1] > want[:, 0]).sum())
+    assert 0 < live < 2 * R
+
+
+@pytest.mark.parametrize("flavor,kb,W", [
+    ("rlc", 0, 1), ("rlc", 2, 2), ("rlc", 4, 2), ("rlc", 5, 3),
+    ("textless", 0, 2), ("textless", 2, 2), ("textless", 4, 1),
+    ("textless", 5, 3)])
+def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
+    """Kernel B's RLC and textless entries (templated and generic) on valid
+    RLC lane states and random step tables equal band_step_plain on every
+    output, witness slots included."""
+    _, idx = rlc_setup
+    _, cpu_bm, bm = idx[flavor]
+    rng = np.random.default_rng(43 + 10 * kb + W)
+    track = flavor == "textless"
+    states = _rlc_states(cpu_bm, rng, 256)
+    C = states.shape[0]
+    bw, R, S, T, t = 2 * kb + 1, 96, 7, 5, 3
+    Wp = 2 * W if track else W
+    ids = rng.integers(0, R * S, C).astype(np.int64)
+    ghost = rng.random(C) < 0.1
+    ids = np.where(ghost, ids | (rng.integers(0, 1024, C) << 21) | (1 << 31),
+                   ids).astype(np.uint32).view(np.int32)
+    args = [
+        states, torch.from_numpy(ids),
+        torch.from_numpy(np.where(rng.random((C, 2, bw)) < 0.5,
+                                  rng.integers(0, 4, (C, 2, bw)),
+                                  rng.integers(0, 64, (C, 2, bw))
+                                  ).astype(np.int8)),
+        torch.from_numpy(rng.integers(0, 64, (C, 2, Wp)).astype(np.int8)),
+        torch.from_numpy(_random_mrow(rng, S, bw, W)),
+        torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(np.int8))]
+    tail = (T, t, 0 if track else 4, None, track)
+    got = executor.band_step(bm, *[a.to(gpu) for a in args], *tail)
+    torch.cuda.synchronize()
+    want = executor.band_step_plain(cpu_bm, *args, *tail)
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    assert bool((got["ch_alive"] & got["act"][:, None]).any())
+
+
+@pytest.mark.parametrize("flavor,switchpoint", [("rlc", 4), ("rlc", 0),
+                                                ("textless", 0)])
+def test_rlc_scheme_kernels_vs_plain(rlc_setup, gpu, flavor, switchpoint):
+    """run_scheme on the RLC index through kernels A and B on the card
+    equals the plain versions on the CPU, field by field, arg_b included."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx[flavor]
+    rng = np.random.default_rng(44)
+    batch = _reads(rng, g, 48, 100, 2)
+    sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit")
+    itv_cap, ss, c2 = pipeline.crossover_caps(1024, 4096, switchpoint)
+    out = []
+    for index in (bm, cpu_bm):
+        out.append(executor.run_scheme(
+            index, torch.from_numpy(batch).to(index.device), sched, 1024,
+            None, switchpoint, itv_cap, ss, c2, itv_min_depth=16,
+            track_arg=flavor == "textless"))
+    for f in ("ranges", "rid", "sid", "ed_lb", "done", "overflow",
+              "nodes_visited", "itv", "itv_count", "searches_started",
+              "arg_b"):
+        assert torch.equal(getattr(out[0], f).cpu(), getattr(out[1], f)), f
+    assert bool(out[1].done.any())
+
+
+@pytest.mark.parametrize("flavor,k", [("rlc", 2), ("rlc", 0),
+                                      ("textless", 2), ("textless", 0)])
+def test_rlc_match_all_vs_plain(rlc_setup, gpu, flavor, k):
+    """match_all on the RLC indexes (kernels A, B, C, D, E; the textless
+    pass and its host locate) on the card equals the plain versions."""
+    g, idx = rlc_setup
+    arrays, cpu_bm, bm = idx[flavor]
+    rng = np.random.default_rng(45)
+    reads = _reads(rng, g, 96, 100, k)[:96]
+    out = [pipeline.match_all(index, reads, get_scheme("kuch1", k),
+                              switchpoint=4, host_arrays=arrays)
+           for index in (bm, cpu_bm)]
+    for f in ("read_id", "strand", "begin", "end", "distance"):
+        assert np.array_equal(getattr(out[0][0], f), getattr(out[1][0], f)), f
+    assert len(out[0][0]) >= 96

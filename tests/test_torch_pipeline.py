@@ -64,6 +64,37 @@ def test_match_all_lossless_retries():
     assert len(t_occ) > 0
 
 
+def test_match_all_retries_until_lossless():
+    """The 4x retries go on until nothing spills. The JAX package stops
+    after three and then drops occurrences (on a pan-genome batch of the
+    RLC smoke 18 % of the reads lost their locus); here a first attempt
+    with a frontier of 16 lanes and a first exact stage of 1 needs four,
+    and the result equals a run whose capacities are large enough from the
+    start."""
+    rng = np.random.default_rng(41)
+    rep = repeat_genome(rng)
+    g = np.concatenate([rep, np.zeros(12000, np.uint8),
+                        rng.integers(0, 4, 4000).astype(np.uint8)])
+    reads = sample_batch(rng, rep, 64)[:64]
+    tfm = TFMIndex.from_arrays(build_index_from_codes(g), "cpu")
+    table = tkmer.build_kmer_table(tfm, 6)
+    kw = dict(metric="edit", switchpoint=4, kmer_table=table, ex_split=6)
+    ctx = tpipe.match_all_start(tfm, reads, tscheme("kuch1", 2), ex_cap=1,
+                                **kw)
+    ctx["capacity"], ctx["ex_cap"] = 16, 1
+    ctx["out"], ctx["event"] = ctx["run"](16, 1, ctx["max_locate"])
+    occ, stats = tpipe.match_all_finish(ctx)
+    assert stats["retries"] >= 4 and stats["overflow"] == 0
+    assert not stats["locate_truncated"]
+    want, wstats = tpipe.match_all(tfm, reads, tscheme("kuch1", 2),
+                                   capacity=4096, max_locate=1 << 16,
+                                   ex_cap=4096, **kw)
+    assert wstats["retries"] == 0 and wstats["overflow"] == 0
+    for f in ("read_id", "strand", "begin", "end", "distance"):
+        np.testing.assert_array_equal(getattr(occ, f), getattr(want, f),
+                                      err_msg=f)
+
+
 def test_match_all_exact_pass():
     """k = 0 without a seed table: the exact branch of match_all, with its
     4x locate-spill retries, gives the JAX package's OccArray and stats."""
