@@ -15,15 +15,27 @@ a CUDA device. It
    its plain PyTorch version on the same tensors (exact equality: all the
    arithmetic is integer), timing both with CUDA events, and works out the
    least time the card could take for the same call
-   (``columba_tpu_torch/tools/bounds.py``). Kernels B and D are also held
-   against their plain versions at the other band radii the paths reach and
-   through their generic entries; kernel F (dynamic partitioning) with and
-   without the seed table, kernel G (per-read tables) on F's boundaries,
-   kernel B's per-lane entry at kb 2 and 4 on G's tables, kernel E with
-   per-row lengths on the part patterns of scheme selection, and kernel H
-   (the row gather) at 262,144 lanes beside ``torch.index_select``;
-5. drives eight paths through ``cli align``, each with every kernel's launch
-   count reset just before and read just after, with its peak device memory:
+   (``columba_tpu_torch/tools/bounds.py``). Kernel B is one fused band
+   step (the lanes' arithmetic, the drain to the in-text buffer and the
+   compaction of the next frontier): it is compared on every field it
+   leaves (the next frontier's live rows, the in-text rows and count, kept
+   children, visits, overflow), at the main path's shape, at the other
+   band radii the paths reach, through its generic entry, and, in each of
+   its Vanilla, per-lane, RLC and textless entries, on a step that
+   overflows both the frontier and the in-text buffer. Kernel
+   A's loop entry (the whole exact prefix in one launch) runs on the main
+   path's seeded lanes and on the band-only path's second stage; kernel D
+   at the other band radii and its generic entry; kernel F (dynamic
+   partitioning) with and without the seed table, kernel G (per-read
+   tables) on F's boundaries, kernel B's per-lane entry at kb 2 and 4 and
+   kernel A's loop on G's tables, kernel E with per-row lengths on the part
+   patterns of scheme selection, and kernel H (the row gather) at 262,144
+   lanes beside ``torch.index_select``;
+5. builds the 10-mer seed table (kernel A's main entry, counted as the
+   path ``kmer_table``) and drives eight paths through ``cli align``, each
+   with every kernel's launch count reset just before and read just after
+   (and kernel A's loop launches per ``run_scheme`` call printed), with its
+   peak device memory:
 
    - SE ALL: ``-a all -e 2 -S kuch1 -b 16384`` on 65,536 sampled 100 bp reads
      (1% substitutions, half reverse-complemented);
@@ -53,9 +65,10 @@ a CUDA device. It
    seed 20260820), builds it with ``cli build --rlc`` and ``--rlc
    --textless`` (two processes at once), prints each flavor's index bytes
    on disk and on the card, holds the RLC entries of kernels A, B, C and E
-   (``extend.rlc``, ``band_step.rlc``, ``band_step.textless``,
-   ``locate.rlc``, ``exact.rlc``) against their plain versions at the
-   paths' shapes with their bounds, and drives five more paths:
+   (``extend.loop_rlc`` on 8- and 12-wide lanes, ``band_step.rlc``,
+   ``band_step.textless``, ``locate.rlc``, ``exact.rlc``) against their
+   plain versions at the paths' shapes with their bounds, and drives five
+   more paths:
 
    - ``rlc_se_all``: ``-a all -e 2 -S kuch1 -b 16384 -nD`` (the JAX
      package's RLC bench) on 65,536 reads of the pan-genome;
@@ -125,15 +138,20 @@ PATH_KERNELS = {
 }
 # the entries of kernels A, B, C and E each path must go through (see
 # native.Kernel.by_entry), as "kernel.entry"
-_RLC_ENTRIES = ("extend.rlc", "band_step.rlc", "locate.rlc")
+_RLC_ENTRIES = ("extend.loop_rlc", "band_step.rlc", "locate.rlc")
 PATH_ENTRIES = {
-    "se_all_dynamic": ("band_step.per_lane",),
-    "se_best_d": ("exact.lengths",),
+    "se_all": ("extend.loop",),
+    "se_best": ("extend.loop",),
+    "pe_best": ("extend.loop",),
+    "pe_all_e2": ("extend.loop",),
+    "se_all_dynamic": ("extend.loop", "band_step.per_lane"),
+    "se_best_d": ("extend.loop", "exact.lengths"),
+    "pe_best_static": ("extend.loop",),
     "rlc_se_all": _RLC_ENTRIES,
     "rlc_se_best": _RLC_ENTRIES,
     "rlc_pe_best": _RLC_ENTRIES + ("exact.rlc",),
-    "tl_se_all": ("extend.rlc", "band_step.textless"),
-    "tl_se_best": ("extend.rlc", "band_step.textless"),
+    "tl_se_all": ("extend.loop_rlc", "band_step.textless"),
+    "tl_se_best": ("extend.loop_rlc", "band_step.textless"),
 }
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best")
@@ -194,6 +212,114 @@ def note_kernel(report, name, shape, rep, b, library_ms=None):
         f"plain {rep['plain_ms']:.4f} ms; bound {b['bound_ms']:.5f} ms "
         f"by {b['bound_by']} ({b['bytes']} bytes, {b['operations']} "
         f"operations), share {b['bound_ms'] / rep['ms']:.4f}")
+
+
+def check_fused(index, state, mrow_t, pchars, T, t, switchpoint,
+                dyn_meta=None, track=False, cap=None, M=None, cnt=0,
+                reps=20, plain_reps=3):
+    """Kernel B (a fused band step over every lane of ``state``) against
+    ``band_step_compact_plain`` on the same frontier: the next frontier's
+    live rows (ranges, ids, band, colMin), the in-text rows and count, the
+    kept children, visits and overflow must be equal. Then both are timed
+    on their own preallocated outputs, and the bound is worked out from the
+    step's own data. Returns (record, bound, kept children, in-text
+    rows)."""
+    from columba_tpu_torch.index.bmove import BMoveIndex
+    from columba_tpu_torch.search import executor
+    from columba_tpu_torch.tools import bounds
+
+    C, dev = state[0].shape[0], state[0].device
+    cap = C if cap is None else cap
+    M = max(1 << 16, 4 * C) if M is None else M
+    calls, got = {}, {}
+    for which, fn in (("kernel", executor.band_step_compact),
+                      ("plain", executor.band_step_compact_plain)):
+        out = [torch.empty((cap, *f.shape[1:]), dtype=f.dtype, device=dev)
+               for f in state]
+        itv = torch.zeros((M + 1, 4), dtype=torch.int64, device=dev)
+        sc = executor.StepScratch(C, dev)
+
+        def call(fn=fn, out=out, itv=itv, sc=sc):
+            fn(index, state, C, out, itv, cnt, sc, mrow_t, pchars, T, t,
+               switchpoint, dyn_meta, track)
+        call()
+        torch.cuda.synchronize()
+        w = int(sc.ctr[0])
+        live = min(w & 0xFFFFFFFF, cap)
+        got[which] = dict(
+            ranges=out[0][:live].clone(), ids=out[1][:live].clone(),
+            band=out[2][:live].clone(), colmin=out[3][:live].clone(),
+            itv=itv[:M].clone(), word=sc.ctr[0].clone(),
+            visits=sc.ctr[1].clone(), overflow=sc.ctr[2].clone())
+        calls[which] = call
+    diff = _max_abs(got["kernel"], got["plain"])
+    if diff != 0:
+        raise AssertionError(f"kernel band_step differs from its plain "
+                             f"version: max abs error {diff}")
+    w = int(got["kernel"]["word"])
+    rep = dict(max_abs_err=diff, ms=cuda_time(calls["kernel"], reps),
+               plain_ms=cuda_time(calls["plain"], plain_reps))
+    o = executor.band_step_plain(index, *state, mrow_t, pchars, T, t,
+                                 switchpoint, dyn_meta, track)
+    stats = (bounds.rlc_band_stats(index, state, mrow_t, o, cap)
+             if isinstance(index, BMoveIndex) else None)
+    b = bounds.band_step(state, mrow_t, o, cap, M, cnt, stats)
+    return rep, b, w & 0xFFFFFFFF, w >> 32
+
+
+def check_overflow(what, index, state, mrow_t, pchars, T, t, switchpoint,
+                   dyn_meta=None, track=False):
+    """Kernel B against its plain version on a step that overflows both the
+    next frontier and the in-text buffer: the plain step runs first with
+    room for everything, then the capacity is half its kept children and
+    M half its narrow rows, so the clamps and the dropped rows run on the
+    card."""
+    from columba_tpu_torch.search import executor
+
+    C, dev = state[0].shape[0], state[0].device
+    sc = executor.StepScratch(C, dev)
+    executor.band_step_compact_plain(
+        index, state, C, [torch.empty_like(f) for f in state],
+        torch.zeros((4 * C + 1, 4), dtype=torch.int64, device=dev), 0, sc,
+        mrow_t, pchars, T, t, switchpoint, dyn_meta, track)
+    n, rows = sc.word()
+    if n < 2 or rows < 2:
+        raise AssertionError(f"{what}: the step keeps {n} children and "
+                             f"drains {rows}: nothing to overflow")
+    rep, _, n2, rows2 = check_fused(index, state, mrow_t, pchars, T, t,
+                                    switchpoint, dyn_meta, track,
+                                    cap=n // 2, M=rows // 2, plain_reps=1)
+    if (n2, rows2) != (n, rows // 2):
+        raise AssertionError(f"{what}: overflow case kept {n2}, drained "
+                             f"{rows2}")
+    log(f"kernel {what} overflowing both buffers (C={C} lanes, "
+        f"switchpoint {switchpoint}: {n} children kept into {n // 2} rows, "
+        f"{rows} in-text rows into M = {rows // 2}): equal to plain; "
+        f"{rep['ms']:.4f} ms")
+
+
+def check_loop(index, ranges, ids, t_lo, t_hi, reads, tabs, per_lane,
+               gate_t, switchpoint, reps=20, plain_reps=1):
+    """Kernel A's loop entry against ``exact_loop_plain`` on the same lanes
+    (final ranges and drain rows equal), both timed, and its bound from
+    the extensions the plain version counts. Returns (record, bound, final
+    ranges, drain rows)."""
+    from columba_tpu_torch.search import executor
+    from columba_tpu_torch.tools import bounds
+
+    args = (index, ranges, ids, t_lo, t_hi, reads, tabs, per_lane, gate_t,
+            switchpoint)
+    out, rep = check_kernel(
+        "extend.loop",
+        lambda: dict(zip(("ranges", "drows"), executor.exact_loop(*args))),
+        lambda: dict(zip(("ranges", "drows"),
+                         executor.exact_loop_plain(*args))),
+        reps=reps, plain_reps=plain_reps)
+    stats: dict = {}
+    executor.exact_loop_plain(*args, stats=stats)
+    b = bounds.exact_loop(ranges, ids, tabs, per_lane, stats, out["ranges"],
+                          out["drows"])
+    return rep, b, out["ranges"], out["drows"]
 
 
 def _band_args(index, sched, batch, ranges, rng, switchpoint, div=8):
@@ -271,8 +397,6 @@ def kernel_checks(index, arrays, reads, table) -> dict:
         "extend": (lambda: extend.extend_char(index, ranges, chars, dirs),
                    lambda: extend.extend_char_plain(index, ranges, chars,
                                                     dirs)),
-        "band_step": (lambda: executor.band_step(*band_args),
-                      lambda: executor.band_step_plain(*band_args)),
         "locate": (lambda: locate.locate_rows(index, rows),
                    lambda: locate.locate_rows_plain(index, rows)),
         "verify": (lambda: verify.verify_window(index, pats, rid, ws, K),
@@ -282,8 +406,7 @@ def kernel_checks(index, arrays, reads, table) -> dict:
                   lambda: extend.zero_empty(
                       extend.exact_match_plain(index, batch))),
     }
-    shapes = {"extend": f"{2 * C} lanes", "band_step": f"C={C} lanes, "
-              f"kb={K}, W={sched.W}", "locate": f"{ml} rows",
+    shapes = {"extend": f"{2 * C} lanes", "locate": f"{ml} rows",
               "verify": f"{ml} candidates, m={READ_LEN}, kb={K}",
               "exact": f"{R} rows x {READ_LEN} bp"}
 
@@ -294,8 +417,6 @@ def kernel_checks(index, arrays, reads, table) -> dict:
                          plain_reps=2 if name == "exact" else 5)
         if name == "extend":
             b = bounds.extend(ranges, dirs, chars, out)
-        elif name == "band_step":
-            b = bounds.band_step(*band_args[1:6], out)
         elif name == "locate":
             _, steps = locate.locate_rows_plain(index, rows,
                                                 return_steps=True)
@@ -327,8 +448,15 @@ def kernel_checks(index, arrays, reads, table) -> dict:
         f"{dense.numel()} entries): {report['locate']['library_ms']:.4f} ms")
     del dense
 
-    # kernels B and D at the other shapes the paths reach, and through
-    # their generic entries (runtime sizes)
+    # kernel B, the fused step, at the main path's shape (kb 2, W 2, C =
+    # rows x searches / 8), at the other shapes the paths reach, and
+    # through its generic entry (runtime sizes)
+    def fused(args, **kw):
+        return check_fused(args[0], list(args[1:5]), *args[5:], **kw)
+
+    rep, b, n, _ = fused(band_args)
+    note_kernel(report, "band_step", f"fused step, C={C} lanes live, kb={K}"
+                f", W={sched.W}; {n} children kept", rep, b)
     for scheme, k, metric, what in (
             ("kuch1", BEST_CUT, "edit", "BEST cutoff, templated"),
             ("kuch1", K, "hamming", "Hamming band, templated"),
@@ -337,11 +465,46 @@ def kernel_checks(index, arrays, reads, table) -> dict:
                                      kmer_k=10)
         args = _band_args(index, sc, batch, all_ranges, rng,
                           4 if metric == "edit" else 0)
-        _, rep = check("band_step", lambda: executor.band_step(*args),
-                       lambda: executor.band_step_plain(*args), plain_reps=3)
+        rep, b, n, _ = fused(args)
         log(f"kernel band_step at kb={(sc.bw - 1) // 2}, W={sc.W} ({what}; "
             f"{scheme} k={k} {metric}, C={args[1].shape[0]}): equal to "
-            f"plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms")
+            f"plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; "
+            f"bound {b['bound_ms']:.5f} ms by {b['bound_by']}")
+    # a step that overflows both the next frontier and the in-text buffer:
+    # the 10-mer seeds' children are about 30 wide, so switchpoint 30
+    # drains about half of them and keeps the rest
+    check_overflow("band_step", band_args[0], list(band_args[1:5]),
+                   *band_args[5:9], 30)
+
+    # kernel A's loop entry: the main path's exact prefix (R x S lanes from
+    # the 10-mer seeds, gate depth 20, switchpoint 4), then the band-only
+    # path's second stage (switchpoint 0, the lanes live after 8 steps,
+    # compacted, with their own ids)
+    tables = executor.device_tables(sched, dev)
+    tabs = (tables["ex_pos"], tables["ex_dir"], tables["db_ex"])
+    S, Kk = sched.num_searches, sched.kmer_k
+    seeds = torch.stack(
+        [index.full_range((R,)) if int(ks) < 0
+         else kmer.lookup(table, batch[:, ks:ks + Kk])
+         for ks in sched.kmer_start], dim=1).reshape(R * S, 4)
+    seeds = extend.zero_empty(seeds)
+    gate = 20 - Kk - 1
+    rep, b, out, drows = check_loop(index, seeds, None, 0, sched.e_max,
+                                    batch, tabs, False, gate, 4)
+    note_kernel(report, "extend.loop",
+                f"{R * S} lanes from the 10-mer seeds, steps 0..{sched.e_max}"
+                f", {int((drows[:, 1] > drows[:, 0]).sum())} drained, "
+                f"{int((out[:, 1] > out[:, 0]).sum())} live after", rep, b)
+    stage1, _ = executor.exact_loop(index, seeds, None, 0, 8, batch, tabs,
+                                    False, gate, 0)
+    ids = (stage1[:, 1] > stage1[:, 0]).nonzero()[:, 0]
+    ids = ids[:R * S // 2].int().contiguous()
+    rep, b, out, _ = check_loop(index, stage1[ids.long()].contiguous(), ids,
+                                8, sched.e_max, batch, tabs, False, gate, 0)
+    log(f"kernel extend.loop, band-only second stage ({ids.numel()} lanes "
+        f"live after 8 steps, steps 8..{sched.e_max}): equal to plain; "
+        f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; bound "
+        f"{b['bound_ms']:.5f} ms")
     for kb, what in ((0, "templated"), (BEST_CUT, "templated"),
                      (5, "generic entry")):
         wsk = win_starts(kb)
@@ -357,10 +520,11 @@ def kernel_checks(index, arrays, reads, table) -> dict:
 
 
 def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
-    """Kernels F, G and H, kernel B's per-lane entry and kernel E with
-    lengths against their plain versions at the shapes of the dynamic
-    partitioning and scheme selection paths (32,768 rows x 100 bp)."""
-    from columba_tpu_torch.search import dynschedule, executor, pipeline
+    """Kernels F, G and H, kernel B's per-lane entry, kernel A's loop on
+    per-read tables and kernel E with lengths against their plain versions
+    at the shapes of the dynamic partitioning and scheme selection paths
+    (32,768 rows x 100 bp)."""
+    from columba_tpu_torch.search import dynschedule, pipeline
     from columba_tpu_torch.search import schedule
     from columba_tpu_torch.search.scheme import get_scheme
     from columba_tpu_torch.tools import bounds, gather_bench
@@ -425,21 +589,34 @@ def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
             np.int8)).to(dev)
         colmin = torch.from_numpy(rng.integers(0, 3, (C, 2, 1)).astype(
             np.int8)).to(dev)
-        args = (index, all_ranges[:C].contiguous(), ids, band, colmin, None,
-                dyn["pchars"], T, t, 4, dyn["meta"].reshape(-1))
-        out, rep = check("band_step", lambda: executor.band_step(*args),
-                         lambda: executor.band_step_plain(*args),
-                         plain_reps=3)
-        if not bool(out["act"].any()):
-            raise AssertionError("no lane active in the per-lane band step")
-        b = bounds.band_step(*args[1:6], out)
-        shape = f"per-lane entry, C={C} lanes, kb={st.kb}, W=1"
+        state = [all_ranges[:C].contiguous(), ids, band, colmin]
+        rep, b, n, _ = check_fused(index, state, None, dyn["pchars"], T, t,
+                                   4, dyn["meta"].reshape(-1))
+        if n == 0:
+            raise AssertionError("no child kept in the per-lane band step")
+        shape = (f"per-lane entry, fused step, C={C} lanes, kb={st.kb}, "
+                 f"W=1; {n} children kept")
         if k == K:
             note("band_step.per_lane", shape, rep, b)
+            check_overflow("band_step.per_lane", index, state, None,
+                           dyn["pchars"], T, t, 30, dyn["meta"].reshape(-1))
+            # kernel A's loop entry on the per-read tables: every lane
+            # from the full range, gate depth 20, switchpoint 4
+            L = R * S
+            rep, b, out, drows = check_loop(
+                index, index.full_range((L,)), None, 0,
+                dyn["ex_pos"].shape[1], batch,
+                (dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"]), True,
+                19, 4)
+            log(f"kernel extend.loop on per-read tables ({L} lanes from the "
+                f"full range, {dyn['ex_pos'].shape[1]} steps, "
+                f"{int((drows[:, 1] > drows[:, 0]).sum())} drained): equal "
+                f"to plain; {rep['ms']:.4f} ms vs plain "
+                f"{rep['plain_ms']:.4f} ms; bound {b['bound_ms']:.5f} ms")
         else:
             log(f"kernel band_step ({shape}): equal to plain; "
                 f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms")
-        del dyn, args, out
+        del dyn, state
 
     # kernel E with lengths: the R x p part patterns of scheme selection at
     # the BEST cutoff, as select_schemes makes them on the -d path
@@ -502,7 +679,7 @@ def rlc_lane_states(index, batch, rng, L, max_len=24):
     """Valid lane states of an RLC index at the exact prefix's shapes: each
     lane matches a random stretch (0 to ``max_len`` chars) of a read of
     ``batch`` by extensions in random directions from the full range,
-    through kernel A's RLC entry; a lane whose stretch does not occur ends
+    through the plain extension; a lane whose stretch does not occur ends
     all zero."""
     from columba_tpu_torch.ops import extend
 
@@ -516,7 +693,7 @@ def rlc_lane_states(index, batch, rng, L, max_len=24):
     for step in range(max_len):
         fwd = torch.from_numpy(rng.integers(0, 2, L).astype(bool)).to(dev)
         chars = batch[row, torch.where(fwd, hi, lo - 1)].int()
-        new = extend.extend_char(index, ranges, chars, fwd.int())
+        new = extend.extend_char_plain(index, ranges, chars, fwd.int())
         act = step < length
         ranges = torch.where(act[:, None], new, ranges)
         lo = torch.where(act & ~fwd, lo - 1, lo)
@@ -525,10 +702,11 @@ def rlc_lane_states(index, batch, rng, L, max_len=24):
 
 
 def rlc_kernel_checks(bm, tl, batch) -> dict:
-    """The RLC entries of kernels A, B, C and E against their plain versions
-    on the card, at the shapes of the RLC paths (a batch of 16,384 reads of
-    the pan-genome, both strands: 32,768 rows), with their bounds."""
-    from columba_tpu_torch.ops import bextend, blocate, extend, locate
+    """The RLC entries of kernels A (its loop), B, C and E against their
+    plain versions on the card, at the shapes of the RLC paths (a batch of
+    16,384 reads of the pan-genome, both strands: 32,768 rows), with their
+    bounds."""
+    from columba_tpu_torch.ops import blocate, extend, locate
     from columba_tpu_torch.search import executor, pipeline
     from columba_tpu_torch.search.scheme import get_scheme
     from columba_tpu_torch.tools import bounds
@@ -540,47 +718,16 @@ def rlc_kernel_checks(bm, tl, batch) -> dict:
     sched = pipeline.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit")
     S = sched.num_searches
 
-    # kernel A (extend.rlc): the exact prefix's R x S lanes, 8 wide
     L = R * S
-    states = rlc_lane_states(bm, batch, rng, L)
-    dirs = torch.from_numpy(rng.integers(0, 2, L).astype(np.int32)).to(dev)
-    chars = batch[torch.from_numpy(rng.integers(0, R, L)).to(dev),
-                  torch.from_numpy(rng.integers(0, READ_LEN, L)).to(dev)]
-    chars = chars.int().contiguous()
-    out, rep = check_kernel(
-        "extend.rlc", lambda: extend.extend_char(bm, states, chars, dirs),
-        lambda: extend.extend_char_plain(bm, states, chars, dirs),
-        plain_reps=2)
-    stats = {}
-    bextend.extend_char_plain(bm, states, chars, dirs, stats)
-    note_kernel(report, "extend.rlc",
-                f"{L} lanes x 8, {int((states[:, 1] > states[:, 0]).sum())}"
-                f" live, extend_char", rep,
-                bounds.extend_rlc(states, dirs, chars, out, stats))
-    all4 = extend.extend_all(bm, states[:4096], dirs[:4096])
-    if not torch.equal(all4, extend.extend_all_plain(bm, states[:4096],
-                                                     dirs[:4096])):
-        raise AssertionError("kernel extend.rlc (extend_all) differs")
-    L12 = min(L, 16384)
-    tl_states = rlc_lane_states(tl, batch, rng, L12)
-    _, rep12 = check_kernel(
-        "extend.rlc",
-        lambda: extend.extend_char(tl, tl_states, chars[:L12], dirs[:L12]),
-        lambda: extend.extend_char_plain(tl, tl_states, chars[:L12],
-                                         dirs[:L12]), plain_reps=2)
-    log(f"kernel extend.rlc on 12-wide textless lanes ({L12}): equal to "
-        f"plain; {rep12['ms']:.4f} ms vs plain {rep12['plain_ms']:.4f} ms")
+    states = rlc_lane_states(bm, batch, rng, max(1024, L // 8))
 
     # kernel B (band_step.rlc): C = R x S / 8 lanes with the crossover on
     ba = _band_args(bm, sched, batch, states, rng, 4)
-    out, rep = check_kernel("band_step.rlc",
-                            lambda: executor.band_step(*ba),
-                            lambda: executor.band_step_plain(*ba),
-                            plain_reps=2)
+    rep, b, n, _ = check_fused(bm, list(ba[1:5]), *ba[5:], plain_reps=2)
     note_kernel(report, "band_step.rlc",
-                f"C={ba[1].shape[0]} lanes x 8, kb={K}, W={sched.W}", rep,
-                bounds.band_step_rlc(*ba[1:6], out, bounds.rlc_band_stats(
-                    bm, ba[1], ba[2], ba[5], out)))
+                f"fused step, C={ba[1].shape[0]} lanes x 8, kb={K}, "
+                f"W={sched.W}; {n} children kept", rep, b)
+    check_overflow("band_step.rlc", bm, list(ba[1:5]), *ba[5:9], 30)
 
     # kernel B (band_step.textless): C = R x S / 2 lanes, 12 wide, 2W
     # colMin slots, no crossover
@@ -589,16 +736,31 @@ def rlc_kernel_checks(bm, tl, batch) -> dict:
     tb = list(_band_args(tl, sched, batch, tl_states, rng, 0, div=2))
     tb[4] = torch.from_numpy(rng.integers(0, 3, (C, 2, 2 * sched.W)).astype(
         np.int8)).to(dev)
-    tb = tuple(tb) + (None, True)
-    out, rep = check_kernel("band_step.textless",
-                            lambda: executor.band_step(*tb),
-                            lambda: executor.band_step_plain(*tb),
-                            plain_reps=2)
+    rep, b, n, _ = check_fused(tl, tb[1:5], *tb[5:], track=True,
+                               plain_reps=2)
     note_kernel(report, "band_step.textless",
-                f"C={C} lanes x 12, kb={K}, W={sched.W} (+{sched.W} "
-                f"witness slots)", rep,
-                bounds.band_step_rlc(*tb[1:6], out, bounds.rlc_band_stats(
-                    tl, tb[1], tb[2], tb[5], out)))
+                f"fused step, C={C} lanes x 12, kb={K}, W={sched.W} "
+                f"(+{sched.W} witness slots); {n} children kept", rep, b)
+    check_overflow("band_step.textless", tl, tb[1:5], *tb[5:9], 30,
+                   track=True)
+
+    # kernel A's loop entry (extend.loop_rlc): the exact prefix of the RLC
+    # paths, R x S lanes from the full range (no seed table), 8 wide with
+    # the crossover, and 12 wide on the textless index without it
+    tables = executor.device_tables(sched, dev)
+    tabs = (tables["ex_pos"], tables["ex_dir"], tables["db_ex"])
+    rep, b, out, drows = check_loop(bm, bm.full_range((L,)), None, 0,
+                                    sched.e_max, batch, tabs, False, 19, 4)
+    note_kernel(report, "extend.loop_rlc",
+                f"{L} lanes x 8 from the full range, steps 0..{sched.e_max}"
+                f", {int((drows[:, 1] > drows[:, 0]).sum())} drained, "
+                f"{int((out[:, 1] > out[:, 0]).sum())} live after", rep, b)
+    rep, b, out, _ = check_loop(tl, tl.full_range((L,)), None, 0,
+                                sched.e_max, batch, tabs, False, 19, 0)
+    log(f"kernel extend.loop_rlc on 12-wide textless lanes ({L} from the "
+        f"full range, {int((out[:, 1] > out[:, 0]).sum())} live after): "
+        f"equal to plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} "
+        f"ms; bound {b['bound_ms']:.5f} ms")
 
     # kernel E (exact.rlc): the batch's 32,768 rows x 100 bp
     out, rep = check_kernel(
@@ -728,7 +890,9 @@ def plain_patch():
 
     saved = [(extend, "extend_char", extend.extend_char_plain),
              (extend, "exact_match", exact_plain),
-             (executor, "band_step", executor.band_step_plain),
+             (executor, "exact_loop", executor.exact_loop_plain),
+             (executor, "band_step_compact",
+              executor.band_step_compact_plain),
              (dynschedule, "dynamic_partition",
               dynschedule.dynamic_partition_plain),
              (dynschedule, "build_tables", dynschedule.build_tables_plain),
@@ -935,7 +1099,7 @@ def main() -> int:
     from columba_tpu_torch.index.build import decoded_text, load_index
     from columba_tpu_torch.index.fmindex import FMIndex
     from columba_tpu_torch.index.kmer import build_kmer_table_cached
-    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search import executor, pipeline
     from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
     from columba_tpu_torch.tools import workload
 
@@ -1030,9 +1194,21 @@ def main() -> int:
                 "se_best_d": N_READS_ALL, "pe_best_static": N_PAIRS_STATIC}
 
         index = FMIndex.from_arrays(arrays, dev)
+        # kernel A's main entry: the 10-mer seed table, built through the
+        # cached table build that cli align calls (10 launches of
+        # extend_char)
+        for k in native.KERNELS.values():
+            k.reset()
+        t0 = time.time()
         table = build_kmer_table_cached(index, 10, idx)
+        torch.cuda.synchronize()
+        kmer_launches = {k: v.launches for k, v in native.KERNELS.items()}
         log(f"index on device: {index.nbytes()} bytes + k-mer table "
-            f"{table.nbytes} bytes")
+            f"{table.nbytes} bytes, built in {time.time() - t0:.2f} s with "
+            f"{kmer_launches['extend']} launches of kernel A")
+        if kmer_launches["extend"] == 0:
+            raise AssertionError("kernel A not launched by the k-mer table "
+                                 "build")
         report = kernel_checks(index, arrays, reads, table)
 
         index_of = {}                # path -> index dir (default: idx)
@@ -1050,7 +1226,15 @@ def main() -> int:
             assert rc == 0
             return err.getvalue()
 
-        launches_by_path, entries_by_path = {}, {}
+        launches_by_path = {"kmer_table": kmer_launches}
+        entries_by_path = {"kmer_table": {}}
+
+        runs = [0]                   # run_scheme calls of a path
+        run_scheme = executor.run_scheme
+
+        def counted_run_scheme(*a, **kw):
+            runs[0] += 1
+            return run_scheme(*a, **kw)
 
         def drive(path, genome_what):
             """One path: a warm-up align, then the counted and timed one
@@ -1060,12 +1244,17 @@ def main() -> int:
             t_warm = time.time() - t0
             for k in native.KERNELS.values():
                 k.reset()
+            runs[0] = 0
             log_path = os.path.join(wd, path + ".log")
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
+            executor.run_scheme = counted_run_scheme
             t0 = time.time()
-            err = align(path, files[path], path, ("-v", "-l", log_path))
-            torch.cuda.synchronize()
+            try:
+                err = align(path, files[path], path, ("-v", "-l", log_path))
+                torch.cuda.synchronize()
+            finally:
+                executor.run_scheme = run_scheme
             dt = time.time() - t0
             launches = {k: v.launches for k, v in native.KERNELS.items()}
             launches_by_path[path] = launches
@@ -1086,6 +1275,15 @@ def main() -> int:
             for ln in err.splitlines():
                 if "inferred" in ln:
                     log(f"  {ln}")
+            loops = sum(v for e, v in entries.items()
+                        if e in ("extend.loop", "extend.loop_rlc"))
+            log(f"  kernel A's loop: {loops} launches in {runs[0]} "
+                f"run_scheme calls"
+                + (f" ({loops / runs[0]:.2f} per call)" if runs[0] else "")
+                + f"; kernel B: {launches['band_step']} launches")
+            if loops > 2 * runs[0]:
+                raise AssertionError(f"path {path}: more than two exact "
+                                     "loop launches per run_scheme call")
             missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
             missing += [e for e in PATH_ENTRIES.get(path, ())
                         if entries.get(e, 0) == 0]
@@ -1286,7 +1484,8 @@ def main() -> int:
     # A, B, C and E (its launches are a share of its kernel's)
     replaces = {"band_step.per_lane": "columba_tpu/search/executor.py:600",
                 "exact.lengths": "columba_tpu/search/pipeline.py:381",
-                "extend.rlc": "columba_tpu/ops/bextend.py:103",
+                "extend.loop": "columba_tpu/search/executor.py:437",
+                "extend.loop_rlc": "columba_tpu/search/executor.py:437",
                 "band_step.rlc": "columba_tpu/search/executor.py:587",
                 "band_step.textless": "columba_tpu/search/pipeline.py:770",
                 "exact.rlc": "columba_tpu/ops/bextend.py:259",

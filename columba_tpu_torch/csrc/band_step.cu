@@ -11,17 +11,17 @@ extern "C" int columba_band_step(
     unsigned c3, unsigned d0, unsigned d1, const long long* ranges,
     const int* ids, const signed char* band, const signed char* colmin,
     const int* mrow, int S, const int* dyn_meta, const signed char* pchars,
-    int T, int t, int kb,
-    int W, int switchpoint, long long* ch_ranges, int* new_ids,
-    signed char* ch_band, signed char* ch_colmin, unsigned char* ch_alive,
-    unsigned char* narrow, unsigned char* act_out, int* dbv_out, long long C,
-    cudaStream_t stream) {
+    int T, int t, int kb, int W, int switchpoint, long long n_live,
+    long long cap, long long* o_ranges, int* o_ids, signed char* o_band,
+    signed char* o_colmin, long long* itv, long long M, long long cnt,
+    unsigned long long* ctr, unsigned long long* status, long long tiles,
+    unsigned epoch, cudaStream_t stream) {
   BandArgs a{};
   a.fm = columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1);
   if (!columba_band::common_args(a, ranges, ids, band, colmin, mrow, S,
-                                 pchars, T, t, kb, W, switchpoint, ch_ranges,
-                                 new_ids, ch_band, ch_colmin, ch_alive,
-                                 narrow, act_out, dbv_out, C))
+                                 pchars, T, t, kb, W, switchpoint, n_live,
+                                 cap, o_ranges, o_ids, o_band, o_colmin, itv,
+                                 M, cnt, ctr, status, tiles, epoch))
     return static_cast<int>(cudaErrorInvalidValue);
   a.dyn_meta = dyn_meta;
   if (dyn_meta != nullptr) {    // per-lane entry: one register

@@ -1,7 +1,9 @@
-// Kernel B: the per-lane arithmetic of one band step of the scheme executor.
+// Kernel B: one band step of the scheme executor, fused with the drain to
+// the in-text buffer and the order-keeping compaction of the frontier.
 //
-// Replaces the lane-local part of columba_tpu/search/executor.py
-// make_step.step (with _band_row_update): for each frontier lane it
+// Replaces columba_tpu/search/executor.py make_step.step (:587, with
+// _band_row_update, :135): the lane arithmetic, the narrow drain and the
+// 4C -> C compaction of one step. For each live frontier lane it
 //   1. extends the lane's range pair by all 4 chars (extend_lane),
 //   2. updates the active side's banded edit row for each char on int8
 //      cells (diag/up, left-to-right deletion scan, saturation at INF),
@@ -11,8 +13,31 @@
 //      switchpoint, drained to in-text verification) from alive ones,
 //   5. marks a lane whose children all die as a ghost (id bit 31, death
 //      depth in bits 21-30),
-// and writes the 4 children's state. The order-keeping 4C -> C compaction
-// and the drain append stay in PyTorch (search/executor.py).
+// then places its children where the compaction of the JAX step puts them,
+// and writes no other child state:
+//   - a child that stays (alive, or a lane's pass-through: a lane that is
+//     not kept, inactive or dead as a ghost, passes itself on as child 0)
+//     goes to row p of the next frontier, p = the number of children that
+//     stay before it in the order 4 * lane + char, if p < cap;
+//   - a narrow child's row [lo, hi, id, back depth] goes to in-text row
+//     cnt + q, q counted the same way over the narrow children, if < M;
+//   - the step's counters: kept children n (the host reads
+//     live = min(n, cap) and the overflow n - cap), in-text rows
+//     min(cnt + narrow, M), and visits (4 per active lane) as integer
+//     atomics, so they are exact.
+// The positions come from a scan of each block's counts in shared memory
+// (warp shuffles, then one pass over the warps' sums) and a decoupled
+// look-back across blocks: a block takes its tile from an atomic ticket,
+// not from blockIdx, so it only ever waits on tiles whose blocks are
+// already running; it publishes its counts as soon as its lanes are
+// computed, before it writes anything, and its first warp walks back over
+// the tiles before it, 32 at a time, adding aggregates until it meets an
+// inclusive prefix.
+// Tile statuses are two words (kept, narrow), each [flag 2 | epoch 30 |
+// count 32], stamped with the launch's epoch, so nothing is cleared
+// between steps; the block with the last ticket writes the counters and
+// resets the ticket for the next launch. Lanes at and past the live count
+// are empty and are not read; the grid covers the live lanes only.
 //
 // The step's per-search scalars (S rows of 7 packed int32 words) sit in
 // shared memory; each lane decodes its own row by search id.
@@ -24,10 +49,17 @@
 // register from it (W = 1: dynamic partitions keep every part longer than
 // 2k, so windows never overlap). Same body, no shared memory.
 //
-// Bound: two random 64 B occ rows per active lane, as kernel A, plus
-// ~100 B of lane state in and ~200 B of child state out; the band and
-// register arithmetic is a few hundred integer ops in registers. Inactive
-// and dead lanes skip the occ reads.
+// Bound: two random 64 B occ rows per active lane, about 50 B of lane
+// state in, the kept children's state (about 50 B each) and 32 B per
+// narrow row out; the band and register arithmetic is a few hundred
+// integer ops in registers. What bounds it on this card is latency: a
+// lane's two occ reads depend on its state read, and its writes on the
+// look-back. The design keeps each step one launch with one 8 B read-back
+// (no 4C child state to device memory and back, no PyTorch compaction), a
+// grid over the live lanes only, and 64-lane blocks, so that a frontier of
+// 12,288 lanes spreads over 192 blocks on the 132 SMs; the look-back waits
+// only for a predecessor's counts, which it publishes before its own hint
+// walks and writes.
 //
 // Templated on the band radius KB and the register count W so every array
 // stays in registers: KB 0..4 x W 1..2 are instantiated (what the builtin
@@ -46,10 +78,10 @@
 // step's depth, a strict decrease moves it there, a tie keeps it. The
 // extension's first phase (two endpoint rows: every child's interval) runs
 // before the band arithmetic; the run-hint walks run only for the children
-// that stay in the frontier, and the other children are written with zero
-// hints (a narrow child drains with its interval only; a pruned one is
-// dropped). These entries are in band_step_rlc.cu, the Vanilla ones in
-// band_step.cu; this header holds the one body.
+// that stay in the frontier, after the look-back, as they are written (a
+// narrow child drains with its interval only; a pruned one is dropped).
+// These entries are in band_step_rlc.cu, the Vanilla ones in band_step.cu;
+// this header holds the one body.
 #pragma once
 
 #include "common.cuh"
@@ -58,14 +90,18 @@ namespace columba_band {
 
 constexpr int kGhostBit = -2147483647 - 1;   // bit 31
 constexpr int kGhostIdMask = (1 << 21) - 1;
+constexpr int kThreads = 64;                 // lanes of a block: one tile
+                                             // (executor.BAND_TILE)
+constexpr int kWarps = kThreads / 32;
 
 struct BandArgs {
   columba::FmParams fm;
   columba::BmParams bm;
-  const long long* ranges;      // (C, RW)
-  const int* ids;               // (C,)
-  const signed char* band;      // (C, 2, BW)
-  const signed char* colmin;    // (C, 2, Wp): W registers (+ W witnesses)
+  const long long* ranges;      // (>= n_live, RW) this step's frontier
+  const int* ids;               // (>= n_live,)
+  const signed char* band;      // (>= n_live, 2, BW)
+  const signed char* colmin;    // (>= n_live, 2, Wp): W registers (+ W
+                                // witnesses)
   const int* mrow;              // (S, 7) this step's packed scalars
   int S;
   const int* dyn_meta;          // (R*S*T,) per-lane words (per-lane entry)
@@ -75,24 +111,87 @@ struct BandArgs {
   int bw;                       // runtime band width and register count,
   int W;                        // read by the generic entry only
   int switchpoint;
-  long long* ch_ranges;         // (C, 4, RW)
-  int* new_ids;                 // (C,)
-  signed char* ch_band;         // (C, 4, 2, BW)
-  signed char* ch_colmin;       // (C, 4, 2, Wp)
-  unsigned char* ch_alive;      // (C, 4)
-  unsigned char* narrow;        // (C, 4)
-  unsigned char* act_out;       // (C,)
-  int* dbv_out;                 // (C,)
-  long long C;
+  long long n_live;             // lanes read: [0, n_live)
+  long long cap;                // rows of the next frontier
+  long long* o_ranges;          // (cap, RW) next frontier
+  int* o_ids;                   // (cap,)
+  signed char* o_band;          // (cap, 2, BW)
+  signed char* o_colmin;        // (cap, 2, Wp)
+  long long* itv;               // (M + 1, 4) in-text rows
+  long long M;
+  long long cnt;                // rows already in itv
+  unsigned long long* ctr;      // [0] n | in-text rows << 32, [1] visits,
+                                // [2] overflow, [3] block ticket
+  unsigned long long* status;   // (tiles, 2) look-back statuses
+  unsigned int epoch;           // this launch's stamp, 1 .. 2^30 - 1
 };
 
 constexpr int kMaxBW = 2 * 13 + 1;   // ladder cutoff 13 (BEST_CUTOFF)
 constexpr int kMaxW = 10;            // search/schedule.py MAX_REGS
 
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+
+__device__ __forceinline__ unsigned long long stamp(unsigned long long flag,
+                                                    unsigned epoch,
+                                                    unsigned count) {
+  return flag | (static_cast<unsigned long long>(epoch) << 32) | count;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* st, long long tile,
+                                        unsigned long long flag,
+                                        unsigned epoch, unsigned kept,
+                                        unsigned narrow) {
+  volatile unsigned long long* s = st + 2 * tile;
+  s[0] = stamp(flag, epoch, kept);
+  s[1] = stamp(flag, epoch, narrow);
+}
+
+// Warp 0's look-back: the kept and narrow children of every tile before
+// `tile`, 32 tiles a round: lane j reads tile base - j, waiting until both
+// its words carry this epoch and the same flag (its block writes them one
+// after the other; a tile before tile 0 reads as an empty prefix). The
+// round adds the tiles up to the nearest one that holds an inclusive
+// prefix, and ends the walk there; without one it adds all 32 and goes on.
+__device__ __forceinline__ void look_back(const unsigned long long* st,
+                                          long long tile, unsigned epoch,
+                                          unsigned long long& kept,
+                                          unsigned long long& narrow) {
+  const int lane_id = threadIdx.x & 31;
+  const volatile unsigned long long* s = st;
+  kept = narrow = 0;
+  for (long long base = tile - 1;; base -= 32) {
+    const long long j = base - lane_id;
+    unsigned long long a = kPrefix, b = kPrefix;
+    while (j >= 0) {
+      a = s[2 * j];
+      b = s[2 * j + 1];
+      if (((a >> 32) & 0x3FFFFFFFu) == epoch &&
+          ((b >> 32) & 0x3FFFFFFFu) == epoch && (a >> 62) != 0 &&
+          (a >> 62) == (b >> 62))
+        break;
+    }
+    const unsigned prefixes =
+        __ballot_sync(0xFFFFFFFFu, (a >> 62) == 2);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    unsigned long long k = lane_id <= stop ? (a & 0xFFFFFFFFull) : 0;
+    unsigned long long n = lane_id <= stop ? (b & 0xFFFFFFFFull) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      k += __shfl_xor_sync(0xFFFFFFFFu, k, d);
+      n += __shfl_xor_sync(0xFFFFFFFFu, n, d);
+    }
+    kept += k;
+    narrow += n;
+    if (prefixes) return;
+  }
+}
+
 // KB >= 0: sizes fixed at compile time. KB < 0: the generic entry. RW: lane
 // width (4 Vanilla, 8 RLC, 12 textless with witness slots).
 template <int KB, int WT, bool DYN, int RW = 4>
-__global__ void band_step_kernel(BandArgs a) {
+__global__ void __launch_bounds__(kThreads)
+band_step_kernel(BandArgs a) {
   constexpr bool kGeneric = KB < 0;
   constexpr bool TRACK = RW == 12;
   constexpr int BWMAX = kGeneric ? kMaxBW : 2 * KB + 1;
@@ -102,38 +201,46 @@ __global__ void band_step_kernel(BandArgs a) {
   const int Wp = TRACK ? 2 * W : W;
   constexpr int INF = columba::INF;
   extern __shared__ int smeta[];
+  __shared__ long long s_tile;
+  __shared__ unsigned s_warp[kWarps], s_act[kWarps];
+  __shared__ unsigned long long s_base[2];
+  if (threadIdx.x == 0)
+    s_tile = static_cast<long long>(atomicAdd(a.ctr + 3, 1ull));
   if (!DYN) {
     for (int k = threadIdx.x; k < a.S * 7; k += blockDim.x)
       smeta[k] = a.mrow[k];
-    __syncthreads();
   }
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  if (i >= a.C) return;
+  __syncthreads();
+  const long long tile = s_tile;
+  const long long i = tile * kThreads + threadIdx.x;
+  const bool in = i < a.n_live;
 
-  const long long* rg = a.ranges + RW * i;
   uint32_t par[RW];
+  int ids = 0;
 #pragma unroll
-  for (int k = 0; k < RW; ++k) par[k] = static_cast<uint32_t>(rg[k]);
-  const int ids = a.ids[i];
+  for (int k = 0; k < RW; ++k) par[k] = 0u;
+  if (in) {
+    const long long* rg = a.ranges + RW * i;
+#pragma unroll
+    for (int k = 0; k < RW; ++k) par[k] = static_cast<uint32_t>(rg[k]);
+    ids = a.ids[i];
+  }
   const bool ghost = ids < 0;
   const int ids_c = ids & kGhostIdMask;
+  const bool alive = par[1] > par[0];
   // the step's scalars of this lane: meta word, register ops and inits
-  int mr[7];
-  int cacc, cfro, ub, dbv;
-  if (DYN) {
+  int mr[7] = {0, 0, 0, 0, 0, 0, 0};
+  int cacc = 0, cfro = 0, ub = 0, dbv = 0;
+  if (in && DYN) {
     const int word = a.dyn_meta[static_cast<long long>(ids_c) * a.T + a.t];
     const int colo = ((word >> 3) & 63) - 1;
     mr[0] = word;
     mr[1] = colo >= 0 ? (colo | (((word >> 2) & 1) << 6)) : 63;
-    mr[2] = mr[3] = 0;
     mr[4] = 63;
-    mr[5] = mr[6] = 0;
     cacc = colo >= 0 ? 0 : 15;
-    cfro = 0;
     ub = (word >> 9) & 255;
     dbv = (word >> 17) & 4095;
-  } else {
+  } else if (in) {
     const int* row = smeta + (ids_c % a.S) * 7;
 #pragma unroll
     for (int k = 0; k < 7; ++k) mr[k] = row[k];
@@ -143,7 +250,6 @@ __global__ void band_step_kernel(BandArgs a) {
     dbv = (mr[0] >> 18) & 4095;
   }
   const int meta = mr[0];
-  const bool alive = par[1] > par[0];
   const bool act = (meta & 1) && alive && !ghost;
   const bool is_b = ((meta >> 1) & 1) == 0;
 
@@ -151,16 +257,16 @@ __global__ void band_step_kernel(BandArgs a) {
   int ag0[TRACK ? WMAX : 1], ag1[TRACK ? WMAX : 1];
 #pragma unroll
   for (int o = 0; o < BW; ++o) {
-    band0[o] = a.band[(2 * i) * BW + o];
-    band1[o] = a.band[(2 * i + 1) * BW + o];
+    band0[o] = in ? a.band[(2 * i) * BW + o] : 0;
+    band1[o] = in ? a.band[(2 * i + 1) * BW + o] : 0;
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    cm0[w] = a.colmin[(2 * i) * Wp + w];
-    cm1[w] = a.colmin[(2 * i + 1) * Wp + w];
+    cm0[w] = in ? a.colmin[(2 * i) * Wp + w] : 0;
+    cm1[w] = in ? a.colmin[(2 * i + 1) * Wp + w] : 0;
     if (TRACK) {
-      ag0[w] = a.colmin[(2 * i) * Wp + W + w];
-      ag1[w] = a.colmin[(2 * i + 1) * Wp + W + w];
+      ag0[w] = in ? a.colmin[(2 * i) * Wp + W + w] : 0;
+      ag1[w] = in ? a.colmin[(2 * i + 1) * Wp + W + w] : 0;
     }
   }
 
@@ -240,53 +346,117 @@ __global__ void band_step_kernel(BandArgs a) {
     died = !any_surv;
     keepv = !died;
   }
-
-  a.new_ids[i] = died ? (ids | kGhostBit | (min(dbv, 1023) << 21)) : ids;
-  a.act_out[i] = act;
-  a.dbv_out[i] = dbv;
+  const int new_id = died ? (ids | kGhostBit | (min(dbv, 1023) << 21)) : ids;
+  bool stays[4];
+  unsigned kc = 0, nc = 0;
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    const long long o4 = 4 * i + c;
-    a.ch_alive[o4] = keepv ? calive[c] : (c == 0 && alive);
-    a.narrow[o4] = nar[c];
-    long long* cr = a.ch_ranges + RW * o4;
-    if (keepv) {
-      uint32_t chv[RW];
+    stays[c] = keepv ? calive[c] : (c == 0 && alive);
+    kc += stays[c];
+    nc += nar[c];
+  }
+
+  // ---- positions: block scan, then the look-back over earlier tiles ----
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned v = kc | (nc << 16);           // at most 4 * kThreads each
 #pragma unroll
-      for (int k = 0; k < RW; ++k) chv[k] = k < 4 ? lane.pos(c, k) : 0u;
-      if (RW > 4 && calive[c]) lane.hints(a.bm, c, chv);
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned u = __shfl_up_sync(0xFFFFFFFFu, v, d);
+    if (lane_id >= d) v += u;
+  }
+  const unsigned acts = __popc(__ballot_sync(0xFFFFFFFFu, act));
+  if (lane_id == 31) s_warp[warp] = v;
+  if (lane_id == 0) s_act[warp] = acts;
+  __syncthreads();
+  unsigned before = 0, total = 0, act_total = 0;
 #pragma unroll
-      for (int k = 0; k < RW; ++k) cr[k] = chv[k];
-    } else {
-      const bool pass = c == 0 && alive;
-#pragma unroll
-      for (int k = 0; k < RW; ++k) cr[k] = pass ? par[k] : 0u;
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? s_warp[w] : 0u;
+    total += s_warp[w];
+    act_total += s_act[w];
+  }
+  const unsigned excl = before + v - (kc | (nc << 16));
+  if (warp == 0) {
+    const unsigned agg_k = total & 0xFFFFu, agg_n = total >> 16;
+    unsigned long long pk = 0, pn = 0;
+    if (tile > 0) {
+      if (lane_id == 0)
+        publish(a.status, tile, kAggregate, a.epoch, agg_k, agg_n);
+      look_back(a.status, tile, a.epoch, pk, pn);
     }
-    signed char* cb = a.ch_band + o4 * 2 * BW;
-#pragma unroll
-    for (int o = 0; o < BW; ++o) {
-      cb[o] = (keepv && is_b) ? newD[c][o] : band0[o];
-      cb[BW + o] = (keepv && !is_b) ? newD[c][o] : band1[o];
-    }
-    signed char* cc = a.ch_colmin + o4 * 2 * Wp;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      cc[w] = (keepv && is_b) ? reg[c][w] : cm0[w];
-      cc[Wp + w] = (keepv && !is_b) ? reg[c][w] : cm1[w];
-      if (TRACK) {
-        cc[W + w] = (keepv && is_b) ? arg[c][w] : ag0[w];
-        cc[Wp + W + w] = (keepv && !is_b) ? arg[c][w] : ag1[w];
+    if (lane_id == 0) {
+      publish(a.status, tile, kPrefix, a.epoch,
+              static_cast<unsigned>(pk + agg_k),
+              static_cast<unsigned>(pn + agg_n));
+      s_base[0] = pk;
+      s_base[1] = pn;
+      if (act_total) atomicAdd(a.ctr + 1, 4ull * act_total);
+      if (tile == gridDim.x - 1) {        // the last ticket: every block
+        const unsigned long long n = pk + agg_k;     // has taken its own
+        const long long rows = a.cnt + static_cast<long long>(pn + agg_n);
+        a.ctr[0] = n | (static_cast<unsigned long long>(
+                            rows < a.M ? rows : a.M) << 32);
+        if (static_cast<long long>(n) > a.cap)
+          a.ctr[2] += n - static_cast<unsigned long long>(a.cap);
+        a.ctr[3] = 0;
       }
     }
+  }
+  __syncthreads();
+
+  // ---- writes: the children that stay, then the narrow rows ----
+  long long p = static_cast<long long>(s_base[0]) + (excl & 0xFFFFu);
+  long long q = a.cnt + static_cast<long long>(s_base[1]) + (excl >> 16);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (stays[c] && p < a.cap) {
+      long long* cr = a.o_ranges + RW * p;
+      if (keepv) {
+        uint32_t chv[RW];
+#pragma unroll
+        for (int k = 0; k < RW; ++k) chv[k] = k < 4 ? lane.pos(c, k) : 0u;
+        if (RW > 4) lane.hints(a.bm, c, chv);
+#pragma unroll
+        for (int k = 0; k < RW; ++k) cr[k] = chv[k];
+      } else {
+#pragma unroll
+        for (int k = 0; k < RW; ++k) cr[k] = par[k];
+      }
+      a.o_ids[p] = new_id;
+      signed char* cb = a.o_band + p * 2 * BW;
+#pragma unroll
+      for (int o = 0; o < BW; ++o) {
+        cb[o] = (keepv && is_b) ? newD[c][o] : band0[o];
+        cb[BW + o] = (keepv && !is_b) ? newD[c][o] : band1[o];
+      }
+      signed char* cc = a.o_colmin + p * 2 * Wp;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        cc[w] = (keepv && is_b) ? reg[c][w] : cm0[w];
+        cc[Wp + w] = (keepv && !is_b) ? reg[c][w] : cm1[w];
+        if (TRACK) {
+          cc[W + w] = (keepv && is_b) ? arg[c][w] : ag0[w];
+          cc[Wp + W + w] = (keepv && !is_b) ? arg[c][w] : ag1[w];
+        }
+      }
+    }
+    p += stays[c];
+    if (nar[c] && q < a.M) {
+      long long* row = a.itv + 4 * q;
+      row[0] = lane.pos(c, 0);
+      row[1] = lane.pos(c, 1);
+      row[2] = ids_c;
+      row[3] = dbv;
+    }
+    q += nar[c];
   }
 }
 
 template <int KB, int WT, bool DYN = false, int RW = 4>
 int launch(const BandArgs& a, cudaStream_t stream) {
-  constexpr int kThreads = 128;
   const size_t smem = DYN ? 0 : sizeof(int) * 7 * a.S;
   band_step_kernel<KB, WT, DYN, RW>
-      <<<columba::grid_for(a.C, kThreads), kThreads, smem, stream>>>(a);
+      <<<columba::grid_for(a.n_live, kThreads), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -309,16 +479,19 @@ int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream) {
   }
 }
 
-// Fills the arguments every entry shares; returns false on a shape no
-// entry takes.
+// Fills the arguments every entry shares; returns false on a shape or a
+// size no entry takes (no live lane, more tiles than statuses, an epoch
+// out of its 30 bits).
 inline bool common_args(BandArgs& a, const long long* ranges, const int* ids,
                         const signed char* band, const signed char* colmin,
                         const int* mrow, int S, const signed char* pchars,
                         int T, int t, int kb, int W, int switchpoint,
-                        long long* ch_ranges, int* new_ids,
-                        signed char* ch_band, signed char* ch_colmin,
-                        unsigned char* ch_alive, unsigned char* narrow,
-                        unsigned char* act_out, int* dbv_out, long long C) {
+                        long long n_live, long long cap, long long* o_ranges,
+                        int* o_ids, signed char* o_band,
+                        signed char* o_colmin, long long* itv, long long M,
+                        long long cnt, unsigned long long* ctr,
+                        unsigned long long* status, long long tiles,
+                        unsigned epoch) {
   a.ranges = ranges;
   a.ids = ids;
   a.band = band;
@@ -332,17 +505,21 @@ inline bool common_args(BandArgs& a, const long long* ranges, const int* ids,
   a.bw = 2 * kb + 1;
   a.W = W;
   a.switchpoint = switchpoint;
-  a.ch_ranges = ch_ranges;
-  a.new_ids = new_ids;
-  a.ch_band = ch_band;
-  a.ch_colmin = ch_colmin;
-  a.ch_alive = ch_alive;
-  a.narrow = narrow;
-  a.act_out = act_out;
-  a.dbv_out = dbv_out;
-  a.C = C;
-  return !(kb < 0 || W < 1 || a.bw > kMaxBW || W > kMaxW);
+  a.n_live = n_live;
+  a.cap = cap;
+  a.o_ranges = o_ranges;
+  a.o_ids = o_ids;
+  a.o_band = o_band;
+  a.o_colmin = o_colmin;
+  a.itv = itv;
+  a.M = M;
+  a.cnt = cnt;
+  a.ctr = ctr;
+  a.status = status;
+  a.epoch = epoch;
+  return !(kb < 0 || W < 1 || a.bw > kMaxBW || W > kMaxW || n_live < 1 ||
+           (n_live + kThreads - 1) / kThreads > tiles || epoch == 0 ||
+           epoch > 0x3FFFFFFFu || cap < 0 || M < 0 || cnt < 0 || cnt > M);
 }
 
 }  // namespace columba_band
-

@@ -21,11 +21,12 @@ where it stopped (backward: from run 0). The JAX loops run in lockstep over
 all lanes; each lane's steps depend only on its own rows, so walking each
 lane alone (the kernels, one thread per lane) gives the same runs.
 
-These are the plain versions of the RLC entries of kernels A, B and E
-(``bm_extend`` in ``csrc/common.cuh``); ``ops/extend.py`` dispatches to them
-for CPU tensors. ``stats`` (optional dict) accumulates what a per-lane walk
-reads: ``walk`` (run-bound reads of the fast-forwards) and ``probes``
-(binary-search reads), for ``tools/bounds.py``.
+These are the plain versions of the RLC lane of kernels A (its loop
+entry), B and E (``BmLane`` in ``csrc/common.cuh``); ``ops/extend.py`` and
+``search/executor.py`` take them for CPU tensors. ``stats`` (optional dict)
+accumulates what a per-lane walk reads: ``walk`` (run-bound reads of the
+fast-forwards) and ``probes`` (binary-search reads), for
+``tools/bounds.py``.
 """
 
 from __future__ import annotations

@@ -10,12 +10,16 @@ concatenated table, so lanes may mix directions.
 Ranges are int64 tensors holding uint32 values (see ``ops/rank.py``).
 
 ``extend_all`` / ``extend_char`` take the plain PyTorch version for CPU
-tensors and launch kernel A (``csrc/extend.cu``) for CUDA tensors.
+tensors and launch kernel A (``csrc/extend.cu``) for CUDA tensors. Kernel
+A's loop entries (``loop``, ``loop_rlc``), which walk every exact-prefix
+step of a lane in one launch, are registered here and called by
+``search/executor.py`` (``exact_loop``).
 ``exact_match`` (the k = 0 pass) is kernel E (``csrc/exact.cu``) on the card.
 On the RLC index (``index/bmove.py``) ranges are 8 or 12 wide and the three
 functions dispatch, as ``columba_tpu/ops/extend.py:55-58,105-108`` do, to the
-plain versions of ``ops/bextend.py`` on the CPU and to the RLC entries of
-kernels A and E (``extend.rlc``, ``exact.rlc``) on the card.
+plain versions of ``ops/bextend.py`` on the CPU; on the card ``exact_match``
+takes kernel E's RLC entry (``exact.rlc``), and RLC lanes extend only inside
+kernel A's loop entry and kernel B.
 """
 
 from __future__ import annotations
@@ -31,19 +35,31 @@ from columba_tpu_torch.ops import bextend, rank
 
 MASK32 = rank.MASK32
 
+_FM_ARGTYPES = [ctypes.c_void_p, ctypes.c_int64,       # occ_fused, blocks
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32]
+_LOOP_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,    # ranges, ids, lanes
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,     # reads, m, S
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # ex_pos/dir, db_ex
+    ctypes.c_int64,                                      # per-lane row stride
+    ctypes.c_int32, ctypes.c_int32,                      # t_lo, t_hi
+    ctypes.c_int32, ctypes.c_int32,                      # gate_t, switchpoint
+    ctypes.c_void_p, ctypes.c_void_p]                    # out, drain rows
+
 KERNEL = native.Kernel(
     "extend", "columba_extend",
-    [ctypes.c_void_p, ctypes.c_int64,                    # occ_fused, blocks
-     ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-     ctypes.c_uint32, ctypes.c_uint32,                   # counts, dollar
+    [*_FM_ARGTYPES,                                      # occ, counts, dollar
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ranges/dirs/chars
      ctypes.c_void_p, ctypes.c_int64],                   # out, lanes
     source="columba_tpu_torch/csrc/extend.cu",
     replaces="columba_tpu/ops/extend.py:48",
-    symbols={"rlc": ("columba_extend_rlc", [
-        *bextend.BM_ARGTYPES,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ranges/dirs/chars
-        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32])},  # out, lanes, rw
+    symbols={
+        # the exact-prefix loop (search/executor.py exact_loop)
+        "loop": ("columba_extend_loop", [*_FM_ARGTYPES, *_LOOP_ARGTYPES]),
+        "loop_rlc": ("columba_extend_loop_rlc", [
+            *bextend.BM_ARGTYPES, *_LOOP_ARGTYPES, ctypes.c_int32]),  # rw
+    },
 )
 
 EXACT_KERNEL = native.Kernel(
@@ -176,30 +192,32 @@ def _check(index, ranges, dirs, chars=None):
 
 
 def _launch(index, ranges, dirs, chars):
-    L, rw = _check(index, ranges, dirs, chars)
-    out = torch.empty((L, rw if chars is not None else 4 * rw),
+    if isinstance(index, BMoveIndex):
+        raise ValueError("kernel A extends RLC lanes in its loop entry only "
+                         "(search/executor.py exact_loop); extend_all and "
+                         "extend_char on the RLC index take CPU tensors")
+    L, _ = _check(index, ranges, dirs, chars)
+    out = torch.empty((L, 4 if chars is not None else 16),
                       dtype=torch.int64, device=ranges.device)
-    cptr = chars.data_ptr() if chars is not None else None
-    if L and isinstance(index, BMoveIndex):
-        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), dirs.data_ptr(),
-               cptr, out.data_ptr(), L, rw, entry="rlc")
-    elif L:
+    if L:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
                *index.dollar_host, ranges.data_ptr(), dirs.data_ptr(),
-               cptr, out.data_ptr(), L)
+               chars.data_ptr() if chars is not None else None,
+               out.data_ptr(), L)
     return out
 
 
 def extend_all(index: FMIndex, ranges, dirs) -> torch.Tensor:
     """(L, rw) int64 ranges, (L,) int32 dirs -> (L, 4, rw) (rw = 4, or 8 or
-    12 on the RLC index)."""
+    12 on the RLC index, CPU tensors only)."""
     if not ranges.is_cuda:
         return extend_all_plain(index, ranges, dirs)
-    return _launch(index, ranges, dirs, None).view(-1, 4, index.range_width)
+    return _launch(index, ranges, dirs, None).view(-1, 4, 4)
 
 
 def extend_char(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
-    """(L, rw) int64 ranges, (L,) int32 chars and dirs -> (L, rw)."""
+    """(L, rw) int64 ranges, (L,) int32 chars and dirs -> (L, rw) (on the
+    RLC index CPU tensors only)."""
     if not ranges.is_cuda:
         return extend_char_plain(index, ranges, chars, dirs)
     return _launch(index, ranges, dirs, chars)

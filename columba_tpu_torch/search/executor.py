@@ -4,23 +4,32 @@ The counterpart of ``columba_tpu/search/executor.py`` (static-schedule
 path): a fixed-capacity frontier of SA-interval lanes advances one text
 character per step, driven by the tables of ``search/schedule.py``.
 
-1. Exact prefix: each (read, search) lane takes one ``extend_char`` per
-   step (kernel A on the card), seeded from the k-mer table; narrow lanes
-   past the gate depth drain to the in-text buffer.
+1. Exact prefix: each (read, search) lane walks its exact steps, seeded
+   from the k-mer table; narrow lanes past the gate depth drain to the
+   in-text buffer. On the card one thread walks one lane through every
+   step in one launch (kernel A's loop entry, ``csrc/extend.cu``); the
+   plain version, :func:`exact_loop_plain`, steps all lanes in lockstep as
+   the JAX while-loop does.
 2. Frontier init: order-keeping compaction of the live lanes into C.
-3. Band steps: kernel B (``csrc/band_step.cu``) computes every lane's
-   extension, banded rows, colMin registers, prune and ghost marking; the
-   narrow drain and the order-keeping 4C -> C compaction run in PyTorch.
+3. Band steps: kernel B (``csrc/band_step.cuh``) computes every live lane's
+   extension, banded rows, colMin registers, prune and ghost marking, and
+   writes the kept children straight into the next frontier and the narrow
+   children into the in-text buffer, in the order of the order-keeping
+   compaction (a block scan and a look-back across blocks). The frontier
+   ping-pongs between two buffer sets; per step the host reads one 8 B word
+   back (kept count and in-text count) and stops when no lane is live, as
+   the JAX while-loop does. The plain version,
+   :func:`band_step_compact_plain`, is :func:`band_step_plain` followed by
+   the drain append and the compaction in PyTorch.
 4. Tail: ghosts join the in-text buffer; completion bound per lane.
 
 State is struct-of-arrays tensors (int64 ranges, int32 ids, int8 bands and
 registers) rather than the JAX package's packed uint32 rows, which were
-laid out for TPU row gathers. Compaction is a cumsum + scatter that keeps
-lane order, the same order the JAX sort-compaction produces, so every
-intermediate array compares equal with the reference.
-
-Both loops stop before a step when no lane is alive, as the JAX
-while-loops do; each check copies one flag to the host.
+laid out for TPU row gathers. Compaction keeps lane order, the order the JAX
+sort-compaction produces, so every intermediate array compares equal with
+the reference. Rows of a frontier past its live count are empty lanes; the
+band steps never read them, and the frontier handed to the tail has them
+zeroed, as the compaction's fill leaves them.
 
 On the RLC index (``index/bmove.py``) a lane's range is ``rw`` = 8 values
 (the range pair and its run hints) or 12 on the textless index (plus a
@@ -58,12 +67,17 @@ GHOST_IDM = (1 << 21) - 1
 # ladder's cutoff and schedule.MAX_REGS) through its generic entry.
 KERNEL_MAX_KB = 13
 KERNEL_MAX_W = 10
+# lanes of one kernel B block, one tile of its look-back (kThreads of
+# csrc/band_step.cuh)
+BAND_TILE = 64
 
-_BAND_OUT = [ctypes.c_void_p, ctypes.c_void_p,          # ch_ranges, new_ids
-             ctypes.c_void_p, ctypes.c_void_p,          # ch_band, ch_colmin
-             ctypes.c_void_p, ctypes.c_void_p,          # ch_alive, narrow
-             ctypes.c_void_p, ctypes.c_void_p,          # act, dbv
-             ctypes.c_int64]                            # lanes
+_BAND_OUT = [ctypes.c_int64, ctypes.c_int64,             # n_live, cap
+             ctypes.c_void_p, ctypes.c_void_p,           # next ranges, ids
+             ctypes.c_void_p, ctypes.c_void_p,           # next band, colmin
+             ctypes.c_void_p, ctypes.c_int64,            # itv, M
+             ctypes.c_int64,                             # rows already in itv
+             ctypes.c_void_p, ctypes.c_void_p,           # ctr, tile status
+             ctypes.c_int64, ctypes.c_uint32]            # tiles, epoch
 _BAND_RLC = ("columba_band_step_rlc", [
     *bextend.BM_ARGTYPES,
     ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
@@ -303,82 +317,6 @@ def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
                 act=act, dbv=dbv.int())
 
 
-def band_step(index: FMIndex, ranges, ids, band, colmin, mrow_t, pchars,
-              T: int, t: int, switchpoint: int, dyn_meta=None,
-              track_arg: bool = False) -> dict:
-    """One band step's per-lane arithmetic: the plain version for CPU
-    tensors, kernel B for CUDA tensors (same outputs). ``dyn_meta``
-    (R*S*T,) int32 selects the per-lane entry (one register; ``mrow_t`` is
-    then None). On the RLC index the lanes are 8 wide (RLC entry) or, with
-    ``track_arg``, 12 wide with 2W colMin slots (textless entry)."""
-    if not ranges.is_cuda:
-        return band_step_plain(index, ranges, ids, band, colmin, mrow_t,
-                               pchars, T, t, switchpoint, dyn_meta, track_arg)
-    C, _, bw = band.shape
-    kb = (bw - 1) // 2
-    Wp = colmin.shape[-1]
-    W = Wp // 2 if track_arg else Wp
-    rw = index.range_width
-    rlc = isinstance(index, BMoveIndex)
-    if rlc and (dyn_meta is not None or track_arg != index.textless):
-        raise ValueError("kernel B takes per-lane schedules on the Vanilla "
-                         "index only, and track_arg exactly on the textless "
-                         "index")
-    if not rlc and track_arg:
-        raise ValueError("kernel B tracks colMin witnesses on the textless "
-                         "index only")
-    if dyn_meta is not None:
-        if W != 1 or mrow_t is not None:
-            raise ValueError("kernel B's per-lane entry takes one register "
-                             "and no step row")
-        scalars = (dyn_meta, torch.int32, (dyn_meta.shape[0],))
-    else:
-        scalars = (mrow_t, torch.int32, (mrow_t.shape[0], 7))
-    if bw != 2 * kb + 1 or kb > KERNEL_MAX_KB or not 1 <= W <= KERNEL_MAX_W:
-        raise ValueError(
-            f"kernel B takes band widths 2kb+1 with kb <= {KERNEL_MAX_KB} "
-            f"and 1..{KERNEL_MAX_W} registers, not bw={bw}, W={W}: no "
-            "schedule produces that")
-    expect = ((ranges, torch.int64, (C, rw)), (ids, torch.int32, (C,)),
-              (band, torch.int8, (C, 2, bw)),
-              (colmin, torch.int8, (C, 2, Wp)),
-              scalars, (pchars, torch.int8, (pchars.shape[0], bw)))
-    for tns, dt, shape in expect:
-        if (tns.dtype != dt or tuple(tns.shape) != shape
-                or not tns.is_contiguous() or tns.device != ranges.device):
-            raise ValueError(f"kernel B input {tuple(tns.shape)} "
-                             f"{tns.dtype} is not a contiguous {shape} {dt} "
-                             "on the lanes' device")
-    dev = ranges.device
-    out = dict(
-        ch_ranges=torch.empty((C, 4, rw), dtype=torch.int64, device=dev),
-        new_ids=torch.empty(C, dtype=torch.int32, device=dev),
-        ch_band=torch.empty((C, 4, 2, bw), dtype=torch.int8, device=dev),
-        ch_colmin=torch.empty((C, 4, 2, Wp), dtype=torch.int8, device=dev),
-        ch_alive=torch.empty((C, 4), dtype=torch.bool, device=dev),
-        narrow=torch.empty((C, 4), dtype=torch.bool, device=dev),
-        act=torch.empty(C, dtype=torch.bool, device=dev),
-        dbv=torch.empty(C, dtype=torch.int32, device=dev),
-    )
-    outs = [out[k].data_ptr() for k in ("ch_ranges", "new_ids", "ch_band",
-                                        "ch_colmin", "ch_alive", "narrow",
-                                        "act", "dbv")]
-    if C and rlc:
-        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), ids.data_ptr(),
-               band.data_ptr(), colmin.data_ptr(), mrow_t.data_ptr(),
-               mrow_t.shape[0], pchars.data_ptr(), T, t, kb, W, switchpoint,
-               *outs, C, rw, entry="textless" if index.textless else "rlc")
-    elif C:
-        KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
-               *index.dollar_host, ranges.data_ptr(), ids.data_ptr(),
-               band.data_ptr(), colmin.data_ptr(),
-               mrow_t.data_ptr() if dyn_meta is None else None,
-               mrow_t.shape[0] if dyn_meta is None else 0,
-               dyn_meta.data_ptr() if dyn_meta is not None else None,
-               pchars.data_ptr(), T, t, kb, W, switchpoint, *outs, C,
-               entry="per_lane" if dyn_meta is not None else "")
-    return out
-
 
 def _compact(keep: torch.Tensor, cap: int, fields, fills=None):
     """Order-keeping compaction: the rows where ``keep`` holds, in order,
@@ -404,8 +342,322 @@ def _append(buf, cnt, rows, keep, M):
     return torch.clamp(cnt + pos[-1] + 1, max=M)
 
 
-def _any_alive(ranges) -> bool:
-    return bool((ranges[:, 1] > ranges[:, 0]).any())
+class StepScratch:
+    """What the band steps of one run share besides the frontier.
+
+    ``ctr`` (4,) int64 on the lanes' device: [0] the last step's word, kept
+    children (n, before the capacity cut) | in-text rows << 32; [1] visits
+    (4 per active lane); [2] overflow; [3] kernel B's block ticket. On the
+    card also the look-back's tile statuses (two words a tile, stamped with
+    the launch's epoch, 1 to 2^30 - 1, so that nothing is cleared between
+    steps) and the pinned host word the step's count comes back through.
+    One per run: runs on two host threads never share one."""
+
+    def __init__(self, lanes: int, device):
+        device = torch.device(device)
+        self.ctr = torch.zeros(4, dtype=torch.int64, device=device)
+        self.tiles = max(1, -(-int(lanes) // BAND_TILE))
+        self.epoch = 0
+        self.status = self.host = None
+        if device.type == "cuda":
+            self.status = torch.zeros(2 * self.tiles, dtype=torch.int64,
+                                      device=device)
+            self.host = torch.zeros(1, dtype=torch.int64, pin_memory=True)
+
+    def next_epoch(self) -> int:
+        self.epoch += 1
+        return self.epoch
+
+    def word(self) -> tuple[int, int]:
+        """(kept children, in-text rows) of the last step: on the card one
+        8 B copy into pinned memory and a wait for the stream."""
+        if self.host is None:
+            w = int(self.ctr[0])
+        else:
+            self.host.copy_(self.ctr[:1], non_blocking=True)
+            torch.cuda.current_stream().synchronize()
+            w = int(self.host[0])
+        return w & rank.MASK32, w >> 32
+
+
+def band_step_compact_plain(index: FMIndex, state, n_live: int, out, itv,
+                            cnt: int, scratch: StepScratch, mrow_t, pchars,
+                            T: int, t: int, switchpoint: int, dyn_meta=None,
+                            track_arg: bool = False) -> None:
+    """Plain version of kernel B: one band step of the first ``n_live``
+    lanes of ``state`` (ranges, ids, band, colmin; the rows past it are
+    empty lanes and are not read), then the narrow children's rows
+    appended to ``itv`` ((M + 1, 4), ``cnt`` rows in it; row M is scratch)
+    and the order-keeping compaction of the children that stay into
+    ``out`` (the four fields of the next frontier, its capacity rows). The
+    step's word (kept children, in-text rows), visits and overflow go to
+    ``scratch.ctr``, as kernel B leaves them."""
+    ranges, ids, band, colmin = (f[:n_live] for f in state)
+    cap, rw = out[0].shape
+    M = itv.shape[0] - 1
+    o = band_step_plain(index, ranges, ids, band, colmin, mrow_t, pchars, T,
+                        t, switchpoint, dyn_meta, track_arg)
+    cnt_new = torch.tensor(cnt, dtype=torch.int64, device=ranges.device)
+    if switchpoint > 0:
+        ch = o["ch_ranges"]
+        rows = torch.stack([
+            ch[..., 0].reshape(-1), ch[..., 1].reshape(-1),
+            (o["new_ids"] & GHOST_IDM).long().repeat_interleave(4),
+            o["dbv"].long().repeat_interleave(4)], dim=1)
+        cnt_new = _append(itv, cnt, rows, o["narrow"].reshape(-1), M)
+    bw, Wp = band.shape[-1], colmin.shape[-1]
+    new, n = _compact(o["ch_alive"].reshape(-1), cap,
+                      [o["ch_ranges"].reshape(-1, rw),
+                       o["new_ids"].repeat_interleave(4),
+                       o["ch_band"].reshape(-1, 2, bw),
+                       o["ch_colmin"].reshape(-1, 2, Wp)])
+    for dst, src in zip(out, new):
+        dst.copy_(src)
+    ctr = scratch.ctr
+    ctr[0] = n | (cnt_new << 32)
+    ctr[1] += o["act"].sum() * 4
+    ctr[2] += torch.clamp(n - cap, min=0)
+
+
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    return t.data_ptr(), t.data_ptr() + t.numel() * t.element_size()
+
+
+def check_tensors(what: str, device, expect) -> None:
+    """Raise unless each (tensor, dtype, shape) is a contiguous tensor of
+    that dtype and shape on ``device``."""
+    for tns, dt, shape in expect:
+        if (tns.dtype != dt or tuple(tns.shape) != tuple(shape)
+                or not tns.is_contiguous() or tns.device != device):
+            raise ValueError(f"{what} input {tuple(tns.shape)} {tns.dtype} "
+                             f"is not a contiguous {tuple(shape)} {dt} on "
+                             f"{device}")
+
+
+def check_disjoint(what: str, outs, ins) -> None:
+    """Raise if an output tensor shares memory with another output or with
+    an input: each thread's writes would land under another's reads."""
+    outs = [_span(t) for t in outs if t is not None and t.numel()]
+    ins = [_span(t) for t in ins if t is not None and t.numel()]
+    for i, (a0, a1) in enumerate(outs):
+        for b0, b1 in outs[i + 1:] + ins:
+            if a0 < b1 and b0 < a1:
+                raise ValueError(f"{what}: an output buffer overlaps "
+                                 "another buffer of the call")
+
+
+def check_band_step(index: FMIndex, state, n_live: int, out, itv,
+                    scratch: StepScratch, mrow_t, pchars,
+                    dyn_meta=None, track_arg: bool = False) -> tuple:
+    """What kernel B checks before a launch: lane width, entry and shapes
+    it takes, dtypes, contiguity and device of every buffer, 1..C live
+    lanes within the scratch's tiles, and outputs that overlap neither each
+    other nor an input. Returns (kb, W); raises ValueError otherwise."""
+    ranges, ids, band, colmin = state
+    C, _, bw = band.shape
+    cap = out[0].shape[0]
+    kb = (bw - 1) // 2
+    Wp = colmin.shape[-1]
+    W = Wp // 2 if track_arg else Wp
+    rw = index.range_width
+    rlc = isinstance(index, BMoveIndex)
+    if rlc and (dyn_meta is not None or track_arg != index.textless):
+        raise ValueError("kernel B takes per-lane schedules on the Vanilla "
+                         "index only, and track_arg exactly on the textless "
+                         "index")
+    if not rlc and track_arg:
+        raise ValueError("kernel B tracks colMin witnesses on the textless "
+                         "index only")
+    if dyn_meta is not None:
+        if W != 1 or mrow_t is not None:
+            raise ValueError("kernel B's per-lane entry takes one register "
+                             "and no step row")
+        scalars = (dyn_meta, torch.int32, (dyn_meta.shape[0],))
+    else:
+        scalars = (mrow_t, torch.int32, (mrow_t.shape[0], 7))
+    if bw != 2 * kb + 1 or kb > KERNEL_MAX_KB or not 1 <= W <= KERNEL_MAX_W:
+        raise ValueError(
+            f"kernel B takes band widths 2kb+1 with kb <= {KERNEL_MAX_KB} "
+            f"and 1..{KERNEL_MAX_W} registers, not bw={bw}, W={W}: no "
+            "schedule produces that")
+    M = itv.shape[0] - 1
+    check_tensors("kernel B", ranges.device, (
+        (ranges, torch.int64, (C, rw)), (ids, torch.int32, (C,)),
+        (band, torch.int8, (C, 2, bw)), (colmin, torch.int8, (C, 2, Wp)),
+        scalars, (pchars, torch.int8, (pchars.shape[0], bw)),
+        (out[0], torch.int64, (cap, rw)), (out[1], torch.int32, (cap,)),
+        (out[2], torch.int8, (cap, 2, bw)),
+        (out[3], torch.int8, (cap, 2, Wp)),
+        (itv, torch.int64, (M + 1, 4)), (scratch.ctr, torch.int64, (4,))))
+    if not 0 < n_live <= min(C, scratch.tiles * BAND_TILE) or M < 0:
+        raise ValueError(f"kernel B reads 1..{C} live lanes within its "
+                         f"scratch's {scratch.tiles} tiles, not {n_live}")
+    check_disjoint("kernel B", [*out, itv, scratch.ctr, scratch.status],
+                   [*state, scalars[0], pchars])
+    return kb, W
+
+
+def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
+                      cnt: int, scratch: StepScratch, mrow_t, pchars,
+                      T: int, t: int, switchpoint: int, dyn_meta=None,
+                      track_arg: bool = False) -> None:
+    """One band step fused with the drain append and the compaction (see
+    :func:`band_step_compact_plain` for the arguments): the plain version
+    for CPU tensors, kernel B for CUDA tensors, which leaves the same next
+    frontier in its first min(n, capacity) rows (the rows past them are
+    not written), the same in-text rows and the same counters.
+    ``dyn_meta`` (R*S*T,) int32 selects the per-lane entry (one register;
+    ``mrow_t`` is then None). On the RLC index the lanes are 8 wide (RLC
+    entry) or, with ``track_arg``, 12 wide with 2W colMin slots (textless
+    entry)."""
+    ranges, ids, band, colmin = state
+    if not ranges.is_cuda:
+        return band_step_compact_plain(index, state, n_live, out, itv, cnt,
+                                       scratch, mrow_t, pchars, T, t,
+                                       switchpoint, dyn_meta, track_arg)
+    kb, W = check_band_step(index, state, n_live, out, itv, scratch, mrow_t,
+                            pchars, dyn_meta, track_arg)
+    tail = (n_live, out[0].shape[0], *(f.data_ptr() for f in out),
+            itv.data_ptr(), itv.shape[0] - 1, cnt, scratch.ctr.data_ptr(),
+            scratch.status.data_ptr(), scratch.tiles, scratch.next_epoch())
+    if isinstance(index, BMoveIndex):
+        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), ids.data_ptr(),
+               band.data_ptr(), colmin.data_ptr(), mrow_t.data_ptr(),
+               mrow_t.shape[0], pchars.data_ptr(), T, t, kb, W, switchpoint,
+               *tail, index.range_width,
+               entry="textless" if index.textless else "rlc")
+    else:
+        KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
+               *index.dollar_host, ranges.data_ptr(), ids.data_ptr(),
+               band.data_ptr(), colmin.data_ptr(),
+               mrow_t.data_ptr() if dyn_meta is None else None,
+               mrow_t.shape[0] if dyn_meta is None else 0,
+               dyn_meta.data_ptr() if dyn_meta is not None else None,
+               pchars.data_ptr(), T, t, kb, W, switchpoint, *tail,
+               entry="per_lane" if dyn_meta is not None else "")
+
+
+def _ex_col(tab, per_lane: bool, idl, S: int, t: int):
+    """Step t's column of an exact-prefix table for lanes of ids ``idl``:
+    (L_all, E) per-lane tables by id, (E, S) tables by id % S."""
+    return tab[idl, t] if per_lane else tab[t][idl % S]
+
+
+def exact_loop_plain(index: FMIndex, ranges, ids, t_lo: int, t_hi: int,
+                     reads, tabs, per_lane: bool, gate_t: int,
+                     switchpoint: int, stats: dict | None = None):
+    """Plain version of kernel A's loop entry: exact-prefix steps t_lo..t_hi
+    of every lane, all lanes in lockstep, as ``run_scheme``'s exact loop of
+    the JAX package runs them.
+
+    ranges: (L, rw) int64, dead lanes all zero; ids: (L,) int32 lane ids
+    (None: the lane's index), id = read row * S + search; reads: (R, m)
+    uint8; tabs: the (ex_pos, ex_dir, db_ex) tables, (E, S) read at
+    [t, id % S] or with ``per_lane`` (L_all, E) read at [id, t]. At each
+    step a lane with ex_pos < 0 keeps its range, the others extend by the
+    read's char at ex_pos in direction ex_dir, and an empty result becomes
+    zero; with ``switchpoint`` > 0 a live range of width <= switchpoint at
+    a step t >= gate_t drains: its drain row is [lo, hi, id, db_ex[t]] and
+    the lane becomes zero (a lane narrow before the gate drains at the gate
+    step, with that step's db_ex). Returns the final ranges and the (L, 4)
+    int64 drain rows (zero where a lane did not drain). The loop stops when
+    no lane is live, or past the last step in which some lane extends and
+    the gate step: later steps change nothing. ``stats`` (optional) counts
+    the extensions (``steps``) and, on the RLC index, their walks."""
+    L = ranges.shape[0]
+    dev = ranges.device
+    pos_tab, dir_tab, db_tab = tabs
+    S = pos_tab.shape[0] // reads.shape[0] if per_lane else pos_tab.shape[1]
+    idl = torch.arange(L, device=dev) if ids is None else ids.long()
+    rid = idl // S
+    ext = (pos_tab >= 0).any(dim=0 if per_lane else 1)
+    last = int(ext.nonzero().max()) + 1 if bool(ext.any()) else 0
+    t_end = min(t_hi, max(last, gate_t + 1) if switchpoint > 0 else last)
+    drows = torch.zeros((L, 4), dtype=torch.int64, device=dev)
+    for t in range(t_lo, t_end):
+        alive = ranges[:, 1] > ranges[:, 0]
+        if not bool(alive.any()):
+            break
+        pos = _ex_col(pos_tab, per_lane, idl, S, t)
+        act = (pos >= 0) & alive
+        new = ranges.clone()
+        if bool(act.any()):
+            sel = act.nonzero()[:, 0]
+            chars = reads[rid[sel], pos[sel].long()].int()
+            dirs = _ex_col(dir_tab, per_lane, idl, S, t)[sel].int()
+            if isinstance(index, BMoveIndex):
+                new[sel] = bextend.extend_char_plain(index, ranges[sel],
+                                                     chars, dirs, stats)
+            else:
+                new[sel] = extend.extend_char_plain(index, ranges[sel],
+                                                    chars, dirs)
+            if stats is not None:         # a lane meeting N reads no row
+                stats["steps"] = stats.get("steps", 0) + int(
+                    (chars <= 3).sum())
+        new = torch.where((new[:, 1] > new[:, 0])[:, None], new, 0)
+        if switchpoint > 0:
+            width = new[:, 1] - new[:, 0]
+            narrow = (width > 0) & (width <= switchpoint) & (t >= gate_t)
+            row = torch.stack([new[:, 0], new[:, 1], idl,
+                               _ex_col(db_tab, per_lane, idl, S, t).long()],
+                              dim=1)
+            drows = torch.where(narrow[:, None], row, drows)
+            new = torch.where(narrow[:, None], 0, new)
+        ranges = new
+    return ranges, drows
+
+
+def check_exact_loop(index: FMIndex, ranges, ids, t_lo: int, t_hi: int,
+                     reads, tabs, per_lane: bool) -> tuple:
+    """What kernel A's loop entry checks before a launch: contiguous int64
+    lanes of the index's width, int32 ids, a uint8 read batch and int32
+    tables of the layout ``per_lane`` names, all on one device, and steps
+    within the tables. Returns (S, E); raises ValueError otherwise."""
+    L = ranges.shape[0]
+    R, m = reads.shape
+    pos_tab, dir_tab, db_tab = tabs
+    E = pos_tab.shape[1] if per_lane else pos_tab.shape[0]
+    S = pos_tab.shape[0] // max(R, 1) if per_lane else pos_tab.shape[1]
+    tshape = (R * S, E) if per_lane else (E, S)
+    check_tensors("kernel A's loop", ranges.device, (
+        (ranges, torch.int64, (L, index.range_width)),
+        (reads, torch.uint8, (R, m)), (pos_tab, torch.int32, tshape),
+        (dir_tab, torch.int32, tshape), (db_tab, torch.int32, tshape),
+        *(((ids, torch.int32, (L,)),) if ids is not None else ())))
+    if not 0 <= t_lo <= t_hi <= E or S < 1:
+        raise ValueError(f"kernel A's loop takes steps within 0..{E} of "
+                         f"{S} >= 1 searches, not {t_lo}..{t_hi}")
+    return S, E
+
+
+def exact_loop(index: FMIndex, ranges, ids, t_lo: int, t_hi: int, reads,
+               tabs, per_lane: bool, gate_t: int, switchpoint: int):
+    """Exact-prefix steps t_lo..t_hi of every lane (see
+    :func:`exact_loop_plain`): the plain version for CPU tensors, one
+    launch of kernel A's loop entry for CUDA tensors (``extend.loop``, on
+    the RLC index ``extend.loop_rlc``), in which one thread walks one lane
+    until its range is empty or drained. Returns (ranges, drain rows)."""
+    if not ranges.is_cuda:
+        return exact_loop_plain(index, ranges, ids, t_lo, t_hi, reads, tabs,
+                                per_lane, gate_t, switchpoint)
+    S, E = check_exact_loop(index, ranges, ids, t_lo, t_hi, reads, tabs,
+                            per_lane)
+    L = ranges.shape[0]
+    out = torch.empty_like(ranges)
+    drows = torch.empty((L, 4), dtype=torch.int64, device=ranges.device)
+    args = (ranges.data_ptr(), ids.data_ptr() if ids is not None else None,
+            L, reads.data_ptr(), reads.shape[1], S,
+            *(tab.data_ptr() for tab in tabs), E if per_lane else 0,
+            t_lo, t_hi, gate_t, switchpoint, out.data_ptr(),
+            drows.data_ptr())
+    if L and isinstance(index, BMoveIndex):
+        extend.KERNEL(*bextend.bm_args(index), *args, index.range_width,
+                      entry="loop_rlc")
+    elif L:
+        extend.KERNEL(index.occ_fused.data_ptr(), index.blocks,
+                      *index.counts_host, *index.dollar_host, *args,
+                      entry="loop")
+    return out, drows
 
 
 def run_scheme(
@@ -505,55 +757,14 @@ def run_scheme(
         # gate the crossover on matched depth: shorter segments are not
         # specific and would flood locate/verify with junk windows
         gate_t = max(0, itv_min_depth - kmer_eff - 1)
-        if dyn is not None:
-            # per-read schedules pad every lane to E = m steps: keep the
-            # steps in which some lane extends, and those up to the gate
-            # step, where the narrow lanes that wait are drained. The steps
-            # after them change nothing.
-            n_ex = int((dyn["ex_pos"] >= 0).any(dim=0).sum())
-            E = min(E, max(n_ex, gate_t + 1))
-            ex_pos = dyn["ex_pos"][:, :E].t().contiguous()   # (E, L)
-            ex_dir = dyn["ex_dir"][:, :E].t().contiguous()
-            db_ex = dyn["db_ex_steps"][:, :E].t().long()
-            ex_chars = reads[(ids0 // S).long()[:, None],
-                             dyn["ex_pos"][:, :E].clamp(0, m - 1).long()]
-            ex_chars = ex_chars.t().int().contiguous()
-        else:
-            ex_pos = tables["ex_pos"].repeat(1, R)           # (E, L)
-            ex_dir = tables["ex_dir"].repeat(1, R)
-            db_ex = tables["db_ex"].repeat(1, R).long()
-            ex_chars = reads[:, tables["ex_pos"].clamp(min=0).long()]
-            ex_chars = ex_chars.permute(1, 0, 2).reshape(E, L).int()
-        ex_chars = torch.where(ex_pos >= 0, ex_chars, 0)
-
-        def run_ex(pos_t, dir_t, db_t, chars_t, ids_v, t_off, ranges,
-                   drows):
-            for t in range(pos_t.shape[0]):
-                if not _any_alive(ranges):
-                    break
-                alive = ranges[:, 1] > ranges[:, 0]
-                act = (pos_t[t] >= 0) & alive
-                new = extend.extend_char(
-                    index, torch.where(act[:, None], ranges, 0),
-                    chars_t[t], dir_t[t])
-                new = torch.where(act[:, None], new, ranges)
-                new = torch.where((new[:, 1] > new[:, 0])[:, None], new, 0)
-                if switchpoint > 0:
-                    width = new[:, 1] - new[:, 0]
-                    narrow = ((width > 0) & (width <= switchpoint)
-                              & (t + t_off >= gate_t))
-                    row = torch.stack([new[:, 0], new[:, 1], ids_v.long(),
-                                       db_t[t]], dim=1)
-                    drows = torch.where(narrow[:, None], row, drows)
-                    new = torch.where(narrow[:, None], 0, new)
-                ranges = new
-            return ranges, drows
-
-        drows0 = torch.zeros((L, 4), **i64)
+        tabs = ((dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"])
+                if dyn is not None else
+                (tables["ex_pos"], tables["ex_dir"], tables["db_ex"]))
+        loop = dict(reads=reads, tabs=tabs, per_lane=dyn is not None,
+                    gate_t=gate_t, switchpoint=switchpoint)
         if 0 < ex_split < E and 0 < ex_cap < L:
-            ranges0, drows0 = run_ex(ex_pos[:ex_split], ex_dir[:ex_split],
-                                     db_ex[:ex_split], ex_chars[:ex_split],
-                                     ids0, 0, ranges0, drows0)
+            ranges0, drows0 = exact_loop(index, ranges0, None, 0, ex_split,
+                                         **loop)
             EC = int(ex_cap)
             lane = torch.arange(L, **i64)
             (src,), n1 = _compact(ranges0[:, 1] > ranges0[:, 0], EC,
@@ -562,10 +773,7 @@ def run_scheme(
             live1 = src < L
             srcc = torch.where(live1, src, 0)
             r2 = torch.where(live1[:, None], ranges0[srcc], 0)
-            r2, dr2 = run_ex(ex_pos[ex_split:, srcc], ex_dir[ex_split:, srcc],
-                             db_ex[ex_split:, srcc], ex_chars[ex_split:, srcc],
-                             ids0[srcc], ex_split, r2,
-                             torch.zeros((EC, 4), **i64))
+            r2, dr2 = exact_loop(index, r2, srcc.int(), ex_split, E, **loop)
             # back into the full lane layout (stage-1 survivors had no
             # drain row, so this cannot clobber one)
             back = torch.where(live1, srcc, L)
@@ -576,8 +784,7 @@ def run_scheme(
             drows0[back] = dr2
             drows0 = drows0[:L]
         else:
-            ranges0, drows0 = run_ex(ex_pos, ex_dir, db_ex, ex_chars, ids0,
-                                     0, ranges0, drows0)
+            ranges0, drows0 = exact_loop(index, ranges0, None, 0, E, **loop)
         if switchpoint > 0:
             itv_cnt = _append(itv_buf, itv_cnt, drows0,
                               drows0[:, 1] > drows0[:, 0], M)
@@ -602,7 +809,7 @@ def run_scheme(
     if track_arg:
         colmin_init = torch.cat([colmin_init, torch.zeros_like(colmin_init)],
                                 dim=-1)
-    (ranges, ids, band, colmin), n_alive0 = _compact(
+    state, n_alive0 = _compact(
         ranges0[:, 1] > ranges0[:, 0], C,
         [ranges0, ids0, band_init, colmin_init], [0, 0, INF, INF])
     overflow = torch.clamp(n_alive0 - C, min=0) + overflow_ex
@@ -621,47 +828,48 @@ def run_scheme(
             pchars = pchars.reshape(R * S * T, bw).contiguous()
             mrow, dyn_meta = tables["mrow"], None
 
-        def run_steps(state, overflow, visits, itv_cnt, t_lo, t_hi):
-            ranges, ids, band, colmin = state
-            cap = ranges.shape[0]
-            for t in range(t_lo, t_hi):
-                if not _any_alive(ranges):
-                    break
-                o = band_step(index, ranges, ids, band, colmin,
-                              mrow[t] if dyn_meta is None else None,
-                              pchars, T, t, switchpoint, dyn_meta, track_arg)
-                visits = visits + o["act"].sum() * 4
-                if switchpoint > 0:
-                    ch = o["ch_ranges"]
-                    rows = torch.stack([
-                        ch[..., 0].reshape(-1), ch[..., 1].reshape(-1),
-                        (o["new_ids"] & GHOST_IDM).long()
-                        .repeat_interleave(4),
-                        o["dbv"].long().repeat_interleave(4)], dim=1)
-                    itv_cnt = _append(itv_buf, itv_cnt, rows,
-                                      o["narrow"].reshape(-1), M)
-                (ranges, ids, band, colmin), n = _compact(
-                    o["ch_alive"].reshape(-1), cap,
-                    [o["ch_ranges"].reshape(4 * cap, rw),
-                     o["new_ids"].repeat_interleave(4),
-                     o["ch_band"].reshape(4 * cap, 2, bw),
-                     o["ch_colmin"].reshape(4 * cap, 2, Wp)])
-                overflow = overflow + torch.clamp(n - cap, min=0)
-            return (ranges, ids, band, colmin), overflow, visits, itv_cnt
+        # the frontier ping-pongs between two buffer sets of C rows; the
+        # host learns each step's live count (kept children, capped) and
+        # in-text count from one word, and stops when no lane is live
+        sc = StepScratch(C, dev)
+        sc.ctr[0] = torch.clamp(n_alive0, max=C) | (itv_cnt << 32)
+        sc.ctr[2] = overflow
+        live, cnt = sc.word()
+        bufs = [list(state), [torch.empty_like(f) for f in state]]
+        cap, cur, moved, shrink_ovf = C, 0, False, 0
 
-        state = (ranges, ids, band, colmin)
+        def run_steps(t_lo, t_hi):
+            nonlocal live, cnt, cur, moved
+            nxt = [[f[:cap] for f in b] for b in bufs]   # next frontiers
+            for t in range(t_lo, t_hi):
+                if live == 0:
+                    break
+                band_step_compact(
+                    index, bufs[cur], live, nxt[1 - cur], itv_buf, cnt, sc,
+                    mrow[t] if dyn_meta is None else None, pchars, T, t,
+                    switchpoint, dyn_meta, track_arg)
+                cur, moved = 1 - cur, True
+                n, cnt = sc.word()
+                live = min(n, cap)
+
         if 0 < split_step < T and 0 < capacity2 < C:
-            state, overflow, visits, itv_cnt = run_steps(
-                state, overflow, visits, itv_cnt, 0, split_step)
-            state, n = _compact(state[0][:, 1] > state[0][:, 0],
-                                int(capacity2), list(state))
-            overflow = overflow + torch.clamp(n - int(capacity2), min=0)
-            state, overflow, visits, itv_cnt = run_steps(
-                state, overflow, visits, itv_cnt, split_step, T)
+            run_steps(0, split_step)
+            # the live lanes lead the frontier: the shrink keeps its first
+            # capacity2 rows
+            cap, moved = int(capacity2), True
+            shrink_ovf = max(live - cap, 0)
+            live = min(live, cap)
+            run_steps(split_step, T)
         else:
-            state, overflow, visits, itv_cnt = run_steps(
-                state, overflow, visits, itv_cnt, 0, T)
-        ranges, ids, band, colmin = state
+            run_steps(0, T)
+        state = [f[:cap] for f in bufs[cur]]
+        if moved:
+            for f in state:
+                f[live:] = 0
+        overflow = sc.ctr[2] + shrink_ovf
+        visits = sc.ctr[1]
+        itv_cnt = sc.ctr[0] >> 32
+    ranges, ids, band, colmin = state
 
     # ---------------- tail ----------------
     # ghosts join the in-text buffer with their stashed death depth

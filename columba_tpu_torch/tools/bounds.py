@@ -5,12 +5,13 @@ read once, each output written once, worked out from the tensors' shapes)
 and the integer operations it does, and from them the bound: the larger of
 bytes over the card's memory rate and operations over its arithmetic rate.
 Where the work depends on the data (kernel B skips the occ rows of inactive
-lanes, kernel C walks LF until a sampled row, kernel E stops at a read's
-first empty range, and on the RLC index every run-hint walk and binary
-search has its own length), the caller passes what this call's data
-needed, counted with the plain versions (``stats`` of ``ops/bextend.py``
-and ``ops/blocate.py``). Kernels F, G and H do the same work whatever the
-data.
+lanes and writes the children that stay, kernel A's loop and kernel E stop
+at a lane's first empty range, kernel C walks LF until a sampled row, and
+on the RLC index every run-hint walk and binary search has its own length),
+the caller passes what this call's data needed, counted with the plain
+versions (``stats`` of ``ops/bextend.py``, ``ops/blocate.py`` and
+``search/executor.exact_loop_plain``). Kernels F, G and H do the same work
+whatever the data.
 
 Peak rates are NVIDIA's data-sheet figures for the H100 SXM at its full
 power limit: 3.35 TB/s of HBM, and 67 T operations/s outside the tensor
@@ -69,23 +70,63 @@ def extend(ranges, dirs, chars, out) -> dict:
                  L * EXTEND_OPS)
 
 
-def band_step(ranges, ids, band, colmin, mrow_t, out: dict) -> dict:
-    """Kernel B: every lane's state in and its four children out; the
-    lanes active in this step (``out['act']``) also read their cell codes
-    and two occ rows, and do the band and register arithmetic. The step's
-    scalars are the (S, 7) row, or with ``mrow_t`` None (the per-lane
-    entry) one 4-byte word per lane."""
-    bw, W = band.shape[-1], colmin.shape[-1]
-    n_act = int(out["act"].sum())
-    n_bytes = (_nbytes(ranges, ids, band, colmin, mrow_t, *out.values())
-               + (4 * ranges.shape[0] if mrow_t is None else 0)
-               + n_act * (2 * OCC_ROW_BYTES + bw))
+def band_step(state, mrow_t, o: dict, cap: int, M: int, cnt: int,
+              stats: dict | None = None) -> dict:
+    """Kernel B, one fused step over the lanes of ``state`` (ranges, ids,
+    band, colmin; every lane read): each lane's range and id in, the band
+    and registers of its live lanes; the step's scalars (the (S, 7) row,
+    or with ``mrow_t`` None one 4-byte word per lane); per active lane its
+    cell codes and two occ rows (RLC: two endpoint rows, plus the walks of
+    the children written, ``stats`` of :func:`rlc_band_stats`); the kept
+    children's state out (at most ``cap`` rows), the narrow rows out (at
+    most ``M - cnt``) and the 32 B of counters. No child state goes to
+    memory and back. ``o``: ``executor.band_step_plain``'s output for
+    these lanes (act, ch_alive, narrow)."""
+    ranges, ids, band, colmin = state
+    L, rw = ranges.shape
+    bw, Wp = band.shape[-1], colmin.shape[-1]
+    cells = 2 * bw + 2 * Wp
+    n_alive = int((ranges[:, 1] > ranges[:, 0]).sum())
+    n_act = int(o["act"].sum())
+    kept = min(int(o["ch_alive"].sum()), cap)
+    narrow = min(int(o["narrow"].sum()), max(M - cnt, 0))
+    wb, wo = _rlc_walks(stats) if stats is not None else (0, 0)
+    rows, lane_ops = ((2 * BM_ROW_BYTES, BM_LANE_OPS) if stats is not None
+                      else (2 * OCC_ROW_BYTES, EXTEND_OPS))
+    n_bytes = (L * (8 * rw + 4) + n_alive * cells
+               + (_nbytes(mrow_t) if mrow_t is not None else 4 * L)
+               + n_act * (rows + bw) + wb
+               + kept * (8 * rw + 4 + cells) + narrow * 32 + 32)
     # 4 chars x bw cells x (compare, select, add, 2 min, clamp) for the
-    # row; W registers x 4 chars x (bw selects + 3); prune 4 x (bw + W + 6)
-    per_act = (EXTEND_OPS + 4 * bw * 7 + W * 4 * (bw + 3)
-               + 4 * (bw + W + 6))
-    per_lane = 20 + 4 * (2 * bw + 2 * W + 8)        # decode + child writes
-    return bound(n_bytes, n_act * per_act + ranges.shape[0] * per_lane)
+    # row; Wp registers x 4 chars x (bw selects + 3); prune 4 x (bw + Wp +
+    # 6); per lane the decode and its share of the block scan; per row
+    # written its values and address
+    per_act = (lane_ops + 4 * bw * 7 + Wp * 4 * (bw + 3)
+               + 4 * (bw + Wp + 6))
+    return bound(n_bytes, n_act * per_act + L * 44
+                 + kept * (cells + rw + 4) + narrow * 8 + wo)
+
+
+def exact_loop(ranges, ids, tabs, per_lane: bool, stats: dict,
+               out, drows) -> dict:
+    """Kernel A's loop entry: per lane its range (and id) in, its final
+    range and drain row out; per extension (``stats["steps"]`` of
+    ``executor.exact_loop_plain``) the read's code and two occ rows (RLC:
+    two endpoint rows, and the chosen child's walks in ``stats``); the
+    (E, S) step tables once, or per-read tables the position and direction
+    of each extension and the depth of each drain."""
+    L, rw = ranges.shape
+    steps = stats.get("steps", 0)
+    drains = int((drows[:, 1] > drows[:, 0]).sum())
+    rlc = rw > 4
+    wb, wo = _rlc_walks(stats) if rlc else (0, 0)
+    rows, lane_ops = ((2 * BM_ROW_BYTES, BM_LANE_OPS) if rlc
+                      else (2 * OCC_ROW_BYTES, EXTEND_OPS))
+    tab_bytes = (steps * 8 + drains * 4 if per_lane
+                 else _nbytes(*tabs))
+    return bound(_nbytes(ranges, ids, out, drows) + steps * (rows + 1)
+                 + tab_bytes + wb,
+                 steps * (lane_ops + 12) + L * 12 + wo)
 
 
 def locate(rows, steps, out) -> dict:
@@ -200,46 +241,23 @@ def _rlc_walks(stats: dict) -> tuple:
             + hint_rows // 2 * BM_CHILD_OPS)
 
 
-def extend_rlc(ranges, dirs, chars, out, stats: dict) -> dict:
-    """Kernel A's RLC entry: per lane its range, direction and char in, two
-    endpoint reads, the walks of the children it writes (``stats``), the
-    child range(s) out."""
-    L = dirs.numel()
-    wb, wo = _rlc_walks(stats)
-    return bound(_nbytes(ranges, dirs, chars, out) + L * 2 * BM_ROW_BYTES
-                 + wb, L * BM_LANE_OPS + wo)
-
-
-def rlc_band_stats(index, ranges, ids, mrow_t, out: dict) -> dict:
+def rlc_band_stats(index, state, mrow_t, o: dict, cap: int) -> dict:
     """The walks kernel B's RLC entries make in one step: the hints of the
-    children that stay in the frontier, of the lanes that keep theirs,
-    counted with the plain extension."""
+    children that stay in the frontier and are written (the first ``cap``
+    of them), of the lanes that keep theirs, counted with the plain
+    extension. ``o``: ``executor.band_step_plain``'s output."""
     from columba_tpu_torch.ops import bextend
 
+    ranges, ids = state[0], state[1]
     S = mrow_t.shape[0]
     side = (mrow_t.long()[(ids.long() & ((1 << 21) - 1)) % S, 0] >> 1) & 1
-    keep = out["act"] & (out["new_ids"] >= 0)
+    keep = o["act"] & (o["new_ids"] >= 0)
+    pos = o["ch_alive"].reshape(-1).long().cumsum(0).reshape(-1, 4) - 1
     stats: dict = {}
     bextend.extend_all_plain(
-        index, torch.where(out["act"][:, None], ranges, 0), side,
-        out["ch_alive"] & keep[:, None], stats)
+        index, torch.where(o["act"][:, None], ranges, 0), side,
+        o["ch_alive"] & keep[:, None] & (pos < cap), stats)
     return stats
-
-
-def band_step_rlc(ranges, ids, band, colmin, mrow_t, out: dict,
-                  stats: dict) -> dict:
-    """Kernel B's RLC and textless entries: as :func:`band_step`, with two
-    endpoint reads per active lane in place of the occ rows and the walks
-    of the children that stay (``stats``, :func:`rlc_band_stats`)."""
-    bw, Wp = band.shape[-1], colmin.shape[-1]
-    n_act = int(out["act"].sum())
-    wb, wo = _rlc_walks(stats)
-    n_bytes = (_nbytes(ranges, ids, band, colmin, mrow_t, *out.values())
-               + n_act * (2 * BM_ROW_BYTES + bw) + wb)
-    per_act = (BM_LANE_OPS + 4 * bw * 7 + Wp * 4 * (bw + 3)
-               + 4 * (bw + Wp + 6))
-    per_lane = 20 + 4 * (2 * bw + 2 * Wp + 8)
-    return bound(n_bytes, n_act * per_act + ranges.shape[0] * per_lane + wo)
 
 
 def exact_rlc(steps_walked: int, stats: dict, out) -> dict:

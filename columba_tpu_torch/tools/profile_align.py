@@ -39,7 +39,10 @@ beside search):
    launch, so they are left out; copies on the fetch stream that overlap
    compute count twice, so busy is an upper bound. The idle share is
    1 - busy / wall of the profiled align. The full table goes to
-   ``--out/profile_table.txt``;
+   ``--out/profile_table.txt``. The same run counts the CUDA runtime calls
+   the host makes inside ``executor.run_scheme`` (launches, copies,
+   synchronisations) and kernels A's and B's launches, and prints the
+   calls per band step;
 4. the peak device memory of one align of the 131,072 reads.
 
 The heading line of each measurement names the card and its power limit.
@@ -152,12 +155,37 @@ def wrapped_breakdown(run_align) -> dict:
 
 def device_busy(prof) -> tuple[float, list]:
     """(device busy ms, [(ms, calls, name)] of the device-side events,
-    largest first) from a finished ``torch.profiler`` run."""
+    largest first) from a finished ``torch.profiler`` run. The device span
+    of the ``run_scheme`` records (a label over the kernels it covers, not
+    work of its own) is left out."""
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+            if e.self_device_time_total > 0 and e.self_cpu_time_total == 0
+            and e.key != "run_scheme"]
     rows.sort(reverse=True)
     return sum(r[0] for r in rows), rows
+
+
+def search_calls(prof) -> dict:
+    """CUDA runtime calls the host made inside ``run_scheme`` (the host
+    ranges of the ``run_scheme`` profiler records), by name, from a
+    finished ``torch.profiler`` run: kernel launches (ATen's and, where the
+    tracer sees them, the port's), copies, memsets and synchronisations."""
+    import bisect
+
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == "run_scheme")
+    starts = [s for s, _ in spans]
+    calls: dict = {}
+    for e in events:
+        if not e.name.startswith("cu"):
+            continue
+        t = e.time_range.start
+        j = bisect.bisect_right(starts, t) - 1
+        if j >= 0 and t < spans[j][1]:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return calls
 
 
 def main(argv=None) -> int:
@@ -258,12 +286,29 @@ def main(argv=None) -> int:
             log(f"  {name}: {v:.2f} ms in {wb['calls'][name]} calls")
         log(f"  sum: {sum(wb['ms'].values()):.2f} ms")
 
-        # 3. profiled align
+        # 3. profiled align; run_scheme's host time ranges are kept, to
+        # count the runtime calls of the search stage per band step
         from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            wall = align(fq)
+        from columba_tpu_torch.search import executor
+
+        run_scheme = executor.run_scheme
+        n_runs = [0]
+
+        def spanned(*a, **kw):
+            n_runs[0] += 1
+            with torch.profiler.record_function("run_scheme"):
+                return run_scheme(*a, **kw)
+
+        for k in native.KERNELS.values():
+            k.reset()
+        executor.run_scheme = spanned
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall = align(fq)
+        finally:
+            executor.run_scheme = run_scheme
         busy, rows = device_busy(prof)
         log(f"{smi}: {what} profiled align of {READS} {unit}: wall "
             f"{wall:.4f} s; "
@@ -272,6 +317,22 @@ def main(argv=None) -> int:
             f"{1 - busy / 1e3 / wall:.4f}")
         for t, cnt, name in rows[:20]:
             log(f"  {t:9.3f} ms x {cnt:5d}  {name[:90]}")
+        calls = search_calls(prof)
+        band = native.KERNELS["band_step"].launches
+        ours = sum(k.launches for k in native.KERNELS.values())
+        kernel_a = native.KERNELS["extend"]
+        log(f"{smi}: {what} search stage of the profiled align: "
+            f"{n_runs[0]} run_scheme calls, kernel B {band} launches "
+            f"(band steps), kernel A {kernel_a.launches} "
+            f"({kernel_a.by_entry}), all the port's kernels {ours}; CUDA "
+            f"runtime calls inside run_scheme: {calls}")
+        if band:
+            def per_step(word):
+                return sum(n for name, n in calls.items()
+                           if word in name) / band
+            log(f"  per band step: {per_step('Launch'):.2f} kernel launches,"
+                f" {per_step('Memcpy'):.2f} copies, "
+                f"{per_step('Synchronize'):.2f} synchronisations")
         with open(os.path.join(args.out, "profile_table.txt"), "w") as f:
             f.write(prof.key_averages().table(
                 sort_by="self_cuda_time_total", row_limit=80,

@@ -293,7 +293,8 @@ def test_port_imports_no_jax():
 def test_kernel_entries_name_their_sources():
     """Each kernel entry's C function is defined in the CUDA source it names
     (the smoke's record reports that source): kernel B's RLC and textless
-    entries in band_step_rlc.cu, the other entries in their kernel's file."""
+    entries in band_step_rlc.cu, the other entries (kernel A's loop among
+    them) in their kernel's file."""
     import importlib
 
     from columba_tpu_torch import native
@@ -307,7 +308,7 @@ def test_kernel_entries_name_their_sources():
             with open(os.path.join(root, k.source_of(entry))) as f:
                 assert f"{symbol}(" in f.read(), (k.name, entry)
             seen += 1
-    assert seen == 13      # 8 kernels, 5 RLC entries
+    assert seen == 14      # 8 kernels; A's loop (Vanilla, RLC); 4 RLC
     band = native.KERNELS["band_step"]
     assert band.source_of("textless").endswith("csrc/band_step_rlc.cu")
     assert band.source_of("per_lane") == band.source

@@ -114,35 +114,107 @@ def test_verify_kernel(setup, gpu, kb):
     assert torch.equal(got, verify.verify_window_plain(fm, pats, rid, ws, kb))
 
 
+def fused_vs_plain(index, state, mrow_t, pchars, T, t, switchpoint,
+                   dyn_meta=None, track_arg=False, cap=None, M=4096, cnt=0,
+                   scratch=None):
+    """Kernel B's fused step against band_step_compact_plain on the same
+    frontier (every row read): the next frontier's live rows, the in-text
+    rows (row M is scratch), the word, visits and overflow must be equal,
+    and the block ticket back at 0. Returns (kept children, in-text rows)
+    of the step."""
+    C, dev = state[0].shape[0], state[0].device
+    cap = C if cap is None else cap
+    res = []
+    for fn in (executor.band_step_compact, executor.band_step_compact_plain):
+        out = [torch.full((cap, *f.shape[1:]), 3, dtype=f.dtype, device=dev)
+               for f in state]
+        itv = torch.full((M + 1, 4), -1, dtype=torch.int64, device=dev)
+        sc = executor.StepScratch(C, dev)
+        if fn is executor.band_step_compact and scratch is not None:
+            sc = scratch
+        sc.ctr[1] = 5
+        sc.ctr[2] = 7
+        fn(index, state, C, out, itv, cnt, sc, mrow_t, pchars, T, t,
+           switchpoint, dyn_meta, track_arg)
+        torch.cuda.synchronize()
+        res.append((out, itv, sc.ctr.clone()))
+    (o1, i1, c1), (o2, i2, c2) = res
+    assert torch.equal(c1[:3], c2[:3]) and int(c1[3]) == 0
+    n, rows = int(c1[0]) & 0xFFFFFFFF, int(c1[0]) >> 32
+    live = min(n, cap)
+    for k, (a, b) in enumerate(zip(o1, o2)):
+        assert torch.equal(a[:live], b[:live]), k
+    assert torch.equal(i1[:M], i2[:M])
+    return n, rows
+
+
+def _random_state(rng, n, C, R, S, bw, Wp, gpu, cells=64):
+    """Random lane states: ranges, ids with 10 % ghosts, bands and
+    registers."""
+    ids = rng.integers(0, R * S, C).astype(np.int64)
+    ghost = rng.random(C) < 0.1
+    ids = np.where(ghost, ids | (rng.integers(0, 1024, C) << 21) | (1 << 31),
+                   ids).astype(np.uint32).view(np.int32)
+    return [
+        _ranges(rng, n, C).to(gpu), torch.from_numpy(ids).to(gpu),
+        # half the cells small, so that children survive the prune
+        torch.from_numpy(np.where(rng.random((C, 2, bw)) < 0.5,
+                                  rng.integers(0, 4, (C, 2, bw)),
+                                  rng.integers(0, cells, (C, 2, bw))
+                                  ).astype(np.int8)).to(gpu),
+        torch.from_numpy(rng.integers(0, 64, (C, 2, Wp)).astype(np.int8)
+                         ).to(gpu)]
+
+
 @pytest.mark.parametrize("t", [0, 20, 40])
 def test_band_step_kernel(setup, gpu, t):
     """Kernel B on random lane states (ghosts, dead lanes, saturated
-    cells) equals its plain version on every output."""
+    cells) equals its plain version on every output: the next frontier,
+    the in-text rows, the counters."""
     _, cpu_fm, fm = setup
     rng = np.random.default_rng(11 + t)
     sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit",
                                     kmer_k=6)
     tables = executor.device_tables(sched, gpu)
     C, R, S, T, bw = 4096, 192, sched.num_searches, sched.t_max, sched.bw
-    ranges = _ranges(rng, cpu_fm.n, C).to(gpu)
-    ids = rng.integers(0, R * S, C).astype(np.int64)
-    ghost = rng.random(C) < 0.1
-    ids = np.where(ghost, ids | (rng.integers(0, 1024, C) << 21) | (1 << 31),
-                   ids).astype(np.uint32).view(np.int32)
-    args = (
-        fm, ranges, torch.from_numpy(ids).to(gpu),
-        torch.from_numpy(rng.integers(0, 64, (C, 2, bw)).astype(np.int8)
-                         ).to(gpu),
-        torch.from_numpy(rng.integers(0, 64, (C, 2, sched.W)).astype(np.int8)
-                         ).to(gpu),
-        tables["mrow"][t],
-        torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(np.int8)
-                         ).to(gpu),
-        T, t, 4)
-    got = executor.band_step(*args)
-    want = executor.band_step_plain(*args)
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
+    state = _random_state(rng, cpu_fm.n, C, R, S, bw, sched.W, gpu)
+    pchars = torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(
+        np.int8)).to(gpu)
+    n, _ = fused_vs_plain(fm, state, tables["mrow"][t], pchars, T, t, 4)
+    assert n > 0
+
+
+@pytest.mark.parametrize("flavor", ["vanilla", "rlc", "textless"])
+def test_band_step_overflow(setup, rlc_setup, gpu, flavor):
+    """A step whose kept children overflow the next frontier (n > cap) and
+    whose narrow rows overflow the in-text buffer: the clamps, the dropped
+    rows and the overflow count equal the plain version's, over three
+    launches on one scratch (fresh epochs, the ticket reset between)."""
+    rng = np.random.default_rng(12)
+    track = flavor == "textless"
+    if flavor == "vanilla":
+        _, cpu_fm, index = setup
+        state = _random_state(rng, cpu_fm.n, 4096, 96, 7, 5, 2, gpu, cells=4)
+    else:
+        _, idx = rlc_setup
+        _, cpu_bm, index = idx[flavor]
+        states = _rlc_states(cpu_bm, rng, 512)
+        state = _random_state(rng, 8, states.shape[0], 96, 7, 5,
+                              4 if track else 2, gpu, cells=4)
+        state[0] = states.to(gpu)
+    mrow = torch.from_numpy(_random_mrow(rng, 7, 5, 2)).to(gpu)
+    mrow[:, 0] |= 1                            # every search active
+    mrow[:, 0] &= ~(255 << 10)
+    mrow[:, 0] |= 6 << 10                      # a loose bound: most survive
+    pchars = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
+        np.int8)).to(gpu)
+    scratch = executor.StepScratch(state[0].shape[0], gpu)
+    for rep in range(3):
+        n, rows = fused_vs_plain(index, state, mrow, pchars, 5, 3, 8,
+                                 track_arg=track, cap=256, M=64, cnt=40,
+                                 scratch=scratch)
+        assert n > 256 and rows == 64, (n, rows)
+    assert scratch.epoch == 3
 
 
 def _random_mrow(rng, S, bw, W):
@@ -174,30 +246,13 @@ def test_band_step_shapes(setup, gpu, kb, W):
     rng = np.random.default_rng(100 * kb + W)
     bw = 2 * kb + 1
     C, R, S, T, t = 2048, 96, 7, 5, 3
-    ranges = _ranges(rng, cpu_fm.n, C).to(gpu)
-    ids = rng.integers(0, R * S, C).astype(np.int64)
-    ghost = rng.random(C) < 0.1
-    ids = np.where(ghost, ids | (rng.integers(0, 1024, C) << 21) | (1 << 31),
-                   ids).astype(np.uint32).view(np.int32)
-    args = (
-        fm, ranges, torch.from_numpy(ids).to(gpu),
-        # half the cells small, so that children survive the prune
-        torch.from_numpy(np.where(rng.random((C, 2, bw)) < 0.5,
-                                  rng.integers(0, 4, (C, 2, bw)),
-                                  rng.integers(0, 64, (C, 2, bw))
-                                  ).astype(np.int8)).to(gpu),
-        torch.from_numpy(rng.integers(0, 64, (C, 2, W)).astype(np.int8)
-                         ).to(gpu),
-        torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu),
-        torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(np.int8)
-                         ).to(gpu),
-        T, t, 4 if kb % 2 else 0)
-    got = executor.band_step(*args)
-    torch.cuda.synchronize()
-    want = executor.band_step_plain(*args)
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
-    assert bool((got["ch_alive"] & got["act"][:, None]).any())
+    state = _random_state(rng, cpu_fm.n, C, R, S, bw, W, gpu)
+    mrow = torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu)
+    pchars = torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(
+        np.int8)).to(gpu)
+    n, _ = fused_vs_plain(fm, state, mrow, pchars, T, t,
+                          4 if kb % 2 else 0)
+    assert n > 0
 
 
 @pytest.mark.parametrize("kmer_k,switchpoint,capacity", [
@@ -354,8 +409,8 @@ def test_dyn_tables_kernel(setup, gpu, name, k, metric, m):
                                       (2, "hamming")])
 def test_band_step_per_lane(setup, gpu, k, metric):
     """Kernel B's per-lane entry (kb 0..4 templated, kb 5 generic) on kernel
-    G's tables and random lane states equals band_step_plain with the same
-    switch, at steps where searches idle, reset and accumulate."""
+    G's tables and random lane states equals band_step_compact_plain with
+    the same switch, at steps where searches idle, reset and accumulate."""
     g, cpu_fm, fm = setup
     rng = np.random.default_rng(26 + k)
     m, R = 100, 128
@@ -366,29 +421,13 @@ def test_band_step_per_lane(setup, gpu, k, metric):
     pts = dynschedule.dynamic_partition(fm, batch, scheme, table)
     dyn = dynschedule.build_tables(st, pts, batch)
     S, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
-    C = 4096
-    ranges = _ranges(rng, cpu_fm.n, C).to(gpu)
-    ids = rng.integers(0, R * S, C).astype(np.int64)
-    ghost = rng.random(C) < 0.1
-    ids = np.where(ghost, ids | (rng.integers(0, 1024, C) << 21) | (1 << 31),
-                   ids).astype(np.uint32).view(np.int32)
-    band = torch.from_numpy(np.where(
-        rng.random((C, 2, bw)) < 0.5, rng.integers(0, 4, (C, 2, bw)),
-        rng.integers(0, 64, (C, 2, bw))).astype(np.int8)).to(gpu)
-    colmin = torch.from_numpy(rng.integers(0, 64, (C, 2, 1)).astype(
-        np.int8)).to(gpu)
-    seen_alive = False
+    state = _random_state(rng, cpu_fm.n, 4096, R, S, bw, 1, gpu)
+    kept = 0
     for t in (0, T // 3, T // 2, T - 20, T - 1):
-        args = (fm, ranges, torch.from_numpy(ids).to(gpu), band, colmin, None,
-                dyn["pchars"], T, t, 4 if k % 2 else 0,
-                dyn["meta"].reshape(-1))
-        got = executor.band_step(*args)
-        torch.cuda.synchronize()
-        want = executor.band_step_plain(*args)
-        for key in want:
-            assert torch.equal(got[key], want[key]), (key, t)
-        seen_alive |= bool((got["ch_alive"] & got["act"][:, None]).any())
-    assert seen_alive
+        n, _ = fused_vs_plain(fm, state, None, dyn["pchars"], T, t,
+                              4 if k % 2 else 0, dyn["meta"].reshape(-1))
+        kept += n
+    assert kept > 0
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -410,6 +449,84 @@ def test_dyn_scheme_kernels_vs_plain(setup, gpu, masked):
     for f in ("read_id", "strand", "begin", "end", "distance"):
         assert np.array_equal(getattr(out[0][0], f), getattr(out[1][0], f)), f
     assert len(out[0][0]) >= 96
+
+
+def loop_vs_plain(index, ranges, ids, t_lo, t_hi, reads, tabs, per_lane,
+                  gate_t, switchpoint):
+    """Kernel A's loop entry against exact_loop_plain: final ranges and
+    drain rows equal. Returns them."""
+    got = executor.exact_loop(index, ranges, ids, t_lo, t_hi, reads, tabs,
+                              per_lane, gate_t, switchpoint)
+    torch.cuda.synchronize()
+    want = executor.exact_loop_plain(index, ranges, ids, t_lo, t_hi, reads,
+                                     tabs, per_lane, gate_t, switchpoint)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return got
+
+
+@pytest.mark.parametrize("shape", ["static", "two_stage", "dyn"])
+def test_exact_loop_kernel(setup, gpu, shape):
+    """Kernel A's loop entry on the Vanilla index: a static schedule's
+    (E, S) tables from the full range, the second stage of the two-stage
+    loop (compacted lanes with their own ids, steps from 8), and per-read
+    tables; narrow lanes drain past the gate step, dead lanes stay zero."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(29)
+    m = 100
+    batch = torch.from_numpy(_reads(rng, g, 128, m, 2)).to(gpu)
+    R = batch.shape[0]
+    if shape == "dyn":
+        scheme = get_scheme("kuch1", 2)
+        st = dynschedule.scheme_static(scheme, m, "edit")
+        pts = dynschedule.dynamic_partition(fm, batch, scheme, None)
+        dyn = dynschedule.build_tables(st, pts, batch)
+        tabs = (dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"])
+        S = st.num_searches
+    else:
+        sched = pipeline.compile_cached(get_scheme("kuch1", 2), m, "edit",
+                                        kmer_k=0)
+        tables = executor.device_tables(sched, gpu)
+        tabs = (tables["ex_pos"], tables["ex_dir"], tables["db_ex"])
+        S = sched.num_searches
+    L = R * S
+    ranges = fm.full_range((L,)).clone()
+    ranges[::13] = 0                              # lanes that start dead
+    E = tabs[0].shape[1] if shape == "dyn" else tabs[0].shape[0]
+    ids, t_lo = None, 0
+    if shape == "two_stage":
+        ids = torch.from_numpy(np.sort(rng.choice(L, L // 3, replace=False))
+                               .astype(np.int32)).to(gpu)
+        ranges, _ = executor.exact_loop_plain(
+            fm, ranges[ids.long()], ids, 0, 8, batch, tabs, False, 10, 4)
+        t_lo = 8
+    _, drows = loop_vs_plain(fm, ranges, ids, t_lo, E, batch, tabs,
+                             shape == "dyn", 10, 4)
+    assert bool((drows[:, 1] > drows[:, 0]).any())
+    # without the crossover the lanes of exact read stretches stay live
+    out, drows = loop_vs_plain(fm, ranges, ids, t_lo, E, batch, tabs,
+                               shape == "dyn", 10, 0)
+    assert bool((out[:, 1] > out[:, 0]).any()) and not bool(drows.any())
+
+
+def test_exact_loop_launches(setup, gpu):
+    """run_scheme's exact prefix is one launch of kernel A's loop entry, or
+    two with the two-stage loop, and kernel B launches once per band
+    step; no extend_char launch."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(30)
+    batch = torch.from_numpy(_reads(rng, g, 96, 100, 2)).to(gpu)
+    sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit",
+                                    kmer_k=6)
+    table = kmer.build_kmer_table(fm, 6)
+    for ex_split, loops in ((0, 1), (4, 2)):
+        for k in (extend.KERNEL, executor.KERNEL):
+            k.reset()
+        executor.run_scheme(fm, batch, sched, 2048, table, 0,
+                            ex_split=ex_split, ex_cap=256)
+        torch.cuda.synchronize()
+        assert extend.KERNEL.by_entry == {"loop": loops}
+        assert extend.KERNEL.launches == loops
+        assert 0 < executor.KERNEL.launches <= sched.t_max
 
 
 @pytest.mark.parametrize("words", [4, 8, 16])
@@ -472,7 +589,7 @@ def test_launch_counters_from_threads(setup, gpu):
 
 
 # ---------------------------------------------------------------------------
-# RLC (b-move) entries of kernels A, B, C and E
+# RLC (b-move) entries of kernels A (its loop), B, C and E
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -519,29 +636,6 @@ def _rlc_states(index, rng, L, steps=12):
     return states
 
 
-@pytest.mark.parametrize("flavor", ["rlc", "textless"])
-def test_rlc_extend_kernel(rlc_setup, gpu, flavor):
-    """Kernel A's RLC entry (8 and 12 wide) equals bextend's plain version on
-    every column, run hints and toeholds included."""
-    _, idx = rlc_setup
-    _, cpu_bm, bm = idx[flavor]
-    rng = np.random.default_rng(41)
-    states = _rlc_states(cpu_bm, rng, 1024)
-    L = states.shape[0]
-    dirs = torch.from_numpy(rng.integers(0, 2, L).astype(np.int32))
-    chars = torch.from_numpy(rng.integers(-1, 5, L).astype(np.int32))
-    r, d, c = states.to(gpu), dirs.to(gpu), chars.to(gpu)
-    before = extend.KERNEL.by_entry.get("rlc", 0)
-    got = extend.extend_all(bm, r, d)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), extend.extend_all_plain(cpu_bm, states,
-                                                          dirs))
-    got = extend.extend_char(bm, r, c, d)
-    assert torch.equal(got.cpu(), extend.extend_char_plain(cpu_bm, states,
-                                                           c.cpu(), dirs))
-    assert extend.KERNEL.by_entry["rlc"] == before + 2
-
-
 def test_rlc_locate_kernel(rlc_setup, gpu):
     """Kernel C's RLC entry on every row: run heads and tails, strided rows,
     row 0 and row n among them."""
@@ -582,8 +676,8 @@ def test_rlc_exact_kernel(rlc_setup, gpu):
     ("textless", 5, 3)])
 def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
     """Kernel B's RLC and textless entries (templated and generic) on valid
-    RLC lane states and random step tables equal band_step_plain on every
-    output, witness slots included."""
+    RLC lane states and random step tables equal band_step_compact_plain on
+    every output, witness slots included."""
     _, idx = rlc_setup
     _, cpu_bm, bm = idx[flavor]
     rng = np.random.default_rng(43 + 10 * kb + W)
@@ -591,27 +685,34 @@ def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
     states = _rlc_states(cpu_bm, rng, 256)
     C = states.shape[0]
     bw, R, S, T, t = 2 * kb + 1, 96, 7, 5, 3
-    Wp = 2 * W if track else W
-    ids = rng.integers(0, R * S, C).astype(np.int64)
-    ghost = rng.random(C) < 0.1
-    ids = np.where(ghost, ids | (rng.integers(0, 1024, C) << 21) | (1 << 31),
-                   ids).astype(np.uint32).view(np.int32)
-    args = [
-        states, torch.from_numpy(ids),
-        torch.from_numpy(np.where(rng.random((C, 2, bw)) < 0.5,
-                                  rng.integers(0, 4, (C, 2, bw)),
-                                  rng.integers(0, 64, (C, 2, bw))
-                                  ).astype(np.int8)),
-        torch.from_numpy(rng.integers(0, 64, (C, 2, Wp)).astype(np.int8)),
-        torch.from_numpy(_random_mrow(rng, S, bw, W)),
-        torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(np.int8))]
-    tail = (T, t, 0 if track else 4, None, track)
-    got = executor.band_step(bm, *[a.to(gpu) for a in args], *tail)
-    torch.cuda.synchronize()
-    want = executor.band_step_plain(cpu_bm, *args, *tail)
-    for k in want:
-        assert torch.equal(got[k].cpu(), want[k]), k
-    assert bool((got["ch_alive"] & got["act"][:, None]).any())
+    state = _random_state(rng, 8, C, R, S, bw, 2 * W if track else W, gpu)
+    state[0] = states.to(gpu)
+    mrow = torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu)
+    pchars = torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(
+        np.int8)).to(gpu)
+    n, _ = fused_vs_plain(bm, state, mrow, pchars, T, t,
+                          0 if track else 4, track_arg=track)
+    assert n > 0
+
+
+@pytest.mark.parametrize("flavor", ["rlc", "textless"])
+def test_rlc_exact_loop_kernel(rlc_setup, gpu, flavor):
+    """Kernel A's loop entry on 8- and 12-wide RLC lanes (run hints and
+    toeholds walked with every step) equals exact_loop_plain."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx[flavor]
+    rng = np.random.default_rng(46)
+    batch = torch.from_numpy(_reads(rng, g, 64, 100, 2)).to(gpu)
+    sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit")
+    tables = executor.device_tables(sched, gpu)
+    tabs = (tables["ex_pos"], tables["ex_dir"], tables["db_ex"])
+    L = batch.shape[0] * sched.num_searches
+    ranges = bm.full_range((L,)).clone()
+    ranges[::11] = 0
+    out, drows = loop_vs_plain(bm, ranges, None, 0, sched.e_max, batch,
+                               tabs, False, 10, 0 if flavor == "textless"
+                               else 4)
+    assert bool((out[:, 1] > out[:, 0]).any())
 
 
 @pytest.mark.parametrize("flavor,switchpoint", [("rlc", 4), ("rlc", 0),
