@@ -64,11 +64,15 @@ a CUDA device. It
    sequence, 20 haplotypes of one 6.4 Mbp base at 0.1 % SNP divergence,
    seed 20260820), builds it with ``cli build --rlc`` and ``--rlc
    --textless`` (two processes at once), prints each flavor's index bytes
-   on disk and on the card, holds the RLC entries of kernels A, B, C and E
-   (``extend.loop_rlc`` on 8- and 12-wide lanes, ``band_step.rlc``,
-   ``band_step.textless``, ``locate.rlc``, ``exact.rlc``) against their
-   plain versions at the paths' shapes with their bounds, and drives five
-   more paths:
+   on disk and on the card, holds the RLC entries of kernels A, B, C, E
+   and F (``extend.loop_rlc`` on 8- and 12-wide lanes and on per-read
+   tables, ``extend.rlc`` both ways, ``band_step.rlc``,
+   ``band_step.per_lane_rlc`` at kb 2 and 4, ``band_step.textless``,
+   ``locate.rlc``, ``exact.rlc``, ``exact.rlc_lengths``, ``dynpart.rlc``
+   with every column of its final part ranges) against their plain
+   versions at the paths' shapes with their bounds, builds the RLC index's
+   10-mer table (path ``rlc_kmer_table``: ``extend.rlc``, sampled rows held
+   to the plain exact match) and drives eight more paths:
 
    - ``rlc_se_all``: ``-a all -e 2 -S kuch1 -b 16384 -nD`` (the JAX
      package's RLC bench) on 65,536 reads of the pan-genome;
@@ -77,10 +81,18 @@ a CUDA device. It
      250-450 bp), whose rung (0,0) is the exact pass (``exact.rlc``);
    - ``tl_se_all`` and ``tl_se_best``: the same SE commands on the textless
      index (the frontier pass with witness slots, phi locate on the host);
+   - ``rlc_se_all_dynamic``: ``rlc_se_all`` with ``-p dynamic`` (kernels F
+     and G, kernel B's per-lane RLC entry); its records must be
+     ``rlc_se_all``'s;
+   - ``rlc_se_best_d``: ``-a best -d DIR`` with the SE BEST ``-d`` path's
+     collection (``exact.rlc_lengths``, the masked pass);
+   - ``rlc_pe_best_c``: ``-a best -c schemes/kuch_k+1 -F`` on the
+     ``rlc_pe_best`` pairs, selection on;
 
    with the same checks (SE ALL: every read with <= 2 substitutions at its
    locus; BEST: its best distance; PE: its pair, unless another haplotype
-   holds a better one), and one batch of the RLC and of the textless index
+   holds a better one), and one batch of the RLC and of the textless index,
+   and of the RLC index with dynamic partitioning and with scheme selection,
    through the plain versions on the card.
 
 The line before the last holds the kernels' JSON record; the last line is
@@ -135,6 +147,10 @@ PATH_KERNELS = {
     "rlc_pe_best": ("extend", "band_step", "locate", "verify", "exact"),
     "tl_se_all": ("extend", "band_step"),
     "tl_se_best": ("extend", "band_step"),
+    "rlc_se_all_dynamic": ("extend", "band_step", "locate", "verify",
+                           "dynpart", "dyn_tables"),
+    "rlc_se_best_d": ("extend", "band_step", "locate", "verify", "exact"),
+    "rlc_pe_best_c": ("extend", "band_step", "locate", "verify", "exact"),
 }
 # the entries of kernels A, B, C and E each path must go through (see
 # native.Kernel.by_entry), as "kernel.entry"
@@ -152,9 +168,14 @@ PATH_ENTRIES = {
     "rlc_pe_best": _RLC_ENTRIES + ("exact.rlc",),
     "tl_se_all": ("extend.loop_rlc", "band_step.textless"),
     "tl_se_best": ("extend.loop_rlc", "band_step.textless"),
+    "rlc_se_all_dynamic": ("extend.loop_rlc", "band_step.per_lane_rlc",
+                           "locate.rlc", "dynpart.rlc"),
+    "rlc_se_best_d": _RLC_ENTRIES + ("exact.rlc_lengths",),
+    "rlc_pe_best_c": _RLC_ENTRIES + ("exact.rlc", "exact.rlc_lengths"),
 }
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
-             "tl_se_best")
+             "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
+             "rlc_pe_best_c")
 SCHEMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "schemes")
 
 
@@ -261,7 +282,8 @@ def check_fused(index, state, mrow_t, pchars, T, t, switchpoint,
                plain_ms=cuda_time(calls["plain"], plain_reps))
     o = executor.band_step_plain(index, *state, mrow_t, pchars, T, t,
                                  switchpoint, dyn_meta, track)
-    stats = (bounds.rlc_band_stats(index, state, mrow_t, o, cap)
+    stats = (bounds.rlc_band_stats(index, state, mrow_t, o, cap, dyn_meta,
+                                   T, t)
              if isinstance(index, BMoveIndex) else None)
     b = bounds.band_step(state, mrow_t, o, cap, M, cnt, stats)
     return rep, b, w & 0xFFFFFFFF, w >> 32
@@ -773,6 +795,8 @@ def rlc_kernel_checks(bm, tl, batch) -> dict:
                 f"{int((out[:, 1] > out[:, 0]).sum())} matched", rep,
                 bounds.exact_rlc(steps, stats, out))
 
+    report.update(rlc_select_checks(bm, batch, rng, states))
+
     # kernel C (locate.rlc): max_locate = max(65,536, 4 R) random rows
     ml = max(1 << 16, 4 * R)
     rows = torch.from_numpy(rng.integers(0, bm.n + 1, ml)).to(dev)
@@ -784,6 +808,149 @@ def rlc_kernel_checks(bm, tl, batch) -> dict:
     note_kernel(report, "locate.rlc",
                 f"{ml} rows, {stats['steps'] / ml:.2f} LF steps a row", rep,
                 bounds.locate_rlc(rows, stats, out))
+    return report
+
+
+def rlc_select_checks(bm, batch, rng, states) -> dict:
+    """The RLC entries of this slice against their plain versions on the
+    card, with their bounds, at the shapes of the RLC paths: kernel A's
+    per-step entry (``extend.rlc``: extend_all and extend_char on R x S
+    lanes), kernel F's (``dynpart.rlc``: kuch1 k = 2, K = 1, every column
+    of the final part ranges too), kernel B's per-lane entry
+    (``band_step.per_lane_rlc`` at kb 2 and 4 on kernel G's tables of F's
+    boundaries, C = 12,288 lanes), kernel A's loop on those per-read
+    tables, and kernel E with lengths (``exact.rlc_lengths``: the -d
+    probe's 5 x R part patterns of 20 chars at the BEST cutoff)."""
+    from columba_tpu_torch.ops import bextend, extend
+    from columba_tpu_torch.search import dynschedule, executor, schedule
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import bounds
+
+    dev = bm.device
+    R = batch.shape[0]
+    report = {}
+    scheme = get_scheme("kuch1", K)
+    p, S = scheme.num_parts, len(scheme.searches)
+    L = R * S
+
+    # kernel A's per-step RLC entry: valid lanes of the exact prefix's
+    # shape (R x S), random directions and chars
+    lanes = rlc_lane_states(bm, batch, rng, L)
+    dirs = torch.from_numpy(rng.integers(0, 2, L).astype(np.int32)).to(dev)
+    chars = torch.from_numpy(rng.integers(0, 5, L).astype(np.int32)).to(dev)
+    out, rep = check_kernel(
+        "extend.rlc", lambda: extend.extend_all(bm, lanes, dirs),
+        lambda: extend.extend_all_plain(bm, lanes, dirs), plain_reps=1)
+    stats = {}
+    bextend.extend_all_plain(bm, lanes, dirs, None, stats)
+    b = bounds.extend_rlc(lanes, dirs, None, out, stats)
+    log(f"kernel extend.rlc extend_all ({L} lanes x 8, "
+        f"{int((out[..., 1] > out[..., 0]).sum())} children): equal to "
+        f"plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; bound "
+        f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes']} bytes), "
+        f"share {b['bound_ms'] / rep['ms']:.4f}")
+    out, rep = check_kernel(
+        "extend.rlc", lambda: extend.extend_char(bm, lanes, chars, dirs),
+        lambda: extend.extend_char_plain(bm, lanes, chars, dirs),
+        plain_reps=1)
+    stats = {}
+    bextend.extend_char_plain(bm, lanes, chars, dirs, stats)
+    note_kernel(report, "extend.rlc", f"extend_char, {L} lanes x 8, "
+                f"{int((out[:, 1] > out[:, 0]).sum())} live after", rep,
+                bounds.extend_rlc(lanes, dirs, chars, out, stats))
+    del lanes, dirs, chars, out
+
+    # kernel F's RLC entry: boundaries and the final 8-wide part ranges
+    def part(fn):
+        def call():
+            rng_out = torch.empty((R, p, 8), dtype=torch.int64, device=dev)
+            return dict(pts=fn(bm, batch, scheme, None, rng_out),
+                        ranges=rng_out)
+        return call
+    got, rep = check_kernel(
+        "dynpart.rlc", part(dynschedule.dynamic_partition),
+        part(dynschedule.dynamic_partition_plain), reps=10, plain_reps=1)
+    pts = got["pts"]
+    stats = {}
+    dynschedule.dynamic_partition_plain(bm, batch, scheme, None, None, stats)
+    note_kernel(report, "dynpart.rlc", f"{R} rows x {READ_LEN} bp, kuch1 "
+                f"k={K}, p={p}, K=1 ({READ_LEN - p} steps), "
+                f"{int((got['ranges'][..., 1] > got['ranges'][..., 0]).sum())}"
+                f" of {R * p} final parts live", rep,
+                bounds.dynpart_rlc(batch, p, 1, False, stats, pts))
+    del got
+
+    # kernel G's tables of F's boundaries; kernel B's per-lane RLC entry on
+    # them at kb 2 and 4 (C = 12,288 valid lanes); kernel A's loop on the
+    # per-read tables at kb 2
+    C = 12_288
+    for k in (K, BEST_CUT):
+        sc = get_scheme("kuch1", k)
+        st = dynschedule.scheme_static(sc, READ_LEN, "edit")
+        pts_k = pts if k == K else dynschedule.dynamic_partition(
+            bm, batch, sc)
+        dyn = dynschedule.build_tables(st, pts_k, batch)
+        Sk, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
+        t = T - READ_LEN // 3          # inside the last part's band steps
+        ids = torch.from_numpy(rng.integers(0, R * Sk, C).astype(
+            np.int32)).to(dev)
+        band = torch.from_numpy(rng.integers(0, 4, (C, 2, bw)).astype(
+            np.int8)).to(dev)
+        colmin = torch.from_numpy(rng.integers(0, 3, (C, 2, 1)).astype(
+            np.int8)).to(dev)
+        state = [states[:C].contiguous(), ids, band, colmin]
+        rep, b, n, _ = check_fused(bm, state, None, dyn["pchars"], T, t, 4,
+                                   dyn["meta"].reshape(-1), plain_reps=2)
+        if n == 0:
+            raise AssertionError("no child kept in the per-lane RLC step")
+        shape = (f"per-lane RLC entry, fused step, C={C} lanes x 8, "
+                 f"kb={st.kb}, W=1; {n} children kept")
+        if k == K:
+            note_kernel(report, "band_step.per_lane_rlc", shape, rep, b)
+            check_overflow("band_step.per_lane_rlc", bm, state, None,
+                           dyn["pchars"], T, t, 30, dyn["meta"].reshape(-1))
+            rep, b, out, drows = check_loop(
+                bm, bm.full_range((R * Sk,)), None, 0,
+                dyn["ex_pos"].shape[1], batch,
+                (dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"]), True,
+                19, 4, reps=5)
+            log(f"kernel extend.loop_rlc on per-read tables ({R * Sk} lanes "
+                f"x 8 from the full range, {dyn['ex_pos'].shape[1]} steps, "
+                f"{int((drows[:, 1] > drows[:, 0]).sum())} drained, "
+                f"{int((out[:, 1] > out[:, 0]).sum())} live after): equal to "
+                f"plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} "
+                f"ms; bound {b['bound_ms']:.5f} ms by {b['bound_by']}, share "
+                f"{b['bound_ms'] / rep['ms']:.4f}")
+        else:
+            log(f"kernel band_step.per_lane_rlc ({shape}): equal to plain; "
+                f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; "
+                f"bound {b['bound_ms']:.5f} ms by {b['bound_by']}, share "
+                f"{b['bound_ms'] / rep['ms']:.4f}")
+        del dyn, state
+
+    # kernel E with lengths on the R x p part patterns of scheme selection
+    # at the BEST cutoff, as select_schemes makes them on the -d path
+    p4 = get_scheme("kuch1", BEST_CUT).num_parts
+    cuts = schedule.uniform_partition(READ_LEN, p4)
+    lens = np.diff(cuts)
+    pos = np.full((p4, lens.max()), -1, np.int64)
+    for i in range(p4):
+        pos[i, :lens[i]] = np.arange(cuts[i], cuts[i + 1])
+    pos = torch.from_numpy(pos).to(dev)
+    pats = torch.where((pos >= 0)[None], batch[:, pos.clamp(min=0)], 5)
+    pats = pats.reshape(R * p4, -1).contiguous()
+    lengths = torch.from_numpy(lens.astype(np.int32)).to(dev).repeat(R)
+    out, rep = check_kernel(
+        "exact.rlc_lengths", lambda: extend.exact_match(bm, pats, lengths),
+        lambda: extend.zero_empty(extend.exact_match_plain(bm, pats,
+                                                           lengths)),
+        reps=10, plain_reps=1)
+    stats = {}
+    steps = bounds.exact_steps(bm, pats, lengths, stats)
+    note_kernel(report, "exact.rlc_lengths",
+                f"{R * p4} part patterns of {lens.min()}-{lens.max()} chars, "
+                f"{int((out[:, 1] > out[:, 0]).sum())} matched", rep,
+                bounds.exact_rlc(steps, stats, out))
     return report
 
 
@@ -908,16 +1075,21 @@ def plain_patch():
     return restore
 
 
-def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
-                index_of) -> dict:
+def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
+                warm, argv_of, n_of, index_of) -> dict:
     """The RLC and textless indexes: the pan-genome's FASTA, both ``cli
     build`` runs (two processes at once), index bytes, the RLC entries'
-    kernel checks, the five RLC paths through ``drive`` (which fills the
-    launch tables), their output checks and one batch of each flavor
+    kernel checks, the k-mer table build on the RLC index (kernel A's
+    per-step RLC entry; its launches go to ``record``), the eight RLC paths
+    through ``drive`` (which fills the launch tables; ``collection`` is the
+    -d path's folder), their output checks and one batch of each flavor
     through the plain versions. Returns the kernel records."""
+    from columba_tpu_torch import native
     from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
+    from columba_tpu_torch.index.kmer import build_kmer_table
+    from columba_tpu_torch.ops import extend
     from columba_tpu_torch.search import pipeline
-    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
     from columba_tpu_torch.tools import workload
 
     t0 = time.time()
@@ -979,6 +1151,39 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
     report = rlc_kernel_checks(bm, tl, batch)
     del batch
 
+    # kernel A's per-step RLC entry through its caller on the card: the
+    # 10-mer seed table of the RLC index (index/kmer.py; cli align builds
+    # none on RLC, a library caller may pass one to match_all), 4^10 lanes
+    # x 10 extend_char steps; 65,536 sampled rows held to the plain exact
+    # match of their k-mers
+    for k in native.KERNELS.values():
+        k.reset()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    table = build_kmer_table(bm, 10)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    record("rlc_kmer_table",
+           {k: v.launches for k, v in native.KERNELS.items()},
+           {f"{k}.{e}": c for k, v in native.KERNELS.items()
+            for e, c in v.by_entry.items()})
+    codes = torch.from_numpy(rng.integers(0, 4 ** 10, 65_536)).to(dev)
+    kmers = ((codes[:, None] >> (2 * torch.arange(9, -1, -1, device=dev)))
+             & 3).to(torch.uint8).contiguous()
+    want = extend.zero_empty(extend.exact_match_plain(bm, kmers))
+    if not torch.equal(table[codes], want):
+        raise AssertionError("the RLC k-mer table differs from the plain "
+                             "exact match of its k-mers")
+    log(f"path rlc_kmer_table: 10-mer table of the RLC index ({4 ** 10} "
+        f"lanes x 8) in {dt:.3f} s, {int((table[:, 1] > table[:, 0]).sum())}"
+        f" k-mers occur; 65,536 sampled rows equal the plain exact match; "
+        f"kernel A's RLC entry launched "
+        f"{native.KERNELS['extend'].by_entry.get('rlc', 0)} times")
+    if native.KERNELS["extend"].by_entry.get("rlc", 0) == 0:
+        raise AssertionError("extend.rlc not launched by the RLC k-mer "
+                             "table build")
+    del table, codes, kmers, want
+
     def fq(tag, codes, prefix="r"):
         path = os.path.join(wd, tag + ".fq")
         workload.write_fastq(path, codes, prefix)
@@ -990,14 +1195,19 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
         index_of[path] = idx_of["textless" if path.startswith("tl")
                                 else "rlc"]
         files[path], warm[path], n_of[path] = se, se_warm, N_RLC_READS
-    files["rlc_pe_best"] = (fq("pan_p1", m1), fq("pan_p2", m2))
-    warm["rlc_pe_best"] = (fq("pan_w1", m1[:RLC_WARMUP], "w"),
-                           fq("pan_w2", m2[:RLC_WARMUP], "w"))
-    n_of["rlc_pe_best"] = N_RLC_PAIRS
+    files["rlc_pe_best"] = files["rlc_pe_best_c"] = (
+        fq("pan_p1", m1), fq("pan_p2", m2))
+    warm["rlc_pe_best"] = warm["rlc_pe_best_c"] = (
+        fq("pan_w1", m1[:RLC_WARMUP], "w"), fq("pan_w2", m2[:RLC_WARMUP], "w"))
+    n_of["rlc_pe_best"] = n_of["rlc_pe_best_c"] = N_RLC_PAIRS
     all_k = ["-a", "all", "-e", str(K), "-nD"]   # the JAX package's bench
     argv_of.update(rlc_se_all=all_k, tl_se_all=all_k,
                    rlc_se_best=["-a", "best"], tl_se_best=["-a", "best"],
-                   rlc_pe_best=["-a", "best"])
+                   rlc_pe_best=["-a", "best"],
+                   rlc_se_all_dynamic=all_k + ["-p", "dynamic"],
+                   rlc_se_best_d=["-a", "best", "-d", collection],
+                   rlc_pe_best_c=["-a", "best", "-c",
+                                  os.path.join(SCHEMES, "kuch_k+1")])
     for path in RLC_PATHS:
         drive(path, f"pan-genome {n} bp, {path.split('_')[0]} index")
 
@@ -1008,7 +1218,8 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
         return q * 2 + rev
 
     want_p1 = pos + 1
-    for tag in ("rlc_se_all", "tl_se_all"):
+    occ_sets = {}
+    for tag in ("rlc_se_all", "tl_se_all", "rlc_se_all_dynamic"):
         q, _, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"), seq_ids)
         want = np.nonzero(nsub <= K)[0]
         dist, _ = nearest((key(q, (fl & 16) > 0), p1, nm),
@@ -1021,7 +1232,18 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
         if len(lost):
             raise AssertionError(f"{tag}: reads not found at their locus: "
                                  f"{lost[:10].tolist()}")
-    for tag in ("rlc_se_best", "tl_se_best"):
+        occ_sets[tag] = np.unique(np.stack([q, p1, fl & 16, nm], axis=1),
+                                  axis=0)
+    # both runs are lossless at k: -p dynamic reports the same occurrences
+    a, b = occ_sets["rlc_se_all"], occ_sets["rlc_se_all_dynamic"]
+    same = a.shape == b.shape and bool((a == b).all())
+    log(f"rlc_se_all_dynamic against rlc_se_all on the same FASTQ: {len(b)} "
+        f"and {len(a)} distinct (read, position, strand, NM) records, "
+        f"{'the same set' if same else 'DIFFERENT sets'}")
+    if not same:
+        raise AssertionError("rlc_se_all_dynamic reports another occurrence "
+                             "set than rlc_se_all")
+    for tag in ("rlc_se_best", "tl_se_best", "rlc_se_best_d"):
         q, _, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"), seq_ids)
         best_nm = np.full(N_RLC_READS, 1 << 40, np.int64)
         np.minimum.at(best_nm, q, nm)
@@ -1046,35 +1268,43 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
     # pair is missing when its best reported total is above its
     # substitutions, or equal to them without the sampled loci among the
     # pairs at that total
-    pairs = proper_pairs(os.path.join(wd, "rlc_pe_best.sam"))
     want = np.nonzero((nsub1 <= 2) & (nsub2 <= 2))[0]
     t1 = np.where(swapped, pos_r, pos_f) + 1      # mate 1's sampled pos1
     t2 = np.where(swapped, pos_f, pos_r) + 1
-    missing, better = [], 0
-    for i in want:
-        got = pairs.get(int(i), [])
-        best = min((tot for *_, tot in got), default=1 << 30)
-        true_tot = int(nsub1[i] + nsub2[i])
-        if best < true_tot:
-            better += 1
-        elif best > true_tot or not any(
-                tot == best and abs(a - t1[i]) <= 2 and abs(b - t2[i]) <= 2
-                for a, b, tot in got):
-            missing.append(int(i))
-    log(f"rlc_pe_best check: {len(want)} pairs with <= 2 substitutions in "
-        f"each mate; {len(want) - better - len(missing)} reported as a "
-        f"proper pair at both sampled loci, {better} with a better pair "
-        f"elsewhere, {len(missing)} missing; {len(pairs)} pairs with a "
-        f"proper pair")
-    if missing:
-        raise AssertionError(f"rlc_pe_best: pairs not found: {missing[:10]}")
+    for tag in ("rlc_pe_best", "rlc_pe_best_c"):
+        pairs = proper_pairs(os.path.join(wd, tag + ".sam"))
+        missing, better = [], 0
+        for i in want:
+            got = pairs.get(int(i), [])
+            best = min((tot for *_, tot in got), default=1 << 30)
+            true_tot = int(nsub1[i] + nsub2[i])
+            if best < true_tot:
+                better += 1
+            elif best > true_tot or not any(
+                    tot == best and abs(a - t1[i]) <= 2
+                    and abs(b - t2[i]) <= 2 for a, b, tot in got):
+                missing.append(int(i))
+        log(f"{tag} check: {len(want)} pairs with <= 2 substitutions in "
+            f"each mate; {len(want) - better - len(missing)} reported as a "
+            f"proper pair at both sampled loci, {better} with a better pair "
+            f"elsewhere, {len(missing)} missing; {len(pairs)} pairs with a "
+            f"proper pair")
+        if missing:
+            raise AssertionError(f"{tag}: pairs not found: {missing[:10]}")
 
-    # one batch of each flavor again through the plain versions on the card
-    scheme = get_scheme("kuch1", K)
+    # one batch of each flavor again through the plain versions on the
+    # card, and on the RLC index with dynamic partitioning and with scheme
+    # selection (kuch1 and its mirror)
     for what, index, kw, nr in (
-            ("RLC, switchpoint 4", bm, dict(switchpoint=4), BATCH),
-            ("textless", tl, dict(host_arrays=arrays["textless"]),
-             PLAIN_TL_READS)):
+            ("the RLC index, switchpoint 4", bm, dict(switchpoint=4), BATCH),
+            ("the textless index", tl, dict(host_arrays=arrays["textless"]),
+             PLAIN_TL_READS),
+            ("the RLC index, dynamic partitioning", bm,
+             dict(switchpoint=4, partitioning="dynamic"), PLAIN_TL_READS),
+            ("the RLC index, scheme selection", bm,
+             dict(switchpoint=4, selection=True), PLAIN_TL_READS)):
+        scheme = (get_multi_scheme("kuch1", K) if kw.pop("selection", False)
+                  else get_scheme("kuch1", K))
         occ_k, _ = pipeline.match_all(index, reads[:nr], scheme, **kw)
         restore = plain_patch()
         try:
@@ -1084,8 +1314,8 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, files, warm, argv_of, n_of,
         for f in ("read_id", "strand", "begin", "end", "distance"):
             if not np.array_equal(getattr(occ_k, f), getattr(occ_p, f)):
                 raise AssertionError(f"plain-path OccArray differs in {f} "
-                                     f"on the {what} index")
-        log(f"plain versions on the card, {what} index, k = {K}: identical "
+                                     f"on {what}")
+        log(f"plain versions on the card, {what}, k = {K}: identical "
             f"OccArray for one batch of {nr} reads ({len(occ_k)} "
             f"occurrences)")
     return report
@@ -1228,6 +1458,10 @@ def main() -> int:
 
         launches_by_path = {"kmer_table": kmer_launches}
         entries_by_path = {"kmer_table": {}}
+
+        def record(path, launches, entries):
+            launches_by_path[path] = launches
+            entries_by_path[path] = entries
 
         runs = [0]                   # run_scheme calls of a path
         run_scheme = executor.run_scheme
@@ -1478,7 +1712,8 @@ def main() -> int:
 
         del index, table         # card memory for the RLC indexes
         report.update(rlc_section(
-            wd, dev, smi, idx, drive, files, warm, argv_of, n_of, index_of))
+            wd, dev, smi, idx, drive, record, multi, files, warm, argv_of,
+            n_of, index_of))
 
     # one record per kernel, and one more for each named entry of kernels
     # A, B, C and E (its launches are a share of its kernel's)
@@ -1489,7 +1724,12 @@ def main() -> int:
                 "band_step.rlc": "columba_tpu/search/executor.py:587",
                 "band_step.textless": "columba_tpu/search/pipeline.py:770",
                 "exact.rlc": "columba_tpu/ops/bextend.py:259",
-                "locate.rlc": "columba_tpu/ops/blocate.py:40"}
+                "locate.rlc": "columba_tpu/ops/blocate.py:40",
+                "extend.rlc": "columba_tpu/ops/bextend.py:259",
+                "exact.rlc_lengths": "columba_tpu/search/pipeline.py:381",
+                "dynpart.rlc": "columba_tpu/search/dynschedule.py:283",
+                "band_step.per_lane_rlc":
+                    "columba_tpu/search/executor.py:600"}
     kernels = []
     for k in native.KERNELS.values():
         entries = [k.name] + [n for n in report if n.startswith(k.name + ".")]

@@ -5,11 +5,10 @@ port covers the Vanilla and RLC index builds (``--rlc``, ``--rlc
 --textless``) and the alignment of FASTQ input to SAM in ALL and BEST(+x)
 mode, single-end and paired-end, with uniform, static or dynamic
 partitioning, builtin schemes, scheme folders (``-c``) and scheme
-collections with per-read selection (``-d``). On the RLC index dynamic
-partitioning and per-read selection are not ported yet; the textless index
-aligns single-end only, without CIGARs and without in-text verification,
-as in the JAX package. What is still missing raises
-``NotImplementedError`` naming its ROADMAP item.
+collections with per-read selection (``-d``), on the Vanilla and the
+with-text RLC index; the textless index aligns single-end only, without
+CIGARs and without in-text verification, as in the JAX package. What is
+still missing raises ``NotImplementedError`` naming its ROADMAP item.
 
 Alignment runs on the CUDA device (``--device cuda``, the default) and
 raises if there is none; ``--device cpu`` runs the plain PyTorch versions
@@ -92,6 +91,9 @@ def main(argv=None):
                    help="accepted for compatibility")
     a.add_argument("-l", "--log-file", default=None)
     a.add_argument("-v", "--verbose", action="store_true")
+    a.add_argument("-R", "--reorder", action="store_true",
+                   help="accepted for compatibility; output is always in "
+                        "input order")
     a.add_argument("-nC", "--no-CIGAR", dest="no_cigar", action="store_true",
                    help="do not output CIGAR strings")
     a.add_argument("-aC", "--activate-CIGAR", dest="activate_cigar",
@@ -182,7 +184,7 @@ def cmd_build(args):
     return 0
 
 
-def _unsupported(args, flavor: str, textless: bool) -> str | None:
+def _unsupported(args, flavor: str) -> str | None:
     """The ROADMAP item of an option the port does not run yet on this
     index flavor, or None."""
     if args.trim:
@@ -191,15 +193,6 @@ def _unsupported(args, flavor: str, textless: bool) -> str | None:
         return "read-hit-summary output (ROADMAP queue 1, item 9)"
     if flavor not in ("vanilla", "rlc"):
         return f"{flavor} indexes (ROADMAP queue 1, item 12)"
-    if flavor == "rlc" and not textless:
-        # the RLC entries of kernel F and of kernel E with lengths
-        if args.partitioning == "dynamic":
-            return "-p dynamic on the RLC index (ROADMAP queue 1, item 13b)"
-        if (args.dynamic_selection_path or args.probe_selection
-                or (args.custom and not args.no_dynamic_selection)):
-            return ("per-read scheme selection (-d, -c without -nD, "
-                    "--probe-selection) on the RLC index (ROADMAP queue 1, "
-                    "item 13b)")
     return None
 
 
@@ -242,7 +235,7 @@ def cmd_align(args):
             logger.verbose_msg("textless index: in-text verification "
                                "disabled (-i 0)")
             args.in_text = 0
-    missing = _unsupported(args, flavor, textless)
+    missing = _unsupported(args, flavor)
     if missing is None and not (
             emit.available() and emit.pe_available()
             and fastq.native_reader_available()

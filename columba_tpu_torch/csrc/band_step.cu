@@ -4,7 +4,6 @@
 #include "band_step.cuh"
 
 using columba_band::BandArgs;
-using columba_band::launch;
 
 extern "C" int columba_band_step(
     const int* occ, long long blocks, unsigned c0, unsigned c1, unsigned c2,
@@ -24,16 +23,7 @@ extern "C" int columba_band_step(
                                  M, cnt, ctr, status, tiles, epoch))
     return static_cast<int>(cudaErrorInvalidValue);
   a.dyn_meta = dyn_meta;
-  if (dyn_meta != nullptr) {    // per-lane entry: one register
-    if (W != 1) return static_cast<int>(cudaErrorInvalidValue);
-    switch (kb) {
-      case 0: return launch<0, 1, true>(a, stream);
-      case 1: return launch<1, 1, true>(a, stream);
-      case 2: return launch<2, 1, true>(a, stream);
-      case 3: return launch<3, 1, true>(a, stream);
-      case 4: return launch<4, 1, true>(a, stream);
-      default: return launch<-1, 0, true>(a, stream);
-    }
-  }
+  if (dyn_meta != nullptr)       // per-lane entry
+    return columba_band::launch_per_lane<4>(a, kb, W, stream);
   return columba_band::launch_static<4>(a, kb, W, stream);
 }

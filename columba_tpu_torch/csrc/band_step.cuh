@@ -479,6 +479,21 @@ int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream) {
   }
 }
 
+// The per-lane entry of lane width RW (per-read schedules): one register,
+// kb 0..4 templated, the rest through the generic entry.
+template <int RW>
+int launch_per_lane(const BandArgs& a, int kb, int W, cudaStream_t stream) {
+  if (W != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (kb) {
+    case 0: return launch<0, 1, true, RW>(a, stream);
+    case 1: return launch<1, 1, true, RW>(a, stream);
+    case 2: return launch<2, 1, true, RW>(a, stream);
+    case 3: return launch<3, 1, true, RW>(a, stream);
+    case 4: return launch<4, 1, true, RW>(a, stream);
+    default: return launch<-1, 0, true, RW>(a, stream);
+  }
+}
+
 // Fills the arguments every entry shares; returns false on a shape or a
 // size no entry takes (no live lane, more tiles than statuses, an epoch
 // out of its 30 bits).

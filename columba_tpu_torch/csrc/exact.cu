@@ -24,8 +24,10 @@
 // (Lane<8> of common.cuh) from the RLC full range; a step computes only the
 // chosen character's child (the other side needs all four widths, and they
 // come from the two endpoint rows anyway) and walks that child's run hints.
-// An empty child is zero there, so the row stops at the same step. Per-row
-// lengths are not taken on RLC (scheme selection on RLC is not ported).
+// An empty child is zero there, so the row stops at the same step. With
+// per-row lengths the wrapper names the launch "rlc_lengths" (K17 on RLC:
+// the part ranges of scheme selection, columba_tpu/search/pipeline.py
+// part_exact_ranges, 8 wide).
 //
 // Bound: latency, not bandwidth. A row does up to m dependent steps, each
 // two random 48 B row reads (three 16 B loads per fused occ row) whose
@@ -105,11 +107,11 @@ extern "C" int columba_exact(const int* occ, long long blocks, unsigned c0,
 extern "C" int columba_exact_rlc(const int* fused, unsigned r_fwd,
                                  unsigned r_rev, unsigned f0, unsigned f1,
                                  unsigned f2, unsigned f3, unsigned n,
-                                 const unsigned char* patterns, int m,
-                                 long long* out, long long rows,
-                                 cudaStream_t stream) {
+                                 const unsigned char* patterns,
+                                 const int* lengths, int m, long long* out,
+                                 long long rows, cudaStream_t stream) {
   const columba::BmParams bm =
       columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
-  return launch<8>(columba::FmParams{}, bm, patterns, nullptr, m, n, out,
+  return launch<8>(columba::FmParams{}, bm, patterns, lengths, m, n, out,
                    rows, stream);
 }

@@ -3,7 +3,13 @@
 //
 // The main entry replaces columba_tpu/ops/extend.py extend_all /
 // extend_char (with ops/rank.py occ_all) on the Vanilla index; the port
-// runs it for the k-mer seed table build (index/kmer.py).
+// runs it for the k-mer seed table build (index/kmer.py). Entry "rlc" (K18)
+// replaces columba_tpu/ops/bextend.py extend_all (:103) / extend_char
+// (:259) on the RLC index, on 8-wide lanes or 12-wide lanes with toeholds:
+// ops/extend.py takes it for RLC CUDA tensors, as the JAX package
+// dispatches every extension to bextend on any device. extend_char walks
+// the chosen child's run hints only, extend_all the hints of every child
+// that is not empty.
 //
 // Entries "loop" (Vanilla) and "loop_rlc" (RLC, K18: 8-wide lanes, or 12
 // wide with toeholds on the textless index) replace the exact-prefix loop
@@ -30,17 +36,18 @@
 // 64 B occ rows per lane and step; one thread reads its two rows with 16 B
 // loads, so each row costs one 64 B transaction, and the four children fall
 // out of those rows. RLC: two endpoint rows (four 16 B words each), then two
-// 4 B LF-run reads and four run-hint walks, each a chain of dependent 4 B
-// reads (START or END of the next run; after 16 steps a binary search,
-// about log2 r reads). A lane's steps depend on each other, so the loop's
-// launch lasts as long as its longest lane; the card hides the chains'
-// latency across lanes only: 64-thread blocks spread the lanes over every
-// SM, and a lane that stops early frees its slot.
+// 4 B LF-run reads and four run-hint walks per child walked, each a chain
+// of dependent 4 B reads (START or END of the next run; after 16 steps a
+// binary search, about log2 r reads). A lane's steps depend on each other,
+// so the loop's launch lasts as long as its longest lane; the card hides
+// the chains' latency across lanes only: 64-thread blocks spread the lanes
+// over every SM, and a lane that stops early frees its slot.
 #include "common.cuh"
 
 namespace {
 
-__global__ void extend_kernel(columba::FmParams fm,
+template <int RW>
+__global__ void extend_kernel(columba::FmParams fm, columba::BmParams bm,
                               const long long* __restrict__ ranges,
                               const int* __restrict__ dirs,
                               const int* __restrict__ chars,
@@ -48,30 +55,43 @@ __global__ void extend_kernel(columba::FmParams fm,
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= L) return;
-  uint32_t r[4];
+  uint32_t r[RW];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) r[k] = static_cast<uint32_t>(ranges[4 * i + k]);
-  const columba::BmParams bm{};
-  columba::Lane<4> lane;
+  for (int k = 0; k < RW; ++k)
+    r[k] = static_cast<uint32_t>(ranges[RW * i + k]);
+  const int c = chars == nullptr ? 0 : chars[i];
+  // Neither an N (it never matches) nor, on the RLC index, an empty lane
+  // (its children are all zero, hints included) needs a row: both write
+  // zeros. The Vanilla children of an empty range keep their positions.
+  if (c > 3 || (RW != 4 && r[1] <= r[0])) {
+    const int w = chars == nullptr ? 4 * RW : RW;
+    for (int k = 0; k < w; ++k) out[w * i + k] = 0;
+    return;
+  }
+  columba::Lane<RW> lane;
   lane.init(fm, bm, r, dirs[i]);
-  uint32_t o[4];
+  uint32_t o[RW];
   if (chars == nullptr) {
-    for (int c = 0; c < 4; ++c) {
-      columba::child_of<4>(lane, bm, c, o);
+    for (int c4 = 0; c4 < 4; ++c4) {
+      columba::child_of<RW>(lane, bm, c4, o);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) out[(4 * i + c) * 4 + k] = o[k];
+      for (int k = 0; k < RW; ++k) out[(4 * i + c4) * RW + k] = o[k];
     }
     return;
   }
-  const int c = chars[i];
-  if (c > 3) {                       // N never matches: empty range
+  columba::child_of<RW>(lane, bm, max(c, 0), o);
 #pragma unroll
-    for (int k = 0; k < 4; ++k) out[4 * i + k] = 0;
-    return;
-  }
-  columba::child_of<4>(lane, bm, max(c, 0), o);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) out[4 * i + k] = o[k];
+  for (int k = 0; k < RW; ++k) out[RW * i + k] = o[k];
+}
+
+template <int RW>
+int launch(const columba::FmParams& fm, const columba::BmParams& bm,
+           const long long* ranges, const int* dirs, const int* chars,
+           long long* out, long long L, cudaStream_t stream) {
+  constexpr int kThreads = RW == 4 ? 256 : 64;
+  extend_kernel<RW><<<columba::grid_for(L, kThreads), kThreads, 0, stream>>>(
+      fm, bm, ranges, dirs, chars, out, L);
+  return static_cast<int>(cudaGetLastError());
 }
 
 struct LoopArgs {
@@ -154,11 +174,22 @@ extern "C" int columba_extend(const int* occ, long long blocks, unsigned c0,
                               const long long* ranges, const int* dirs,
                               const int* chars, long long* out, long long L,
                               cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  extend_kernel<<<columba::grid_for(L, kThreads), kThreads, 0, stream>>>(
-      columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1), ranges, dirs,
-      chars, out, L);
-  return static_cast<int>(cudaGetLastError());
+  return launch<4>(columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1),
+                   columba::BmParams{}, ranges, dirs, chars, out, L, stream);
+}
+
+extern "C" int columba_extend_rlc(const int* fused, unsigned r_fwd,
+                                  unsigned r_rev, unsigned f0, unsigned f1,
+                                  unsigned f2, unsigned f3, unsigned n,
+                                  const long long* ranges, const int* dirs,
+                                  const int* chars, long long* out,
+                                  long long L, int rw, cudaStream_t stream) {
+  const columba::BmParams bm =
+      columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
+  const columba::FmParams fm{};
+  if (rw == 8) return launch<8>(fm, bm, ranges, dirs, chars, out, L, stream);
+  if (rw == 12) return launch<12>(fm, bm, ranges, dirs, chars, out, L, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int columba_extend_loop(

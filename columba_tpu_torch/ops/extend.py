@@ -14,12 +14,13 @@ tensors and launch kernel A (``csrc/extend.cu``) for CUDA tensors. Kernel
 A's loop entries (``loop``, ``loop_rlc``), which walk every exact-prefix
 step of a lane in one launch, are registered here and called by
 ``search/executor.py`` (``exact_loop``).
-``exact_match`` (the k = 0 pass) is kernel E (``csrc/exact.cu``) on the card.
+``exact_match`` (the k = 0 pass, and with per-row lengths the part ranges
+of scheme selection) is kernel E (``csrc/exact.cu``) on the card.
 On the RLC index (``index/bmove.py``) ranges are 8 or 12 wide and the three
 functions dispatch, as ``columba_tpu/ops/extend.py:55-58,105-108`` do, to the
-plain versions of ``ops/bextend.py`` on the CPU; on the card ``exact_match``
-takes kernel E's RLC entry (``exact.rlc``), and RLC lanes extend only inside
-kernel A's loop entry and kernel B.
+plain versions of ``ops/bextend.py`` on the CPU; on the card they take the
+RLC entries of kernel A (``extend.rlc``) and of kernel E (``exact.rlc``,
+with lengths ``exact.rlc_lengths``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,11 @@ KERNEL = native.Kernel(
     source="columba_tpu_torch/csrc/extend.cu",
     replaces="columba_tpu/ops/extend.py:48",
     symbols={
+        # extend_all / extend_char on 8- or 12-wide RLC lanes (K18)
+        "rlc": ("columba_extend_rlc", [
+            *bextend.BM_ARGTYPES,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ranges,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]),  # ..., rw
         # the exact-prefix loop (search/executor.py exact_loop)
         "loop": ("columba_extend_loop", [*_FM_ARGTYPES, *_LOOP_ARGTYPES]),
         "loop_rlc": ("columba_extend_loop_rlc", [
@@ -62,6 +68,10 @@ KERNEL = native.Kernel(
     },
 )
 
+_EXACT_RLC = ("columba_exact_rlc", [
+    *bextend.BM_ARGTYPES,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,   # patterns, lengths, m
+    ctypes.c_void_p, ctypes.c_int64])                   # out, rows
 EXACT_KERNEL = native.Kernel(
     "exact", "columba_exact",
     [ctypes.c_void_p, ctypes.c_int64,                    # occ_fused, blocks
@@ -72,10 +82,9 @@ EXACT_KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_int64],                   # out, rows
     source="columba_tpu_torch/csrc/exact.cu",
     replaces="columba_tpu/ops/extend.py:120",
-    symbols={"rlc": ("columba_exact_rlc", [
-        *bextend.BM_ARGTYPES,
-        ctypes.c_void_p, ctypes.c_int32,                    # patterns, m
-        ctypes.c_void_p, ctypes.c_int64])},                 # out, rows
+    symbols={"rlc": _EXACT_RLC,
+             # per-row lengths on RLC lanes (the part ranges of K17)
+             "rlc_lengths": _EXACT_RLC},
 )
 
 
@@ -142,8 +151,6 @@ def exact_match_plain(index: FMIndex, patterns: torch.Tensor,
     B, m = patterns.shape
     ranges = index.full_range((B,))
     dirs = torch.zeros(B, dtype=torch.int32, device=patterns.device)
-    if isinstance(index, BMoveIndex) and lengths is not None:
-        raise NotImplementedError(_RLC_LENGTHS)
     for i in range(m):
         if lengths is None:
             ranges = extend_char_plain(index, ranges,
@@ -154,11 +161,6 @@ def exact_match_plain(index: FMIndex, patterns: torch.Tensor,
         new = extend_char_plain(index, ranges, c, dirs)
         ranges = torch.where((j >= 0)[:, None], new, ranges)
     return ranges
-
-
-_RLC_LENGTHS = ("exact_match with per-row lengths on the RLC index (scheme "
-                "selection on RLC) is not ported yet (ROADMAP queue 1, item "
-                "13b)")
 
 
 def zero_empty(ranges: torch.Tensor) -> torch.Tensor:
@@ -192,32 +194,31 @@ def _check(index, ranges, dirs, chars=None):
 
 
 def _launch(index, ranges, dirs, chars):
-    if isinstance(index, BMoveIndex):
-        raise ValueError("kernel A extends RLC lanes in its loop entry only "
-                         "(search/executor.py exact_loop); extend_all and "
-                         "extend_char on the RLC index take CPU tensors")
-    L, _ = _check(index, ranges, dirs, chars)
-    out = torch.empty((L, 4 if chars is not None else 16),
+    L, rw = _check(index, ranges, dirs, chars)
+    out = torch.empty((L, rw if chars is not None else 4 * rw),
                       dtype=torch.int64, device=ranges.device)
-    if L:
+    cptr = chars.data_ptr() if chars is not None else None
+    if L and isinstance(index, BMoveIndex):
+        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), dirs.data_ptr(),
+               cptr, out.data_ptr(), L, rw, entry="rlc")
+    elif L:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
                *index.dollar_host, ranges.data_ptr(), dirs.data_ptr(),
-               chars.data_ptr() if chars is not None else None,
-               out.data_ptr(), L)
+               cptr, out.data_ptr(), L)
     return out
 
 
 def extend_all(index: FMIndex, ranges, dirs) -> torch.Tensor:
     """(L, rw) int64 ranges, (L,) int32 dirs -> (L, 4, rw) (rw = 4, or 8 or
-    12 on the RLC index, CPU tensors only)."""
+    12 on the RLC index: kernel A's RLC entry on the card)."""
     if not ranges.is_cuda:
         return extend_all_plain(index, ranges, dirs)
-    return _launch(index, ranges, dirs, None).view(-1, 4, 4)
+    return _launch(index, ranges, dirs, None).view(-1, 4, index.range_width)
 
 
 def extend_char(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
-    """(L, rw) int64 ranges, (L,) int32 chars and dirs -> (L, rw) (on the
-    RLC index CPU tensors only)."""
+    """(L, rw) int64 ranges, (L,) int32 chars and dirs -> (L, rw); on the
+    RLC index only the chosen child's run hints are walked."""
     if not ranges.is_cuda:
         return extend_char_plain(index, ranges, chars, dirs)
     return _launch(index, ranges, dirs, chars)
@@ -226,8 +227,7 @@ def extend_char(index: FMIndex, ranges, chars, dirs) -> torch.Tensor:
 def exact_match(index: FMIndex, patterns: torch.Tensor,
                 lengths: torch.Tensor | None = None) -> torch.Tensor:
     """(B, m) uint8 patterns -> (B, rw) int64 ranges of their exact
-    matches; ``lengths`` (B,) int32 gives each row's own length (None: m;
-    the Vanilla index only).
+    matches; ``lengths`` (B,) int32 gives each row's own length (None: m).
 
     A live row holds exactly what its ``extend_char`` steps give; a row
     without a match is the zero range (kernel E stops a row at its first
@@ -241,29 +241,28 @@ def exact_match(index: FMIndex, patterns: torch.Tensor,
         raise ValueError("exact_match takes a contiguous (B, m) uint8 batch "
                          "on the index's device")
     B, m = patterns.shape
-    if isinstance(index, BMoveIndex):
-        if lengths is not None:
-            raise NotImplementedError(_RLC_LENGTHS)
-        if index.textless:
-            raise ValueError("kernel E's RLC entry takes 8-wide lanes; the "
-                             "textless index runs k = 0 through the frontier")
-        out = torch.empty((B, 8), dtype=torch.int64, device=patterns.device)
-        if B:
-            EXACT_KERNEL(*bextend.bm_args(index), patterns.data_ptr(), m,
-                         out.data_ptr(), B, entry="rlc")
-        return out
     if lengths is not None and (
             lengths.dtype != torch.int32 or lengths.shape != (B,)
             or not lengths.is_contiguous()
             or lengths.device != patterns.device):
         raise ValueError("exact_match lengths must be a contiguous (B,) "
                          "int32 tensor on the patterns' device")
+    lptr = lengths.data_ptr() if lengths is not None else None
+    if isinstance(index, BMoveIndex):
+        if index.textless:
+            raise ValueError("kernel E's RLC entries take 8-wide lanes; the "
+                             "textless index runs k = 0 through the frontier")
+        out = torch.empty((B, 8), dtype=torch.int64, device=patterns.device)
+        if B:
+            EXACT_KERNEL(*bextend.bm_args(index), patterns.data_ptr(), lptr,
+                         m, out.data_ptr(), B,
+                         entry="rlc_lengths" if lengths is not None
+                         else "rlc")
+        return out
     out = torch.empty((B, 4), dtype=torch.int64, device=patterns.device)
     if B:
         EXACT_KERNEL(index.occ_fused.data_ptr(), index.blocks,
                      *index.counts_host, *index.dollar_host,
-                     patterns.data_ptr(),
-                     lengths.data_ptr() if lengths is not None else None,
-                     m, index.n, out.data_ptr(), B,
+                     patterns.data_ptr(), lptr, m, index.n, out.data_ptr(), B,
                      entry="lengths" if lengths is not None else "")
     return out

@@ -10,7 +10,8 @@ search):
 * :func:`dynamic_partition` seeds each part (k-mer table when there is one,
   else single characters) and then extends, m - p*K times, the part with
   the largest weighted exact-match range by one character. Kernel F
-  (``csrc/dynpart.cu``) on the card: one thread owns one read.
+  (``csrc/dynpart.cu``) on the card: one thread owns one read (entry
+  ``dynpart.rlc`` on the RLC index's 8-wide lanes).
 * :func:`clamp_partition` enforces part length >= 2*kb+1 (the overshoot
   construction of the schedule needs it).
 * :func:`build_tables` computes the per-phase arithmetic of the static
@@ -38,26 +39,33 @@ import torch
 
 from columba_tpu_torch import native
 from columba_tpu_torch.index import kmer as kmer_mod
+from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
+from columba_tpu_torch.ops import bextend, rank
 from columba_tpu_torch.ops import extend as ext
-from columba_tpu_torch.ops import rank
 from columba_tpu_torch.search.schedule import INF
 from columba_tpu_torch.search.scheme import BACKWARD, FORWARD, SearchScheme
 
 MAX_PARTS = 16          # kernels F and G keep per-part state in fixed arrays
 WIDTH_CAP = 1 << 30     # widths above it carry no information for partitioning
 
+_PART_TAIL = [ctypes.c_void_p, ctypes.c_int32,          # kmer table, K
+              ctypes.c_void_p, ctypes.c_void_p,          # host seeds, weights
+              ctypes.c_int32,                            # p
+              ctypes.c_void_p, ctypes.c_void_p,          # pts, final ranges
+              ctypes.c_int64]                            # rows
 PARTITION_KERNEL = native.Kernel(
     "dynpart", "columba_dynpart",
     [ctypes.c_void_p, ctypes.c_int64,                    # occ_fused, blocks
      ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
      ctypes.c_uint32, ctypes.c_uint32,                   # counts, dollar
      ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64,    # reads, m, n
-     ctypes.c_void_p, ctypes.c_int32,                    # kmer table, K
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,   # host seeds, weights; p
-     ctypes.c_void_p, ctypes.c_int64],                   # pts, rows
+     *_PART_TAIL],
     source="columba_tpu_torch/csrc/dynpart.cu",
     replaces="columba_tpu/search/dynschedule.py:283",
+    symbols={"rlc": ("columba_dynpart_rlc", [
+        *bextend.BM_ARGTYPES, ctypes.c_void_p, ctypes.c_int32,  # reads, m
+        *_PART_TAIL])},
 )
 
 TABLES_KERNEL = native.Kernel(
@@ -416,11 +424,23 @@ def weighted_widths(widths: torch.Tensor, weights: torch.Tensor,
     return torch.where(extendable, prod, -1)
 
 
+def _extend_char(index, ranges, chars, dirs, stats):
+    """extend_char_plain; on the RLC index it also counts into ``stats``
+    the extensions that read rows and their walks."""
+    if stats is None or not isinstance(index, BMoveIndex):
+        return ext.extend_char_plain(index, ranges, chars, dirs)
+    stats["steps"] = stats.get("steps", 0) + int((chars <= 3).sum())
+    return bextend.extend_char_plain(index, ranges, chars, dirs, stats)
+
+
 def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
                             scheme: SearchScheme,
-                            kmer_table: torch.Tensor | None = None
-                            ) -> torch.Tensor:
-    """Plain version of kernel F; see :func:`dynamic_partition`."""
+                            kmer_table: torch.Tensor | None = None,
+                            ranges_out: torch.Tensor | None = None,
+                            stats: dict | None = None) -> torch.Tensor:
+    """Plain version of kernel F; see :func:`dynamic_partition`. ``stats``
+    (optional, RLC index): the extensions that read rows (``steps``) and
+    their walks, for ``tools/bounds.py``."""
     R, m = reads.shape
     p = scheme.num_parts
     dev = reads.device
@@ -439,10 +459,12 @@ def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
         ranges = kmer_mod.lookup(kmer_table, wchars)         # (R, p, 4)
     else:
         # single-char seed ranges: one backward extension of the full range
-        c0 = reads[rows[:, None], begins].int()
-        ranges = ext.extend_char_plain(
-            index, index.full_range((R, p)), c0,
-            torch.zeros((R, p), dtype=torch.int32, device=dev))
+        # (on the RLC index with its run hints), the (R, p) lanes flattened
+        c0 = reads[rows[:, None], begins].int().reshape(-1)
+        ranges = _extend_char(
+            index, index.full_range((R * p,)), c0,
+            torch.zeros(R * p, dtype=torch.int32, device=dev),
+            stats).reshape(R, p, -1)
 
     big = torch.full((R, 1), WIDTH_CAP, **i64)
     for _ in range(m - p * K):
@@ -469,10 +491,11 @@ def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
         go_back = cl & (~cr | (wl < wr))
         newpos = torch.where(go_back, sel(begins) - 1, sel(ends))
         chars = reads[rows, newpos.clamp(0, m - 1)].int()
-        cur = ranges[rows, part]
-        new_rng = ext.extend_char_plain(index, cur, chars,
-                                        (~go_back).int())
         any_ext = sel(extendable)
+        # a read whose parts cannot grow extends nothing (and reads no row)
+        cur = torch.where(any_ext[:, None], ranges[rows, part], 0)
+        new_rng = _extend_char(index, cur, torch.where(any_ext, chars, 4),
+                               (~go_back).int(), stats)
         begins = torch.where(onehot & (go_back & any_ext)[:, None],
                              begins - 1, begins)
         ends = torch.where(onehot & (~go_back & any_ext)[:, None],
@@ -483,12 +506,15 @@ def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
     # close any remaining gaps (reference extendParts): boundary = next begin
     pts = torch.cat([torch.zeros((R, 1), **i64), begins[:, 1:],
                      torch.full((R, 1), m, **i64)], dim=1)
+    if ranges_out is not None:
+        ranges_out.copy_(ranges)
     return pts.to(torch.int32)
 
 
 def dynamic_partition(index: FMIndex, reads: torch.Tensor,
                       scheme: SearchScheme,
-                      kmer_table: torch.Tensor | None = None) -> torch.Tensor:
+                      kmer_table: torch.Tensor | None = None,
+                      ranges_out: torch.Tensor | None = None) -> torch.Tensor:
     """Batched greedy dynamic partitioning (reference default,
     src/searchstrategy.cpp:240-420 ``partitionDynamic``/``seed``).
 
@@ -496,35 +522,56 @@ def dynamic_partition(index: FMIndex, reads: torch.Tensor,
     extends the part with the largest weighted exact-match range by one
     character, toward its smaller neighbour when both directions are open.
     reads: (R, m) uint8 on the index's device. Returns boundaries pts
-    (R, p+1) int32 (clamp before scheduling).
+    (R, p+1) int32 (clamp before scheduling). ``ranges_out`` (optional,
+    (R, p, rw) int64): receives each part's final range, run hints
+    included on the RLC index.
 
-    The plain version for CPU tensors, kernel F for CUDA tensors."""
+    The plain version for CPU tensors, kernel F for CUDA tensors (its RLC
+    entry on the RLC index)."""
     if not reads.is_cuda:
-        return dynamic_partition_plain(index, reads, scheme, kmer_table)
+        return dynamic_partition_plain(index, reads, scheme, kmer_table,
+                                       ranges_out)
     R, m = reads.shape
     p = scheme.num_parts
     dev = reads.device
+    rlc = isinstance(index, BMoveIndex)
+    rw = index.range_width
     if p > MAX_PARTS:
         raise ValueError(f"kernel F takes at most {MAX_PARTS} parts, not {p}")
+    if rlc and index.textless:
+        raise ValueError("kernel F's RLC entry takes 8-wide lanes; the "
+                         "textless index runs uniform partitions")
     K, kmer_table, seeds, weights = partition_setup(scheme, m, kmer_table)
+    table_dev = (index.fused if rlc else index.occ_fused).device
     if (reads.dtype != torch.uint8 or not reads.is_contiguous()
-            or index.occ_fused.device != dev):
+            or table_dev != dev):
         raise ValueError("dynamic_partition takes a contiguous (R, m) uint8 "
                          "batch on the index's device")
     if kmer_table is not None and (
             kmer_table.dtype != torch.int64 or kmer_table.device != dev
             or not kmer_table.is_contiguous()
-            or tuple(kmer_table.shape) != (4 ** K, 4)):
-        raise ValueError("kernel F takes a contiguous (4^K, 4) int64 seed "
-                         "table on the reads' device")
+            or tuple(kmer_table.shape) != (4 ** K, rw)):
+        raise ValueError(f"kernel F takes a contiguous (4^K, {rw}) int64 "
+                         "seed table on the reads' device")
+    if ranges_out is not None and (
+            ranges_out.dtype != torch.int64 or ranges_out.device != dev
+            or not ranges_out.is_contiguous()
+            or tuple(ranges_out.shape) != (R, p, rw)):
+        raise ValueError(f"ranges_out must be a contiguous ({R}, {p}, {rw}) "
+                         "int64 tensor on the reads' device")
     pts = torch.empty((R, p + 1), dtype=torch.int32, device=dev)
     if R:
         # seeds and weights are host arrays: they travel in the kernel's
         # argument block, so the launch copies nothing to the device
-        PARTITION_KERNEL(
-            index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
-            *index.dollar_host, reads.data_ptr(), m, index.n,
-            kmer_table.data_ptr() if kmer_table is not None else None, K,
-            (ctypes.c_int32 * p)(*seeds), (ctypes.c_int32 * p)(*weights), p,
-            pts.data_ptr(), R)
+        tail = (kmer_table.data_ptr() if kmer_table is not None else None, K,
+                (ctypes.c_int32 * p)(*seeds), (ctypes.c_int32 * p)(*weights),
+                p, pts.data_ptr(),
+                ranges_out.data_ptr() if ranges_out is not None else None, R)
+        if rlc:
+            PARTITION_KERNEL(*bextend.bm_args(index), reads.data_ptr(), m,
+                             *tail, entry="rlc")
+        else:
+            PARTITION_KERNEL(
+                index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
+                *index.dollar_host, reads.data_ptr(), m, index.n, *tail)
     return pts

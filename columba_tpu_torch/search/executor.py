@@ -34,9 +34,10 @@ zeroed, as the compaction's fill leaves them.
 On the RLC index (``index/bmove.py``) a lane's range is ``rw`` = 8 values
 (the range pair and its run hints) or 12 on the textless index (plus a
 toehold sample); the in-text rows stay ``[f_lo, f_hi, ids, depth]``. Kernel
-B then takes its RLC entry (``band_step.rlc``) or its textless entry
-(``band_step.textless``), and a child that does not stay in the frontier has
-zero hints (only the frontier reads them). ``track_arg`` (the textless pass)
+B then takes its RLC entry (``band_step.rlc``), under per-read schedules
+its per-lane RLC entry (``band_step.per_lane_rlc``), or its textless entry
+(``band_step.textless``), and a child that does not stay in the frontier
+has zero hints (only the frontier reads them). ``track_arg`` (the textless pass)
 gives every colMin register a shadow slot at ``[W, 2W)`` per side: the back
 depth (mod 64) at which its value last strictly fell, read out as
 ``FrontierResult.arg_b``.
@@ -82,7 +83,7 @@ _BAND_RLC = ("columba_band_step_rlc", [
     *bextend.BM_ARGTYPES,
     ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
     ctypes.c_void_p, ctypes.c_void_p,                   # band, colmin
-    ctypes.c_void_p, ctypes.c_int32,                    # mrow_t, S
+    ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,    # pchars, T, t
     ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
     *_BAND_OUT, ctypes.c_int32],                        # ..., rw
@@ -100,7 +101,8 @@ KERNEL = native.Kernel(
      *_BAND_OUT],
     source="columba_tpu_torch/csrc/band_step.cu",
     replaces="columba_tpu/search/executor.py:587",
-    symbols={"rlc": _BAND_RLC, "textless": _BAND_RLC},
+    symbols={"rlc": _BAND_RLC, "textless": _BAND_RLC,
+             "per_lane_rlc": _BAND_RLC},
 )
 
 
@@ -461,10 +463,11 @@ def check_band_step(index: FMIndex, state, n_live: int, out, itv,
     W = Wp // 2 if track_arg else Wp
     rw = index.range_width
     rlc = isinstance(index, BMoveIndex)
-    if rlc and (dyn_meta is not None or track_arg != index.textless):
-        raise ValueError("kernel B takes per-lane schedules on the Vanilla "
-                         "index only, and track_arg exactly on the textless "
-                         "index")
+    if rlc and (track_arg != index.textless
+                or (dyn_meta is not None and index.textless)):
+        raise ValueError("kernel B tracks colMin witnesses exactly on the "
+                         "textless index, and takes per-lane schedules on "
+                         "the Vanilla and the with-text RLC index only")
     if not rlc and track_arg:
         raise ValueError("kernel B tracks colMin witnesses on the textless "
                          "index only")
@@ -508,8 +511,8 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
     not written), the same in-text rows and the same counters.
     ``dyn_meta`` (R*S*T,) int32 selects the per-lane entry (one register;
     ``mrow_t`` is then None). On the RLC index the lanes are 8 wide (RLC
-    entry) or, with ``track_arg``, 12 wide with 2W colMin slots (textless
-    entry)."""
+    entry, with ``dyn_meta`` the per-lane RLC entry) or, with
+    ``track_arg``, 12 wide with 2W colMin slots (textless entry)."""
     ranges, ids, band, colmin = state
     if not ranges.is_cuda:
         return band_step_compact_plain(index, state, n_live, out, itv, cnt,
@@ -520,20 +523,19 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
     tail = (n_live, out[0].shape[0], *(f.data_ptr() for f in out),
             itv.data_ptr(), itv.shape[0] - 1, cnt, scratch.ctr.data_ptr(),
             scratch.status.data_ptr(), scratch.tiles, scratch.next_epoch())
+    lane = (ranges.data_ptr(), ids.data_ptr(), band.data_ptr(),
+            colmin.data_ptr(),
+            mrow_t.data_ptr() if dyn_meta is None else None,
+            mrow_t.shape[0] if dyn_meta is None else 0,
+            dyn_meta.data_ptr() if dyn_meta is not None else None,
+            pchars.data_ptr(), T, t, kb, W, switchpoint, *tail)
     if isinstance(index, BMoveIndex):
-        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), ids.data_ptr(),
-               band.data_ptr(), colmin.data_ptr(), mrow_t.data_ptr(),
-               mrow_t.shape[0], pchars.data_ptr(), T, t, kb, W, switchpoint,
-               *tail, index.range_width,
-               entry="textless" if index.textless else "rlc")
+        KERNEL(*bextend.bm_args(index), *lane, index.range_width,
+               entry=("per_lane_rlc" if dyn_meta is not None else
+                      "textless" if index.textless else "rlc"))
     else:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
-               *index.dollar_host, ranges.data_ptr(), ids.data_ptr(),
-               band.data_ptr(), colmin.data_ptr(),
-               mrow_t.data_ptr() if dyn_meta is None else None,
-               mrow_t.shape[0] if dyn_meta is None else 0,
-               dyn_meta.data_ptr() if dyn_meta is not None else None,
-               pchars.data_ptr(), T, t, kb, W, switchpoint, *tail,
+               *index.dollar_host, *lane,
                entry="per_lane" if dyn_meta is not None else "")
 
 

@@ -9,9 +9,10 @@ lanes and writes the children that stay, kernel A's loop and kernel E stop
 at a lane's first empty range, kernel C walks LF until a sampled row, and
 on the RLC index every run-hint walk and binary search has its own length),
 the caller passes what this call's data needed, counted with the plain
-versions (``stats`` of ``ops/bextend.py``, ``ops/blocate.py`` and
-``search/executor.exact_loop_plain``). Kernels F, G and H do the same work
-whatever the data.
+versions (``stats`` of ``ops/bextend.py``, ``ops/blocate.py``,
+``search/executor.exact_loop_plain`` and, on the RLC index,
+``search/dynschedule.dynamic_partition_plain``). Kernels G and H, and F on
+the Vanilla index, do the same work whatever the data.
 
 Peak rates are NVIDIA's data-sheet figures for the H100 SXM at its full
 power limit: 3.35 TB/s of HBM, and 67 T operations/s outside the tensor
@@ -194,6 +195,39 @@ def exact_steps(index, batch: torch.Tensor, lengths=None,
     return steps
 
 
+def extend_rlc(ranges, dirs, chars, out, stats: dict) -> dict:
+    """Kernel A's RLC entry (``extend.rlc``): per lane its range, direction
+    and char in, the child range(s) out; per lane that extends (a live
+    range and, for ``extend_char``, a char that is not N) two endpoint
+    reads, and the walks of the children it writes (``stats`` of
+    ``bextend.extend_all_plain`` / ``extend_char_plain``)."""
+    ext = ranges[:, 1] > ranges[:, 0]
+    if chars is not None:
+        ext &= chars <= 3
+    n_ext = int(ext.sum())
+    wb, wo = _rlc_walks(stats)
+    return bound(_nbytes(ranges, dirs, chars, out) + n_ext * 2 * BM_ROW_BYTES
+                 + wb, n_ext * BM_LANE_OPS + wo)
+
+
+def dynpart_rlc(reads, p: int, K: int, seeded: bool, stats: dict,
+                pts) -> dict:
+    """Kernel F's RLC entry: per read its m chars in and p + 1 boundaries
+    out, the p seeds (a 64 B table row each, or one extension of the full
+    range); per extension that reads rows (``stats["steps"]`` of
+    ``dynschedule.dynamic_partition_plain``: the seeds without a table and
+    the greedy steps, not those that meet N) two endpoint reads and the
+    chosen child's walks (``stats``). Each of the m - p*K greedy steps
+    first scans the p parts (width, two compares, a product, a compare)."""
+    R, m = reads.shape
+    ext = stats.get("steps", 0)
+    wb, wo = _rlc_walks(stats)
+    return bound(_nbytes(reads, pts) + (R * p * 64 if seeded else 0)
+                 + ext * 2 * BM_ROW_BYTES + wb,
+                 ext * BM_LANE_OPS + R * max(m - p * K, 0) * (8 * p + 16)
+                 + wo)
+
+
 def dynpart(reads, p: int, K: int, seeded: bool, pts) -> dict:
     """Kernel F: per read its m chars in, the p seed ranges (a 32 B table
     row each, or without a table one extension of the full range: two occ
@@ -241,16 +275,22 @@ def _rlc_walks(stats: dict) -> tuple:
             + hint_rows // 2 * BM_CHILD_OPS)
 
 
-def rlc_band_stats(index, state, mrow_t, o: dict, cap: int) -> dict:
+def rlc_band_stats(index, state, mrow_t, o: dict, cap: int,
+                   dyn_meta=None, T: int = 0, t: int = 0) -> dict:
     """The walks kernel B's RLC entries make in one step: the hints of the
     children that stay in the frontier and are written (the first ``cap``
     of them), of the lanes that keep theirs, counted with the plain
-    extension. ``o``: ``executor.band_step_plain``'s output."""
+    extension. ``o``: ``executor.band_step_plain``'s output. Per-lane
+    schedules: each lane's side comes from its own word of ``dyn_meta``
+    at ``id * T + t``."""
     from columba_tpu_torch.ops import bextend
 
     ranges, ids = state[0], state[1]
-    S = mrow_t.shape[0]
-    side = (mrow_t.long()[(ids.long() & ((1 << 21) - 1)) % S, 0] >> 1) & 1
+    idc = ids.long() & ((1 << 21) - 1)
+    if dyn_meta is not None:
+        side = (dyn_meta.long()[idc * T + t] >> 1) & 1
+    else:
+        side = (mrow_t.long()[idc % mrow_t.shape[0], 0] >> 1) & 1
     keep = o["act"] & (o["new_ids"] >= 0)
     pos = o["ch_alive"].reshape(-1).long().cumsum(0).reshape(-1, 4) - 1
     stats: dict = {}

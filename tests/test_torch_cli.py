@@ -114,6 +114,24 @@ def test_align_identical_sam(built):
         [c for c in pg["torch"] if not c.startswith(("ID:", "PN:"))]
 
 
+def test_align_reorder_is_accepted(built, pairs):
+    """-R/--reorder is accepted as in the JAX package and changes nothing:
+    output is always in input order."""
+    wd, idx = built
+    out = {}
+    for tag, extra in (("plain", []), ("reorder", ["-R"]),
+                       ("reorder_long", ["--reorder"])):
+        out[tag] = str(wd / f"reorder.{tag}.sam")
+        assert tcli.main(["align", "-r", idx["torch"], "-f", pairs[0],
+                          "-o", out[tag], "-a", "all", "-e", "2", "-S",
+                          "kuch1", "-K", "6", "-b", "128", "--device",
+                          "cpu"] + extra) == 0
+    body = {k: [ln for ln in open(v).read().splitlines()
+                if not ln.startswith("@PG")] for k, v in out.items()}
+    assert body["reorder"] == body["plain"] == body["reorder_long"]
+    assert len(body["plain"]) > 200
+
+
 @pytest.mark.parametrize("opts", [["-o", "hits.rhs"], ["-T", "0-50"]])
 def test_align_refuses_modes_not_ported(built, opts):
     wd, idx = built
@@ -308,9 +326,10 @@ def test_kernel_entries_name_their_sources():
             with open(os.path.join(root, k.source_of(entry))) as f:
                 assert f"{symbol}(" in f.read(), (k.name, entry)
             seen += 1
-    assert seen == 14      # 8 kernels; A's loop (Vanilla, RLC); 4 RLC
+    assert seen == 18      # 8 kernels; A's loop (Vanilla, RLC); 8 RLC
     band = native.KERNELS["band_step"]
     assert band.source_of("textless").endswith("csrc/band_step_rlc.cu")
+    assert band.source_of("per_lane_rlc").endswith("csrc/band_step_rlc.cu")
     assert band.source_of("per_lane") == band.source
 
 
@@ -392,13 +411,13 @@ def test_align_rlc_identical_sam(built_rlc, pairs, tag, flavor, opts, paired):
 @pytest.mark.parametrize("flavor,opts,exc", [
     ("textless", ["-F", "@P2@"], SystemExit),
     ("textless", ["-aC"], SystemExit),
-    ("rlc", ["-p", "dynamic"], NotImplementedError),
-    ("rlc", ["-d", SCHEMES], NotImplementedError),
+    ("rlc", ["-o", "hits.rhs"], NotImplementedError),
+    ("rlc", ["-T", "0-50"], NotImplementedError),
 ])
 def test_align_rlc_refusals(built_rlc, pairs, flavor, opts, exc):
     """Textless refuses paired-end and -aC as the JAX package does; on the
-    RLC index -p dynamic and per-read selection are not ported yet and
-    name their ROADMAP item."""
+    with-text RLC index read-hit-summary output and -T trim are not ported
+    yet and name their ROADMAP item."""
     opts = [pairs[1] if o == "@P2@" else o for o in opts]
     wd = os.path.dirname(built_rlc[flavor, "torch"])
     with pytest.raises(exc) as err:

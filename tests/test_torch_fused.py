@@ -537,3 +537,23 @@ def test_exact_loop_bound_by_hand(per_lane):
     lanes = 3 * 32 + 3 * 32 + 3 * 32              # in, out, drain rows
     tables = 5 * 8 + 4 if per_lane else 3 * 24
     assert b["bytes"] == lanes + 5 * (2 * 48 + 1) + tables
+
+
+@pytest.mark.parametrize("per_char", [False, True])
+def test_extend_rlc_bound_by_hand(per_char):
+    """Kernel A's per-step RLC bytes on four 8-wide lanes, counted by hand:
+    lanes, directions, chars in and children out; endpoint rows only for
+    the lanes that extend (a dead lane never, an N lane not for
+    extend_char); the walks' 4 B reads."""
+    ranges = torch.tensor([[2, 7] + [0] * 6, [0] * 8, [1, 3] + [0] * 6,
+                           [4, 5] + [0] * 6], dtype=torch.int64)
+    dirs = torch.zeros(4, dtype=torch.int32)
+    chars = torch.tensor([0, 1, 4, 3], dtype=torch.int32) if per_char \
+        else None
+    out = torch.zeros((4, 8) if per_char else (4, 4, 8), dtype=torch.int64)
+    stats = {"walk": 10, "probes": 3, "hint_rows": 4}
+    b = bounds.extend_rlc(ranges, dirs, chars, out, stats)
+    lanes_io = 4 * 64 + 4 * 4 + (4 * 4 if per_char else 0) + out.numel() * 8
+    extending = 2 if per_char else 3
+    assert b["bytes"] == (lanes_io + extending * 2 * bounds.BM_ROW_BYTES
+                          + (10 + 3 + 4) * 4)

@@ -754,3 +754,151 @@ def test_rlc_match_all_vs_plain(rlc_setup, gpu, flavor, k):
     for f in ("read_id", "strand", "begin", "end", "distance"):
         assert np.array_equal(getattr(out[0][0], f), getattr(out[1][0], f)), f
     assert len(out[0][0]) >= 96
+
+
+# ---------------------------------------------------------------------------
+# RLC entries of dynamic partitioning and scheme selection: kernel A's
+# per-step entry, kernel F, kernel E with lengths, kernel B's per-lane entry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("flavor", ["rlc", "textless"])
+def test_rlc_extend_kernel(rlc_setup, gpu, flavor):
+    """Kernel A's per-step RLC entry (extend.rlc) on 8- and 12-wide lanes
+    equals bextend's extend_all_plain and extend_char_plain on every column
+    (intervals, run hints, toeholds), with N chars and dead lanes."""
+    from columba_tpu_torch.ops import bextend
+
+    _, idx = rlc_setup
+    _, cpu_bm, bm = idx[flavor]
+    rng = np.random.default_rng(47)
+    states = _rlc_states(cpu_bm, rng, 512)
+    L = states.shape[0]
+    dirs = torch.from_numpy(rng.integers(0, 2, L).astype(np.int32))
+    chars = torch.from_numpy(rng.integers(0, 5, L).astype(np.int32))
+    got = extend.extend_all(bm, states.to(gpu), dirs.to(gpu))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), bextend.extend_all_plain(cpu_bm, states,
+                                                           dirs))
+    got = extend.extend_char(bm, states.to(gpu), chars.to(gpu), dirs.to(gpu))
+    torch.cuda.synchronize()
+    want = bextend.extend_char_plain(cpu_bm, states, chars, dirs)
+    assert torch.equal(got.cpu(), want)
+    assert 0 < int((want[:, 1] > want[:, 0]).sum()) < L
+    assert extend.KERNEL.by_entry.get("rlc", 0) >= 2
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_rlc_dynpart_kernel(rlc_setup, gpu, k):
+    """Kernel F's RLC entry equals the plain partition scan on the
+    boundaries and on every column of the final part ranges, without a seed
+    table (K = 1) and seeded from the RLC index's 6-mer table."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rng = np.random.default_rng(48 + k)
+    batch = torch.from_numpy(_reads(rng, g, 256, 100, k)).to(gpu)
+    scheme = get_scheme("kuch1", k)
+    p = scheme.num_parts
+    for table in (None, kmer.build_kmer_table(bm, 6)):
+        out = []
+        for fn in (dynschedule.dynamic_partition,
+                   dynschedule.dynamic_partition_plain):
+            rng_out = torch.zeros((batch.shape[0], p, 8), dtype=torch.int64,
+                                  device=gpu)
+            out.append((fn(bm, batch, scheme, table, rng_out), rng_out))
+        torch.cuda.synchronize()
+        assert torch.equal(out[0][0], out[1][0])
+        assert torch.equal(out[0][1], out[1][1])
+        assert len({tuple(r) for r in out[0][0].cpu().tolist()}) > 1
+    assert dynschedule.PARTITION_KERNEL.by_entry.get("rlc", 0) >= 2
+
+
+def test_rlc_exact_kernel_lengths(rlc_setup, gpu):
+    """Kernel E's RLC entry with per-row lengths (exact.rlc_lengths) equals
+    the plain exact match, and part_exact_ranges / select_schemes on the
+    card equal the CPU's (8-wide ranges, choice and mask)."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rng = np.random.default_rng(49)
+    m, B = 40, 4096
+    starts = rng.integers(0, len(g) - m, B)
+    pats = g[starts[:, None] + np.arange(m)].copy()
+    lengths = rng.integers(0, m + 1, B).astype(np.int32)
+    lengths[:3] = [0, 1, m]
+    pats[rng.random(B) < 0.3, 2] ^= 1
+    pats[::11, 1] = 4
+    for i, n in enumerate(lengths):
+        pats[i, n:] = 5
+    tp = torch.from_numpy(pats).to(gpu)
+    tl = torch.from_numpy(lengths).to(gpu)
+    got = extend.exact_match(bm, tp, tl)
+    torch.cuda.synchronize()
+    assert torch.equal(got, extend.zero_empty(
+        extend.exact_match_plain(bm, tp, tl)))
+    assert 0 < int((got[:, 1] > got[:, 0]).sum()) < B
+    batch = _reads(rng, g, 128, 100, 2)
+    pts = [0, 30, 71, 100]
+    assert torch.equal(
+        pipeline.part_exact_ranges(bm, torch.from_numpy(batch).to(gpu),
+                                   pts).cpu(),
+        pipeline.part_exact_ranges(cpu_bm, torch.from_numpy(batch), pts))
+    sets = get_multi_scheme("columba", 2)
+    _, mask_g, choice_g = pipeline.select_schemes(
+        bm, torch.from_numpy(batch).to(gpu), sets)
+    _, mask_c, choice_c = pipeline.select_schemes(
+        cpu_bm, torch.from_numpy(batch), sets)
+    assert np.array_equal(mask_g, mask_c) and np.array_equal(choice_g,
+                                                             choice_c)
+    assert extend.EXACT_KERNEL.by_entry.get("rlc_lengths", 0) >= 2
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+def test_rlc_band_step_per_lane(rlc_setup, gpu, k):
+    """Kernel B's per-lane RLC entry (kb 1..4 templated, kb 5 generic) on
+    kernel G's tables of kernel F's boundaries and valid RLC lane states
+    equals band_step_compact_plain, at steps where searches idle, reset and
+    accumulate; then kernel A's loop entry on the same per-read tables."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rng = np.random.default_rng(50 + k)
+    m, R = 100, 128
+    scheme = get_scheme("columba" if k > 4 else "kuch1", k)
+    st = dynschedule.scheme_static(scheme, m, "edit")
+    batch = torch.from_numpy(_reads(rng, g, R // 2, m, 2)).to(gpu)
+    pts = dynschedule.dynamic_partition(bm, batch, scheme)
+    dyn = dynschedule.build_tables(st, pts, batch)
+    S, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
+    states = _rlc_states(cpu_bm, rng, 256)
+    C = states.shape[0]
+    state = _random_state(rng, 8, C, R, S, bw, 1, gpu)
+    state[0] = states.to(gpu)
+    kept = 0
+    for t in (0, T // 3, T // 2, T - 20, T - 1):
+        n, _ = fused_vs_plain(bm, state, None, dyn["pchars"], T, t,
+                              4 if k % 2 else 0, dyn["meta"].reshape(-1))
+        kept += n
+    assert kept > 0
+    assert executor.KERNEL.by_entry.get("per_lane_rlc", 0) >= 5
+    out, _ = loop_vs_plain(
+        bm, bm.full_range((R * S,)), None, 0, dyn["ex_pos"].shape[1], batch,
+        (dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"]), True, 19, 4)
+    assert bool((out[:, 1] > out[:, 0]).any())
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "selection"])
+def test_rlc_select_match_all_vs_plain(rlc_setup, gpu, mode):
+    """match_all on the with-text RLC index with dynamic partitioning
+    (kernels F, G, A's loop and B per-lane on RLC lanes) and with a scheme
+    list (kernel E with lengths, the search mask) on the card equals the
+    plain versions on the CPU."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rng = np.random.default_rng(51)
+    reads = _reads(rng, g, 96, 100, 2)[:96]
+    scheme, kw = ((get_scheme("kuch1", 2), dict(partitioning="dynamic"))
+                  if mode == "dynamic" else (get_multi_scheme("kuch1", 2), {}))
+    out = [pipeline.match_all(index, reads, scheme, switchpoint=4, **kw)
+           for index in (bm, cpu_bm)]
+    assert out[0][1] == out[1][1]
+    for f in ("read_id", "strand", "begin", "end", "distance"):
+        assert np.array_equal(getattr(out[0][0], f), getattr(out[1][0], f)), f
+    assert len(out[0][0]) >= 96
