@@ -25,7 +25,7 @@ a CUDA device. It
    overflows both the frontier and the in-text buffer. Kernel
    A's loop entry (the whole exact prefix in one launch) runs on the main
    path's seeded lanes and on the band-only path's second stage; kernel D
-   at the other band radii and its generic entry; kernel F (dynamic
+   at kb 0, 4, 5, 7 and 13 (its 32- and 64-bit bands); kernel F (dynamic
    partitioning) with and without the seed table, kernel G (per-read
    tables) on F's boundaries, kernel B's per-lane entry at kb 2 and 4 and
    kernel A's loop on G's tables, kernel E with per-row lengths on the part
@@ -56,6 +56,13 @@ a CUDA device. It
 
    and then the row-gather bench (``columba_tpu_torch.tools.gather_bench``,
    kernel H's entry point) at 262,144 lanes;
+   On ``se_all``, ``pe_best`` and ``rlc_se_all`` the warm-up align's own
+   inputs to kernels C and D (the rows ``stage_expand`` flattens from
+   whole SA ranges, the candidates ``stage_dedup`` sorts and pads, with
+   their live counts) are captured, and after the path each kernel entry
+   and band radius is held to its plain version on them and timed, by
+   CUDA events and by ``torch.profiler``'s device time, with a warm and
+   with a flushed L2 (``columba_tpu_torch/tools/path_inputs.py``);
 6. checks each path's output against the sampled loci (nothing with few
    enough substitutions may be missing), that every kernel launched on the
    paths that should reach it, and that one batch run through the plain
@@ -177,6 +184,9 @@ RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
              "rlc_pe_best_c")
 SCHEMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "schemes")
+# the paths whose own inputs to kernels C and D are captured and timed
+CAPTURE_PATHS = ("se_all", "pe_best", "rlc_se_all")
+PATH_INPUT_REPS = 10
 
 
 def log(msg: str) -> None:
@@ -527,15 +537,15 @@ def kernel_checks(index, arrays, reads, table) -> dict:
         f"live after 8 steps, steps 8..{sched.e_max}): equal to plain; "
         f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; bound "
         f"{b['bound_ms']:.5f} ms")
-    for kb, what in ((0, "templated"), (BEST_CUT, "templated"),
-                     (5, "generic entry")):
+    for kb in (0, BEST_CUT, 5, 7, 13):
         wsk = win_starts(kb)
         _, rep = check(
             "verify", lambda: verify.verify_window(index, pats, rid, wsk, kb),
             lambda: verify.verify_window_plain(index, pats, rid, wsk, kb),
             plain_reps=2)
-        log(f"kernel verify at kb={kb} ({what}; {ml} candidates): equal to "
-            f"plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms")
+        log(f"kernel verify at kb={kb} ({32 if kb <= 7 else 64}-bit band; "
+            f"{ml} candidates): equal to plain; {rep['ms']:.4f} ms vs plain "
+            f"{rep['plain_ms']:.4f} ms")
     report.update(new_kernel_checks(index, batch, table, all_ranges, rng,
                                     check))
     return report
@@ -954,26 +964,21 @@ def rlc_select_checks(bm, batch, rng, states) -> dict:
     return report
 
 
-def ptxas_report(build_log: str) -> list:
-    """One line per kernel entry of nvcc's ``-Xptxas -v`` output: the entry
-    (template arguments in <>, -1 = the generic entry), its registers, and
-    its stack frame and spills where there are any."""
-    out, entry, frame = [], "", ""
-    for ln in build_log.splitlines():
-        if "Compiling entry function" in ln:
-            m = re.search(r"\d([a-z_]+_kernel)(?:ILi(n?\d+)E(?:Li(n?\d+)E)?"
-                          r"(?:Lb(\d)E)?(?:Li(\d+)E)?)?", ln)
-            args = [a.replace("n", "-") for a in m.groups()[1:] if a]
-            entry = m.group(1) + (f"<{', '.join(args)}>" if args else "")
-        elif "bytes stack frame" in ln:
-            frame = "" if ln.strip().startswith("0 bytes stack frame, 0 bytes "
-                                                "spill stores, 0 bytes spill "
-                                                "loads") else ln.strip()
-        elif "Used" in ln and "registers" in ln:
-            regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out.append(f"{entry}: {regs} registers"
-                       + (f"; {frame}" if frame else ", no spills"))
-    return out
+def path_input_times(path: str, calls: list, smi: str) -> None:
+    """Kernels C and D on the inputs a path's warm-up gave them (the first
+    launch of each entry and band radius): held to the plain version, then
+    timed by CUDA events and by the profiler's device time, with a warm and
+    with a flushed L2 (``tools/path_inputs.py``)."""
+    from columba_tpu_torch.tools import path_inputs
+
+    seen, picked = set(), []
+    for c in calls:
+        key = (c["kind"], c.get("kb"))
+        if key not in seen:
+            seen.add(key)
+            picked.append(c)
+    path_inputs.time_inputs(path, picked, path_inputs.Clocks(PATH_INPUT_REPS),
+                            smi, [])
 
 
 def parse_sam(path: str, seq_ids: dict | None = None):
@@ -1051,6 +1056,10 @@ def plain_patch():
             return rank.u32(index.sa_samples[rows])
         return locate.locate_rows_plain(index, rows)
 
+    def verify_plain(index, patterns, rid, window_start, kb, live=None):
+        return verify.verify_window_plain(index, patterns, rid,
+                                          window_start, kb)
+
     def exact_plain(index, patterns, lengths=None):
         return extend.zero_empty(extend.exact_match_plain(index, patterns,
                                                           lengths))
@@ -1064,7 +1073,7 @@ def plain_patch():
               dynschedule.dynamic_partition_plain),
              (dynschedule, "build_tables", dynschedule.build_tables_plain),
              (locate, "locate_rows", locate_plain),
-             (verify, "verify_window", verify.verify_window_plain)]
+             (verify, "verify_window", verify_plain)]
     undo = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
     for mod, name, fn in saved:
         setattr(mod, name, fn)
@@ -1331,7 +1340,7 @@ def main() -> int:
     from columba_tpu_torch.index.kmer import build_kmer_table_cached
     from columba_tpu_torch.search import executor, pipeline
     from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
-    from columba_tpu_torch.tools import workload
+    from columba_tpu_torch.tools import path_inputs, workload
 
     t_all = time.time()
     dev = torch.device("cuda:0")
@@ -1348,7 +1357,7 @@ def main() -> int:
     native.load_kernels()
     log(f"kernels built in {time.time() - t0:.1f} s "
         f"(nvcc {native.build_seconds.get('kernels', 0.0):.1f} s)")
-    for ln in ptxas_report(native.build_log.get("kernels", "")):
+    for ln in native.ptxas_report(native.build_log.get("kernels", "")):
         log(f"  ptxas {ln}")
 
     with tempfile.TemporaryDirectory(prefix="columba_smoke_") as wd:
@@ -1472,9 +1481,13 @@ def main() -> int:
 
         def drive(path, genome_what):
             """One path: a warm-up align, then the counted and timed one
-            with every launch count reset just before."""
+            with every launch count reset just before. On the paths of
+            ``CAPTURE_PATHS`` the warm-up's inputs to kernels C and D are
+            kept, and those kernels are timed on them after the path."""
             t0 = time.time()
-            align(path, warm[path], "warm")
+            warm_up = lambda: align(path, warm[path], "warm")  # noqa: E731
+            captured = (path_inputs.capture(warm_up) if path in CAPTURE_PATHS
+                        else warm_up())
             t_warm = time.time() - t0
             for k in native.KERNELS.values():
                 k.reset()
@@ -1524,6 +1537,8 @@ def main() -> int:
             if missing:
                 raise AssertionError(f"kernels not launched on path {path}: "
                                      f"{missing}")
+            if path in CAPTURE_PATHS:
+                path_input_times(path, captured, smi)
 
         for path in PATH_KERNELS:
             if path not in RLC_PATHS:

@@ -13,13 +13,24 @@
 // as the lockstep JAX loop does.
 //
 // RLC entry ("rlc", K19): replaces columba_tpu/ops/blocate.py run_of_rows +
-// locate_rows. One thread per row: a binary search for the row's run (about
-// log2 r dependent 4 B reads of START), then the LF walk: each step is the
-// run's LF position plus the row's offset in the run, and the run hint
-// fast-forwards (4 B END reads) to the run holding the new row; it stops at
-// a run head, a run tail or a row that is 0 mod the stride (at most stride
-// steps), reads that sample and adds the steps, capped at n. Bound: the
-// chain of dependent reads, as the Vanilla entry.
+// locate_rows. One thread per row walks LF: each step is the run's LF
+// position plus the row's offset in the run, and the run hint
+// fast-forwards to the run holding the new row; the walk stops at a run
+// head, a run tail or a row that is 0 mod the stride (at most stride
+// steps), reads that sample and adds the steps, capped at n.
+// Bound: about 48 dependent random reads a row on uniform rows, each a
+// sector of DRAM unless the L2 holds it: the count of sectors and the L2's
+// share of them set the time. So the walk reads the index's compact walk
+// table (index/bmove.py locate_tables: START END LF_POS LF_RUN, 16 B a
+// run, a fifth of the fused rows' bytes, so the L2 holds a larger share of
+// it), one 16 B word a run: a step's word is the one its fast-forward
+// landed on, and the fast-forward's next word is the neighbouring 16 B.
+// A row's run comes from the bucket table (the run holding every
+// 2^shift-th row, about two runs a bucket) and a short forward walk: one
+// read of a table that stays in the L2 and one or two neighbouring words,
+// in place of a binary search over every run (about log2 r dependent
+// reads). The
+// fused rows are read once a row, for the run-boundary sample.
 #include "common.cuh"
 
 namespace {
@@ -60,38 +71,35 @@ __global__ void locate_kernel(const uint32_t* __restrict__ occ, uint4 counts,
 }
 
 __global__ void locate_rlc_kernel(columba::BmParams p,
+                                  const uint4* __restrict__ walk,
+                                  const int* __restrict__ run_at, int shift,
                                   const uint32_t* __restrict__ sa_stride,
-                                  int shift, const long long* __restrict__ rows,
+                                  int sshift,
+                                  const long long* __restrict__ rows,
                                   long long* __restrict__ out, long long N) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= N) return;
   uint32_t pos = static_cast<uint32_t>(rows[i]);
-  int lo = 0, hi = static_cast<int>(p.r_fwd) - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (columba::bm_col(p, mid, 0) <= pos) lo = mid;
-    else hi = mid - 1;
-  }
-  int run = lo;
-  const uint32_t smask = (1u << shift) - 1u;
+  int run = __ldg(run_at + (pos >> shift));
+  uint4 w = __ldg(walk + run);                      // START END LF_POS LF_RUN
+  while (w.y <= pos) w = __ldg(walk + (++run));
+  const uint32_t smask = (1u << sshift) - 1u;
   uint32_t steps = 0, val;
   while (true) {
-    const uint4 w0 = columba::bm_word(p, run, 0);   // START END LF_POS LF_RUN
-    const bool head = pos == w0.x;
-    const bool tail = pos == w0.y - 1u;
-    if (head || tail) {
-      const uint4 w1 = columba::bm_word(p, run, 1);
-      val = head ? w1.y : w1.z;                     // SA_FIRST / SA_LAST
+    const bool head = pos == w.x;
+    if (head || pos == w.y - 1u) {
+      val = columba::bm_col(p, run, head ? 5 : 6);  // SA_FIRST / SA_LAST
       break;
     }
     if ((pos & smask) == 0u) {
-      val = __ldg(sa_stride + (pos >> shift));
+      val = __ldg(sa_stride + (pos >> sshift));
       break;
     }
-    pos = w0.z + (pos - w0.x);
-    run = static_cast<int>(w0.w);
-    while (columba::bm_col(p, run, 1) <= pos) ++run;
+    pos = w.z + (pos - w.x);
+    run = static_cast<int>(w.w);
+    w = __ldg(walk + run);
+    while (w.y <= pos) w = __ldg(walk + (++run));
     ++steps;
   }
   val += steps;
@@ -103,17 +111,20 @@ __global__ void locate_rlc_kernel(columba::BmParams p,
 extern "C" int columba_locate_rlc(const int* fused, unsigned r_fwd,
                                   unsigned r_rev, unsigned f0, unsigned f1,
                                   unsigned f2, unsigned f3, unsigned n,
-                                  const int* sa_stride, int stride,
+                                  const int* walk, const int* run_at,
+                                  int shift, const int* sa_stride, int stride,
                                   const long long* rows, long long* out,
                                   long long N, cudaStream_t stream) {
   const columba::BmParams p =
       columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
-  int shift = 0;
-  while ((1 << shift) < stride) ++shift;
-  if ((1 << shift) != stride) return static_cast<int>(cudaErrorInvalidValue);
+  int sshift = 0;
+  while ((1 << sshift) < stride) ++sshift;
+  if ((1 << sshift) != stride || shift < 0 || shift > 31)
+    return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kThreads = 128;
   locate_rlc_kernel<<<columba::grid_for(N, kThreads), kThreads, 0, stream>>>(
-      p, reinterpret_cast<const uint32_t*>(sa_stride), shift, rows, out, N);
+      p, reinterpret_cast<const uint4*>(walk), run_at, shift,
+      reinterpret_cast<const uint32_t*>(sa_stride), sshift, rows, out, N);
   return static_cast<int>(cudaGetLastError());
 }
 

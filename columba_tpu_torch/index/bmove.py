@@ -259,6 +259,27 @@ def load_bmove(out_dir: str) -> BMoveArrays:
     return BMoveArrays(meta=meta, seq_names=seq_names, **arrs)
 
 
+def locate_tables(fused_fwd: np.ndarray, r_f: int, n: int,
+                  textless: bool) -> tuple:
+    """Kernel C's RLC walk tables, made at index load (the index on disk
+    stays as it is): the forward runs' START, END, LF_POS and LF_RUN and
+    the sentinel row, 16 B a run, so that a walk step and its fast-forward
+    read one 16 B word a run (the fused rows are 80 B); and the run that
+    holds every 2^shift-th BWT row, with 2^shift about twice n / r_f, so
+    that a row's run is a short forward walk from its bucket's run and
+    not a binary search over every run. Returns (walk (r_f + 1, 4) uint32,
+    run_at int32, shift); empty tables on the textless index, which
+    locates on the host."""
+    if textless:
+        return np.zeros((0, 4), np.uint32), np.zeros(0, np.int32), 0
+    shift = (n // max(r_f, 1)).bit_length()
+    walk = np.ascontiguousarray(fused_fwd[:r_f + 1, START:LF_RUN + 1])
+    heads = np.arange(0, n + 1, 1 << shift, dtype=np.int64)
+    run_at = np.searchsorted(fused_fwd[:r_f, START].astype(np.int64), heads,
+                             side="right") - 1
+    return walk, run_at.astype(np.int32), shift
+
+
 def _words(a) -> torch.Tensor:
     """uint32 numpy words -> int32 tensor with the same bit pattern."""
     return torch.from_numpy(
@@ -279,6 +300,9 @@ class BMoveIndex:
     first_row: torch.Tensor  # (5,) int64 first F row per '$ACGT' char
     text: torch.Tensor       # (ceil(n/16),) int32 packed words; empty
     sa_stride: torch.Tensor  # int32 SA at every stride-th fwd row; empty
+    # kernel C's locate tables (:func:`locate_tables`); empty when textless
+    walk: torch.Tensor = None     # (R_f + 1, 4) int32 START END LF_POS LF_RUN
+    run_at: torch.Tensor = None   # int32 fwd run of every 2^run_shift-th row
 
     # -- host metadata --
     n: int = 0
@@ -288,6 +312,7 @@ class BMoveIndex:
     textless: bool = False
     toe_init: int = 0        # SA of the full fwd range's last row
     first_host: tuple = (0, 0, 0, 0)
+    run_shift: int = 0
 
     @staticmethod
     def from_arrays(arrays: BMoveArrays, device) -> "BMoveIndex":
@@ -296,11 +321,15 @@ class BMoveIndex:
         r_f = int(arrays.meta["runs_fwd"])
         fused = np.concatenate([arrays.fused_fwd, arrays.fused_rev])
         first = np.asarray(arrays.first_row, dtype=np.int64)
+        walk, run_at, shift = locate_tables(
+            arrays.fused_fwd, r_f, int(arrays.n), bool(arrays.textless))
         return BMoveIndex(
             fused=_words(fused),
             first_row=torch.from_numpy(first.copy()),
             text=_words(arrays.text),
             sa_stride=_words(arrays.sa_stride),
+            walk=_words(walk),
+            run_at=torch.from_numpy(run_at),
             n=int(arrays.n),
             r_fwd=r_f,
             r_rev=int(arrays.meta["runs_rev"]),
@@ -308,6 +337,7 @@ class BMoveIndex:
             textless=bool(arrays.textless),
             toe_init=int(arrays.fused_fwd[r_f - 1, SA_LAST]),
             first_host=tuple(int(x) for x in first[:4]),
+            run_shift=shift,
         ).to(device)
 
     def to(self, device) -> "BMoveIndex":

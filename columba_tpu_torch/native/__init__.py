@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import glob
 import os
+import re
 import subprocess
 import threading
 import time
@@ -207,3 +208,25 @@ class Kernel:
             self.launches += 1
             if entry:
                 self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+
+
+def ptxas_report(build_log: str) -> list:
+    """One line per kernel entry of nvcc's ``-Xptxas -v`` output: the entry
+    (template arguments in <>, -1 = the generic entry), its registers, and
+    its stack frame and spills where there are any."""
+    out, entry, frame = [], "", ""
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            m = re.search(r"\d([a-z_]+_kernel)(?:ILi(n?\d+)E(?:Li(n?\d+)E)?"
+                          r"(?:Lb(\d)E)?(?:Li(\d+)E)?)?", ln)
+            args = [a.replace("n", "-") for a in m.groups()[1:] if a]
+            entry = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif "bytes stack frame" in ln:
+            frame = "" if ln.strip().startswith("0 bytes stack frame, 0 bytes "
+                                                "spill stores, 0 bytes spill "
+                                                "loads") else ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append(f"{entry}: {regs} registers"
+                       + (f"; {frame}" if frame else ", no spills"))
+    return out

@@ -9,8 +9,11 @@ run hint follows by fast-forward (uncapped: the walk stays within the
 destination interval of one run).
 
 ``locate_rows_plain`` returns int64 positions (uint32 values); with
-``stats`` it counts the LF steps and fast-forward reads a per-row walk
-makes (``tools/bounds.py``).
+``stats`` it counts what kernel C's RLC entry reads (``tools/bounds.py``):
+``bucket``, the walk-table words that finding each row's run from its
+bucket's run takes (``index/bmove.py`` ``locate_tables``), ``steps``, the
+LF steps, and ``walk``, the walk-table words of those steps and their
+fast-forwards.
 """
 
 from __future__ import annotations
@@ -27,15 +30,12 @@ def _col(index, rows, col):
     return index.fused[rows, col].long() & MASK32
 
 
-def run_of_rows(index: BMoveIndex, rows: torch.Tensor,
-                stats: dict | None = None) -> torch.Tensor:
+def run_of_rows(index: BMoveIndex, rows: torch.Tensor) -> torch.Tensor:
     """Binary-search the fwd run interval containing each row."""
     R = index.r_fwd
     lo = torch.zeros_like(rows)
     hi = torch.full_like(rows, R - 1)
     for _ in range(max(1, (R + 1).bit_length())):
-        if stats is not None:
-            stats["probes"] = stats.get("probes", 0) + int((lo < hi).sum())
         mid = (lo + hi + 1) >> 1
         go = _col(index, mid, START) <= rows
         lo = torch.where(go, mid, lo)
@@ -61,7 +61,13 @@ def _at_boundary(index: BMoveIndex, pos, run):
 def locate_rows_plain(index: BMoveIndex, rows: torch.Tensor,
                       stats: dict | None = None) -> torch.Tensor:
     """Text position for each (N,) int64 fwd-BWT row (bounded LF-walks)."""
-    runs = run_of_rows(index, rows, stats)
+    runs = run_of_rows(index, rows)
+    tables = index.run_at is not None and index.run_at.numel() > 0
+    if stats is not None and tables:
+        # the bucket's run, then one word a run up to the row's
+        first = index.run_at[rows >> index.run_shift].long()
+        stats["bucket"] = stats.get("bucket", 0) + int(
+            (runs - first + 1).sum())
     done, val = _at_boundary(index, rows, runs)
     val = torch.where(done, val, 0)
     pos, run = rows, runs

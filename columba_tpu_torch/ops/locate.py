@@ -7,7 +7,8 @@ reads the sample and adds the step count: the plain PyTorch version below
 on the CPU, kernel C (``csrc/locate.cu``) on the card. On the RLC index
 ``locate_rows`` dispatches, as ``columba_tpu/ops/locate.py:40-43`` does, to
 ``ops/blocate.py`` on the CPU and to kernel C's RLC entry (``locate.rlc``)
-on the card.
+on the card (its walk reads the index's compact walk and bucket tables,
+``index/bmove.py`` ``locate_tables``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ KERNEL = native.Kernel(
     replaces="columba_tpu/ops/locate.py:38",
     symbols={"rlc": ("columba_locate_rlc", [
         *bextend.BM_ARGTYPES,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,   # walk, run_at, shift
         ctypes.c_void_p, ctypes.c_int32,                    # sa_stride, stride
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64])},  # rows, out, N
 )
@@ -94,11 +96,13 @@ def _locate_rlc(index: BMoveIndex, rows: torch.Tensor) -> torch.Tensor:
     if index.textless or index.sa_stride.numel() == 0:
         raise ValueError("the textless RLC index has no SA samples: it "
                          "locates on the host (pipeline._match_textless)")
-    if index.fused.device != rows.device:
-        raise ValueError("index and rows must be on one device")
+    for t in (index.fused, index.walk, index.run_at, index.sa_stride):
+        if t.device != rows.device:
+            raise ValueError("index and rows must be on one device")
     out = torch.empty_like(rows)
     if rows.numel():
-        KERNEL(*bextend.bm_args(index), index.sa_stride.data_ptr(),
-               index.stride, rows.data_ptr(), out.data_ptr(), rows.numel(),
-               entry="rlc")
+        KERNEL(*bextend.bm_args(index), index.walk.data_ptr(),
+               index.run_at.data_ptr(), index.run_shift,
+               index.sa_stride.data_ptr(), index.stride, rows.data_ptr(),
+               out.data_ptr(), rows.numel(), entry="rlc")
     return out

@@ -11,10 +11,12 @@ outside [0, n) reads as code 4. This replaces the JAX package's wrapped
 uint32 starts (``NEG_T``).
 
 ``verify_window`` runs the plain PyTorch version (``gather_window`` +
-``verify_window_plain``) on the CPU and kernel D (``csrc/verify.cu``),
-which fuses the window fetch into the DP, on the card. It reads only the
-index's flat packed text and its length, so it takes the Vanilla index and
-the with-text RLC index (``index/bmove.py``) alike.
+``verify_window_plain``) on the CPU and kernel D (``csrc/verify.cu``) on
+the card: it fuses the window fetch into the DP and runs the band as one
+bit-vector word (Myers' recurrence in banded form), with the same final
+rows. It reads only the index's flat packed text and its length, so it
+takes the Vanilla index and the with-text RLC index (``index/bmove.py``)
+alike.
 """
 
 from __future__ import annotations
@@ -27,14 +29,15 @@ from columba_tpu_torch import native
 from columba_tpu_torch.ops import rank
 from columba_tpu_torch.search.schedule import INF
 
-KERNEL_MAX_KB = 13   # csrc/verify.cu: templated for kb 0..4, generic above
+KERNEL_MAX_KB = 13   # csrc/verify.cu: a 32-bit band to kb 7, 64-bit above
 
 KERNEL = native.Kernel(
     "verify", "columba_verify",
-    [ctypes.c_void_p, ctypes.c_int64,                    # text words, n
+    [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,    # text, words, n
      ctypes.c_void_p, ctypes.c_int32,                    # patterns, m
      ctypes.c_void_p, ctypes.c_void_p,                   # rid, win_start
-     ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64],   # kb, out, count
+     ctypes.c_int32, ctypes.c_void_p,                    # kb, live count
+     ctypes.c_void_p, ctypes.c_int64],                   # out, count
     source="columba_tpu_torch/csrc/verify.cu",
     replaces="columba_tpu/ops/verify.py:114",
 )
@@ -85,8 +88,15 @@ def verify_window_plain(index, patterns, rid, window_start,
 
 
 def verify_window(index, patterns: torch.Tensor, rid: torch.Tensor,
-                  window_start: torch.Tensor, kb: int) -> torch.Tensor:
-    """Fused window fetch + banded verify of (B,) candidates."""
+                  window_start: torch.Tensor, kb: int,
+                  live: torch.Tensor | None = None) -> torch.Tensor:
+    """Fused window fetch + banded verify of (B,) candidates.
+
+    ``live``: a device int64 scalar, the count of live slots (the dedup's
+    ``n_unique``); the caller guarantees that every slot at or past it
+    holds (read 0, window 0), as ``pipeline.stage_dedup`` pads. The kernel
+    then verifies one such slot a block and copies its row; the rows equal
+    the plain version's either way. Read on the card, with no host sync."""
     if not patterns.is_cuda:
         return verify_window_plain(index, patterns, rid, window_start, kb)
     if not 0 <= kb <= KERNEL_MAX_KB:
@@ -98,17 +108,21 @@ def verify_window(index, patterns: torch.Tensor, rid: torch.Tensor,
             or window_start.shape != rid.shape):
         raise ValueError("verify_window takes (R, m) uint8 patterns and (B,) int64 "
                          "rid and window starts")
-    if index.text.numel() * 16 < index.n:
+    if index.text.numel() == 0 or index.text.numel() * 16 < index.n:
         raise ValueError("kernel D needs the packed text; the textless RLC "
                          "index has none")
-    for t in (patterns, rid, window_start, index.text):
+    if live is not None and (live.dtype != torch.int64 or live.numel() != 1):
+        raise ValueError("live must be one int64 count")
+    for t in (patterns, rid, window_start, index.text,
+              *(() if live is None else (live,))):
         if t.device != patterns.device or not t.is_contiguous():
             raise ValueError("kernel D inputs must be contiguous on one "
                              "device")
     out = torch.empty((B, 4 * kb + 1), dtype=torch.int32,
                       device=patterns.device)
     if B:
-        KERNEL(index.text.data_ptr(), index.n, patterns.data_ptr(),
-               patterns.shape[1], rid.data_ptr(), window_start.data_ptr(),
-               kb, out.data_ptr(), B)
+        KERNEL(index.text.data_ptr(), index.text.numel(), index.n,
+               patterns.data_ptr(), patterns.shape[1], rid.data_ptr(),
+               window_start.data_ptr(), kb,
+               None if live is None else live.data_ptr(), out.data_ptr(), B)
     return out

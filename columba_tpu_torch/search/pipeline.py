@@ -199,7 +199,8 @@ def match_device_core(index: FMIndex, reads: torch.Tensor,
     win_start = pos + c_estb[cand] - kb          # signed: may be < 0
     rid_v, win_v, vlive, n_uniq = stage_dedup(c_rid[cand], win_start, valid,
                                               max_verify)
-    final_rows = verify.verify_window(index, reads, rid_v, win_v, kb)
+    final_rows = verify.verify_window(index, reads, rid_v, win_v, kb,
+                                      live=n_uniq)
     return dict(
         rid=rid_v, win_start=win_v, final_rows=final_rows, valid=vlive,
         total=total, n_unique=n_uniq, overflow=res.overflow,

@@ -45,8 +45,12 @@ BM_LANE_OPS = 60
 # per child whose hints are walked: two LF-run reads, four walk set-ups,
 # the selects into the child's columns
 BM_CHILD_OPS = 40
-WALK_OPS = 4         # per 4 B read of a walk: compare, add, address
+WALK_OPS = 4         # per read of a walk: compare, add, address
 PROBE_OPS = 6        # per binary-search probe: mid, read, compare, 2 selects
+# kernel D, a row of the band per 32-bit word: Myers' step and the match
+# mask; at kb 0 a row's two plane compares, and the popcount per 32 rows
+VERIFY_ROW_OPS = 20
+VERIFY_KB0_OPS = 4
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -141,17 +145,29 @@ def locate(rows, steps, out) -> dict:
                  n_steps * (OCC_ROW_OPS + 12) + N * 30)
 
 
-def verify(patterns, rid, window_start, kb: int, out) -> dict:
+def verify(patterns, rid, window_start, kb: int, out,
+           live: int | None = None) -> dict:
     """Kernel D: per candidate the m + 3kb + 1 window codes at 2 bits
     each, the read's m bytes, its read id and window start; the final row
-    out. m rows x (4kb+1) cells x (compare, 2 add, 2 min, clamp, shift of
-    the window buffer) operations."""
+    out. Operations: the bit-vector band's (Myers' banded step, about 17
+    word operations a row as Hyyro counts it, and 3 for the row's match
+    mask: VERIFY_ROW_OPS a 32-bit word of the band; at kb 0 the mismatch
+    count, VERIFY_KB0_OPS a row), then 4 a cell to rebuild the final row.
+    PRs 1-6 counted the scalar recurrence (8 a cell and 6 a row: 78 a row
+    at kb 2, 422 at kb 13), which the bit-vector kernel beat at kb 7 and
+    13, so that count is no lower bound.
+
+    ``live``: the count of live slots (``verify.verify_window``'s
+    ``live``). The slots past it all hold (read 0, window 0), so their
+    rows need one DP between them and their rows' bytes out."""
     m = patterns.shape[1]
     B = rid.numel()
     bw = 4 * kb + 1
-    return bound(_nbytes(rid, window_start, out)
-                 + B * ((m + 3 * kb + 1 + 3) // 4 + m),
-                 B * m * (bw * 8 + 6))
+    dps = B if live is None or live >= B else live + 1
+    row_ops = VERIFY_KB0_OPS if kb == 0 else VERIFY_ROW_OPS * (
+        1 if bw <= 32 else 2)
+    return bound(dps * (16 + (m + 3 * kb + 1 + 3) // 4 + m) + _nbytes(out),
+                 dps * (m * row_ops + bw * 4))
 
 
 def exact(steps_walked: int, rows: int, out) -> dict:
@@ -309,13 +325,13 @@ def exact_rlc(steps_walked: int, stats: dict, out) -> dict:
 
 
 def locate_rlc(rows, stats: dict, out) -> dict:
-    """Kernel C's RLC entry: per row the binary search for its run (4 B a
-    probe), then per row visited the run's first word (16 B), the LF walk's
-    END reads (``stats["walk"]``), and one 16 B sample read; row in,
-    position out."""
+    """Kernel C's RLC entry: per row its bucket's run (one 4 B read of
+    ``run_at``) and the walk-table words up to the row's run
+    (``stats["bucket"]``, 16 B each), then per LF step the landing run's
+    word and its fast-forward's words (``stats["walk"]``, 16 B each), and
+    one 4 B sample read; row in, position out."""
     N = rows.numel()
-    steps, walk = stats.get("steps", 0), stats.get("walk", 0)
-    probes = stats.get("probes", 0)
-    return bound(_nbytes(rows, out) + probes * 4 + (N + steps) * 16
-                 + walk * 4 + N * 16,
-                 probes * PROBE_OPS + (N + steps) * 12 + walk * WALK_OPS)
+    steps = stats.get("steps", 0)
+    words = stats.get("bucket", 0) + stats.get("walk", 0)
+    return bound(_nbytes(rows, out) + N * 4 + words * 16 + N * 4,
+                 (N + steps) * 12 + words * WALK_OPS)

@@ -180,6 +180,74 @@ def test_locate_rows(world):
     assert want[0] == n
 
 
+def test_locate_tables_find_every_run(world):
+    """Kernel C's RLC walk tables: the walk table is the forward runs'
+    START END LF_POS LF_RUN with the sentinel row, and from every row's
+    bucket a forward walk over END reaches the run the JAX package's binary
+    search finds; the textless index keeps none."""
+    g, idx = world
+    ja, ta, jb, tb = idx["rlc"]
+    n, r = len(g), tb.r_fwd
+    np.testing.assert_array_equal(tb.walk.numpy().view(np.uint32),
+                                  ta.fused_fwd[:r + 1, :4])
+    rows = np.arange(n + 1, dtype=np.int64)
+    want = np.asarray(jax.jit(jbloc.run_of_rows)(
+        jb, jnp.asarray(rows.astype(np.int32)))).astype(np.int64)
+    end = tb.walk[:, 1].long() & 0xFFFFFFFF
+    t_rows = torch.from_numpy(rows)
+    run = tb.run_at[t_rows >> tb.run_shift].long()
+    walked = torch.zeros_like(run)
+    while bool((adv := end[run] <= t_rows).any()):
+        run, walked = run + adv.long(), walked + adv.long()
+    np.testing.assert_array_equal(run.numpy(), want)
+    assert 0 < float(walked.float().mean()) < 2    # about two runs a bucket
+    tl = idx["textless"][3]
+    assert tl.walk.numel() == 0 and tl.run_at.numel() == 0
+
+
+def test_locate_stats_count_the_kernels_reads(world):
+    """The counts behind tools/bounds.py's ``locate_rlc`` are the 16 B
+    walk-table words of a thread that locates each row alone, as kernel C's
+    RLC entry does: its bucket's run and one word a run up to the row's
+    run, then per LF step the landing run's word and one a fast-forward;
+    no binary-search probe. The bound counts those words and two 4 B reads
+    a row (the bucket table and the sample)."""
+    from columba_tpu_torch.ops import blocate
+    from columba_tpu_torch.tools import bounds
+
+    g, idx = world
+    tb = idx["rlc"][3]
+    walk = (tb.walk.long() & tbext.MASK32).numpy()
+    run_at = tb.run_at.numpy()
+    rng = np.random.default_rng(69)
+    rows = np.concatenate([[0, len(g)], rng.integers(0, len(g) + 1, 400)])
+    mask = tb.stride - 1
+    bucket = steps = words = 0
+    for pos in rows.tolist():
+        run = int(run_at[pos >> tb.run_shift])
+        bucket += 1
+        while walk[run, 1] <= pos:
+            run += 1
+            bucket += 1
+        while not (pos in (walk[run, 0], walk[run, 1] - 1)
+                   or pos & mask == 0):
+            pos = int(walk[run, 2] + pos - walk[run, 0])
+            run = int(walk[run, 3])
+            steps += 1
+            words += 1
+            while walk[run, 1] <= pos:
+                run += 1
+                words += 1
+    t_rows = torch.from_numpy(rows)
+    stats: dict = {}
+    out = blocate.locate_rows_plain(tb, t_rows, stats)
+    assert "probes" not in stats
+    assert (stats["bucket"], stats["steps"], stats["walk"]) == (
+        bucket, steps, words)
+    b = bounds.locate_rlc(t_rows, stats, out)
+    assert b["bytes"] == len(rows) * (8 + 4 + 4 + 8) + (bucket + words) * 16
+
+
 def test_exact_match(world):
     g, idx = world
     _, _, jb, tb = idx["rlc"]

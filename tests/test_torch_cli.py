@@ -27,6 +27,7 @@ import torch
 
 from columba_tpu import cli as jcli
 from columba_tpu_torch import cli as tcli
+from columba_tpu_torch.search import strategy
 
 torch.set_num_threads(1)
 
@@ -213,14 +214,23 @@ def pairs(built):
     ("se_best_d", ["-a", "best", "-I", "96", "-d", "@COLLECTION@"], False),
     ("se_all_probe", ["-a", "all", "-e", "2", "-S", "columba",
                       "--probe-selection", "-p", "dynamic"], False),
+    ("se_best_ladder_edit", ["-a", "best", "-S", "pigeon", "-I", "86"],
+     False),
 ])
 def test_align_modes_identical_sam(built, pairs, tag, opts, paired):
     """Byte-identical SAM records from the two packages in BEST(+x) mode,
     through the exact pass, paired-end in BEST and ALL mode, and with
     dynamic and static partitioning, a scheme folder with its mirror (-c)
     and alone with its static fractions (-c -nD), a scheme collection (-d: kuch_k+1's searches twice, as the JAX package's
-    own CLI test builds it) and the forced probe of the columba set."""
+    own CLI test builds it), the forced probe of the columba set, and the
+    edit-metric stratum ladder (pigeon at -I 86: cutoff 7 at 50 bp, above
+    the single pass's 6, so every stratum goes through kernel D's generic
+    radii)."""
     wd, idx = built
+    if tag == "se_best_ladder_edit":
+        cfg = strategy.MappingConfig(scheme_name="pigeon", metric="edit",
+                                     min_identity=86)
+        assert strategy.best_cutoff_for(cfg, 50) == 7
     if "@COLLECTION@" in opts:
         multi = wd / "multi"
         for k in (1, 2):
@@ -426,3 +436,45 @@ def test_align_rlc_refusals(built_rlc, pairs, flavor, opts, exc):
                    "2", "--device", "cpu"] + opts)
     if exc is NotImplementedError:
         assert "ROADMAP" in str(err.value)
+
+
+def test_bench_times_an_earlier_tree_through_its_wrappers(tmp_path):
+    """``locate_verify_bench --parent`` imports the earlier tree's own ops
+    wrappers (here a copy of this tree's package) beside this tree's, puts
+    this tree's modules back after, and launches through them on a copy of
+    each index in the tree's own index class: on CPU tensors the wrappers
+    run their plain versions, which must equal this tree's."""
+    import shutil
+    import sys
+
+    from columba_tpu_torch.index import bmove
+    from columba_tpu_torch.index.build import build_index_from_codes
+    from columba_tpu_torch.index.fmindex import FMIndex
+    from columba_tpu_torch.ops import blocate, locate, verify
+    from columba_tpu_torch.tools import locate_verify_bench as lvb
+
+    shutil.copytree(PORT, tmp_path / "columba_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    mods = lvb.load_tree(str(tmp_path))
+    for m in mods.values():
+        assert m.__file__.startswith(str(tmp_path))
+    assert sys.modules["columba_tpu_torch.ops.locate"] is locate
+    assert mods["ops.locate"] is not locate
+
+    rng = np.random.default_rng(5)
+    g = np.concatenate([np.tile(rng.integers(0, 4, 400), 4),
+                        rng.integers(0, 4, 400)]).astype(np.uint8)
+    fm = FMIndex.from_arrays(build_index_from_codes(g), "cpu")
+    bm = bmove.BMoveIndex.from_arrays(bmove.build_bmove_from_codes(g), "cpu")
+    rows = torch.from_numpy(rng.integers(0, len(g) + 1, 200))
+    rid = torch.from_numpy(rng.integers(0, 8, 50))
+    ws = torch.from_numpy(rng.integers(-3, len(g) - 20, 50))
+    reads = torch.from_numpy(rng.integers(0, 5, (8, 30)).astype(np.uint8))
+    launch = lvb.tree_launcher(mods)
+    assert torch.equal(launch("locate", dict(index=fm, rows=rows)),
+                       locate.locate_rows_plain(fm, rows))
+    assert torch.equal(launch("locate.rlc", dict(index=bm, rows=rows)),
+                       blocate.locate_rows_plain(bm, rows))
+    inp = dict(index=bm, reads=reads, rid=rid, ws=ws, kb=3, live=20)
+    assert torch.equal(launch("verify", inp),
+                       verify.verify_window_plain(bm, reads, rid, ws, 3))

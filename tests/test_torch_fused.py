@@ -557,3 +557,26 @@ def test_extend_rlc_bound_by_hand(per_char):
     extending = 2 if per_char else 3
     assert b["bytes"] == (lanes_io + extending * 2 * bounds.BM_ROW_BYTES
                           + (10 + 3 + 4) * 4)
+
+
+@pytest.mark.parametrize("live", [None, 1000, 40, 0])
+def test_verify_bound_by_hand(live):
+    """Kernel D's bound on 1,000 slots of m 100 at kb 2, counted by hand:
+    per live slot its read id and window start (16 B), the window's 107
+    codes at 2 bits each (27 B), 100 read bytes, 100 rows of one 32-bit
+    band word and the 9 cells of the final row; the dead slots (read 0,
+    window 0) need one DP between them; every slot's row out. At kb 13 the
+    band is two words, and at kb 0 a row is two plane compares."""
+    B, m, kb = 1000, 100, 2
+    pats = torch.zeros((4, m), dtype=torch.uint8)
+    rid = torch.zeros(B, dtype=torch.int64)
+    out = torch.zeros((B, 4 * kb + 1), dtype=torch.int32)
+    b = bounds.verify(pats, rid, rid, kb, out, live)
+    dps = B if live in (None, B) else live + 1
+    assert b["bytes"] == dps * (16 + 27 + m) + B * 9 * 4
+    assert b["operations"] == dps * (m * bounds.VERIFY_ROW_OPS + 9 * 4)
+    wide = bounds.verify(pats, rid, rid, 13, torch.zeros((B, 53)), live)
+    assert wide["operations"] == dps * (m * 2 * bounds.VERIFY_ROW_OPS
+                                        + 53 * 4)
+    kb0 = bounds.verify(pats, rid, rid, 0, torch.zeros((B, 1)), live)
+    assert kb0["operations"] == dps * (m * bounds.VERIFY_KB0_OPS + 4)

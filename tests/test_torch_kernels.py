@@ -96,22 +96,88 @@ def test_exact_kernel(setup, gpu, with_n):
     assert torch.equal(got.cpu(), extend.exact_match(cpu_fm, batch.cpu()))
 
 
-# 0..4 are templated entries of csrc/verify.cu, 5 and 13 its generic entry
-@pytest.mark.parametrize("kb", [0, 1, 2, 3, 4, 5, 13])
-def test_verify_kernel(setup, gpu, kb):
+# every band radius kernel D takes (a 32-bit band to kb 7, 64-bit above), at
+# m 50 and 100, and reads shorter than the band (m < 4kb+1; m < kb too)
+@pytest.mark.parametrize("kb,m", [(kb, m) for kb in range(14)
+                                  for m in (50, 100)]
+                         + [(2, 5), (5, 12), (9, 20), (13, 40), (13, 7)])
+def test_verify_kernel(setup, gpu, kb, m):
+    """Kernel D equals its plain version: windows before the text start and
+    past its end, reads with N (and a byte above 4), and every read at its
+    own window with a few errors."""
     g, cpu_fm, fm = setup
-    rng = np.random.default_rng(2 + kb)
-    n, m, B = cpu_fm.n, 100, 4096
+    rng = np.random.default_rng(2 + kb + m)
+    n, B = cpu_fm.n, 4096
     starts = rng.integers(-kb, n - m, B)
     starts[:8] = np.arange(-kb, 8 - kb)
     starts[8:16] = n - m + rng.integers(-3, 10, 8)
     reads = g[np.clip(starts[:64, None] + kb + np.arange(m), 0, n - 1)]
-    reads[::7, 50] = 4
+    for r in reads[16:]:
+        e = rng.integers(0, kb + 2)
+        r[rng.integers(0, m, e)] = rng.integers(0, 4, e)
+    reads[::7, m // 2] = 4
+    reads[5, m - 1] = 200
     pats = torch.from_numpy(np.ascontiguousarray(reads)).to(gpu)
     rid = torch.from_numpy(rng.integers(0, 64, B)).to(gpu)
+    rid[:64] = torch.arange(64)
     ws = torch.from_numpy(starts.astype(np.int64)).to(gpu)
     got = verify.verify_window(fm, pats, rid, ws, kb)
-    assert torch.equal(got, verify.verify_window_plain(fm, pats, rid, ws, kb))
+    want = verify.verify_window_plain(fm, pats, rid, ws, kb)
+    assert torch.equal(got, want)
+    assert int((want.min(dim=1).values <= kb).sum()) > 0
+
+
+@pytest.mark.parametrize("kb", [0, 2, 5, 13])
+def test_verify_kernel_dead_slots(setup, gpu, kb):
+    """With the live count the dedup passes, slots at or past it hold
+    (read 0, window 0) and the kernel copies one such row a block: every
+    row still equals the plain version's, for a count of 0, inside a block,
+    on a block's edge, at and past the capacity."""
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(60 + kb)
+    n, m, B = cpu_fm.n, 100, 1000
+    starts = rng.integers(-kb, n - m, B)
+    reads = g[np.clip(starts[:32, None] + kb + np.arange(m), 0, n - 1)]
+    pats = torch.from_numpy(np.ascontiguousarray(reads)).to(gpu)
+    for live in (0, 77, 128, 640, B, B + 5):
+        keep = np.arange(B) < live
+        rid = torch.from_numpy(np.where(keep, rng.integers(0, 32, B),
+                                        0)).to(gpu)
+        ws = torch.from_numpy(np.where(keep, starts, 0)).to(gpu)
+        live_t = torch.tensor(live, dtype=torch.int64, device=gpu)
+        got = verify.verify_window(fm, pats, rid, ws, kb, live=live_t)
+        assert torch.equal(got, verify.verify_window_plain(fm, pats, rid, ws,
+                                                           kb)), live
+
+
+def _path_rows(index, g, seed, max_locate=1 << 14):
+    """The SA rows the path gives kernel C: run_scheme's candidate ranges
+    (frontier lanes and in-text rows) flattened into consecutive rows by
+    stage_expand, padded with row 0 to the capacity."""
+    rng = np.random.default_rng(seed)
+    reads = g[rng.integers(0, len(g) - 100, 96)[:, None] + np.arange(100)]
+    batch = torch.from_numpy(np.concatenate(
+        [reads, alphabet.revcomp(reads, axis=-1)])).to(index.device)
+    sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit")
+    itv_cap, ss, c2 = pipeline.crossover_caps(2048, max_locate, 4)
+    tables = executor.device_tables(sched, index.device)
+    res = executor.run_scheme(index, batch, sched, 2048, None, 4, itv_cap,
+                              ss, c2, itv_min_depth=16, tables=tables)
+    c_lo, c_hi, _, _ = pipeline.stage_candidates(res, tables,
+                                                 sched.num_searches)
+    rows, _, _, total = pipeline.stage_expand(c_lo, c_hi, max_locate)
+    assert 0 < int(total) < max_locate
+    return rows
+
+
+def test_locate_kernel_path_rows(setup, gpu):
+    """Kernel C on the rows the path gives it: whole SA ranges of
+    consecutive rows, then row 0 to the capacity."""
+    g, cpu_fm, fm = setup
+    rows = _path_rows(fm, g, 70)
+    got = locate.locate_rows(fm, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, locate.locate_rows_plain(fm, rows))
 
 
 def fused_vs_plain(index, state, mrow_t, pchars, T, t, switchpoint,
@@ -646,6 +712,17 @@ def test_rlc_locate_kernel(rlc_setup, gpu):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), locate.locate_rows(cpu_bm, rows))
     assert sorted(got.cpu().tolist())[-2:] == [cpu_bm.n - 1, cpu_bm.n]
+
+
+def test_rlc_locate_kernel_path_rows(rlc_setup, gpu):
+    """Kernel C's RLC entry on the path's rows: whole SA ranges of the
+    repeat-rich genome (each locus about six times), flattened."""
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rows = _path_rows(bm, g, 71)
+    got = locate.locate_rows(bm, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), locate.locate_rows(cpu_bm, rows.cpu()))
 
 
 def test_rlc_exact_kernel(rlc_setup, gpu):

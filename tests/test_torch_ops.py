@@ -163,11 +163,12 @@ def test_gather_and_verify_window(both):
     np.testing.assert_array_equal(_np(j_rows), t_rows.numpy())
 
 
-@pytest.mark.parametrize("kb", [0, 1, 3])
+@pytest.mark.parametrize("kb", [0, 1, 3, 7, 13])
 def test_verify_window_band_radii(both, kb):
     """The banded verify at the other band radii the port reaches: kb = 0
-    (every k = 0 scheme pass and every Hamming run) and edit k = 1, 3, on
-    short reads."""
+    (every k = 0 scheme pass and every Hamming run), edit k = 1, 3, and the
+    stratum ladder's radii above the single pass (7, and 13, the deepest
+    BEST cutoff), on short reads."""
     g, jfm, tfm = both
     rng = np.random.default_rng(30 + kb)
     n, m, B = tfm.n, 40, 300
