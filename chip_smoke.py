@@ -7,7 +7,8 @@ a CUDA device. It
 2. builds the eight CUDA kernels from ``columba_tpu_torch/csrc`` into
    ``columba_tpu_torch/_build`` (one nvcc per source, started together;
    kernel B's RLC entries are a source of their own) and prints ptxas's
-   registers and spills per entry;
+   registers and spills per entry, failing if kernels C, D, E or F keep a
+   stack frame (local memory);
 3. generates a random genome from a fixed seed (128 Mbp in 4 sequences, with
    runs of N), writes it as FASTA and builds the index with the port's
    ``cli build`` (default SA sparseness 4, so locate walks LF);
@@ -47,7 +48,8 @@ a CUDA device. It
    - PE ALL at ``-e 2`` on the first 32,768 pairs: the band-only path (no
      in-text crossover, half-size frontier, two-stage exact loop);
    - SE ALL ``-p dynamic -e 2`` on the SE ALL path's FASTQ: kernels F and G
-     and kernel B's per-lane entry; its records must be those of SE ALL;
+     and kernel B's per-lane entry; its records must be those of SE ALL,
+     and kernel F must launch once a batch, whatever its lossless re-runs;
    - SE BEST ``-d DIR`` on the same FASTQ, with a collection of two schemes
      per k written from ``schemes/kuch_k+1`` and its mirror: the selection
      probe (kernel E with lengths) and the masked combined pass;
@@ -90,7 +92,7 @@ a CUDA device. It
      index (the frontier pass with witness slots, phi locate on the host);
    - ``rlc_se_all_dynamic``: ``rlc_se_all`` with ``-p dynamic`` (kernels F
      and G, kernel B's per-lane RLC entry); its records must be
-     ``rlc_se_all``'s;
+     ``rlc_se_all``'s, and kernel F must launch once a batch;
    - ``rlc_se_best_d``: ``-a best -d DIR`` with the SE BEST ``-d`` path's
      collection (``exact.rlc_lengths``, the masked pass);
    - ``rlc_pe_best_c``: ``-a best -c schemes/kuch_k+1 -F`` on the
@@ -183,6 +185,12 @@ PATH_ENTRIES = {
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
              "rlc_pe_best_c")
+# the kernels whose state must stay out of local memory (ptxas: no stack
+# frame); kernels A and B keep BmLane's out-of-line walks
+NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate")
+# the paths with -p dynamic: kernel F launches once a batch, however many
+# lossless re-runs the batch takes
+DYNAMIC_PATHS = ("se_all_dynamic", "rlc_se_all_dynamic")
 SCHEMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "schemes")
 # the paths whose own inputs to kernels C and D are captured and timed
 CAPTURE_PATHS = ("se_all", "pe_best", "rlc_se_all")
@@ -802,8 +810,9 @@ def rlc_kernel_checks(bm, tl, batch) -> dict:
     stats = {}
     steps = bounds.exact_steps(bm, batch, stats=stats)
     note_kernel(report, "exact.rlc", f"{R} rows x {READ_LEN} bp, "
-                f"{int((out[:, 1] > out[:, 0]).sum())} matched", rep,
-                bounds.exact_rlc(steps, stats, out))
+                f"{int((out[:, 1] > out[:, 0]).sum())} matched, "
+                f"{bounds.rlc_rounds(steps, stats, R):.1f} dependent-read "
+                f"rounds a row", rep, bounds.exact_rlc(steps, stats, out))
 
     report.update(rlc_select_checks(bm, batch, rng, states))
 
@@ -886,7 +895,9 @@ def rlc_select_checks(bm, batch, rng, states) -> dict:
     note_kernel(report, "dynpart.rlc", f"{R} rows x {READ_LEN} bp, kuch1 "
                 f"k={K}, p={p}, K=1 ({READ_LEN - p} steps), "
                 f"{int((got['ranges'][..., 1] > got['ranges'][..., 0]).sum())}"
-                f" of {R * p} final parts live", rep,
+                f" of {R * p} final parts live, "
+                f"{bounds.rlc_rounds(stats['steps'], stats, R):.1f} "
+                f"dependent-read rounds a row", rep,
                 bounds.dynpart_rlc(batch, p, 1, False, stats, pts))
     del got
 
@@ -959,7 +970,9 @@ def rlc_select_checks(bm, batch, rng, states) -> dict:
     steps = bounds.exact_steps(bm, pats, lengths, stats)
     note_kernel(report, "exact.rlc_lengths",
                 f"{R * p4} part patterns of {lens.min()}-{lens.max()} chars, "
-                f"{int((out[:, 1] > out[:, 0]).sum())} matched", rep,
+                f"{int((out[:, 1] > out[:, 0]).sum())} matched, "
+                f"{bounds.rlc_rounds(steps, stats, R * p4):.1f} "
+                f"dependent-read rounds a row", rep,
                 bounds.exact_rlc(steps, stats, out))
     return report
 
@@ -1359,6 +1372,8 @@ def main() -> int:
         f"(nvcc {native.build_seconds.get('kernels', 0.0):.1f} s)")
     for ln in native.ptxas_report(native.build_log.get("kernels", "")):
         log(f"  ptxas {ln}")
+        if ln.startswith(NO_FRAME) and "stack frame" in ln:
+            raise AssertionError(f"local memory in {ln}")
 
     with tempfile.TemporaryDirectory(prefix="columba_smoke_") as wd:
         rng = np.random.default_rng(SEED)
@@ -1537,6 +1552,14 @@ def main() -> int:
             if missing:
                 raise AssertionError(f"kernels not launched on path {path}: "
                                      f"{missing}")
+            if path in DYNAMIC_PATHS:
+                batches = -(-n_of[path] // BATCH)
+                log(f"  kernel F: {launches['dynpart']} launches for "
+                    f"{batches} batches, {retries} lossless re-runs")
+                if launches["dynpart"] != batches:
+                    raise AssertionError(f"path {path}: kernel F launched "
+                                         f"{launches['dynpart']} times for "
+                                         f"{batches} batches")
             if path in CAPTURE_PATHS:
                 path_input_times(path, captured, smi)
 

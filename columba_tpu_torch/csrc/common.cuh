@@ -6,9 +6,11 @@
 // columba_tpu/ops/extend.py (extend_all) and columba_tpu/ops/bextend.py
 // (extend_all with _run_of_pos, _ff_forward, _ff_backward). All interval
 // arithmetic is uint32, exactly as in the JAX package; the host passes int64
-// tensors whose values are uint32. Kernels A, B and E are templated on the
+// tensors whose values are uint32. Kernels A and B are templated on the
 // lane width RW (4: Vanilla; 8: RLC; 12: RLC with toeholds, textless) and
-// take their extension from Lane<RW>, so each kernel body is one copy.
+// take their extension from Lane<RW>, so each kernel body is one copy;
+// kernels E and F take FmLane on the Vanilla index and the four-lane RLC
+// step of bm_quad.cuh.
 #pragma once
 
 #include <cstdint>

@@ -280,6 +280,39 @@ def locate_tables(fused_fwd: np.ndarray, r_f: int, n: int,
     return walk, run_at.astype(np.int32), shift
 
 
+def run_tables(fused_fwd: np.ndarray, fused_rev: np.ndarray, r_f: int,
+               r_r: int, n: int, shift: int, textless: bool) -> tuple:
+    """Kernels E and F's RLC run tables, made at index load (the index on
+    disk stays as it is). Runs are contiguous (END[j] == START[j + 1]), so
+    one 4 B START array a direction serves the forward walks, which read
+    END, and the backward ones, which read START: eight runs share a 32 B
+    sector, where a fused row is 80 B. Each direction's array is its runs'
+    STARTs, the sentinel's and then n + 1 up to a multiple of four entries
+    at least 13 past the sentinel, so that a 16 B-aligned read of twelve
+    entries around any run stays inside it and every entry past the last
+    run compares above every position. The reverse direction's array
+    starts at ``rev_off`` (a multiple of four). A walk that would go past
+    ``ops/bextend.FF_CAP`` runs looks up the run that holds every
+    2^shift-th position (:func:`locate_tables`'s ``run_at`` for the forward
+    direction, the same for the reverse one) and walks on from there.
+    Returns (starts uint32, rev_off, run_at_rev int32); empty tables on
+    the textless index, whose lanes are 12 wide and take neither
+    kernel."""
+    if textless:
+        return np.zeros(0, np.uint32), 0, np.zeros(0, np.int32)
+    big = n + 1
+    parts = []
+    for fused, r in ((fused_fwd, r_f), (fused_rev, r_r)):
+        cols = np.full((r + 16) & ~3, big, np.uint32)
+        cols[:r] = fused[:r, START]
+        parts.append(cols)
+    heads = np.arange(0, n + 1, 1 << shift, dtype=np.int64)
+    run_at_rev = np.searchsorted(fused_rev[:r_r, START].astype(np.int64),
+                                 heads, side="right") - 1
+    return (np.concatenate(parts), len(parts[0]),
+            run_at_rev.astype(np.int32))
+
+
 def _words(a) -> torch.Tensor:
     """uint32 numpy words -> int32 tensor with the same bit pattern."""
     return torch.from_numpy(
@@ -303,6 +336,9 @@ class BMoveIndex:
     # kernel C's locate tables (:func:`locate_tables`); empty when textless
     walk: torch.Tensor = None     # (R_f + 1, 4) int32 START END LF_POS LF_RUN
     run_at: torch.Tensor = None   # int32 fwd run of every 2^run_shift-th row
+    # kernels E and F's run tables (:func:`run_tables`); empty when textless
+    starts: torch.Tensor = None   # int32 fwd then rev runs' START, padded
+    run_at_rev: torch.Tensor = None   # int32 rev run of every 2^run_shift-th
 
     # -- host metadata --
     n: int = 0
@@ -313,6 +349,7 @@ class BMoveIndex:
     toe_init: int = 0        # SA of the full fwd range's last row
     first_host: tuple = (0, 0, 0, 0)
     run_shift: int = 0
+    starts_rev: int = 0      # offset of the rev runs in ``starts``
 
     @staticmethod
     def from_arrays(arrays: BMoveArrays, device) -> "BMoveIndex":
@@ -323,6 +360,10 @@ class BMoveIndex:
         first = np.asarray(arrays.first_row, dtype=np.int64)
         walk, run_at, shift = locate_tables(
             arrays.fused_fwd, r_f, int(arrays.n), bool(arrays.textless))
+        r_r = int(arrays.meta["runs_rev"])
+        starts, starts_rev, run_at_rev = run_tables(
+            arrays.fused_fwd, arrays.fused_rev, r_f, r_r, int(arrays.n),
+            shift, bool(arrays.textless))
         return BMoveIndex(
             fused=_words(fused),
             first_row=torch.from_numpy(first.copy()),
@@ -330,14 +371,17 @@ class BMoveIndex:
             sa_stride=_words(arrays.sa_stride),
             walk=_words(walk),
             run_at=torch.from_numpy(run_at),
+            starts=_words(starts),
+            run_at_rev=torch.from_numpy(run_at_rev),
             n=int(arrays.n),
             r_fwd=r_f,
-            r_rev=int(arrays.meta["runs_rev"]),
+            r_rev=r_r,
             stride=int(arrays.meta.get("locate_stride", LOCATE_STRIDE)),
             textless=bool(arrays.textless),
             toe_init=int(arrays.fused_fwd[r_f - 1, SA_LAST]),
             first_host=tuple(int(x) for x in first[:4]),
             run_shift=shift,
+            starts_rev=starts_rev,
         ).to(device)
 
     def to(self, device) -> "BMoveIndex":

@@ -22,11 +22,19 @@ all lanes; each lane's steps depend only on its own rows, so walking each
 lane alone (the kernels, one thread per lane) gives the same runs.
 
 These are the plain versions of the RLC lane of kernels A (its loop
-entry), B and E (``BmLane`` in ``csrc/common.cuh``); ``ops/extend.py`` and
-``search/executor.py`` take them for CPU tensors. ``stats`` (optional dict)
-accumulates what a per-lane walk reads: ``walk`` (run-bound reads of the
-fast-forwards) and ``probes`` (binary-search reads), for
-``tools/bounds.py``.
+entry) and B (``BmLane`` in ``csrc/common.cuh``); ``ops/extend.py`` and
+``search/executor.py`` take them for CPU tensors. With ``tables=True`` the
+walks read the run tables of ``index/bmove.run_tables`` (a 4 B START a
+run; past ``FF_CAP`` runs a bucket lookup and a forward walk in place of
+the binary search), as kernels E and F do (``csrc/bm_quad.cuh``): the
+same runs. ``stats`` (optional dict) accumulates what a per-lane walk
+reads: ``walk`` (run-bound reads of the fast-forwards), ``probes``
+(binary-search reads) or, on the run tables, ``bucket`` and
+``bucket_walk`` (the bucket reads and the STARTs read from there),
+``hint_rows`` (LF-run reads) and ``children`` (children whose hints are
+walked), for ``tools/bounds.py``; on the run tables also ``walk_rounds``,
+the dependent reads of each such child's walks in kernels E and F, where
+the four walks run at once (see :func:`walk_tables`).
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from columba_tpu_torch.index.bmove import (
 
 MASK32 = 0xFFFFFFFF
 FF_CAP = 16
+WINDOW = 8       # runs one read of a kernel E / F walk covers (bm_quad.cuh)
 
 
 def sext32(x: torch.Tensor) -> torch.Tensor:
@@ -115,14 +124,58 @@ def ff_backward(index: BMoveIndex, off, run, pos, stats=None, live=None):
     return run
 
 
+def walk_tables(index: BMoveIndex, off, run, pos, forward: bool,
+                stats=None, live=None):
+    """:func:`ff_forward` (``forward``) or :func:`ff_backward` on the run
+    tables: the capped walk reads START[j + 1] for END[j] (or START[j]);
+    past ``FF_CAP`` runs the run that holds ``pos`` is the bucket's run
+    (``run_at`` / ``run_at_rev`` at ``pos >> run_shift``) walked forward,
+    which is the run the binary search finds. Returns (runs, rounds):
+    ``rounds`` are the dependent reads of kernels E and F's walk, which
+    reads ``WINDOW`` runs from the hint at once and, where the answer lies
+    further, the bucket and then ``WINDOW`` runs a read from the bucket's
+    run (forward: from ``hint + WINDOW`` if that is further)."""
+    toff = torch.where(off == 0, 0, index.starts_rev)
+
+    def start(j):
+        return index.starts[toff + j].long() & MASK32
+
+    def off_side(r):
+        return start(r + 1) <= pos if forward else start(r) > pos
+
+    run0 = run
+    for _ in range(FF_CAP):
+        away = off_side(run)
+        if not bool(away.any()):
+            break
+        run = run + away.long() if forward else run - away.long()
+    miss = off_side(run)
+    live = torch.ones_like(miss) if live is None else live
+    _add(stats, "walk", (((run - run0).abs() + 1) * live).sum())
+    b = pos >> index.run_shift
+    b0 = torch.where(toff == 0, index.run_at[b], index.run_at_rev[b]).long()
+    if bool(miss.any()):
+        t, reads = b0, torch.ones_like(b0)
+        while bool((adv := miss & (start(t + 1) <= pos)).any()):
+            t, reads = t + adv.long(), reads + adv.long()
+        _add(stats, "bucket", (miss & live).sum())
+        _add(stats, "bucket_walk", (reads * (miss & live)).sum())
+        run = torch.where(miss, t, run)
+    s = torch.maximum(b0, run0 + WINDOW) if forward else b0
+    far = (run - run0).abs() >= WINDOW
+    return run, torch.where(far, 3 + (run - s) // WINDOW, 1)
+
+
 def extend_all_plain(index: BMoveIndex, ranges: torch.Tensor,
                      dirs: torch.Tensor, mask: torch.Tensor | None = None,
-                     stats: dict | None = None) -> torch.Tensor:
+                     stats: dict | None = None,
+                     tables: bool = False) -> torch.Tensor:
     """(L, rw) ranges (rw 8, or 12 with toeholds), (L,) dirs -> (L, 4, rw)
     children; an empty child (width 0) is all zero, hints included, as in
     the JAX package. Dead input lanes must be all zero. ``mask`` (L, 4)
     bool: the children whose hints (columns 4..) are computed; the others
-    keep their interval (columns 0-3) and have zero hints."""
+    keep their interval (columns 0-3) and have zero hints. ``tables``:
+    walk on the run tables (kernels E and F), 8-wide lanes only."""
     M = MASK32
     L, rw = ranges.shape
     dev = ranges.device
@@ -171,7 +224,14 @@ def extend_all_plain(index: BMoveIndex, ranges: torch.Tensor,
                         sext32(row_hi[:, PREV0:PREV0 + 4])).clamp(min=0)
     row_p = index.fused[off_a[:, None] + run_p].long() & M   # (L, 4, NCOLS)
     row_q = index.fused[off_a[:, None] + run_q].long() & M
-    _add(stats, "hint_rows", 2 * hint.sum())
+    _add(stats, "children", hint.sum())
+    if not tables:
+        _add(stats, "hint_rows", 2 * hint.sum())
+    else:
+        # kernels E and F take the LF run of the lo / hi row from the row
+        # itself where it is a c-run, and read it elsewhere
+        _add(stats, "hint_rows", ((~is_lo & hint).sum()
+                                  + (~is_hi & hint).sum()))
     z = torch.zeros_like(width)
     # three forward walks in one batch, (L, 4, 3): active lo, active hi - 1,
     # other lo; dead or unmasked children frozen at (run 0, pos 0)
@@ -183,11 +243,22 @@ def extend_all_plain(index: BMoveIndex, ranges: torch.Tensor,
         b_run_lo[:, None] + z], -1).clamp(min=0), 0)
     ffp = torch.where(hx, torch.stack([new_a_lo, (new_a_hi - 1) & M,
                                        new_b_lo], -1), 0)
-    ffr = ff_forward(index, ffo, ffr, ffp, stats, hx.expand(-1, -1, 3))
-    hb_run = ff_backward(
-        index, torch.where(hint, off_b[:, None] + z, 0),
-        torch.where(hint, b_run_hi1[:, None] + z, 0).clamp(min=0),
-        torch.where(hint, (new_b_hi - 1) & M, 0), stats, hint)
+    hbo = torch.where(hint, off_b[:, None] + z, 0)
+    hbr = torch.where(hint, b_run_hi1[:, None] + z, 0).clamp(min=0)
+    hbp = torch.where(hint, (new_b_hi - 1) & M, 0)
+    if not tables:
+        ffr = ff_forward(index, ffo, ffr, ffp, stats, hx.expand(-1, -1, 3))
+        hb_run = ff_backward(index, hbo, hbr, hbp, stats, hint)
+    else:
+        ffr, rf = walk_tables(index, ffo, ffr, ffp, True, stats,
+                              hx.expand(-1, -1, 3))
+        hb_run, rb = walk_tables(index, hbo, hbr, hbp, False, stats, hint)
+        # the four walks at once; an active-side walk waits for its LF run
+        # where the row read first is not a c-run
+        r = torch.stack([rf[..., 0] + (~is_lo).long(),
+                         rf[..., 1] + (~is_hi).long(), rf[..., 2], rb],
+                        -1).amax(-1)
+        _add(stats, "walk_rounds", (r * hint).sum())
     a_rlo, a_rhi1, b_rlo = ffr.unbind(-1)
 
     bw = bwd[:, None]
@@ -233,13 +304,17 @@ def extend_all_plain(index: BMoveIndex, ranges: torch.Tensor,
 
 
 def extend_char_plain(index: BMoveIndex, ranges, chars, dirs,
-                      stats: dict | None = None) -> torch.Tensor:
+                      stats: dict | None = None,
+                      tables: bool = False) -> torch.Tensor:
     """Each lane extended by its own char (exact matching); an N (> 3)
-    gives the zero range. Only the chosen child's hints are walked."""
+    gives the zero range. Only the chosen child's hints are walked.
+    ``tables``: on the run tables where the index has them (kernels E and
+    F; the textless index has none and takes neither kernel)."""
     safe = chars.long().clamp(0, 3)
     onehot = ((safe[:, None] == torch.arange(4, device=ranges.device))
               & (chars <= 3)[:, None])
-    all4 = extend_all_plain(index, ranges, dirs, onehot, stats)
+    tables = tables and index.starts is not None and index.starts.numel() > 0
+    all4 = extend_all_plain(index, ranges, dirs, onehot, stats, tables)
     rw = ranges.shape[-1]
     child = all4.gather(1, safe[:, None, None].expand(-1, 1, rw))[:, 0]
     return torch.where((chars > 3)[:, None], torch.zeros_like(child), child)
@@ -256,3 +331,23 @@ BM_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_uint32,
 def bm_args(index: BMoveIndex) -> tuple:
     return (index.fused.data_ptr(), index.r_fwd, index.r_rev,
             *index.first_host, index.n)
+
+
+# The run tables of kernels E and F (``BmTables`` of csrc/bm_quad.cuh):
+# the STARTs of both directions and the offset of the reverse ones, the
+# bucket tables of both directions and their shift.
+BT_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
+               ctypes.c_void_p, ctypes.c_int32]
+
+
+def bt_args(index: BMoveIndex) -> tuple:
+    """The run tables' arguments; raises on an index without them (the
+    textless one) or with them on another device than the fused rows."""
+    tabs = (index.starts, index.run_at, index.run_at_rev)
+    if index.textless or any(t.device != index.fused.device
+                             or not t.is_contiguous() for t in tabs):
+        raise ValueError("kernels E and F take the with-text RLC index's "
+                         "run tables, contiguous beside its fused rows")
+    return (index.starts.data_ptr(), index.starts_rev,
+            index.run_at.data_ptr(), index.run_at_rev.data_ptr(),
+            index.run_shift)

@@ -69,7 +69,7 @@ KERNEL = native.Kernel(
 )
 
 _EXACT_RLC = ("columba_exact_rlc", [
-    *bextend.BM_ARGTYPES,
+    *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,   # patterns, lengths, m
     ctypes.c_void_p, ctypes.c_int64])                   # out, rows
 EXACT_KERNEL = native.Kernel(
@@ -147,18 +147,25 @@ def exact_match_plain(index: FMIndex, patterns: torch.Tensor,
     ``extend_char_plain`` by pattern[m-1], pattern[m-2], ..., from the full
     range. With per-row ``lengths`` (B,) step i reads pattern[length-1-i] and
     a row stops after its length steps (the rest of the row is padding).
-    Returns the (B, 4) ranges those calls leave, empty ones too."""
+    Returns the (B, 4) ranges those calls leave, empty ones too. On the
+    RLC index the walks read the run tables, as kernel E does."""
     B, m = patterns.shape
     ranges = index.full_range((B,))
     dirs = torch.zeros(B, dtype=torch.int32, device=patterns.device)
+
+    def step(c):
+        if isinstance(index, BMoveIndex):
+            return bextend.extend_char_plain(index, ranges, c, dirs,
+                                             tables=True)
+        return extend_char_plain(index, ranges, c, dirs)
+
     for i in range(m):
         if lengths is None:
-            ranges = extend_char_plain(index, ranges,
-                                       patterns[:, m - 1 - i].int(), dirs)
+            ranges = step(patterns[:, m - 1 - i].int())
             continue
         j = lengths.long() - 1 - i
         c = patterns.gather(1, j.clamp(0, m - 1)[:, None])[:, 0].int()
-        new = extend_char_plain(index, ranges, c, dirs)
+        new = step(c)
         ranges = torch.where((j >= 0)[:, None], new, ranges)
     return ranges
 
@@ -254,7 +261,8 @@ def exact_match(index: FMIndex, patterns: torch.Tensor,
                              "textless index runs k = 0 through the frontier")
         out = torch.empty((B, 8), dtype=torch.int64, device=patterns.device)
         if B:
-            EXACT_KERNEL(*bextend.bm_args(index), patterns.data_ptr(), lptr,
+            EXACT_KERNEL(*bextend.bm_args(index), *bextend.bt_args(index),
+                         patterns.data_ptr(), lptr,
                          m, out.data_ptr(), B,
                          entry="rlc_lengths" if lengths is not None
                          else "rlc")

@@ -10,8 +10,10 @@ search):
 * :func:`dynamic_partition` seeds each part (k-mer table when there is one,
   else single characters) and then extends, m - p*K times, the part with
   the largest weighted exact-match range by one character. Kernel F
-  (``csrc/dynpart.cu``) on the card: one thread owns one read (entry
-  ``dynpart.rlc`` on the RLC index's 8-wide lanes).
+  (``csrc/dynpart.cu``) on the card: one thread a read with its parts in
+  registers; on the RLC index's 8-wide lanes (entry ``dynpart.rlc``) four
+  lanes a read with its parts in shared memory, walking on the run
+  tables.
 * :func:`clamp_partition` enforces part length >= 2*kb+1 (the overshoot
   construction of the schedule needs it).
 * :func:`build_tables` computes the per-phase arithmetic of the static
@@ -64,7 +66,8 @@ PARTITION_KERNEL = native.Kernel(
     source="columba_tpu_torch/csrc/dynpart.cu",
     replaces="columba_tpu/search/dynschedule.py:283",
     symbols={"rlc": ("columba_dynpart_rlc", [
-        *bextend.BM_ARGTYPES, ctypes.c_void_p, ctypes.c_int32,  # reads, m
+        *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES,
+        ctypes.c_void_p, ctypes.c_int32,                        # reads, m
         *_PART_TAIL])},
 )
 
@@ -424,23 +427,29 @@ def weighted_widths(widths: torch.Tensor, weights: torch.Tensor,
     return torch.where(extendable, prod, -1)
 
 
-def _extend_char(index, ranges, chars, dirs, stats):
-    """extend_char_plain; on the RLC index it also counts into ``stats``
-    the extensions that read rows and their walks."""
-    if stats is None or not isinstance(index, BMoveIndex):
+def _extend_char(index, ranges, chars, dirs, stats, tables):
+    """extend_char_plain; on the RLC index on the run tables, as kernel F
+    walks (``tables``), and it also counts into ``stats`` the extensions
+    that read rows and their walks."""
+    if not isinstance(index, BMoveIndex):
         return ext.extend_char_plain(index, ranges, chars, dirs)
-    stats["steps"] = stats.get("steps", 0) + int((chars <= 3).sum())
-    return bextend.extend_char_plain(index, ranges, chars, dirs, stats)
+    if stats is not None:
+        stats["steps"] = stats.get("steps", 0) + int((chars <= 3).sum())
+    return bextend.extend_char_plain(index, ranges, chars, dirs, stats,
+                                     tables)
 
 
 def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
                             scheme: SearchScheme,
                             kmer_table: torch.Tensor | None = None,
                             ranges_out: torch.Tensor | None = None,
-                            stats: dict | None = None) -> torch.Tensor:
+                            stats: dict | None = None,
+                            tables: bool = True) -> torch.Tensor:
     """Plain version of kernel F; see :func:`dynamic_partition`. ``stats``
     (optional, RLC index): the extensions that read rows (``steps``) and
-    their walks, for ``tools/bounds.py``."""
+    their walks, for ``tools/bounds.py``; ``tables=False`` counts the
+    walks on the fused rows instead of the run tables (the same
+    boundaries)."""
     R, m = reads.shape
     p = scheme.num_parts
     dev = reads.device
@@ -464,7 +473,7 @@ def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
         ranges = _extend_char(
             index, index.full_range((R * p,)), c0,
             torch.zeros(R * p, dtype=torch.int32, device=dev),
-            stats).reshape(R, p, -1)
+            stats, tables).reshape(R, p, -1)
 
     big = torch.full((R, 1), WIDTH_CAP, **i64)
     for _ in range(m - p * K):
@@ -495,7 +504,7 @@ def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
         # a read whose parts cannot grow extends nothing (and reads no row)
         cur = torch.where(any_ext[:, None], ranges[rows, part], 0)
         new_rng = _extend_char(index, cur, torch.where(any_ext, chars, 4),
-                               (~go_back).int(), stats)
+                               (~go_back).int(), stats, tables)
         begins = torch.where(onehot & (go_back & any_ext)[:, None],
                              begins - 1, begins)
         ends = torch.where(onehot & (~go_back & any_ext)[:, None],
@@ -568,7 +577,8 @@ def dynamic_partition(index: FMIndex, reads: torch.Tensor,
                 p, pts.data_ptr(),
                 ranges_out.data_ptr() if ranges_out is not None else None, R)
         if rlc:
-            PARTITION_KERNEL(*bextend.bm_args(index), reads.data_ptr(), m,
+            PARTITION_KERNEL(*bextend.bm_args(index),
+                             *bextend.bt_args(index), reads.data_ptr(), m,
                              *tail, entry="rlc")
         else:
             PARTITION_KERNEL(

@@ -403,17 +403,18 @@ def match_all_start(
     make_dyn = None
     if partitioning == "dynamic" or partition_pts is not None:
         st = _scheme_static_cached(scheme, m, metric)
-        if partition_pts is not None:
-            pts_dev = torch.from_numpy(np.ascontiguousarray(
-                partition_pts, dtype=np.int32)).to(dev)
+        # the boundaries do not depend on the capacities: one partition a
+        # dispatch, kept for its lossless re-runs
+        pts = (torch.from_numpy(np.ascontiguousarray(
+                   partition_pts, dtype=np.int32)).to(dev)
+               if partition_pts is not None else
+               dynschedule.dynamic_partition(index, batch_dev, scheme,
+                                             kmer_table))
 
         def make_dyn():
-            # partition, tables and match run one after another on the
-            # stream; the tables live only as long as the run that reads
-            # them (a retry makes them again)
-            pts = (pts_dev if partition_pts is not None else
-                   dynschedule.dynamic_partition(index, batch_dev, scheme,
-                                                 kmer_table))
+            # tables and match run one after another on the stream; the
+            # tables live only as long as the run that reads them (a
+            # re-run makes them again from the same boundaries)
             return dynschedule.build_tables(st, pts, batch_dev)
 
     sched = compile_cached(scheme, m, metric,

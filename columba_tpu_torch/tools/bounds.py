@@ -178,11 +178,12 @@ def exact(steps_walked: int, rows: int, out) -> dict:
 
 
 def exact_steps(index, batch: torch.Tensor, lengths=None,
-                stats: dict | None = None) -> int:
+                stats: dict | None = None, tables: bool = True) -> int:
     """Steps kernel E walks on ``batch``: for each row the number of chars
     it extends by before (and including) the step that empties its range,
     counted with the plain extend. ``lengths``: the rows' own lengths. On
-    the RLC index ``stats`` also gets the walks of those steps."""
+    the RLC index ``stats`` also gets the walks of those steps, on the run
+    tables (``tables=False``: on the fused rows)."""
     from columba_tpu_torch.index.bmove import BMoveIndex
     from columba_tpu_torch.ops import bextend
     from columba_tpu_torch.ops import extend as ext
@@ -198,10 +199,13 @@ def exact_steps(index, batch: torch.Tensor, lengths=None,
         j = lengths.long() - 1 - i
         alive &= j >= 0
         c = batch.gather(1, j.clamp(0, m - 1)[:, None])[:, 0].int()
-        # a row that meets N stops without reading its rows
+        # a row that meets N stops without reading its rows; a row past its
+        # length reads nothing (its walks are not counted either)
         steps += int((alive & (c <= 3)).sum())
         if isinstance(index, BMoveIndex):
-            new = bextend.extend_char_plain(index, ranges, c, dirs, stats)
+            new = bextend.extend_char_plain(
+                index, ranges, torch.where(alive, c, 4), dirs, stats,
+                tables)
         else:
             new = ext.extend_char_plain(index, ranges, c, dirs)
         ranges = torch.where(alive[:, None], new, ranges)
@@ -234,7 +238,8 @@ def dynpart_rlc(reads, p: int, K: int, seeded: bool, stats: dict,
     ``dynschedule.dynamic_partition_plain``: the seeds without a table and
     the greedy steps, not those that meet N) two endpoint reads and the
     chosen child's walks (``stats``). Each of the m - p*K greedy steps
-    first scans the p parts (width, two compares, a product, a compare)."""
+    first scans the p parts (width, two compares, a product, a compare).
+    The walks are on the run tables (4 B STARTs and bucket reads)."""
     R, m = reads.shape
     ext = stats.get("steps", 0)
     wb, wo = _rlc_walks(stats)
@@ -283,12 +288,34 @@ def gather(table, idx, out) -> dict:
 
 def _rlc_walks(stats: dict) -> tuple:
     """(bytes, operations) of the 4 B reads the run-hint walks, binary
-    searches and LF-run reads in ``stats`` made."""
+    searches (kernels A and B; on the run tables of kernels E and F the
+    bucket reads and the STARTs walked from there) and LF-run reads in
+    ``stats`` made."""
     walk, probes = stats.get("walk", 0), stats.get("probes", 0)
+    bucket = stats.get("bucket", 0) + stats.get("bucket_walk", 0)
     hint_rows = stats.get("hint_rows", 0)
-    return ((walk + probes + hint_rows) * 4,
-            walk * WALK_OPS + probes * PROBE_OPS
-            + hint_rows // 2 * BM_CHILD_OPS)
+    return ((walk + probes + bucket + hint_rows) * 4,
+            (walk + bucket) * WALK_OPS + probes * PROBE_OPS
+            + stats.get("children", 0) * BM_CHILD_OPS)
+
+
+def rlc_rounds(steps: int, stats: dict, rows: int) -> float:
+    """Dependent-read rounds a row of kernels E and F on the RLC index:
+    one a step for the endpoint rows (the next char is read beside them),
+    then for each child whose hints are walked the longest of its four
+    walks with its LF-run read (``stats["walk_rounds"]`` of the plain
+    versions on the run tables, ``ops/bextend.walk_tables``)."""
+    return (steps + stats.get("walk_rounds", 0)) / max(rows, 1)
+
+
+def lane_rounds(steps: int, stats: dict, rows: int) -> float:
+    """The same chain where one thread walks a child's four hints one after
+    another on the fused rows (``BmLane``, kernels E and F before the run
+    tables): a step's rows, the two LF-run reads, then every walk read
+    and binary-search probe in turn (``stats`` of the plain versions on
+    the fused rows)."""
+    return (steps + stats.get("children", 0) + stats.get("walk", 0)
+            + stats.get("probes", 0)) / max(rows, 1)
 
 
 def rlc_band_stats(index, state, mrow_t, o: dict, cap: int,
@@ -318,7 +345,9 @@ def rlc_band_stats(index, state, mrow_t, o: dict, cap: int,
 
 def exact_rlc(steps_walked: int, stats: dict, out) -> dict:
     """Kernel E's RLC entry: per step walked one char and two endpoint
-    reads, then the chosen child's walks (``stats``); the range out."""
+    reads, then the chosen child's walks on the run tables (``stats`` of
+    :func:`exact_steps`: 4 B STARTs and bucket reads, and the LF-run reads
+    the rows do not hold); the range out."""
     wb, wo = _rlc_walks(stats)
     return bound(steps_walked * (2 * BM_ROW_BYTES + 1) + wb + _nbytes(out),
                  steps_walked * (BM_LANE_OPS + 8) + wo)

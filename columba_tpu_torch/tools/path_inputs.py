@@ -1,19 +1,24 @@
-"""Kernels C and D on the inputs an align gives them: capture and timing.
+"""Kernels C, D, E and F on the inputs an align gives them: capture and
+timing.
 
 ``capture(align)`` runs one ``align()`` with wrappers around
-``locate.locate_rows``, ``verify.verify_window``, ``pipeline.stage_expand``
-and ``pipeline.stage_dedup`` (module attributes; nothing in the library is
-hooked) and keeps each locate and verify launch's inputs with the live
-counts beside the capacity (``total`` of the expansion, ``n_unique`` of
-the dedup). ``time_inputs`` holds every captured launch to its plain
-version and times it through the ops wrapper with two clocks: CUDA events
-over back-to-back launches, and the kernel's own device time from
-``torch.profiler``; each with a warm L2 and with the L2 flushed before
-each launch by a 64 MB write, since a batch of the path finds the index
-cold. Beside each time it prints the counts the plain versions make and
-``tools/bounds.py``'s bound on that input.
+``locate.locate_rows``, ``verify.verify_window``, ``extend.exact_match``,
+``dynschedule.dynamic_partition``, ``pipeline.stage_expand`` and
+``pipeline.stage_dedup`` (module attributes; nothing in the library is
+hooked) and keeps each locate, verify, exact-match and partition launch's
+inputs, with the live counts beside the capacity (``total`` of the
+expansion, ``n_unique`` of the dedup) for C and D. ``time_inputs`` holds
+every captured launch to its plain version and times it through the
+wrapper with two clocks: CUDA events over back-to-back launches, and the
+kernel's own device time from ``torch.profiler``; each with a warm L2 and
+with the L2 flushed before each launch by a 64 MB write, since a batch of
+the path finds the index cold. Beside each time it prints the counts the
+plain versions make (kernels E and F on the RLC index: their
+dependent-read rounds a row, and those of a thread that walks the four
+run hints one after another) and ``tools/bounds.py``'s bound on that
+input.
 
-Used by ``chip_smoke.py`` and ``tools/locate_verify_bench.py``.
+Used by ``chip_smoke.py`` and ``tools/kernel_bench.py``.
 """
 
 from __future__ import annotations
@@ -21,8 +26,12 @@ from __future__ import annotations
 import torch
 
 FLUSH_BYTES = 64 << 20     # above the 50 MB L2
+# a part of the kernel's name in the profiler's trace, in every tree
 KERNEL_NAME = {"verify": "verify", "locate": "locate_kernel",
-               "locate.rlc": "locate_rlc"}
+               "locate.rlc": "locate_rlc", "exact": "exact_",
+               "exact.lengths": "exact_", "exact.rlc": "exact_",
+               "exact.rlc_lengths": "exact_", "dynpart": "dynpart_kernel",
+               "dynpart.rlc": "dynpart_kernel"}
 
 
 def log(msg: str) -> None:
@@ -96,15 +105,17 @@ class Clocks:
 
 
 def capture(align) -> list:
-    """The locate and verify launches of one ``align()`` call, each with
-    its inputs (cloned) and the live counts around it."""
+    """The locate, verify, exact-match and partition launches of one
+    ``align()`` call, each with its inputs (cloned) and, for locate and
+    verify, the live counts around it."""
     from columba_tpu_torch.index.bmove import BMoveIndex
-    from columba_tpu_torch.ops import locate, verify
-    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.ops import extend, locate, verify
+    from columba_tpu_torch.search import dynschedule, pipeline
 
     calls, pending = [], {}
     saved = (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
-             pipeline.stage_dedup)
+             pipeline.stage_dedup, extend.exact_match,
+             dynschedule.dynamic_partition)
 
     def expand(c_lo, c_hi, max_locate):
         out = saved[2](c_lo, c_hi, max_locate)
@@ -134,13 +145,30 @@ def capture(align) -> list:
                           capacity=rid.numel()))
         return saved[1](index, patterns, rid, window_start, kb, **kw)
 
+    def exact(index, patterns, lengths=None):
+        kind = "exact" + (".rlc" if isinstance(index, BMoveIndex) else "")
+        if lengths is not None:
+            kind += "_lengths" if kind.endswith("rlc") else ".lengths"
+        calls.append(dict(kind=kind, index=index, pats=patterns.clone(),
+                          lengths=None if lengths is None
+                          else lengths.clone()))
+        return saved[4](index, patterns, lengths)
+
+    def part(index, reads, scheme, kmer_table=None, ranges_out=None):
+        calls.append(dict(kind="dynpart" + (".rlc" if isinstance(
+            index, BMoveIndex) else ""), index=index, reads=reads.clone(),
+            scheme=scheme, table=kmer_table))
+        return saved[5](index, reads, scheme, kmer_table, ranges_out)
+
     locate.locate_rows, verify.verify_window = loc, ver
     pipeline.stage_expand, pipeline.stage_dedup = expand, dedup
+    extend.exact_match, dynschedule.dynamic_partition = exact, part
     try:
         align()
     finally:
         (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
-         pipeline.stage_dedup) = saved
+         pipeline.stage_dedup, extend.exact_match,
+         dynschedule.dynamic_partition) = saved
     return calls
 
 
@@ -155,24 +183,81 @@ def live_tensor(inp: dict) -> torch.Tensor:
 def kernel_call(kind: str, index, inp: dict):
     """One launch through this tree's wrapper (verify with the live count
     the path passes)."""
-    from columba_tpu_torch.ops import locate, verify
+    from columba_tpu_torch.ops import extend, locate, verify
+    from columba_tpu_torch.search import dynschedule
 
     if kind == "verify":
         return verify.verify_window(index, inp["reads"], inp["rid"],
                                     inp["ws"], inp["kb"],
                                     live=live_tensor(inp))
+    if kind.startswith("exact"):
+        return extend.exact_match(index, inp["pats"], inp["lengths"])
+    if kind.startswith("dynpart"):
+        return dynschedule.dynamic_partition(index, inp["reads"],
+                                             inp["scheme"], inp["table"])
     return locate.locate_rows(index, inp["rows"])
 
 
 def plain_call(kind: str, index, inp: dict):
-    from columba_tpu_torch.ops import blocate, locate, verify
+    from columba_tpu_torch.ops import blocate, extend, locate, verify
+    from columba_tpu_torch.search import dynschedule
 
     if kind == "verify":
         return verify.verify_window_plain(index, inp["reads"], inp["rid"],
                                           inp["ws"], inp["kb"])
+    if kind.startswith("exact"):
+        return extend.zero_empty(extend.exact_match_plain(
+            index, inp["pats"], inp["lengths"]))
+    if kind.startswith("dynpart"):
+        return dynschedule.dynamic_partition_plain(
+            index, inp["reads"], inp["scheme"], inp["table"])
     if kind == "locate.rlc":
         return blocate.locate_rows_plain(index, inp["rows"])
     return locate.locate_rows_plain(index, inp["rows"])
+
+
+def _exact_part_counts(inp: dict, want) -> dict:
+    """Kernels E and F: steps and the bound and, on the RLC index, the
+    dependent-read rounds a row on the run tables and on the fused rows."""
+    from columba_tpu_torch.search import dynschedule
+    from columba_tpu_torch.tools import bounds
+
+    index, kind = inp["index"], inp["kind"]
+    rlc = kind.endswith("rlc") or kind.endswith("rlc_lengths")
+    runs = {}
+    for tables in ((True, False) if rlc else (True,)):
+        stats = {}
+        if kind.startswith("exact"):
+            pats = inp["pats"]
+            rows = pats.shape[0]
+            steps = bounds.exact_steps(index, pats, inp["lengths"], stats,
+                                       tables)
+        else:
+            reads = inp["reads"]
+            rows, m = reads.shape
+            K, tab, _, _ = dynschedule.partition_setup(inp["scheme"], m,
+                                                       inp["table"])
+            dynschedule.dynamic_partition_plain(
+                index, reads, inp["scheme"], inp["table"], None, stats,
+                tables)
+            steps = stats.get("steps", 0)
+        runs[tables] = (steps, stats)
+    steps, stats = runs[True]
+    out = dict(steps_per_row=steps / max(rows, 1))
+    if kind.startswith("exact"):
+        out["bound"] = (bounds.exact_rlc(steps, stats, want) if rlc
+                        else bounds.exact(steps, rows, want))
+    else:
+        p = inp["scheme"].num_parts
+        out["bound"] = (
+            bounds.dynpart_rlc(reads, p, K, tab is not None, stats, want)
+            if rlc else bounds.dynpart(reads, p, K, tab is not None, want))
+    if rlc:
+        out["rounds_per_row"] = bounds.rlc_rounds(steps, stats, rows)
+        out["lane_rounds_per_row"] = bounds.lane_rounds(*runs[False], rows)
+        out.update({f"{k}_per_row": v / rows for k, v in stats.items()
+                    if k != "steps"})
+    return out
 
 
 def hand_counts(inp: dict) -> dict:
@@ -181,6 +266,8 @@ def hand_counts(inp: dict) -> dict:
     from columba_tpu_torch.tools import bounds
 
     index, kind = inp["index"], inp["kind"]
+    if kind.startswith(("exact", "dynpart")):
+        return _exact_part_counts(inp, plain_call(kind, index, inp))
     if kind == "verify":
         b = bounds.verify(inp["reads"], inp["rid"], inp["ws"], inp["kb"],
                           torch.empty((inp["rid"].numel(), 4 * inp["kb"] + 1),
@@ -206,6 +293,16 @@ def hand_counts(inp: dict) -> dict:
 
 
 def describe(inp: dict) -> str:
+    if inp["kind"].startswith("exact"):
+        B, m = inp["pats"].shape
+        lens = inp["lengths"]
+        return (f"{B} patterns of {m} chars" if lens is None else
+                f"{B} patterns of {int(lens.min())}-{int(lens.max())} chars")
+    if inp["kind"].startswith("dynpart"):
+        R, m = inp["reads"].shape
+        return (f"{R} reads x {m} bp, {inp['scheme'].name} k="
+                f"{inp['scheme'].k}, p={inp['scheme'].num_parts}"
+                + (", seed table" if inp["table"] is not None else ""))
     if inp["kind"] == "verify":
         return (f"{inp['rid'].numel()} candidates (live {inp['live']}), m "
                 f"{inp['reads'].shape[1]}, kb {inp['kb']}")
@@ -237,8 +334,8 @@ def time_inputs(label: str, inputs: list, clocks: Clocks, smi: str,
         hc = hand_counts(inp)
         b = hc.pop("bound")
         rec = dict(label=label, kind=kind, what=describe(inp),
-                   kb=inp.get("kb"), live=inp["live"],
-                   capacity=inp["capacity"], bound_ms=b["bound_ms"],
+                   kb=inp.get("kb"), live=inp.get("live"),
+                   capacity=inp.get("capacity"), bound_ms=b["bound_ms"],
                    bound_by=b["bound_by"], bound_bytes=b["bytes"],
                    bound_operations=b["operations"], **hc, runs=runs)
         results.append(rec)

@@ -162,6 +162,80 @@ def test_walk_stats_count_per_lane_reads(world, forward):
     assert stats.get("probes", 0) > 0 and (shift == 0).any()
 
 
+def test_run_tables_hold_every_run(world):
+    """Kernels E and F's run tables: each direction's STARTs, the
+    sentinel's and n + 1 at least 13 entries past it, 16 B aligned; from
+    every position's bucket a forward walk reaches the run that holds it;
+    the textless index keeps none."""
+    g, idx = world
+    _, ta, _, tb = idx["rlc"]
+    n = len(g)
+    starts = tb.starts.numpy().view(np.uint32)
+    assert tb.starts_rev % 4 == 0 and len(starts) % 4 == 0
+    pos = torch.arange(n + 1, dtype=torch.int64)
+    for off, end, fused, r, run_at in (
+            (0, tb.starts_rev, ta.fused_fwd, tb.r_fwd, tb.run_at),
+            (tb.starts_rev, len(starts), ta.fused_rev, tb.r_rev,
+             tb.run_at_rev)):
+        s = starts[off:end]
+        np.testing.assert_array_equal(s[:r + 1], fused[:r + 1, 0])
+        assert len(s) >= r + 13 and (s[r:] == n + 1).all()
+        want = np.searchsorted(s[:r], pos.numpy(), side="right") - 1
+        run = run_at[pos >> tb.run_shift].long()
+        st = torch.from_numpy(s.astype(np.int64))
+        while bool((adv := st[run + 1] <= pos).any()):
+            run += adv.long()
+        np.testing.assert_array_equal(run.numpy(), want)
+    tl = idx["textless"][3]
+    assert tl.starts.numel() == 0 and tl.run_at_rev.numel() == 0
+
+
+@pytest.mark.parametrize("forward", [True, False])
+def test_run_tables_walk_to_the_same_runs(world, forward):
+    """The walks on the run tables (``bextend.walk_tables``, kernels E and
+    F's) end at the run that ``ff_forward`` / ``ff_backward`` on the fused
+    rows and the JAX package's ``_ff_forward`` / ``_ff_backward`` reach,
+    in both directions: hints at the target, within and past ``FF_CAP``
+    runs of it, at run 0 and at the sentinel, positions 0 and n among
+    them. Past the cap the binary search's probes become one bucket read
+    and a forward walk over START; the capped walk reads as many runs."""
+    g, idx = world
+    _, _, jb, tb = idx["rlc"]
+    n = len(g)
+    rng = np.random.default_rng(70)
+    N = 3000
+    rev = rng.random(N) < 0.5
+    offs = np.where(rev, tb.r_fwd + 1, 0)
+    r_lim = np.where(rev, tb.r_rev, tb.r_fwd)
+    pos = rng.integers(0, n + 1, N)
+    pos[:4] = [0, n, 0, n]
+    fused = (tb.fused.long() & tbext.MASK32).numpy()
+    truth = np.array([np.searchsorted(fused[o:o + r, 0], p, "right") - 1
+                      for o, r, p in zip(offs, r_lim, pos)])
+    shift = rng.choice([0, 1, 7, 8, 9, 16, 17, 30, 400], N)
+    hint = np.clip(truth - shift if forward else truth + shift, 0, r_lim)
+    hint[:2] = 0
+    hint[2:4] = r_lim[2:4]                 # the sentinel row
+    args = [torch.from_numpy(np.asarray(v, np.int64))
+            for v in (offs, hint, pos)]
+    fstats, tstats = {}, {}
+    want = (tbext.ff_forward if forward else tbext.ff_backward)(
+        tb, *args, fstats)
+    got, rounds = tbext.walk_tables(tb, *args, forward, tstats)
+    assert torch.equal(got, want)
+    jwalk = jbext._ff_forward if forward else jbext._ff_backward
+    jgot = np.asarray(jwalk(jb, *(jnp.asarray(a.numpy().astype(np.int32))
+                                  for a in args)))
+    np.testing.assert_array_equal(got.numpy(), jgot)
+    behind = (truth - hint if forward else hint - truth) > tbext.FF_CAP
+    assert behind.any() and (got.numpy()[behind] == truth[behind]).all()
+    assert tstats["walk"] == fstats["walk"] and "probes" not in tstats
+    assert tstats["bucket"] == int(behind.sum()) and fstats["probes"] > 0
+    near = np.abs(got.numpy() - hint) < tbext.WINDOW
+    assert (rounds.numpy()[near] == 1).all()
+    assert (rounds.numpy()[~near] >= 3).all() and (~near).any()
+
+
 def test_locate_rows(world):
     """Locate on run heads and tails, strided rows, row 0 and row n, and
     random rows."""

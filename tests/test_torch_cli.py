@@ -439,11 +439,14 @@ def test_align_rlc_refusals(built_rlc, pairs, flavor, opts, exc):
 
 
 def test_bench_times_an_earlier_tree_through_its_wrappers(tmp_path):
-    """``locate_verify_bench --parent`` imports the earlier tree's own ops
+    """``kernel_bench --parent`` imports the earlier tree's own kernel
     wrappers (here a copy of this tree's package) beside this tree's, puts
     this tree's modules back after, and launches through them on a copy of
     each index in the tree's own index class: on CPU tensors the wrappers
-    run their plain versions, which must equal this tree's."""
+    run their plain versions, which must equal this tree's (locate, verify,
+    exact match with and without lengths, dynamic partition, on both
+    indexes); the bench's synthetic E and F inputs and its counts of them
+    come out of this tree's plain versions too."""
     import shutil
     import sys
 
@@ -451,7 +454,10 @@ def test_bench_times_an_earlier_tree_through_its_wrappers(tmp_path):
     from columba_tpu_torch.index.build import build_index_from_codes
     from columba_tpu_torch.index.fmindex import FMIndex
     from columba_tpu_torch.ops import blocate, locate, verify
-    from columba_tpu_torch.tools import locate_verify_bench as lvb
+    from columba_tpu_torch.search import dynschedule
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import kernel_bench as lvb
+    from columba_tpu_torch.tools import path_inputs
 
     shutil.copytree(PORT, tmp_path / "columba_tpu_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
@@ -478,3 +484,22 @@ def test_bench_times_an_earlier_tree_through_its_wrappers(tmp_path):
     inp = dict(index=bm, reads=reads, rid=rid, ws=ws, kb=3, live=20)
     assert torch.equal(launch("verify", inp),
                        verify.verify_window_plain(bm, reads, rid, ws, 3))
+    batch = torch.from_numpy(np.stack([g[s:s + 100] for s in rng.integers(
+        0, len(g) - 100, 6)]).astype(np.uint8))
+    batch[1, 50] = 4
+    for index in (fm, bm):
+        for inp in lvb.exact_part_inputs(index, batch, None):
+            got = launch(inp["kind"], inp)
+            assert torch.equal(got, path_inputs.plain_call(inp["kind"],
+                                                           index, inp))
+            counts = path_inputs.hand_counts(inp)
+            assert counts["bound"]["bound_ms"] > 0
+            if index is bm:
+                assert 0 < counts["rounds_per_row"] < counts[
+                    "lane_rounds_per_row"]
+    assert torch.equal(
+        launch("dynpart.rlc", dict(index=bm, reads=batch,
+                                   scheme=get_scheme("kuch1", 2),
+                                   table=None)),
+        dynschedule.dynamic_partition_plain(bm, batch,
+                                            get_scheme("kuch1", 2)))

@@ -400,20 +400,29 @@ def test_exact_kernel_lengths(setup, gpu):
 
 @pytest.mark.parametrize("name,k,table_k,m", [
     ("kuch1", 2, 6, 100), ("kuch1", 2, 0, 100), ("kuch1", 4, 6, 100),
-    ("kuch1", 4, 6, 40), ("pigeon", 3, 6, 90), ("columba", 13, 0, 150)])
+    ("kuch1", 4, 6, 40), ("pigeon", 3, 6, 90), ("columba", 13, 0, 150),
+    ("pigeon", 15, 0, 100)])
 def test_dynpart_kernel(setup, gpu, name, k, table_k, m):
-    """Kernel F equals the plain partition scan: seeded from the k-mer table
-    and from single characters, with kuch_k+1's weights and seed fractions
-    and without, and at the largest part count (p = 15)."""
+    """Kernel F equals the plain partition scan, boundaries and every column
+    of the final part ranges: seeded from the k-mer table and from single
+    characters, with kuch_k+1's weights and seed fractions and without,
+    and at the largest part counts (p = 15, and 16: kernel F's limit)."""
     g, cpu_fm, fm = setup
     rng = np.random.default_rng(23 + k)
     batch = torch.from_numpy(_reads(rng, g, 256, m, k)).to(gpu)
     table = kmer.build_kmer_table(fm, table_k) if table_k else None
     scheme = get_scheme(name, k)
-    got = dynschedule.dynamic_partition(fm, batch, scheme, table)
+    p = scheme.num_parts
+    out = []
+    for fn in (dynschedule.dynamic_partition,
+               dynschedule.dynamic_partition_plain):
+        rng_out = torch.zeros((batch.shape[0], p, 4), dtype=torch.int64,
+                              device=gpu)
+        out.append((fn(fm, batch, scheme, table, rng_out), rng_out))
     torch.cuda.synchronize()
-    want = dynschedule.dynamic_partition_plain(fm, batch, scheme, table)
+    got, want = out[0][0], out[1][0]
     assert torch.equal(got, want)
+    assert torch.equal(out[0][1], out[1][1])
     assert len({tuple(r) for r in got.cpu().tolist()}) > 1
     cpu_table = table.cpu() if table is not None else None
     assert torch.equal(got.cpu(), dynschedule.dynamic_partition(
@@ -433,10 +442,14 @@ def test_dynpart_kernel_wide_ranges(gpu):
     batch = torch.from_numpy(np.ascontiguousarray(
         g[starts[:, None] + np.arange(100)])).to(gpu)
     scheme = get_scheme("kuch1", 4)
-    got = dynschedule.dynamic_partition(fm, batch, scheme, None)
+    out = []
+    for fn in (dynschedule.dynamic_partition,
+               dynschedule.dynamic_partition_plain):
+        rng_out = torch.zeros((512, 5, 4), dtype=torch.int64, device=gpu)
+        out.append((fn(fm, batch, scheme, None, rng_out), rng_out))
     torch.cuda.synchronize()
-    assert torch.equal(got, dynschedule.dynamic_partition_plain(
-        fm, batch, scheme, None))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
     width = int(fm.counts_host[1] - fm.counts_host[0])
     assert width * scheme.weights[0] >= 1 << 31  # the product does wrap
 
@@ -726,25 +739,32 @@ def test_rlc_locate_kernel_path_rows(rlc_setup, gpu):
 
 
 def test_rlc_exact_kernel(rlc_setup, gpu):
-    """Kernel E's RLC entry equals m plain extend_char steps (zero where
-    they end empty)."""
+    """Kernel E's RLC entry equals m plain extend_char steps on every
+    column, run hints included (zero where they end empty), at m = 60, 100
+    and 1, with N: the first steps from the full range walk past FF_CAP
+    runs (the bucket lookup of the run tables)."""
+    from columba_tpu_torch.tools import bounds
+
     g, idx = rlc_setup
     _, cpu_bm, bm = idx["rlc"]
     rng = np.random.default_rng(42)
-    m, R = 60, 1024
-    starts = rng.integers(0, len(g) - m, R)
-    reads = g[starts[:, None] + np.arange(m)].copy()
-    miss = rng.random(R) < 0.3
-    reads[miss, rng.integers(0, m, int(miss.sum()))] ^= 1
-    reads[::9, rng.integers(0, m)] = 4
-    batch = torch.from_numpy(np.concatenate(
-        [reads, alphabet.revcomp(reads, axis=-1)]))
-    got = extend.exact_match(bm, batch.to(gpu))
-    torch.cuda.synchronize()
-    want = extend.exact_match(cpu_bm, batch)
-    assert torch.equal(got.cpu(), want)
-    live = int((want[:, 1] > want[:, 0]).sum())
-    assert 0 < live < 2 * R
+    for m, R in ((60, 1024), (100, 512), (1, 64)):
+        starts = rng.integers(0, len(g) - m, R)
+        reads = g[starts[:, None] + np.arange(m)].copy()
+        miss = rng.random(R) < 0.3
+        reads[miss, rng.integers(0, m, int(miss.sum()))] ^= 1
+        reads[::9, rng.integers(0, m)] = 4
+        batch = torch.from_numpy(np.concatenate(
+            [reads, alphabet.revcomp(reads, axis=-1)]))
+        got = extend.exact_match(bm, batch.to(gpu))
+        torch.cuda.synchronize()
+        want = extend.exact_match(cpu_bm, batch)
+        assert torch.equal(got.cpu(), want)
+        live = int((want[:, 1] > want[:, 0]).sum())
+        assert 0 < live < 2 * R
+    stats = {}
+    bounds.exact_steps(cpu_bm, batch, stats=stats)
+    assert stats["bucket"] > 0 and "probes" not in stats
 
 
 @pytest.mark.parametrize("flavor,kb,W", [
@@ -887,6 +907,40 @@ def test_rlc_dynpart_kernel(rlc_setup, gpu, k):
         assert torch.equal(out[0][1], out[1][1])
         assert len({tuple(r) for r in out[0][0].cpu().tolist()}) > 1
     assert dynschedule.PARTITION_KERNEL.by_entry.get("rlc", 0) >= 2
+    stats = {}
+    dynschedule.dynamic_partition_plain(cpu_bm, batch.cpu(), scheme, None,
+                                        None, stats)
+    assert stats["bucket"] > 0 and "probes" not in stats
+
+
+@pytest.mark.parametrize("name,k,m", [("pigeon", 15, 100),
+                                      ("columba", 13, 150), ("kuch1", 4, 40)])
+def test_rlc_dynpart_kernel_parts(rlc_setup, gpu, name, k, m):
+    """Kernel F's RLC entry at the largest part counts (16: its limit, and
+    15) and on short reads, with N and a homopolymer, every column of the
+    final part ranges; kuch1's wrapping weights scaled up."""
+    import dataclasses
+
+    g, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc"]
+    rng = np.random.default_rng(50 + k)
+    batch = torch.from_numpy(_reads(rng, g, 256, m, 2)).to(gpu)
+    scheme = get_scheme(name, k)
+    if scheme.weights:
+        scheme = dataclasses.replace(
+            scheme, weights=tuple(w * 40_000 for w in scheme.weights))
+    p = scheme.num_parts
+    out = []
+    for fn in (dynschedule.dynamic_partition,
+               dynschedule.dynamic_partition_plain):
+        rng_out = torch.zeros((batch.shape[0], p, 8), dtype=torch.int64,
+                              device=gpu)
+        out.append((fn(bm, batch, scheme, None, rng_out), rng_out))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert torch.equal(out[0][0].cpu(), dynschedule.dynamic_partition(
+        cpu_bm, batch.cpu(), scheme, None))
 
 
 def test_rlc_exact_kernel_lengths(rlc_setup, gpu):
@@ -926,6 +980,10 @@ def test_rlc_exact_kernel_lengths(rlc_setup, gpu):
     assert np.array_equal(mask_g, mask_c) and np.array_equal(choice_g,
                                                              choice_c)
     assert extend.EXACT_KERNEL.by_entry.get("rlc_lengths", 0) >= 2
+    from columba_tpu_torch.tools import bounds
+    stats = {}
+    bounds.exact_steps(cpu_bm, tp.cpu(), tl.cpu(), stats)
+    assert stats["bucket"] > 0 and "probes" not in stats
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 4, 5])

@@ -95,6 +95,47 @@ def test_match_all_retries_until_lossless():
                                       err_msg=f)
 
 
+def test_match_all_dynamic_partitions_once_a_dispatch(monkeypatch):
+    """Under dynamic partitioning the boundaries are made once a dispatch:
+    a lossless re-run makes only the per-read tables again, from the same
+    boundaries. A first attempt with a frontier of 16 lanes needs at least
+    two re-runs; the result equals a run whose capacities are large
+    enough from the start."""
+    from columba_tpu_torch.search import dynschedule
+
+    rng = np.random.default_rng(41)
+    rep = repeat_genome(rng)
+    g = np.concatenate([rep, rng.integers(0, 4, 4000).astype(np.uint8)])
+    reads = sample_batch(rng, rep, 64)[:64]
+    tfm = TFMIndex.from_arrays(build_index_from_codes(g), "cpu")
+    kw = dict(metric="edit", switchpoint=4,
+              kmer_table=tkmer.build_kmer_table(tfm, 6),
+              partitioning="dynamic")
+    calls = dict(dynamic_partition=0, build_tables=0)
+    for name in calls:
+        def counted(*a, _fn=getattr(dynschedule, name), _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(dynschedule, name, counted)
+    ctx = tpipe.match_all_start(tfm, reads, tscheme("kuch1", 2), **kw)
+    assert calls == dict(dynamic_partition=1, build_tables=1)
+    ctx["capacity"] = 16
+    ctx["out"], ctx["event"] = ctx["run"](16, ctx["ex_cap"],
+                                          ctx["max_locate"])
+    occ, stats = tpipe.match_all_finish(ctx)
+    assert stats["retries"] >= 2 and stats["overflow"] == 0
+    assert calls == dict(dynamic_partition=1,
+                         build_tables=2 + stats["retries"])
+    want, wstats = tpipe.match_all(tfm, reads, tscheme("kuch1", 2),
+                                   capacity=4096, max_locate=1 << 16, **kw)
+    assert wstats["retries"] == 0 and wstats["overflow"] == 0
+    assert calls["dynamic_partition"] == 2
+    for f in ("read_id", "strand", "begin", "end", "distance"):
+        np.testing.assert_array_equal(getattr(occ, f), getattr(want, f),
+                                      err_msg=f)
+    assert len(occ) >= 64
+
+
 def test_match_all_exact_pass():
     """k = 0 without a seed table: the exact branch of match_all, with its
     4x locate-spill retries, gives the JAX package's OccArray and stats."""
