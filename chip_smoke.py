@@ -7,8 +7,8 @@ a CUDA device. It
 2. builds the eight CUDA kernels from ``columba_tpu_torch/csrc`` into
    ``columba_tpu_torch/_build`` (one nvcc per source, started together;
    kernel B's RLC entries are a source of their own) and prints ptxas's
-   registers and spills per entry, failing if kernels C, D, E or F keep a
-   stack frame (local memory);
+   registers and spills per entry, failing if kernels C, D, E, F, G or H
+   keep a stack frame (local memory);
 3. generates a random genome from a fixed seed (128 Mbp in 4 sequences, with
    runs of N), writes it as FASTA and builds the index with the port's
    ``cli build`` (default SA sparseness 4, so locate walks LF);
@@ -187,7 +187,8 @@ RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "rlc_pe_best_c")
 # the kernels whose state must stay out of local memory (ptxas: no stack
 # frame); kernels A and B keep BmLane's out-of-line walks
-NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate")
+NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate", "dyn_tables",
+            "gather_kernel")
 # the paths with -p dynamic: kernel F launches once a batch, however many
 # lossless re-runs the batch takes
 DYNAMIC_PATHS = ("se_all_dynamic", "rlc_se_all_dynamic")
@@ -567,7 +568,7 @@ def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
     from columba_tpu_torch.search import dynschedule, pipeline
     from columba_tpu_torch.search import schedule
     from columba_tpu_torch.search.scheme import get_scheme
-    from columba_tpu_torch.tools import bounds, gather_bench
+    from columba_tpu_torch.tools import bounds, gather_bench, path_inputs
 
     dev = index.device
     R = batch.shape[0]
@@ -612,8 +613,12 @@ def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
             reps=10, plain_reps=1)
         phases = dynschedule._static_on(st, dev)["phases"]
         b = bounds.dyn_tables(pts_k, batch, phases, dyn)
+        rep["prof_ms"] = path_inputs.Clocks(10).profiled(
+            lambda: dynschedule.build_tables(st, pts_k, batch), "dyn_tables",
+            False)
         shape = (f"{R} rows x {st.num_searches} searches, T={st.t_max}, "
-                 f"kb={st.kb}")
+                 f"kb={st.kb}, a warp a (read, search)")
+        log(f"kernel dyn_tables ({shape}): profiler {_prof(rep)} ms warm")
         if k == K:
             note("dyn_tables", shape, rep, b)
         else:
@@ -708,11 +713,25 @@ def new_kernel_checks(index, batch, table, all_ranges, rng, check) -> dict:
         plain_ms=cuda_time(cycling(gather_bench.gather_rows_plain), 64))
     if rep["max_abs_err"] != 0:
         raise AssertionError("kernel gather differs from its plain version")
-    lib = cuda_time(cycling(lambda t, i: torch.index_select(t, 0, i)), 64)
-    note("gather", f"{GATHER_LANES} lanes, 64 B rows of {gather_bench.ROWS}, "
-         f"one thread per row", rep, bounds.gather(tab, idx, out), lib)
-    log(f"library call torch.index_select: {lib:.4f} ms")
+    clocks = path_inputs.Clocks(64)
+    rep["prof_ms"] = clocks.profiled(cycling(gather_bench.gather_rows),
+                                     "gather_kernel", False)
+    library = cycling(lambda t, i: torch.index_select(t, 0, i))
+    lib = cuda_time(library, 64)
+    shape = (f"{GATHER_LANES} lanes, 64 B rows of {gather_bench.ROWS}, a "
+             f"quad of threads a row")
+    log(f"kernel gather ({shape}): profiler {_prof(rep)} ms warm")
+    note("gather", shape, rep, bounds.gather(tab, idx, out), lib)
+    lib_prof = clocks.profiled(library, ("vectorized_gather", "indexSelect"),
+                               False)
+    log(f"library call torch.index_select: {lib:.4f} ms; profiler "
+        f"{'not measured' if lib_prof is None else f'{lib_prof:.4f}'} ms")
     return report
+
+
+def _prof(rep) -> str:
+    return ("not measured" if rep.get("prof_ms") is None
+            else f"{rep['prof_ms']:.4f}")
 
 
 def rlc_lane_states(index, batch, rng, L, max_len=24):
@@ -1783,6 +1802,7 @@ def main() -> int:
                 replaces=replaces.get(entry, k.replaces),
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=r["max_abs_err"], ms=r["ms"],
+                prof_ms=r.get("prof_ms"),
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 bound_bytes=r["bound_bytes"],

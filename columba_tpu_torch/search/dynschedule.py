@@ -21,8 +21,9 @@ search):
   pattern positions) per (read, search). Total band steps per search are
   bounded by m + 2*kb, so the lockstep loop keeps one static length and
   shorter schedules idle at the start (end-aligned through the active bit).
-  Kernel G (``csrc/dyn_tables.cu``) on the card: one block per (read,
-  search), with the clamp folded in.
+  Kernel G (``csrc/dyn_tables.cu``) on the card: one warp per (read,
+  search), several a warp for the prologue (the clamp folded in), the
+  tables written as coalesced words.
 
 The executor reads the packed per-step word and the pattern-char windows at
 ``ids * T + t`` (kernel B's per-lane entry).

@@ -7,7 +7,7 @@ alone. A table of 2,000,000 rows (128 Mbp / 128 chars per block x 2
 directions) is gathered at 8,192, 49,152 and 262,144 lanes, 32 gathers in a
 chain whose next indices come from the rows just fetched (as an LF walk's
 do), for rows of 64, 32 and 16 B. Two implementations are timed in turns with
-CUDA events: kernel H (``csrc/gather.cu``, one thread per row) and
+CUDA events: kernel H (``csrc/gather.cu``, W/4 threads a row) and
 ``torch.index_select``, the library call of the same function. Each is first
 held against ``table[idx]``.
 

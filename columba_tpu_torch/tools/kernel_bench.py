@@ -1,31 +1,37 @@
 """Kernels C (locate, both entries), D (verify), E (exact match: Vanilla,
-RLC, RLC with lengths) and F (dynamic partition, both entries) on the
-inputs the paths give them, on one CUDA device.
+RLC, RLC with lengths), F (dynamic partition, both entries), G (the
+dynamic-partition tables) and H (the row gather) on the inputs the paths
+give them, on one CUDA device.
 
 Run from the repository root on a machine with a CUDA device:
 
     python -m columba_tpu_torch.tools.kernel_bench [--out DIR]
-        [--parent TREE] [--reps N]
+        [--parent TREE] [--reps N] [--only KINDS]
 
-It builds the smoke's two workloads (``tools/workload.py``: the random
+It times kernel H first, on the gather bench's 2,000,000-row table at
+8,192, 49,152 and 262,144 lanes and 64, 32 and 16 B rows, beside
+``torch.index_select``, each launch on the next of 16 index sets. Then it
+builds the smoke's two workloads (``tools/workload.py``: the random
 128 Mbp genome with its Vanilla index at SA sparseness 4, and the 128 Mbp
-pan-genome of 20 haplotypes with its ``--rlc`` index), then:
+pan-genome of 20 haplotypes with its ``--rlc`` index), and:
 
 1. captures the paths' own inputs (``tools/path_inputs.py``): one ``cli
    align`` batch (16,384 reads or pairs) of ``se_all`` (``-a all -e 2``),
-   ``pe_best`` (``-a best -F``), ``rlc_se_all`` (``-a all -e 2 -nD``),
+   ``pe_best`` (``-a best -F``), ``se_all_dynamic`` (``-a all -e 2 -p
+   dynamic``: kernel G's tables), ``rlc_se_all`` (``-a all -e 2 -nD``),
    ``rlc_se_all_dynamic`` (the same with ``-p dynamic``: kernel F's RLC
-   entry), ``rlc_pe_best`` (``-a best -F``, pairs of 250-450 bp
-   fragments: its exact rung is kernel E's RLC entry) and
+   entry and kernel G), ``rlc_pe_best`` (``-a best -F``, pairs of 250-450
+   bp fragments: its exact rung is kernel E's RLC entry) and
    ``rlc_se_best_d`` (``-a best -d`` with kuch1 and its mirror per k: the
    selection probe, kernel E's RLC entry with lengths); each launch keeps
    its inputs, and C and D's the live counts beside the capacity;
 2. makes the smoke's synthetic inputs beside them: uniformly random SA
    rows, and candidates near random loci with random read ids, at kb 0,
    2, 4, 5, 7 and 13; 32,768 rows x 100 bp (a batch of 16,384 reads, both
-   strands) for E and F (F: kuch1 k = 2, with the 10-mer seed table on
-   the Vanilla index, single-character seeds on RLC) and their 163,840
-   part patterns of scheme selection for E with lengths;
+   strands) for E, F and G (F: kuch1 k = 2, with the 10-mer seed table on
+   the Vanilla index, single-character seeds on RLC; G: the tables of F's
+   boundaries at k = 2 and 4) and their 163,840 part patterns of scheme
+   selection for E with lengths;
 3. times every kernel entry on every input through its wrapper, by CUDA
    events and by ``torch.profiler``'s device time, warm and with a
    flushed L2, and prints the plain versions' counts (E and F on RLC:
@@ -39,11 +45,13 @@ pan-genome of 20 haplotypes with its ``--rlc`` index), then:
 With ``--parent TREE`` (an earlier commit's ``columba_tpu_torch/``,
 unpacked by ``git archive COMMIT columba_tpu_torch | tar -x -C TREE``) it
 also imports that tree's own ``ops/locate.py``, ``ops/verify.py``,
-``ops/extend.py`` and ``search/dynschedule.py`` and times their kernels
-on the same inputs through those wrappers, in turns: parent, this tree,
-this tree, parent. Each is checked against the plain version first. The
-card's name and power limit head the output; ``--out`` gets the JSON of
-every number. It needs no JAX.
+``ops/extend.py``, ``search/dynschedule.py`` and ``tools/gather_bench.py``
+and times their kernels on the same inputs through those wrappers, in
+turns: parent, this tree, this tree, parent. Each is checked against the
+plain version first. ``--only dyn_tables,gather`` times those kinds alone
+(an align path is still captured where its inputs are needed). The card's
+name and power limit head the output; ``--out`` gets the JSON of every
+number. It needs no JAX.
 """
 
 from __future__ import annotations
@@ -76,7 +84,9 @@ BEST_CUT = 4             # BEST cutoff of kuch1 at 100 bp (the smoke's)
 SYNTH_KB = (0, 2, 4, 5, 7, 13)
 PKG = "columba_tpu_torch"
 TREE_MODULES = ("native", "ops.locate", "ops.verify", "ops.extend",
-                "search.dynschedule", "index.bmove", "index.fmindex")
+                "search.dynschedule", "index.bmove", "index.fmindex",
+                "tools.gather_bench")
+GATHER_SETS = 16         # index sets a gather timing cycles through
 
 
 # -- an earlier tree's kernels, through its own wrappers ----------------------
@@ -129,6 +139,9 @@ def tree_launcher(mods: dict):
         return copies[id(index)][1]
 
     def launch(kind: str, inp: dict):
+        if kind == "dyn_tables":
+            return mods["search.dynschedule"].build_tables(
+                inp["st"], inp["pts"], inp["reads"])
         index = index_of(inp["index"])
         if kind == "verify":
             kw = {"live": live_tensor(inp)} if takes_live else {}
@@ -199,6 +212,93 @@ def exact_part_inputs(index, batch: torch.Tensor, table) -> list:
                  lengths=lengths)]
 
 
+def tables_inputs(index, batch: torch.Tensor, table) -> list:
+    """Kernel G at the smoke's shapes: the tables of kernel F's boundaries
+    of the batch's rows, for kuch1 at k = 2 (3 searches, T = 104) and at
+    the BEST cutoff 4 (kb 4)."""
+    from columba_tpu_torch.search import dynschedule
+    from columba_tpu_torch.search.scheme import get_scheme
+
+    out = []
+    for k in (K, BEST_CUT):
+        sc = get_scheme("kuch1", k)
+        out.append(dict(kind="dyn_tables", index=None,
+                        st=dynschedule.scheme_static(sc, READ_LEN, "edit"),
+                        pts=dynschedule.dynamic_partition(index, batch, sc,
+                                                          table),
+                        reads=batch))
+    return out
+
+
+def time_gather(clocks: Clocks, smi: str, results: list,
+                parent=None) -> None:
+    """Kernel H on the gather bench's table (2,000,000 rows) at its three
+    lane counts and three row widths, beside ``torch.index_select`` and,
+    where ``parent`` is an earlier tree's ``gather_rows``, that kernel, in
+    turns (parent, this tree, index_select, index_select, this tree,
+    parent). Each timing cycles through GATHER_SETS index sets, so that a
+    launch finds few of its rows in the L2 (16 x 262,144 x 64 B = 268 MB);
+    cold, the L2 is flushed before each launch as well."""
+    from columba_tpu_torch.tools import bounds, gather_bench
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    full = torch.from_numpy(rng.integers(
+        0, 2 ** 31, (gather_bench.ROWS, 16)).astype(np.int32)).to(dev)
+    impls = {"tree": gather_bench.gather_rows,
+             "index_select": lambda t, i: torch.index_select(t, 0, i)}
+    names = {"tree": "gather_kernel", "parent": "gather_kernel",
+             # torch's kernel for index_select on a contiguous table
+             "index_select": ("vectorized_gather", "indexSelect")}
+    order = ["tree", "index_select", "index_select", "tree"]
+    if parent is not None:
+        impls["parent"] = parent
+        order = ["parent"] + order + ["parent"]
+    for words in gather_bench.ROW_WORDS:
+        table = full[:, :words].contiguous()
+        for n in gather_bench.LANES:
+            sets = [torch.from_numpy(rng.integers(
+                0, gather_bench.ROWS, n)).to(dev)
+                for _ in range(GATHER_SETS)]
+            want = gather_bench.gather_rows_plain(table, sets[0])
+            for who, fn in impls.items():
+                got = fn(table, sets[0])
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"gather {who} differs from "
+                                         f"table[idx] at {words * 4} B "
+                                         f"rows, {n} lanes")
+
+            def cycling(fn):
+                state = [0]
+
+                def call():
+                    state[0] += 1
+                    return fn(table, sets[state[0] % GATHER_SETS])
+                return call
+
+            runs = {k: [] for k in impls}
+            for who in order:
+                runs[who].append(clocks.all(cycling(impls[who]), names[who]))
+            b = bounds.gather(table, sets[0], want)
+            what = f"{n} lanes, {words * 4} B rows of {gather_bench.ROWS}"
+            results.append(dict(label="gather_bench", kind="gather",
+                                what=what, bound_ms=b["bound_ms"],
+                                bound_by=b["bound_by"],
+                                bound_bytes=b["bytes"],
+                                bound_operations=b["operations"],
+                                runs=runs))
+            for who, rs in runs.items():
+                for i, r in enumerate(rs):
+                    log(f"{smi}: gather [{what}] {who} run {i}: events warm "
+                        f"{r['events_warm']:.4f} ms, cold "
+                        f"{r['events_cold']:.4f}; profiler warm "
+                        f"{_fmt(r['prof_warm'])}, cold "
+                        f"{_fmt(r['prof_cold'])}; bound "
+                        f"{b['bound_ms']:.5f} ms by {b['bound_by']}")
+            del sets, want
+
+
 def chain_floor(label: str, index, text: np.ndarray, clocks: Clocks,
                 smi: str, results: list, parent=None) -> None:
     """Kernel E's latency floor: one row that matches all its READ_LEN
@@ -261,7 +361,19 @@ def main(argv=None) -> int:
                     help="the root of an earlier commit's unpacked "
                          "columba_tpu_torch/, timed beside this tree")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated kernel kinds to time (locate, "
+                         "verify, exact, dynpart, dyn_tables, gather; an "
+                         "entry such as exact.rlc names one); all by "
+                         "default")
     args = ap.parse_args(argv)
+    only = set(args.only.split(",")) if args.only else None
+
+    def wanted(kind: str) -> bool:
+        return only is None or kind in only or kind.split(".")[0] in only
+
+    def picked(calls: list) -> list:
+        return [c for c in calls if wanted(c["kind"])]
     torch.cuda.init()        # raises where there is no CUDA device
 
     from columba_tpu_torch import cli, native
@@ -273,7 +385,7 @@ def main(argv=None) -> int:
 
     def ours(line):
         return any(k in line for k in ("locate", "verify", "exact",
-                                       "dynpart"))
+                                       "dynpart", "dyn_tables", "gather"))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -295,6 +407,12 @@ def main(argv=None) -> int:
         parent = tree_launcher(mods)
     clocks = Clocks(args.reps)
     results = []
+    if wanted("gather"):
+        time_gather(clocks, smi, results,
+                    mods["tools.gather_bench"].gather_rows if parent
+                    else None)
+    if only is not None and not only - {"gather"}:
+        return _write(args.out, smi, results)
 
     with tempfile.TemporaryDirectory(prefix="columba_kb_") as wd:
         def align(idx, argv, fq):
@@ -328,26 +446,33 @@ def main(argv=None) -> int:
         for tag, codes in (("se", reads), ("p1", m1), ("p2", m2)):
             fq[tag] = os.path.join(wd, tag + ".fq")
             workload.write_fastq(fq[tag], codes, "r")
+        all_k = ["-a", "all", "-e", str(K)]
         captured = {
-            "se_all": capture(align(idx, ["-a", "all", "-e", str(K)],
-                                    [fq["se"]])),
+            "se_all": capture(align(idx, all_k, [fq["se"]])),
             "pe_best": capture(align(idx, ["-a", "best"],
                                      [fq["p1"], fq["p2"]])),
+            # kernel G's own inputs: the tables of each (re-)run
+            "se_all_dynamic": [c for c in capture(align(
+                idx, all_k + ["-p", "dynamic"], [fq["se"]]))
+                if c["kind"] == "dyn_tables"],
         }
         index = captured["se_all"][0]["index"]
         synth = synthetic(index, text, np.random.default_rng(SEED + 1),
                           2 * BATCH, ("locate", "verify"))
-        synth += exact_part_inputs(index, both_strands(reads),
-                                   build_kmer_table(index, 10))
+        batch, table = both_strands(reads), build_kmer_table(index, 10)
+        synth += exact_part_inputs(index, batch, table)
+        synth += tables_inputs(index, batch, table)
         del arrays
         for path, calls in captured.items():
             log(f"captured {path}: " + "; ".join(
                 f"{c['kind']} {describe(c)}" for c in calls))
-        time_inputs("synthetic", synth, clocks, smi, results, parent)
-        chain_floor("synthetic", index, text, clocks, smi, results, parent)
-        for path, calls in captured.items():
-            time_inputs(path, _first_of_each(calls), clocks, smi, results,
+        time_inputs("synthetic", picked(synth), clocks, smi, results, parent)
+        if wanted("exact"):
+            chain_floor("synthetic", index, text, clocks, smi, results,
                         parent)
+        for path, calls in captured.items():
+            time_inputs(path, picked(_first_of_each(calls)), clocks, smi,
+                        results, parent)
         del captured, synth, index, text
         torch.cuda.empty_cache()
 
@@ -380,18 +505,20 @@ def main(argv=None) -> int:
             "rlc_se_best_d": (["-a", "best", "-d", multi], [fq["se"]]),
         }
         want = {"rlc_se_all": ("locate.rlc", "verify"),
-                "rlc_se_all_dynamic": ("dynpart.rlc",),
+                "rlc_se_all_dynamic": ("dynpart.rlc", "dyn_tables"),
                 "rlc_pe_best": ("exact.rlc",),
                 "rlc_se_best_d": ("exact.rlc_lengths",)}
         captured = {}
         for path, (argv, files) in paths.items():
+            if not any(wanted(k) for k in want[path]):
+                continue
             calls = capture(align(ridx, argv, files))
             captured[path] = [c for c in _first_of_each(calls)
                               if c["kind"] in want[path]]
             log(f"captured {path}: " + "; ".join(
                 f"{c['kind']} {describe(c)}" for c in calls))
-        bm = captured["rlc_se_all"][0]["index"]
-        assert isinstance(bm, BMoveIndex)
+        bm = next(c["index"] for calls in captured.values() for c in calls
+                  if isinstance(c["index"], BMoveIndex))
         log(f"RLC index: r_fwd {bm.r_fwd}, r_rev {bm.r_rev}, fused "
             f"{bm.fused.numel() * 4} bytes, run tables "
             f"{bm.starts.numel() * 4} + {bm.run_at_rev.numel() * 4} bytes "
@@ -399,18 +526,23 @@ def main(argv=None) -> int:
             f"{bm.run_at.numel() * 4} bytes)")
         synth = synthetic(bm, pan, np.random.default_rng(SEED + 3),
                           2 * BATCH, ("locate.rlc", "verify"))
-        time_inputs("synthetic_rlc", [s for s in synth
-                                      if s["kind"] == "locate.rlc"]
-                    + [s for s in synth if s.get("kb") == K]
-                    + exact_part_inputs(bm, both_strands(prs), None),
-                    clocks, smi, results, parent)
-        chain_floor("synthetic_rlc", bm, pan, clocks, smi, results, parent)
+        time_inputs("synthetic_rlc", picked(
+            [s for s in synth if s["kind"] == "locate.rlc"]
+            + [s for s in synth if s.get("kb") == K]
+            + exact_part_inputs(bm, both_strands(prs), None)),
+            clocks, smi, results, parent)
+        if wanted("exact.rlc"):
+            chain_floor("synthetic_rlc", bm, pan, clocks, smi, results,
+                        parent)
         for path, calls in captured.items():
-            time_inputs(path, calls, clocks, smi, results, parent)
+            time_inputs(path, picked(calls), clocks, smi, results, parent)
+    return _write(args.out, smi, results)
 
-    if args.out:
-        os.makedirs(args.out, exist_ok=True)
-        with open(os.path.join(args.out, "kernel_bench.json"), "w") as f:
+
+def _write(out, smi: str, results: list) -> int:
+    if out:
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "kernel_bench.json"), "w") as f:
             json.dump(dict(card=smi, results=results), f, indent=1)
     return 0
 

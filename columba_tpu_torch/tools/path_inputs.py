@@ -1,13 +1,14 @@
-"""Kernels C, D, E and F on the inputs an align gives them: capture and
+"""Kernels C, D, E, F and G on the inputs an align gives them: capture and
 timing.
 
 ``capture(align)`` runs one ``align()`` with wrappers around
 ``locate.locate_rows``, ``verify.verify_window``, ``extend.exact_match``,
-``dynschedule.dynamic_partition``, ``pipeline.stage_expand`` and
-``pipeline.stage_dedup`` (module attributes; nothing in the library is
-hooked) and keeps each locate, verify, exact-match and partition launch's
-inputs, with the live counts beside the capacity (``total`` of the
-expansion, ``n_unique`` of the dedup) for C and D. ``time_inputs`` holds
+``dynschedule.dynamic_partition``, ``dynschedule.build_tables``,
+``pipeline.stage_expand`` and ``pipeline.stage_dedup`` (module
+attributes; nothing in the library is hooked) and keeps each locate,
+verify, exact-match, partition and schedule-table launch's inputs, with
+the live counts beside the capacity (``total`` of the expansion,
+``n_unique`` of the dedup) for C and D. ``time_inputs`` holds
 every captured launch to its plain version and times it through the
 wrapper with two clocks: CUDA events over back-to-back launches, and the
 kernel's own device time from ``torch.profiler``; each with a warm L2 and
@@ -31,7 +32,7 @@ KERNEL_NAME = {"verify": "verify", "locate": "locate_kernel",
                "locate.rlc": "locate_rlc", "exact": "exact_",
                "exact.lengths": "exact_", "exact.rlc": "exact_",
                "exact.rlc_lengths": "exact_", "dynpart": "dynpart_kernel",
-               "dynpart.rlc": "dynpart_kernel"}
+               "dynpart.rlc": "dynpart_kernel", "dyn_tables": "dyn_tables"}
 
 
 def log(msg: str) -> None:
@@ -71,9 +72,10 @@ class Clocks:
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in pairs) / self.reps
 
-    def profiled(self, fn, name: str, cold: bool):
-        """Mean device ms a launch of the kernels whose name holds ``name``,
-        from ``torch.profiler``; None if it records no device time."""
+    def profiled(self, fn, name, cold: bool):
+        """Mean device ms a launch of the kernels whose name holds ``name``
+        (or one of a tuple of names), from ``torch.profiler``; None if it
+        records no device time."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -85,9 +87,10 @@ class Clocks:
                     self.flush()
                 fn()
             torch.cuda.synchronize()
+        names = (name,) if isinstance(name, str) else name
         total, count = 0.0, 0
         for ev in prof.key_averages():
-            if name in ev.key:
+            if any(n in ev.key for n in names):
                 t = getattr(ev, "device_time_total", None)
                 if t is None:
                     t = getattr(ev, "cuda_time_total", 0.0)
@@ -105,9 +108,9 @@ class Clocks:
 
 
 def capture(align) -> list:
-    """The locate, verify, exact-match and partition launches of one
-    ``align()`` call, each with its inputs (cloned) and, for locate and
-    verify, the live counts around it."""
+    """The locate, verify, exact-match, partition and schedule-table
+    launches of one ``align()`` call, each with its inputs (cloned) and, for
+    locate and verify, the live counts around it."""
     from columba_tpu_torch.index.bmove import BMoveIndex
     from columba_tpu_torch.ops import extend, locate, verify
     from columba_tpu_torch.search import dynschedule, pipeline
@@ -115,7 +118,7 @@ def capture(align) -> list:
     calls, pending = [], {}
     saved = (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
              pipeline.stage_dedup, extend.exact_match,
-             dynschedule.dynamic_partition)
+             dynschedule.dynamic_partition, dynschedule.build_tables)
 
     def expand(c_lo, c_hi, max_locate):
         out = saved[2](c_lo, c_hi, max_locate)
@@ -160,16 +163,31 @@ def capture(align) -> list:
             scheme=scheme, table=kmer_table))
         return saved[5](index, reads, scheme, kmer_table, ranges_out)
 
+    def tables(st, pts, reads):
+        calls.append(dict(kind="dyn_tables", index=None, st=st,
+                          pts=pts.clone(), reads=reads.clone()))
+        return saved[6](st, pts, reads)
+
     locate.locate_rows, verify.verify_window = loc, ver
     pipeline.stage_expand, pipeline.stage_dedup = expand, dedup
     extend.exact_match, dynschedule.dynamic_partition = exact, part
+    dynschedule.build_tables = tables
     try:
         align()
     finally:
         (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
          pipeline.stage_dedup, extend.exact_match,
-         dynschedule.dynamic_partition) = saved
+         dynschedule.dynamic_partition, dynschedule.build_tables) = saved
     return calls
+
+
+def equal(got, want) -> bool:
+    """Exact equality of two tensors, or of two dicts of tensors on every
+    key."""
+    if isinstance(want, dict):
+        return set(got) == set(want) and all(
+            torch.equal(got[k], want[k]) for k in want)
+    return torch.equal(got, want)
 
 
 def live_tensor(inp: dict) -> torch.Tensor:
@@ -195,6 +213,8 @@ def kernel_call(kind: str, index, inp: dict):
     if kind.startswith("dynpart"):
         return dynschedule.dynamic_partition(index, inp["reads"],
                                              inp["scheme"], inp["table"])
+    if kind == "dyn_tables":
+        return dynschedule.build_tables(inp["st"], inp["pts"], inp["reads"])
     return locate.locate_rows(index, inp["rows"])
 
 
@@ -211,6 +231,9 @@ def plain_call(kind: str, index, inp: dict):
     if kind.startswith("dynpart"):
         return dynschedule.dynamic_partition_plain(
             index, inp["reads"], inp["scheme"], inp["table"])
+    if kind == "dyn_tables":
+        return dynschedule.build_tables_plain(inp["st"], inp["pts"],
+                                              inp["reads"])
     if kind == "locate.rlc":
         return blocate.locate_rows_plain(index, inp["rows"])
     return locate.locate_rows_plain(index, inp["rows"])
@@ -268,6 +291,13 @@ def hand_counts(inp: dict) -> dict:
     index, kind = inp["index"], inp["kind"]
     if kind.startswith(("exact", "dynpart")):
         return _exact_part_counts(inp, plain_call(kind, index, inp))
+    if kind == "dyn_tables":
+        from columba_tpu_torch.search import dynschedule
+
+        phases = dynschedule._static_on(inp["st"], inp["pts"].device)
+        return dict(bound=bounds.dyn_tables(
+            inp["pts"], inp["reads"], phases["phases"],
+            plain_call(kind, index, inp)))
     if kind == "verify":
         b = bounds.verify(inp["reads"], inp["rid"], inp["ws"], inp["kb"],
                           torch.empty((inp["rid"].numel(), 4 * inp["kb"] + 1),
@@ -303,6 +333,11 @@ def describe(inp: dict) -> str:
         return (f"{R} reads x {m} bp, {inp['scheme'].name} k="
                 f"{inp['scheme'].k}, p={inp['scheme'].num_parts}"
                 + (", seed table" if inp["table"] is not None else ""))
+    if inp["kind"] == "dyn_tables":
+        st = inp["st"]
+        return (f"{inp['reads'].shape[0]} reads x {st.m} bp, "
+                f"{st.num_searches} searches, p={st.p}, T={st.t_max}, "
+                f"kb={st.kb}")
     if inp["kind"] == "verify":
         return (f"{inp['rid'].numel()} candidates (live {inp['live']}), m "
                 f"{inp['reads'].shape[1]}, kb {inp['kb']}")
@@ -323,7 +358,7 @@ def time_inputs(label: str, inputs: list, clocks: Clocks, smi: str,
         for who, fn in fns.items():
             got = fn()
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not equal(got, want):
                 raise AssertionError(f"{label} {kind}: the {who} kernel "
                                      f"differs from the plain version")
         order = (["parent", "tree", "tree", "parent"] if parent is not None

@@ -445,8 +445,9 @@ def test_bench_times_an_earlier_tree_through_its_wrappers(tmp_path):
     each index in the tree's own index class: on CPU tensors the wrappers
     run their plain versions, which must equal this tree's (locate, verify,
     exact match with and without lengths, dynamic partition, on both
-    indexes); the bench's synthetic E and F inputs and its counts of them
-    come out of this tree's plain versions too."""
+    indexes, and the schedule tables); the bench's synthetic E, F and G
+    inputs and its counts of them come out of this tree's plain versions
+    too."""
     import shutil
     import sys
 
@@ -503,3 +504,9 @@ def test_bench_times_an_earlier_tree_through_its_wrappers(tmp_path):
                                    table=None)),
         dynschedule.dynamic_partition_plain(bm, batch,
                                             get_scheme("kuch1", 2)))
+    for inp in lvb.tables_inputs(fm, batch, None):
+        want = path_inputs.plain_call("dyn_tables", None, inp)
+        assert path_inputs.equal(launch("dyn_tables", inp), want)
+        assert not path_inputs.equal(launch("dyn_tables", inp),
+                                     {**want, "meta": want["meta"] + 1})
+        assert path_inputs.hand_counts(inp)["bound"]["bound_ms"] > 0

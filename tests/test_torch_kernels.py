@@ -483,6 +483,74 @@ def test_dyn_tables_kernel(setup, gpu, name, k, metric, m):
     assert bool((got["meta"] & 1).any()) and bool((got["ex_pos"] >= 0).any())
 
 
+def _largest_folder_scheme():
+    """The scheme under ``schemes/`` with the most parts (then the most
+    searches), over every k its folder holds. The searches are parsed
+    without the losslessness check, which takes minutes at k = 14."""
+    import os
+
+    from columba_tpu_torch.search.scheme import parse_scheme_text
+
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "schemes")
+    best = None
+    for name in sorted(os.listdir(root)):
+        for k in sorted(os.listdir(os.path.join(root, name))):
+            path = os.path.join(root, name, k, "searches.txt")
+            if not os.path.exists(path):
+                continue
+            with open(path) as f:
+                try:
+                    sc = parse_scheme_text(f.read(), int(k), name)
+                except ValueError:
+                    continue          # a line both packages refuse
+            key = (sc.num_parts, len(sc.searches))
+            if best is None or key > best[0]:
+                best = (key, sc)
+    return best[1]
+
+
+@pytest.mark.parametrize("case", ["one_read", "ragged_block", "odd_m",
+                                  "kb0", "most_parts", "most_parts_kb0",
+                                  "three_chunks", "long_reads"])
+def test_dyn_tables_kernel_shapes(gpu, case):
+    """Kernel G equals build_tables_plain on every key at the shapes its
+    warp-a-lane blocks and word-wide pchars stores must handle: one read,
+    a lane count that is not a multiple of a block's lanes, odd m (pchars
+    runs that start and end inside a 4 B word), kb 0, the largest part
+    count of any scheme folder (edit and Hamming), pchars staged in three
+    chunks (odd m = 301), and reads too long to stage in shared memory."""
+    name, k, m, metric, R = {
+        "one_read": ("kuch1", 2, 100, "edit", 1),
+        "ragged_block": ("kuch1", 2, 100, "edit", 5),
+        "odd_m": ("kuch1", 4, 101, "edit", 37),
+        "kb0": ("kuch1", 2, 99, "hamming", 29),
+        "most_parts": (None, 0, 451, "edit", 7),
+        "most_parts_kb0": (None, 0, 97, "hamming", 7),
+        "three_chunks": ("kuch1", 2, 301, "edit", 9),
+        "long_reads": ("kuch1", 2, 1601, "edit", 5),
+    }[case]
+    scheme = _largest_folder_scheme() if name is None else get_scheme(name, k)
+    st = dynschedule.scheme_static(scheme, m, metric)
+    p = scheme.num_parts
+    if case.startswith("most_parts"):
+        assert p >= 15 and p <= dynschedule.MAX_PARTS
+    rng = np.random.default_rng(31)
+    reads = torch.from_numpy(rng.integers(0, 5, (R, m)).astype(
+        np.uint8)).to(gpu)
+    raw = np.sort(rng.integers(0, m + 1, (R, p + 1)), axis=1).astype(np.int32)
+    raw[:, 0], raw[:, p] = 0, m
+    raw_d = torch.from_numpy(raw).to(gpu)
+    for pts in (raw_d, dynschedule.clamp_partition(raw_d, m, st.kb)):
+        got = dynschedule.build_tables(st, pts, reads)
+        torch.cuda.synchronize()
+        want = dynschedule.build_tables_plain(st, pts, reads)
+        assert set(got) == set(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype, key
+            assert torch.equal(got[key], want[key]), key
+
+
 @pytest.mark.parametrize("k,metric", [(0, "edit"), (1, "edit"), (2, "edit"),
                                       (3, "edit"), (4, "edit"), (5, "edit"),
                                       (2, "hamming")])
@@ -623,6 +691,22 @@ def test_gather_kernel(gpu, words):
     assert torch.equal(got, gather_bench.gather_rows_plain(table, idx))
     assert torch.equal(got.cpu(), gather_bench.gather_rows(table.cpu(),
                                                            idx.cpu()))
+
+
+@pytest.mark.parametrize("words", [4, 8, 16])
+@pytest.mark.parametrize("n", [1, 1027, 1_000_003])
+def test_gather_kernel_lanes(gpu, words, n):
+    """Kernel H equals table[clamp(idx)] for one row, a row count that is
+    not a multiple of a thread's rows in flight, and more rows than the
+    card holds threads (the grid strides)."""
+    rng = np.random.default_rng(29)
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (70001, words),
+                                          dtype=np.int64).astype(np.int32)
+                             ).to(gpu)
+    idx = torch.from_numpy(rng.integers(-5, 70010, n)).to(gpu)
+    got = gather_bench.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather_bench.gather_rows_plain(table, idx))
 
 
 def test_launch_counters(setup, gpu):
