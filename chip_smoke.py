@@ -139,6 +139,15 @@ N_RLC_READS = 65_536     # each SE path on the pan-genome's RLC indexes
 N_RLC_PAIRS = 16_384     # the PE BEST path on the with-text RLC index
 RLC_WARMUP = 4096
 PLAIN_TL_READS = 4096    # the textless batch through the plain versions
+N_REC_READS = 16_384     # the record-path paths (-T, FASTA, RLC .rhs)
+REC_WARMUP = 4096
+TRIM = (0, 50)           # -T of se_all_trim
+BLOCK_BP = 70_000_000    # -B of the blocked build: 2 blocks of 2 sequences
+N_BLOCKS = 2
+N_BLK_READS = 32_768     # the blocked SE paths (SE ALL's first reads)
+N_BLK_PAIRS = 16_384     # the blocked PE path (the -p static path's pairs)
+BLK_WARMUP = 4096
+BLOCK_MEM_SLACK = 8 << 20  # device bytes a released block may leave behind
 
 # the kernels each path must launch at least once
 PATH_KERNELS = {
@@ -160,6 +169,18 @@ PATH_KERNELS = {
                            "dynpart", "dyn_tables"),
     "rlc_se_best_d": ("extend", "band_step", "locate", "verify", "exact"),
     "rlc_pe_best_c": ("extend", "band_step", "locate", "verify", "exact"),
+    # On the random genome a batch needs kernel B only where a read lies in
+    # a repeat (a seeded N run): elsewhere the seeded exact prefix takes
+    # every lane to the in-text crossover. SE ALL's first 16,384 reads have
+    # no such read, so the record-path and blocked paths require A, C and D
+    # each, and the blocked paths kernel B together (``blocked_section``).
+    "se_all_trim": ("extend", "locate", "verify"),
+    "se_all_fasta": ("extend", "locate", "verify"),
+    "rlc_se_all_rhs": ("extend", "band_step", "locate", "verify"),
+    "blk_se_all": ("extend", "locate", "verify"),
+    "blk_se_best": ("extend", "locate", "verify"),
+    "blk_se_rhs": ("extend", "locate", "verify"),
+    "blk_pe_best": ("extend", "locate", "verify"),
 }
 # the entries of kernels A, B, C and E each path must go through (see
 # native.Kernel.by_entry), as "kernel.entry"
@@ -181,10 +202,20 @@ PATH_ENTRIES = {
                            "locate.rlc", "dynpart.rlc"),
     "rlc_se_best_d": _RLC_ENTRIES + ("exact.rlc_lengths",),
     "rlc_pe_best_c": _RLC_ENTRIES + ("exact.rlc", "exact.rlc_lengths"),
+    "se_all_trim": ("extend.loop",),
+    "se_all_fasta": ("extend.loop",),
+    "rlc_se_all_rhs": _RLC_ENTRIES,
+    "blk_se_all": ("extend.loop",),
+    "blk_se_best": ("extend.loop",),
+    "blk_se_rhs": ("extend.loop",),
+    "blk_pe_best": ("extend.loop",),
 }
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
-             "rlc_pe_best_c")
+             "rlc_pe_best_c", "rlc_se_all_rhs")
+BLOCKED_PATHS = ("blk_se_all", "blk_se_best", "blk_se_rhs", "blk_pe_best")
+# the paths that write read-hit-summary lines, not SAM
+RHS_PATHS = ("rlc_se_all_rhs", "blk_se_rhs")
 # the kernels whose state must stay out of local memory (ptxas: no stack
 # frame); kernels A and B keep BmLane's out-of-line walks
 NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate", "dyn_tables",
@@ -1013,6 +1044,77 @@ def path_input_times(path: str, calls: list, smi: str) -> None:
                             smi, [])
 
 
+@contextlib.contextmanager
+def block_memory(rows: list):
+    """While in the block, record for each block that a blocked ``cli
+    align`` loads one row of ``rows``: [block dir, device bytes allocated
+    before it loads, its index's bytes, its k-mer table's bytes, device
+    bytes allocated after it is released]. The blocked paths take the
+    blocks from ``blocked.iter_blocks`` and resume it for the next block
+    only after the last one is released."""
+    from columba_tpu_torch.index import blocked, kmer
+    from columba_tpu_torch.index.fmindex import FMIndex
+
+    iter_blocks, from_arrays = blocked.iter_blocks, FMIndex.from_arrays
+    kmer_cached = kmer.build_kmer_table_cached
+
+    def tracked_iter(index_dir, meta):
+        for bm, arrays in iter_blocks(index_dir, meta):
+            torch.cuda.synchronize()
+            rows.append([bm["dir"], torch.cuda.memory_allocated(), 0, 0,
+                         None])
+            yield bm, arrays
+            torch.cuda.synchronize()
+            rows[-1][4] = torch.cuda.memory_allocated()
+
+    def tracked_index(arrays, device):
+        index = from_arrays(arrays, device)
+        rows[-1][2] = index.nbytes()
+        return index
+
+    def tracked_table(index, k, cache_dir):
+        table = kmer_cached(index, k, cache_dir)
+        rows[-1][3] = table.nbytes
+        return table
+
+    blocked.iter_blocks = tracked_iter
+    FMIndex.from_arrays = staticmethod(tracked_index)
+    kmer.build_kmer_table_cached = tracked_table
+    try:
+        yield rows
+    finally:
+        blocked.iter_blocks = iter_blocks
+        FMIndex.from_arrays = staticmethod(from_arrays)
+        kmer.build_kmer_table_cached = kmer_cached
+
+
+def sam_body(path: str, n_reads: int | None = None, ordered=True):
+    """A SAM file's @SQ lines and its records (without @PG), of the reads
+    numbered below ``n_reads`` where given, in file order or sorted."""
+    heads, body = [], []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("@"):
+                if line.startswith("@SQ"):
+                    heads.append(line)
+            elif n_reads is None or int(line.split("\t", 1)[0][1:]) < n_reads:
+                body.append(line)
+    return heads, (body if ordered else sorted(body))
+
+
+def rhs_hits(path: str) -> dict:
+    """read number -> [(sequence name, distance)] of a read-hit-summary
+    file (reads without a hit map to [])."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            name, _, hits = line.rstrip("\n").partition("\t")
+            out[int(name[1:])] = [
+                (h[1:-1].rsplit(",", 1)[0], int(h[1:-1].rsplit(",", 1)[1]))
+                for h in hits.split(";") if h]
+    return out
+
+
 def parse_sam(path: str, seq_ids: dict | None = None):
     """(qname index, rname index, pos1, flag, NM) of every mapped record;
     a sequence's index is its number in ``chrN`` or ``seq_ids[name]``."""
@@ -1241,6 +1343,8 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
     warm["rlc_pe_best"] = warm["rlc_pe_best_c"] = (
         fq("pan_w1", m1[:RLC_WARMUP], "w"), fq("pan_w2", m2[:RLC_WARMUP], "w"))
     n_of["rlc_pe_best"] = n_of["rlc_pe_best_c"] = N_RLC_PAIRS
+    files["rlc_se_all_rhs"] = (fq("pan_rhs", reads[:N_REC_READS]), None)
+    n_of["rlc_se_all_rhs"] = N_REC_READS
     all_k = ["-a", "all", "-e", str(K), "-nD"]   # the JAX package's bench
     argv_of.update(rlc_se_all=all_k, tl_se_all=all_k,
                    rlc_se_best=["-a", "best"], tl_se_best=["-a", "best"],
@@ -1248,7 +1352,8 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
                    rlc_se_all_dynamic=all_k + ["-p", "dynamic"],
                    rlc_se_best_d=["-a", "best", "-d", collection],
                    rlc_pe_best_c=["-a", "best", "-c",
-                                  os.path.join(SCHEMES, "kuch_k+1")])
+                                  os.path.join(SCHEMES, "kuch_k+1")],
+                   rlc_se_all_rhs=all_k)
     for path in RLC_PATHS:
         drive(path, f"pan-genome {n} bp, {path.split('_')[0]} index")
 
@@ -1284,6 +1389,25 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
     if not same:
         raise AssertionError("rlc_se_all_dynamic reports another occurrence "
                              "set than rlc_se_all")
+    # the read-hit summary: every read with <= K substitutions lists the
+    # pan-genome at a distance of at most its substitutions, and the reads
+    # with a hit are the reads rlc_se_all maps
+    hits = rhs_hits(os.path.join(wd, "rlc_se_all_rhs.rhs"))
+    want = np.nonzero(nsub[:N_REC_READS] <= K)[0]
+    lost = [int(i) for i in want
+            if not any(d <= nsub[i] for _, d in hits.get(int(i), []))]
+    q = parse_sam(os.path.join(wd, "rlc_se_all.sam"), seq_ids)[0]
+    sam_mapped = set(np.unique(q[q < N_REC_READS]).tolist())
+    rhs_mapped = {r for r, h in hits.items() if h}
+    log(f"rlc_se_all_rhs check: {len(hits)} read lines of {N_REC_READS}; "
+        f"{len(want)} reads with <= {K} substitutions, {len(lost)} without "
+        f"a hit at most that far; {len(rhs_mapped)} reads with hits, "
+        f"{len(sam_mapped)} mapped by rlc_se_all "
+        f"({'the same reads' if rhs_mapped == sam_mapped else 'DIFFERENT'})")
+    if lost or len(hits) != N_REC_READS or rhs_mapped != sam_mapped:
+        raise AssertionError(f"rlc_se_all_rhs: lost {lost[:10]}, "
+                             f"{len(hits)} lines, mapped sets differ: "
+                             f"{rhs_mapped != sam_mapped}")
     for tag in ("rlc_se_best", "tl_se_best", "rlc_se_best_d"):
         q, _, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"), seq_ids)
         best_nm = np.full(N_RLC_READS, 1 << 40, np.int64)
@@ -1362,6 +1486,76 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
     return report
 
 
+def blocked_section(wd, blk_idx, drive, launches_by_path, chk) -> None:
+    """The blocked index (``cli build -B``, the smoke's genome in
+    ``N_BLOCKS`` blocks of whole sequences; the > 4.29 Gbp regime the
+    format exists for is out of the smoke's time): the four blocked paths
+    through ``drive`` (each block's device memory held to its value before
+    the block loaded), the lossless checks on their sampled loci, and their
+    records against the monolithic index's runs of the same reads and
+    flags (sorted, without @PG)."""
+    from columba_tpu_torch.tools import workload
+
+    with open(os.path.join(blk_idx, "meta.json")) as f:
+        meta = json.load(f)
+    log(f"blocked index: {meta['n']} bp, {meta['num_seqs']} sequences in "
+        f"{len(meta['blocks'])} blocks "
+        f"{[(b['dir'], b['n'], b['num_seqs']) for b in meta['blocks']]}")
+    if len(meta["blocks"]) != N_BLOCKS:
+        raise AssertionError(f"cli build -B {BLOCK_BP}: "
+                             f"{len(meta['blocks'])} blocks, not {N_BLOCKS}")
+    for path in BLOCKED_PATHS:
+        drive(path, f"genome {workload.GENOME_N} bp in {N_BLOCKS} blocks")
+    band = sum(launches_by_path[p]["band_step"] for p in BLOCKED_PATHS)
+    log(f"kernel B on the blocked paths: {band} launches")
+    if band == 0:
+        raise AssertionError("kernel B launched on no blocked path")
+
+    chk["se_all_check"]("blk_se_all", "blocked SE ALL", N_BLK_READS)
+    chk["se_best_check"]("blk_se_best", "blocked SE BEST", N_BLK_READS)
+    nsub, seq_of = chk["nsub"], chk["seq_of"]
+    hits = rhs_hits(os.path.join(wd, "blk_se_rhs.rhs"))
+    want = np.nonzero(nsub[:N_BLK_READS] <= K)[0]
+    lost = [int(i) for i in want if not any(
+        name == f"chr{seq_of[i] + 1}" and d <= nsub[i]
+        for name, d in hits.get(int(i), []))]
+    q = parse_sam(os.path.join(wd, "blk_se_all.sam"))[0]
+    sam_mapped = set(np.unique(q).tolist())
+    rhs_mapped = {r for r, h in hits.items() if h}
+    log(f"blocked .rhs check: {len(hits)} read lines of {N_BLK_READS}; "
+        f"{len(want)} reads with <= {K} substitutions, {len(lost)} without "
+        f"their sequence at most that far; {len(rhs_mapped)} reads with "
+        f"hits, {len(sam_mapped)} mapped by blk_se_all "
+        f"({'the same reads' if rhs_mapped == sam_mapped else 'DIFFERENT'})")
+    if lost or len(hits) != N_BLK_READS or rhs_mapped != sam_mapped:
+        raise AssertionError(f"blk_se_rhs: lost {lost[:10]}, {len(hits)} "
+                             f"lines, mapped sets differ: "
+                             f"{rhs_mapped != sam_mapped}")
+    want = np.nonzero((chk["nsub1"][:N_BLK_PAIRS] <= 2)
+                      & (chk["nsub2"][:N_BLK_PAIRS] <= 2))[0]
+    found, n_proper = chk["pe_check"](os.path.join(wd, "blk_pe_best.sam"),
+                                      want, want, 2)
+    log(f"blocked PE BEST check: {len(want)} pairs with <= 2 substitutions "
+        f"in each mate; {int(found.sum())} reported as a proper pair at "
+        f"both true loci, {int((~found).sum())} missing; {n_proper} "
+        f"proper-pair records")
+    if not found.all():
+        raise AssertionError(f"blocked PE BEST: pairs not found: "
+                             f"{want[~found][:10].tolist()}")
+    # the blocked records are the monolithic index's
+    for blk, mono, n in (("blk_se_all", "se_all", N_BLK_READS),
+                         ("blk_se_best", "se_best", N_BLK_READS),
+                         ("blk_pe_best", "pe_best_mono", None)):
+        got = sam_body(os.path.join(wd, blk + ".sam"), ordered=False)
+        ref = sam_body(os.path.join(wd, mono + ".sam"), n, ordered=False)
+        log(f"{blk} against {mono} (monolithic index, the same reads and "
+            f"flags): {len(got[1])} and {len(ref[1])} records, "
+            f"{'the same sorted body' if got == ref else 'DIFFERENT'}")
+        if got != ref:
+            raise AssertionError(f"{blk}: records differ from the "
+                                 f"monolithic index's ({mono})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available"
@@ -1430,6 +1624,15 @@ def main() -> int:
         }
         # the dynamic and the collection path read the SE ALL path's FASTQ
         files["se_all_dynamic"] = files["se_best_d"] = files["se_all"]
+        # the record path: -T on FASTQ, and the same reads as FASTA
+        fasta_reads = os.path.join(wd, "rec.fa")
+        workload.write_fasta_reads(fasta_reads, reads[:N_REC_READS], "r")
+        files["se_all_trim"] = (fq("rec", reads[:N_REC_READS]), None)
+        files["se_all_fasta"] = (fasta_reads, None)
+        # the blocked paths: SE ALL's first reads, the -p static path's pairs
+        files["blk_se_all"] = files["blk_se_best"] = files["blk_se_rhs"] = (
+            fq("blk", reads[:N_BLK_READS]), None)
+        files["blk_pe_best"] = files["pe_best_static"]
         warm = {
             "se_all": (fq("w", reads[:WARMUP_READS], "w"), None),
             "pe_best": (fq("w1", m1[:WARMUP_READS], "w"),
@@ -1440,6 +1643,14 @@ def main() -> int:
                              fq("we2", m2[exact_pairs[:4096]], "w"))
         warm["pe_all_e2"] = warm["pe_best_static"] = warm["pe_best"]
         warm["se_all_dynamic"] = warm["se_best_d"] = warm["se_all"]
+        warm["se_all_trim"] = (fq("wr", reads[:REC_WARMUP], "w"), None)
+        fasta_warm = os.path.join(wd, "wr.fa")
+        workload.write_fasta_reads(fasta_warm, reads[:REC_WARMUP], "w")
+        warm["se_all_fasta"] = (fasta_warm, None)
+        warm["blk_se_all"] = warm["blk_se_best"] = warm["blk_se_rhs"] = (
+            fq("wb", reads[:BLK_WARMUP], "w"), None)
+        warm["blk_pe_best"] = (fq("wb1", m1[:BLK_WARMUP], "w"),
+                               fq("wb2", m2[:BLK_WARMUP], "w"))
         # a collection of two schemes per k: kuch_k+1's searches and their
         # mirror, in the layout -d reads (<dir>/<k>/scheme<x>.txt)
         multi = os.path.join(wd, "collection")
@@ -1460,11 +1671,24 @@ def main() -> int:
             "se_best_d": ["-a", "best", "-d", multi],
             "pe_best_static": ["-a", "best", "-p", "static", "-nD", "-c",
                                os.path.join(SCHEMES, "kuch_k+1")],
+            "se_all_trim": ["-a", "all", "-e", str(K), "-T",
+                            f"{TRIM[0]}-{TRIM[1]}"],
+            "se_all_fasta": ["-a", "all", "-e", str(K)],
+            "blk_se_all": ["-a", "all", "-e", str(K)],
+            "blk_se_best": ["-a", "best"],
+            "blk_se_rhs": ["-a", "all", "-e", str(K)],
+            # the blocked PE path infers on block 0 and the monolithic one on
+            # all of the genome: both take the same fixed insert window
+            "blk_pe_best": ["-a", "best", "--no-inferring"],
         }
+        argv_of["pe_best_mono"] = argv_of["blk_pe_best"]
         n_of = {"se_all": N_READS_ALL, "se_best": N_READS,
                 "pe_best": N_READS, "pe_all_e0": len(exact_pairs),
                 "pe_all_e2": N_PAIRS_E2, "se_all_dynamic": N_READS_ALL,
-                "se_best_d": N_READS_ALL, "pe_best_static": N_PAIRS_STATIC}
+                "se_best_d": N_READS_ALL, "pe_best_static": N_PAIRS_STATIC,
+                "se_all_trim": N_REC_READS, "se_all_fasta": N_REC_READS,
+                "blk_se_all": N_BLK_READS, "blk_se_best": N_BLK_READS,
+                "blk_se_rhs": N_BLK_READS, "blk_pe_best": N_BLK_PAIRS}
 
         index = FMIndex.from_arrays(arrays, dev)
         # kernel A's main entry: the 10-mer seed table, built through the
@@ -1485,11 +1709,15 @@ def main() -> int:
         report = kernel_checks(index, arrays, reads, table)
 
         index_of = {}                # path -> index dir (default: idx)
+        blk_idx = os.path.join(wd, "g_blocked.cidx")
+        for path in BLOCKED_PATHS:
+            index_of[path] = blk_idx
 
         def align(path, files_, out_tag, extra=()):
+            suffix = ".rhs" if path in RHS_PATHS else ".sam"
             argv = ["align", "-r", index_of.get(path, idx), "-S", "kuch1",
                     "-b", str(BATCH), "-f", files_[0],
-                    "-o", os.path.join(wd, out_tag + ".sam"),
+                    "-o", os.path.join(wd, out_tag + suffix),
                     *argv_of[path], *extra]
             if files_[1] is not None:
                 argv += ["-F", files_[1]]
@@ -1529,10 +1757,15 @@ def main() -> int:
             log_path = os.path.join(wd, path + ".log")
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
             executor.run_scheme = counted_run_scheme
+            blocks: list = []
             t0 = time.time()
             try:
-                err = align(path, files[path], path, ("-v", "-l", log_path))
+                with (block_memory(blocks) if path in BLOCKED_PATHS
+                      else contextlib.nullcontext()):
+                    err = align(path, files[path], path,
+                                ("-v", "-l", log_path))
                 torch.cuda.synchronize()
             finally:
                 executor.run_scheme = run_scheme
@@ -1547,15 +1780,31 @@ def main() -> int:
                 retries = int(re.search(
                     r"Lossless spill retries[^:]*: (\d+)", f.read()).group(1))
             unit = "pairs" if files[path][1] else "reads"
-            log(f"path {path}: {n_of[path]} {unit} x {READ_LEN} bp in "
-                f"{dt:.3f} s = {n_of[path] / dt:.1f} {unit}/s (FASTQ -> SAM, "
+            what = ("FASTA" if files[path][0].endswith(".fa") else "FASTQ")
+            what += " -> " + (".rhs" if path in RHS_PATHS else "SAM")
+            m = TRIM[1] - TRIM[0] if "-T" in argv_of[path] else READ_LEN
+            log(f"path {path}: {n_of[path]} {unit} x {m} bp in "
+                f"{dt:.3f} s = {n_of[path] / dt:.1f} {unit}/s ({what}, "
                 f"{genome_what}, {smi}; warm-up "
                 f"{t_warm:.1f} s); lossless retries {retries}; peak device "
-                f"memory {peak} bytes; kernel launches {launches}"
+                f"memory {peak} bytes ({base} allocated before the run); "
+                f"kernel launches {launches}"
                 + (f", of them by entry {entries}" if entries else ""))
             for ln in err.splitlines():
                 if "inferred" in ln:
                     log(f"  {ln}")
+            for bdir, before, ixb, tb, after in blocks:
+                log(f"  block {bdir}: index {ixb} bytes + k-mer table {tb} "
+                    f"bytes on the card; allocated {before} bytes before it "
+                    f"loaded, {after} after it was released "
+                    f"({after - before:+d})")
+                if after - before > BLOCK_MEM_SLACK or ixb == 0:
+                    raise AssertionError(
+                        f"path {path}: block {bdir} left {after - before} "
+                        f"bytes on the card (or loaded no index)")
+            if path in BLOCKED_PATHS and len(blocks) != N_BLOCKS:
+                raise AssertionError(f"path {path}: {len(blocks)} blocks "
+                                     f"loaded, not {N_BLOCKS}")
             loops = sum(v for e, v in entries.items()
                         if e in ("extend.loop", "extend.loop_rlc"))
             log(f"  kernel A's loop: {loops} launches in {runs[0]} "
@@ -1583,8 +1832,11 @@ def main() -> int:
                 path_input_times(path, captured, smi)
 
         for path in PATH_KERNELS:
-            if path not in RLC_PATHS:
+            if path not in RLC_PATHS and path not in BLOCKED_PATHS:
                 drive(path, f"genome {workload.GENOME_N} bp")
+        # the monolithic reference of the blocked PE path: its pairs and
+        # flags on this index
+        align("pe_best_mono", files["blk_pe_best"], "pe_best_mono")
 
         # kernel H's path: the gather bench, its entry point, at one size
         from columba_tpu_torch.tools import gather_bench
@@ -1614,13 +1866,18 @@ def main() -> int:
         want_p1 = pos - starts[seq_of] + 1
 
         # SE ALL: every read with <= K substitutions at its locus
-        def se_all_check(tag, label):
+        def se_all_check(tag, label, n_reads=N_READS_ALL, trim=None):
+            """``trim``: the reads' -T (start, end); a trimmed read begins
+            ``start`` after its locus, or ``READ_LEN - end`` where the
+            read is reverse-complemented."""
             recs = parse_sam(os.path.join(wd, tag + ".sam"))
             q, rn, p1, fl, nm = recs
-            want = np.nonzero(nsub[:N_READS_ALL] <= K)[0]
+            want = np.nonzero(nsub[:n_reads] <= K)[0]
+            shift = (0 if trim is None else
+                     np.where(flip[want], READ_LEN - trim[1], trim[0]))
             dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
                               se_key(want, seq_of[want], flip[want]),
-                              want_p1[want])
+                              want_p1[want] + shift)
             # an error at a read end has equal-cost alignments that begin up
             # to k bases away; the traceback may pick one
             lost = want[dist > K]
@@ -1677,6 +1934,19 @@ def main() -> int:
         se_best_check("se_best", "SE BEST", N_READS)
         se_best_check("se_best_d", "SE BEST -d (two-scheme collection)",
                       N_READS_ALL)
+
+        # the record path: -T on FASTQ, and FASTA input
+        se_all_check("se_all_trim", f"SE ALL -T {TRIM[0]}-{TRIM[1]}",
+                     N_REC_READS, TRIM)
+        se_all_check("se_all_fasta", "SE ALL, FASTA reads", N_REC_READS)
+        same = (sam_body(os.path.join(wd, "se_all_fasta.sam"))
+                == sam_body(os.path.join(wd, "se_all.sam"), N_REC_READS))
+        log(f"SE ALL on FASTA reads against SE ALL on the same reads as "
+            f"FASTQ (native parser and emitter): "
+            f"{'the same records' if same else 'DIFFERENT records'}")
+        if not same:
+            raise AssertionError("FASTA reads give other records than the "
+                                 "same reads as FASTQ")
 
         # PE: a pair is found when both mates have a proper-pair record at
         # their true loci. Mate 1 is the forward-strand mate unless swapped.
@@ -1768,9 +2038,31 @@ def main() -> int:
                 f"OccArray for one batch ({len(occ_k)} occurrences)")
 
         del index, table         # card memory for the RLC indexes
-        report.update(rlc_section(
-            wd, dev, smi, idx, drive, record, multi, files, warm, argv_of,
-            n_of, index_of))
+        # the blocked build runs beside the RLC section's builds
+        t_blk = time.time()
+        blk_build = subprocess.Popen(
+            [sys.executable, "-m", "columba_tpu_torch.cli", "build", "-r",
+             blk_idx, "-f", fa, "-B", str(BLOCK_BP)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        try:
+            report.update(rlc_section(
+                wd, dev, smi, idx, drive, record, multi, files, warm,
+                argv_of, n_of, index_of))
+            _, err = blk_build.communicate(timeout=900)
+        finally:
+            if blk_build.poll() is None:
+                blk_build.kill()
+                blk_build.wait()
+        if blk_build.returncode != 0:
+            raise AssertionError(f"cli build -B failed:\n{err[-4000:]}")
+        log(f"cli build -B {BLOCK_BP} (a process beside the RLC section, "
+            f"done {time.time() - t_blk:.1f} s after its start): "
+            f"{err.strip().splitlines()[-1]}")
+        blocked_section(wd, blk_idx, drive, launches_by_path, dict(
+            starts=starts, seq_of=seq_of, nsub=nsub, flip=flip,
+            se_all_check=se_all_check, se_best_check=se_best_check,
+            pe_check=pe_check, nsub1=nsub1, nsub2=nsub2))
 
     # one record per kernel, and one more for each named entry of kernels
     # A, B, C and E (its launches are a share of its kernel's)

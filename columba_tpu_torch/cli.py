@@ -1,14 +1,20 @@
 """Command-line interface of the PyTorch port: ``build`` and ``align``.
 
 The counterpart of ``columba_tpu/cli.py`` with the same option names. The
-port covers the Vanilla and RLC index builds (``--rlc``, ``--rlc
---textless``) and the alignment of FASTQ input to SAM in ALL and BEST(+x)
-mode, single-end and paired-end, with uniform, static or dynamic
-partitioning, builtin schemes, scheme folders (``-c``) and scheme
-collections with per-read selection (``-d``), on the Vanilla and the
-with-text RLC index; the textless index aligns single-end only, without
-CIGARs and without in-text verification, as in the JAX package. What is
-still missing raises ``NotImplementedError`` naming its ROADMAP item.
+port covers the Vanilla, RLC (``--rlc``, ``--rlc --textless``) and blocked
+(``-B``) index builds and the alignment of FASTQ or FASTA input to SAM or
+read-hit-summary (``.rhs``) output in ALL and BEST(+x) mode, single-end and
+paired-end, with uniform, static or dynamic partitioning, builtin schemes,
+scheme folders (``-c``) and scheme collections with per-read selection
+(``-d``), and read trimming (``-T``), on the Vanilla and the with-text RLC
+index; the textless index aligns single-end only, without CIGARs and
+without in-text verification, and the blocked index maps every read batch
+once per block, as in the JAX package. Multi-device runs are not ported.
+
+FASTQ single-end input without ``.rhs`` or ``-T`` takes the native parser
+and emitter where the host has them (:func:`_align_single_fast`); the
+record path (:func:`_align_records`) takes the rest, with the Python
+emitters of ``search/strategy.py``.
 
 Alignment runs on the CUDA device (``--device cuda``, the default) and
 raises if there is none; ``--device cpu`` runs the plain PyTorch versions
@@ -53,7 +59,9 @@ def main(argv=None):
                         "count; alignment then reports positions without "
                         "CIGARs and forces -i 0")
     b.add_argument("-B", "--max-block-bp", type=int, default=None,
-                   help="block-partitioned index (not ported yet)")
+                   help="build a block-partitioned index with blocks of "
+                        "whole sequences up to this many bp: the path past "
+                        "the 4.29 Gbp single-index ceiling")
     b.add_argument("--log-file", default=None)
     b.add_argument("-v", "--verbose", action="store_true")
 
@@ -125,8 +133,7 @@ def main(argv=None):
                    default="uniform",
                    help="read partitioning strategy (default: uniform)")
     a.add_argument("-T", "--trim", default=None, metavar="START-END",
-                   help="trim reads to bases [START, END) before aligning "
-                        "(not ported yet)")
+                   help="trim reads to bases [START, END) before aligning")
     a.add_argument("-i", "--in-text", type=int, default=4,
                    help="in-text verification switchpoint (0 disables)")
     a.add_argument("-s", "--sa-sparseness", type=int, default=None,
@@ -150,9 +157,6 @@ def cmd_build(args):
     logger.verbose = args.verbose
     if args.log_file:
         logger.set_log_file(args.log_file)
-    if args.max_block_bp is not None:
-        raise NotImplementedError(
-            "blocked indexes are not ported yet (ROADMAP queue 1, item 12)")
     fastas = list(args.fasta or [])
     if args.fasta_list:
         with open(args.fasta_list) as f:
@@ -160,6 +164,19 @@ def cmd_build(args):
     if not fastas:
         raise SystemExit("build: provide FASTA files via -f and/or -F")
     t0 = time.time()
+    if args.max_block_bp is not None:
+        if args.rlc:
+            raise SystemExit("build: --max-block-bp is Vanilla-only")
+        from columba_tpu_torch.index.blocked import build_blocked_index
+
+        meta = build_blocked_index(
+            fastas, args.index, max_block_bp=args.max_block_bp,
+            sa_sparseness=1 if args.all_sa_sparseness else args.sa_sparseness,
+            seed=args.seed, seed_length=args.seed_length)
+        print(f"[{PROGRAM} build] n={meta['n']} seqs={meta['num_seqs']} "
+              f"blocks={len(meta['blocks'])} in {time.time() - t0:.1f}s "
+              f"-> {args.index}", file=sys.stderr)
+        return 0
     extra = ""
     if args.rlc:
         from columba_tpu_torch.index.bmove import build_bmove
@@ -184,16 +201,20 @@ def cmd_build(args):
     return 0
 
 
-def _unsupported(args, flavor: str) -> str | None:
-    """The ROADMAP item of an option the port does not run yet on this
-    index flavor, or None."""
-    if args.trim:
-        return "-T trim (ROADMAP queue 1, item 9)"
-    if args.output.endswith(".rhs"):
-        return "read-hit-summary output (ROADMAP queue 1, item 9)"
-    if flavor not in ("vanilla", "rlc"):
-        return f"{flavor} indexes (ROADMAP queue 1, item 12)"
-    return None
+def _device(args):
+    """The torch device of ``--device``; a CUDA device must be usable."""
+    import torch
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        try:
+            torch.zeros(1, device=device)
+        except (RuntimeError, AssertionError) as e:
+            raise RuntimeError(
+                "align --device cuda: no usable CUDA device; the port never "
+                "falls back to the CPU by itself (--device cpu runs the "
+                "kernels' plain versions)") from e
+    return device
 
 
 # (path, meta mtime, flavor, sa_sparseness, device) -> (arrays, device
@@ -203,8 +224,6 @@ _DEVICE_INDEX_CACHE: dict = {}
 
 def cmd_align(args):
     import json
-
-    import torch
 
     from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
     from columba_tpu_torch.index.build import load_index, subsample_sa
@@ -219,6 +238,8 @@ def cmd_align(args):
     with open(os.path.join(args.index, "meta.json")) as f:
         meta = json.load(f)
     flavor = meta.get("flavor", "vanilla")
+    if flavor == "blocked":
+        return _align_blocked(args, _device(args))
     rlc = flavor == "rlc"
     textless = rlc and bool(meta.get("textless", False))
     if textless:
@@ -235,26 +256,7 @@ def cmd_align(args):
             logger.verbose_msg("textless index: in-text verification "
                                "disabled (-i 0)")
             args.in_text = 0
-    missing = _unsupported(args, flavor)
-    if missing is None and not (
-            emit.available() and emit.pe_available()
-            and fastq.native_reader_available()
-            and _sniff_fastq(args.reads)
-            and (args.reads2 is None or _sniff_fastq(args.reads2))):
-        missing = ("FASTA read input or a host without the native parser "
-                   "and emitter (ROADMAP queue 1, item 9)")
-    if missing is not None:
-        raise NotImplementedError(f"not ported yet: {missing}")
-
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        try:
-            torch.zeros(1, device=device)
-        except (RuntimeError, AssertionError) as e:
-            raise RuntimeError(
-                "align --device cuda: no usable CUDA device; the port never "
-                "falls back to the CPU by itself (--device cpu runs the "
-                "kernels' plain versions)") from e
+    device = _device(args)
     key = (os.path.realpath(args.index),
            os.path.getmtime(os.path.join(args.index, "meta.json")),
            flavor, textless, args.sa_sparseness, str(device))
@@ -302,9 +304,13 @@ def cmd_align(args):
         arrays=arrays)
     if args.reads2 is not None:
         return _align_paired(args, arrays, index, cfg, kmer_table)
-    if textless:
-        return _align_textless(args, arrays, index, cfg)
-    return _align_single_fast(args, arrays, index, cfg)
+    # the choice of columba_tpu/cli.py:323-329
+    rhs_output = args.output.endswith(".rhs")
+    if (not rhs_output and args.trim is None and not textless
+            and emit.available() and fastq.native_reader_available()
+            and _sniff_fastq(args.reads)):
+        return _align_single_fast(args, arrays, index, cfg)
+    return _align_records(args, arrays, index, cfg, textless)
 
 
 def _sniff_fastq(path: str) -> bool:
@@ -440,11 +446,17 @@ def _align_single_fast(args, arrays, index, cfg):
     return 0
 
 
-def _align_textless(args, arrays, index, cfg):
-    """Single-end alignment on the textless RLC index: batches from the
-    native FASTQ parser in input order, each mapped (the frontier pass on
-    the device, phi locate on the host) and written by the textless
-    emitter ('*' CIGARs, no genome text), one after another."""
+def _align_records(args, arrays, index, cfg, textless: bool):
+    """Single-end record path (columba_tpu/cli.py:330-460): a producer
+    thread parses FASTQ or FASTA records (trimmed with -T) into
+    fixed-shape batches, the main thread maps them on the device, and a
+    writer thread runs the Python emitter (traceback DP and SAM
+    formatting, the textless index's '*'-CIGAR records, or read-hit-summary
+    lines) and writes in dispatch order. Queues are bounded, so host
+    memory stays O(queue * batch)."""
+    import queue
+    import threading
+
     import numpy as np
 
     from columba_tpu_torch.counters import Counters
@@ -452,41 +464,107 @@ def _align_textless(args, arrays, index, cfg):
     from columba_tpu_torch.logger import logger
     from columba_tpu_torch.search import strategy
 
+    rhs_output = args.output.endswith(".rhs")
     seq_lengths = list(np.diff(arrays.seq_starts))
     ctrs = Counters()
     t0 = time.time()
-    n_reads = n_mapped = n_aln = 0
+    n_reads = n_mapped = n_records = 0
+    in_q: queue.Queue = queue.Queue(maxsize=4)
+    out_q: queue.Queue = queue.Queue(maxsize=4)
+    errors: list = []
+
+    def _producer():
+        try:
+            reader = fastq.parse_reads(args.reads)
+            if args.trim:
+                start, end = (int(x) for x in args.trim.split("-"))
+                reader = fastq.trim_records(reader, start, end)
+            for item in fastq.batches_by_length(reader, args.batch_size):
+                in_q.put(item)
+        except BaseException as e:  # surfaced after the joins
+            errors.append(e)
+        finally:
+            in_q.put(None)
+
+    def _writer(out):
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    return
+                records, mapped, kb = item
+                if rhs_output:
+                    lines = strategy.emit_rhs(records, mapped, arrays)
+                elif textless:
+                    lines = strategy.emit_sam_textless(
+                        records, mapped, arrays,
+                        unmapped_records=not args.no_unmapped,
+                        counters=ctrs)
+                else:
+                    lines = strategy.emit_sam(
+                        records, mapped, arrays, index, kb, mode=args.mode,
+                        xa_tag=args.xa_tag,
+                        unmapped_records=not args.no_unmapped,
+                        with_cigar=args.with_cigar, counters=ctrs)
+                out.writelines(lines)
+        except BaseException as e:
+            errors.append(e)
+            while out_q.get() is not None:  # drain so the main loop
+                pass                        # cannot block on a dead writer
+
     with open(args.output, "w") as out:
-        out.write(sam.header(arrays.seq_names, seq_lengths,
-                             program_name=PROGRAM,
-                             command_line=" ".join(sys.argv)))
-        for batch in fastq.batches_native(args.reads, args.batch_size):
-            if args.mode == "all":
-                occs = strategy.map_batch_all_finish(
-                    strategy.map_batch_all_start(index, batch.codes, cfg),
-                    index, batch.codes, cfg, counters=ctrs)[0]
-            else:
-                occs = strategy.map_batch_best_arr(index, batch.codes, cfg,
-                                                   counters=ctrs)
-            nv = batch.n_valid
-            occs = occs.take(occs.read_id < nv)
-            out.write(strategy.emit_sam_textless(
-                batch, occs, arrays, unmapped_records=not args.no_unmapped))
-            mapped = int(np.unique(occs.read_id).size)
-            n_reads += nv
-            n_mapped += mapped
-            n_aln += len(occs)
-            ctrs.number_of_reads += nv
-            ctrs.mapped_reads += mapped
-            ctrs.total_unique_matches += len(occs)
-            ctrs.total_reported_positions += len(occs)
-            rate = n_reads / max(time.time() - t0, 1e-9)
-            print(f"[{PROGRAM}] {n_reads} reads, {n_mapped} mapped "
-                  f"({rate:,.0f} reads/s)", file=sys.stderr)
+        if not rhs_output:
+            out.write(sam.header(arrays.seq_names, seq_lengths,
+                                 program_name=PROGRAM,
+                                 command_line=" ".join(sys.argv)))
+        prod = threading.Thread(target=_producer, daemon=True)
+        wrt = threading.Thread(target=_writer, args=(out,), daemon=True)
+        prod.start()
+        wrt.start()
+        try:
+            while True:
+                item = in_q.get()
+                if item is None:
+                    break
+                records, codes = item
+                if args.mode == "all":
+                    mapped = strategy.map_batch_all(index, codes, cfg,
+                                                    counters=ctrs)
+                    k = cfg.max_distance
+                else:
+                    mapped = strategy.map_batch_best(index, codes, cfg,
+                                                     counters=ctrs)
+                    k = strategy.best_cutoff_for(cfg, codes.shape[1])
+                mapped = mapped[:len(records)]
+                out_q.put((records, mapped,
+                           k if args.metric == "edit" else 0))
+                batch_mapped = sum(1 for mr in mapped if mr.occs)
+                batch_records = sum(len(mr.occs) for mr in mapped)
+                n_reads += len(records)
+                n_mapped += batch_mapped
+                n_records += batch_records
+                ctrs.number_of_reads += len(records)
+                ctrs.mapped_reads += batch_mapped
+                ctrs.total_unique_matches += batch_records
+                ctrs.total_reported_positions += batch_records
+                rate = n_reads / max(time.time() - t0, 1e-9)
+                print(f"[{PROGRAM}] {n_reads} reads, {n_mapped} mapped "
+                      f"({rate:,.0f} reads/s)", file=sys.stderr)
+        finally:
+            out_q.put(None)
+            wrt.join()
+            while prod.is_alive():   # unblock a producer stuck on put
+                try:
+                    in_q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+            prod.join()
+        if errors:
+            raise errors[0]
     pct = 100.0 * n_mapped / max(n_reads, 1)
-    summary = (f"done: {n_reads} reads, {pct:.2f}% mapped, {n_aln} "
-               f"alignments, {n_aln / max(n_reads, 1):.2f} per read, total "
-               f"{time.time() - t0:.1f}s")
+    summary = (f"done: {n_reads} reads, {pct:.2f}% mapped, {n_records} "
+               f"alignments, {n_records / max(n_reads, 1):.2f} per read, "
+               f"total {time.time() - t0:.1f}s")
     print(f"[{PROGRAM}] {summary}", file=sys.stderr)
     if args.log_file:
         logger.info(summary)
@@ -495,10 +573,13 @@ def _align_textless(args, arrays, index, cfg):
 
 
 def _align_paired(args, arrays, index, cfg, kmer_table):
-    """Paired-end engine: both FASTQ files stream in lockstep chunks; the
-    main thread maps a chunk (every sub-batch of both sides is dispatched
-    before any is finished, so batch i's fetch and pairing overlap batch
-    i+1's device work) while a writer thread emits the chunk before."""
+    """Paired-end engine: both read files (FASTQ through the native
+    parser, FASTA or a host without it through the record parser) stream
+    in lockstep chunks; the main thread maps a chunk (every sub-batch of
+    both sides is dispatched before any is finished, so batch i's fetch
+    and pairing overlap batch i+1's device work) while a writer thread
+    emits the chunk before, through the native emitter or, where it is
+    missing, ``paired.emit_sam_paired``."""
     import itertools
     import queue
     import threading
@@ -566,9 +647,10 @@ def _align_paired(args, arrays, index, cfg, kmer_table):
 
     def chunk_rows_mode(c1, c2) -> bool:
         """The array-native result path applies when every shape group
-        stays on the rung path (cutoffs <= 6) and discordant pairing is
-        off (see paired.PERowsBest)."""
-        if args.mode != "best" or pcfg.discordant:
+        stays on the rung path (cutoffs <= 6), discordant pairing is off
+        and the native emitter is present (see paired.PERowsBest)."""
+        if (args.mode != "best" or pcfg.discordant
+                or not emit.pe_available()):
             return False
         return all(best_cutoff_for(cfg, int(m)) <= 6
                    for m in np.unique(np.concatenate(
@@ -675,6 +757,7 @@ def _align_paired(args, arrays, index, cfg, kmer_table):
 
     def _writer(out):
         try:
+            use_native = emit.pe_available()
             while True:
                 item = out_q.get()
                 if item is None:
@@ -691,6 +774,14 @@ def _align_paired(args, arrays, index, cfg, kmer_table):
                     while j < n and j - i < 65536 and keys[j] == keyv:
                         j += 1
                     kb = kb_of[(int(keyv >> 32), int(keyv & 0xffffffff))]
+                    if not use_native:
+                        out.write("".join(paired.emit_sam_paired(
+                            fastq.soa_records(c1, i, j),
+                            fastq.soa_records(c2, i, j),
+                            result[i:j], arrays, kb,
+                            counters=ctrs)).encode())
+                        i = j
+                        continue
                     soa = (emit.pe_soa_from_rows(result, i, j)
                            if rows_mode else
                            emit.pe_soa_from_mapped(result[i:j]))
@@ -727,6 +818,305 @@ def _align_paired(args, arrays, index, cfg, kmer_table):
     ctrs.report(logger, paired=True)
     return 0
 
+
+
+def _run_on_block(args, device, bm, arrays, run) -> None:
+    """One block of a blocked index on the device: load its index and its
+    k-mer table (cached in the block's directory) and call ``run(index,
+    kmer_table)``. No reference to either outlives this call (the
+    locate-cap hint holds its index weakly), so the block's device memory
+    is free before the next block loads."""
+    from columba_tpu_torch.index.fmindex import FMIndex
+    from columba_tpu_torch.index.kmer import build_kmer_table_cached
+    from columba_tpu_torch.logger import logger
+
+    index = FMIndex.from_arrays(arrays, device)
+    kmer_k = max(0, min(int(args.kmer_size), 13))
+    kmer_table = None
+    if not args.no_kmer_table and kmer_k > 0:
+        kmer_table = build_kmer_table_cached(
+            index, kmer_k, os.path.join(args.index, bm["dir"]))
+    logger.verbose_msg(f"block {bm['dir']}: index {index.nbytes()} bytes "
+                       f"on {device}")
+    run(index, kmer_table)
+
+
+def _align_blocked(args, device):
+    """Single-end alignment against a block-partitioned index
+    (columba_tpu/cli.py:881-1015): the read stream is mapped once per block
+    (one block's index on the device at a time; the reads are parsed again
+    each pass, so batches never accumulate in host memory), the occurrence
+    sets are merged on the host, and the records are emitted against a
+    lazily decoded global view of the genome (``blocked.LazyBlockText``).
+    As in the JAX package, the scheme is -S's (-c and -d are not read on
+    this path) and CIGARs follow -nC alone."""
+    import numpy as np
+
+    from columba_tpu_torch.counters import Counters
+    from columba_tpu_torch.index import blocked
+    from columba_tpu_torch.io import fastq, sam
+    from columba_tpu_torch.logger import logger
+    from columba_tpu_torch.search import pipeline, strategy
+
+    if args.reads2 is not None:
+        return _align_blocked_paired(args, device)
+    _DEVICE_INDEX_CACHE.clear()       # the blocks take the device in turn
+    meta = blocked.load_blocked_meta(args.index)
+    t0 = time.time()
+
+    def batch_iter():
+        """A fresh pass over the reads; batching is deterministic, so batch
+        bi holds the same reads on every pass."""
+        reader = fastq.parse_reads(args.reads)
+        if args.trim:
+            start, end = (int(x) for x in args.trim.split("-"))
+            reader = fastq.trim_records(reader, start, end)
+        return fastq.batches_by_length(reader, args.batch_size)
+
+    ctrs = Counters()
+    kb_for = lambda k: k if args.metric == "edit" else 0  # noqa: E731
+    dynamic_selection = (args.scheme == "columba"
+                         and not args.no_dynamic_selection)
+    per_batch: list[list] = []
+    for blk_i, (bm, arrays) in enumerate(blocked.iter_blocks(args.index,
+                                                             meta)):
+        def run(index, kmer_table):
+            cfg = strategy.MappingConfig(
+                scheme_name=args.scheme, metric=args.metric, mode=args.mode,
+                max_distance=args.max_distance,
+                best_plus_x=args.best_plus_x,
+                min_identity=args.min_identity, capacity=args.capacity,
+                kmer_table=kmer_table, dynamic_selection=dynamic_selection,
+                partitioning=args.partitioning, switchpoint=args.in_text,
+                arrays=arrays)
+            off = int(bm["text_offset"])
+            for bi, (records, codes) in enumerate(batch_iter()):
+                if args.mode == "all":
+                    occs, _ = strategy.map_batch_all_finish(
+                        strategy.map_batch_all_start(index, codes, cfg),
+                        index, codes, cfg, ctrs)
+                else:
+                    occs = strategy.map_batch_best_arr(index, codes, cfg,
+                                                       ctrs)
+                occs.begin = occs.begin + off
+                occs.end = occs.end + off
+                if blk_i == 0:
+                    per_batch.append([occs])
+                else:
+                    per_batch[bi].append(occs)
+
+        _run_on_block(args, device, bm, arrays, run)
+        del arrays, run
+        logger.verbose_msg(f"block {bm['dir']} mapped "
+                           f"({time.time() - t0:.1f}s)")
+
+    view = blocked.make_view(args.index, meta)
+    rhs_output = args.output.endswith(".rhs")
+    n_reads = n_mapped = n_records = 0
+    with open(args.output, "w") as out:
+        if not rhs_output:
+            out.write(sam.header(view.seq_names,
+                                 list(np.diff(view.seq_starts)),
+                                 program_name=PROGRAM,
+                                 command_line=" ".join(sys.argv)))
+        for (records, codes), occ_parts in zip(batch_iter(), per_batch):
+            m_len = codes.shape[1]
+            if args.mode == "best":
+                cutoff = strategy.get_max_ed(
+                    args.min_identity, m_len,
+                    max(strategy.max_supported_k(args.scheme, m_len,
+                                                 args.metric), 1))
+                merged = blocked.merge_best(occ_parts, args.best_plus_x,
+                                            cutoff)
+                kb = kb_for(cutoff)
+            else:
+                merged = pipeline.OccArray.concat(occ_parts)
+                if len(merged):
+                    o = np.lexsort((merged.begin, merged.end, merged.strand,
+                                    merged.read_id))
+                    merged = merged.take(o)
+                kb = kb_for(args.max_distance)
+            mapped = strategy._group_mapped(merged, len(codes))
+            mapped = mapped[:len(records)]
+            if rhs_output:
+                lines = strategy.emit_rhs(records, mapped, view)
+            else:
+                lines = strategy.emit_sam(
+                    records, mapped, view, None, kb, mode=args.mode,
+                    xa_tag=args.xa_tag,
+                    unmapped_records=not args.no_unmapped,
+                    with_cigar=not args.no_cigar, counters=ctrs)
+            out.writelines(lines)
+            batch_mapped = sum(1 for mr in mapped if mr.occs)
+            batch_records = sum(len(mr.occs) for mr in mapped)
+            n_reads += len(records)
+            n_mapped += batch_mapped
+            n_records += batch_records
+            ctrs.number_of_reads += len(records)
+            ctrs.mapped_reads += batch_mapped
+            ctrs.total_unique_matches += batch_records
+            ctrs.total_reported_positions += batch_records
+    pct = 100.0 * n_mapped / max(n_reads, 1)
+    print(f"[{PROGRAM}] done: {n_reads} reads, {pct:.2f}% mapped, "
+          f"{n_records} alignments over {len(meta['blocks'])} blocks, "
+          f"total {time.time() - t0:.1f}s", file=sys.stderr)
+    ctrs.report(logger, paired=False)
+    return 0
+
+
+def _align_blocked_paired(args, device):
+    """Paired-end alignment against a block-partitioned index
+    (columba_tpu/cli.py:1017-1188): each side is mapped in ALL mode per
+    block at its full cutoff, the occurrence sets are merged across blocks
+    per chunk, and pairing runs once on the merged sides
+    (``paired.pair_merged``: rung finality needs every block's
+    occurrences). Insert sizes are inferred on block 0. As in the JAX
+    package, the output is always SAM, through ``paired.emit_sam_paired``
+    on the lazy global view."""
+    import numpy as np
+
+    from columba_tpu_torch.counters import Counters
+    from columba_tpu_torch.index import blocked
+    from columba_tpu_torch.io import fastq, sam
+    from columba_tpu_torch.logger import logger
+    from columba_tpu_torch.search import paired, pipeline, strategy
+
+    _DEVICE_INDEX_CACHE.clear()       # the blocks take the device in turn
+    meta = blocked.load_blocked_meta(args.index)
+    t0 = time.time()
+    B = args.batch_size
+    CHUNK = max(8 * B, 65536)
+    ctrs = Counters()
+    pcfg = paired.PairedConfig(
+        orientation=args.orientation,
+        min_insert=args.min_insert_size,
+        max_insert=args.max_insert_size,
+        infer=not args.no_inferring,
+        discordant=args.discordant is not None,
+        max_discordant=(args.discordant if args.discordant is not None
+                        else 100000),
+    )
+
+    def chunks():
+        return fastq.pe_soa_chunks(args.reads, args.reads2, CHUNK)
+
+    def cut_for(m):
+        if args.mode == "all":
+            return args.max_distance
+        return strategy.get_max_ed(
+            args.min_identity, m,
+            max(strategy.max_supported_k(args.scheme, m, args.metric), 1))
+
+    def pair_keys(c1, c2):
+        return (c1["lens"].astype(np.int64) << 32) | c2["lens"]
+
+    per_chunk: list = []          # [[occ1 parts], [occ2 parts]] per chunk
+    for blk_i, (bm, arrays) in enumerate(blocked.iter_blocks(args.index,
+                                                             meta)):
+        def run(index, kmer_table):
+            nonlocal pcfg
+            cfg = strategy.MappingConfig(
+                scheme_name=args.scheme, metric=args.metric, mode=args.mode,
+                max_distance=args.max_distance,
+                best_plus_x=args.best_plus_x,
+                min_identity=args.min_identity, capacity=args.capacity,
+                kmer_table=kmer_table, partitioning=args.partitioning,
+                switchpoint=args.in_text, arrays=arrays)
+            off = int(bm["text_offset"])
+            for ci, (c1, c2) in enumerate(chunks()):
+                if blk_i == 0:
+                    per_chunk.append([[], []])
+                keys = pair_keys(c1, c2)
+                if blk_i == 0 and ci == 0 and pcfg.infer:
+                    # inference on block 0 only (block-local positions
+                    # serve fragment-size statistics as well)
+                    vals, counts = np.unique(keys, return_counts=True)
+                    keyv = int(vals[np.argmax(counts)])
+                    idxs = np.nonzero(keys == keyv)[0]
+                    g1 = fastq.soa_gather_codes(c1, idxs, keyv >> 32)
+                    g2 = fastq.soa_gather_codes(c2, idxs, keyv & 0xffffffff)
+                    pcfg = paired.infer_parameters(
+                        index, g1, g2, cfg, arrays.seq_starts, kmer_table,
+                        pcfg_in=pcfg)
+                    logger.verbose_msg(
+                        f"inferred (block 0) orientation={pcfg.orientation} "
+                        f"insert=[{pcfg.min_insert},{pcfg.max_insert}]")
+                for keyv in np.unique(keys):
+                    idxs = np.nonzero(keys == keyv)[0]
+                    m1, m2 = int(keyv >> 32), int(keyv & 0xffffffff)
+                    for side, soa, m in ((0, c1, m1), (1, c2, m2)):
+                        cut = cut_for(m)
+                        kbs = cut if args.metric == "edit" else 0
+                        g = fastq.soa_gather_codes(soa, idxs, m)
+                        for o in range(0, len(idxs), B):
+                            sub = g[o:o + B]
+                            occ, stats = pipeline.match_all(
+                                index, sub, strategy._scheme_for(cfg, cut),
+                                metric=args.metric, kmer_table=kmer_table,
+                                partitioning=args.partitioning,
+                                switchpoint=args.in_text)
+                            ctrs.add_device_stats(stats)
+                            occ = pipeline.apply_boundary_trim(
+                                occ, sub, arrays, kbs, cut)
+                            occ.read_id = idxs[o:o + B][occ.read_id]
+                            occ.begin = occ.begin + off
+                            occ.end = occ.end + off
+                            per_chunk[ci][side].append(occ)
+
+        _run_on_block(args, device, bm, arrays, run)
+        del arrays, run
+        logger.verbose_msg(f"block {bm['dir']} mapped (PE) "
+                           f"({time.time() - t0:.1f}s)")
+
+    view = blocked.make_view(args.index, meta)
+    n_pairs = 0
+    with open(args.output, "w") as out:
+        out.write(sam.header(view.seq_names, list(np.diff(view.seq_starts)),
+                             program_name=PROGRAM,
+                             command_line=" ".join(sys.argv)))
+        for ci, (c1, c2) in enumerate(chunks()):
+            n = c1["n"]
+            occ1 = pipeline.OccArray.concat(per_chunk[ci][0])
+            occ2 = pipeline.OccArray.concat(per_chunk[ci][1])
+            keys = pair_keys(c1, c2)
+            cuts = {int(kv): (cut_for(int(kv) >> 32),
+                              cut_for(int(kv) & 0xffffffff))
+                    for kv in np.unique(keys)}
+            tot_cut = max(a + b for a, b in cuts.values())
+            mapped = paired.pair_merged(
+                occ1, occ2, n, args.mode, pcfg, view.seq_starts,
+                tot_cut, int(args.best_plus_x))
+            for mp in mapped:
+                ctrs.number_of_reads += 2
+                ctrs.total_unique_pairs += len(mp.pairs)
+                if mp.pairs:
+                    ctrs.mapped_pairs += 1
+                elif mp.discordant:
+                    ctrs.discordantly_mapped_pairs += 1
+                elif mp.unpaired1 and mp.unpaired2:
+                    ctrs.unpaired_but_mapped_pairs += 1
+                elif mp.unpaired1 or mp.unpaired2:
+                    ctrs.mapped_half_pairs += 1
+            i = 0
+            while i < n:
+                keyv = keys[i]
+                j = i + 1
+                while j < n and keys[j] == keyv:
+                    j += 1
+                cut1, _ = cuts[int(keyv)]
+                kb = cut1 if args.metric == "edit" else 0
+                out.writelines(paired.emit_sam_paired(
+                    fastq.soa_records(c1, i, j), fastq.soa_records(c2, i, j),
+                    mapped[i:j], view, kb, counters=ctrs))
+                i = j
+            n_pairs += n
+            rate = n_pairs / max(time.time() - t0, 1e-9)
+            print(f"[{PROGRAM}] {n_pairs} pairs emitted ({rate:,.0f} "
+                  f"pairs/s incl. mapping)", file=sys.stderr)
+    print(f"[{PROGRAM}] done: {n_pairs} pairs over {len(meta['blocks'])} "
+          f"blocks, total {time.time() - t0:.1f}s", file=sys.stderr)
+    ctrs.report(logger, paired=True)
+    return 0
 
 if __name__ == "__main__":
     sys.exit(main())

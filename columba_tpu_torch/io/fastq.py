@@ -1,23 +1,96 @@
-"""FASTQ read input through the native chunked parser.
+"""FASTQ/FASTA read input: parsing, cleanup, fixed-shape batching.
 
-The counterpart of the native-reader part of ``columba_tpu/io/fastq.py``:
-reads are parsed in C++ (``csrc/host/parse.cpp``, built by
-``columba_tpu_torch.native``), uppercased with non-ACGT -> N, and grouped
-into fixed-shape (B, m) code batches per read length (single-end), or
-streamed as lockstep struct-of-arrays chunks of two files (paired-end).
+The counterpart of ``columba_tpu/io/fastq.py``: reads are parsed (in C++,
+``csrc/host/parse.cpp``, built by ``columba_tpu_torch.native``, or by the
+Python record parser for FASTA input and hosts without the native parser),
+uppercased with non-ACGT -> N, and grouped into fixed-shape (B, m) code
+batches per read length (single-end), or streamed as lockstep
+struct-of-arrays chunks of two files (paired-end).
 """
 
 from __future__ import annotations
 
 import gzip
+from dataclasses import dataclass
 
 import numpy as np
+
+from columba_tpu_torch.core import alphabet
+
+
+@dataclass
+class ReadRecord:
+    name: str
+    codes: np.ndarray  # uint8, 0..3 + 4 for N
+    qual: str
 
 
 def open_maybe_gz(path: str):
     if path.endswith(".gz"):
         return gzip.open(path, "rt")
     return open(path)
+
+
+def parse_reads(path: str):
+    """Yield ReadRecord from FASTQ or FASTA (sniffed by first char)."""
+    with open_maybe_gz(path) as f:
+        first = f.read(1)
+        f.seek(0)
+        if first == "@":
+            while True:
+                h = f.readline()
+                if not h:
+                    return
+                seq = f.readline().strip()
+                f.readline()
+                qual = f.readline().strip()
+                yield ReadRecord(h[1:].split()[0].strip(), alphabet.encode(seq), qual)
+        elif first == ">":
+            name, parts = None, []
+            for line in f:
+                line = line.strip()
+                if line.startswith(">"):
+                    if name is not None:
+                        seq = "".join(parts)
+                        yield ReadRecord(name, alphabet.encode(seq), "I" * len(seq))
+                    name = line[1:].split()[0]
+                    parts = []
+                else:
+                    parts.append(line)
+            if name is not None:
+                seq = "".join(parts)
+                yield ReadRecord(name, alphabet.encode(seq), "I" * len(seq))
+        else:
+            raise ValueError(f"unrecognized read file format: {path}")
+
+
+def batches_by_length(records, batch_size: int):
+    """Group records into fixed-shape batches per read length.
+
+    Yields (records_list, codes (B, m)) with the final partial batch padded
+    by repeating the last read (padding rows are dropped by the caller via
+    len(records_list)).
+    """
+    buckets: dict[int, list[ReadRecord]] = {}
+    for rec in records:
+        m = len(rec.codes)
+        buckets.setdefault(m, []).append(rec)
+        bucket = buckets[m]
+        if len(bucket) == batch_size:
+            yield bucket, np.stack([r.codes for r in bucket])
+            buckets[m] = []
+    for m, bucket in sorted(buckets.items()):
+        if not bucket:
+            continue
+        pad = [bucket[-1]] * (batch_size - len(bucket))
+        yield bucket, np.stack([r.codes for r in bucket + pad])
+
+
+def trim_records(records, start: int, end: int):
+    """Trim reads to [start, end) (reference -T option,
+    src/parameters/alignparameters.cpp TrimOption)."""
+    for rec in records:
+        yield ReadRecord(rec.name, rec.codes[start:end], rec.qual[start:end])
 
 
 # ---------------------------------------------------------------------------
@@ -319,19 +392,89 @@ def soa_gather_codes(soa: dict, idx: np.ndarray, m: int) -> np.ndarray:
         soa["codes"][base[:, None] + np.arange(m)[None, :]])
 
 
+def records_to_soa(recs: list) -> dict:
+    """ReadRecord list -> flat SoA chunk (generic-reader fallback for the
+    paired-end SoA pipeline)."""
+    from columba_tpu_torch.io import emit as _emit
+
+    seq_offs = np.zeros(len(recs) + 1, np.int64)
+    np.cumsum([len(r.codes) for r in recs], out=seq_offs[1:])
+    codes = (np.concatenate([r.codes for r in recs])
+             if recs else np.zeros(0, np.uint8))
+    names, name_offs = _emit.pack_strings([r.name for r in recs])
+    quals, qual_offs = _emit.pack_strings([r.qual for r in recs])
+    return dict(n=len(recs), codes=codes.astype(np.uint8, copy=False),
+                seq_offs=seq_offs,
+                names=np.frombuffer(names, np.uint8),
+                name_offs=name_offs,
+                quals=np.frombuffer(quals, np.uint8),
+                qual_offs=qual_offs, lens=np.diff(seq_offs))
+
+
 def pe_soa_chunks(path1: str, path2: str, chunk: int):
     """Yield lockstep (soa1, soa2) chunks of ``chunk`` pairs, in file
-    order, through the native chunked parser (FASTQ only)."""
-    r1, r2 = SoaReader(path1), SoaReader(path2)
-    try:
-        while True:
-            c1 = r1.take(chunk)
-            c2 = r2.take(chunk)
-            if c1 is None and c2 is None:
-                return
-            if c1 is None or c2 is None or c1["n"] != c2["n"]:
-                raise ValueError("read files must pair up")
-            yield c1, c2
-    finally:
-        r1.close()
-        r2.close()
+    order — native chunked parsing when available, ReadRecord fallback
+    for FASTA / no toolchain. Deterministic across passes (the blocked
+    aligner re-runs it once per block)."""
+    import itertools
+
+    def is_fasta(path):
+        f = (gzip.open(path, "rb") if path.endswith(".gz")
+             else open(path, "rb"))
+        with f:
+            return f.read(1) == b">"
+
+    if (native_reader_available() and not is_fasta(path1)
+            and not is_fasta(path2)):
+        r1, r2 = SoaReader(path1), SoaReader(path2)
+        try:
+            while True:
+                c1 = r1.take(chunk)
+                c2 = r2.take(chunk)
+                if c1 is None and c2 is None:
+                    return
+                if c1 is None or c2 is None or c1["n"] != c2["n"]:
+                    raise ValueError("read files must pair up")
+                yield c1, c2
+        finally:
+            r1.close()
+            r2.close()
+        return
+    it1 = parse_reads(path1)
+    it2 = parse_reads(path2)
+    while True:
+        c1 = list(itertools.islice(it1, chunk))
+        c2 = list(itertools.islice(it2, chunk))
+        if len(c1) != len(c2):
+            raise ValueError("read files must pair up")
+        if not c1:
+            return
+        yield records_to_soa(c1), records_to_soa(c2)
+
+
+def soa_records(soa: dict, lo: int, hi: int) -> list:
+    """ReadRecord list for records [lo, hi) (Python-emitter fallback)."""
+    out = []
+    for i in range(lo, hi):
+        name = soa["names"][soa["name_offs"][i]:soa["name_offs"][i + 1]]
+        qual = soa["quals"][soa["qual_offs"][i]:soa["qual_offs"][i + 1]]
+        out.append(ReadRecord(
+            name.tobytes().decode(),
+            soa["codes"][soa["seq_offs"][i]:soa["seq_offs"][i + 1]],
+            qual.tobytes().decode()))
+    return out
+
+
+def batch_from_records(records: list, batch_size: int) -> RecordBatch:
+    """RecordBatch from a list of same-length ReadRecords (fallback path
+    and paired-end glue)."""
+    n = len(records)
+    codes = np.stack([r.codes for r in records]
+                     + [records[-1].codes] * (batch_size - n))
+    nb = b"".join(r.name.encode() for r in records)
+    qb = b"".join(r.qual.encode() for r in records)
+    name_offs = np.zeros(n + 1, np.int64)
+    np.cumsum([len(r.name.encode()) for r in records], out=name_offs[1:])
+    qual_offs = np.zeros(n + 1, np.int64)
+    np.cumsum([len(r.qual) for r in records], out=qual_offs[1:])
+    return RecordBatch(codes, n, nb, name_offs, qb, qual_offs)

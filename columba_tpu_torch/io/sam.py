@@ -1,9 +1,10 @@
-"""SAM helpers on the host: the header, and the banded DP with traceback
-that cross-boundary trimming re-verifies with (reference:
-src/indexhelpers.cpp, src/bitparallelmatrix.h), and the MAPQ rule. The
-records themselves are written by the native emitter (``io/emit.py``),
-except on the textless RLC index, whose emitter
-(``strategy.emit_sam_textless``) formats them with :func:`record` and
+"""SAM output on the host: the header, the banded DP with traceback
+(per record, and batched over a whole emission chunk), the MAPQ rule and
+the record lines (reference: src/indexhelpers.cpp:56-260 ``TextOcc`` SAM
+line generation, src/bitparallelmatrix.h). The native emitter
+(``io/emit.py``) writes the same records in C++; the Python emitters
+(``strategy.emit_sam``, ``strategy.emit_sam_textless``,
+``paired.emit_sam_paired``) format them with :func:`record` and
 :func:`unmapped_record`.
 """
 
@@ -140,6 +141,110 @@ def best_in_window(pattern: np.ndarray, window: np.ndarray, kb: int):
         return None
     b, ed, _, c, cigar = min(results)
     return b, c, ed, cigar
+
+
+def traceback_batch(patterns, windows, kb: int):
+    """Batched host traceback: one vectorized DP per read-length group.
+
+    patterns/windows: sequences of 1-D code arrays (len(window) <= len(
+    pattern)+kb). Returns a list of (begin_col, cigar, ed) per entry with
+    IDENTICAL results to traceback() — the per-cell DP and the backward
+    walk's tie order are the same; only the row computation is batched.
+    Exact diagonal matches short-circuit to "<m>M" (provably what the
+    walk produces when ed == 0).
+    """
+    out = [None] * len(patterns)
+    if not patterns:
+        return out
+    if kb == 0:
+        for i, (p, w) in enumerate(zip(patterns, windows)):
+            out[i] = traceback(p, w, len(w), kb)
+        return out
+    groups: dict[int, list[int]] = {}
+    for i, p in enumerate(patterns):
+        groups.setdefault(len(p), []).append(i)
+    for m, idxs in groups.items():
+        t = m + kb  # left-padded window length
+        B = len(idxs)
+        pat = np.stack([patterns[i] for i in idxs]).astype(np.int16)
+        text = np.full((B, t), 5, np.int16)  # 5 = pad, mismatches all
+        pads = np.empty(B, np.int32)
+        for bi, i in enumerate(idxs):
+            w = windows[i]
+            pads[bi] = t - len(w)
+            text[bi, t - len(w):] = w
+        # exact-diagonal shortcut
+        diag = text[:, kb:]
+        exact = ((diag == pat) & (pat <= 3)).all(axis=1) & (pads <= kb)
+        todo_all = np.nonzero(~exact)[0]
+        for bi in np.nonzero(exact)[0]:
+            out[idxs[bi]] = (kb - int(pads[bi]), f"{m}M", 0)
+        if todo_all.size == 0:
+            continue
+        # sub-batch: the DP tensor is (m+1, Bc, t+1) int16 — bound the
+        # transient allocation on repeat-heavy workloads
+        CHUNK = 8192
+        for c0 in range(0, todo_all.size, CHUNK):
+            _traceback_chunk(out, idxs, pat, text, pads,
+                             todo_all[c0:c0 + CHUNK], m, t, kb)
+    return out
+
+
+def _traceback_chunk(out, idxs, pat, text, pads, todo, m, t, kb):
+    patc, textc = pat[todo], text[todo]
+    Bc = todo.size
+    D = np.zeros((m + 1, Bc, t + 1), np.int16)
+    D[:, :, 0] = np.arange(m + 1, dtype=np.int16)[:, None]
+    col = np.arange(1, t + 1, dtype=np.int16)
+    bad = textc > 3
+    for j in range(1, m + 1):
+        pj = patc[:, j - 1:j]
+        mis = ((textc != pj) | (pj > 3) | bad).astype(np.int16)
+        best = np.minimum(D[j - 1, :, :-1] + mis, D[j - 1, :, 1:] + 1)
+        run = best - col
+        np.minimum.accumulate(run, axis=1, out=run)
+        D[j, :, 1:] = np.minimum(np.minimum(best, run + col),
+                                 D[j, :, 0:1] + col)
+    # lockstep backward walk over all remaining records: each step
+    # picks I/M/D per lane with the reference's insertion-first tie
+    # order; a lane halts at j == 0. <= m + t steps total.
+    lanes = np.arange(Bc)
+    j = np.full(Bc, m, np.int32)
+    c = np.full(Bc, t, np.int32)
+    ops_mat = np.zeros((m + t, Bc), np.int8)  # 0 none, 1 I, 2 M, 3 D
+    n_ops = np.zeros(Bc, np.int32)
+    for _ in range(m + t):
+        livew = j > 0
+        if not livew.any():
+            break
+        jc = np.clip(j, 1, m)
+        cc = np.clip(c, 0, t)
+        d_cur = D[jc, lanes, cc]
+        is_i = D[jc - 1, lanes, cc] + 1 == d_cur
+        ccm = np.clip(cc - 1, 0, t)
+        pj = patc[lanes, jc - 1]
+        tc = textc[lanes, ccm]
+        mis = ((pj != tc) | (pj > 3)).astype(np.int16)
+        is_m = (~is_i) & (cc > 0) & (
+            D[jc - 1, lanes, ccm] + mis == d_cur)
+        op = np.where(is_i, 1, np.where(is_m, 2, 3)).astype(np.int8)
+        op = np.where(livew, op, 0)
+        ops_mat[n_ops, lanes] = op
+        n_ops += livew
+        j = np.where(livew & (op != 3), j - 1, j)
+        c = np.where(livew & (op != 1), c - 1, c)
+    OPC = "?IMD"
+    for bi_pos, bi in enumerate(todo):
+        i = idxs[bi]
+        ed = int(D[m, bi_pos, t])
+        seq = ops_mat[:n_ops[bi_pos], bi_pos][::-1]
+        # run-length encode via change points
+        chg = np.flatnonzero(np.diff(seq)) + 1
+        bounds = np.concatenate([[0], chg, [len(seq)]])
+        cigar = "".join(
+            f"{bounds[x+1]-bounds[x]}{OPC[seq[bounds[x]]]}"
+            for x in range(len(bounds) - 1))
+        out[i] = (int(c[bi_pos]) - int(pads[bi]), cigar, ed)
 
 
 def record(qname: str, flag: int, rname: str, pos1: int, mq: int, cigar: str,

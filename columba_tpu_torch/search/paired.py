@@ -1,7 +1,8 @@
 """Paired-end mapping: orientation handling, pairing, inference.
 
-The counterpart of ``columba_tpu/search/paired.py`` without its Python SAM
-emitter (the port emits through the native emitter, ``io/emit.py``).
+The counterpart of ``columba_tpu/search/paired.py``. Its Python SAM
+emitter (:func:`emit_sam_paired`) writes the records where the native
+emitter (``io/emit.py``) is missing and on blocked indexes.
 Host-side orchestration over the batched device pipeline, mirroring the
 reference's PE logic:
   - orientation combinations (reference: src/searchstrategy.h:790-861
@@ -63,6 +64,16 @@ class MappedPair:
     discordant: list = field(default_factory=list)  # discordant PairedOccs
     unpaired1: list = field(default_factory=list)   # Occurrences of read1
     unpaired2: list = field(default_factory=list)
+
+
+def _occs_by_strand(mapped: list[strategy.MappedRead]):
+    """mapped reads -> per read [occs_fwd, occs_rc]."""
+    out = []
+    for mr in mapped:
+        fwd = [o for o in mr.occs if o.strand == 0]
+        rc = [o for o in mr.occs if o.strand == 1]
+        out.append((fwd, rc))
+    return out
 
 
 def pair_occurrences(
@@ -503,6 +514,38 @@ def _fill_pairless(out: list, sub_ids: np.ndarray, best: np.ndarray,
                             [o for o in occs_i if o.distance <= b + x])
 
 
+def pair_merged(
+    occ1, occ2, R: int, mode: str,
+    pcfg: PairedConfig, seq_starts: np.ndarray,
+    tot_cut: int, x: int,
+) -> list[MappedPair]:
+    """Pair two sides' merged occurrence sets (chunk-local read ids) —
+    the blocked-index PE path: each side is mapped ALL-mode per block at
+    the full cutoff, merged across blocks, and paired here once (the
+    single-pass BEST equivalence argument of map_pairs_best_start applies
+    to the union across blocks verbatim)."""
+    for occ in (occ1, occ2):
+        if len(occ):
+            o = np.lexsort((occ.begin, occ.strand, occ.read_id))
+            occ.read_id, occ.strand, occ.begin, occ.end, occ.distance = (
+                occ.read_id[o], occ.strand[o], occ.begin[o], occ.end[o],
+                occ.distance[o])
+    cand = pairing.concordant_pairs(occ1, occ2, pcfg.orientation,
+                                    pcfg.min_insert, pcfg.max_insert,
+                                    seq_starts)
+    if mode == "all":
+        cand = pairing.sort_pairs(cand)
+        best = np.full(R, np.iinfo(np.int64).max - 1, dtype=np.int64)
+        if len(cand):
+            np.minimum.at(best, cand.pair_id, cand.total)
+        return _rows_to_mapped_all(cand, best, occ1, occ2, R, pcfg)
+    kept, best = pairing.best_filter(cand, R, tot_cut, x)
+    out = [MappedPair() for _ in range(R)]
+    _fill_paired(out, pairing.sort_pairs(kept), R)
+    _fill_pairless(out, np.arange(R), best, occ1, occ2, tot_cut, x, pcfg)
+    return out
+
+
 def map_pairs_best(
     index,
     reads1: np.ndarray,
@@ -815,3 +858,124 @@ def infer_parameters(
         discordant=pcfg_in.discordant if pcfg_in else False,
         max_discordant=pcfg_in.max_discordant if pcfg_in else 100000,
     )
+
+
+def emit_sam_paired(
+    recs1, recs2, mapped: list[MappedPair], arrays, kb: int, counters=None
+) -> list[str]:
+    """SAM lines for a batch of pairs: primary = best total distance,
+    others secondary (reference: src/searchstrategy.cpp:1904-1980)."""
+    from columba_tpu_torch.core import alphabet
+    from columba_tpu_torch.index.build import decoded_text
+    from columba_tpu_torch.io import sam
+
+    genome = decoded_text(arrays)
+    starts = arrays.seq_starts
+    lines = []
+
+    # first pass: collect every (occurrence, record) traceback task and
+    # run ONE batched DP (see sam.traceback_batch)
+    tasks, keymap = [], {}
+
+    def collect(o, rec):
+        key = (id(o), id(rec))
+        if key not in keymap:
+            seq_codes = (rec.codes if o.strand == 0
+                         else alphabet.revcomp(rec.codes))
+            # clamp to the occurrence's sequence (see strategy.emit_sam)
+            s_lo = int(starts[np.searchsorted(starts, o.end - 1,
+                                              side="right") - 1])
+            w_lo = max(s_lo, o.end - len(rec.codes) - kb)
+            keymap[key] = len(tasks)
+            tasks.append((seq_codes, genome[w_lo:o.end], w_lo))
+
+    for i, (r1, r2) in enumerate(zip(recs1, recs2)):
+        mp = mapped[i]
+        cands = sorted(mp.pairs or mp.discordant,
+                       key=lambda p: (p.total_distance, p.up.begin))
+        for p in cands[:100]:  # at most 100 records per pair emitted
+            o1 = p.up if p.up_is_read1 else p.down
+            o2 = p.down if p.up_is_read1 else p.up
+            collect(o1, r1)
+            collect(o2, r2)
+        if not cands:
+            # only the best unpaired occurrence per side is emitted
+            for rec, occs in ((r1, mp.unpaired1), (r2, mp.unpaired2)):
+                if occs:
+                    collect(min(occs, key=lambda o: (o.distance, o.begin)),
+                            rec)
+    tb = sam.traceback_batch([t[0] for t in tasks],
+                             [t[1] for t in tasks], kb)
+    if counters is not None:
+        counters.cigars_computed += len(tasks)
+
+    def finalize(o, rec):
+        ti = keymap[(id(o), id(rec))]
+        seq_codes, _, w_lo = tasks[ti]
+        begin, cigar, ed = tb[ti]
+        begin += w_lo
+        sidx = int(np.searchsorted(starts, begin, side="right") - 1)
+        sidx = max(0, min(sidx, len(arrays.seq_names) - 1))
+        pos1 = begin - int(starts[sidx]) + 1
+        return seq_codes, begin, cigar, ed, sidx, pos1
+
+    for i, (r1, r2) in enumerate(zip(recs1, recs2)):
+        mp = mapped[i]
+        cands = sorted(mp.pairs, key=lambda p: (p.total_distance,
+                                                p.up.begin))
+        proper = bool(cands)
+        if not cands:
+            cands = sorted(mp.discordant,
+                           key=lambda p: (p.total_distance, p.up.begin))
+        if cands:
+            best_total = cands[0].total_distance
+            n_best = sum(1 for p in cands
+                         if p.total_distance == best_total)
+            mq = sam.mapq(n_best)
+            for rank_i, p in enumerate(cands):
+                o1 = p.up if p.up_is_read1 else p.down
+                o2 = p.down if p.up_is_read1 else p.up
+                s1, b1, c1, e1, x1, pos1 = finalize(o1, r1)
+                s2, b2, c2, e2, x2, pos2 = finalize(o2, r2)
+                tlen = (p.down.end - p.up.begin)
+                t1 = tlen if o1.begin <= o2.begin else -tlen
+                base = 0x1 | (0x2 if proper else 0)
+                sec = 0x100 if rank_i > 0 else 0
+                f1 = base | 0x40 | sec | (0x10 if o1.strand else 0) | (0x20 if o2.strand else 0)
+                f2 = base | 0x80 | sec | (0x10 if o2.strand else 0) | (0x20 if o1.strand else 0)
+                q1 = r1.qual if o1.strand == 0 else r1.qual[::-1]
+                q2 = r2.qual if o2.strand == 0 else r2.qual[::-1]
+                # every best-stratum pair gets the stratum MAPQ, secondary
+                # or not (reference getMapQPairedEnd: 0 only when this
+                # pair's total distance exceeds the best score)
+                mqi = mq if p.total_distance == best_total else 0
+                lines.append(
+                    f"{r1.name}\t{f1}\t{arrays.seq_names[x1]}\t{pos1}\t{mqi}\t{c1}"
+                    f"\t=\t{pos2}\t{t1}\t{alphabet.decode(s1)}\t{q1}"
+                    f"\tAS:i:{e1}\tNM:i:{e1}\tPG:Z:Columba\n")
+                lines.append(
+                    f"{r2.name}\t{f2}\t{arrays.seq_names[x2]}\t{pos2}\t{mqi}\t{c2}"
+                    f"\t=\t{pos1}\t{-t1}\t{alphabet.decode(s2)}\t{q2}"
+                    f"\tAS:i:{e2}\tNM:i:{e2}\tPG:Z:Columba\n")
+                if rank_i >= 99:
+                    break
+            continue
+        # unpaired / unmapped handling
+        for rec, occs, first in ((r1, mp.unpaired1, True), (r2, mp.unpaired2, False)):
+            fbit = 0x40 if first else 0x80
+            if occs:
+                o = min(occs, key=lambda o: (o.distance, o.begin))
+                s, b, c, e, x, pos1 = finalize(o, rec)
+                flag = 0x1 | fbit | 0x8 | (0x10 if o.strand else 0)
+                q = rec.qual if o.strand == 0 else rec.qual[::-1]
+                lines.append(
+                    f"{rec.name}\t{flag}\t{arrays.seq_names[x]}\t{pos1}\t"
+                    f"{sam.mapq(sum(1 for t in occs if t.distance == o.distance))}\t{c}"
+                    f"\t*\t0\t0\t{alphabet.decode(s)}\t{q}"
+                    f"\tAS:i:{e}\tNM:i:{e}\tPG:Z:Columba\n")
+            else:
+                flag = 0x1 | fbit | 0x4 | 0x8
+                lines.append(
+                    f"{rec.name}\t{flag}\t*\t0\t0\t*\t*\t0\t0\t"
+                    f"{alphabet.decode(rec.codes)}\t{rec.qual}\tPG:Z:Columba\n")
+    return lines

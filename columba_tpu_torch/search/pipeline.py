@@ -29,6 +29,7 @@ the phi tables (:func:`_match_textless`, numpy).
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -306,17 +307,22 @@ def match_all(*args, **kwargs) -> tuple[OccArray, dict]:
 
 # Locate-cap warm start: batches in auto mode start at the largest cap an
 # earlier batch of the same index grew to (speed only; lossless either
-# way). Keyed by the index's id(), with the index kept alive by the entry.
+# way). Keyed by the index's id() beside a weak reference to it, so a hint
+# keeps no index (a block of a blocked index) on the device, and an index
+# that reuses a freed one's id() finds the dead reference, not its hint.
 _ML_HINT: dict = {}
 
 
 def _ml_hint_get(index) -> int:
     ent = _ML_HINT.get(id(index))
-    return ent[1] if ent is not None and ent[0] is index else 0
+    return ent[1] if ent is not None and ent[0]() is index else 0
 
 
 def _ml_hint_bump(index, ml: int) -> None:
-    _ML_HINT[id(index)] = (index, max(_ml_hint_get(index), ml))
+    for key in [k for k, (ref, _) in _ML_HINT.items() if ref() is None]:
+        del _ML_HINT[key]
+    _ML_HINT[id(index)] = (weakref.ref(index),
+                           max(_ml_hint_get(index), ml))
 
 
 def match_all_start(

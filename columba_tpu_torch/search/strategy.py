@@ -1,14 +1,15 @@
 """Mapping strategies: single-end ALL and BEST(+x) modes over read batches.
 
-The counterpart of ``columba_tpu/search/strategy.py`` (its Python SAM
-emitter only for the textless RLC index, :func:`emit_sam_textless`): ALL mode
-reports every occurrence with ed <= k; BEST mode finds each read's best
-distance stratum up to a cutoff derived from the minimum identity, then
-reports occurrences within [best, best + x]. Cutoffs <= 6 run one ALL pass
-at the cutoff and filter; deeper cutoffs walk distance strata (the
-reference's stratum jumps: step 2 below distance 5, else 4) on the reads
-still unresolved. The textless RLC index has no text: its occurrences are
-not trimmed at sequence boundaries.
+The counterpart of ``columba_tpu/search/strategy.py``, with its Python SAM
+and read-hit-summary emitters of the record path (:func:`emit_sam`,
+:func:`emit_sam_textless`, :func:`emit_rhs`): ALL mode reports every
+occurrence with ed <= k; BEST mode finds each read's best distance stratum
+up to a cutoff derived from the minimum identity, then reports occurrences
+within [best, best + x]. Cutoffs <= 6 run one ALL pass at the cutoff and
+filter; deeper cutoffs walk distance strata (the reference's stratum jumps:
+step 2 below distance 5, else 4) on the reads still unresolved. The
+textless RLC index has no text: its occurrences are not trimmed at
+sequence boundaries.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from columba_tpu_torch.core import alphabet
+from columba_tpu_torch.index.build import IndexArrays, decoded_text
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.io import sam
 from columba_tpu_torch.search import pipeline
@@ -352,42 +354,192 @@ def map_batch_best(
     return _group_mapped(occs, len(reads))
 
 
-def emit_sam_textless(batch, occs, arrays,
-                      unmapped_records: bool = True) -> str:
-    """SAM records of one read batch (``io.fastq.RecordBatch``) without
-    genome text: '*' CIGARs, begins straight from the phi locate, distances
-    from the search; per read the occurrences by (distance, begin, strand),
-    the first primary (the textless RLC reporting mode of
-    ``columba_tpu/search/strategy.py:566-603``; the reference's RLC flavor
-    likewise defaults to no CIGAR, src/parameters/alignparameters.cpp:
-    131-160)."""
+def _final_redundancy_filter(finalized, max_ed):
+    """The reference's non-redundancy pass on traceback-refined begins
+    (reference: src/indexinterface.cpp:1451-1485): occurrences sorted by
+    (begin, distance, text width); same begin -> keep the first; begins
+    within 2*maxED -> keep the strictly better one (smaller distance, then
+    strictly smaller width). finalized entries: (..., ed at [4], begin at
+    [7]); per-strand groups are filtered independently."""
+    out = []
+    for strand in (0, 1):
+        group = [f for f in finalized if f[0].strand == strand]
+        group.sort(key=lambda f: (f[7], f[4], f[0].end - f[7]))
+        kept = []
+        prev_begin = prev_ed = prev_w = None
+        for f in group:
+            begin, ed, width = f[7], f[4], f[0].end - f[7]
+            if kept:
+                diff = abs(begin - prev_begin)
+                if diff == 0:
+                    continue
+                if diff <= 2 * max_ed:
+                    if ed > prev_ed or (ed == prev_ed and width >= prev_w):
+                        continue
+                    kept.pop()
+            prev_begin, prev_ed, prev_w = begin, ed, width
+            kept.append(f)
+        out.extend(kept)
+    return out
+
+
+def emit_sam(
+    records,
+    mapped: list[MappedRead],
+    arrays: IndexArrays,
+    index: FMIndex,
+    kb: int,
+    mode: str = "best",
+    xa_tag: bool = False,
+    unmapped_records: bool = True,
+    with_cigar: bool = True,
+    counters=None,
+) -> list[str]:
+    """SAM lines for a batch (primary = best occurrence, others secondary;
+    with xa_tag, secondaries fold into the primary's XA:Z: tag instead,
+    reference: src/indexhelpers.h:418). with_cigar=False emits '*' CIGARs
+    (reference -nC; the traceback still runs to refine begin positions)."""
+    genome = decoded_text(arrays)
     starts = arrays.seq_starts
-    names = batch.names_buf.decode()
-    quals = batch.quals_buf.decode()
-    per_read: dict = {}
-    for i in range(len(occs)):
-        per_read.setdefault(int(occs.read_id[i]), []).append(occs[i])
+    # batch the traceback DP across every occurrence of the whole chunk
+    # (the per-record numpy DP was the host hot spot)
+    tasks = []          # (patterns, windows) in emission order
+    task_meta = []      # (rec_i, o, seq_codes, qual, w_lo)
+    for rec_i, (rec, mr) in enumerate(zip(records, mapped)):
+        for o in sorted(mr.occs, key=lambda o: (o.distance, o.begin,
+                                                o.strand)):
+            seq_codes = (rec.codes if o.strand == 0
+                         else alphabet.revcomp(rec.codes))
+            qual = rec.qual if o.strand == 0 else rec.qual[::-1]
+            # clamp the traceback window to the occurrence's sequence so a
+            # begin never re-crosses a boundary the trim pass resolved
+            s_lo = int(starts[np.searchsorted(starts, o.end - 1,
+                                              side="right") - 1])
+            w_lo = max(s_lo, o.end - len(rec.codes) - kb)
+            tasks.append((seq_codes, genome[w_lo:o.end]))
+            task_meta.append((rec_i, o, seq_codes, qual, w_lo))
+    tb = sam.traceback_batch([t[0] for t in tasks], [t[1] for t in tasks],
+                             kb)
+    if counters is not None:
+        counters.cigars_computed += len(tasks)
+    per_rec: dict[int, list] = {}
+    for (rec_i, o, seq_codes, qual, w_lo), (begin, cigar, ed) in zip(
+            task_meta, tb):
+        begin += w_lo
+        sidx = int(np.searchsorted(starts, begin, side="right") - 1)
+        sidx = max(0, min(sidx, len(arrays.seq_names) - 1))
+        pos1 = begin - int(starts[sidx]) + 1
+        per_rec.setdefault(rec_i, []).append(
+            (o, seq_codes, qual, cigar, ed, sidx, pos1, begin))
+
     lines = []
-    for r in range(batch.n_valid):
-        name = names[batch.name_offs[r]:batch.name_offs[r + 1]]
-        qual = quals[batch.qual_offs[r]:batch.qual_offs[r + 1]]
-        codes = batch.codes[r]
-        found = per_read.get(r)
-        if not found:
+    for rec_i, (rec, mr) in enumerate(zip(records, mapped)):
+        if not mr.occs:
             if unmapped_records:
-                lines.append(sam.unmapped_record(name, codes, qual))
+                lines.append(sam.unmapped_record(rec.name, rec.codes, rec.qual))
             continue
-        found.sort(key=lambda o: (o.distance, o.begin, o.strand))
-        best_ed = found[0].distance
-        mq = sam.mapq(max(sum(1 for o in found if o.distance == best_ed), 1))
-        for rank_i, o in enumerate(found):
-            seq_codes = codes if o.strand == 0 else alphabet.revcomp(codes)
+        finalized = _final_redundancy_filter(per_rec[rec_i], kb)
+        # primary = best distance, earliest begin
+        finalized.sort(key=lambda f: (f[4], f[7], f[0].strand))
+        finalized = [f[:7] for f in finalized]
+        if not with_cigar:
+            finalized = [(o, sq, q, "*", ed, sx, pp)
+                         for o, sq, q, _, ed, sx, pp in finalized]
+        best_ed = min((f[4] for f in finalized), default=0)
+        n_best = sum(1 for f in finalized if f[4] == best_ed)
+        mq = sam.mapq(max(n_best, 1))
+        if xa_tag:
+            o, seq_codes, qual, cigar, ed, sidx, pos1 = finalized[0]
+            flag = 16 if o.strand else 0
+            line = sam.record(
+                rec.name, flag, arrays.seq_names[sidx], pos1, mq, cigar,
+                seq_codes, qual, ed,
+            ).rstrip("\n")
+            if len(finalized) > 1:
+                xa = "".join(
+                    f"{arrays.seq_names[sx]},{'-' if oo.strand else '+'}{pp},{cg},{e};"
+                    for oo, _, _, cg, e, sx, pp in finalized[1:]
+                )
+                line += f"\tX0:i:{mr.n_best}\tX1:i:{len(finalized)-mr.n_best}\tXA:Z:{xa}"
+            lines.append(line + "\n")
+        else:
+            for rank_i, (o, seq_codes, qual, cigar, ed, sidx, pos1) in enumerate(finalized):
+                flag = (16 if o.strand else 0) | (256 if rank_i > 0 else 0)
+                lines.append(
+                    sam.record(
+                        rec.name, flag, arrays.seq_names[sidx], pos1,
+                        # reference getMapQ: every best-distance record gets
+                        # the MAPQ, secondary or not; others get 0
+                        mq if ed == best_ed else 0, cigar, seq_codes, qual,
+                        ed,
+                    )
+                )
+    return lines
+
+
+def emit_sam_textless(
+    records,
+    mapped: list[MappedRead],
+    arrays,
+    unmapped_records: bool = True,
+    counters=None,
+) -> list[str]:
+    """SAM lines without genome text: '*' CIGARs, begins straight from the
+    toehold/phi locate, distances from the search (the textless RLC
+    reporting mode — the reference's RLC flavor likewise defaults to no
+    CIGAR, src/parameters/alignparameters.cpp:131-160)."""
+    starts = arrays.seq_starts
+    lines = []
+    for rec, mr in zip(records, mapped):
+        if not mr.occs:
+            if unmapped_records:
+                lines.append(sam.unmapped_record(rec.name, rec.codes,
+                                                 rec.qual))
+            continue
+        occs = sorted(mr.occs, key=lambda o: (o.distance, o.begin,
+                                              o.strand))
+        best_ed = occs[0].distance
+        n_best = sum(1 for o in occs if o.distance == best_ed)
+        mq = sam.mapq(max(n_best, 1))
+        for rank_i, o in enumerate(occs):
+            seq_codes = (rec.codes if o.strand == 0
+                         else alphabet.revcomp(rec.codes))
+            qual = rec.qual if o.strand == 0 else rec.qual[::-1]
             sidx = int(np.searchsorted(starts, o.begin, side="right") - 1)
             sidx = max(0, min(sidx, len(arrays.seq_names) - 1))
+            pos1 = o.begin - int(starts[sidx]) + 1
             flag = (16 if o.strand else 0) | (256 if rank_i > 0 else 0)
             lines.append(sam.record(
-                name, flag, arrays.seq_names[sidx],
-                o.begin - int(starts[sidx]) + 1,
-                mq if o.distance == best_ed else 0, "*", seq_codes,
-                qual if o.strand == 0 else qual[::-1], o.distance))
-    return "".join(lines)
+                rec.name, flag, arrays.seq_names[sidx], pos1,
+                mq if o.distance == best_ed else 0, "*", seq_codes, qual,
+                o.distance,
+            ))
+    return lines
+
+
+def emit_rhs(
+    records,
+    mapped: list[MappedRead],
+    arrays: IndexArrays,
+) -> list[str]:
+    """Read-hit-summary lines: readID\t(seq,dist);(seq,dist)...
+    (reference: src/searchstrategy.h:1651-1685, src/indexhelpers.h:690-704).
+    """
+    starts = arrays.seq_starts
+    lines = []
+    for rec, mr in zip(records, mapped):
+        if not mr.occs:
+            lines.append(f"{rec.name}\n")
+            continue
+        combos = set()
+        for o in mr.occs:
+            # assign by the (exact) end: begin is a pre-traceback estimate
+            sidx = int(np.searchsorted(starts, o.end - 1, side="right") - 1)
+            sidx = max(0, min(sidx, len(arrays.seq_names) - 1))
+            combos.add((o.distance, sidx))
+        parts = [
+            f"({arrays.seq_names[sidx]},{dist})"
+            for dist, sidx in sorted(combos)
+        ]
+        lines.append(rec.name + "\t" + ";".join(parts) + "\n")
+    return lines

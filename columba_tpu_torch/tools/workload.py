@@ -132,3 +132,12 @@ def write_fastq(path: str, reads: np.ndarray, prefix: str) -> None:
     with open(path, "w") as f:
         for i, r in enumerate(reads):
             f.write(f"@{prefix}{i}\n{lut[r].tobytes().decode()}\n+\n{qual}\n")
+
+
+def write_fasta_reads(path: str, reads: np.ndarray, prefix: str) -> None:
+    """The reads of :func:`write_fastq` as FASTA (the record parser gives
+    them the same all-``I`` qualities)."""
+    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
+    with open(path, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f">{prefix}{i}\n{lut[r].tobytes().decode()}\n")

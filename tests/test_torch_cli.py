@@ -133,15 +133,6 @@ def test_align_reorder_is_accepted(built, pairs):
     assert len(body["plain"]) > 200
 
 
-@pytest.mark.parametrize("opts", [["-o", "hits.rhs"], ["-T", "0-50"]])
-def test_align_refuses_modes_not_ported(built, opts):
-    wd, idx = built
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["align", "-r", idx["torch"], "-f", str(wd / "r.fq"),
-                   "-o", str(wd / "x.sam"), "-a", "all", "-e", "2",
-                   "--device", "cpu"] + opts)
-
-
 def test_align_needs_the_card_unless_told(built):
     """Without --device cpu the align must raise where there is no usable
     CUDA device; it never falls back to the plain versions by itself."""
@@ -296,8 +287,23 @@ def test_port_imports_no_jax():
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     assert len(files) >= 20
     for need in ("search/dynschedule.py", "tools/gather_bench.py",
-                 "tools/profile_align.py", "native/__init__.py"):
+                 "tools/profile_align.py", "native/__init__.py",
+                 "index/blocked.py"):
         assert any(f.replace(os.sep, "/").endswith(need) for f in files), need
+    # the record path and the blocked indexes are in the modules checked
+    grown = {"cli.py": ("_align_records", "_align_blocked",
+                        "_align_blocked_paired"),
+             "index/blocked.py": ("build_blocked_index", "LazyBlockText",
+                                  "merge_best"),
+             "io/fastq.py": ("parse_reads", "trim_records", "records_to_soa"),
+             "io/sam.py": ("traceback_batch",),
+             "search/strategy.py": ("emit_sam", "emit_rhs"),
+             "search/paired.py": ("pair_merged", "emit_sam_paired")}
+    for rel, names in grown.items():
+        with open(os.path.join(PORT, rel)) as f:
+            defined = {n.name for n in ast.walk(ast.parse(f.read()))
+                       if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+        assert set(names) <= defined, rel
     files.append(os.path.join(os.path.dirname(PORT), "chip_smoke.py"))
     bad = []
     for path in files:
@@ -421,21 +427,15 @@ def test_align_rlc_identical_sam(built_rlc, pairs, tag, flavor, opts, paired):
 @pytest.mark.parametrize("flavor,opts,exc", [
     ("textless", ["-F", "@P2@"], SystemExit),
     ("textless", ["-aC"], SystemExit),
-    ("rlc", ["-o", "hits.rhs"], NotImplementedError),
-    ("rlc", ["-T", "0-50"], NotImplementedError),
 ])
 def test_align_rlc_refusals(built_rlc, pairs, flavor, opts, exc):
-    """Textless refuses paired-end and -aC as the JAX package does; on the
-    with-text RLC index read-hit-summary output and -T trim are not ported
-    yet and name their ROADMAP item."""
+    """Textless refuses paired-end and -aC as the JAX package does."""
     opts = [pairs[1] if o == "@P2@" else o for o in opts]
     wd = os.path.dirname(built_rlc[flavor, "torch"])
-    with pytest.raises(exc) as err:
+    with pytest.raises(exc):
         tcli.main(["align", "-r", built_rlc[flavor, "torch"], "-f", pairs[0],
                    "-o", os.path.join(wd, "refused.sam"), "-a", "all", "-e",
                    "2", "--device", "cpu"] + opts)
-    if exc is NotImplementedError:
-        assert "ROADMAP" in str(err.value)
 
 
 def test_bench_times_an_earlier_tree_through_its_wrappers(tmp_path):
