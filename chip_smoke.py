@@ -104,6 +104,18 @@ a CUDA device. It
    and of the RLC index with dynamic partitioning and with scheme selection,
    through the plain versions on the card.
 
+6. runs the ``dist`` phase at the same width (SE ALL's reads 16,384 to
+   49,151, the 10-mer table, switchpoint 4): ``dist_shards``,
+   ``dist.mesh.sharded_match`` over 2 shards of 16,384 reads in this
+   process, against one ``match_device_core`` on the whole batch at twice
+   the caps and, on the first shard, against the plain versions;
+   ``dist_ranks``, the 2-rank dryrun
+   (``columba_tpu_torch.tools.multihost_dryrun``: two processes on the one
+   card, gloo) on a FASTQ of the same reads, whose occurrences must be
+   ``dist_shards``' and whose every rank must launch kernels A-D; and, in
+   the RLC section, ``rlc_dist_shards`` on the pan-genome's first 16,384
+   reads.
+
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and that line is not printed. It needs no network and no JAX.
@@ -227,6 +239,15 @@ SCHEMES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "schemes")
 # the paths whose own inputs to kernels C and D are captured and timed
 CAPTURE_PATHS = ("se_all", "pe_best", "rlc_se_all")
 PATH_INPUT_REPS = 10
+# the dist phase: shards in this process, rank processes, the RLC shards
+DIST_SHARDS = 2          # shards in one process, and rank processes
+DIST_READS = 16_384      # reads a shard or a rank holds on the Vanilla index
+# SE ALL's reads from here on: each shard's and each rank's 16,384 hold a
+# read wholly inside an N run (reads 18,586, 26,926 and 42,324), so each
+# launches kernel B; SE ALL's first 16,384 hold none
+DIST_FIRST = 16_384
+N_RLC_DIST_READS = 16_384  # rlc_dist_shards: rlc_se_all's first reads
+DIST_KERNELS = ("extend", "band_step", "locate", "verify")
 
 
 def log(msg: str) -> None:
@@ -433,8 +454,8 @@ def kernel_checks(index, arrays, reads, table) -> dict:
     R = 2 * BATCH
     sched = pipeline.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit",
                                     kmer_k=10)
-    C = max(1024, R * sched.num_searches // 8)      # match_all's auto cap
-    ml = max(1 << 16, 4 * R)                        # auto max_locate
+    C = pipeline.batch_capacity(R, sched.num_searches, 4)   # match_all's
+    ml = pipeline.batch_max_locate(R)                        # auto sizes
     batch = torch.from_numpy(np.concatenate(
         [reads[:BATCH], reads[:BATCH, ::-1] ^ 3])).to(dev)
     # kernel A: real ranges (10-mer seeds of read windows), random
@@ -1218,6 +1239,181 @@ def plain_patch():
     return restore
 
 
+def dist_shards(path, index, fwd, nsub, pos, smi, record, kmer_table=None,
+                regrow=False, plain=False) -> np.ndarray:
+    """``sharded_match`` over ``DIST_SHARDS`` shards of ``fwd`` (both
+    strands of each shard's reads, shard after shard, as ranks feed them)
+    in this process, against one ``match_device_core`` on the whole batch
+    at twice the caps: the same (rid, window start) set, the same ``total``
+    and overflow 0, and 0 missing of the reads with at most K
+    substitutions. Capacity and locate cap as ``match_all_start`` sizes
+    them for a shard's rows on ``index`` (its locate cap takes what earlier
+    batches grew it to: the pan-genome fans out 20x). ``regrow``: on a
+    frontier overflow both runs re-run at grown capacity, as
+    ``match_all_finish`` does (the pan-genome's repeats). ``plain``: the
+    first shard again through the plain versions. Launch counts of the
+    timed sharded run go to ``record``. Returns the occurrence set."""
+    from columba_tpu_torch import native
+    from columba_tpu_torch.core import alphabet
+    from columba_tpu_torch.dist import mesh as dmesh
+    from columba_tpu_torch.index.kmer import table_k
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools.multihost_dryrun import occurrences
+
+    t_path = time.time()
+    dev = index.device
+    per = len(fwd) // DIST_SHARDS
+    rows = np.concatenate([np.concatenate([r, alphabet.revcomp(r, axis=-1)])
+                           for r in np.split(fwd, DIST_SHARDS)])
+    batch = torch.from_numpy(rows).to(dev)
+    sched = pipeline.compile_cached(
+        get_scheme("kuch1", K), READ_LEN, "edit",
+        kmer_k=0 if kmer_table is None else table_k(kmer_table))
+    cap = pipeline.batch_capacity(2 * per, sched.num_searches, 4)
+    ml = pipeline.batch_max_locate(2 * per, index)
+    mesh = dmesh.make_data_mesh(DIST_SHARDS, dev)
+
+    def sharded(c):
+        return dmesh.sharded_match(mesh, index, batch, sched, c, ml, K,
+                                   kmer_table=kmer_table, switchpoint=4)
+
+    def single(c):
+        out = pipeline.match_device_core(
+            index, batch, sched, 2 * c, 2 * ml, K, kmer_table, 4,
+            *pipeline.crossover_caps(2 * c, 2 * ml, 4))
+        return {k: v.cpu() for k, v in out.items()}
+
+    def lossless(fn, what):
+        c, reruns = cap, 0
+        out = fn(c)
+        # the counters are the shards' sums: only the capacity grows
+        while regrow and (g := pipeline.grown_caps(
+                out, c, c, ml, grow_locate=False)) is not None:
+            c, reruns = g[0], reruns + 1
+            out = fn(c)
+        log(f"  {path} {what}: capacity {c} a shard ({reruns} lossless "
+            f"re-runs), locate cap {ml} a shard")
+        return out, c
+
+    one, _ = lossless(single, "one match_device_core at twice the caps")
+    for k in native.KERNELS.values():
+        k.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    out, c = lossless(sharded, f"{DIST_SHARDS} shards")
+    res = {k: v.cpu().numpy() for k, v in out.items()}
+    dt = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: v.launches for k, v in native.KERNELS.items()}
+    entries = {f"{k}.{e}": n for k, v in native.KERNELS.items()
+               for e, n in v.by_entry.items()}
+    record(path, launches, entries)
+    occ, occ_1 = occurrences(res), occurrences(
+        {k: v.numpy() for k, v in one.items()})
+    same = np.array_equal(occ, occ_1)
+    # a read is found where a row of it has a valid window of at most K
+    # edits beginning K before its sampled locus, within K
+    v = res["valid"] & (res["final_rows"].min(axis=-1) <= K)
+    rid = res["rid"][v]
+    read = rid // (2 * per) * per + rid % per
+    found = np.unique(read[np.abs(res["win_start"][v] + K - pos[read]) <= K])
+    want = np.nonzero(nsub[:len(fwd)] <= K)[0]
+    lost = np.setdiff1d(want, found)
+    table_bytes = 0 if kmer_table is None else kmer_table.nbytes
+    log(f"path {path}: {len(fwd)} reads x {READ_LEN} bp in {DIST_SHARDS} "
+        f"shards of {2 * per} rows in one process, in {dt:.3f} s = "
+        f"{len(fwd) / dt:.1f} reads/s ({smi}; one shard after the other on "
+        f"the card); peak device memory {peak} bytes ({base} allocated "
+        f"before the run); index "
+        f"{index.nbytes()} + k-mer table {table_bytes} bytes on the card; "
+        f"total {res['total']}, overflow {res['overflow']} (one device: "
+        f"{int(one['total'])}, {int(one['overflow'])}); {len(occ)} "
+        f"(read row, window) pairs, {'the same' if same else 'a DIFFERENT'}"
+        f" set as one device; {len(want)} reads with <= {K} "
+        f"substitutions, {len(lost)} missing; kernel launches {launches}")
+    missing = [k for k in DIST_KERNELS if launches[k] == 0]
+    if (not same or int(res["total"]) != int(one["total"])
+            or int(res["overflow"]) or int(one["overflow"]) or len(lost)
+            or missing):
+        raise AssertionError(
+            f"{path}: same set {same}, totals {res['total']} and "
+            f"{int(one['total'])}, overflow {res['overflow']} and "
+            f"{int(one['overflow'])}, lost {lost[:10].tolist()}, kernels not "
+            f"launched {missing}, capacity {c} (sized {cap})")
+    if plain:
+        restore = plain_patch()
+        try:
+            p = dmesh.sharded_match(
+                dmesh.make_data_mesh(1, dev), index, batch[:2 * per], sched,
+                c, ml, K, kmer_table=kmer_table, switchpoint=4)
+        finally:
+            restore()
+        p = {k: v.cpu().numpy() for k, v in p.items()}
+        occ_p = occurrences(p)
+        same = np.array_equal(occ_p, occ[occ[:, 0] < 2 * per])
+        slots = all(np.array_equal(p[k], res[k][:len(p[k])])
+                    for k in dmesh.ARRAYS)
+        log(f"  {path}, plain versions on the card, the first shard: "
+            f"{len(occ_p)} pairs, {'the same' if same else 'a DIFFERENT'} "
+            f"set as the kernels' (slot for slot: {slots})")
+        if not same:
+            raise AssertionError(f"{path}: the plain versions give another "
+                                 "occurrence set on the first shard")
+    log(f"  {path} took {time.time() - t_path:.1f} s")
+    return occ
+
+
+def dist_ranks(path, idx, reads_fq, want_occ, smi, record) -> None:
+    """``tools/multihost_dryrun.py`` on the card: ``DIST_SHARDS`` rank
+    processes joined by gloo, each loading the index of ``idx`` and taking
+    ``DIST_READS`` reads of ``reads_fq`` in rank order. Requires ``ok``,
+    the occurrence set ``want_occ`` (``dist_shards``' on the same reads)
+    and kernels A, B, C and D on every rank; the ranks' summed launches go
+    to ``record``."""
+    t0 = time.time()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="columba_dist_") as td:
+        occ_path = os.path.join(td, "occ.npy")
+        done = subprocess.run(
+            [sys.executable, "-m", "columba_tpu_torch.tools.multihost_dryrun",
+             "--index", idx, "--reads", reads_fq, "--reads-per-rank",
+             str(DIST_READS), "--out", occ_path],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=660)
+        if done.returncode != 0:
+            raise AssertionError(f"{path}: multihost_dryrun exited "
+                                 f"{done.returncode}:\n{done.stdout[-3000:]}"
+                                 f"\n{done.stderr[-4000:]}")
+        s = json.loads(done.stdout.strip().splitlines()[-1])
+        occ = np.load(occ_path)
+    launches = {k: sum(ln.get(k, 0) for ln in s["launches"])
+                for k in DIST_KERNELS}
+    entries: dict = {}
+    for ent in s["entries"]:
+        for e, n in ent.items():
+            entries[e] = entries.get(e, 0) + n
+    record(path, launches, entries)
+    same = np.array_equal(occ, want_occ)
+    log(f"path {path}: {s['ranks']} rank processes on one card, "
+        f"{s['reads_per_rank']} reads x {s['read_len']} bp each, gloo; "
+        f"reads/s by rank {s['reads_per_s']} (the ranks share the card: "
+        f"not a chip rate; {smi}); peak device memory by rank "
+        f"{s['peak_bytes']} bytes; index + k-mer table bytes by rank "
+        f"{s['index_bytes']}; mapped {s['mapped']}; total {s['total']}, "
+        f"overflow {s['overflow']}; {s['occurrences']} pairs, "
+        f"{'the same set' if same else 'a DIFFERENT set'} as dist_shards; "
+        f"launches by rank {s['launches']}; {time.time() - t0:.1f} s with "
+        f"the processes' start")
+    missing = [(r, k) for r, ln in enumerate(s["launches"])
+               for k in DIST_KERNELS if ln[k] == 0]
+    if not s["ok"] or not same or missing:
+        raise AssertionError(f"{path}: ok {s['ok']}, same set {same}, not "
+                             f"launched (rank, kernel) {missing}")
+
+
 def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
                 warm, argv_of, n_of, index_of) -> dict:
     """The RLC and textless indexes: the pan-genome's FASTA, both ``cli
@@ -1483,6 +1679,11 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
         log(f"plain versions on the card, {what}, k = {K}: identical "
             f"OccArray for one batch of {nr} reads ({len(occ_k)} "
             f"occurrences)")
+    # the dist phase on the RLC index
+    t_dist = time.time()
+    dist_shards("rlc_dist_shards", bm, reads[:N_RLC_DIST_READS], nsub, pos,
+                smi, record, regrow=True)
+    log(f"dist phase on the RLC index: {time.time() - t_dist:.1f} s")
     return report
 
 
@@ -2036,6 +2237,16 @@ def main() -> int:
                     kw.get("partitioning", "uniform") + " partitioning")
             log(f"plain versions on the card, k = {k}, {what}: identical "
                 f"OccArray for one batch ({len(occ_k)} occurrences)")
+
+        # the dist phase at the headline width (SE ALL's reads from
+        # DIST_FIRST, the 10-mer table, switchpoint 4): shards in this
+        # process, then rank processes joined by gloo on the one card
+        t_dist = time.time()
+        d = slice(DIST_FIRST, DIST_FIRST + DIST_SHARDS * DIST_READS)
+        occ = dist_shards("dist_shards", index, reads[d], nsub[d], pos[d],
+                          smi, record, kmer_table=table, plain=True)
+        dist_ranks("dist_ranks", idx, fq("dist", reads[d]), occ, smi, record)
+        log(f"dist phase on the Vanilla index: {time.time() - t_dist:.1f} s")
 
         del index, table         # card memory for the RLC indexes
         # the blocked build runs beside the RLC section's builds

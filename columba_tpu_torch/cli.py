@@ -9,7 +9,10 @@ scheme folders (``-c``) and scheme collections with per-read selection
 (``-d``), and read trimming (``-T``), on the Vanilla and the with-text RLC
 index; the textless index aligns single-end only, without CIGARs and
 without in-text verification, and the blocked index maps every read batch
-once per block, as in the JAX package. Multi-device runs are not ported.
+once per block, as in the JAX package. Multi-device runs are a library API,
+as in the JAX package (no flag here): ``dist/mesh.py`` shards a batch over
+devices and ranks, ``dist/multihost.py`` joins the ranks, and
+``tools/multihost_dryrun.py`` runs two ranks end to end.
 
 FASTQ single-end input without ``.rhs`` or ``-T`` takes the native parser
 and emitter where the host has them (:func:`_align_single_fast`); the
@@ -203,18 +206,9 @@ def cmd_build(args):
 
 def _device(args):
     """The torch device of ``--device``; a CUDA device must be usable."""
-    import torch
+    from columba_tpu_torch import native
 
-    device = torch.device(args.device)
-    if device.type == "cuda":
-        try:
-            torch.zeros(1, device=device)
-        except (RuntimeError, AssertionError) as e:
-            raise RuntimeError(
-                "align --device cuda: no usable CUDA device; the port never "
-                "falls back to the CPU by itself (--device cpu runs the "
-                "kernels' plain versions)") from e
-    return device
+    return native.usable_device(args.device)
 
 
 # (path, meta mtime, flavor, sa_sparseness, device) -> (arrays, device

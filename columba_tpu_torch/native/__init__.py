@@ -143,6 +143,23 @@ def load_kernels() -> ctypes.CDLL:
         return lib
 
 
+def usable_device(device):
+    """``device`` as a torch device; a CUDA device must be usable. The port
+    never falls back to the CPU by itself: the caller names the device."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        try:
+            torch.zeros(1, device=device)
+        except (RuntimeError, AssertionError) as e:
+            raise RuntimeError(
+                f"no usable CUDA device ({device}); the port never falls back "
+                "to the CPU by itself (a CPU device runs the kernels' plain "
+                "versions)") from e
+    return device
+
+
 KERNELS: dict[str, "Kernel"] = {}
 
 

@@ -103,6 +103,38 @@ class OccArray:
 # Device side
 # ---------------------------------------------------------------------------
 
+def batch_capacity(rows: int, searches: int, switchpoint: int) -> int:
+    """The frontier capacity :func:`match_all_start` sizes for a batch of
+    ``rows`` with ``searches`` live searches a row. Seeded exact prefixes
+    kill most (row, search) lanes before the band phase; with the
+    crossover off survivors stay to the end."""
+    return max(1024, rows * searches // (2 if switchpoint == 0 else 8))
+
+
+def batch_max_locate(rows: int, index=None) -> int:
+    """The locate cap :func:`match_all_start` sizes for a batch of ``rows``
+    on ``index``: four SA rows a row, at least 65,536, and at least what
+    earlier batches on the index grew it to."""
+    return max(1 << 16, 4 * rows,
+               0 if index is None else _ml_hint_get(index))
+
+
+def grown_caps(out: dict, capacity: int, ex_cap: int, max_locate: int,
+               grow_capacity: bool = True, grow_locate: bool = True):
+    """The capacities of a lossless re-run after a pass whose counters are
+    ``out``, or None when nothing spilled: a frontier or compaction
+    overflow grows (capacity, ex_cap) 4x, a locate or verify spill the
+    locate cap 4x; only the knobs allowed to grow do."""
+    g_cap = grow_capacity and int(out["overflow"]) > 0
+    g_ml = grow_locate and (int(out["total"]) > max_locate
+                            or int(out["n_unique"]) > max_locate)
+    if not (g_cap or g_ml):
+        return None
+    if g_cap:
+        capacity, ex_cap = capacity * 4, ex_cap * 4
+    return capacity, ex_cap, max_locate * 4 if g_ml else max_locate
+
+
 def crossover_caps(capacity: int, max_locate: int, switchpoint: int):
     """Derived in-text crossover sizing (itv_cap, split_step, capacity2)."""
     if switchpoint > 0:
@@ -383,13 +415,13 @@ def match_all_start(
         sched = compile_cached(scheme, m, metric, kmer_k=0,
                                partitioning="uniform")
         if capacity is None:
-            capacity = max(1024, batch.shape[0] * sched.num_searches // 2)
+            capacity = batch_capacity(batch.shape[0], sched.num_searches, 0)
         return dict(result=_match_textless(index, host_arrays, batch_dev, R,
                                            k, kb, sched, capacity,
                                            auto_capacity=True))
     auto_locate = max_locate is None
     if auto_locate:
-        max_locate = max(1 << 16, 4 * batch.shape[0], _ml_hint_get(index))
+        max_locate = batch_max_locate(batch.shape[0], index)
     if k == 0 and (kmer_table is None or switchpoint <= 0):
         out, event = _exact_device(index, batch_dev, int(max_locate))
         return dict(exact=dict(out=out, event=event, batch=batch_dev, R=R,
@@ -431,14 +463,11 @@ def match_all_start(
                            else partitioning)
     auto_capacity = capacity is None
     if auto_capacity:
-        # seeded exact prefixes kill most (read, search) lanes before the
-        # band phase; with the crossover off survivors stay to the end.
-        # Under scheme selection only one scheme's searches live per read.
+        # under scheme selection only one scheme's searches live per read
         live_s = sched.num_searches
         if mask_np is not None:
             live_s = int(mask_np.sum(axis=1).max())
-        div = 2 if switchpoint == 0 else 8
-        capacity = max(1024, batch.shape[0] * live_s // div)
+        capacity = batch_capacity(batch.shape[0], live_s, switchpoint)
     if (switchpoint == 0 and ex_split == 0 and kmer_table is not None
             and make_dyn is None and sched.kmer_k > 0 and sched.e_max > 8):
         ex_split, ex_cap = 8, capacity
@@ -503,19 +532,12 @@ def match_all_finish(ctx) -> tuple[OccArray, dict]:
     out = fetch_tree(ctx["out"], ctx["event"])
     cap, ecap, ml = ctx["capacity"], ctx["ex_cap"], ctx["max_locate"]
     n_retries = 0
-    while True:
-        # lossless retries: frontier/compaction overflow -> 4x capacities;
-        # locate/verify spill -> 4x max_locate. Only auto-sized knobs grow.
-        grow_cap = ctx["auto_capacity"] and int(out["overflow"]) > 0
-        grow_ml = ctx["auto_locate"] and (
-            int(out["total"]) > ml or int(out["n_unique"]) > ml)
-        if not (grow_cap or grow_ml):
-            break
-        if grow_cap:
-            cap, ecap = cap * 4, ecap * 4
-        if grow_ml:
-            ml *= 4
-            _ml_hint_bump(ctx["index"], ml)
+    # lossless retries; only auto-sized knobs grow
+    while (grown := grown_caps(out, cap, ecap, ml, ctx["auto_capacity"],
+                               ctx["auto_locate"])) is not None:
+        if grown[2] != ml:
+            _ml_hint_bump(ctx["index"], grown[2])
+        cap, ecap, ml = grown
         n_retries += 1
         out = fetch_tree(*ctx["run"](cap, ecap, ml))
     R, m, k, kb = ctx["R"], ctx["m"], ctx["k"], ctx["kb"]

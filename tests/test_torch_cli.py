@@ -288,11 +288,15 @@ def test_port_imports_no_jax():
     assert len(files) >= 20
     for need in ("search/dynschedule.py", "tools/gather_bench.py",
                  "tools/profile_align.py", "native/__init__.py",
-                 "index/blocked.py"):
+                 "index/blocked.py", "dist/mesh.py", "dist/multihost.py",
+                 "tools/multihost_dryrun.py"):
         assert any(f.replace(os.sep, "/").endswith(need) for f in files), need
-    # the record path and the blocked indexes are in the modules checked
+    # the record path, the blocked indexes and data parallelism are in the
+    # modules checked
     grown = {"cli.py": ("_align_records", "_align_blocked",
                         "_align_blocked_paired"),
+             "dist/mesh.py": ("sharded_match", "make_data_mesh"),
+             "dist/multihost.py": ("initialize", "shard_batch", "local_out"),
              "index/blocked.py": ("build_blocked_index", "LazyBlockText",
                                   "merge_best"),
              "io/fastq.py": ("parse_reads", "trim_records", "records_to_soa"),

@@ -676,6 +676,35 @@ def test_exact_loop_launches(setup, gpu):
         assert 0 < executor.KERNEL.launches <= sched.t_max
 
 
+def test_sharded_match_vs_plain(setup, gpu):
+    """dist.mesh.sharded_match over 2 shards on the card (kernels A-D in
+    each shard) equals the same call on the CPU's plain versions: every
+    array slot for slot, and the six counters."""
+    from columba_tpu_torch.dist import mesh as dmesh
+
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(31)
+    # both strands of 32 reads a shard, as ranks feed them
+    rows = np.concatenate([_reads(rng, g, 32, 100, 2) for _ in range(2)])
+    sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit",
+                                    kmer_k=6)
+    for k in (extend.KERNEL, locate.KERNEL, verify.KERNEL):
+        k.reset()
+    out = [dmesh.sharded_match(
+        dmesh.make_data_mesh(2, index.device), index,
+        torch.from_numpy(rows).to(index.device), sched, 1024, 4096, 2,
+        kmer_table=kmer.build_kmer_table(index, 6), switchpoint=4)
+        for index in (fm, cpu_fm)]
+    for f in dmesh.ARRAYS:
+        assert torch.equal(out[0][f].cpu(), out[1][f]), f
+    for f in dmesh.COUNTERS:
+        assert int(out[0][f]) == int(out[1][f]), f
+    assert int(out[1]["overflow"]) == 0 and bool(out[1]["valid"].any())
+    assert bool((out[1]["rid"][out[1]["valid"]] >= len(rows) // 2).any())
+    for k in (extend.KERNEL, locate.KERNEL, verify.KERNEL):
+        assert k.launches >= 2, k.name
+
+
 @pytest.mark.parametrize("words", [4, 8, 16])
 def test_gather_kernel(gpu, words):
     """Kernel H equals table[idx] for rows of 16, 32 and 64 B; indices past

@@ -95,6 +95,34 @@ def test_match_all_retries_until_lossless():
                                       err_msg=f)
 
 
+
+def test_batch_sizing_and_growth():
+    """The sizing that match_all_start, the dryrun and the smoke share, at
+    the headline batch (32,768 rows, kuch1 at k = 2: 3 searches), and the
+    capacities of a lossless re-run."""
+    assert tpipe.batch_capacity(32768, 3, 4) == 12288
+    assert tpipe.batch_capacity(32768, 3, 0) == 49152
+    assert tpipe.batch_capacity(100, 3, 4) == 1024
+    assert tpipe.batch_max_locate(32768) == 131072
+    assert tpipe.batch_max_locate(10) == 1 << 16
+    g = np.random.default_rng(5).integers(0, 4, 2000).astype(np.uint8)
+    tfm = TFMIndex.from_arrays(build_index_from_codes(g), "cpu")
+    assert tpipe.batch_max_locate(32768, tfm) == 131072
+    tpipe._ml_hint_bump(tfm, 1 << 20)
+    assert tpipe.batch_max_locate(32768, tfm) == 1 << 20
+    ok = dict(overflow=0, total=16, n_unique=16)
+    assert tpipe.grown_caps(ok, 8, 4, 16) is None
+    assert tpipe.grown_caps(dict(ok, overflow=1), 8, 4, 16) == (32, 16, 16)
+    assert tpipe.grown_caps(dict(ok, total=17), 8, 4, 16) == (8, 4, 64)
+    assert tpipe.grown_caps(dict(ok, n_unique=17, overflow=2),
+                            8, 4, 16) == (32, 16, 64)
+    assert tpipe.grown_caps(dict(ok, overflow=1, total=17), 8, 4, 16,
+                            grow_capacity=False) == (8, 4, 64)
+    assert tpipe.grown_caps(dict(ok, overflow=1, total=17), 8, 4, 16,
+                            grow_locate=False) == (32, 16, 16)
+    assert tpipe.grown_caps(dict(ok, total=17), 8, 4, 16,
+                            grow_locate=False) is None
+
 def test_match_all_dynamic_partitions_once_a_dispatch(monkeypatch):
     """Under dynamic partitioning the boundaries are made once a dispatch:
     a lossless re-run makes only the per-read tables again, from the same
