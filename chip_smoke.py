@@ -116,6 +116,30 @@ a CUDA device. It
    the RLC section, ``rlc_dist_shards`` on the pan-genome's first 16,384
    reads.
 
+8. runs the ``big`` section last, with every other index released: one
+   index past 2^31 bases. Right after the kernels are built, a thread
+   starts two child processes one after the other, beside every other
+   section: the FASTA of a 3,100,000,000 bp random genome (GRCh38's scale;
+   24 sequences of 2^27 bp, the layout of the JAX package's
+   ``tools/bigbuild.py``, so chr17 begins at 2^31; 40 runs of N, seed
+   20260819) and its ``cli build`` (SA sparseness 4), whose time and peak
+   RSS are printed. Then three paths through the same helper as the
+   others:
+
+   - ``big_se_all``: ``-a all -e 2`` on 65,536 reads, 320 of them at the
+     runs of N (the only reads that need band steps at this size) and the
+     rest uniform over every sequence, a third of them past 2^31;
+   - ``big_se_best``: ``-a best`` on the same reads;
+   - ``big_pe_best``: ``-a best -F`` on 16,384 ``fr`` pairs;
+
+   each checked as the other paths are (no read or pair with few enough
+   substitutions missing, and none of those past 2^31), with records on
+   chr17 and later required; kernels A, B, C and D must launch on
+   ``big_se_all``, whose first 16,384 reads go through the plain versions
+   once more (the same records), and kernels C and D are held to their
+   plain versions on rows and windows of this index past 2^31 (and across
+   it), and timed.
+
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Any failure raises, so the exit code is
 non-zero and that line is not printed. It needs no network and no JAX.
@@ -128,9 +152,11 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -193,6 +219,9 @@ PATH_KERNELS = {
     "blk_se_best": ("extend", "locate", "verify"),
     "blk_se_rhs": ("extend", "locate", "verify"),
     "blk_pe_best": ("extend", "locate", "verify"),
+    "big_se_all": ("extend", "band_step", "locate", "verify"),
+    "big_se_best": ("extend", "locate", "verify"),
+    "big_pe_best": ("extend", "locate", "verify"),
 }
 # the entries of kernels A, B, C and E each path must go through (see
 # native.Kernel.by_entry), as "kernel.entry"
@@ -221,6 +250,9 @@ PATH_ENTRIES = {
     "blk_se_best": ("extend.loop",),
     "blk_se_rhs": ("extend.loop",),
     "blk_pe_best": ("extend.loop",),
+    "big_se_all": ("extend.loop",),
+    "big_se_best": ("extend.loop",),
+    "big_pe_best": ("extend.loop",),
 }
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
@@ -248,6 +280,26 @@ DIST_READS = 16_384      # reads a shard or a rank holds on the Vanilla index
 DIST_FIRST = 16_384
 N_RLC_DIST_READS = 16_384  # rlc_dist_shards: rlc_se_all's first reads
 DIST_KERNELS = ("extend", "band_step", "locate", "verify")
+# the big section: one index past 2^31 bases (GRCh38's scale), the layout of
+# the JAX package's tools/bigbuild.py (sequences of 2^27 bp: chr17 begins
+# at 2^31), with the smoke genome's 40 runs of N
+BIG_N = 3_100_000_000
+BIG_SEED = 20260819      # tools/bigbuild.py's genome seed
+N_BIG_READS = 65_536     # big_se_all and big_se_best
+N_BIG_PAIRS = 16_384     # big_pe_best
+BIG_WARMUP = 4096
+N_BIG_PLAIN = 16_384     # big_se_all's first reads again through the plain
+BIG_BUILD_TIMEOUT = 1000  # seconds for the FASTA and its cli build
+BIG_PATHS = ("big_se_all", "big_se_best", "big_pe_best")
+TWO31 = 1 << 31
+N_BIG_RUN_READS = 8      # big_se_all's reads at each run of N (band steps)
+# the FASTA, and the positions of its Ns beside it
+BIG_FASTA = ("import sys; import numpy as np; "
+             "from columba_tpu_torch.tools import workload; "
+             "codes, _ = workload.write_genome(sys.argv[1], "
+             "np.random.default_rng(int(sys.argv[2])), int(sys.argv[3]), "
+             "seq_len=workload.BIG_SEQ); "
+             "np.save(sys.argv[4], np.flatnonzero(codes == 4))")
 
 
 def log(msg: str) -> None:
@@ -1756,6 +1808,311 @@ def blocked_section(wd, blk_idx, drive, launches_by_path, chk) -> None:
             raise AssertionError(f"{blk}: records differ from the "
                                  f"monolithic index's ({mono})")
 
+@contextlib.contextmanager
+def smoke_dir():
+    """The smoke's work directory, and the big build's state: the children
+    that :func:`start_big_build` started are stopped on the way out,
+    whatever happened."""
+    with tempfile.TemporaryDirectory(prefix="columba_smoke_") as wd:
+        st = dict(procs=[], lock=threading.Lock())
+        try:
+            yield wd, st
+        finally:
+            stop_children(st)
+
+
+def start_big_build(wd: str, st: dict) -> None:
+    """The big genome's FASTA (``workload.write_genome``, ``BIG_N`` bp in
+    sequences of 2^27 bp with 40 runs of N) and its ``cli build`` (the CLI
+    defaults, SA sparseness 4), two child processes one after the other in
+    a thread of this process, so that both overlap the other sections.
+    Fills ``st`` (from :func:`smoke_dir`) for :func:`finish_big_build`."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    st.update(fa=os.path.join(wd, "big.fa"), idx=os.path.join(wd, "big.cidx"),
+              ns=os.path.join(wd, "big_n.npy"), t0=time.time())
+    free = shutil.disk_usage(wd).free
+    log(f"big genome: {BIG_N} bp; {free} bytes free on the work directory's "
+        f"disk (FASTA about {BIG_N * 81 // 80} bytes, index about "
+        f"{int(BIG_N * 2.41)} bytes)")
+
+    def child(argv):
+        with st["lock"]:
+            if st.get("stopped"):
+                raise RuntimeError("stopped")
+            proc = subprocess.Popen(argv, cwd=repo, stdout=subprocess.DEVNULL,
+                                    stderr=subprocess.PIPE)
+            st["procs"].append(proc)
+        # the children write little to stderr: one read after the exit
+        _, status, ru = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
+        return proc.returncode, proc.stderr.read().decode(errors="replace"), ru
+
+    def run():
+        try:
+            t = time.time()
+            rc, err, _ = child([sys.executable, "-c", BIG_FASTA, st["fa"],
+                                str(BIG_SEED), str(BIG_N), st["ns"]])
+            st["fasta_s"] = time.time() - t
+            if rc != 0:
+                raise RuntimeError(f"big FASTA failed:\n{err[-4000:]}")
+            t = time.time()
+            rc, err, ru = child([sys.executable, "-m",
+                                 "columba_tpu_torch.cli", "build", "-v",
+                                 "-r", st["idx"], "-f", st["fa"]])
+            st.update(build_s=time.time() - t, maxrss_kib=ru.ru_maxrss,
+                      build_err=err)
+            if rc != 0:
+                raise RuntimeError(f"big cli build failed:\n{err[-4000:]}")
+        except BaseException as e:  # raised again by finish_big_build
+            st["error"] = e
+
+    st["thread"] = threading.Thread(target=run, daemon=True)
+    st["thread"].start()
+
+
+def stop_children(st: dict) -> None:
+    with st["lock"]:
+        st["stopped"] = True
+        for proc in st["procs"]:
+            if proc.returncode is None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def finish_big_build(st: dict) -> None:
+    """Waits for :func:`start_big_build`'s thread; raises its failure."""
+    t = time.time()
+    st["thread"].join(timeout=max(BIG_BUILD_TIMEOUT - (t - st["t0"]), 1))
+    if st["thread"].is_alive():
+        stop_children(st)
+        raise AssertionError(f"the big FASTA and cli build took more than "
+                             f"{BIG_BUILD_TIMEOUT} s")
+    if "error" in st:
+        raise st["error"]
+    log(f"big genome FASTA in {st['fasta_s']:.1f} s; cli build (-s 4, a "
+        f"process beside the other sections) in {st['build_s']:.1f} s = "
+        f"{BIG_N / st['build_s'] / 1e6:.2f} Mbp/s, peak host RSS "
+        f"{st['maxrss_kib'] * 1024} bytes; waited {time.time() - t:.1f} s "
+        f"for it; its steps (-v):")
+    for line in st["build_err"].strip().splitlines():
+        log(f"  {line}")
+
+
+def big_section(wd, smi, st, drive, files, warm, argv_of, n_of, index_of,
+                launches_by_path) -> None:
+    """One index past 2^31 bases: the three big paths through ``drive``
+    (reads sampled over every sequence, a third of them past 2^31), their
+    lossless checks with the count of reads past 2^31 and of records on
+    chr17 and later, big_se_all's first reads again through the plain
+    versions (the same records), and kernels C and D against their plain
+    versions on rows and windows of this index past 2^31."""
+    from columba_tpu_torch import cli
+    from columba_tpu_torch.index.build import decoded_text, load_index
+    from columba_tpu_torch.index.kmer import build_kmer_table_cached
+    from columba_tpu_torch.ops import locate, verify
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.tools import bounds, workload
+
+    t_sec = time.time()
+    cli._DEVICE_INDEX_CACHE.clear()      # every earlier index released
+    torch.cuda.empty_cache()
+    idx = st["idx"]
+    arrays = load_index(idx)
+    starts = arrays.seq_starts
+    n_seqs = len(starts) - 1
+    rng = np.random.default_rng(BIG_SEED + 1)
+    text = decoded_text(arrays)
+    # at 3.1 Gbp no uniform read of 65,536 meets one of the 40 runs of N (a
+    # repeat: every run holds the same seed cycle), and only those reads
+    # need band steps; so the first reads begin at the runs, inside their
+    # sequence, and the rest are uniform over every sequence
+    ns = np.load(st["ns"])
+    run_lo = ns[np.r_[True, np.diff(ns) > 1]]
+    run_hi = ns[np.r_[np.diff(ns) > 1, True]] + 1
+    seq = np.searchsorted(starts, run_lo, side="right") - 1
+    span = np.repeat(run_hi - run_lo, N_BIG_RUN_READS) - READ_LEN
+    at = np.repeat(run_lo, N_BIG_RUN_READS) + rng.integers(
+        np.minimum(span, 0), np.maximum(span, 0) + 1)   # inside, or over it
+    at = np.clip(at, np.repeat(starts[seq], N_BIG_RUN_READS),
+                 np.repeat(starts[seq + 1], N_BIG_RUN_READS) - READ_LEN)
+    runs = workload.reads_at(text, at, rng, READ_LEN)
+    uni = workload.sample_reads(text, starts, N_BIG_READS - len(at), rng,
+                                READ_LEN)
+    reads, pos, nsub, flip = (np.concatenate(v) for v in zip(runs, uni))
+    m1, m2, pos_f, pos_r, nsub1, nsub2, swapped = workload.sample_pairs(
+        text, starts, N_BIG_PAIRS, rng, READ_LEN)
+    del text, arrays
+    log(f"big index: {n_seqs} sequences, chr17 begins at {starts[16]}; "
+        f"{len(run_lo)} runs of N, {len(at)} reads at them; "
+        f"{int((pos >= TWO31).sum())} of {N_BIG_READS} reads and "
+        f"{int((pos_f >= TWO31).sum())} of {N_BIG_PAIRS} pairs begin past "
+        f"2^31")
+
+    def fq(tag, codes, prefix="r"):
+        path = os.path.join(wd, tag + ".fq")
+        workload.write_fastq(path, codes, prefix)
+        return path
+
+    files["big_se_all"] = files["big_se_best"] = (fq("big", reads), None)
+    files["big_pe_best"] = (fq("bigp1", m1), fq("bigp2", m2))
+    warm["big_se_all"] = warm["big_se_best"] = (
+        fq("bigw", reads[:BIG_WARMUP], "w"), None)
+    warm["big_pe_best"] = (fq("bigw1", m1[:BIG_WARMUP], "w"),
+                           fq("bigw2", m2[:BIG_WARMUP], "w"))
+    argv_of.update(big_se_all=["-a", "all", "-e", str(K)],
+                   big_se_best=["-a", "best"], big_pe_best=["-a", "best"])
+    n_of.update(big_se_all=N_BIG_READS, big_se_best=N_BIG_READS,
+                big_pe_best=N_BIG_PAIRS)
+    for path in BIG_PATHS:
+        index_of[path] = idx
+        drive(path, f"genome {BIG_N} bp in {n_seqs} sequences")
+    (big_arrays, index), = cli._DEVICE_INDEX_CACHE.values()
+    table = build_kmer_table_cached(index, 10, idx)
+    log(f"big index on the card: {index.nbytes()} bytes + k-mer table "
+        f"{table.nbytes} bytes")
+
+    # -- what came out: every sampled read with few enough substitutions
+    seq_of = np.searchsorted(starts, pos, side="right") - 1
+    want_p1 = pos - starts[seq_of] + 1
+
+    def key(q, rn, rev):               # up to 32 sequences
+        return q * 64 + rn * 2 + rev
+
+    def records(tag):
+        recs = parse_sam(os.path.join(wd, tag + ".sam"))
+        late = int((recs[1] >= 17).sum())
+        log(f"{tag}: {len(recs[0])} records, {late} on chr17 or later")
+        if late == 0:
+            raise AssertionError(f"{tag}: no record on chr17 or later")
+        return recs
+
+    q, rn, p1, fl, nm = records("big_se_all")
+    want = np.nonzero(nsub <= K)[0]
+    dist, _ = nearest((key(q, rn - 1, (fl & 16) > 0), p1, nm),
+                      key(want, seq_of[want], flip[want]), want_p1[want])
+    lost = want[dist > K]
+    past = want[pos[want] >= TWO31]
+    lost_past = lost[pos[lost] >= TWO31]
+    log(f"big SE ALL lossless check: {len(want)} reads with <= {K} "
+        f"substitutions, {len(past)} of them past 2^31; {len(lost)} "
+        f"missing, {len(lost_past)} of them past 2^31")
+    if len(lost) or len(past) == 0:
+        raise AssertionError(f"big SE ALL: reads not found "
+                             f"{lost[:10].tolist()} (or none past 2^31)")
+
+    q, rn, p1, fl, nm = records("big_se_best")
+    best_nm = np.full(N_BIG_READS, 1 << 40, np.int64)
+    np.minimum.at(best_nm, q, nm)
+    want = np.nonzero(nsub <= BEST_CUT)[0]
+    unmapped = want[best_nm[want] > BEST_CUT]
+    worse = want[best_nm[want] > nsub[want]]
+    at_n = want[best_nm[want] == nsub[want]]
+    dist, _ = nearest((key(q, rn - 1, (fl & 16) > 0), p1, nm),
+                      key(at_n, seq_of[at_n], flip[at_n]), want_p1[at_n])
+    lost = at_n[dist > nsub[at_n]]
+    bad = np.concatenate([unmapped, worse, lost])
+    log(f"big SE BEST check: {len(want)} reads with <= {BEST_CUT} "
+        f"substitutions ({int((pos[want] >= TWO31).sum())} past 2^31); "
+        f"{len(unmapped)} without a record, {len(worse)} with best NM above "
+        f"their substitutions, {len(lost)} missing their locus at best NM "
+        f"({int((pos[bad] >= TWO31).sum())} of these past 2^31)")
+    if len(bad) or not (pos[want] >= TWO31).any():
+        raise AssertionError(f"big SE BEST: unmapped {unmapped[:5].tolist()}"
+                             f", worse {worse[:5].tolist()}, lost "
+                             f"{lost[:5].tolist()} (or none past 2^31)")
+
+    q, rn, p1, fl, nm = records("big_pe_best")
+    proper = (fl & 2) > 0
+    ids = np.nonzero((nsub1 <= 2) & (nsub2 <= 2))[0]
+    seq_f = np.searchsorted(starts, pos_f[ids], side="right") - 1
+    found = np.ones(len(ids), bool)
+    for mate_bit, is_fwd in ((64, ~swapped[ids]), (128, swapped[ids])):
+        sel = proper & ((fl & mate_bit) > 0)
+        true_pos = np.where(is_fwd, pos_f[ids], pos_r[ids])
+        d, _ = nearest((key(q[sel], rn[sel] - 1, (fl[sel] & 16) > 0),
+                        p1[sel], nm[sel]),
+                       key(ids, seq_f, ~is_fwd), true_pos - starts[seq_f] + 1)
+        found &= d <= 2
+    past = pos_f[ids] >= TWO31
+    log(f"big PE BEST check: {len(ids)} pairs with <= 2 substitutions in "
+        f"each mate ({int(past.sum())} past 2^31); {int((~found).sum())} "
+        f"missing ({int((~found & past).sum())} past 2^31); "
+        f"{int(proper.sum())} proper-pair records")
+    if not found.all() or not past.any():
+        raise AssertionError(f"big PE BEST: pairs not found "
+                             f"{ids[~found][:10].tolist()}")
+
+    # big_se_all's first reads once more, through the plain versions
+    plain_fq = fq("bigplain", reads[:N_BIG_PLAIN])
+    out = os.path.join(wd, "big_plain.sam")
+    restore = plain_patch()
+    t0 = time.time()
+    try:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["align", "-r", idx, "-S", "kuch1", "-b",
+                           str(BATCH), "-f", plain_fq, "-o", out,
+                           *argv_of["big_se_all"]])
+    finally:
+        restore()
+    same = (rc == 0 and sam_body(out)
+            == sam_body(os.path.join(wd, "big_se_all.sam"), N_BIG_PLAIN))
+    past = int((pos[:N_BIG_PLAIN] >= TWO31).sum())
+    log(f"plain versions on the card, big_se_all's first {N_BIG_PLAIN} "
+        f"reads ({past} past 2^31): "
+        f"{'the same records' if same else 'DIFFERENT records'} "
+        f"({time.time() - t0:.1f} s)")
+    if not same or past < N_BIG_PLAIN // 4:
+        raise AssertionError("big_se_all through the plain versions gives "
+                             "other records (or a quarter of the reads do "
+                             "not lie past 2^31)")
+
+    # kernels C and D on this index's rows and windows past 2^31
+    dev = index.device
+    g = torch.Generator(device="cpu").manual_seed(BIG_SEED)
+    ml = pipeline.batch_max_locate(2 * BATCH)
+    rows = torch.randint(0, index.n + 1, (4 * ml,), generator=g).to(dev)
+    rows = rows[locate.locate_rows_plain(index, rows) >= TWO31][:ml]
+    rows = rows.contiguous()
+    out, rep = check_kernel("locate", lambda: locate.locate_rows(index, rows),
+                            lambda: locate.locate_rows_plain(index, rows))
+    _, steps = locate.locate_rows_plain(index, rows, return_steps=True)
+    b = bounds.locate(rows, steps, out)
+    log(f"kernel locate on the big index ({rows.numel()} rows whose "
+        f"positions lie in [{int(out.min())}, {int(out.max())}]): equal to "
+        f"plain; {rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; "
+        f"bound {b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes']} "
+        f"bytes), share {b['bound_ms'] / rep['ms']:.4f} ({smi})")
+    text = decoded_text(big_arrays)
+    R = 2 * BATCH
+    rs = np.random.default_rng(BIG_SEED + 2)
+    true_pos = np.where(
+        rs.random(R) < 0.25,
+        rs.integers(TWO31 - READ_LEN - 4, TWO31 + 4, R),   # across 2^31
+        rs.integers(TWO31, index.n - READ_LEN - 4, R))
+    pats = torch.from_numpy(np.ascontiguousarray(
+        text[true_pos[:, None] + np.arange(READ_LEN)])).to(dev)
+    rid_np = rs.integers(0, R, ml)
+    rid = torch.from_numpy(rid_np).to(dev)
+    for kb in (K, BEST_CUT):
+        ws = torch.from_numpy(true_pos[rid_np] - kb
+                              + rs.integers(-2, 3, ml)).to(dev)
+        out, rep = check_kernel(
+            "verify", lambda: verify.verify_window(index, pats, rid, ws, kb),
+            lambda: verify.verify_window_plain(index, pats, rid, ws, kb))
+        b = bounds.verify(pats, rid, ws, kb, out)
+        log(f"kernel verify on the big index ({ml} candidates, kb={kb}, "
+            f"window starts in [{int(ws.min())}, {int(ws.max())}], "
+            f"{int((ws < TWO31).sum())} across 2^31): equal to plain; "
+            f"{rep['ms']:.4f} ms vs plain {rep['plain_ms']:.4f} ms; bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes']} bytes, "
+            f"{b['operations']} operations), share "
+            f"{b['bound_ms'] / rep['ms']:.4f} ({smi})")
+    launches = {p: launches_by_path[p] for p in BIG_PATHS}
+    log(f"big section: {time.time() - t_sec:.1f} s; launches {launches}")
+    del table, index, text, big_arrays
+    cli._DEVICE_INDEX_CACHE.clear()
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1789,7 +2146,9 @@ def main() -> int:
         if ln.startswith(NO_FRAME) and "stack frame" in ln:
             raise AssertionError(f"local memory in {ln}")
 
-    with tempfile.TemporaryDirectory(prefix="columba_smoke_") as wd:
+    with smoke_dir() as (wd, big):
+        # the big genome's FASTA and index build beside every other section
+        start_big_build(wd, big)
         rng = np.random.default_rng(SEED)
         fa, idx = os.path.join(wd, "genome.fa"), os.path.join(wd, "g.cidx")
         t0 = time.time()
@@ -2033,7 +2392,7 @@ def main() -> int:
                 path_input_times(path, captured, smi)
 
         for path in PATH_KERNELS:
-            if path not in RLC_PATHS and path not in BLOCKED_PATHS:
+            if path not in (*RLC_PATHS, *BLOCKED_PATHS, *BIG_PATHS):
                 drive(path, f"genome {workload.GENOME_N} bp")
         # the monolithic reference of the blocked PE path: its pairs and
         # flags on this index
@@ -2274,6 +2633,10 @@ def main() -> int:
             starts=starts, seq_of=seq_of, nsub=nsub, flip=flip,
             se_all_check=se_all_check, se_best_check=se_best_check,
             pe_check=pe_check, nsub1=nsub1, nsub2=nsub2))
+        # last, with every other index released: one index past 2^31 bases
+        finish_big_build(big)
+        big_section(wd, smi, big, drive, files, warm, argv_of, n_of,
+                    index_of, launches_by_path)
 
     # one record per kernel, and one more for each named entry of kernels
     # A, B, C and E (its launches are a share of its kernel's)

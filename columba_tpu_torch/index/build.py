@@ -23,12 +23,14 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from columba_tpu_torch.core import alphabet
-from columba_tpu_torch.index.suffix import suffix_array
+from columba_tpu_torch.index.suffix import bwt_rows, suffix_array
+from columba_tpu_torch.logger import logger
 
 INDEX_FORMAT_VERSION = 1
 BLOCK = 128          # chars per occ checkpoint block
@@ -71,30 +73,64 @@ class IndexArrays:
         return self.meta["dollar_rev"]
 
 
+# Chunk sizes of the multi-Gbp passes (module constants so that a test can
+# shrink them and run every pass over several chunks).
+PACK_SPAN = 1 << 24     # codes a chunk of pack_2bit (a multiple of 16)
+UNPACK_SPAN = 1 << 22   # words a chunk of unpack_2bit
+BLOCK_SPAN = 1 << 17    # 128-row blocks a chunk of the occ and bit passes
+ROW_SPAN = 1 << 24      # rows a chunk of the SA sampling and the base count
+
+
+def _spans(n: int, step: int) -> list[tuple[int, int]]:
+    return [(lo, min(lo + step, n)) for lo in range(0, n, step)]
+
+
+def _cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def _each(fn, spans, threads: int | None = None) -> list:
+    """``fn(lo, hi)`` over the spans on ``threads`` threads (default: a
+    core each; numpy's loops release the GIL): the multi-Gbp passes of a
+    build use every core."""
+    if len(spans) < 2:
+        return [fn(lo, hi) for lo, hi in spans]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(threads or _cores()) as pool:
+        return list(pool.map(lambda s: fn(*s), spans))
+
+
 def pack_2bit(codes: np.ndarray) -> np.ndarray:
     """uint8 codes (0..3) -> packed uint32, 16 codes/word, little-end first.
 
-    Chunked (64M codes) so multi-Gbp builds never materialize a 4B/char
-    temporary."""
+    Chunked (``PACK_SPAN`` codes, in parallel) so multi-Gbp builds never
+    materialize a 4B/char temporary."""
     n = len(codes)
     n_words = (n + 15) // 16
     out = np.empty(n_words, dtype=np.uint32)
     shifts = (2 * np.arange(16, dtype=np.uint32))[None, :]
-    CH = 1 << 26  # codes per chunk (multiple of 16)
-    for lo in range(0, n_words * 16, CH):
-        hi = min(lo + CH, n_words * 16)
+
+    def one(lo, hi):
         chunk = np.zeros(hi - lo, dtype=np.uint32)
         top = min(n, hi)
         if top > lo:
             chunk[: top - lo] = codes[lo:top]
         out[lo // 16: hi // 16] = np.bitwise_or.reduce(
             chunk.reshape(-1, 16) << shifts, axis=1).astype(np.uint32)
+
+    _each(one, _spans(n_words * 16, PACK_SPAN))
     return out
 
 
 def unpack_2bit(words: np.ndarray, n: int) -> np.ndarray:
+    """The first ``n`` codes of packed words. Chunked (``UNPACK_SPAN``
+    words): a multi-Gbp text must not materialize a 4 B/code temporary."""
     shifts = (2 * np.arange(16, dtype=np.uint32))[None, :]
-    codes = ((words[:, None] >> shifts) & 3).astype(np.uint8).reshape(-1)
+    n_words = min(len(words), (n + 15) // 16)
+    codes = np.empty(n_words * 16, dtype=np.uint8)
+    for lo, hi in _spans(n_words, UNPACK_SPAN):
+        codes[lo * 16:hi * 16] = ((words[lo:hi, None] >> shifts) & 3).reshape(-1)
     return codes[:n]
 
 
@@ -117,33 +153,49 @@ def decoded_text(arrays) -> np.ndarray:
     return d
 
 
-def _occ_checkpoints(codes: np.ndarray, n_rows: int) -> np.ndarray:
-    """(blocks, 4) uint32 checkpoints: count of code c in codes[0:128*b)."""
+def _occ_checkpoints(codes: np.ndarray, n_rows: int,
+                     threads: int | None = None) -> np.ndarray:
+    """(blocks, 4) uint32 checkpoints: count of code c in codes[0:128*b).
+    Only whole blocks reach a checkpoint; they are counted in parallel."""
     blocks = (n_rows >> 7) + 1
-    padded = np.zeros(blocks * BLOCK, dtype=np.uint8)
-    padded[:n_rows] = codes[:n_rows]
-    per_block = np.zeros((blocks, 4), dtype=np.int64)
-    view = padded.reshape(blocks, BLOCK)
-    for c in range(4):
-        per_block[:, c] = (view == c).sum(axis=1)
+    full = blocks - 1
+    per_block = np.zeros((full, 4), dtype=np.int64)
+    view = codes[:full * BLOCK].reshape(full, BLOCK)
+
+    def one(lo, hi):
+        for c in range(4):
+            per_block[lo:hi, c] = (view[lo:hi] == c).sum(axis=1)
+
+    _each(one, _spans(full, BLOCK_SPAN), threads)
     ckpt = np.zeros((blocks, 4), dtype=np.int64)
-    np.cumsum(per_block[:-1], axis=0, out=ckpt[1:])
+    np.cumsum(per_block, axis=0, out=ckpt[1:])
     return ckpt.astype(np.uint32)
 
 
-def _pack_bits(bits: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+def _pack_bits(bits: np.ndarray, threads: int | None = None
+               ) -> tuple[np.ndarray, np.ndarray]:
     """bool array -> (packed uint32 words, per-128-bit-block rank ckpts).
 
     Bit (pos & 31) of word pos>>5, little-endian within each byte — i.e.
-    numpy packbits(bitorder='little') viewed as little-endian uint32."""
+    numpy packbits(bitorder='little') viewed as little-endian uint32.
+    Whole blocks in parallel, then the last (zero-padded) one."""
     n = len(bits)
     blocks = (n >> 7) + 1
-    padded = np.zeros(blocks * BLOCK, dtype=np.uint8)
-    padded[:n] = bits
-    words = np.packbits(padded, bitorder="little").view("<u4").copy()
-    per_block = padded.reshape(blocks, BLOCK).sum(axis=1, dtype=np.int64)
+    full = blocks - 1
+    words = np.empty(blocks * 4, dtype="<u4")
+    per_block = np.zeros(full, dtype=np.int64)
+
+    def one(lo, hi):
+        seg = bits[lo * BLOCK:hi * BLOCK]
+        words[lo * 4:hi * 4] = np.packbits(seg, bitorder="little").view("<u4")
+        per_block[lo:hi] = seg.reshape(-1, BLOCK).sum(axis=1, dtype=np.int64)
+
+    _each(one, _spans(full, BLOCK_SPAN), threads)
+    tail = np.zeros(BLOCK, dtype=np.uint8)
+    tail[:n - full * BLOCK] = bits[full * BLOCK:]
+    words[full * 4:] = np.packbits(tail, bitorder="little").view("<u4")
     rank = np.zeros(blocks, dtype=np.int64)
-    np.cumsum(per_block[:-1], out=rank[1:])
+    np.cumsum(per_block, out=rank[1:])
     return words, rank.astype(np.uint32)
 
 
@@ -166,6 +218,54 @@ def _minstd_uniform4(count: int) -> np.ndarray:
     return out
 
 
+# ASCII whitespace other than the newline (bytes.strip removes all of it)
+_OTHER_SPACE = (b" ", b"\t", b"\r", b"\x0b", b"\x0c")
+# alphabet.encode as a bytes.translate table
+_ENCODE = bytes(alphabet.encode(bytes(range(256))))
+
+
+def _fasta_records(data: bytes, add) -> None:
+    """``add(name, sequence)`` for each FASTA record of ``data``, as a
+    line reader gives them: each line stripped, empty lines skipped, a line
+    starting with '>' a header (its first word the name), lines before the
+    first header ignored.
+
+    A record runs from a '>' at the start of a line to the next; its
+    sequence is its body with the newlines removed, one C pass a record (a
+    multi-Gbp FASTA has tens of millions of lines). Only a body that holds
+    other whitespace (CR line ends, blanks, an indented header) is read
+    line by line."""
+    s = 0
+    while True:
+        end = data.find(b"\n>", s)
+        end = len(data) if end < 0 else end
+        if data.startswith(b">", s):
+            eol = data.find(b"\n", s, end)
+            eol = end if eol < 0 else eol
+            name, body = data[s + 1:eol].split()[0].decode(), data[eol:end]
+        else:                                       # before the first header
+            name, body = None, data[s:end]
+        if any(c in body for c in _OTHER_SPACE):
+            parts: list[bytes] = []
+            for line in body.split(b"\n"):
+                line = line.strip()
+                if not line:
+                    continue
+                if line.startswith(b">"):
+                    if name is not None:
+                        add(name, b"".join(parts))
+                    name, parts = line[1:].split()[0].decode(), []
+                else:
+                    parts.append(line)
+            if name is not None:
+                add(name, b"".join(parts))
+        elif name is not None:
+            add(name, body.replace(b"\n", b""))
+        if end == len(data):
+            return
+        s = end + 1
+
+
 def preprocess_fasta(
     fasta_paths: list[str], seed: int = 42, seed_length: int = 100
 ) -> tuple[np.ndarray, list[str], np.ndarray]:
@@ -183,33 +283,18 @@ def preprocess_fasta(
     chunks: list[np.ndarray] = []
     starts = [0]
     total = 0
+
+    def add(name, seq: bytes):
+        nonlocal total
+        codes = np.frombuffer(seq.translate(_ENCODE), dtype=np.uint8)
+        names.append(name)
+        chunks.append(codes)
+        total += len(codes)
+        starts.append(total)
+
     for path in fasta_paths:
         with open(path, "rb") as f:
-            name = None
-            seq_parts: list[bytes] = []
-
-            def flush():
-                nonlocal total
-                if name is None:
-                    return
-                seq = b"".join(seq_parts)
-                codes = alphabet.encode(seq)
-                names.append(name)
-                chunks.append(codes)
-                total += len(codes)
-                starts.append(total)
-
-            for line in f:
-                line = line.strip()
-                if not line:
-                    continue
-                if line.startswith(b">"):
-                    flush()
-                    name = line[1:].split()[0].decode()
-                    seq_parts = []
-                else:
-                    seq_parts.append(line)
-            flush()
+            _fasta_records(f.read(), add)
     if not chunks:
         raise ValueError("no sequences found")
     codes = np.concatenate(chunks)
@@ -250,64 +335,15 @@ def build_index_from_codes(
             f"text length {n} exceeds the uint32 index ceiling {MAX_N} "
             "(~4.29 Gbp); split the input or use the RLC flavor per bin")
 
-    CH = 1 << 26  # chunk length for multi-Gbp temporaries
-
-    def bwt_of(text: np.ndarray):
-        """BWT rows of text+'$' with '$' slot as code 0.
-
-        Returns (bwt codes (big,), dollar row, sa (n,)). Chunked gathers: a
-        GRCh38-scale build must not allocate int64 temporaries of the whole
-        text beyond the SA itself."""
-        sa = suffix_array(text, method=sa_method)
-        dollar_row = int(np.nonzero(sa == 0)[0][0]) + 1  # +1: '$' row first
-        bwt_codes = np.empty(big, dtype=np.uint8)
-        bwt_codes[0] = text[n - 1]
-        for lo in range(0, n, CH):
-            hi = min(lo + CH, n)
-            seg = sa[lo:hi]
-            # seg may be uint32: guard the 0-1 wrap instead of clamping
-            idx = np.where(seg == 0, seg, seg - 1)
-            bwt_codes[lo + 1:hi + 1] = text[idx]
-        bwt_codes[dollar_row] = 0  # '$' slot stored as code 0
-        return bwt_codes, dollar_row, sa
-
-    f = int(sa_sparseness)
-
-    def build_fwd():
-        bwt_codes, dollar_fwd, sa = bwt_of(codes)
-        occ = _occ_checkpoints(bwt_codes, big)
-        # sparse SA sampling over sa_full = [n] + sa
-        sampled = np.empty(big, dtype=bool)
-        sampled[0] = (n % f) == 0
-        for lo in range(0, n, CH):
-            hi = min(lo + CH, n)
-            np.equal(sa[lo:hi] % f, 0, out=sampled[lo + 1:hi + 1])
-        sa_samples = np.empty(int(sampled.sum()), dtype=np.uint32)
-        if sampled[0]:
-            sa_samples[0] = n
-        w = int(sampled[0])
-        for lo in range(0, n, CH):
-            hi = min(lo + CH, n)
-            vals = sa[lo:hi][sampled[lo + 1:hi + 1]]
-            sa_samples[w:w + len(vals)] = vals
-            w += len(vals)
-        sa_bits, sa_bits_rank = _pack_bits(sampled)
-        return bwt_codes, dollar_fwd, occ, sa_samples, sa_bits, sa_bits_rank
-
-    def build_rev():
-        rcodes = codes[::-1].copy()
-        rbwt_codes, dollar_rev, rsa = bwt_of(rcodes)
-        del rsa, rcodes
-        rocc = _occ_checkpoints(rbwt_codes, big)
-        return rbwt_codes, dollar_rev, rocc
-
-    # The two directions are independent; the native SA-IS releases the GIL
-    # (ctypes) and the numpy passes mostly do too, so two threads overlap the
-    # dominant cost (the reference instead runs them sequentially,
-    # src/buildindex.cpp:1964-1996). Each direction peaks at roughly 12
-    # bytes/bp (SA + native text copy + bucket/temp buffers), so overlap
-    # doubles that; fall back to sequential when 2x would not fit in free
-    # host RAM (the 4.29 Gbp ceiling regime).
+    # The two directions are independent; the native suffix sorts release
+    # the GIL (ctypes) and the numpy passes mostly do too, so two threads
+    # overlap the dominant cost (the reference instead runs them
+    # sequentially, src/buildindex.cpp:1964-1996), each on half the cores.
+    # Each direction peaks at roughly 12 bytes/bp (SA + native text copy +
+    # bucket/temp buffers; the bucket sort's counts are at most 0.54 GB,
+    # whatever the core count), so overlap doubles that; fall back to
+    # sequential when 2x would not fit in free host RAM (the 4.29 Gbp
+    # ceiling regime).
     overlap = True
     try:
         with open("/proc/meminfo") as mf:
@@ -316,6 +352,56 @@ def build_index_from_codes(
         overlap = 2 * 12 * n < avail_kb * 1024 * 0.9
     except Exception:
         overlap = n < 2_000_000_000
+    threads = max(1, _cores() // 2) if overlap else _cores()
+
+    def bwt_of(text: np.ndarray, direction: str):
+        """BWT rows of text+'$' with '$' slot as code 0.
+
+        Returns (bwt codes (big,), dollar row, sa (n,)). One parallel
+        native gather (``suffix.bwt_rows``): a GRCh38-scale build must not
+        allocate int64 temporaries of the whole text beyond the SA itself."""
+        t0 = time.time()
+        sa = suffix_array(text, method=sa_method, threads=threads)
+        logger.verbose_msg(f"build: {direction} suffix array of {n} bases "
+                           f"in {time.time() - t0:.1f} s")
+        bwt_codes, dollar_row = bwt_rows(text, sa, threads=threads)
+        return bwt_codes, dollar_row, sa
+
+    f = int(sa_sparseness)
+
+    def build_fwd():
+        bwt_codes, dollar_fwd, sa = bwt_of(codes, "forward")
+        occ = _occ_checkpoints(bwt_codes, big, threads)
+        # sparse SA sampling over sa_full = [n] + sa, in parallel chunks
+        sampled = np.empty(big, dtype=bool)
+        sampled[0] = (n % f) == 0
+        spans = _spans(n, ROW_SPAN)
+
+        def mark(lo, hi):
+            np.equal(sa[lo:hi] % f, 0, out=sampled[lo + 1:hi + 1])
+            return int(np.count_nonzero(sampled[lo + 1:hi + 1]))
+
+        at = np.cumsum([int(sampled[0])] + _each(mark, spans, threads))
+        sa_samples = np.empty(int(at[-1]), dtype=np.uint32)
+        if sampled[0]:
+            sa_samples[0] = n
+
+        def take(lo, hi):
+            w = int(at[lo // ROW_SPAN])
+            vals = sa[lo:hi][sampled[lo + 1:hi + 1]]
+            sa_samples[w:w + len(vals)] = vals
+
+        _each(take, spans, threads)
+        sa_bits, sa_bits_rank = _pack_bits(sampled, threads)
+        return bwt_codes, dollar_fwd, occ, sa_samples, sa_bits, sa_bits_rank
+
+    def build_rev():
+        rcodes = codes[::-1].copy()
+        rbwt_codes, dollar_rev, rsa = bwt_of(rcodes, "reverse")
+        del rsa, rcodes
+        rocc = _occ_checkpoints(rbwt_codes, big, threads)
+        return rbwt_codes, dollar_rev, rocc
+
     if overlap:
         from concurrent.futures import ThreadPoolExecutor
 
@@ -330,7 +416,10 @@ def build_index_from_codes(
             build_fwd()
         rbwt_codes, dollar_rev, rocc = build_rev()
 
-    char_counts = np.bincount(codes, minlength=4).astype(np.int64)
+    # chunked: bincount widens its input to int64 (8 B a base)
+    char_counts = np.zeros(4, dtype=np.int64)
+    for lo, hi in _spans(n, ROW_SPAN):
+        char_counts += np.bincount(codes[lo:hi], minlength=4)
     counts = np.zeros(4, dtype=np.int64)
     counts[0] = 1  # '$'
     np.cumsum(char_counts[:-1], out=counts[1:])
@@ -384,13 +473,19 @@ def build_index(
     """End-to-end: FASTA file(s) -> index arrays (optionally persisted)."""
     if isinstance(fasta_paths, str):
         fasta_paths = [fasta_paths]
+    t0 = time.time()
     codes, names, starts = preprocess_fasta(fasta_paths, seed=seed,
                                             seed_length=seed_length)
+    logger.verbose_msg(f"build: FASTA parsed in {time.time() - t0:.1f} s")
+    t0 = time.time()
     idx = build_index_from_codes(
         codes, names, starts, sa_sparseness=sa_sparseness, sa_method=sa_method
     )
+    logger.verbose_msg(f"build: index arrays in {time.time() - t0:.1f} s")
     if out_dir is not None:
+        t0 = time.time()
         save_index(idx, out_dir)
+        logger.verbose_msg(f"build: saved in {time.time() - t0:.1f} s")
         if write_preprocessed_fasta:
             write_fasta_back(codes, names, starts, os.path.join(out_dir, "preprocessed.fa"))
     return idx

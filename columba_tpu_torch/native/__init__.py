@@ -64,7 +64,7 @@ def load(name: str, sources: list[str]) -> ctypes.CDLL | None:
         try:
             if not _fresh(so_path, srcs):
                 _run_build(["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                            "-std=c++17", *srcs], so_path, 600)
+                            "-pthread", "-std=c++17", *srcs], so_path, 600)
             lib = ctypes.CDLL(so_path)
         except (subprocess.CalledProcessError, FileNotFoundError,
                 subprocess.TimeoutExpired, OSError):

@@ -18,6 +18,8 @@ import numpy as np
 
 GENOME_N = 128_000_000       # bench.py's genome size
 N_SEQS = 4
+BIG_N = 3_100_000_000        # GRCh38's scale, tools/bigbuild.py's default
+BIG_SEQ = 1 << 27            # its sequences' length (the last is shorter)
 READ_LEN = 100
 ERR_RATE = 0.01
 PAN_SEED = 20260820          # the JAX package's pan-genome seed
@@ -56,14 +58,20 @@ def write_fasta(path: str, codes: np.ndarray, name: str = "pan") -> None:
             f.write(seq[full:].tobytes() + b"\n")
 
 
-def write_genome(path: str, rng, n: int = GENOME_N,
-                 n_seqs: int = N_SEQS) -> tuple[np.ndarray, np.ndarray]:
-    """Random genome as a FASTA of ``n_seqs`` sequences with 40 runs of N.
-    Returns (codes with 4 at N, sequence start offsets)."""
+def write_genome(path: str, rng, n: int = GENOME_N, n_seqs: int = N_SEQS,
+                 seq_len: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Random genome as a FASTA of ``n_seqs`` equal sequences with 40 runs
+    of N; with ``seq_len``, sequences of that length and a shorter last one
+    (``tools/bigbuild.py``'s layout). Returns (codes with 4 at N, sequence
+    start offsets)."""
     codes = rng.integers(0, 4, n, dtype=np.uint8)
     for s in rng.integers(0, n - 300, 40):
         codes[s:s + int(rng.integers(10, 300))] = 4
-    starts = np.linspace(0, n, n_seqs + 1).astype(np.int64)
+    if seq_len is None:
+        starts = np.linspace(0, n, n_seqs + 1).astype(np.int64)
+    else:
+        starts = np.append(np.arange(0, n, seq_len), n).astype(np.int64)
+        n_seqs = len(starts) - 1
     lut = np.frombuffer(b"ACGTN", dtype=np.uint8)
     with open(path, "wb") as f:
         for i in range(n_seqs):
@@ -85,6 +93,15 @@ def sample_reads(text: np.ndarray, starts: np.ndarray, n: int, rng,
     seq = rng.integers(0, len(starts) - 1, n)
     lo, hi = starts[seq], starts[seq + 1] - m
     pos = lo + (rng.random(n) * (hi - lo)).astype(np.int64)
+    return reads_at(text, pos, rng, m, err_rate)
+
+
+def reads_at(text: np.ndarray, pos: np.ndarray, rng, m: int = READ_LEN,
+             err_rate: float = ERR_RATE):
+    """Reads that begin at ``pos``, with substitutions and flips drawn as
+    :func:`sample_reads` draws them. Returns (codes (n, m), pos,
+    substitution counts, reverse-complemented flags)."""
+    n = len(pos)
     reads = text[pos[:, None] + np.arange(m)[None, :]]
     errs = rng.random((n, m)) < err_rate
     reads = np.where(errs, (reads + rng.integers(1, 4, (n, m))) % 4, reads)

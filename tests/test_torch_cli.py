@@ -289,10 +289,10 @@ def test_port_imports_no_jax():
     for need in ("search/dynschedule.py", "tools/gather_bench.py",
                  "tools/profile_align.py", "native/__init__.py",
                  "index/blocked.py", "dist/mesh.py", "dist/multihost.py",
-                 "tools/multihost_dryrun.py"):
+                 "tools/multihost_dryrun.py", "tools/bigbuild.py"):
         assert any(f.replace(os.sep, "/").endswith(need) for f in files), need
-    # the record path, the blocked indexes and data parallelism are in the
-    # modules checked
+    # the record path, the blocked indexes, data parallelism and the
+    # GRCh38-scale tool are in the modules checked
     grown = {"cli.py": ("_align_records", "_align_blocked",
                         "_align_blocked_paired"),
              "dist/mesh.py": ("sharded_match", "make_data_mesh"),
@@ -302,7 +302,8 @@ def test_port_imports_no_jax():
              "io/fastq.py": ("parse_reads", "trim_records", "records_to_soa"),
              "io/sam.py": ("traceback_batch",),
              "search/strategy.py": ("emit_sam", "emit_rhs"),
-             "search/paired.py": ("pair_merged", "emit_sam_paired")}
+             "search/paired.py": ("pair_merged", "emit_sam_paired"),
+             "tools/bigbuild.py": ("synth_genome", "main", "main_blocks")}
     for rel, names in grown.items():
         with open(os.path.join(PORT, rel)) as f:
             defined = {n.name for n in ast.walk(ast.parse(f.read()))
