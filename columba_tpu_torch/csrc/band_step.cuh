@@ -56,10 +56,10 @@
 // lane's two occ reads depend on its state read, and its writes on the
 // look-back. The design keeps each step one launch with one 8 B read-back
 // (no 4C child state to device memory and back, no PyTorch compaction), a
-// grid over the live lanes only, and 64-lane blocks, so that a frontier of
+// grid over the live lanes only, and 64-lane tiles, so that a frontier of
 // 12,288 lanes spreads over 192 blocks on the 132 SMs; the look-back waits
-// only for a predecessor's counts, which it publishes before its own hint
-// walks and writes.
+// only for a predecessor's counts, which it publishes before its own
+// writes and hint walks.
 //
 // Templated on the band radius KB and the register count W so every array
 // stays in registers: KB 0..4 x W 1..2 are instantiated (what the builtin
@@ -70,21 +70,41 @@
 // so that entry is slower, and it is exact.
 //
 // RLC and textless entries (K18 inside K7, and K20): the same body on the
-// RLC index, templated on the lane width RW (Lane<RW> of common.cuh).
-// "rlc" takes 8-wide lanes; "textless" takes 12-wide lanes (the toehold is
-// updated inside the extension) and 2W colMin slots per side: slot W + w is
-// register w's witness, the back depth (mod 64) at which its value last fell
+// RLC index, templated on the lane width RW. "rlc" takes 8-wide lanes;
+// "textless" takes 12-wide lanes (the toehold is updated with the hints)
+// and 2W colMin slots per side: slot W + w is register w's witness, the
+// back depth (mod 64) at which its value last fell
 // (columba_tpu/search/executor.py:652-675): a reset restarts it at the
 // step's depth, a strict decrease moves it there, a tie keeps it. The
-// extension's first phase (two endpoint rows: every child's interval) runs
-// before the band arithmetic; the run-hint walks run only for the children
-// that stay in the frontier, after the look-back, as they are written (a
-// narrow child drains with its interval only; a pruned one is dropped).
+// extension's first phase (two endpoint rows: every child's interval,
+// BmLane of bm_quad.cuh) runs on the lane's thread before the band
+// arithmetic. The run-hint walks run only for the children that stay in
+// the frontier and are written (a narrow child drains with its interval
+// only; a pruned one is dropped), after the look-back, and not on the
+// lane's thread: a block has 64, 128 or 256 threads (band_step_rlc_kernel,
+// quad_block), its first 64 the tile's lanes; each lane writes its kept
+// children's intervals and stages their walk work (QuadChild: positions,
+// hint seeds, toehold) in shared memory at their rows of the next
+// frontier less the block's first; then the block's 16, 32 or 64 quads
+// take the staged children a quad a child and walk their four hints at
+// once on the run tables (bm_quad.cuh quad_hint: an LF-run read where
+// needed, then the longest of four walks), each lane writing its hint
+// column, lane 1 the toehold. A lane's up to four kept children so no
+// longer wait on its own thread one after another: the block's chain is
+// rows -> look-back -> one LF run and one walk per quad's turn. The block
+// is the widest at which the step's tiles are resident in at most two
+// waves (quad_block): the RLC entries take 93-167 registers, so 256
+// threads fit one or two blocks an SM, and a step of many more tiles
+// would run in waves, each waiting for the last.
+// Bound of those entries: the two endpoint rows per active lane (four 16 B
+// words each), then per child written its walks' 16 B reads of STARTs
+// (a bucket read past eight runs) and an LF-run read where its rows are
+// not c-runs: latency, not bytes.
 // These entries are in band_step_rlc.cu, the Vanilla ones in band_step.cu;
 // this header holds the one body.
 #pragma once
 
-#include "common.cuh"
+#include "bm_quad.cuh"
 
 namespace columba_band {
 
@@ -92,11 +112,13 @@ constexpr int kGhostBit = -2147483647 - 1;   // bit 31
 constexpr int kGhostIdMask = (1 << 21) - 1;
 constexpr int kThreads = 64;                 // lanes of a block: one tile
                                              // (executor.BAND_TILE)
-constexpr int kWarps = kThreads / 32;
+constexpr int kQuadBlock = 256;              // RLC: the most threads of a
+                                             // block, 64 quads
 
 struct BandArgs {
   columba::FmParams fm;
   columba::BmParams bm;
+  columba::BmTables bt;         // the RLC run tables
   const long long* ranges;      // (>= n_live, RW) this step's frontier
   const int* ids;               // (>= n_live,)
   const signed char* band;      // (>= n_live, 2, BW)
@@ -124,6 +146,8 @@ struct BandArgs {
                                 // [2] overflow, [3] block ticket
   unsigned long long* status;   // (tiles, 2) look-back statuses
   unsigned int epoch;           // this launch's stamp, 1 .. 2^30 - 1
+  int block;                    // RLC: threads of a block (64, 128 or 256;
+                                // 0: chosen at launch, see quad_block)
 };
 
 constexpr int kMaxBW = 2 * 13 + 1;   // ladder cutoff 13 (BEST_CUTOFF)
@@ -187,11 +211,11 @@ __device__ __forceinline__ void look_back(const unsigned long long* st,
   }
 }
 
-// KB >= 0: sizes fixed at compile time. KB < 0: the generic entry. RW: lane
-// width (4 Vanilla, 8 RLC, 12 textless with witness slots).
-template <int KB, int WT, bool DYN, int RW = 4>
-__global__ void __launch_bounds__(kThreads)
-band_step_kernel(BandArgs a) {
+// The body of every entry. KB >= 0: sizes fixed at compile time. KB < 0:
+// the generic entry. RW: lane width (4 Vanilla, 8 RLC, 12 textless with
+// witness slots).
+template <int KB, int WT, bool DYN, int RW>
+__device__ __forceinline__ void band_step(const BandArgs& a) {
   constexpr bool kGeneric = KB < 0;
   constexpr bool TRACK = RW == 12;
   constexpr int BWMAX = kGeneric ? kMaxBW : 2 * KB + 1;
@@ -200,10 +224,17 @@ band_step_kernel(BandArgs a) {
   const int W = kGeneric ? a.W : WMAX;
   const int Wp = TRACK ? 2 * W : W;
   constexpr int INF = columba::INF;
+  // at most: a thread a lane on the Vanilla index
+  constexpr int kBlockWarps = (RW == 4 ? kThreads : kQuadBlock) / 32;
   extern __shared__ int smeta[];
   __shared__ long long s_tile;
-  __shared__ unsigned s_warp[kWarps], s_act[kWarps];
+  __shared__ unsigned s_warp[kBlockWarps], s_act[kBlockWarps];
   __shared__ unsigned long long s_base[2];
+  // RLC: the children a block keeps, for the quads' hint walks (slot =
+  // the child's row of the next frontier less the block's first; -1 where
+  // the child needs no walk)
+  __shared__ columba::QuadChild s_child[RW > 4 ? 4 * kThreads : 1];
+  __shared__ long long s_dst[RW > 4 ? 4 * kThreads : 1];
   if (threadIdx.x == 0)
     s_tile = static_cast<long long>(atomicAdd(a.ctr + 3, 1ull));
   if (!DYN) {
@@ -213,7 +244,8 @@ band_step_kernel(BandArgs a) {
   __syncthreads();
   const long long tile = s_tile;
   const long long i = tile * kThreads + threadIdx.x;
-  const bool in = i < a.n_live;
+  // on the RLC index the threads past the tile's lanes only walk hints
+  const bool in = threadIdx.x < kThreads && i < a.n_live;
 
   uint32_t par[RW];
   int ids = 0;
@@ -369,8 +401,10 @@ band_step_kernel(BandArgs a) {
   if (lane_id == 0) s_act[warp] = acts;
   __syncthreads();
   unsigned before = 0, total = 0, act_total = 0;
+  const int warps = static_cast<int>(blockDim.x >> 5);
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
+  for (int w = 0; w < kBlockWarps; ++w) {
+    if (w >= warps) break;
     before += w < warp ? s_warp[w] : 0u;
     total += s_warp[w];
     act_total += s_act[w];
@@ -409,15 +443,22 @@ band_step_kernel(BandArgs a) {
   long long q = a.cnt + static_cast<long long>(s_base[1]) + (excl >> 16);
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
+    if constexpr (RW > 4) {
+      if (stays[c]) {
+        const long long slot = p - static_cast<long long>(s_base[0]);
+        const bool walk = keepv && p < a.cap;
+        s_dst[slot] = walk ? p : -1;
+        if (walk) lane.stage(a.bm, c, s_child[slot]);
+      }
+    }
     if (stays[c] && p < a.cap) {
       long long* cr = a.o_ranges + RW * p;
       if (keepv) {
-        uint32_t chv[RW];
+        // RLC: the hints (columns 4-7) and the toehold (8-10) come from a
+        // quad below
 #pragma unroll
-        for (int k = 0; k < RW; ++k) chv[k] = k < 4 ? lane.pos(c, k) : 0u;
-        if (RW > 4) lane.hints(a.bm, c, chv);
-#pragma unroll
-        for (int k = 0; k < RW; ++k) cr[k] = chv[k];
+        for (int k = 0; k < 4; ++k) cr[k] = lane.pos(c, k);
+        if (RW >= 12) cr[11] = 0;
       } else {
 #pragma unroll
         for (int k = 0; k < RW; ++k) cr[k] = par[k];
@@ -450,13 +491,88 @@ band_step_kernel(BandArgs a) {
     }
     q += nar[c];
   }
+
+  // ---- RLC: the hint walks of the kept children, a quad a child ----
+  if constexpr (RW > 4) {
+    __syncthreads();
+    const unsigned slots = total & 0xFFFFu;
+    const int lq = threadIdx.x & 3;
+    for (unsigned sl = threadIdx.x >> 2; sl < slots;
+         sl += blockDim.x >> 2) {
+      const long long dst = s_dst[sl];
+      if (dst < 0) continue;            // the quad skips it together
+      const columba::QuadChild& ch = s_child[sl];
+      uint32_t toe[3] = {ch.toe[0], ch.toe[1], ch.toe[2]};
+      const uint32_t run = columba::quad_hint<RW>(a.bm, a.bt, ch, lq, toe);
+      long long* cr = a.o_ranges + RW * dst;
+      cr[4 + ((lq + ((ch.flags & 1u) ? 0 : 2)) & 3)] = run;
+      if (RW >= 12 && lq == 1) {
+        cr[8] = toe[0];
+        cr[9] = toe[1];
+        cr[10] = toe[2];
+      }
+    }
+  }
+}
+
+// Vanilla entries: a thread a lane, a block a tile
+template <int KB, int WT, bool DYN>
+__global__ void __launch_bounds__(kThreads) band_step_kernel(BandArgs a) {
+  band_step<KB, WT, DYN, 4>(a);
+}
+
+// RLC entries: up to 256 threads a tile, as many registers as the lane's
+// arithmetic takes (up to 255: at one block an SM the wider bands keep
+// theirs without a spill)
+template <int KB, int WT, bool DYN, int RW>
+__global__ void __launch_bounds__(kQuadBlock, 1)
+band_step_rlc_kernel(BandArgs a) {
+  band_step<KB, WT, DYN, RW>(a);
+}
+
+// RLC entries: the threads of a block, the most of 256 and 128 at which
+// the step's tiles are resident in at most two waves (the occupancy of the
+// entry's registers and shared memory on this device, cached per entry);
+// else 64. More threads a tile walk more kept children at once; fewer keep
+// more tiles resident. Timed on the card at 64, 128 and 256 on six steps
+// (tools/kernel_bench.py), this rule picked the fastest on five and one
+// within 12 % on the sixth, where one wave picked it on four.
+template <int KB, int WT, bool DYN, int RW>
+int quad_block(long long tiles, size_t smem) {
+  static int per_sm[2] = {-1, -1};
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return kThreads;
+  }
+  for (int k = 0; k < 2; ++k) {
+    const int threads = kQuadBlock >> k;
+    if (per_sm[k] < 0 &&
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm[k], band_step_rlc_kernel<KB, WT, DYN, RW>, threads,
+            smem) != cudaSuccess)
+      per_sm[k] = 0;
+    if (2LL * per_sm[k] * sms >= tiles) return threads;
+  }
+  return kThreads;
 }
 
 template <int KB, int WT, bool DYN = false, int RW = 4>
 int launch(const BandArgs& a, cudaStream_t stream) {
   const size_t smem = DYN ? 0 : sizeof(int) * 7 * a.S;
-  band_step_kernel<KB, WT, DYN, RW>
-      <<<columba::grid_for(a.n_live, kThreads), kThreads, smem, stream>>>(a);
+  const unsigned tiles =
+      static_cast<unsigned>((a.n_live + kThreads - 1) / kThreads);
+  if constexpr (RW == 4) {
+    band_step_kernel<KB, WT, DYN><<<tiles, kThreads, smem, stream>>>(a);
+  } else {
+    const int threads =
+        a.block > 0 ? a.block : quad_block<KB, WT, DYN, RW>(tiles, smem);
+    band_step_rlc_kernel<KB, WT, DYN, RW>
+        <<<tiles, threads, smem, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,6 +649,8 @@ inline bool common_args(BandArgs& a, const long long* ranges, const int* ids,
   a.status = status;
   a.epoch = epoch;
   return !(kb < 0 || W < 1 || a.bw > kMaxBW || W > kMaxW || n_live < 1 ||
+           !(a.block == 0 || a.block == 64 || a.block == 128 ||
+             a.block == 256) ||
            (n_live + kThreads - 1) / kThreads > tiles || epoch == 0 ||
            epoch > 0x3FFFFFFFu || cap < 0 || M < 0 || cnt < 0 || cnt > M);
 }

@@ -9,23 +9,28 @@
 //
 // Bound: as the Vanilla entries, the two endpoint rows per active lane (four
 // 16 B words each) and then, per child that stays in the frontier, the
-// chains of dependent 4 B reads of its run-hint walks: latency, not bytes.
-// The walks run after the block has published its counts, so no later
-// block waits on them.
+// chain of its run-hint walks on the run tables, a quad of threads a child
+// (bm_quad.cuh): latency, not bytes. The walks run after the block has
+// published its counts, so no later block waits on them.
 #include "band_step.cuh"
 
 extern "C" int columba_band_step_rlc(
     const int* fused, unsigned r_fwd, unsigned r_rev, unsigned f0,
     unsigned f1, unsigned f2, unsigned f3, unsigned n,
-    const long long* ranges, const int* ids, const signed char* band,
-    const signed char* colmin, const int* mrow, int S, const int* dyn_meta,
+    const unsigned* starts, unsigned starts_rev, const int* run_at,
+    const int* run_at_rev, int shift, const long long* ranges, const int* ids,
+    const signed char* band, const signed char* colmin, const int* mrow,
+    int S, const int* dyn_meta,
     const signed char* pchars, int T, int t, int kb, int W, int switchpoint,
     long long n_live, long long cap, long long* o_ranges, int* o_ids,
     signed char* o_band, signed char* o_colmin, long long* itv, long long M,
     long long cnt, unsigned long long* ctr, unsigned long long* status,
-    long long tiles, unsigned epoch, int rw, cudaStream_t stream) {
+    long long tiles, unsigned epoch, int rw, int block,
+    cudaStream_t stream) {
   columba_band::BandArgs a{};
+  a.block = block;
   a.bm = columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
+  a.bt = columba::bm_tables(starts, starts_rev, run_at, run_at_rev, shift);
   if (!columba_band::common_args(a, ranges, ids, band, colmin, mrow, S,
                                  pchars, T, t, kb, W, switchpoint, n_live,
                                  cap, o_ranges, o_ids, o_band, o_colmin, itv,

@@ -1,22 +1,29 @@
-// The RLC (b-move) extension step of kernels E and F, four lanes a row.
+// The RLC (b-move) extension step, four lanes a child: kernels A (its loop
+// and per-step entries), B (its rlc, per_lane_rlc and textless entries), E
+// and F.
 //
-// Computes what columba_tpu/ops/bextend.py extend_char computes (with
-// _run_of_pos, _ff_forward and _ff_backward) for one row and one char,
-// every column bit-identical, run hints included; an empty child is the
-// zero range. Kernels A and B keep BmLane (common.cuh).
+// Computes what columba_tpu/ops/bextend.py extend_char / extend_all compute
+// (with _run_of_pos, _ff_forward and _ff_backward) for one child, every
+// column bit-identical, run hints and toeholds included; an empty child is
+// the zero range.
 //
-// What bounds the step is a chain of dependent reads, not bytes. BmLane
-// runs it on one thread: the two endpoint rows, then the chosen child's two
-// LF-run reads, then four run-hint walks one after another, each a chain of
-// 4 B reads 80 B apart (a new sector each) that falls back to a binary
-// search of about 23 probes past FF_CAP runs. Here a quad of lanes owns the
-// row and the step is three rounds deep in the common case:
-//   1. the two endpoint rows, two 16 B words a lane (lane 0: lo row w0 w1,
-//      lane 1: hi row w0 w1, lane 2: lo row w2 w4, lane 3: hi row w3 w4),
-//      shared with __shfl_sync within the quad;
+// What bounds the step is a chain of dependent reads, not bytes. A thread
+// that owns the child alone reads the two endpoint rows, then the chosen
+// child's two LF-run reads, then walks its four run hints one after
+// another, each a chain of 4 B reads 80 B apart on the fused rows (a new
+// sector each) that falls back to a binary search of about 23 probes past
+// FF_CAP runs. Here a quad of lanes owns the child and the step is three rounds
+// deep in the common case:
+//   1. the two endpoint rows (quad_extend: two 16 B words a lane, lane 0 lo
+//      row w0 w1, lane 1 hi row w0 w1, lane 2 lo row w2 w4, lane 3 hi row
+//      w3 w4, shared with __shfl_sync within the quad; kernel B: the lane's
+//      own thread, which needs every child's width for its band arithmetic,
+//      and hands the children it keeps to the quads as QuadChild records);
 //   2. lanes 0 and 1 read the LF run of the next / previous c-run, but only
 //      where the row read in round 1 is not itself a c-run (its LF run is
-//      in word 0); lanes 2 and 3 start their walks at once;
+//      in word 0); on 12-wide lanes lane 1 reads that run's START, END,
+//      SA_LAST and CUM words as well where the toehold resets from its
+//      samples; lanes 2 and 3 start their walks at once;
 //   3. each lane walks one run hint (a_lo, a_hi - 1, b_lo forward; b_hi - 1
 //      backward) on the compact run tables of index/bmove.py run_tables:
 //      one 4 B START a run, so a 16 B-aligned read of twelve entries
@@ -35,7 +42,7 @@ namespace columba {
 
 constexpr int QUAD_WINDOW = 8;   // runs one walk read covers (bextend WINDOW)
 
-// kernels E and F's run tables (index/bmove.py run_tables)
+// the run tables (index/bmove.py run_tables)
 struct BmTables {
   const uint32_t* starts;   // fwd runs' START, then rev's at starts_rev;
                             // n + 1 past each sentinel
@@ -100,10 +107,112 @@ __device__ __forceinline__ uint32_t quad_get(unsigned mask, uint32_t v,
   return __shfl_sync(mask, v, lane, 4);
 }
 
-// One RLC extension of the quad's 8-wide range r (the same in its four
+__device__ __forceinline__ uint32_t pick4(const uint4& w, int c) {
+  return c == 0 ? w.x : c == 1 ? w.y : c == 2 ? w.z : w.w;
+}
+
+// One non-empty child's walk work: what lane q of a quad needs to find its
+// run hint and, on 12-wide lanes, what lane 1 needs for the toehold.
+struct QuadChild {
+  uint32_t pos[4];   // the positions the hints must hold: active lo,
+                     // active hi - 1, other lo, other hi - 1
+  int h[4];          // where the walks start: lanes 0 and 1 the LF run
+                     // itself or (flag bits 1, 2) the run whose LF run it
+                     // is; lanes 2 and 3 the parent's other-side hints
+  uint32_t flags;    // bit 0 backward; bits 1, 2: lane 0, 1 reads the LF
+                     // run of run h; bit 3: lane 1 resets the toehold from
+                     // run h's samples; bits 4-5 the char
+  uint32_t toe[3];   // the child's toehold [value, offset, flag]; with bit
+                     // 3, toe[1] is first[c] - a_lo, lane 1 adds the rest
+};
+
+// The QuadChild of child c (width w > 0, active lo al, other lo bl) of a
+// parent read in round 1: own_lo / own_hi whether the parent's lo / hi row
+// is itself a c-run, lf_lo / lf_hi their LF runs, next_c / prev_c the
+// next / previous c-run (PREV = -1 clips to run 0 in quad_hint, as the JAX
+// int32 cast does). RW 12: r holds the parent's toehold at 8..10, parent_w
+// its width, sa_first_hi and cum_hi_c the hi row's SA_FIRST and CUM[c]
+// (bextend.py:204-253: the anchor survives when every parent occurrence
+// extends by c, start - 1 on prepend, end + 1 on append; otherwise it
+// resets from the queried side's samples: the last c-row of the parent is
+// hi - 1 itself, its run's FIRST sample, or the previous c-run's LAST row).
+template <int RW>
+__device__ __forceinline__ void quad_child(
+    const BmParams& p, const uint32_t* r, bool bwd, int c, uint32_t w,
+    uint32_t al, uint32_t bl, bool own_lo, bool own_hi, uint32_t lf_lo,
+    uint32_t lf_hi, uint32_t next_c, uint32_t prev_c, int b_run_lo,
+    int b_run_hi1, uint32_t parent_w, uint32_t sa_first_hi,
+    uint32_t cum_hi_c, QuadChild& ch) {
+  ch.pos[0] = al;
+  ch.pos[1] = al + w - 1u;
+  ch.pos[2] = bl;
+  ch.pos[3] = bl + w - 1u;
+  ch.h[0] = static_cast<int>(own_lo ? lf_lo : next_c);
+  ch.h[1] = static_cast<int>(own_hi ? lf_hi : prev_c);
+  ch.h[2] = b_run_lo;
+  ch.h[3] = b_run_hi1;
+  ch.flags = (bwd ? 1u : 0u) | (own_lo ? 0u : 2u) | (own_hi ? 0u : 4u) |
+             (static_cast<uint32_t>(c) << 4);
+  if constexpr (RW >= 12) {
+    if (w == parent_w) {
+      ch.toe[0] = bwd ? r[8] - (r[10] == 0u ? 1u : 0u)
+                      : r[8] + (r[10] == 1u ? 1u : 0u);
+      ch.toe[1] = r[9];
+      ch.toe[2] = r[10];
+    } else {
+      uint32_t fc = p.first[0];
+#pragma unroll
+      for (int s = 1; s < 4; ++s) fc = s == c ? p.first[s] : fc;
+      ch.toe[0] = bwd ? sa_first_hi - 1u : p.n - sa_first_hi;
+      ch.toe[1] = fc - al + (own_hi ? cum_hi_c : 0u);
+      ch.toe[2] = bwd ? 0u : 1u;
+      if (!own_hi) ch.flags |= 8u;
+    }
+  }
+}
+
+// Rounds 2 and 3 for lane q of the quad that owns child ch: its run hint
+// (the child's column 4 + ((q + (bwd ? 0 : 2)) & 3)); on lane 1 with flag
+// bit 3, also the toehold's value and offset into toe. The lane picks its
+// fields by selects, not by indexing with q, which would put the record
+// in local memory.
+template <class T>
+__device__ __forceinline__ T sel4(const T (&v)[4], int q) {
+  return q == 0 ? v[0] : q == 1 ? v[1] : q == 2 ? v[2] : v[3];
+}
+
+template <int RW>
+__device__ __forceinline__ uint32_t quad_hint(const BmParams& p,
+                                              const BmTables& t,
+                                              const QuadChild& ch, int q,
+                                              uint32_t toe[3]) {
+  const bool bwd = ch.flags & 1u;
+  int h = sel4(ch.h, q);
+  if (q < 2 && ((ch.flags >> (1 + q)) & 1u)) {
+    const long long row =
+        (bwd ? 0 : static_cast<long long>(p.r_fwd) + 1) + max(h, 0);
+    if (RW >= 12 && q == 1 && (ch.flags & 8u)) {
+      const uint4 w0 = bm_word(p, row, 0);
+      const uint4 w1 = bm_word(p, row, 1);
+      const uint4 w4 = bm_word(p, row, 4);
+      h = static_cast<int>(w0.w);
+      toe[0] = bwd ? w1.z - 1u : p.n - w1.z;
+      toe[1] += pick4(w4, (ch.flags >> 4) & 3) + (w0.y - w0.x - 1u);
+    } else {
+      h = static_cast<int>(bm_col(p, row, 3));
+    }
+  }
+  const bool rev = (q < 2) != bwd;    // the active side's table is fwd on
+                                      // a backward step
+  return static_cast<uint32_t>(
+      quad_walk(t, rev, max(h, 0), sel4(ch.pos, q), q == 3));
+}
+
+// One RLC extension of the quad's RW-wide range r (the same in its four
 // lanes) by char c (0..3) in direction dir (0 backward, 1 forward): the
-// child's 8 columns in o, the same in the four lanes. q: the lane in the
+// child's RW columns in o, the same in the four lanes. q: the lane in the
 // quad; qmask: the quad's lanes in the warp.
+template <int RW = 8>
 __device__ __forceinline__ void quad_extend(const BmParams& p,
                                             const BmTables& t,
                                             const uint32_t* r, int c,
@@ -117,21 +226,21 @@ __device__ __forceinline__ void quad_extend(const BmParams& p,
   const uint32_t b_lo = bwd ? r[2] : r[0];
   const int a_run_lo = static_cast<int>(bwd ? r[4] : r[6]);
   const int a_run_hi1 = static_cast<int>(bwd ? r[5] : r[7]);
-  const int b_run_lo = static_cast<int>(bwd ? r[6] : r[4]);
-  const int b_run_hi1 = static_cast<int>(bwd ? r[7] : r[5]);
 
-  // round 1: words 0 and 1 (START END LF_POS LF_RUN | CHAR ...) of the lo
-  // and hi rows on lanes 0 and 1, NEXT and PREV with CUM on lanes 2 and 3
+  // round 1: words 0 and 1 (START END LF_POS LF_RUN | CHAR SA_FIRST ...)
+  // of the lo and hi rows on lanes 0 and 1, NEXT and PREV with CUM on
+  // lanes 2 and 3
   const long long row = off_a + ((q & 1) ? a_run_hi1 : a_run_lo);
   const uint4 x = bm_word(p, row, q < 2 ? 0 : 2 + (q & 1));
   const uint4 y = bm_word(p, row, q < 2 ? 1 : 4);
-  const uint32_t xc = c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
+  const uint32_t xc = pick4(x, c);
   const uint32_t start_lo = quad_get(qmask, x.x, 0);
   const uint32_t lf_lo = quad_get(qmask, x.w, 0);
   const uint32_t char_lo = quad_get(qmask, y.x, 0);
   const uint32_t start_hi = quad_get(qmask, x.x, 1);
   const uint32_t lf_hi = quad_get(qmask, x.w, 1);
   const uint32_t char_hi = quad_get(qmask, y.x, 1);
+  const uint32_t sa_first_hi = RW >= 12 ? quad_get(qmask, y.y, 1) : 0u;
   const uint32_t next_c = quad_get(qmask, xc, 2);
   const uint32_t prev_c = quad_get(qmask, xc, 3);
   const uint32_t cum_lo[4] = {
@@ -142,7 +251,7 @@ __device__ __forceinline__ void quad_extend(const BmParams& p,
       quad_get(qmask, y.z, 3), quad_get(qmask, y.w, 3)};
 
   // the child's interval; the other side needs every char's width
-  uint32_t w = 0, occ_c = 0, wsum = 0, below = 0;
+  uint32_t w = 0, occ_c = 0, wsum = 0, below = 0, cum_hi_c = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const uint32_t ol =
@@ -154,10 +263,11 @@ __device__ __forceinline__ void quad_extend(const BmParams& p,
     below += k < c ? wk : 0u;
     w = k == c ? wk : w;
     occ_c = k == c ? ol : occ_c;
+    cum_hi_c = k == c ? cum_hi[k] : cum_hi_c;
   }
   if (w == 0) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) o[k] = 0u;
+    for (int k = 0; k < RW; ++k) o[k] = 0u;
     return;
   }
   uint32_t first = p.first[0];
@@ -166,36 +276,149 @@ __device__ __forceinline__ void quad_extend(const BmParams& p,
   const uint32_t al = first + occ_c;
   const uint32_t bl = b_lo + ((a_hi - a_lo) - wsum) + below;
 
-  // rounds 2-3: one hint a lane. Active side: the LF run of the first
-  // (last) c-run the parent touches, the row's own where it is a c-run;
-  // PREV = -1 clips to run 0, as the JAX int32 cast does.
-  int h;
-  if (q < 2) {
-    const bool own = q == 0 ? char_lo == uint32_t(c) : char_hi == uint32_t(c);
-    const int via = static_cast<int>(q == 0 ? next_c : prev_c);
-    h = own ? static_cast<int>(q == 0 ? lf_lo : lf_hi)
-            : static_cast<int>(bm_col(p, off_a + max(via, 0), 3));
-  } else {
-    h = q == 2 ? b_run_lo : b_run_hi1;
-  }
-  const uint32_t pos = q == 0 ? al : q == 1 ? al + w - 1u
-                     : q == 2 ? bl : bl + w - 1u;
-  const bool rev = (q < 2) != bwd;    // the active side's table is fwd on
-                                      // a backward step
-  const uint32_t run =
-      static_cast<uint32_t>(quad_walk(t, rev, max(h, 0), pos, q == 3));
-  const uint32_t a_rlo = quad_get(qmask, run, 0);
-  const uint32_t a_rhi1 = quad_get(qmask, run, 1);
-  const uint32_t b_rlo = quad_get(qmask, run, 2);
-  const uint32_t b_rhi1 = quad_get(qmask, run, 3);
+  QuadChild ch;
+  quad_child<RW>(p, r, bwd, c, w, al, bl, char_lo == uint32_t(c),
+                 char_hi == uint32_t(c), lf_lo, lf_hi, next_c, prev_c,
+                 static_cast<int>(bwd ? r[6] : r[4]),
+                 static_cast<int>(bwd ? r[7] : r[5]), a_hi - a_lo,
+                 sa_first_hi, cum_hi_c, ch);
+  uint32_t toe[3] = {ch.toe[0], ch.toe[1], ch.toe[2]};
+  const uint32_t run = quad_hint<RW>(p, t, ch, q, toe);
   o[0] = bwd ? al : bl;
   o[1] = (bwd ? al : bl) + w;
   o[2] = bwd ? bl : al;
   o[3] = (bwd ? bl : al) + w;
-  o[4] = bwd ? a_rlo : b_rlo;
-  o[5] = bwd ? a_rhi1 : b_rhi1;
-  o[6] = bwd ? b_rlo : a_rlo;
-  o[7] = bwd ? b_rhi1 : a_rhi1;
+  const uint32_t run0 = quad_get(qmask, run, 0);
+  const uint32_t run1 = quad_get(qmask, run, 1);
+  const uint32_t run2 = quad_get(qmask, run, 2);
+  const uint32_t run3 = quad_get(qmask, run, 3);
+  o[4] = bwd ? run0 : run2;
+  o[5] = bwd ? run1 : run3;
+  o[6] = bwd ? run2 : run0;
+  o[7] = bwd ? run3 : run1;
+  if constexpr (RW >= 12) {
+    o[8] = quad_get(qmask, toe[0], 1);
+    o[9] = quad_get(qmask, toe[1], 1);
+    o[10] = ch.toe[2];
+    o[11] = 0u;
+  }
 }
+
+// Kernel B's RLC lane (K18 inside K7 and K20): its own thread reads the
+// two endpoint rows (four of their five words) and gives every child's
+// interval, which the band arithmetic needs; stage(c) hands a child that
+// stays in the frontier to a quad (QuadChild) for its hint walks. An empty
+// child (width 0) is zero.
+template <int RW>
+struct BmLane {
+  bool bwd;
+  uint32_t a_lo, a_hi;
+  int b_run_lo, b_run_hi1;
+  uint32_t char_lo, char_hi, lf_lo, lf_hi, sa_first_hi;
+  uint32_t nxt[4], prv[4], cum_hi[4];
+  uint32_t na_lo[4], width[4], nb_lo[4];
+  uint32_t toe[3];
+
+  __device__ __forceinline__ void init(const FmParams&, const BmParams& p,
+                                       const uint32_t* r, int dir) {
+    bwd = dir == 0;
+    const long long off_a = bwd ? 0 : static_cast<long long>(p.r_fwd) + 1;
+    a_lo = bwd ? r[0] : r[2];
+    a_hi = bwd ? r[1] : r[3];
+    const uint32_t b_lo = bwd ? r[2] : r[0];
+    const int a_run_lo = static_cast<int>(bwd ? r[4] : r[6]);
+    const int a_run_hi1 = static_cast<int>(bwd ? r[5] : r[7]);
+    b_run_lo = static_cast<int>(bwd ? r[6] : r[4]);
+    b_run_hi1 = static_cast<int>(bwd ? r[7] : r[5]);
+    const uint4 l0 = bm_word(p, off_a + a_run_lo, 0);
+    const uint4 l1 = bm_word(p, off_a + a_run_lo, 1);
+    const uint4 l2 = bm_word(p, off_a + a_run_lo, 2);
+    const uint4 l4 = bm_word(p, off_a + a_run_lo, 4);
+    const uint4 h0 = bm_word(p, off_a + a_run_hi1, 0);
+    const uint4 h1 = bm_word(p, off_a + a_run_hi1, 1);
+    const uint4 h3 = bm_word(p, off_a + a_run_hi1, 3);
+    const uint4 h4 = bm_word(p, off_a + a_run_hi1, 4);
+    char_lo = l1.x;
+    char_hi = h1.x;
+    lf_lo = l0.w;
+    lf_hi = h0.w;
+    sa_first_hi = h1.y;
+    const uint32_t cum_lo[4] = {l4.x, l4.y, l4.z, l4.w};
+    cum_hi[0] = h4.x;
+    cum_hi[1] = h4.y;
+    cum_hi[2] = h4.z;
+    cum_hi[3] = h4.w;
+    nxt[0] = l2.x;
+    nxt[1] = l2.y;
+    nxt[2] = l2.z;
+    nxt[3] = l2.w;
+    prv[0] = h3.x;
+    prv[1] = h3.y;
+    prv[2] = h3.z;
+    prv[3] = h3.w;
+    uint32_t wsum = 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t occ_lo =
+          cum_lo[c] + (char_lo == uint32_t(c) ? a_lo - l0.x : 0u);
+      const uint32_t occ_hi =
+          cum_hi[c] + (char_hi == uint32_t(c) ? a_hi - h0.x : 0u);
+      width[c] = occ_hi - occ_lo;
+      na_lo[c] = p.first[c] + occ_lo;
+      wsum += width[c];
+    }
+    // other side: '$' count (total - char widths) + smaller chars' widths
+    uint32_t cum = b_lo + ((a_hi - a_lo) - wsum);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      nb_lo[c] = cum;
+      cum += width[c];
+    }
+    if constexpr (RW >= 12) {
+      toe[0] = r[8];
+      toe[1] = r[9];
+      toe[2] = r[10];
+    }
+  }
+
+  // column k (0..3) of child c: [f_lo, f_hi, r_lo, r_hi)
+  __device__ __forceinline__ uint32_t pos(int c, int k) const {
+    uint32_t w = 0, al = 0, bl = 0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      w = s == c ? width[s] : w;
+      al = s == c ? na_lo[s] : al;
+      bl = s == c ? nb_lo[s] : bl;
+    }
+    if (w == 0) return 0u;
+    const uint32_t lo = ((k >> 1) == 0) == bwd ? al : bl;
+    return lo + ((k & 1) ? w : 0u);
+  }
+
+  // the hint walks of child c (which must have width > 0) for a quad
+  __device__ __forceinline__ void stage(const BmParams& p, int c,
+                                        QuadChild& ch) const {
+    uint32_t w = 0, al = 0, bl = 0, nx = 0, pv = 0, chc = 0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      if (s == c) {
+        w = width[s];
+        al = na_lo[s];
+        bl = nb_lo[s];
+        nx = nxt[s];
+        pv = prv[s];
+        chc = cum_hi[s];
+      }
+    }
+    // quad_child reads the parent's toehold at r[8..10]
+    const uint32_t r[11] = {0, 0, 0, 0, 0, 0, 0, 0, toe[0], toe[1], toe[2]};
+    quad_child<RW>(p, r, bwd, c, w, al, bl, char_lo == uint32_t(c),
+                   char_hi == uint32_t(c), lf_lo, lf_hi, nx, pv, b_run_lo,
+                   b_run_hi1, a_hi - a_lo, sa_first_hi, chc, ch);
+  }
+};
+
+template <int RW>
+using Lane = typename std::conditional<RW == 4, FmLane, BmLane<RW>>::type;
 
 }  // namespace columba

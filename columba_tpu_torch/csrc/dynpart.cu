@@ -107,7 +107,7 @@ __device__ __forceinline__ void fm_step(const PartArgs& a, const uint32_t* r,
   }
   columba::FmLane lane;
   lane.init(a.fm, a.bm, r, dir);
-  columba::child_of<4>(lane, a.bm, c, o);
+  columba::fm_child(lane, c, o);
 }
 
 // a register budget for each part count (blocks of kThreads an SM): left

@@ -65,7 +65,7 @@ __global__ void exact_kernel(columba::FmParams fm,
     }
     columba::FmLane lane;
     lane.init(fm, columba::BmParams{}, r, 0);
-    columba::child_of<4>(lane, columba::BmParams{}, c, r);
+    columba::fm_child(lane, c, r);
     if (r[1] <= r[0]) {               // empty: later steps cannot revive it
 #pragma unroll
       for (int k = 0; k < 4; ++k) r[k] = 0u;

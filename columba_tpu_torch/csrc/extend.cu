@@ -5,7 +5,7 @@
 // extend_char (with ops/rank.py occ_all) on the Vanilla index; the port
 // runs it for the k-mer seed table build (index/kmer.py). Entry "rlc" (K18)
 // replaces columba_tpu/ops/bextend.py extend_all (:103) / extend_char
-// (:259) on the RLC index, on 8-wide lanes or 12-wide lanes with toeholds:
+// (:259) on the RLC index, on 8-wide lanes or 12-wide lanes with toehold:
 // ops/extend.py takes it for RLC CUDA tensors, as the JAX package
 // dispatches every extension to bextend on any device. extend_char walks
 // the chosen child's run hints only, extend_all the hints of every child
@@ -16,38 +16,45 @@
 // of columba_tpu/search/executor.py run_scheme (make_ex: ex_cond / ex_body,
 // a lockstep while-loop of extend_char over all lanes, ops/extend.py:97 and
 // ops/bextend.py:259). Lanes do not interact in the exact prefix, so one
-// thread walks its lane through steps t_lo..t_hi inside one launch, with
+// lane is walked through steps t_lo..t_hi inside one launch, with
 // ex_body's rules: a step whose ex_pos < 0 keeps the range; otherwise the
 // lane extends by the read's code at ex_pos (a code > 3 empties it) in
 // direction ex_dir, and an empty result is the zero range; with a
 // switchpoint, a live range of width <= switchpoint at a step t >= gate_t
 // drains: its drain row is [lo, hi, id, db_ex[t]] (that step's db_ex, so a
 // lane narrow before the gate drains at the gate step) and the lane is
-// zero. The thread stops at its first empty or drained range; later steps
+// zero. The lane stops at its first empty or drained range; later steps
 // cannot revive it. It reads the schedule's (E, S) tables at [t, id % S]
 // (per-read schedules: its own (R*S, E) rows at [id, t]) and its read's
 // code straight from the (R, m) uint8 batch, so the (E, L) step tables of
 // the JAX loop are never made. The JAX loop stops when no lane is live; a
 // lane here stops alone, with the same result. One body, templated on the
-// lane width RW; the extension is Lane<RW> of common.cuh, and on the RLC
-// index a step walks the chosen child's run hints (and toehold) only.
+// lane width RW: on the Vanilla index a thread owns a lane (FmLane of
+// common.cuh); on the RLC index a quad of four threads owns it and a step
+// is the four-lane step of bm_quad.cuh (the chosen child, its four run-hint
+// walks at once on the run tables, and on 12-wide lanes its toehold), as
+// in kernel E. The per-step entry "rlc" takes a quad a lane too, and one
+// four-lane step a child (extend_all: four, the rows read again from the
+// L1).
 //
 // Bound: memory latency, not bandwidth or arithmetic. Vanilla: two random
 // 64 B occ rows per lane and step; one thread reads its two rows with 16 B
 // loads, so each row costs one 64 B transaction, and the four children fall
-// out of those rows. RLC: two endpoint rows (four 16 B words each), then two
-// 4 B LF-run reads and four run-hint walks per child walked, each a chain
-// of dependent 4 B reads (START or END of the next run; after 16 steps a
-// binary search, about log2 r reads). A lane's steps depend on each other,
-// so the loop's launch lasts as long as its longest lane; the card hides
-// the chains' latency across lanes only: 64-thread blocks spread the lanes
-// over every SM, and a lane that stops early frees its slot.
-#include "common.cuh"
+// out of those rows. RLC: about three dependent rounds a step (the two
+// endpoint rows, an LF run where the rows are not c-runs, the longest of
+// the four walks: 16 B reads of eight 4 B STARTs, a bucket read past them),
+// where one thread walking the four hints in turn took about eight. A
+// lane's steps depend on each other, so the loop's launch lasts as long as
+// its longest lane; the card hides the chains' latency across lanes only:
+// small blocks (64 threads, or 32 quads) spread the lanes over every SM,
+// and a lane that stops early frees its slot.
+#include "bm_quad.cuh"
 
 namespace {
 
-template <int RW>
-__global__ void extend_kernel(columba::FmParams fm, columba::BmParams bm,
+constexpr int kQuadThreads = 128;    // RLC: 32 lanes a block, a quad each
+
+__global__ void extend_kernel(columba::FmParams fm,
                               const long long* __restrict__ ranges,
                               const int* __restrict__ dirs,
                               const int* __restrict__ chars,
@@ -55,42 +62,90 @@ __global__ void extend_kernel(columba::FmParams fm, columba::BmParams bm,
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= L) return;
+  uint32_t r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r[k] = static_cast<uint32_t>(ranges[4 * i + k]);
+  const int c = chars == nullptr ? 0 : chars[i];
+  if (c > 3) {                         // N never matches
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[4 * i + k] = 0;
+    return;
+  }
+  columba::FmLane lane;
+  lane.init(fm, columba::BmParams{}, r, dirs[i]);
+  uint32_t o[4];
+  if (chars == nullptr) {
+    for (int c4 = 0; c4 < 4; ++c4) {
+      columba::fm_child(lane, c4, o);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[(4 * i + c4) * 4 + k] = o[k];
+    }
+    return;
+  }
+  columba::fm_child(lane, max(c, 0), o);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[4 * i + k] = o[k];
+}
+
+// lane q of a quad writes columns q, q + 4 (and q + 8) of an RW-wide row
+template <int RW>
+__device__ __forceinline__ void quad_store(long long* __restrict__ row,
+                                           const uint32_t* o, int q) {
+#pragma unroll
+  for (int b = 0; b < RW; b += 4) {
+    uint32_t v = o[b];
+#pragma unroll
+    for (int k = 1; k < 4; ++k) v = k == q ? o[b + k] : v;
+    row[b + q] = v;
+  }
+}
+
+template <int RW>
+__global__ void __launch_bounds__(kQuadThreads)
+extend_rlc_kernel(columba::BmParams bm, columba::BmTables bt,
+                  const long long* __restrict__ ranges,
+                  const int* __restrict__ dirs,
+                  const int* __restrict__ chars,
+                  long long* __restrict__ out, long long L) {
+  const long long i = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x) >> 2;
+  if (i >= L) return;                  // a quad leaves together
+  const int q = threadIdx.x & 3;
+  const unsigned qmask = 0xFu << (threadIdx.x & 28);
   uint32_t r[RW];
 #pragma unroll
   for (int k = 0; k < RW; ++k)
     r[k] = static_cast<uint32_t>(ranges[RW * i + k]);
   const int c = chars == nullptr ? 0 : chars[i];
-  // Neither an N (it never matches) nor, on the RLC index, an empty lane
-  // (its children are all zero, hints included) needs a row: both write
-  // zeros. The Vanilla children of an empty range keep their positions.
-  if (c > 3 || (RW != 4 && r[1] <= r[0])) {
-    const int w = chars == nullptr ? 4 * RW : RW;
-    for (int k = 0; k < w; ++k) out[w * i + k] = 0;
-    return;
-  }
-  columba::Lane<RW> lane;
-  lane.init(fm, bm, r, dirs[i]);
+  const int dir = dirs[i];
+  // Neither an N (it never matches) nor an empty lane (its children are
+  // all zero, hints included) needs a row: both write zeros.
+  const bool zero = c > 3 || r[1] <= r[0];
   uint32_t o[RW];
-  if (chars == nullptr) {
-    for (int c4 = 0; c4 < 4; ++c4) {
-      columba::child_of<RW>(lane, bm, c4, o);
+  for (int c4 = 0; c4 < (chars == nullptr ? 4 : 1); ++c4) {
+    if (zero) {
 #pragma unroll
-      for (int k = 0; k < RW; ++k) out[(4 * i + c4) * RW + k] = o[k];
+      for (int k = 0; k < RW; ++k) o[k] = 0u;
+    } else {
+      columba::quad_extend<RW>(bm, bt, r, chars == nullptr ? c4 : max(c, 0),
+                               dir, q, qmask, o);
     }
-    return;
+    quad_store<RW>(out + (chars == nullptr ? 4 * i + c4 : i) * RW, o, q);
   }
-  columba::child_of<RW>(lane, bm, max(c, 0), o);
-#pragma unroll
-  for (int k = 0; k < RW; ++k) out[RW * i + k] = o[k];
 }
 
-template <int RW>
-int launch(const columba::FmParams& fm, const columba::BmParams& bm,
-           const long long* ranges, const int* dirs, const int* chars,
-           long long* out, long long L, cudaStream_t stream) {
-  constexpr int kThreads = RW == 4 ? 256 : 64;
-  extend_kernel<RW><<<columba::grid_for(L, kThreads), kThreads, 0, stream>>>(
-      fm, bm, ranges, dirs, chars, out, L);
+int launch_rlc(const columba::BmParams& bm, const columba::BmTables& bt,
+               const long long* ranges, const int* dirs, const int* chars,
+               long long* out, long long L, int rw, cudaStream_t stream) {
+  const unsigned grid = columba::grid_for(4 * L, kQuadThreads);
+  if (rw == 8)
+    extend_rlc_kernel<8><<<grid, kQuadThreads, 0, stream>>>(
+        bm, bt, ranges, dirs, chars, out, L);
+  else if (rw == 12)
+    extend_rlc_kernel<12><<<grid, kQuadThreads, 0, stream>>>(
+        bm, bt, ranges, dirs, chars, out, L);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -109,12 +164,20 @@ struct LoopArgs {
   long long* drows;          // (L, 4)
 };
 
+// One body: a thread a lane on the Vanilla index (RW 4), a quad a lane on
+// the RLC index; every lane of a quad holds the same range, so a quad
+// leaves the loop together.
 template <int RW>
-__global__ void extend_loop_kernel(columba::FmParams fm,
-                                   columba::BmParams bm, LoopArgs a) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
+__global__ void __launch_bounds__(RW == 4 ? 64 : kQuadThreads)
+extend_loop_kernel(columba::FmParams fm, columba::BmParams bm,
+                   columba::BmTables bt, LoopArgs a) {
+  constexpr bool kQuad = RW > 4;
+  const long long tid = blockIdx.x * static_cast<long long>(blockDim.x) +
+                        threadIdx.x;
+  const long long i = kQuad ? tid >> 2 : tid;
   if (i >= a.L) return;
+  const int q = threadIdx.x & 3;
+  const unsigned qmask = 0xFu << (threadIdx.x & 28);
   uint32_t r[RW];
 #pragma unroll
   for (int k = 0; k < RW; ++k)
@@ -134,10 +197,15 @@ __global__ void extend_loop_kernel(columba::FmParams fm,
         alive = false;
         break;
       }
-      columba::Lane<RW> lane;
-      lane.init(fm, bm, r, __ldg(a.dirs + tix));
+      const int dir = __ldg(a.dirs + tix);
       uint32_t o[RW];
-      columba::child_of<RW>(lane, bm, c, o);
+      if constexpr (kQuad) {
+        columba::quad_extend<RW>(bm, bt, r, c, dir, q, qmask, o);
+      } else {
+        columba::FmLane lane;
+        lane.init(fm, bm, r, dir);
+        columba::fm_child(lane, c, o);
+      }
 #pragma unroll
       for (int k = 0; k < RW; ++k) r[k] = o[k];
       alive = r[1] > r[0];
@@ -152,17 +220,29 @@ __global__ void extend_loop_kernel(columba::FmParams fm,
     }
   }
 #pragma unroll
-  for (int k = 0; k < RW; ++k) a.out[RW * i + k] = alive ? r[k] : 0u;
+  for (int k = 0; k < RW; ++k) r[k] = alive ? r[k] : 0u;
+  if constexpr (kQuad) {
+    quad_store<RW>(a.out + RW * i, r, q);
+    long long d = drow[0];
 #pragma unroll
-  for (int k = 0; k < 4; ++k) a.drows[4 * i + k] = drow[k];
+    for (int k = 1; k < 4; ++k) d = k == q ? drow[k] : d;
+    a.drows[4 * i + q] = d;
+  } else {
+#pragma unroll
+    for (int k = 0; k < RW; ++k) a.out[RW * i + k] = r[k];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a.drows[4 * i + k] = drow[k];
+  }
 }
 
 template <int RW>
 int launch_loop(const columba::FmParams& fm, const columba::BmParams& bm,
-                const LoopArgs& a, cudaStream_t stream) {
-  constexpr int kThreads = 64;
-  extend_loop_kernel<RW><<<columba::grid_for(a.L, kThreads), kThreads, 0,
-                           stream>>>(fm, bm, a);
+                const columba::BmTables& bt, const LoopArgs& a,
+                cudaStream_t stream) {
+  constexpr int kThreads = RW == 4 ? 64 : kQuadThreads;
+  const long long threads = RW == 4 ? a.L : 4 * a.L;
+  extend_loop_kernel<RW><<<columba::grid_for(threads, kThreads), kThreads,
+                           0, stream>>>(fm, bm, bt, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -174,22 +254,23 @@ extern "C" int columba_extend(const int* occ, long long blocks, unsigned c0,
                               const long long* ranges, const int* dirs,
                               const int* chars, long long* out, long long L,
                               cudaStream_t stream) {
-  return launch<4>(columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1),
-                   columba::BmParams{}, ranges, dirs, chars, out, L, stream);
+  constexpr int kThreads = 256;
+  extend_kernel<<<columba::grid_for(L, kThreads), kThreads, 0, stream>>>(
+      columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1), ranges, dirs,
+      chars, out, L);
+  return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int columba_extend_rlc(const int* fused, unsigned r_fwd,
-                                  unsigned r_rev, unsigned f0, unsigned f1,
-                                  unsigned f2, unsigned f3, unsigned n,
-                                  const long long* ranges, const int* dirs,
-                                  const int* chars, long long* out,
-                                  long long L, int rw, cudaStream_t stream) {
-  const columba::BmParams bm =
-      columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
-  const columba::FmParams fm{};
-  if (rw == 8) return launch<8>(fm, bm, ranges, dirs, chars, out, L, stream);
-  if (rw == 12) return launch<12>(fm, bm, ranges, dirs, chars, out, L, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int columba_extend_rlc(
+    const int* fused, unsigned r_fwd, unsigned r_rev, unsigned f0,
+    unsigned f1, unsigned f2, unsigned f3, unsigned n, const unsigned* starts,
+    unsigned starts_rev, const int* run_at, const int* run_at_rev, int shift,
+    const long long* ranges, const int* dirs, const int* chars,
+    long long* out, long long L, int rw, cudaStream_t stream) {
+  return launch_rlc(
+      columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n),
+      columba::bm_tables(starts, starts_rev, run_at, run_at_rev, shift),
+      ranges, dirs, chars, out, L, rw, stream);
 }
 
 extern "C" int columba_extend_loop(
@@ -204,12 +285,13 @@ extern "C" int columba_extend_loop(
                    t_lo, t_hi, gate_t, switchpoint, out, drows};
   return launch_loop<4>(
       columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1),
-      columba::BmParams{}, a, stream);
+      columba::BmParams{}, columba::BmTables{}, a, stream);
 }
 
 extern "C" int columba_extend_loop_rlc(
     const int* fused, unsigned r_fwd, unsigned r_rev, unsigned f0,
-    unsigned f1, unsigned f2, unsigned f3, unsigned n,
+    unsigned f1, unsigned f2, unsigned f3, unsigned n, const unsigned* starts,
+    unsigned starts_rev, const int* run_at, const int* run_at_rev, int shift,
     const long long* ranges, const int* ids, long long L,
     const unsigned char* reads, int m, int S, const int* pos,
     const int* dirs, const int* db, long long stride, int t_lo, int t_hi,
@@ -218,10 +300,13 @@ extern "C" int columba_extend_loop_rlc(
   if (S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const columba::BmParams bm =
       columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
+  const columba::BmTables bt =
+      columba::bm_tables(starts, starts_rev, run_at, run_at_rev, shift);
   const LoopArgs a{ranges, ids, L, reads, m, S, pos, dirs, db, stride,
                    t_lo, t_hi, gate_t, switchpoint, out, drows};
-  if (rw == 8) return launch_loop<8>(columba::FmParams{}, bm, a, stream);
-  if (rw == 12) return launch_loop<12>(columba::FmParams{}, bm, a, stream);
+  if (rw == 8) return launch_loop<8>(columba::FmParams{}, bm, bt, a, stream);
+  if (rw == 12)
+    return launch_loop<12>(columba::FmParams{}, bm, bt, a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

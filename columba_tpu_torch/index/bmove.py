@@ -268,38 +268,36 @@ def locate_tables(fused_fwd: np.ndarray, r_f: int, n: int,
     holds every 2^shift-th BWT row, with 2^shift about twice n / r_f, so
     that a row's run is a short forward walk from its bucket's run and
     not a binary search over every run. Returns (walk (r_f + 1, 4) uint32,
-    run_at int32, shift); empty tables on the textless index, which
-    locates on the host."""
-    if textless:
-        return np.zeros((0, 4), np.uint32), np.zeros(0, np.int32), 0
+    run_at int32, shift); the walk table is empty on the textless index,
+    which locates on the host, but its bucket table is made all the same:
+    the run tables of :func:`run_tables` read it."""
     shift = (n // max(r_f, 1)).bit_length()
-    walk = np.ascontiguousarray(fused_fwd[:r_f + 1, START:LF_RUN + 1])
     heads = np.arange(0, n + 1, 1 << shift, dtype=np.int64)
     run_at = np.searchsorted(fused_fwd[:r_f, START].astype(np.int64), heads,
                              side="right") - 1
+    walk = (np.zeros((0, 4), np.uint32) if textless else
+            np.ascontiguousarray(fused_fwd[:r_f + 1, START:LF_RUN + 1]))
     return walk, run_at.astype(np.int32), shift
 
 
 def run_tables(fused_fwd: np.ndarray, fused_rev: np.ndarray, r_f: int,
-               r_r: int, n: int, shift: int, textless: bool) -> tuple:
-    """Kernels E and F's RLC run tables, made at index load (the index on
-    disk stays as it is). Runs are contiguous (END[j] == START[j + 1]), so
-    one 4 B START array a direction serves the forward walks, which read
-    END, and the backward ones, which read START: eight runs share a 32 B
-    sector, where a fused row is 80 B. Each direction's array is its runs'
-    STARTs, the sentinel's and then n + 1 up to a multiple of four entries
-    at least 13 past the sentinel, so that a 16 B-aligned read of twelve
-    entries around any run stays inside it and every entry past the last
-    run compares above every position. The reverse direction's array
-    starts at ``rev_off`` (a multiple of four). A walk that would go past
-    ``ops/bextend.FF_CAP`` runs looks up the run that holds every
-    2^shift-th position (:func:`locate_tables`'s ``run_at`` for the forward
-    direction, the same for the reverse one) and walks on from there.
-    Returns (starts uint32, rev_off, run_at_rev int32); empty tables on
-    the textless index, whose lanes are 12 wide and take neither
-    kernel."""
-    if textless:
-        return np.zeros(0, np.uint32), 0, np.zeros(0, np.int32)
+               r_r: int, n: int, shift: int) -> tuple:
+    """The RLC run tables of kernels A, B, E and F, made at index load
+    (the index on disk stays as it is). Runs are contiguous (END[j] ==
+    START[j + 1]), so one 4 B START array a direction serves the forward
+    walks, which read END, and the backward ones, which read START: eight
+    runs share a 32 B sector, where a fused row is 80 B. Each direction's
+    array is its runs' STARTs, the sentinel's and then n + 1 up to a
+    multiple of four entries at least 13 past the sentinel, so that a 16
+    B-aligned read of twelve entries around any run stays inside it and
+    every entry past the last run compares above every position. The
+    reverse direction's array starts at ``rev_off`` (a multiple of four).
+    A walk that would go past ``ops/bextend.FF_CAP`` runs looks up the run
+    that holds every 2^shift-th position (:func:`locate_tables`'s
+    ``run_at`` for the forward direction, the same for the reverse one)
+    and walks on from there. Both RLC indexes hold them, the textless one
+    (12-wide lanes) included. Returns (starts uint32, rev_off, run_at_rev
+    int32)."""
     big = n + 1
     parts = []
     for fused, r in ((fused_fwd, r_f), (fused_rev, r_r)):
@@ -333,10 +331,11 @@ class BMoveIndex:
     first_row: torch.Tensor  # (5,) int64 first F row per '$ACGT' char
     text: torch.Tensor       # (ceil(n/16),) int32 packed words; empty
     sa_stride: torch.Tensor  # int32 SA at every stride-th fwd row; empty
-    # kernel C's locate tables (:func:`locate_tables`); empty when textless
+    # kernel C's locate tables (:func:`locate_tables`); walk empty when
+    # textless
     walk: torch.Tensor = None     # (R_f + 1, 4) int32 START END LF_POS LF_RUN
     run_at: torch.Tensor = None   # int32 fwd run of every 2^run_shift-th row
-    # kernels E and F's run tables (:func:`run_tables`); empty when textless
+    # the run tables of kernels A, B, E and F (:func:`run_tables`)
     starts: torch.Tensor = None   # int32 fwd then rev runs' START, padded
     run_at_rev: torch.Tensor = None   # int32 rev run of every 2^run_shift-th
 
@@ -363,7 +362,7 @@ class BMoveIndex:
         r_r = int(arrays.meta["runs_rev"])
         starts, starts_rev, run_at_rev = run_tables(
             arrays.fused_fwd, arrays.fused_rev, r_f, r_r, int(arrays.n),
-            shift, bool(arrays.textless))
+            shift)
         return BMoveIndex(
             fused=_words(fused),
             first_row=torch.from_numpy(first.copy()),

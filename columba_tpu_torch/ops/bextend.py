@@ -21,20 +21,22 @@ where it stopped (backward: from run 0). The JAX loops run in lockstep over
 all lanes; each lane's steps depend only on its own rows, so walking each
 lane alone (the kernels, one thread per lane) gives the same runs.
 
-These are the plain versions of the RLC lane of kernels A (its loop
-entry) and B (``BmLane`` in ``csrc/common.cuh``); ``ops/extend.py`` and
-``search/executor.py`` take them for CPU tensors. With ``tables=True`` the
-walks read the run tables of ``index/bmove.run_tables`` (a 4 B START a
-run; past ``FF_CAP`` runs a bucket lookup and a forward walk in place of
-the binary search), as kernels E and F do (``csrc/bm_quad.cuh``): the
-same runs. ``stats`` (optional dict) accumulates what a per-lane walk
-reads: ``walk`` (run-bound reads of the fast-forwards), ``probes``
-(binary-search reads) or, on the run tables, ``bucket`` and
+These are the plain versions of the RLC extension of kernels A, B, E
+and F; ``ops/extend.py`` and ``search/executor.py`` take them for CPU
+tensors. With ``tables=True`` the walks read the run tables of
+``index/bmove.run_tables`` (a 4 B START a run; past ``FF_CAP`` runs a
+bucket lookup and a forward walk in place of the binary search), as the
+four-lane step of ``csrc/bm_quad.cuh`` does in every one of those
+kernels: the same runs. ``stats`` (optional dict) accumulates what a
+per-lane walk reads: ``walk`` (run-bound reads of the fast-forwards),
+``probes`` (binary-search reads) or, on the run tables, ``bucket`` and
 ``bucket_walk`` (the bucket reads and the STARTs read from there),
-``hint_rows`` (LF-run reads) and ``children`` (children whose hints are
-walked), for ``tools/bounds.py``; on the run tables also ``walk_rounds``,
-the dependent reads of each such child's walks in kernels E and F, where
-the four walks run at once (see :func:`walk_tables`).
+``hint_rows`` (LF-run reads), ``toe_rows`` (12-wide lanes: toeholds
+reset from the previous c-run's samples) and ``children`` (children
+whose hints are walked), for ``tools/bounds.py``; on the run tables also
+``walk_rounds``, the dependent reads of each such child's walks in the
+four-lane step, where the four walks run at once (see
+:func:`walk_tables`).
 """
 
 from __future__ import annotations
@@ -131,7 +133,7 @@ def walk_tables(index: BMoveIndex, off, run, pos, forward: bool,
     past ``FF_CAP`` runs the run that holds ``pos`` is the bucket's run
     (``run_at`` / ``run_at_rev`` at ``pos >> run_shift``) walked forward,
     which is the run the binary search finds. Returns (runs, rounds):
-    ``rounds`` are the dependent reads of kernels E and F's walk, which
+    ``rounds`` are the dependent reads of the four-lane step's walk, which
     reads ``WINDOW`` runs from the hint at once and, where the answer lies
     further, the bucket and then ``WINDOW`` runs a read from the bucket's
     run (forward: from ``hint + WINDOW`` if that is further)."""
@@ -175,7 +177,7 @@ def extend_all_plain(index: BMoveIndex, ranges: torch.Tensor,
     the JAX package. Dead input lanes must be all zero. ``mask`` (L, 4)
     bool: the children whose hints (columns 4..) are computed; the others
     keep their interval (columns 0-3) and have zero hints. ``tables``:
-    walk on the run tables (kernels E and F), 8-wide lanes only."""
+    walk on the run tables (kernels A, B, E and F: the same runs)."""
     M = MASK32
     L, rw = ranges.shape
     dev = ranges.device
@@ -228,8 +230,8 @@ def extend_all_plain(index: BMoveIndex, ranges: torch.Tensor,
     if not tables:
         _add(stats, "hint_rows", 2 * hint.sum())
     else:
-        # kernels E and F take the LF run of the lo / hi row from the row
-        # itself where it is a c-run, and read it elsewhere
+        # the four-lane step takes the LF run of the lo / hi row from the
+        # row itself where it is a c-run, and reads it elsewhere
         _add(stats, "hint_rows", ((~is_lo & hint).sum()
                                   + (~is_hi & hint).sum()))
     z = torch.zeros_like(width)
@@ -278,6 +280,8 @@ def extend_all_plain(index: BMoveIndex, ranges: torch.Tensor,
         # side's interval
         tv, toff, tflag = ranges[:, 8], ranges[:, 9], ranges[:, 10]
         preserved = width == ((a_hi - a_lo) & M)[:, None]
+        # a reset off the hi row reads run_q's START, END, SA_LAST and CUM
+        _add(stats, "toe_rows", (~preserved & ~is_hi & hint).sum())
         tv_pres = torch.where(bwd, tv - (tflag == 0).long(),
                               tv + (tflag == 1).long()) & M
         # reset from the queried side's run samples: the last c-row of the
@@ -308,12 +312,10 @@ def extend_char_plain(index: BMoveIndex, ranges, chars, dirs,
                       tables: bool = False) -> torch.Tensor:
     """Each lane extended by its own char (exact matching); an N (> 3)
     gives the zero range. Only the chosen child's hints are walked.
-    ``tables``: on the run tables where the index has them (kernels E and
-    F; the textless index has none and takes neither kernel)."""
+    ``tables``: on the run tables (kernels A, B, E and F)."""
     safe = chars.long().clamp(0, 3)
     onehot = ((safe[:, None] == torch.arange(4, device=ranges.device))
               & (chars <= 3)[:, None])
-    tables = tables and index.starts is not None and index.starts.numel() > 0
     all4 = extend_all_plain(index, ranges, dirs, onehot, stats, tables)
     rw = ranges.shape[-1]
     child = all4.gather(1, safe[:, None, None].expand(-1, 1, rw))[:, 0]
@@ -333,21 +335,21 @@ def bm_args(index: BMoveIndex) -> tuple:
             *index.first_host, index.n)
 
 
-# The run tables of kernels E and F (``BmTables`` of csrc/bm_quad.cuh):
-# the STARTs of both directions and the offset of the reverse ones, the
-# bucket tables of both directions and their shift.
+# The run tables of kernels A, B, E and F (``BmTables`` of
+# csrc/bm_quad.cuh): the STARTs of both directions and the offset of the
+# reverse ones, the bucket tables of both directions and their shift.
 BT_ARGTYPES = [ctypes.c_void_p, ctypes.c_uint32, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_int32]
 
 
 def bt_args(index: BMoveIndex) -> tuple:
-    """The run tables' arguments; raises on an index without them (the
-    textless one) or with them on another device than the fused rows."""
+    """The run tables' arguments; raises where they are missing or lie on
+    another device than the fused rows."""
     tabs = (index.starts, index.run_at, index.run_at_rev)
-    if index.textless or any(t.device != index.fused.device
-                             or not t.is_contiguous() for t in tabs):
-        raise ValueError("kernels E and F take the with-text RLC index's "
-                         "run tables, contiguous beside its fused rows")
+    if any(t is None or t.numel() == 0 or t.device != index.fused.device
+           or not t.is_contiguous() for t in tabs):
+        raise ValueError("the RLC kernels take the index's run tables, "
+                         "contiguous beside its fused rows")
     return (index.starts.data_ptr(), index.starts_rev,
             index.run_at.data_ptr(), index.run_at_rev.data_ptr(),
             index.run_shift)

@@ -62,7 +62,7 @@ def locate_rows_plain(index: BMoveIndex, rows: torch.Tensor,
                       stats: dict | None = None) -> torch.Tensor:
     """Text position for each (N,) int64 fwd-BWT row (bounded LF-walks)."""
     runs = run_of_rows(index, rows)
-    tables = index.run_at is not None and index.run_at.numel() > 0
+    tables = index.walk is not None and index.walk.numel() > 0
     if stats is not None and tables:
         # the bucket's run, then one word a run up to the row's
         first = index.run_at[rows >> index.run_shift].long()

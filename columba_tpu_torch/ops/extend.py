@@ -58,13 +58,14 @@ KERNEL = native.Kernel(
     symbols={
         # extend_all / extend_char on 8- or 12-wide RLC lanes (K18)
         "rlc": ("columba_extend_rlc", [
-            *bextend.BM_ARGTYPES,
+            *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # ranges,
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]),  # ..., rw
         # the exact-prefix loop (search/executor.py exact_loop)
         "loop": ("columba_extend_loop", [*_FM_ARGTYPES, *_LOOP_ARGTYPES]),
         "loop_rlc": ("columba_extend_loop_rlc", [
-            *bextend.BM_ARGTYPES, *_LOOP_ARGTYPES, ctypes.c_int32]),  # rw
+            *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES, *_LOOP_ARGTYPES,
+            ctypes.c_int32]),                                   # rw
     },
 )
 
@@ -206,8 +207,9 @@ def _launch(index, ranges, dirs, chars):
                       dtype=torch.int64, device=ranges.device)
     cptr = chars.data_ptr() if chars is not None else None
     if L and isinstance(index, BMoveIndex):
-        KERNEL(*bextend.bm_args(index), ranges.data_ptr(), dirs.data_ptr(),
-               cptr, out.data_ptr(), L, rw, entry="rlc")
+        KERNEL(*bextend.bm_args(index), *bextend.bt_args(index),
+               ranges.data_ptr(), dirs.data_ptr(), cptr, out.data_ptr(), L,
+               rw, entry="rlc")
     elif L:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
                *index.dollar_host, ranges.data_ptr(), dirs.data_ptr(),

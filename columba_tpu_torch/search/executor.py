@@ -71,6 +71,11 @@ KERNEL_MAX_W = 10
 # lanes of one kernel B block, one tile of its look-back (kThreads of
 # csrc/band_step.cuh)
 BAND_TILE = 64
+# threads of a block of kernel B's RLC entries: 0 lets the launch choose
+# (csrc/band_step.cuh quad_block: the most of 256 and 128 at which the
+# step's tiles are resident in at most two waves, else 64);
+# tools/kernel_bench.py sets 64, 128 or 256 to time each
+BAND_QUAD_BLOCK = 0
 
 _BAND_OUT = [ctypes.c_int64, ctypes.c_int64,             # n_live, cap
              ctypes.c_void_p, ctypes.c_void_p,           # next ranges, ids
@@ -80,13 +85,13 @@ _BAND_OUT = [ctypes.c_int64, ctypes.c_int64,             # n_live, cap
              ctypes.c_void_p, ctypes.c_void_p,           # ctr, tile status
              ctypes.c_int64, ctypes.c_uint32]            # tiles, epoch
 _BAND_RLC = ("columba_band_step_rlc", [
-    *bextend.BM_ARGTYPES,
+    *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES,
     ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
     ctypes.c_void_p, ctypes.c_void_p,                   # band, colmin
     ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,    # pchars, T, t
     ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
-    *_BAND_OUT, ctypes.c_int32],                        # ..., rw
+    *_BAND_OUT, ctypes.c_int32, ctypes.c_int32],        # ..., rw, block
     "columba_tpu_torch/csrc/band_step_rlc.cu")
 KERNEL = native.Kernel(
     "band_step", "columba_band_step",
@@ -530,7 +535,8 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
             dyn_meta.data_ptr() if dyn_meta is not None else None,
             pchars.data_ptr(), T, t, kb, W, switchpoint, *tail)
     if isinstance(index, BMoveIndex):
-        KERNEL(*bextend.bm_args(index), *lane, index.range_width,
+        KERNEL(*bextend.bm_args(index), *bextend.bt_args(index), *lane,
+               index.range_width, BAND_QUAD_BLOCK,
                entry=("per_lane_rlc" if dyn_meta is not None else
                       "textless" if index.textless else "rlc"))
     else:
@@ -565,7 +571,8 @@ def exact_loop_plain(index: FMIndex, ranges, ids, t_lo: int, t_hi: int,
     int64 drain rows (zero where a lane did not drain). The loop stops when
     no lane is live, or past the last step in which some lane extends and
     the gate step: later steps change nothing. ``stats`` (optional) counts
-    the extensions (``steps``) and, on the RLC index, their walks."""
+    the extensions (``steps``) and, on the RLC index, their walks on the
+    run tables, as the kernel walks them."""
     L = ranges.shape[0]
     dev = ranges.device
     pos_tab, dir_tab, db_tab = tabs
@@ -588,8 +595,8 @@ def exact_loop_plain(index: FMIndex, ranges, ids, t_lo: int, t_hi: int,
             chars = reads[rid[sel], pos[sel].long()].int()
             dirs = _ex_col(dir_tab, per_lane, idl, S, t)[sel].int()
             if isinstance(index, BMoveIndex):
-                new[sel] = bextend.extend_char_plain(index, ranges[sel],
-                                                     chars, dirs, stats)
+                new[sel] = bextend.extend_char_plain(
+                    index, ranges[sel], chars, dirs, stats, tables=True)
             else:
                 new[sel] = extend.extend_char_plain(index, ranges[sel],
                                                     chars, dirs)
@@ -653,8 +660,8 @@ def exact_loop(index: FMIndex, ranges, ids, t_lo: int, t_hi: int, reads,
             t_lo, t_hi, gate_t, switchpoint, out.data_ptr(),
             drows.data_ptr())
     if L and isinstance(index, BMoveIndex):
-        extend.KERNEL(*bextend.bm_args(index), *args, index.range_width,
-                      entry="loop_rlc")
+        extend.KERNEL(*bextend.bm_args(index), *bextend.bt_args(index),
+                      *args, index.range_width, entry="loop_rlc")
     elif L:
         extend.KERNEL(index.occ_fused.data_ptr(), index.blocks,
                       *index.counts_host, *index.dollar_host, *args,

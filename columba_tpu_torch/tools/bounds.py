@@ -82,7 +82,8 @@ def band_step(state, mrow_t, o: dict, cap: int, M: int, cnt: int,
     and registers of its live lanes; the step's scalars (the (S, 7) row,
     or with ``mrow_t`` None one 4-byte word per lane); per active lane its
     cell codes and two occ rows (RLC: two endpoint rows, plus the walks of
-    the children written, ``stats`` of :func:`rlc_band_stats`); the kept
+    the children written on the run tables, ``stats`` of
+    :func:`rlc_band_stats`); the kept
     children's state out (at most ``cap`` rows), the narrow rows out (at
     most ``M - cnt``) and the 32 B of counters. No child state goes to
     memory and back. ``o``: ``executor.band_step_plain``'s output for
@@ -117,7 +118,8 @@ def exact_loop(ranges, ids, tabs, per_lane: bool, stats: dict,
     """Kernel A's loop entry: per lane its range (and id) in, its final
     range and drain row out; per extension (``stats["steps"]`` of
     ``executor.exact_loop_plain``) the read's code and two occ rows (RLC:
-    two endpoint rows, and the chosen child's walks in ``stats``); the
+    two endpoint rows, and the chosen child's walks on the run tables in
+    ``stats``); the
     (E, S) step tables once, or per-read tables the position and direction
     of each extension and the depth of each drain."""
     L, rw = ranges.shape
@@ -287,21 +289,24 @@ def gather(table, idx, out) -> dict:
 
 
 def _rlc_walks(stats: dict) -> tuple:
-    """(bytes, operations) of the 4 B reads the run-hint walks, binary
-    searches (kernels A and B; on the run tables of kernels E and F the
-    bucket reads and the STARTs walked from there) and LF-run reads in
-    ``stats`` made."""
+    """(bytes, operations) of the 4 B reads the run-hint walks made (on the
+    run tables: the STARTs walked, the bucket reads and the STARTs walked
+    from there; on the fused rows: the run bounds and binary-search
+    probes), the LF-run reads, and on 12-wide lanes the 16 B of samples a
+    toehold reset off the hi row reads, in ``stats``."""
     walk, probes = stats.get("walk", 0), stats.get("probes", 0)
     bucket = stats.get("bucket", 0) + stats.get("bucket_walk", 0)
     hint_rows = stats.get("hint_rows", 0)
-    return ((walk + probes + bucket + hint_rows) * 4,
+    return ((walk + probes + bucket + hint_rows) * 4
+            + stats.get("toe_rows", 0) * 16,
             (walk + bucket) * WALK_OPS + probes * PROBE_OPS
             + stats.get("children", 0) * BM_CHILD_OPS)
 
 
 def rlc_rounds(steps: int, stats: dict, rows: int) -> float:
-    """Dependent-read rounds a row of kernels E and F on the RLC index:
-    one a step for the endpoint rows (the next char is read beside them),
+    """Dependent-read rounds a row (or lane) of the four-lane step on the
+    RLC index (kernels A's loop, E and F): one a step for the endpoint
+    rows (the next char is read beside them),
     then for each child whose hints are walked the longest of its four
     walks with its LF-run read (``stats["walk_rounds"]`` of the plain
     versions on the run tables, ``ops/bextend.walk_tables``)."""
@@ -310,10 +315,10 @@ def rlc_rounds(steps: int, stats: dict, rows: int) -> float:
 
 def lane_rounds(steps: int, stats: dict, rows: int) -> float:
     """The same chain where one thread walks a child's four hints one after
-    another on the fused rows (``BmLane``, kernels E and F before the run
-    tables): a step's rows, the two LF-run reads, then every walk read
-    and binary-search probe in turn (``stats`` of the plain versions on
-    the fused rows)."""
+    another on the fused rows (the design the four-lane step replaced): a
+    step's rows, the two LF-run reads, then every walk read and
+    binary-search probe in turn (``stats`` of the plain versions on the
+    fused rows)."""
     return (steps + stats.get("children", 0) + stats.get("walk", 0)
             + stats.get("probes", 0)) / max(rows, 1)
 
@@ -325,7 +330,8 @@ def rlc_band_stats(index, state, mrow_t, o: dict, cap: int,
     of them), of the lanes that keep theirs, counted with the plain
     extension. ``o``: ``executor.band_step_plain``'s output. Per-lane
     schedules: each lane's side comes from its own word of ``dyn_meta``
-    at ``id * T + t``."""
+    at ``id * T + t``. The walks are on the run tables, as the kernel's
+    quads walk them."""
     from columba_tpu_torch.ops import bextend
 
     ranges, ids = state[0], state[1]
@@ -339,7 +345,7 @@ def rlc_band_stats(index, state, mrow_t, o: dict, cap: int,
     stats: dict = {}
     bextend.extend_all_plain(
         index, torch.where(o["act"][:, None], ranges, 0), side,
-        o["ch_alive"] & keep[:, None] & (pos < cap), stats)
+        o["ch_alive"] & keep[:, None] & (pos < cap), stats, tables=True)
     return stats
 
 

@@ -1,7 +1,9 @@
-"""Kernels C (locate, both entries), D (verify), E (exact match: Vanilla,
-RLC, RLC with lengths), F (dynamic partition, both entries), G (the
-dynamic-partition tables) and H (the row gather) on the inputs the paths
-give them, on one CUDA device.
+"""Kernels A (its RLC loop, ``extend.loop_rlc``), B (its RLC entries:
+``band_step.rlc``, ``band_step.per_lane_rlc``, ``band_step.textless``), C
+(locate, both entries), D (verify), E (exact match: Vanilla, RLC, RLC with
+lengths), F (dynamic partition, both entries), G (the dynamic-partition
+tables) and H (the row gather) on the inputs the paths give them, on one
+CUDA device.
 
 Run from the repository root on a machine with a CUDA device:
 
@@ -13,7 +15,8 @@ It times kernel H first, on the gather bench's 2,000,000-row table at
 ``torch.index_select``, each launch on the next of 16 index sets. Then it
 builds the smoke's two workloads (``tools/workload.py``: the random
 128 Mbp genome with its Vanilla index at SA sparseness 4, and the 128 Mbp
-pan-genome of 20 haplotypes with its ``--rlc`` index), and:
+pan-genome of 20 haplotypes with its ``--rlc`` index and, where kernel A
+or B is timed, its ``--rlc --textless`` index, built at once), and:
 
 1. captures the paths' own inputs (``tools/path_inputs.py``): one ``cli
    align`` batch (16,384 reads or pairs) of ``se_all`` (``-a all -e 2``),
@@ -21,17 +24,25 @@ pan-genome of 20 haplotypes with its ``--rlc`` index), and:
    dynamic``: kernel G's tables), ``rlc_se_all`` (``-a all -e 2 -nD``),
    ``rlc_se_all_dynamic`` (the same with ``-p dynamic``: kernel F's RLC
    entry and kernel G), ``rlc_pe_best`` (``-a best -F``, pairs of 250-450
-   bp fragments: its exact rung is kernel E's RLC entry) and
+   bp fragments: its exact rung is kernel E's RLC entry),
    ``rlc_se_best_d`` (``-a best -d`` with kuch1 and its mirror per k: the
-   selection probe, kernel E's RLC entry with lengths); each launch keeps
-   its inputs, and C and D's the live counts beside the capacity;
+   selection probe, kernel E's RLC entry with lengths) and ``tl_se_all``
+   (``-a all -e 2 -nD`` on the textless index); each launch keeps its
+   inputs, and C and D's the live counts beside the capacity; of kernel
+   B's RLC entries and kernel A's ``loop_rlc`` the launch with the most
+   lanes on each path;
 2. makes the smoke's synthetic inputs beside them: uniformly random SA
    rows, and candidates near random loci with random read ids, at kb 0,
    2, 4, 5, 7 and 13; 32,768 rows x 100 bp (a batch of 16,384 reads, both
    strands) for E, F and G (F: kuch1 k = 2, with the 10-mer seed table on
    the Vanilla index, single-character seeds on RLC; G: the tables of F's
    boundaries at k = 2 and 4) and their 163,840 part patterns of scheme
-   selection for E with lengths;
+   selection for E with lengths; and the RLC smoke's band steps and
+   exact prefixes (``chip_smoke.py`` ``rlc_kernel_checks`` /
+   ``rlc_select_checks``: C = 12,288 lanes x 8 at kb 2, 49,152 x 12 on
+   the textless index, the per-lane entry on kernel G's tables of F's
+   boundaries; kernel A's loop over R x S lanes from the full range, 8 and
+   12 wide, and on those per-read tables);
 3. times every kernel entry on every input through its wrapper, by CUDA
    events and by ``torch.profiler``'s device time, warm and with a
    flushed L2, and prints the plain versions' counts (E and F on RLC:
@@ -45,8 +56,9 @@ pan-genome of 20 haplotypes with its ``--rlc`` index), and:
 With ``--parent TREE`` (an earlier commit's ``columba_tpu_torch/``,
 unpacked by ``git archive COMMIT columba_tpu_torch | tar -x -C TREE``) it
 also imports that tree's own ``ops/locate.py``, ``ops/verify.py``,
-``ops/extend.py``, ``search/dynschedule.py`` and ``tools/gather_bench.py``
-and times their kernels on the same inputs through those wrappers, in
+``ops/extend.py``, ``search/dynschedule.py``, ``search/executor.py`` and
+``tools/gather_bench.py`` and times their kernels on the same inputs
+through those wrappers, in
 turns: parent, this tree, this tree, parent. Each is checked against the
 plain version first. ``--only dyn_tables,gather`` times those kinds alone
 (an align path is still captured where its inputs are needed). The card's
@@ -73,7 +85,8 @@ import numpy as np
 import torch
 
 from columba_tpu_torch.tools.path_inputs import (
-    Clocks, capture, describe, live_tensor, log, time_inputs,
+    BAND_KINDS, Clocks, band_args, band_call, band_input, capture, describe,
+    live_tensor, log, loop_call, rlc_lane_states, time_inputs,
 )
 
 SEED = 20260817
@@ -84,8 +97,8 @@ BEST_CUT = 4             # BEST cutoff of kuch1 at 100 bp (the smoke's)
 SYNTH_KB = (0, 2, 4, 5, 7, 13)
 PKG = "columba_tpu_torch"
 TREE_MODULES = ("native", "ops.locate", "ops.verify", "ops.extend",
-                "search.dynschedule", "index.bmove", "index.fmindex",
-                "tools.gather_bench")
+                "search.dynschedule", "search.executor", "index.bmove",
+                "index.fmindex", "tools.gather_bench")
 GATHER_SETS = 16         # index sets a gather timing cycles through
 
 
@@ -139,6 +152,12 @@ def tree_launcher(mods: dict):
         return copies[id(index)][1]
 
     def launch(kind: str, inp: dict):
+        if kind in BAND_KINDS:
+            return band_call(mods["search.executor"],
+                             index_of(inp["index"]), inp, "parent")
+        if kind == "extend.loop_rlc":
+            return loop_call(mods["search.executor"],
+                             index_of(inp["index"]), inp)
         if kind == "dyn_tables":
             return mods["search.dynschedule"].build_tables(
                 inp["st"], inp["pts"], inp["reads"])
@@ -210,6 +229,63 @@ def exact_part_inputs(index, batch: torch.Tensor, table) -> list:
             dict(kind="exact.rlc_lengths" if rlc else "exact.lengths",
                  index=index, pats=pats.reshape(R * p, -1).contiguous(),
                  lengths=lengths)]
+
+
+def band_loop_inputs(bm, tl, batch: torch.Tensor, rng) -> list:
+    """Synthetic inputs of kernel B's RLC entries and kernel A's RLC loop
+    at the RLC smoke's shapes, the batch's R rows (both strands) under
+    kuch1 k = 2: a band step of C = R x S / 8 valid lanes x 8 with the
+    crossover, one of R x S / 2 lanes x 12 on the textless index (2W
+    colMin slots), the per-lane entry on 12,288 lanes with kernel G's
+    tables of kernel F's boundaries (kb 2, step T - m / 3); kernel A's
+    loop over the R x S lanes from the full range, 8 wide with the
+    crossover and 12 wide without, and on those per-read tables."""
+    from columba_tpu_torch.search import dynschedule, executor, pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+
+    dev = batch.device
+    R = batch.shape[0]
+    sched = pipeline.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit")
+    S = sched.num_searches
+    L = R * S
+    states = rlc_lane_states(bm, batch, rng, max(1024, L // 8))
+    out = [band_input("band_step.rlc",
+                      band_args(bm, sched, batch, states, rng, 4))]
+    C = max(1024, L // 2)
+    tb = list(band_args(tl, sched, batch, rlc_lane_states(tl, batch, rng, C),
+                        rng, 0, div=2))
+    tb[4] = torch.from_numpy(rng.integers(0, 3, (C, 2, 2 * sched.W)).astype(
+        np.int8)).to(dev)
+    out.append(band_input("band_step.textless", tb, track=True))
+    tables = executor.device_tables(sched, dev)
+    tabs = (tables["ex_pos"], tables["ex_dir"], tables["db_ex"])
+    for index, sp in ((bm, 4), (tl, 0)):
+        out.append(dict(kind="extend.loop_rlc", index=index,
+                        ranges=index.full_range((L,)), ids=None, t_lo=0,
+                        t_hi=sched.e_max, reads=batch, tabs=tabs,
+                        per_lane=False, gate_t=19, switchpoint=sp))
+    scheme = get_scheme("kuch1", K)
+    st = dynschedule.scheme_static(scheme, READ_LEN, "edit")
+    dyn = dynschedule.build_tables(
+        st, dynschedule.dynamic_partition(bm, batch, scheme), batch)
+    Sk, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
+    C = min(12_288, states.shape[0])
+    lanes = (bm, states[:C].contiguous(),
+             torch.from_numpy(rng.integers(0, R * Sk, C).astype(
+                 np.int32)).to(dev),
+             torch.from_numpy(rng.integers(0, 4, (C, 2, bw)).astype(
+                 np.int8)).to(dev),
+             torch.from_numpy(rng.integers(0, 3, (C, 2, 1)).astype(
+                 np.int8)).to(dev),
+             None, dyn["pchars"], T, T - READ_LEN // 3, 4)
+    out.append(band_input("band_step.per_lane_rlc", lanes,
+                          dyn_meta=dyn["meta"].reshape(-1)))
+    out.append(dict(kind="extend.loop_rlc", index=bm,
+                    ranges=bm.full_range((R * Sk,)), ids=None, t_lo=0,
+                    t_hi=dyn["ex_pos"].shape[1], reads=batch,
+                    tabs=(dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"]),
+                    per_lane=True, gate_t=19, switchpoint=4))
+    return out
 
 
 def tables_inputs(index, batch: torch.Tensor, table) -> list:
@@ -341,6 +417,29 @@ def _fmt(v) -> str:
     return "not measured" if v is None else f"{v:.5f}"
 
 
+def block_variants(kind: str):
+    """Kernel B's RLC entries at each block size the launch may choose
+    (``executor.BAND_QUAD_BLOCK``: 64, 128 and 256 threads a tile of 64
+    lanes), beside the launch's own choice ("tree")."""
+    from columba_tpu_torch.search import executor
+
+    if kind not in BAND_KINDS:
+        return None
+
+    def at(threads):
+        def launch(kind, inp):
+            executor.BAND_QUAD_BLOCK = threads
+            try:
+                # outputs of its own: the counters accumulate visits over
+                # the timed launches
+                return band_call(executor, inp["index"], inp,
+                                 f"block{threads}")
+            finally:
+                executor.BAND_QUAD_BLOCK = 0
+        return launch
+    return {f"block{b}": at(b) for b in (64, 128, 256)}
+
+
 def _first_of_each(calls: list) -> list:
     """The first launch of each kernel entry (and band radius)."""
     seen, out = set(), []
@@ -363,9 +462,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--only", default=None,
                     help="comma-separated kernel kinds to time (locate, "
-                         "verify, exact, dynpart, dyn_tables, gather; an "
-                         "entry such as exact.rlc names one); all by "
-                         "default")
+                         "verify, exact, dynpart, dyn_tables, gather, "
+                         "band_step, extend; an entry such as exact.rlc "
+                         "names one); all by default")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
 
@@ -377,7 +476,7 @@ def main(argv=None) -> int:
     torch.cuda.init()        # raises where there is no CUDA device
 
     from columba_tpu_torch import cli, native
-    from columba_tpu_torch.index.bmove import BMoveIndex
+    from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
     from columba_tpu_torch.index.build import decoded_text, load_index
     from columba_tpu_torch.index.kmer import build_kmer_table
     from columba_tpu_torch.search.scheme import get_scheme
@@ -385,7 +484,8 @@ def main(argv=None) -> int:
 
     def ours(line):
         return any(k in line for k in ("locate", "verify", "exact",
-                                       "dynpart", "dyn_tables", "gather"))
+                                       "dynpart", "dyn_tables", "gather",
+                                       "band_step", "extend"))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -479,9 +579,17 @@ def main(argv=None) -> int:
         pan = workload.pan_genome()
         workload.write_fasta(fa, pan, "pan")
         ridx = os.path.join(wd, "rlc.cidx")
+        tidx = os.path.join(wd, "tl.cidx")
+        steps = wanted("band_step") or wanted("extend")
         t0 = time.time()
-        assert cli.main(["build", "-r", ridx, "-f", fa, "--rlc"]) == 0
-        log(f"cli build --rlc: {time.time() - t0:.1f} s")
+        builds = [(ridx, ["--rlc"])] + ([(tidx, ["--rlc", "--textless"])]
+                                        if steps else [])
+        procs = [subprocess.Popen([sys.executable, "-m", f"{PKG}.cli",
+                                   "build", "-r", out, "-f", fa, *flags])
+                 for out, flags in builds]
+        assert all(p.wait() == 0 for p in procs)
+        log(f"cli build --rlc (and --rlc --textless, at once): "
+            f"{time.time() - t0:.1f} s")
         span = np.array([0, len(pan)], np.int64)
         prs = workload.sample_reads(pan, span, BATCH, rng, READ_LEN)[0]
         p1, p2 = workload.sample_pairs(pan, span, BATCH, rng, READ_LEN,
@@ -503,22 +611,29 @@ def main(argv=None) -> int:
             "rlc_se_all_dynamic": (all_k + ["-p", "dynamic"], [fq["se"]]),
             "rlc_pe_best": (["-a", "best"], [fq["p1"], fq["p2"]]),
             "rlc_se_best_d": (["-a", "best", "-d", multi], [fq["se"]]),
+            "tl_se_all": (all_k, [fq["se"]]),
         }
-        want = {"rlc_se_all": ("locate.rlc", "verify"),
-                "rlc_se_all_dynamic": ("dynpart.rlc", "dyn_tables"),
+        want = {"rlc_se_all": ("locate.rlc", "verify", "band_step.rlc",
+                               "extend.loop_rlc"),
+                "rlc_se_all_dynamic": ("dynpart.rlc", "dyn_tables",
+                                       "band_step.per_lane_rlc",
+                                       "extend.loop_rlc"),
                 "rlc_pe_best": ("exact.rlc",),
-                "rlc_se_best_d": ("exact.rlc_lengths",)}
+                "rlc_se_best_d": ("exact.rlc_lengths",),
+                "tl_se_all": ("band_step.textless", "extend.loop_rlc")}
         captured = {}
         for path, (argv, files) in paths.items():
             if not any(wanted(k) for k in want[path]):
                 continue
-            calls = capture(align(ridx, argv, files))
+            calls = capture(align(tidx if path.startswith("tl") else ridx,
+                                  argv, files))
             captured[path] = [c for c in _first_of_each(calls)
                               if c["kind"] in want[path]]
             log(f"captured {path}: " + "; ".join(
                 f"{c['kind']} {describe(c)}" for c in calls))
         bm = next(c["index"] for calls in captured.values() for c in calls
-                  if isinstance(c["index"], BMoveIndex))
+                  if isinstance(c["index"], BMoveIndex)
+                  and not c["index"].textless)
         log(f"RLC index: r_fwd {bm.r_fwd}, r_rev {bm.r_rev}, fused "
             f"{bm.fused.numel() * 4} bytes, run tables "
             f"{bm.starts.numel() * 4} + {bm.run_at_rev.numel() * 4} bytes "
@@ -526,16 +641,24 @@ def main(argv=None) -> int:
             f"{bm.run_at.numel() * 4} bytes)")
         synth = synthetic(bm, pan, np.random.default_rng(SEED + 3),
                           2 * BATCH, ("locate.rlc", "verify"))
-        time_inputs("synthetic_rlc", picked(
-            [s for s in synth if s["kind"] == "locate.rlc"]
-            + [s for s in synth if s.get("kb") == K]
-            + exact_part_inputs(bm, both_strands(prs), None)),
-            clocks, smi, results, parent)
+        synth = ([s for s in synth if s["kind"] == "locate.rlc"]
+                 + [s for s in synth if s.get("kb") == K]
+                 + exact_part_inputs(bm, both_strands(prs), None))
+        if steps:
+            tl = BMoveIndex.from_arrays(load_bmove(tidx), "cuda")
+            log(f"textless RLC index: run tables {tl.starts.numel() * 4} + "
+                f"{tl.run_at.numel() * 4} + {tl.run_at_rev.numel() * 4} "
+                f"bytes on the card (fused rows {tl.fused.numel() * 4})")
+            synth += band_loop_inputs(bm, tl, both_strands(prs),
+                                      np.random.default_rng(SEED + 4))
+        time_inputs("synthetic_rlc", picked(synth), clocks, smi, results,
+                    parent, block_variants)
         if wanted("exact.rlc"):
             chain_floor("synthetic_rlc", bm, pan, clocks, smi, results,
                         parent)
         for path, calls in captured.items():
-            time_inputs(path, picked(calls), clocks, smi, results, parent)
+            time_inputs(path, picked(calls), clocks, smi, results, parent,
+                        block_variants)
     return _write(args.out, smi, results)
 
 

@@ -1,14 +1,17 @@
-"""Kernels C, D, E, F and G on the inputs an align gives them: capture and
-timing.
+"""Kernels A (its RLC loop), B (its RLC entries), C, D, E, F and G on the
+inputs an align gives them: capture and timing.
 
 ``capture(align)`` runs one ``align()`` with wrappers around
 ``locate.locate_rows``, ``verify.verify_window``, ``extend.exact_match``,
 ``dynschedule.dynamic_partition``, ``dynschedule.build_tables``,
-``pipeline.stage_expand`` and ``pipeline.stage_dedup`` (module
+``pipeline.stage_expand``, ``pipeline.stage_dedup``,
+``executor.band_step_compact`` and ``executor.exact_loop`` (module
 attributes; nothing in the library is hooked) and keeps each locate,
 verify, exact-match, partition and schedule-table launch's inputs, with
 the live counts beside the capacity (``total`` of the expansion,
-``n_unique`` of the dedup) for C and D. ``time_inputs`` holds
+``n_unique`` of the dedup) for C and D, and of kernel B's RLC entries and
+kernel A's ``loop_rlc`` the launch with the most live lanes of each entry
+(an align makes hundreds of band steps). ``time_inputs`` holds
 every captured launch to its plain version and times it through the
 wrapper with two clocks: CUDA events over back-to-back launches, and the
 kernel's own device time from ``torch.profiler``; each with a warm L2 and
@@ -24,6 +27,7 @@ Used by ``chip_smoke.py`` and ``tools/kernel_bench.py``.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 FLUSH_BYTES = 64 << 20     # above the 50 MB L2
@@ -32,11 +36,84 @@ KERNEL_NAME = {"verify": "verify", "locate": "locate_kernel",
                "locate.rlc": "locate_rlc", "exact": "exact_",
                "exact.lengths": "exact_", "exact.rlc": "exact_",
                "exact.rlc_lengths": "exact_", "dynpart": "dynpart_kernel",
-               "dynpart.rlc": "dynpart_kernel", "dyn_tables": "dyn_tables"}
+               "dynpart.rlc": "dynpart_kernel", "dyn_tables": "dyn_tables",
+               # the RLC entries have a kernel of their own since the
+               # quad walks; earlier trees launched band_step_kernel
+               "band_step.rlc": ("band_step_rlc_kernel", "band_step_kernel"),
+               "band_step.per_lane_rlc": ("band_step_rlc_kernel",
+                                          "band_step_kernel"),
+               "band_step.textless": ("band_step_rlc_kernel",
+                                      "band_step_kernel"),
+               "extend.loop_rlc": "extend_loop_kernel"}
+BAND_KINDS = ("band_step.rlc", "band_step.per_lane_rlc",
+              "band_step.textless")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def band_args(index, sched, batch, ranges, rng, switchpoint, div=8):
+    """One band step's inputs at the shapes ``match_all`` gives a batch:
+    capacity C = rows x searches / div (8 with the in-text crossover, 2
+    without), real ranges, the schedule's own step tables and cell codes,
+    random band and register state."""
+    from columba_tpu_torch.search import executor
+
+    dev = index.device
+    R, S = batch.shape[0], sched.num_searches
+    C = max(1024, R * S // div)
+    tables = executor.device_tables(sched, dev)
+    t = sched.t_max // 2
+    ids = torch.from_numpy(rng.integers(0, R * S, C).astype(np.int32)).to(dev)
+    band = torch.from_numpy(rng.integers(0, 4, (C, 2, sched.bw)).astype(
+        np.int8)).to(dev)
+    colmin = torch.from_numpy(rng.integers(0, 3, (C, 2, sched.W)).astype(
+        np.int8)).to(dev)
+    pchars = batch[:, tables["posw"]].to(torch.int8)
+    pchars = torch.where(tables["code"][None] == 0, pchars,
+                         tables["code"][None]).reshape(-1, sched.bw)
+    return (index, ranges[:C].contiguous(), ids, band, colmin,
+            tables["mrow"][t], pchars, sched.t_max, t, switchpoint)
+
+
+def rlc_lane_states(index, batch, rng, L, max_len=24):
+    """Valid lane states of an RLC index at the exact prefix's shapes: each
+    lane matches a random stretch (0 to ``max_len`` chars) of a read of
+    ``batch`` by extensions in random directions from the full range,
+    through the plain extension; a lane whose stretch does not occur ends
+    all zero."""
+    from columba_tpu_torch.ops import extend
+
+    dev = index.device
+    R, m = batch.shape
+    row = torch.from_numpy(rng.integers(0, R, L)).to(dev)
+    lo = torch.from_numpy(rng.integers(max_len, m - max_len, L)).to(dev)
+    hi = lo.clone()
+    length = torch.from_numpy(rng.integers(0, max_len + 1, L)).to(dev)
+    ranges = index.full_range((L,))
+    for step in range(max_len):
+        fwd = torch.from_numpy(rng.integers(0, 2, L).astype(bool)).to(dev)
+        chars = batch[row, torch.where(fwd, hi, lo - 1)].int()
+        new = extend.extend_char_plain(index, ranges, chars, fwd.int())
+        act = step < length
+        ranges = torch.where(act[:, None], new, ranges)
+        lo = torch.where(act & ~fwd, lo - 1, lo)
+        hi = torch.where(act & fwd, hi + 1, hi)
+    return ranges.contiguous()
+
+
+def band_input(kind: str, args, track: bool = False, dyn_meta=None,
+               M: int | None = None) -> dict:
+    """A band step of :func:`band_args` (or its per-lane form: ``args``'s
+    step row None and ``dyn_meta`` the lanes' words) as a captured input:
+    room for every child and ``M`` in-text rows (4 C, at least 65,536)."""
+    index, ranges, ids, band, colmin, mrow_t, pchars, T, t, sp = args
+    C = ranges.shape[0]
+    return dict(kind=kind, index=index, state=[ranges, ids, band, colmin],
+                cap=C, M=max(1 << 16, 4 * C) if M is None else M, cnt=0,
+                mrow_t=mrow_t, pchars=pchars, T=T, t=t, switchpoint=sp,
+                dyn_meta=dyn_meta, track_arg=track)
 
 
 class Clocks:
@@ -107,18 +184,56 @@ class Clocks:
                     prof_cold=self.profiled(fn, name, True))
 
 
+def _clone(t):
+    return None if t is None else t.clone()
+
+
 def capture(align) -> list:
     """The locate, verify, exact-match, partition and schedule-table
     launches of one ``align()`` call, each with its inputs (cloned) and, for
-    locate and verify, the live counts around it."""
+    locate and verify, the live counts around it; of kernel B's RLC
+    entries and kernel A's ``loop_rlc`` the launch of each with the most
+    lanes."""
     from columba_tpu_torch.index.bmove import BMoveIndex
     from columba_tpu_torch.ops import extend, locate, verify
-    from columba_tpu_torch.search import dynschedule, pipeline
+    from columba_tpu_torch.search import dynschedule, executor, pipeline
 
-    calls, pending = [], {}
+    calls, pending, widest = [], {}, {}
     saved = (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
              pipeline.stage_dedup, extend.exact_match,
-             dynschedule.dynamic_partition, dynschedule.build_tables)
+             dynschedule.dynamic_partition, dynschedule.build_tables,
+             executor.band_step_compact, executor.exact_loop)
+
+    def keep_widest(kind, lanes, make):
+        if kind not in widest or lanes > widest[kind]["lanes"]:
+            widest[kind] = dict(make(), kind=kind, lanes=lanes)
+
+    def band(index, state, n_live, out, itv, cnt, scratch, mrow_t, pchars,
+             T, t, switchpoint, dyn_meta=None, track_arg=False):
+        if isinstance(index, BMoveIndex):
+            kind = ("band_step.per_lane_rlc" if dyn_meta is not None else
+                    "band_step.textless" if index.textless
+                    else "band_step.rlc")
+            keep_widest(kind, n_live, lambda: dict(
+                index=index, state=[f[:n_live].clone() for f in state],
+                cap=out[0].shape[0], M=itv.shape[0] - 1, cnt=cnt,
+                mrow_t=_clone(mrow_t), pchars=pchars.clone(), T=T, t=t,
+                switchpoint=switchpoint, dyn_meta=_clone(dyn_meta),
+                track_arg=track_arg))
+        return saved[7](index, state, n_live, out, itv, cnt, scratch,
+                        mrow_t, pchars, T, t, switchpoint, dyn_meta,
+                        track_arg)
+
+    def loop(index, ranges, ids, t_lo, t_hi, reads, tabs, per_lane, gate_t,
+             switchpoint):
+        if isinstance(index, BMoveIndex):
+            keep_widest("extend.loop_rlc", ranges.shape[0], lambda: dict(
+                index=index, ranges=ranges.clone(), ids=_clone(ids),
+                t_lo=t_lo, t_hi=t_hi, reads=reads.clone(),
+                tabs=tuple(x.clone() for x in tabs), per_lane=per_lane,
+                gate_t=gate_t, switchpoint=switchpoint))
+        return saved[8](index, ranges, ids, t_lo, t_hi, reads, tabs,
+                        per_lane, gate_t, switchpoint)
 
     def expand(c_lo, c_hi, max_locate):
         out = saved[2](c_lo, c_hi, max_locate)
@@ -172,13 +287,15 @@ def capture(align) -> list:
     pipeline.stage_expand, pipeline.stage_dedup = expand, dedup
     extend.exact_match, dynschedule.dynamic_partition = exact, part
     dynschedule.build_tables = tables
+    executor.band_step_compact, executor.exact_loop = band, loop
     try:
         align()
     finally:
         (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
          pipeline.stage_dedup, extend.exact_match,
-         dynschedule.dynamic_partition, dynschedule.build_tables) = saved
-    return calls
+         dynschedule.dynamic_partition, dynschedule.build_tables,
+         executor.band_step_compact, executor.exact_loop) = saved
+    return calls + list(widest.values())
 
 
 def equal(got, want) -> bool:
@@ -198,12 +315,66 @@ def live_tensor(inp: dict) -> torch.Tensor:
     return inp["live_t"]
 
 
+def band_call(executor, index, inp: dict, who: str):
+    """One band step of ``inp`` through ``executor.band_step_compact`` (a
+    tree's kernel B, or this tree's ``band_step_compact_plain``) on
+    outputs kept in ``inp`` for ``who`` and reused by every call; returns
+    the next frontier's live rows, the in-text rows and the counters. The
+    counters add up the visits and overflow of every call, so only a
+    ``who``'s first call is held to the plain version."""
+    state = inp["state"]
+    n_live, dev = state[0].shape[0], state[0].device
+    key = "bufs_" + who
+    if key not in inp:
+        inp[key] = (
+            [torch.full((inp["cap"], *f.shape[1:]), 3, dtype=f.dtype,
+                        device=dev) for f in state],
+            torch.full((inp["M"] + 1, 4), -1, dtype=torch.int64, device=dev),
+            executor.StepScratch(n_live, dev))
+    out, itv, sc = inp[key]
+    fn = (executor.band_step_compact_plain if who == "plain"
+          else executor.band_step_compact)
+    fn(index, state, n_live, out, itv, inp["cnt"], sc, inp["mrow_t"],
+       inp["pchars"], inp["T"], inp["t"], inp["switchpoint"],
+       inp["dyn_meta"], inp["track_arg"])
+    return dict(ranges=out[0], ids=out[1], band=out[2], colmin=out[3],
+                itv=itv[:inp["M"]], ctr=sc.ctr[:3])
+
+
+def loop_call(executor, index, inp: dict, plain: bool = False,
+              stats: dict | None = None):
+    """Kernel A's loop (or, ``plain``, ``exact_loop_plain``) on ``inp``."""
+    args = (index, inp["ranges"], inp["ids"], inp["t_lo"], inp["t_hi"],
+            inp["reads"], inp["tabs"], inp["per_lane"], inp["gate_t"],
+            inp["switchpoint"])
+    out = (executor.exact_loop_plain(*args, stats=stats) if plain
+           else executor.exact_loop(*args))
+    return dict(ranges=out[0], drows=out[1])
+
+
+def equal_band(got: dict, want: dict) -> bool:
+    """Two band steps' outputs agree: the counters, then the next
+    frontier's live rows (the rows past them are not written) and the
+    in-text rows."""
+    if not torch.equal(got["ctr"], want["ctr"]):
+        return False
+    live = int(want["ctr"][0]) & 0xFFFFFFFF
+    live = min(live, want["ranges"].shape[0])
+    return all(torch.equal(got[k][:live], want[k][:live])
+               for k in ("ranges", "ids", "band", "colmin")) and \
+        torch.equal(got["itv"], want["itv"])
+
+
 def kernel_call(kind: str, index, inp: dict):
     """One launch through this tree's wrapper (verify with the live count
     the path passes)."""
     from columba_tpu_torch.ops import extend, locate, verify
-    from columba_tpu_torch.search import dynschedule
+    from columba_tpu_torch.search import dynschedule, executor
 
+    if kind in BAND_KINDS:
+        return band_call(executor, index, inp, "tree")
+    if kind == "extend.loop_rlc":
+        return loop_call(executor, index, inp)
     if kind == "verify":
         return verify.verify_window(index, inp["reads"], inp["rid"],
                                     inp["ws"], inp["kb"],
@@ -220,8 +391,12 @@ def kernel_call(kind: str, index, inp: dict):
 
 def plain_call(kind: str, index, inp: dict):
     from columba_tpu_torch.ops import blocate, extend, locate, verify
-    from columba_tpu_torch.search import dynschedule
+    from columba_tpu_torch.search import dynschedule, executor
 
+    if kind in BAND_KINDS:
+        return band_call(executor, index, inp, "plain")
+    if kind == "extend.loop_rlc":
+        return loop_call(executor, index, inp, plain=True)
     if kind == "verify":
         return verify.verify_window_plain(index, inp["reads"], inp["rid"],
                                           inp["ws"], inp["kb"])
@@ -283,12 +458,59 @@ def _exact_part_counts(inp: dict, want) -> dict:
     return out
 
 
+def _band_counts(inp: dict) -> dict:
+    """Kernel B's RLC entries: kept children, the walks of those written
+    on the run tables (a quad's dependent-read rounds a child: its LF-run
+    read where needed and its longest walk) and the bound."""
+    from columba_tpu_torch.search import executor
+    from columba_tpu_torch.tools import bounds
+
+    index, state = inp["index"], inp["state"]
+    o = executor.band_step_plain(index, *state, inp["mrow_t"],
+                                 inp["pchars"], inp["T"], inp["t"],
+                                 inp["switchpoint"], inp["dyn_meta"],
+                                 inp["track_arg"])
+    stats = bounds.rlc_band_stats(index, state, inp["mrow_t"], o,
+                                  inp["cap"], inp["dyn_meta"], inp["T"],
+                                  inp["t"])
+    kids = max(stats.get("children", 0), 1)
+    return dict(kept=int(o["ch_alive"].sum()),
+                walked_children=stats.get("children", 0),
+                rounds_per_child=stats.get("walk_rounds", 0) / kids,
+                **{f"{k}_per_child": v / kids for k, v in stats.items()
+                   if k not in ("children", "walk_rounds")},
+                bound=bounds.band_step(state, inp["mrow_t"], o, inp["cap"],
+                                       inp["M"], inp["cnt"], stats))
+
+
+def _loop_counts(inp: dict, want: dict) -> dict:
+    """Kernel A's RLC loop: extensions and their walks on the run tables
+    (dependent-read rounds a lane: a step's rows, then its LF-run read
+    where needed and the longest walk) and the bound."""
+    from columba_tpu_torch.search import executor
+    from columba_tpu_torch.tools import bounds
+
+    index, L = inp["index"], inp["ranges"].shape[0]
+    stats: dict = {}
+    loop_call(executor, index, inp, plain=True, stats=stats)
+    steps = stats.get("steps", 0)
+    return dict(steps_per_lane=steps / max(L, 1),
+                rounds_per_lane=bounds.rlc_rounds(steps, stats, L),
+                bound=bounds.exact_loop(inp["ranges"], inp["ids"],
+                                        inp["tabs"], inp["per_lane"], stats,
+                                        want["ranges"], want["drows"]))
+
+
 def hand_counts(inp: dict) -> dict:
     """Loads the plain versions count for one input, and the bound."""
     from columba_tpu_torch.ops import blocate, locate
     from columba_tpu_torch.tools import bounds
 
     index, kind = inp["index"], inp["kind"]
+    if kind in BAND_KINDS:
+        return _band_counts(inp)
+    if kind == "extend.loop_rlc":
+        return _loop_counts(inp, plain_call(kind, index, inp))
     if kind.startswith(("exact", "dynpart")):
         return _exact_part_counts(inp, plain_call(kind, index, inp))
     if kind == "dyn_tables":
@@ -323,6 +545,18 @@ def hand_counts(inp: dict) -> dict:
 
 
 def describe(inp: dict) -> str:
+    if inp["kind"] in BAND_KINDS:
+        ranges, _, band, colmin = inp["state"]
+        W = colmin.shape[-1] // (2 if inp["track_arg"] else 1)
+        return (f"{ranges.shape[0]} lanes x {ranges.shape[1]}, kb "
+                f"{(band.shape[-1] - 1) // 2}, W {W}, step {inp['t']} of "
+                f"{inp['T']}, cap {inp['cap']}")
+    if inp["kind"] == "extend.loop_rlc":
+        ranges = inp["ranges"]
+        return (f"{ranges.shape[0]} lanes x {ranges.shape[1]}, steps "
+                f"{inp['t_lo']}..{inp['t_hi']}"
+                + (", per-read tables" if inp["per_lane"] else "")
+                + (", second stage" if inp["ids"] is not None else ""))
     if inp["kind"].startswith("exact"):
         B, m = inp["pats"].shape
         lens = inp["lengths"]
@@ -345,24 +579,32 @@ def describe(inp: dict) -> str:
 
 
 def time_inputs(label: str, inputs: list, clocks: Clocks, smi: str,
-                results: list, parent=None) -> None:
+                results: list, parent=None, variants=None) -> None:
     """Checks and times every input on this tree's kernel and, where
     ``parent(kind, inp)`` launches an earlier tree's, on both in turns
-    (parent, this tree, this tree, parent)."""
+    (parent, this tree, this tree, parent). ``variants(kind)``: more
+    launchers of this tree's kernel by name (``fn(kind, inp)``), timed
+    between the turns of this tree and back (parent, tree, a, b, b, a,
+    tree, parent)."""
     for inp in inputs:
         kind, index = inp["kind"], inp["index"]
         want = plain_call(kind, index, inp)
         fns = {"tree": lambda: kernel_call(kind, index, inp)}
         if parent is not None:
             fns["parent"] = lambda: parent(kind, inp)
+        more = (variants(kind) if variants is not None else None) or {}
+        for who, fn in more.items():
+            fns[who] = (lambda fn=fn: fn(kind, inp))
+        same = equal_band if kind in BAND_KINDS else equal
         for who, fn in fns.items():
             got = fn()
             torch.cuda.synchronize()
-            if not equal(got, want):
+            if not same(got, want):
                 raise AssertionError(f"{label} {kind}: the {who} kernel "
                                      f"differs from the plain version")
-        order = (["parent", "tree", "tree", "parent"] if parent is not None
-                 else ["tree", "tree"])
+        order = ["tree", *more, *reversed(list(more)), "tree"]
+        if parent is not None:
+            order = ["parent", *order, "parent"]
         runs = {k: [] for k in fns}
         for who in order:
             runs[who].append(clocks.all(fns[who], KERNEL_NAME[kind]))

@@ -163,31 +163,31 @@ def test_walk_stats_count_per_lane_reads(world, forward):
 
 
 def test_run_tables_hold_every_run(world):
-    """Kernels E and F's run tables: each direction's STARTs, the
-    sentinel's and n + 1 at least 13 entries past it, 16 B aligned; from
-    every position's bucket a forward walk reaches the run that holds it;
-    the textless index keeps none."""
+    """The run tables of kernels A, B, E and F: each direction's STARTs,
+    the sentinel's and n + 1 at least 13 entries past it, 16 B aligned;
+    from every position's bucket a forward walk reaches the run that holds
+    it; on the with-text and on the textless index, which holds the same
+    tables."""
     g, idx = world
-    _, ta, _, tb = idx["rlc"]
     n = len(g)
-    starts = tb.starts.numpy().view(np.uint32)
-    assert tb.starts_rev % 4 == 0 and len(starts) % 4 == 0
     pos = torch.arange(n + 1, dtype=torch.int64)
-    for off, end, fused, r, run_at in (
-            (0, tb.starts_rev, ta.fused_fwd, tb.r_fwd, tb.run_at),
-            (tb.starts_rev, len(starts), ta.fused_rev, tb.r_rev,
-             tb.run_at_rev)):
-        s = starts[off:end]
-        np.testing.assert_array_equal(s[:r + 1], fused[:r + 1, 0])
-        assert len(s) >= r + 13 and (s[r:] == n + 1).all()
-        want = np.searchsorted(s[:r], pos.numpy(), side="right") - 1
-        run = run_at[pos >> tb.run_shift].long()
-        st = torch.from_numpy(s.astype(np.int64))
-        while bool((adv := st[run + 1] <= pos).any()):
-            run += adv.long()
-        np.testing.assert_array_equal(run.numpy(), want)
-    tl = idx["textless"][3]
-    assert tl.starts.numel() == 0 and tl.run_at_rev.numel() == 0
+    for flavor in ("rlc", "textless"):
+        _, ta, _, tb = idx[flavor]
+        starts = tb.starts.numpy().view(np.uint32)
+        assert tb.starts_rev % 4 == 0 and len(starts) % 4 == 0
+        for off, end, fused, r, run_at in (
+                (0, tb.starts_rev, ta.fused_fwd, tb.r_fwd, tb.run_at),
+                (tb.starts_rev, len(starts), ta.fused_rev, tb.r_rev,
+                 tb.run_at_rev)):
+            s = starts[off:end]
+            np.testing.assert_array_equal(s[:r + 1], fused[:r + 1, 0])
+            assert len(s) >= r + 13 and (s[r:] == n + 1).all()
+            want = np.searchsorted(s[:r], pos.numpy(), side="right") - 1
+            run = run_at[pos >> tb.run_shift].long()
+            st = torch.from_numpy(s.astype(np.int64))
+            while bool((adv := st[run + 1] <= pos).any()):
+                run += adv.long()
+            np.testing.assert_array_equal(run.numpy(), want)
 
 
 @pytest.mark.parametrize("forward", [True, False])
@@ -258,7 +258,8 @@ def test_locate_tables_find_every_run(world):
     """Kernel C's RLC walk tables: the walk table is the forward runs'
     START END LF_POS LF_RUN with the sentinel row, and from every row's
     bucket a forward walk over END reaches the run the JAX package's binary
-    search finds; the textless index keeps none."""
+    search finds; the textless index keeps no walk table (it locates on
+    the host), but the same bucket table, which its run tables read."""
     g, idx = world
     ja, ta, jb, tb = idx["rlc"]
     n, r = len(g), tb.r_fwd
@@ -276,7 +277,8 @@ def test_locate_tables_find_every_run(world):
     np.testing.assert_array_equal(run.numpy(), want)
     assert 0 < float(walked.float().mean()) < 2    # about two runs a bucket
     tl = idx["textless"][3]
-    assert tl.walk.numel() == 0 and tl.run_at.numel() == 0
+    assert tl.walk.numel() == 0 and tl.run_shift == tb.run_shift
+    assert torch.equal(tl.run_at, tb.run_at)
 
 
 def test_locate_stats_count_the_kernels_reads(world):

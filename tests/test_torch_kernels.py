@@ -250,33 +250,47 @@ def test_band_step_kernel(setup, gpu, t):
     assert n > 0
 
 
-@pytest.mark.parametrize("flavor", ["vanilla", "rlc", "textless"])
+@pytest.mark.parametrize("flavor", ["vanilla", "rlc", "textless",
+                                    "per_lane_rlc"])
 def test_band_step_overflow(setup, rlc_setup, gpu, flavor):
     """A step whose kept children overflow the next frontier (n > cap) and
     whose narrow rows overflow the in-text buffer: the clamps, the dropped
     rows and the overflow count equal the plain version's, over three
-    launches on one scratch (fresh epochs, the ticket reset between)."""
+    launches on one scratch (fresh epochs, the ticket reset between). On
+    the RLC index the block that holds row cap stages children past it,
+    which its quads must skip; with cap = 256 that block lies deep in the
+    grid, so its look-back crosses many tiles."""
     rng = np.random.default_rng(12)
     track = flavor == "textless"
+    dyn = None
     if flavor == "vanilla":
         _, cpu_fm, index = setup
         state = _random_state(rng, cpu_fm.n, 4096, 96, 7, 5, 2, gpu, cells=4)
     else:
         _, idx = rlc_setup
-        _, cpu_bm, index = idx[flavor]
+        _, cpu_bm, index = idx["rlc" if flavor == "per_lane_rlc"
+                               else flavor]
         states = _rlc_states(cpu_bm, rng, 512)
+        W = 1 if flavor == "per_lane_rlc" else 2
         state = _random_state(rng, 8, states.shape[0], 96, 7, 5,
-                              4 if track else 2, gpu, cells=4)
+                              2 * W if track else W, gpu, cells=4)
         state[0] = states.to(gpu)
     mrow = torch.from_numpy(_random_mrow(rng, 7, 5, 2)).to(gpu)
     mrow[:, 0] |= 1                            # every search active
     mrow[:, 0] &= ~(255 << 10)
     mrow[:, 0] |= 6 << 10                      # a loose bound: most survive
+    if flavor == "per_lane_rlc":
+        # per-lane words (dynschedule layout): active, a side each, a fresh
+        # register on cell 2 (colo + 1 = 3), bound 6, back depth 9
+        words = (1 | (rng.integers(0, 2, 96 * 7 * 5) << 1) | (1 << 2)
+                 | (3 << 3) | (6 << 9) | (9 << 17))
+        dyn = torch.from_numpy(words.astype(np.int32)).to(gpu)
+        mrow = None
     pchars = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
         np.int8)).to(gpu)
     scratch = executor.StepScratch(state[0].shape[0], gpu)
     for rep in range(3):
-        n, rows = fused_vs_plain(index, state, mrow, pchars, 5, 3, 8,
+        n, rows = fused_vs_plain(index, state, mrow, pchars, 5, 3, 8, dyn,
                                  track_arg=track, cap=256, M=64, cnt=40,
                                  scratch=scratch)
         assert n > 256 and rows == 64, (n, rows)
@@ -880,14 +894,17 @@ def test_rlc_exact_kernel(rlc_setup, gpu):
     assert stats["bucket"] > 0 and "probes" not in stats
 
 
+# every templated (kb, W) of both RLC lane widths (kb 0: the Hamming band),
+# and the generic entry above kb 4
 @pytest.mark.parametrize("flavor,kb,W", [
-    ("rlc", 0, 1), ("rlc", 2, 2), ("rlc", 4, 2), ("rlc", 5, 3),
-    ("textless", 0, 2), ("textless", 2, 2), ("textless", 4, 1),
-    ("textless", 5, 3)])
+    (f, kb, W) for f in ("rlc", "textless") for kb in range(5)
+    for W in (1, 2)] + [("rlc", 5, 3), ("rlc", 7, 5), ("textless", 5, 3),
+                        ("textless", 13, 10)])
 def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
     """Kernel B's RLC and textless entries (templated and generic) on valid
     RLC lane states and random step tables equal band_step_compact_plain on
-    every output, witness slots included."""
+    every output, witness slots included: the kept children's intervals
+    from the lanes' threads, their run hints and toeholds from the quads."""
     _, idx = rlc_setup
     _, cpu_bm, bm = idx[flavor]
     rng = np.random.default_rng(43 + 10 * kb + W)
@@ -905,23 +922,83 @@ def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
     assert n > 0
 
 
+@pytest.mark.parametrize("flavor", ["rlc", "textless", "per_lane_rlc"])
+@pytest.mark.parametrize("block", [64, 128, 256])
+def test_rlc_band_step_block_sizes(rlc_setup, gpu, flavor, block):
+    """Kernel B's RLC entries at each block size the launch may choose
+    (64, 128 or 256 threads a 64-lane tile: 16, 32 or 64 quads walk the
+    kept children) equal band_step_compact_plain on every output, on a
+    step that keeps most children and overflows the frontier."""
+    _, idx = rlc_setup
+    _, cpu_bm, bm = idx["rlc" if flavor == "per_lane_rlc" else flavor]
+    rng = np.random.default_rng(60 + block)
+    track = flavor == "textless"
+    W = 1 if flavor == "per_lane_rlc" else 2
+    states = _rlc_states(cpu_bm, rng, 384)
+    state = _random_state(rng, 8, states.shape[0], 96, 7, 5,
+                          2 * W if track else W, gpu, cells=4)
+    state[0] = states.to(gpu)
+    mrow = torch.from_numpy(_random_mrow(rng, 7, 5, W)).to(gpu)
+    mrow[:, 0] |= 1
+    mrow[:, 0] &= ~(255 << 10)
+    mrow[:, 0] |= 6 << 10
+    dyn = None
+    if flavor == "per_lane_rlc":
+        words = (1 | (rng.integers(0, 2, 96 * 7 * 5) << 1) | (1 << 2)
+                 | (3 << 3) | (6 << 9) | (9 << 17))
+        dyn = torch.from_numpy(words.astype(np.int32)).to(gpu)
+        mrow = None
+    pchars = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
+        np.int8)).to(gpu)
+    executor.BAND_QUAD_BLOCK = block
+    try:
+        for cap in (None, 1000):
+            n, _ = fused_vs_plain(bm, state, mrow, pchars, 5, 3, 0, dyn,
+                                  track_arg=track, cap=cap)
+            assert n > 1000
+    finally:
+        executor.BAND_QUAD_BLOCK = 0
+
+
 @pytest.mark.parametrize("flavor", ["rlc", "textless"])
-def test_rlc_exact_loop_kernel(rlc_setup, gpu, flavor):
+@pytest.mark.parametrize("shape", ["static", "two_stage", "dyn"])
+def test_rlc_exact_loop_kernel(rlc_setup, gpu, flavor, shape):
     """Kernel A's loop entry on 8- and 12-wide RLC lanes (run hints and
-    toeholds walked with every step) equals exact_loop_plain."""
+    toeholds walked with every step, a quad a lane) equals
+    exact_loop_plain: from the full range on a static schedule's tables,
+    the second stage of the two-stage loop (compacted lanes with their own
+    ids, steps from 8), and per-read tables (kernel G's, of kernel F's
+    boundaries on the with-text index; the tables depend on the reads
+    only, so the textless lanes take them too)."""
     g, idx = rlc_setup
     _, cpu_bm, bm = idx[flavor]
     rng = np.random.default_rng(46)
     batch = torch.from_numpy(_reads(rng, g, 64, 100, 2)).to(gpu)
-    sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit")
-    tables = executor.device_tables(sched, gpu)
-    tabs = (tables["ex_pos"], tables["ex_dir"], tables["db_ex"])
-    L = batch.shape[0] * sched.num_searches
+    if shape == "dyn":
+        scheme = get_scheme("kuch1", 2)
+        st = dynschedule.scheme_static(scheme, 100, "edit")
+        pts = dynschedule.dynamic_partition(idx["rlc"][2], batch, scheme)
+        dyn = dynschedule.build_tables(st, pts, batch)
+        tabs = (dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"])
+        S, E = st.num_searches, dyn["ex_pos"].shape[1]
+    else:
+        sched = pipeline.compile_cached(get_scheme("kuch1", 2), 100, "edit")
+        tables = executor.device_tables(sched, gpu)
+        tabs = (tables["ex_pos"], tables["ex_dir"], tables["db_ex"])
+        S, E = sched.num_searches, sched.e_max
+    L = batch.shape[0] * S
     ranges = bm.full_range((L,)).clone()
     ranges[::11] = 0
-    out, drows = loop_vs_plain(bm, ranges, None, 0, sched.e_max, batch,
-                               tabs, False, 10, 0 if flavor == "textless"
-                               else 4)
+    ids, t_lo = None, 0
+    sp = 0 if flavor == "textless" else 4
+    if shape == "two_stage":
+        ids = torch.from_numpy(np.sort(rng.choice(L, L // 3, replace=False))
+                               .astype(np.int32)).to(gpu)
+        ranges, _ = executor.exact_loop_plain(
+            bm, ranges[ids.long()], ids, 0, 8, batch, tabs, False, 10, sp)
+        t_lo = 8
+    out, drows = loop_vs_plain(bm, ranges, ids, t_lo, E, batch, tabs,
+                               shape == "dyn", 10, sp)
     assert bool((out[:, 1] > out[:, 0]).any())
 
 
@@ -1099,18 +1176,20 @@ def test_rlc_exact_kernel_lengths(rlc_setup, gpu):
     assert stats["bucket"] > 0 and "probes" not in stats
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 7])
 def test_rlc_band_step_per_lane(rlc_setup, gpu, k):
-    """Kernel B's per-lane RLC entry (kb 1..4 templated, kb 5 generic) on
-    kernel G's tables of kernel F's boundaries and valid RLC lane states
-    equals band_step_compact_plain, at steps where searches idle, reset and
-    accumulate; then kernel A's loop entry on the same per-read tables."""
+    """Kernel B's per-lane RLC entry (kb 0..4 templated, kb 5 and 7
+    generic) on kernel G's tables of kernel F's boundaries and valid RLC
+    lane states equals band_step_compact_plain, at steps where searches
+    idle, reset and accumulate; then kernel A's loop entry on the same
+    per-read tables."""
     g, idx = rlc_setup
     _, cpu_bm, bm = idx["rlc"]
     rng = np.random.default_rng(50 + k)
     m, R = 100, 128
-    scheme = get_scheme("columba" if k > 4 else "kuch1", k)
-    st = dynschedule.scheme_static(scheme, m, "edit")
+    # kb 0: a Hamming schedule of a k = 1 partition (p = 1 has none)
+    scheme = get_scheme("columba" if k > 4 else "kuch1", max(k, 1))
+    st = dynschedule.scheme_static(scheme, m, "edit" if k else "hamming")
     batch = torch.from_numpy(_reads(rng, g, R // 2, m, 2)).to(gpu)
     pts = dynschedule.dynamic_partition(bm, batch, scheme)
     dyn = dynschedule.build_tables(st, pts, batch)
