@@ -4,7 +4,7 @@ Run from the repository root with ``python3 chip_smoke.py`` on a machine with
 a CUDA device. It
 
 1. prints the card (torch name, and nvidia-smi's name and power limit);
-2. builds the eight CUDA kernels from ``columba_tpu_torch/csrc`` into
+2. builds the eleven CUDA kernels from ``columba_tpu_torch/csrc`` into
    ``columba_tpu_torch/_build`` (one nvcc per source, started together;
    kernel B's RLC entries are a source of their own) and prints ptxas's
    registers and spills per entry, failing if any entry but kernel B's
@@ -31,7 +31,14 @@ a CUDA device. It
    tables) on F's boundaries, kernel B's per-lane entry at kb 2 and 4 and
    kernel A's loop on G's tables, kernel E with per-row lengths on the part
    patterns of scheme selection, and kernel H (the row gather) at 262,144
-   lanes beside ``torch.index_select``;
+   lanes beside ``torch.index_select``; every entry of kernels I-L (the
+   seeds, drain, init, two-stage compaction and tail around kernels A and
+   B; the candidates' expansion; the dedup around ``torch.sort``) on one
+   ``match_device_core`` call at the SE ALL path's sizes, on the band-only
+   call, the k = 0 pass and a k-mer lookup, each held to its plain version
+   on copies of its inputs (``tools/path_inputs.py`` ``capture_entries``)
+   and timed, then the launch census of that call outside kernel B's band
+   steps and the sort (``torch.profiler``);
 5. builds the 10-mer seed table (kernel A's main entry, counted as the
    path ``kmer_table``) and drives eight paths through ``cli align``, each
    with every kernel's launch count reset just before and read just after
@@ -61,10 +68,10 @@ a CUDA device. It
    On ``se_all``, ``pe_best`` and ``rlc_se_all`` the warm-up align's own
    inputs to kernels C and D (the rows ``stage_expand`` flattens from
    whole SA ranges, the candidates ``stage_dedup`` sorts and pads, with
-   their live counts) are captured, and after the path each kernel entry
-   and band radius is held to its plain version on them and timed, by
-   CUDA events and by ``torch.profiler``'s device time, with a warm and
-   with a flushed L2 (``columba_tpu_torch/tools/path_inputs.py``);
+   their live counts) and to kernels I-L are captured, and after the path
+   each kernel entry and band radius is held to its plain version on them
+   and timed, by CUDA events and by ``torch.profiler``'s device time, with
+   a warm and with a flushed L2 (``columba_tpu_torch/tools/path_inputs.py``);
 6. checks each path's output against the sampled loci (nothing with few
    enough substitutions may be missing), that every kernel launched on the
    paths that should reach it, and that one batch run through the plain
@@ -74,7 +81,8 @@ a CUDA device. It
    seed 20260820), builds it with ``cli build --rlc`` and ``--rlc
    --textless`` (two processes at once), prints each flavor's index bytes
    on disk and on the card, holds the RLC entries of kernels A, B, C, E
-   and F (``extend.loop_rlc`` on 8- and 12-wide lanes and on per-read
+   and F, and kernels I-L on one RLC and one textless batch
+   (``extend.loop_rlc`` on 8- and 12-wide lanes and on per-read
    tables, ``extend.rlc`` both ways, ``band_step.rlc``,
    ``band_step.per_lane_rlc`` at kb 2 and 4, ``band_step.textless``,
    ``locate.rlc``, ``exact.rlc``, ``exact.rlc_lengths``, ``dynpart.rlc``
@@ -112,7 +120,8 @@ a CUDA device. It
    ``dist_ranks``, the 2-rank dryrun
    (``columba_tpu_torch.tools.multihost_dryrun``: two processes on the one
    card, gloo) on a FASTQ of the same reads, whose occurrences must be
-   ``dist_shards``' and whose every rank must launch kernels A-D; and, in
+   ``dist_shards``' and whose every rank must launch kernels A-D and
+   I-L; and, in
    the RLC section, ``rlc_dist_shards`` on the pan-genome's first 16,384
    reads.
 
@@ -192,7 +201,7 @@ PATH_KERNELS = {
     "se_all": ("extend", "band_step", "locate", "verify"),
     "se_best": ("extend", "band_step", "locate", "verify"),
     "pe_best": ("extend", "band_step", "locate", "verify"),
-    "pe_all_e0": ("exact", "locate"),
+    "pe_all_e0": ("exact", "locate", "expand"),
     "pe_all_e2": ("extend", "band_step", "locate", "verify"),
     "se_all_dynamic": ("extend", "band_step", "locate", "verify", "dynpart",
                        "dyn_tables"),
@@ -201,8 +210,8 @@ PATH_KERNELS = {
     "rlc_se_all": ("extend", "band_step", "locate", "verify"),
     "rlc_se_best": ("extend", "band_step", "locate", "verify"),
     "rlc_pe_best": ("extend", "band_step", "locate", "verify", "exact"),
-    "tl_se_all": ("extend", "band_step"),
-    "tl_se_best": ("extend", "band_step"),
+    "tl_se_all": ("extend", "band_step", "frontier"),
+    "tl_se_best": ("extend", "band_step", "frontier"),
     "rlc_se_all_dynamic": ("extend", "band_step", "locate", "verify",
                            "dynpart", "dyn_tables"),
     "rlc_se_best_d": ("extend", "band_step", "locate", "verify", "exact"),
@@ -223,21 +232,32 @@ PATH_KERNELS = {
     "big_se_best": ("extend", "locate", "verify"),
     "big_pe_best": ("extend", "locate", "verify"),
 }
+# kernels I-L (the frontier around kernels A and B, the candidates'
+# expansion and the dedup) run on every path that runs the scheme executor
+# and verifies: I, J, K and L wherever kernel D runs; on the textless paths
+# (no locate, no verify) I and J; on PE ALL -e 0 (the exact pass) K
+for _p, _k in PATH_KERNELS.items():
+    if "verify" in _k:
+        PATH_KERNELS[_p] = _k + ("frontier", "expand", "dedup")
 # the entries of kernels A, B, C and E each path must go through (see
 # native.Kernel.by_entry), as "kernel.entry"
 _RLC_ENTRIES = ("extend.loop_rlc", "band_step.rlc", "locate.rlc")
 PATH_ENTRIES = {
-    "se_all": ("extend.loop",),
+    "se_all": ("extend.loop", "frontier.seed", "frontier.drain",
+               "frontier.init", "frontier.tail", "expand.frontier",
+               "expand.scan", "expand.rows", "dedup.windows", "dedup.keys",
+               "dedup.compact"),
+    "pe_all_e0": ("expand.ranges", "expand.rows"),
     "se_best": ("extend.loop",),
     "pe_best": ("extend.loop",),
-    "pe_all_e2": ("extend.loop",),
+    "pe_all_e2": ("extend.loop", "frontier.ex_compact", "frontier.ex_back"),
     "se_all_dynamic": ("extend.loop", "band_step.per_lane"),
     "se_best_d": ("extend.loop", "exact.lengths"),
     "pe_best_static": ("extend.loop",),
     "rlc_se_all": _RLC_ENTRIES,
     "rlc_se_best": _RLC_ENTRIES,
     "rlc_pe_best": _RLC_ENTRIES + ("exact.rlc",),
-    "tl_se_all": ("extend.loop_rlc", "band_step.textless"),
+    "tl_se_all": ("extend.loop_rlc", "band_step.textless", "frontier.tail"),
     "tl_se_best": ("extend.loop_rlc", "band_step.textless"),
     "rlc_se_all_dynamic": ("extend.loop_rlc", "band_step.per_lane_rlc",
                            "locate.rlc", "dynpart.rlc"),
@@ -264,7 +284,10 @@ RHS_PATHS = ("rlc_se_all_rhs", "blk_se_rhs")
 # frame): every entry but kernel B's generic one (KB = -1, runtime sizes),
 # whose arrays are sized for the largest band
 NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate", "dyn_tables",
-            "gather_kernel", "extend_", "band_step_")
+            "gather_kernel", "extend_", "band_step_", "seed_kernel",
+            "drain_kernel", "init_kernel", "ex_compact_kernel",
+            "ex_back_kernel", "tail_kernel", "frontier_kernel", "scan_kernel",
+            "rows_kernel", "windows_kernel", "keys_kernel", "compact_kernel")
 GENERIC_B = ("band_step_kernel<-1", "band_step_rlc_kernel<-1")
 # the paths with -p dynamic: kernel F launches once a batch, however many
 # lossless re-runs the batch takes
@@ -281,7 +304,8 @@ DIST_READS = 16_384      # reads a shard or a rank holds on the Vanilla index
 # launches kernel B; SE ALL's first 16,384 hold none
 DIST_FIRST = 16_384
 N_RLC_DIST_READS = 16_384  # rlc_dist_shards: rlc_se_all's first reads
-DIST_KERNELS = ("extend", "band_step", "locate", "verify")
+DIST_KERNELS = ("extend", "band_step", "locate", "verify", "frontier",
+                "expand", "dedup")
 # the big section: one index past 2^31 bases (GRCh38's scale), the layout of
 # the JAX package's tools/bigbuild.py (sequences of 2^27 bp: chr17 begins
 # at 2^31), with the smoke genome's 40 runs of N
@@ -638,6 +662,11 @@ def kernel_checks(index, arrays, reads, table) -> dict:
         log(f"kernel verify at kb={kb} ({32 if kb <= 7 else 64}-bit band; "
             f"{ml} candidates): equal to plain; {rep['ms']:.4f} ms vs plain "
             f"{rep['plain_ms']:.4f} ms")
+    # kernels I-L on reads 16,384-32,767 (two lie in N runs: band steps)
+    il_batch = torch.from_numpy(np.concatenate(
+        [reads[DIST_FIRST:DIST_FIRST + BATCH],
+         reads[DIST_FIRST:DIST_FIRST + BATCH, ::-1] ^ 3])).to(dev)
+    report.update(il_checks(index, il_batch, table, sched, C, ml))
     report.update(new_kernel_checks(index, batch, table, all_ranges, rng,
                                     check))
     return report
@@ -817,6 +846,120 @@ def _prof(rep) -> str:
             else f"{rep['prof_ms']:.4f}")
 
 
+# the record of each of kernels I-L in the kernels line: its main entry's
+IL_MAIN = {"frontier": "frontier.seed", "expand": "expand.frontier",
+           "dedup": "dedup.windows"}
+
+
+def entry_checks(label, calls, report=None, prof=True) -> None:
+    """Kernels I-L's captured calls (``path_inputs.capture_entries``) held
+    to their plain versions on copies of their inputs (max abs error 0, the
+    buffers written in place included), timed (CUDA events, and with
+    ``prof`` the profiler's device time, warm and with a flushed L2; the
+    plain version by events) beside their bound; with ``report`` each
+    entry's record is filed there, the sort's time as kernel L's library
+    time."""
+    from columba_tpu_torch.tools import bounds, path_inputs
+
+    clocks = path_inputs.Clocks(PATH_INPUT_REPS)
+    sort_ms = None
+    if "dedup.compact" in calls:
+        sort_ms = path_inputs.sort_ms(calls["dedup.compact"], clocks)
+    for name in sorted(calls):
+        c = calls[name]
+        err = path_inputs.replay_plain(c)
+        if err != 0:
+            raise AssertionError(f"{label}: kernel {name} differs from its "
+                                 f"plain version: max abs error {err}")
+        b = bounds.entry(name, c["args"], c["after"], c["out"])
+        if prof:
+            t = path_inputs.time_entry(c, clocks)
+        else:
+            kargs = path_inputs._deep(c["args"], path_inputs._copy)
+            t = dict(events_warm=clocks.events(lambda: c["real"](**kargs),
+                                               False),
+                     events_cold=None, prof_warm=None, prof_cold=None,
+                     plain_ms=None)
+        lib = sort_ms if name.startswith("dedup.") else None
+        log(f"kernel {name} ({label}): equal to plain; events warm "
+            f"{t['events_warm']:.4f} ms, cold {_opt(t['events_cold'])}; "
+            f"profiler warm {_opt(t['prof_warm'])}, cold "
+            f"{_opt(t['prof_cold'])}; plain {_opt(t['plain_ms'])} ms"
+            + (f"; sort {lib:.4f} ms" if lib is not None else "")
+            + f"; bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+            f"({b['bytes']} bytes), share by events "
+            f"{b['bound_ms'] / t['events_warm']:.4f}")
+        if report is not None and name != "frontier.lookup":
+            report[name] = dict(
+                max_abs_err=err, ms=t["events_warm"], prof_ms=t["prof_warm"],
+                plain_ms=t["plain_ms"], bound_ms=b["bound_ms"],
+                bound_by=b["bound_by"], bound_bytes=b["bytes"],
+                bound_operations=b["operations"], library_ms=lib)
+    if report is not None:
+        for kern, main in IL_MAIN.items():
+            if main in report:
+                report[kern] = dict(report[main])
+
+
+def _opt(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def il_checks(index, batch, table, sched, C, ml) -> dict:
+    """Kernels I-L at the SE ALL path's sizes (32,768 rows, L = 98,304
+    lanes, C = 12,288, max_locate = M = 131,072; reads that hold two in N
+    runs, so the call makes band steps): every entry of one
+    ``match_device_core`` call as ``match_all`` makes it (10-mer seeds,
+    switchpoint 4), of the band-only call (switchpoint 0, the two-stage
+    exact loop), of the k = 0 pass and of a k-mer lookup, held to its plain
+    version and timed; then the launch census of the first call, outside
+    kernel B's band steps and the sort."""
+    from columba_tpu_torch.index import kmer
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.tools import path_inputs
+
+    R, S = batch.shape[0], sched.num_searches
+    caps = pipeline.crossover_caps(C, ml, 4)
+
+    def se_all():
+        return pipeline.match_device_core(index, batch, sched, C, ml, K,
+                                          table, 4, *caps)
+
+    C0 = pipeline.batch_capacity(R, S, 0)
+
+    def band_only():
+        return pipeline.match_device_core(index, batch, sched, C0, ml, K,
+                                          table, 0, 0, 0, 0, ex_split=8,
+                                          ex_cap=C0)
+
+    report = {}
+    calls = path_inputs.capture_entries(se_all)
+    band = path_inputs.capture_entries(band_only)
+    for what, c in (("SE ALL", calls), ("band-only", band)):
+        w = c["frontier.tail"]["after"]["words"]
+        log(f"kernels I-L, the {what} call at the SE ALL sizes: {R} rows x "
+            f"{S} searches = {R * S} lanes, C = {C}, M = max_locate = {ml};"
+            f" {int(w[5])} lanes live after the exact prefix, {int(w[6])} "
+            f"in-text rows, {int(w[1])} visits")
+    calls.update({k: v for k, v in band.items() if k not in calls})
+    more = path_inputs.capture_entries(
+        lambda: pipeline._exact_device(index, batch, ml))
+    calls.update({k: v for k, v in more.items() if k not in calls})
+    more = path_inputs.capture_entries(
+        lambda: kmer.lookup(table, batch[:, 20:30]))
+    calls.update(more)
+    entry_checks("SE ALL sizes", calls, report)
+    entry_checks("SE ALL sizes, the band-only call", band, prof=False)
+    census = path_inputs.launch_census(se_all)
+    log(f"launch census, one SE ALL match_device_core call ({R} rows, C = "
+        f"{C}, max_locate = {ml}; torch.profiler): {census['outside']} "
+        f"launches, memsets and copies outside kernel B's band steps "
+        f"({census['band']} with their word copies) and the sort "
+        f"({census['sort']}); {census['total']} in all; by name "
+        f"{json.dumps(census['by_name'], sort_keys=True)}")
+    return report
+
+
 def rlc_kernel_checks(bm, tl, batch) -> dict:
     """The RLC entries of kernels A (its loop), B, C and E against their
     plain versions on the card, at the shapes of the RLC paths (a batch of
@@ -892,6 +1035,21 @@ def rlc_kernel_checks(bm, tl, batch) -> dict:
                 f"rounds a row", rep, bounds.exact_rlc(steps, stats, out))
 
     report.update(rlc_select_checks(bm, batch, rng, states))
+
+    # kernels I-L on one RLC batch (8-wide lanes, no seed table, switchpoint
+    # 4) and on one textless batch (12-wide lanes, track_arg: I and J)
+    ml = pipeline.batch_max_locate(R)
+    Cr = pipeline.batch_capacity(R, S, 4)
+    calls = path_inputs.capture_entries(
+        lambda: pipeline.match_device_core(
+            bm, batch, sched, Cr, ml, K, None, 4,
+            *pipeline.crossover_caps(Cr, ml, 4)))
+    entry_checks(f"RLC batch, {R} rows", calls, prof=False)
+    calls = path_inputs.capture_entries(
+        lambda: executor.run_scheme(tl, batch, sched,
+                                    pipeline.batch_capacity(R, S, 0),
+                                    track_arg=True))
+    entry_checks(f"textless batch, {R} rows", calls, prof=False)
 
     # kernel C (locate.rlc): max_locate = max(65,536, 4 R) random rows
     ml = max(1 << 16, 4 * R)
@@ -1209,6 +1367,7 @@ def plain_patch():
     from columba_tpu_torch.index.bmove import BMoveIndex
     from columba_tpu_torch.ops import blocate, extend, locate, rank, verify
     from columba_tpu_torch.search import dynschedule, executor
+    from columba_tpu_torch.tools import path_inputs
 
     def locate_plain(index, rows):
         if isinstance(index, BMoveIndex):
@@ -1238,8 +1397,10 @@ def plain_patch():
     undo = [(mod, name, getattr(mod, name)) for mod, name, _ in saved]
     for mod, name, fn in saved:
         setattr(mod, name, fn)
+    restore_entries = path_inputs.plain_entries()       # kernels I-L
 
     def restore():
+        restore_entries()
         for mod, name, fn in undo:
             setattr(mod, name, fn)
     return restore
@@ -1377,7 +1538,7 @@ def dist_ranks(path, idx, reads_fq, want_occ, smi, record) -> None:
     processes joined by gloo, each loading the index of ``idx`` and taking
     ``DIST_READS`` reads of ``reads_fq`` in rank order. Requires ``ok``,
     the occurrence set ``want_occ`` (``dist_shards``' on the same reads)
-    and kernels A, B, C and D on every rank; the ranks' summed launches go
+    and kernels A, B, C, D and I-L on every rank; the ranks' summed launches go
     to ``record``."""
     t0 = time.time()
     torch.cuda.empty_cache()
@@ -2270,8 +2431,10 @@ def main() -> int:
             kept, and those kernels are timed on them after the path."""
             t0 = time.time()
             warm_up = lambda: align(path, warm[path], "warm")  # noqa: E731
-            captured = (path_inputs.capture(warm_up) if path in CAPTURE_PATHS
-                        else warm_up())
+            il_calls: dict = {}
+            captured = (path_inputs.capture(lambda: il_calls.update(
+                path_inputs.capture_entries(warm_up)))
+                if path in CAPTURE_PATHS else warm_up())
             t_warm = time.time() - t0
             for k in native.KERNELS.values():
                 k.reset()
@@ -2352,6 +2515,8 @@ def main() -> int:
                                          f"{batches} batches")
             if path in CAPTURE_PATHS:
                 path_input_times(path, captured, smi)
+                entry_checks(f"{path}'s own inputs, {smi}", il_calls,
+                             prof=path == "se_all")
 
         for path in PATH_KERNELS:
             if path not in (*RLC_PATHS, *BLOCKED_PATHS, *BIG_PATHS):
@@ -2601,7 +2766,7 @@ def main() -> int:
                     index_of, launches_by_path)
 
     # one record per kernel, and one more for each named entry of kernels
-    # A, B, C and E (its launches are a share of its kernel's)
+    # A, B, C, E and I-L (its launches are a share of its kernel's)
     replaces = {"band_step.per_lane": "columba_tpu/search/executor.py:600",
                 "exact.lengths": "columba_tpu/search/pipeline.py:381",
                 "extend.loop": "columba_tpu/search/executor.py:437",
@@ -2614,7 +2779,18 @@ def main() -> int:
                 "exact.rlc_lengths": "columba_tpu/search/pipeline.py:381",
                 "dynpart.rlc": "columba_tpu/search/dynschedule.py:283",
                 "band_step.per_lane_rlc":
-                    "columba_tpu/search/executor.py:600"}
+                    "columba_tpu/search/executor.py:600",
+                "frontier.drain": "columba_tpu/search/executor.py:349",
+                "frontier.init": "columba_tpu/search/executor.py:521",
+                "frontier.ex_compact": "columba_tpu/search/executor.py:468",
+                "frontier.ex_back": "columba_tpu/search/executor.py:468",
+                "frontier.tail": "columba_tpu/search/executor.py:880",
+                "expand.scan": "columba_tpu/search/pipeline.py:169",
+                "expand.ranges": "columba_tpu/search/pipeline.py:169",
+                "expand.rows": "columba_tpu/search/pipeline.py:169",
+                "dedup.windows": "columba_tpu/search/pipeline.py:268",
+                "dedup.keys": "columba_tpu/search/pipeline.py:194",
+                "dedup.compact": "columba_tpu/search/pipeline.py:194"}
     kernels = []
     for k in native.KERNELS.values():
         entries = [k.name] + [n for n in report if n.startswith(k.name + ".")]

@@ -153,63 +153,11 @@ struct BandArgs {
 constexpr int kMaxBW = 2 * 13 + 1;   // ladder cutoff 13 (BEST_CUTOFF)
 constexpr int kMaxW = 10;            // search/schedule.py MAX_REGS
 
-constexpr unsigned long long kAggregate = 1ull << 62;
-constexpr unsigned long long kPrefix = 2ull << 62;
-
-__device__ __forceinline__ unsigned long long stamp(unsigned long long flag,
-                                                    unsigned epoch,
-                                                    unsigned count) {
-  return flag | (static_cast<unsigned long long>(epoch) << 32) | count;
-}
-
-__device__ __forceinline__ void publish(unsigned long long* st, long long tile,
-                                        unsigned long long flag,
-                                        unsigned epoch, unsigned kept,
-                                        unsigned narrow) {
-  volatile unsigned long long* s = st + 2 * tile;
-  s[0] = stamp(flag, epoch, kept);
-  s[1] = stamp(flag, epoch, narrow);
-}
-
-// Warp 0's look-back: the kept and narrow children of every tile before
-// `tile`, 32 tiles a round: lane j reads tile base - j, waiting until both
-// its words carry this epoch and the same flag (its block writes them one
-// after the other; a tile before tile 0 reads as an empty prefix). The
-// round adds the tiles up to the nearest one that holds an inclusive
-// prefix, and ends the walk there; without one it adds all 32 and goes on.
-__device__ __forceinline__ void look_back(const unsigned long long* st,
-                                          long long tile, unsigned epoch,
-                                          unsigned long long& kept,
-                                          unsigned long long& narrow) {
-  const int lane_id = threadIdx.x & 31;
-  const volatile unsigned long long* s = st;
-  kept = narrow = 0;
-  for (long long base = tile - 1;; base -= 32) {
-    const long long j = base - lane_id;
-    unsigned long long a = kPrefix, b = kPrefix;
-    while (j >= 0) {
-      a = s[2 * j];
-      b = s[2 * j + 1];
-      if (((a >> 32) & 0x3FFFFFFFu) == epoch &&
-          ((b >> 32) & 0x3FFFFFFFu) == epoch && (a >> 62) != 0 &&
-          (a >> 62) == (b >> 62))
-        break;
-    }
-    const unsigned prefixes =
-        __ballot_sync(0xFFFFFFFFu, (a >> 62) == 2);
-    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
-    unsigned long long k = lane_id <= stop ? (a & 0xFFFFFFFFull) : 0;
-    unsigned long long n = lane_id <= stop ? (b & 0xFFFFFFFFull) : 0;
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      k += __shfl_xor_sync(0xFFFFFFFFu, k, d);
-      n += __shfl_xor_sync(0xFFFFFFFFu, n, d);
-    }
-    kept += k;
-    narrow += n;
-    if (prefixes) return;
-  }
-}
+// the look-back across tiles (common.cuh), shared with kernels I-L
+using columba::kAggregate;
+using columba::kPrefix;
+using columba::look_back;
+using columba::publish;
 
 // The body of every entry. KB >= 0: sizes fixed at compile time. KB < 0:
 // the generic entry. RW: lane width (4 Vanilla, 8 RLC, 12 textless with

@@ -182,6 +182,168 @@ __device__ __forceinline__ void fm_child(const FmLane& lane, int c,
   for (int k = 0; k < 4; ++k) o[k] = lane.pos(c, k);
 }
 
+// ---------------------------------------------------------------------------
+// Order-keeping compaction across blocks: a block scan of each block's
+// values, then a decoupled look-back over tiles (kernel B and kernels I-L).
+// A block takes its tile from an atomic ticket, not from blockIdx, so it
+// only ever waits on tiles whose blocks are already running. A tile's
+// status is two words, [flag 2 | epoch 30 | count 32] each, stamped with
+// the launch's epoch (1 .. 2^30 - 1), so nothing is cleared between
+// launches; the block with the last ticket resets the ticket. The two
+// words carry two 32-bit counts (kernel B: kept children and narrow rows;
+// kernel I: live lanes and narrow lanes) or the low and high halves of one
+// 64-bit sum (kernel K's widths): each is added up on its own, and the
+// halves recombine exactly.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned long long kAggregate = 1ull << 62;
+constexpr unsigned long long kPrefix = 2ull << 62;
+
+__device__ __forceinline__ unsigned long long stamp(unsigned long long flag,
+                                                    unsigned epoch,
+                                                    unsigned count) {
+  return flag | (static_cast<unsigned long long>(epoch) << 32) | count;
+}
+
+__device__ __forceinline__ void publish(unsigned long long* st, long long tile,
+                                        unsigned long long flag,
+                                        unsigned epoch, unsigned kept,
+                                        unsigned narrow) {
+  volatile unsigned long long* s = st + 2 * tile;
+  s[0] = stamp(flag, epoch, kept);
+  s[1] = stamp(flag, epoch, narrow);
+}
+
+// Warp 0's look-back: the two counts of every tile before `tile`, 32 tiles
+// a round: lane j reads tile base - j, waiting until both its words carry
+// this epoch and the same flag (its block writes them one after the
+// other; a tile before tile 0 reads as an empty prefix). The round adds
+// the tiles up to the nearest one that holds an inclusive prefix, and ends
+// the walk there; without one it adds all 32 and goes on.
+__device__ __forceinline__ void look_back(const unsigned long long* st,
+                                          long long tile, unsigned epoch,
+                                          unsigned long long& kept,
+                                          unsigned long long& narrow) {
+  const int lane_id = threadIdx.x & 31;
+  const volatile unsigned long long* s = st;
+  kept = narrow = 0;
+  for (long long base = tile - 1;; base -= 32) {
+    const long long j = base - lane_id;
+    unsigned long long a = kPrefix, b = kPrefix;
+    while (j >= 0) {
+      a = s[2 * j];
+      b = s[2 * j + 1];
+      if (((a >> 32) & 0x3FFFFFFFu) == epoch &&
+          ((b >> 32) & 0x3FFFFFFFu) == epoch && (a >> 62) != 0 &&
+          (a >> 62) == (b >> 62))
+        break;
+    }
+    const unsigned prefixes =
+        __ballot_sync(0xFFFFFFFFu, (a >> 62) == 2);
+    const int stop = prefixes ? __ffs(prefixes) - 1 : 31;
+    unsigned long long k = lane_id <= stop ? (a & 0xFFFFFFFFull) : 0;
+    unsigned long long n = lane_id <= stop ? (b & 0xFFFFFFFFull) : 0;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      k += __shfl_xor_sync(0xFFFFFFFFu, k, d);
+      n += __shfl_xor_sync(0xFFFFFFFFu, n, d);
+    }
+    kept += k;
+    narrow += n;
+    if (prefixes) return;
+  }
+}
+
+// What a scanning launch of kernels I-L shares: the ticket word, the tile
+// statuses (two words a tile) and the launch's epoch.
+struct ScanArgs {
+  unsigned long long* ticket;
+  unsigned long long* status;
+  unsigned epoch;
+};
+
+// The block's tile, from the ticket (every thread of the block gets it).
+__device__ __forceinline__ long long take_tile(const ScanArgs& sa) {
+  __shared__ long long s_tile;
+  if (threadIdx.x == 0)
+    s_tile = static_cast<long long>(atomicAdd(sa.ticket, 1ull));
+  __syncthreads();
+  return s_tile;
+}
+
+// Every thread's exclusive prefix of `v` over the whole grid, in tile
+// order then thread order: a warp scan, one pass over the warps' sums,
+// then warp 0's look-back over the earlier tiles. Sums are 64-bit; a value
+// made of two 32-bit counts (x | y << 32) scans both at once as long as
+// the x total stays below 2^32. `end` is the inclusive prefix at the
+// tile's end: the grand total in the block with the last ticket, which
+// also resets the ticket (after its return every block has taken one).
+// Call once a launch, with every thread of the block.
+template <int kThreads>
+__device__ __forceinline__ unsigned long long scan_tiles(
+    unsigned long long v, long long tile, const ScanArgs& sa,
+    unsigned long long& end) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ unsigned long long s_warp[kWarps];
+  __shared__ unsigned long long s_base, s_total;
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const unsigned long long u = __shfl_up_sync(0xFFFFFFFFu, x, d);
+    if (lane_id >= d) x += u;
+  }
+  if (lane_id == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned long long total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += s_warp[w];
+    unsigned long long lo = 0, hi = 0;
+    if (tile > 0) {
+      if (lane_id == 0)
+        publish(sa.status, tile, kAggregate, sa.epoch,
+                static_cast<unsigned>(total),
+                static_cast<unsigned>(total >> 32));
+      look_back(sa.status, tile, sa.epoch, lo, hi);
+    }
+    const unsigned long long base = lo + (hi << 32);
+    if (lane_id == 0) {
+      const unsigned long long inc = base + total;
+      publish(sa.status, tile, kPrefix, sa.epoch,
+              static_cast<unsigned>(inc), static_cast<unsigned>(inc >> 32));
+      s_base = base;
+      s_total = total;
+      if (tile == gridDim.x - 1) *sa.ticket = 0;
+    }
+  }
+  __syncthreads();
+  unsigned long long before = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) before += w < warp ? s_warp[w] : 0ull;
+  end = s_base + s_total;
+  return s_base + before + x - v;
+}
+
+// Zero-fills (or fills with one byte value) a device region, 16 B stores
+// where the region allows, grid-stride.
+__device__ __forceinline__ void fill_bytes(void* p, long long n, int v) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  unsigned char* b = static_cast<unsigned char*>(p);
+  const unsigned w = 0x01010101u * static_cast<unsigned char>(v);
+  const long long head =
+      min(n, static_cast<long long>((16 - (reinterpret_cast<uintptr_t>(b) &
+                                           15)) & 15));
+  for (long long i = t; i < head; i += stride) b[i] = static_cast<unsigned char>(v);
+  uint4* q = reinterpret_cast<uint4*>(b + head);
+  const long long n16 = (n - head) >> 4;
+  for (long long i = t; i < n16; i += stride) q[i] = make_uint4(w, w, w, w);
+  for (long long i = head + (n16 << 4) + t; i < n; i += stride)
+    b[i] = static_cast<unsigned char>(v);
+}
+
 inline unsigned grid_for(long long n, int threads) {
   return static_cast<unsigned>((n + threads - 1) / threads);
 }

@@ -1,0 +1,504 @@
+// Kernels I and J: the scheme executor's frontier outside the band steps.
+//
+// Kernel I replaces the work of columba_tpu/search/executor.py run_scheme
+// from the read upload to the first band step: the k-mer seed lookup
+// (columba_tpu/index/kmer.py:91 lookup, K4, executor.py:310-326), the
+// exact loop's drain appends and the frontier init (K6, executor.py:349-363
+// and :514-568), and the two-stage exact loop's compaction and scatter back
+// (:468-510). Kernel J replaces its tail (K8, executor.py:880-932). Entries:
+//
+//   seed        one thread a (read, search) lane: the K chars at the
+//               search's k-mer start packed and looked up in the seed table
+//               (a window with an N, or a search without a start, takes
+//               the empty or the full range), the search mask, empty ranges
+//               zeroed; beside it the band steps' cell codes (one thread a
+//               (lane, step) row: the read's char where the schedule's code
+//               is 0, else the code) and the run's buffers cleared or
+//               filled (the in-text buffer, the run's counter words, the
+//               frontier's fill of 0 / INF, the second exact stage's lanes).
+//               kmer.lookup's entry on the card is this one with one search
+//               starting at 0 and no zeroing of empty ranges.
+//   drain       the exact loop's drain rows appended to the in-text buffer
+//               in lane order (clamped at M).
+//   init        the lanes with 0 < width <= switchpoint appended after the
+//               drain rows, in lane order, and zeroed; then the live lanes
+//               compacted in order into C frontier slots with their band
+//               and colMin inits (the (S, ...) tables tiled rid-major, or
+//               per lane); n_alive0, the overflow and kernel B's first word
+//               go to the run's counter words. The drain rows' total must be
+//               known before the narrow lanes' positions: drain is a launch
+//               of its own, and init reads its count.
+//   ex_compact  the lanes live after the first exact stage compacted in
+//               order into ex_cap lanes (range, lane id, and each lane's
+//               slot), the overflow counted.
+//   ex_back     the second stage's lanes scattered back to their lanes
+//               (gathered by each lane from its slot).
+//   tail        (kernel J) one launch after the band loop: rows past the
+//               live count zeroed after a move, the ghosts appended in order
+//               to the in-text buffer with their decoded id and death depth,
+//               ids decoded into rid and sid, the final colMin registers
+//               (arg_b under track_arg), ed_lb and done against u_last, the
+//               final in-text count and overflow.
+//
+// The order-keeping appends and compactions are one scan across the grid
+// (common.cuh scan_tiles: a block scan, then the decoupled look-back over
+// ticketed tiles that kernel B uses), in lane order, so every array equals
+// the plain version's (executor.py *_plain), row for row.
+//
+// The run's counter words (int64): [0] kernel B's step word (kept | in-text
+// rows << 32), [1] visits, [2] overflow, [3] kernel B's ticket, [4] in-text
+// rows after the drain, [5] searches started (n_alive0), [6] in-text rows
+// after the tail, [7] overflow after the tail. A launch never reads a word
+// its own last block writes.
+//
+// Bound: bytes. The seed reads K chars and one 32 B table row a lane and
+// writes the lane and the cell codes (T x BW bytes a lane, the most bytes
+// of the run outside the band steps); init and the tail read and write a
+// frontier row a lane. The scans' look-back is latency, one wait a tile.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kGhostIdMask = (1 << 21) - 1;
+constexpr int kMaxRW = 12;
+constexpr int kMaxClears = 8;
+
+struct Clear {
+  void* p;
+  long long n;
+  int v;
+};
+
+struct SeedArgs {
+  const unsigned char* reads;   // (R, m)
+  long long L;                  // R * S lanes
+  int m, S, K;                  // K = 0: no seed table
+  const long long* table;       // (4^K, 4)
+  const int* kstart;            // (S,) k-mer start (< 0: full range); null: 0
+  const bool* mask;             // (R, S) or null
+  long long full[kMaxRW];
+  int rw;
+  int zero_empty;
+  long long* ranges;            // (L, rw)
+  const long long* posw;        // (S, T, BW)
+  const signed char* code;      // (S, T, BW)
+  int T, bw;
+  signed char* pchars;          // (L * T, BW) or null
+  Clear clears[kMaxClears];
+  int n_clears;
+};
+
+__global__ void __launch_bounds__(kThreads) seed_kernel(SeedArgs a) {
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const long long t0 = blockIdx.x * static_cast<long long>(kThreads) +
+                       threadIdx.x;
+  for (long long i = t0; i < a.L; i += stride) {
+    const long long r = i / a.S;
+    const int s = static_cast<int>(i - r * a.S);
+    const int ks = a.kstart != nullptr ? a.kstart[s] : 0;
+    long long out[kMaxRW];
+#pragma unroll
+    for (int k = 0; k < kMaxRW; ++k) out[k] = k < a.rw ? a.full[k] : 0;
+    if (a.K > 0 && ks >= 0) {
+      const unsigned char* c = a.reads + r * a.m + ks;
+      long long code = 0;
+      bool bad = false;
+      for (int j = 0; j < a.K; ++j) {
+        const unsigned ch = c[j];
+        bad |= ch > 3;
+        code = code * 4 + (ch > 3 ? 3 : ch);
+      }
+      const long long* row = a.table + 4 * code;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) out[k] = bad ? 0 : row[k];
+    }
+    bool zero = a.mask != nullptr && !a.mask[i];
+    zero |= a.zero_empty && !(out[1] > out[0]);
+    long long* o = a.ranges + i * a.rw;
+#pragma unroll
+    for (int k = 0; k < kMaxRW; ++k)
+      if (k < a.rw) o[k] = zero ? 0 : out[k];
+  }
+  if (a.pchars != nullptr) {
+    const long long rows = a.L * a.T;
+    for (long long it = t0; it < rows; it += stride) {
+      const long long lane = it / a.T;
+      const int t = static_cast<int>(it - lane * a.T);
+      const long long r = lane / a.S;
+      const int s = static_cast<int>(lane - r * a.S);
+      const long long cell = (static_cast<long long>(s) * a.T + t) * a.bw;
+      signed char* o = a.pchars + it * a.bw;
+      for (int k = 0; k < a.bw; ++k) {
+        const signed char cd = a.code[cell + k];
+        o[k] = cd == 0 ? static_cast<signed char>(
+                             a.reads[r * a.m + a.posw[cell + k]])
+                       : cd;
+      }
+    }
+  }
+  for (int c = 0; c < a.n_clears; ++c)
+    columba::fill_bytes(a.clears[c].p, a.clears[c].n, a.clears[c].v);
+}
+
+struct DrainArgs {
+  const long long* drows;       // (L, 4)
+  long long L;
+  long long* itv;               // (M + 1, 4)
+  long long M;
+  long long* words;
+  columba::ScanArgs sa;
+};
+
+__global__ void __launch_bounds__(kThreads) drain_kernel(DrainArgs a) {
+  const long long tile = columba::take_tile(a.sa);
+  const long long i = tile * kThreads + threadIdx.x;
+  const bool keep = i < a.L && a.drows[4 * i + 1] > a.drows[4 * i];
+  unsigned long long end;
+  const unsigned long long q =
+      columba::scan_tiles<kThreads>(keep ? 1ull : 0ull, tile, a.sa, end);
+  if (keep && static_cast<long long>(q) < a.M) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a.itv[4 * q + k] = a.drows[4 * i + k];
+  }
+  if (tile == gridDim.x - 1 && threadIdx.x == 0)
+    a.words[4] = min(static_cast<long long>(end), a.M);
+}
+
+struct InitArgs {
+  const long long* ranges0;     // (L, rw)
+  long long L;
+  int rw, S, switchpoint;
+  const int* db_exact;          // (S,) or per lane (L,)
+  const signed char* band_init;   // (S, 2, bw) or per lane (L, 2, bw)
+  const signed char* colmin_init; // (S, 2, W) or per lane (L, 2), W = 1
+  int per_lane, bw, W, Wp;
+  long long C;
+  long long* o_ranges;          // (C, rw)
+  int* o_ids;                   // (C,)
+  signed char* o_band;          // (C, 2, bw)
+  signed char* o_colmin;        // (C, 2, Wp)
+  long long* itv;
+  long long M;
+  long long* words;
+  columba::ScanArgs sa;
+};
+
+__global__ void __launch_bounds__(kThreads) init_kernel(InitArgs a) {
+  const long long cnt = a.words[4];
+  const long long tile = columba::take_tile(a.sa);
+  const long long i = tile * kThreads + threadIdx.x;
+  const bool in = i < a.L;
+  const long long* r = a.ranges0 + (in ? i : 0) * a.rw;
+  const long long lo = in ? r[0] : 0, hi = in ? r[1] : 0;
+  const long long w = hi - lo;
+  const bool nar = in && a.switchpoint > 0 && w > 0 && w <= a.switchpoint;
+  const bool live = in && !nar && hi > lo;
+  unsigned long long end;
+  const unsigned long long ex = columba::scan_tiles<kThreads>(
+      (live ? 1ull : 0ull) | (nar ? 1ull << 32 : 0ull), tile, a.sa, end);
+  const long long p = static_cast<long long>(ex & 0xFFFFFFFFull);
+  const long long q = cnt + static_cast<long long>(ex >> 32);
+  const long long src = a.per_lane ? i : i % a.S;
+  if (nar && q < a.M) {
+    long long* row = a.itv + 4 * q;
+    row[0] = lo;
+    row[1] = hi;
+    row[2] = i;
+    row[3] = a.db_exact[src];
+  }
+  if (live && p < a.C) {
+    for (int k = 0; k < a.rw; ++k) a.o_ranges[p * a.rw + k] = r[k];
+    a.o_ids[p] = static_cast<int>(i);
+    const signed char* b = a.band_init + src * 2 * a.bw;
+    for (int k = 0; k < 2 * a.bw; ++k) a.o_band[p * 2 * a.bw + k] = b[k];
+    signed char* cm = a.o_colmin + p * 2 * a.Wp;
+    for (int sd = 0; sd < 2; ++sd)
+      for (int k = 0; k < a.Wp; ++k)
+        cm[sd * a.Wp + k] =
+            k < a.W ? a.colmin_init[(src * 2 + sd) * a.W + k] : 0;
+  }
+  if (tile == gridDim.x - 1 && threadIdx.x == 0) {
+    const long long n = static_cast<long long>(end & 0xFFFFFFFFull);
+    const long long rows = cnt + static_cast<long long>(end >> 32);
+    a.words[0] = min(n, a.C) | (min(rows, a.M) << 32);
+    a.words[2] += n > a.C ? n - a.C : 0;
+    a.words[5] = n;
+  }
+}
+
+struct ExArgs {
+  long long* ranges0;           // (L, rw)
+  long long L;
+  int rw;
+  long long EC;
+  long long* r2;                // (EC, rw): ex_compact's out, ex_back's in
+  int* src;                     // (EC,)
+  int* slot;                    // (L,) a lane's slot, or -1
+  long long* drows0;            // (L, 4) (ex_back)
+  const long long* dr2;         // (EC, 4) (ex_back)
+  long long* words;
+  columba::ScanArgs sa;
+};
+
+__global__ void __launch_bounds__(kThreads) ex_compact_kernel(ExArgs a) {
+  const long long tile = columba::take_tile(a.sa);
+  const long long i = tile * kThreads + threadIdx.x;
+  const bool keep = i < a.L && a.ranges0[i * a.rw + 1] > a.ranges0[i * a.rw];
+  unsigned long long end;
+  const long long p = static_cast<long long>(
+      columba::scan_tiles<kThreads>(keep ? 1ull : 0ull, tile, a.sa, end));
+  if (i < a.L) {
+    const bool in = keep && p < a.EC;
+    a.slot[i] = in ? static_cast<int>(p) : -1;
+    if (in) {
+      for (int k = 0; k < a.rw; ++k)
+        a.r2[p * a.rw + k] = a.ranges0[i * a.rw + k];
+      a.src[p] = static_cast<int>(i);
+    }
+  }
+  if (tile == gridDim.x - 1 && threadIdx.x == 0) {
+    const long long n = static_cast<long long>(end);
+    a.words[2] += n > a.EC ? n - a.EC : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) ex_back_kernel(ExArgs a) {
+  const long long i = blockIdx.x * static_cast<long long>(kThreads) +
+                      threadIdx.x;
+  if (i >= a.L) return;
+  const int s = a.slot[i];
+  long long* o = a.ranges0 + i * a.rw;
+  for (int k = 0; k < a.rw; ++k) o[k] = s >= 0 ? a.r2[s * a.rw + k] : 0;
+  if (s >= 0) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) a.drows0[4 * i + k] = a.dr2[4 * s + k];
+  }
+}
+
+struct TailArgs {
+  long long* ranges;            // (cap, rw) the final frontier (in place)
+  int* ids;                     // (cap,)
+  signed char* band;            // (cap, 2, bw)
+  signed char* colmin;          // (cap, 2, Wp)
+  long long cap, live;
+  int moved, rw, bw, W, Wp, track, S;
+  const long long* final_reg;   // (S, 2), or null: per lane, register 0
+  const long long* u_last64;    // (S,) int64, or
+  const int* u_last32;          // (S,) int32 (per-lane schedules)
+  long long* itv;
+  long long M;
+  long long* words;
+  long long shrink;
+  long long* rid;               // (cap,) out
+  long long* sid;
+  long long* ed_lb;
+  bool* done;
+  signed char* arg_b;
+  columba::ScanArgs sa;
+};
+
+__global__ void __launch_bounds__(kThreads) tail_kernel(TailArgs a) {
+  const long long cnt = static_cast<long long>(
+      static_cast<unsigned long long>(a.words[0]) >> 32);
+  const long long tile = columba::take_tile(a.sa);
+  const long long i = tile * kThreads + threadIdx.x;
+  const bool in = i < a.cap;
+  long long lo = 0, hi = 0;
+  int id = 0;
+  if (in) {
+    long long* r = a.ranges + i * a.rw;
+    if (a.moved && i >= a.live) {
+      for (int k = 0; k < a.rw; ++k) r[k] = 0;
+      a.ids[i] = 0;
+      for (int k = 0; k < 2 * a.bw; ++k) a.band[i * 2 * a.bw + k] = 0;
+      for (int k = 0; k < 2 * a.Wp; ++k) a.colmin[i * 2 * a.Wp + k] = 0;
+    } else {
+      lo = r[0];
+      hi = r[1];
+      id = a.ids[i];
+    }
+  }
+  const bool ghost = id < 0;
+  unsigned long long end;
+  const long long q = cnt + static_cast<long long>(columba::scan_tiles<
+      kThreads>(ghost ? 1ull : 0ull, tile, a.sa, end));
+  const long long idc = id & kGhostIdMask;
+  if (ghost && q < a.M) {
+    long long* row = a.itv + 4 * q;
+    row[0] = lo;
+    row[1] = hi;
+    row[2] = idc;
+    row[3] = (id >> 21) & 1023;
+  }
+  if (in) {
+    const long long s = idc % a.S;
+    const signed char* cm = a.colmin + i * 2 * a.Wp;
+    long long cm_b = 0, cm_f = 0;
+    signed char arg = -1;
+    if (a.final_reg == nullptr) {
+      cm_b = cm[0];
+      cm_f = cm[a.Wp];
+    } else {
+      const long long f0 = a.final_reg[2 * s], f1 = a.final_reg[2 * s + 1];
+      for (int w = 0; w < a.W; ++w) {
+        if (f0 == w) {
+          cm_b = cm[w];
+          if (a.track) arg = cm[a.W + w];
+        }
+        if (f1 == w) cm_f = cm[a.Wp + w];
+      }
+    }
+    const long long ed = cm_b + cm_f;
+    const long long ub = a.u_last64 != nullptr ? a.u_last64[s]
+                                               : a.u_last32[s];
+    a.rid[i] = idc / a.S;
+    a.sid[i] = s;
+    a.ed_lb[i] = ed;
+    a.done[i] = hi > lo && !ghost && ed <= ub;
+    a.arg_b[i] = arg;
+  }
+  if (tile == gridDim.x - 1 && threadIdx.x == 0) {
+    a.words[6] = min(cnt + static_cast<long long>(end), a.M);
+    a.words[7] = a.words[2] + a.shrink;
+  }
+}
+
+inline unsigned tiles_of(long long n) {
+  return static_cast<unsigned>(n < 1 ? 1 : (n + kThreads - 1) / kThreads);
+}
+
+inline columba::ScanArgs scan_args(long long* ticket, long long* status,
+                                   unsigned epoch) {
+  return columba::ScanArgs{reinterpret_cast<unsigned long long*>(ticket),
+                           reinterpret_cast<unsigned long long*>(status),
+                           epoch};
+}
+
+inline int launched() { return static_cast<int>(cudaGetLastError()); }
+
+inline bool bad_scan(long long n, long long tiles, unsigned epoch) {
+  return tiles_of(n) > tiles || epoch == 0 || epoch > 0x3FFFFFFFu;
+}
+
+}  // namespace
+
+// clears: n_clears rows of (device pointer, bytes, byte value) in host
+// memory; full: the rw values of the full range in host memory.
+extern "C" int columba_frontier_seed(
+    const unsigned char* reads, long long R, int m, int S, int K,
+    const long long* table, const int* kstart, const bool* mask,
+    const long long* full, int rw, int zero_empty, long long* ranges,
+    const long long* posw, const signed char* code, int T, int bw,
+    signed char* pchars, const long long* clears, int n_clears,
+    cudaStream_t stream) {
+  if (rw < 1 || rw > kMaxRW || n_clears < 0 || n_clears > kMaxClears ||
+      S < 1 || (K > 0 && table == nullptr) || K > 15)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SeedArgs a;
+  a.reads = reads;
+  a.L = R * S;
+  a.m = m;
+  a.S = S;
+  a.K = K;
+  a.table = table;
+  a.kstart = kstart;
+  a.mask = mask;
+  for (int k = 0; k < kMaxRW; ++k) a.full[k] = k < rw ? full[k] : 0;
+  a.rw = rw;
+  a.zero_empty = zero_empty;
+  a.ranges = ranges;
+  a.posw = posw;
+  a.code = code;
+  a.T = T;
+  a.bw = bw;
+  a.pchars = T > 0 ? pchars : nullptr;
+  a.n_clears = n_clears;
+  long long most = a.L * (a.pchars != nullptr ? T : 1);
+  for (int c = 0; c < n_clears; ++c) {
+    a.clears[c].p = reinterpret_cast<void*>(clears[3 * c]);
+    a.clears[c].n = clears[3 * c + 1];
+    a.clears[c].v = static_cast<int>(clears[3 * c + 2]);
+    if (a.clears[c].n / 16 > most) most = a.clears[c].n / 16;
+  }
+  long long blocks = (most + kThreads - 1) / kThreads;
+  if (blocks > 4096) blocks = 4096;
+  if (blocks < 1) return 0;
+  seed_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(a);
+  return launched();
+}
+
+extern "C" int columba_frontier_drain(const long long* drows, long long L,
+                                      long long* itv, long long M,
+                                      long long* words, long long* ticket,
+                                      long long* status, long long tiles,
+                                      unsigned epoch, cudaStream_t stream) {
+  if (bad_scan(L, tiles, epoch) || M < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DrainArgs a{drows, L, itv, M, words, scan_args(ticket, status, epoch)};
+  drain_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  return launched();
+}
+
+extern "C" int columba_frontier_init(
+    const long long* ranges0, long long L, int rw, int S, int switchpoint,
+    const int* db_exact, const signed char* band_init,
+    const signed char* colmin_init, int per_lane, int bw, int W, int Wp,
+    long long C, long long* o_ranges, int* o_ids, signed char* o_band,
+    signed char* o_colmin, long long* itv, long long M, long long* words,
+    long long* ticket, long long* status, long long tiles, unsigned epoch,
+    cudaStream_t stream) {
+  if (bad_scan(L, tiles, epoch) || rw < 1 || S < 1 || M < 0 || W < 1 ||
+      Wp < W || L >= (1LL << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  InitArgs a{ranges0, L, rw, S, switchpoint, db_exact, band_init,
+             colmin_init, per_lane, bw, W, Wp, C, o_ranges, o_ids, o_band,
+             o_colmin, itv, M, words, scan_args(ticket, status, epoch)};
+  init_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  return launched();
+}
+
+extern "C" int columba_frontier_ex_compact(
+    long long* ranges0, long long L, int rw, long long EC, long long* r2,
+    int* src, int* slot, long long* words, long long* ticket,
+    long long* status, long long tiles, unsigned epoch, cudaStream_t stream) {
+  if (bad_scan(L, tiles, epoch) || rw < 2 || EC < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ExArgs a{ranges0, L, rw, EC, r2, src, slot, nullptr, nullptr, words,
+           scan_args(ticket, status, epoch)};
+  ex_compact_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  return launched();
+}
+
+extern "C" int columba_frontier_ex_back(long long* ranges0, long long L,
+                                        int rw, const long long* r2,
+                                        const int* slot, long long* drows0,
+                                        const long long* dr2,
+                                        cudaStream_t stream) {
+  if (rw < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (L < 1) return 0;
+  ExArgs a{ranges0, L, rw, 0, const_cast<long long*>(r2), nullptr,
+           const_cast<int*>(slot), drows0, dr2, nullptr,
+           columba::ScanArgs{nullptr, nullptr, 0}};
+  ex_back_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  return launched();
+}
+
+extern "C" int columba_frontier_tail(
+    long long* ranges, int* ids, signed char* band, signed char* colmin,
+    long long cap, long long live, int moved, int rw, int bw, int W, int Wp,
+    int track, int S, const long long* final_reg, const long long* u_last64,
+    const int* u_last32, long long* itv, long long M, long long* words,
+    long long shrink, long long* rid, long long* sid, long long* ed_lb,
+    bool* done, signed char* arg_b, long long* ticket, long long* status,
+    long long tiles, unsigned epoch, cudaStream_t stream) {
+  if (bad_scan(cap, tiles, epoch) || rw < 2 || S < 1 || M < 0 || W < 1 ||
+      Wp < W || (u_last64 == nullptr) == (u_last32 == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TailArgs a{ranges, ids, band, colmin, cap, live, moved, rw, bw, W, Wp,
+             track, S, final_reg, u_last64, u_last32, itv, M, words, shrink,
+             rid, sid, ed_lb, done, arg_b,
+             scan_args(ticket, status, epoch)};
+  tail_kernel<<<tiles_of(cap), kThreads, 0, stream>>>(a);
+  return launched();
+}

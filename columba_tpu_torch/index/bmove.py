@@ -402,12 +402,18 @@ class BMoveIndex:
         # textless lanes append [toe_value, toe_offset, toe_flag, pad]
         return 12 if self.textless else 8
 
-    def full_range(self, batch_shape=()) -> torch.Tensor:
-        """Whole-index range pair + run hints (+ toehold when textless)."""
+    def full_cols(self) -> list:
+        """Whole-index range pair + run hints (+ toehold when textless), as
+        host integers."""
         big = self.n + 1
         cols = [0, big, 0, big, 0, self.r_fwd - 1, 0, self.r_rev - 1]
         if self.textless:
             # toehold: SA of the last row (offset big - 1), anchored fwd
             cols += [self.toe_init, big - 1, 0, 0]
+        return cols
+
+    def full_range(self, batch_shape=()) -> torch.Tensor:
+        """Whole-index range pair + run hints (+ toehold when textless)."""
+        cols = self.full_cols()
         r = torch.tensor(cols, dtype=torch.int64, device=self.device)
         return r.expand(*batch_shape, len(cols)).contiguous()

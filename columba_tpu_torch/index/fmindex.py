@@ -106,8 +106,12 @@ class FMIndex:
         RLC index, ``index/bmove.py``)."""
         return 4
 
+    def full_cols(self) -> list:
+        """The whole-index range pair [0, n+1, 0, n+1) as host integers."""
+        return [0, self.n + 1, 0, self.n + 1]
+
     def full_range(self, batch_shape=()) -> torch.Tensor:
         """The whole-index range pair [0, n+1, 0, n+1) broadcast to batch."""
-        r = torch.tensor([0, self.n + 1, 0, self.n + 1], dtype=torch.int64,
+        r = torch.tensor(self.full_cols(), dtype=torch.int64,
                          device=self.device)
         return r.expand(*batch_shape, 4).contiguous()

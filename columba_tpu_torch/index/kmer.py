@@ -3,7 +3,7 @@
 The counterpart of ``columba_tpu/index/kmer.py``: a direct-addressed
 (4^K, 4) table of range pairs indexed by the 2-bit packed k-mer, built by K
 lockstep backward ``extend_char`` steps over all 4^K patterns (kernel A on
-the card). Lookup is one row gather.
+the card). Lookup is one row gather (kernel I's seed entry on the card).
 
 Code convention: code(P) = sum_j P[j] * 4^(K-1-j) (first char = most
 significant digits). The on-disk cache ``kmer{K}.npy`` (uint32) is the
@@ -12,6 +12,7 @@ same file the JAX package writes, so either package reads the other's.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 
@@ -20,6 +21,7 @@ import torch
 
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import extend
+from columba_tpu_torch.ops.frontier import FRONTIER
 
 DEFAULT_K = 10  # reference default k-mer size
 
@@ -78,9 +80,34 @@ def build_kmer_table_cached(index: FMIndex, K: int,
     return table
 
 
-def lookup(table: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
-    """(..., 4) ranges of the k-mers given as (..., K) char windows;
-    windows containing N give empty ranges."""
+def lookup_plain(table: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`lookup`: pack, clamp, gather, mask."""
     code = pack_codes(chars)
     out = table[code.clamp(0, table.shape[0] - 1)]
     return torch.where((code >= 0)[..., None], out, 0)
+
+
+def lookup(table: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
+    """(..., 4) ranges of the k-mers given as (..., K) char windows;
+    windows containing N give empty ranges. CUDA tensors ((..., K) uint8
+    windows) go through kernel I's seed entry with one search starting at
+    0 and no zeroing of empty ranges (entry ``frontier.lookup``);
+    ``run_scheme`` seeds its lanes in that kernel directly."""
+    if not chars.is_cuda:
+        return lookup_plain(table, chars)
+    K = table_k(table)
+    if chars.dtype != torch.uint8 or chars.shape[-1] != K:
+        raise ValueError(f"kernel I's lookup takes (..., {K}) uint8 windows")
+    if (table.dtype != torch.int64 or tuple(table.shape) != (4 ** K, 4)
+            or not table.is_contiguous() or table.device != chars.device):
+        raise ValueError(f"kernel I's lookup takes a contiguous ({4 ** K}, "
+                         f"4) int64 table on {chars.device}")
+    flat = chars.reshape(-1, K).contiguous()
+    out = torch.empty((flat.shape[0], 4), dtype=torch.int64,
+                      device=chars.device)
+    full = (ctypes.c_int64 * 12)()
+    if flat.shape[0]:
+        FRONTIER(flat.data_ptr(), flat.shape[0], K, 1, K, table.data_ptr(),
+                 None, None, ctypes.addressof(full), 4, 0, out.data_ptr(),
+                 None, None, 0, 0, None, None, 0, entry="lookup")
+    return out.reshape(*chars.shape[:-1], 4)

@@ -466,7 +466,7 @@ def dynamic_partition_plain(index: FMIndex, reads: torch.Tensor,
         offs = torch.arange(K, device=dev)
         wchars = reads[rows[:, None, None],
                        (begins[:, :, None] + offs).clamp(0, m - 1)]
-        ranges = kmer_mod.lookup(kmer_table, wchars)         # (R, p, 4)
+        ranges = kmer_mod.lookup_plain(kmer_table, wchars)   # (R, p, 4)
     else:
         # single-char seed ranges: one backward extension of the full range
         # (on the RLC index with its run hints), the (R, p) lanes flattened

@@ -46,6 +46,7 @@ depth (mod 64) at which its value last strictly fell, read out as
 from __future__ import annotations
 
 import ctypes
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -53,8 +54,10 @@ import torch
 
 from columba_tpu_torch import native
 from columba_tpu_torch.index.bmove import BMoveIndex
+from columba_tpu_torch.index import kmer
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import bextend, extend, rank
+from columba_tpu_torch.ops.frontier import FRONTIER
 from columba_tpu_torch.search.schedule import INF, Schedule
 
 # Ghost-lane ids (boundary-harvest deaths kept inert in the frontier): bit
@@ -110,6 +113,14 @@ KERNEL = native.Kernel(
              "per_lane_rlc": _BAND_RLC},
 )
 
+# lanes of a tile of kernels I-L (kThreads of csrc/frontier.cu, expand.cu
+# and dedup.cu), one look-back status pair a tile
+SCAN_TILE = 256
+# the run's counter words (csrc/frontier.cu): [0] kernel B's step word, [1]
+# visits, [2] overflow, [3] kernel B's ticket, [4] in-text rows after the
+# drain, [5] searches started, [6] in-text rows after the tail, [7]
+# overflow after the tail
+RUN_WORDS = 8
 
 @dataclass(frozen=True)
 class FrontierResult:
@@ -136,8 +147,9 @@ def host_tables(sched: Schedule) -> dict:
     (T, S, 7) int32 row per step (meta word: bit 0 active, bit 1 side,
     bits 2-5 cacc, 6-9 cfro, 10-17 ub, 18-29 back depth; then the three
     cops and three cini words), the (E, S) exact-prefix tables, the
-    per-cell band codes (0 = read char, -1 = no diag, -2 = invalid), and
-    the per-search back depth and pivot that candidate staging reads."""
+    per-cell band codes (0 = read char, -1 = no diag, -2 = invalid), the
+    per-search back depth and pivot that candidate staging reads, and each
+    search's k-mer start (kernel I's seed)."""
     meta = (
         sched.active.astype(np.int32)
         | (sched.side.astype(np.int32) << 1)
@@ -165,6 +177,7 @@ def host_tables(sched: Schedule) -> dict:
         u_last=sched.u_last.astype(np.int64),                # (S,)
         t_back=np.asarray(sched.t_back, dtype=np.int64),     # (S,)
         pivot=np.asarray(sched.pivot, dtype=np.int64),       # (S,)
+        kmer_start=np.asarray(sched.kmer_start, dtype=np.int32),  # (S,)
     )
 
 
@@ -349,30 +362,88 @@ def _append(buf, cnt, rows, keep, M):
     return torch.clamp(cnt + pos[-1] + 1, max=M)
 
 
+class _ScanPool:
+    """The look-back scratch of the scans launched on one CUDA stream: a
+    ticket word, a spare word, then two status words a tile, stamped with
+    each launch's epoch (1 to 2^30 - 1) so that nothing is cleared between
+    launches. Launches on one stream run one after another, so they share
+    it; it grows (zeroed) when a scan has more tiles, and is zeroed again
+    when the epochs wrap."""
+
+    def __init__(self, device):
+        self.device = device
+        self.buf = None
+        self.epoch = 0
+
+    def grab(self, tiles: int):
+        """(buffer, epoch) for a launch of ``tiles`` tiles."""
+        with _POOL_LOCK:
+            if self.buf is None or self.buf.numel() < 2 + 2 * tiles:
+                have = 0 if self.buf is None else self.buf.numel()
+                self.buf = torch.zeros(max(2 + 2 * tiles, 2 * have),
+                                       dtype=torch.int64, device=self.device)
+            self.epoch += 1
+            if self.epoch >= 1 << 30:
+                self.buf.zero_()
+                self.epoch = 1
+            return self.buf, self.epoch
+
+
+_POOLS: dict = {}
+_POOL_LOCK = threading.Lock()
+
+
+def scan_pool(device) -> _ScanPool:
+    """The look-back scratch of ``device``'s current stream."""
+    device = torch.device(device)
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _POOL_LOCK:
+        pool = _POOLS.get(key)
+        if pool is None:
+            pool = _POOLS[key] = _ScanPool(device)
+    return pool
+
+
+def scan_args(device, lanes: int, tile: int = SCAN_TILE) -> tuple:
+    """The trailing arguments of a scanning launch over ``lanes`` lanes in
+    tiles of ``tile``: (ticket, statuses, tiles they hold, epoch), and the
+    buffer, which the caller keeps until the launch is queued."""
+    buf, epoch = scan_pool(device).grab(max(1, -(-int(lanes) // tile)))
+    return (buf.data_ptr(), buf.data_ptr() + 16, (buf.numel() - 2) // 2,
+            epoch), buf
+
+
 class StepScratch:
     """What the band steps of one run share besides the frontier.
 
     ``ctr`` (4,) int64 on the lanes' device: [0] the last step's word, kept
     children (n, before the capacity cut) | in-text rows << 32; [1] visits
-    (4 per active lane); [2] overflow; [3] kernel B's block ticket. On the
-    card also the look-back's tile statuses (two words a tile, stamped with
-    the launch's epoch, 1 to 2^30 - 1, so that nothing is cleared between
-    steps) and the pinned host word the step's count comes back through.
-    One per run: runs on two host threads never share one."""
+    (4 per active lane); [2] overflow; [3] kernel B's block ticket (zeros,
+    or the first four of the run's counter words that kernel I wrote). On
+    the card also the look-back's tile statuses (the stream's scan pool:
+    two words a tile, stamped with each launch's epoch, so that nothing is
+    cleared between steps) and the pinned host word the step's count comes
+    back through. One per run: runs on two host threads never share one."""
 
-    def __init__(self, lanes: int, device):
+    def __init__(self, lanes: int, device, ctr=None):
         device = torch.device(device)
-        self.ctr = torch.zeros(4, dtype=torch.int64, device=device)
+        self.ctr = (torch.zeros(4, dtype=torch.int64, device=device)
+                    if ctr is None else ctr)
         self.tiles = max(1, -(-int(lanes) // BAND_TILE))
         self.epoch = 0
-        self.status = self.host = None
+        self.status = self.host = self.pool = None
         if device.type == "cuda":
-            self.status = torch.zeros(2 * self.tiles, dtype=torch.int64,
-                                      device=device)
+            self.pool = scan_pool(device)
             self.host = torch.zeros(1, dtype=torch.int64, pin_memory=True)
 
     def next_epoch(self) -> int:
-        self.epoch += 1
+        """The next launch's epoch; on the card ``status`` then holds the
+        pool's statuses for this scratch's tiles."""
+        if self.pool is None:
+            self.epoch += 1
+        else:
+            self.status, self.epoch = self.pool.grab(self.tiles)
+            self.status = self.status[2:]
         return self.epoch
 
     def word(self) -> tuple[int, int]:
@@ -523,11 +594,12 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
         return band_step_compact_plain(index, state, n_live, out, itv, cnt,
                                        scratch, mrow_t, pchars, T, t,
                                        switchpoint, dyn_meta, track_arg)
+    epoch = scratch.next_epoch()
     kb, W = check_band_step(index, state, n_live, out, itv, scratch, mrow_t,
                             pchars, dyn_meta, track_arg)
     tail = (n_live, out[0].shape[0], *(f.data_ptr() for f in out),
             itv.data_ptr(), itv.shape[0] - 1, cnt, scratch.ctr.data_ptr(),
-            scratch.status.data_ptr(), scratch.tiles, scratch.next_epoch())
+            scratch.status.data_ptr(), scratch.tiles, epoch)
     lane = (ranges.data_ptr(), ids.data_ptr(), band.data_ptr(),
             colmin.data_ptr(),
             mrow_t.data_ptr() if dyn_meta is None else None,
@@ -669,6 +741,353 @@ def exact_loop(index: FMIndex, ranges, ids, t_lo: int, t_hi: int, reads,
     return out, drows
 
 
+# ---------------------------------------------------------------------------
+# Kernels I and J (csrc/frontier.cu): the frontier outside the band steps.
+# Each entry's wrapper takes the plain version for CPU tensors and launches
+# the kernel for CUDA tensors (or raises); both leave the same arrays, row
+# for row, and the same counter words (RUN_WORDS).
+# ---------------------------------------------------------------------------
+
+def frontier_seed_plain(index: FMIndex, reads, S: int, kmer_table=None,
+                        kstart=None, search_mask=None, posw=None,
+                        code=None, clears=()):
+    """Plain version of kernel I's seed: ``clears`` filled (see
+    :func:`frontier_seed`), and the (R * S, rw) start ranges of
+    the (read, search) lanes, rid-major, and, given the schedule's cell
+    tables ``posw`` / ``code`` (S, T, BW), the band steps' (R * S * T, BW)
+    int8 cell codes (else None). A search with a k-mer start (``kstart``,
+    (S,) int32, >= 0) takes the seed table's row of its K chars (empty
+    where the window holds an N), the others the full range; no table:
+    the full range. ``search_mask`` (R, S) bool empties the masked lanes;
+    every empty range is zeroed."""
+    for t, v in clears:
+        t.fill_(v)
+    R = reads.shape[0]
+    L = R * S
+    if kmer_table is None:
+        ranges0 = index.full_range((L,))
+    else:
+        Kk = kmer.table_k(kmer_table)
+        cols = [index.full_range((R,)) if ks < 0
+                else kmer.lookup_plain(kmer_table, reads[:, ks:ks + Kk])
+                for ks in kstart.tolist()]
+        ranges0 = torch.stack(cols, dim=1).reshape(L, -1)
+    if search_mask is not None:
+        ranges0 = torch.where(search_mask.reshape(-1)[:, None], ranges0, 0)
+    ranges0 = torch.where((ranges0[:, 1] > ranges0[:, 0])[:, None],
+                          ranges0, 0)
+    pchars = None
+    if posw is not None:
+        pchars = reads[:, posw].to(torch.int8)            # (R, S, T, BW)
+        pchars = torch.where(code[None] == 0, pchars, code[None])
+        pchars = pchars.reshape(-1, posw.shape[-1]).contiguous()
+    return ranges0, pchars
+
+
+def frontier_seed(index: FMIndex, reads, S: int, kmer_table=None,
+                  kstart=None, search_mask=None, posw=None, code=None,
+                  clears=()):
+    """Kernel I's seed (see :func:`frontier_seed_plain`), and the run's
+    buffers cleared: ``clears`` holds (tensor, byte value) pairs, each
+    filled with that byte (the in-text buffer and counter words with 0,
+    the frontier's band and colMin fill with INF). One launch on the
+    card."""
+    if not reads.is_cuda:
+        return frontier_seed_plain(index, reads, S, kmer_table, kstart,
+                                   search_mask, posw, code, clears)
+    R, m = reads.shape
+    dev = reads.device
+    rw = index.range_width
+    L = R * S
+    K = 0
+    expect = [(reads, torch.uint8, (R, m))]
+    if kmer_table is not None:
+        K = kmer.table_k(kmer_table)
+        if rw != 4:
+            raise ValueError("kernel I's seed table is 4 wide")
+        # each start + K <= m: the schedule compiles it so
+        expect += [(kmer_table, torch.int64, (4 ** K, 4)),
+                   (kstart, torch.int32, (S,))]
+    if search_mask is not None:
+        expect.append((search_mask, torch.bool, (R, S)))
+    T = bw = 0
+    if posw is not None:
+        _, T, bw = posw.shape
+        expect += [(posw, torch.int64, (S, T, bw)),
+                   (code, torch.int8, (S, T, bw))]
+    check_tensors("kernel I's seed", dev, expect)
+    if len(clears) > 8 or any(not t.is_contiguous() or t.device != dev
+                              for t, _ in clears):
+        raise ValueError("kernel I's seed clears up to 8 contiguous "
+                         "buffers on its device")
+    ranges0 = torch.empty((L, rw), dtype=torch.int64, device=dev)
+    pchars = (torch.empty((L * T, bw), dtype=torch.int8, device=dev)
+              if posw is not None else None)
+    full = (ctypes.c_int64 * 12)(*index.full_cols())
+    cl = (ctypes.c_int64 * 24)(*[x for t, v in clears for x in (
+        t.data_ptr(), t.numel() * t.element_size(), v)])
+    FRONTIER(reads.data_ptr(), R, m, S, K,
+             kmer_table.data_ptr() if kmer_table is not None else None,
+             kstart.data_ptr() if kmer_table is not None else None,
+             search_mask.data_ptr() if search_mask is not None else None,
+             ctypes.addressof(full), rw, 1,           # empty ranges zeroed
+             ranges0.data_ptr(),
+             posw.data_ptr() if posw is not None else None,
+             code.data_ptr() if posw is not None else None, T, bw,
+             pchars.data_ptr() if pchars is not None else None,
+             ctypes.addressof(cl), len(clears), entry="seed")
+    return ranges0, pchars
+
+
+def frontier_drain_plain(itv, words, drows) -> None:
+    """Plain version of kernel I's drain: the exact loop's drain rows (those
+    with hi > lo), in lane order, appended to the empty in-text buffer
+    ((M + 1, 4), row M scratch); their count, clamped at M, goes to
+    ``words[4]``."""
+    words[4] = _append(itv, 0, drows, drows[:, 1] > drows[:, 0],
+                       itv.shape[0] - 1)
+
+
+def frontier_drain(itv, words, drows) -> None:
+    """Kernel I's drain (see :func:`frontier_drain_plain`)."""
+    if not drows.is_cuda:
+        return frontier_drain_plain(itv, words, drows)
+    L = drows.shape[0]
+    M = itv.shape[0] - 1
+    check_tensors("kernel I's drain", drows.device, (
+        (drows, torch.int64, (L, 4)), (itv, torch.int64, (M + 1, 4)),
+        (words, torch.int64, (RUN_WORDS,))))
+    sa, buf = scan_args(drows.device, L)
+    FRONTIER(drows.data_ptr(), L, itv.data_ptr(), M, words.data_ptr(), *sa,
+             entry="drain")
+
+
+def frontier_init_plain(ranges0, S: int, switchpoint: int, db_exact,
+                        band_init, colmin_init, per_lane: bool, W: int,
+                        state, itv, words) -> None:
+    """Plain version of kernel I's init. With a switchpoint the lanes with
+    0 < width <= switchpoint append [lo, hi, lane, db_exact] to the
+    in-text buffer after the ``words[4]`` drain rows (clamped at M) and
+    empty; then the live lanes are compacted in order into the C slots of
+    ``state`` (ranges, ids, band, colmin, prefilled with 0 / INF) with
+    their band and colMin inits: the (S, ...) tables tiled rid-major, or
+    with ``per_lane`` the (R * S, ...) tables of dynamic partitioning (one
+    register); a colMin row wider than W (track_arg) has zero witness
+    slots. words[0] = min(n_alive0, C) | in-text rows << 32, words[2] +=
+    the capacity overflow, words[5] = n_alive0."""
+    L = ranges0.shape[0]
+    R = L // S
+    C = state[0].shape[0]
+    M = itv.shape[0] - 1
+    lane = torch.arange(L, device=ranges0.device)
+    cnt = words[4]
+    if switchpoint > 0:
+        width = ranges0[:, 1] - ranges0[:, 0]
+        narrow = (width > 0) & (width <= switchpoint)
+        db = db_exact if per_lane else db_exact.repeat(R)
+        rows = torch.stack([ranges0[:, 0], ranges0[:, 1], lane, db.long()],
+                           dim=1)
+        cnt = _append(itv, cnt, rows, narrow, M)
+        ranges0 = torch.where(narrow[:, None], 0, ranges0)
+    if per_lane:
+        band_i, colmin_i = band_init, colmin_init.reshape(L, 2, 1)
+    else:
+        band_i = band_init.repeat(R, 1, 1)
+        colmin_i = colmin_init.repeat(R, 1, 1)
+    if state[3].shape[-1] > W:
+        colmin_i = torch.cat([colmin_i, torch.zeros_like(colmin_i)], dim=-1)
+    new, n = _compact(ranges0[:, 1] > ranges0[:, 0], C,
+                      [ranges0, lane.int(), band_i, colmin_i],
+                      [0, 0, INF, INF])
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    words[0] = torch.clamp(n, max=C) | (cnt << 32)
+    words[2] += torch.clamp(n - C, min=0)
+    words[5] = n
+
+
+def frontier_init(ranges0, S: int, switchpoint: int, db_exact, band_init,
+                  colmin_init, per_lane: bool, W: int, state, itv,
+                  words) -> None:
+    """Kernel I's init (see :func:`frontier_init_plain`): one launch, one
+    scan of the live and the narrow lanes."""
+    if not ranges0.is_cuda:
+        return frontier_init_plain(ranges0, S, switchpoint, db_exact,
+                                   band_init, colmin_init, per_lane, W,
+                                   state, itv, words)
+    L, rw = ranges0.shape
+    C, _, bw = state[2].shape
+    Wp = state[3].shape[-1]
+    M = itv.shape[0] - 1
+    rows = L if per_lane else S
+    check_tensors("kernel I's init", ranges0.device, (
+        (ranges0, torch.int64, (L, rw)), (db_exact, torch.int32, (rows,)),
+        (band_init, torch.int8, (rows, 2, bw)),
+        (colmin_init, torch.int8, (L, 2) if per_lane else (S, 2, W)),
+        (state[0], torch.int64, (C, rw)), (state[1], torch.int32, (C,)),
+        (state[2], torch.int8, (C, 2, bw)), (state[3], torch.int8, (C, 2, Wp)),
+        (itv, torch.int64, (M + 1, 4)),
+        (words, torch.int64, (RUN_WORDS,))))
+    if L % S or (per_lane and W != 1) or Wp not in (W, 2 * W):
+        raise ValueError("kernel I's init takes R x S lanes, one register "
+                         "per lane, and W or 2W colMin slots")
+    check_disjoint("kernel I's init", [*state, itv, words], [ranges0])
+    sa, buf = scan_args(ranges0.device, L)
+    FRONTIER(ranges0.data_ptr(), L, rw, S, switchpoint, db_exact.data_ptr(),
+             band_init.data_ptr(), colmin_init.data_ptr(), int(per_lane),
+             bw, W, Wp, C, *(f.data_ptr() for f in state), itv.data_ptr(),
+             M, words.data_ptr(), *sa, entry="init")
+
+
+def frontier_ex_compact_plain(ranges0, r2, src, words) -> torch.Tensor:
+    """Plain version of kernel I's ex_compact: the lanes live after the
+    first exact stage, in order, into the ex_cap slots of ``r2`` (their
+    ranges) and ``src`` (their lanes; both prefilled with 0); words[2] +=
+    the overflow. Returns each lane's slot, (L,) int32, -1 where it has
+    none."""
+    L = ranges0.shape[0]
+    EC = r2.shape[0]
+    lane = torch.arange(L, device=ranges0.device)
+    (s,), n1 = _compact(ranges0[:, 1] > ranges0[:, 0], EC, [lane], [L])
+    words[2] += torch.clamp(n1 - EC, min=0)
+    live1 = s < L
+    srcc = torch.where(live1, s, 0)
+    r2.copy_(torch.where(live1[:, None], ranges0[srcc], 0))
+    src.copy_(srcc.int())
+    slot = torch.full((L + 1,), -1, dtype=torch.int32,
+                      device=ranges0.device)
+    slot[torch.where(live1, s, L)] = torch.arange(
+        EC, dtype=torch.int32, device=ranges0.device)
+    return slot[:L]
+
+
+def frontier_ex_compact(ranges0, r2, src, words) -> torch.Tensor:
+    """Kernel I's ex_compact (see :func:`frontier_ex_compact_plain`)."""
+    if not ranges0.is_cuda:
+        return frontier_ex_compact_plain(ranges0, r2, src, words)
+    L, rw = ranges0.shape
+    EC = r2.shape[0]
+    check_tensors("kernel I's ex_compact", ranges0.device, (
+        (ranges0, torch.int64, (L, rw)), (r2, torch.int64, (EC, rw)),
+        (src, torch.int32, (EC,)), (words, torch.int64, (RUN_WORDS,))))
+    slot = torch.empty(L, dtype=torch.int32, device=ranges0.device)
+    sa, buf = scan_args(ranges0.device, L)
+    FRONTIER(ranges0.data_ptr(), L, rw, EC, r2.data_ptr(), src.data_ptr(),
+             slot.data_ptr(), words.data_ptr(), *sa, entry="ex_compact")
+    return slot
+
+
+def frontier_ex_back_plain(ranges0, drows0, r2, dr2, slot) -> None:
+    """Plain version of kernel I's ex_back, in place: a lane with a slot
+    takes the second stage's range and drain row of its slot, the others
+    keep their drain row and become empty."""
+    has = (slot >= 0)[:, None]
+    s = slot.long().clamp(min=0)
+    ranges0.copy_(torch.where(has, r2[s], 0))
+    drows0.copy_(torch.where(has, dr2[s], drows0))
+
+
+def frontier_ex_back(ranges0, drows0, r2, dr2, slot) -> None:
+    """Kernel I's ex_back (see :func:`frontier_ex_back_plain`)."""
+    if not ranges0.is_cuda:
+        return frontier_ex_back_plain(ranges0, drows0, r2, dr2, slot)
+    L, rw = ranges0.shape
+    EC = r2.shape[0]
+    check_tensors("kernel I's ex_back", ranges0.device, (
+        (ranges0, torch.int64, (L, rw)), (drows0, torch.int64, (L, 4)),
+        (r2, torch.int64, (EC, rw)), (dr2, torch.int64, (EC, 4)),
+        (slot, torch.int32, (L,))))
+    FRONTIER(ranges0.data_ptr(), L, rw, r2.data_ptr(), slot.data_ptr(),
+             drows0.data_ptr(), dr2.data_ptr(), entry="ex_back")
+
+
+def frontier_tail_plain(state, live: int, moved: bool, itv, words,
+                        shrink: int, S: int, W: int, final_reg, u_last):
+    """Plain version of kernel J. ``state``: the final frontier's (cap, ...)
+    fields (ranges, ids, band, colmin); after a move its rows from ``live``
+    on are zeroed in place. The ghosts (id < 0) append [lo, hi, id,
+    death depth] in order to the in-text buffer after words[0] >> 32 rows
+    (clamped at M). Returns (rid, sid, ed_lb, done, arg_b): ed_lb is the
+    sum of the final colMin registers of each side (``final_reg`` (S, 2),
+    15 = none; None: per-lane schedules, register 0 on both sides), done
+    where a live non-ghost lane has ed_lb <= u_last[sid]; arg_b the back
+    register's witness where colmin has 2W slots, else -1. words[6] = the
+    in-text count, words[7] = words[2] + ``shrink``."""
+    ranges, ids, band, colmin = state
+    M = itv.shape[0] - 1
+    if moved:
+        for f in state:
+            f[live:] = 0
+    ghost = ids < 0
+    grows = torch.stack([ranges[:, 0], ranges[:, 1],
+                         (ids & GHOST_IDM).long(),
+                         ((ids >> 21) & 1023).long()], dim=1)
+    words[6] = _append(itv, words[0] >> 32, grows, ghost, M)
+    words[7] = words[2] + shrink
+    ids = (ids & GHOST_IDM).long()
+    sid = ids % S
+    # completion bound: each side's last window register (15 = none => 0);
+    # per-lane schedules have the one register on both sides
+    arg_b = torch.full(sid.shape, -1, dtype=torch.int8, device=ids.device)
+    if final_reg is None:
+        cm_b, cm_f = colmin[:, 0, 0].long(), colmin[:, 1, 0].long()
+    else:
+        freg = final_reg[sid]                                 # (Cf, 2)
+        cm_b = torch.zeros_like(sid)
+        cm_f = torch.zeros_like(sid)
+        for w in range(W):
+            cm_b = torch.where(freg[:, 0] == w, colmin[:, 0, w].long(), cm_b)
+            cm_f = torch.where(freg[:, 1] == w, colmin[:, 1, w].long(), cm_f)
+            if colmin.shape[-1] > W:
+                arg_b = torch.where(freg[:, 0] == w, colmin[:, 0, W + w],
+                                    arg_b)
+    ed_lb = cm_b + cm_f
+    alive = (ranges[:, 1] > ranges[:, 0]) & ~ghost
+    done = alive & (ed_lb <= u_last.long()[sid])
+    return ids // S, sid, ed_lb, done, arg_b
+
+
+def frontier_tail(state, live: int, moved: bool, itv, words, shrink: int,
+                  S: int, W: int, final_reg, u_last):
+    """Kernel J (see :func:`frontier_tail_plain`): one launch, one scan of
+    the ghosts."""
+    if not state[0].is_cuda:
+        return frontier_tail_plain(state, live, moved, itv, words, shrink,
+                                   S, W, final_reg, u_last)
+    ranges, ids, band, colmin = state
+    cap, rw = ranges.shape
+    bw, Wp = band.shape[-1], colmin.shape[-1]
+    M = itv.shape[0] - 1
+    dev = ranges.device
+    expect = [(ranges, torch.int64, (cap, rw)), (ids, torch.int32, (cap,)),
+              (band, torch.int8, (cap, 2, bw)),
+              (colmin, torch.int8, (cap, 2, Wp)),
+              (itv, torch.int64, (M + 1, 4)),
+              (words, torch.int64, (RUN_WORDS,))]
+    if final_reg is not None:
+        expect.append((final_reg, torch.int64, (S, 2)))
+    if u_last.dtype not in (torch.int64, torch.int32):
+        raise ValueError("kernel J takes an int64 or int32 u_last")
+    expect.append((u_last, u_last.dtype, (S,)))
+    check_tensors("kernel J", dev, expect)
+    if Wp not in (W, 2 * W) or (final_reg is None and W != 1):
+        raise ValueError("kernel J takes W or 2W colMin slots, one register "
+                         "per lane")
+    out = [torch.empty(cap, dtype=torch.int64, device=dev) for _ in range(3)]
+    done = torch.empty(cap, dtype=torch.bool, device=dev)
+    arg_b = torch.empty(cap, dtype=torch.int8, device=dev)
+    sa, buf = scan_args(dev, cap)
+    i64 = u_last.dtype == torch.int64
+    FRONTIER(*(f.data_ptr() for f in state), cap, live, int(moved), rw, bw,
+             W, Wp, int(Wp > W), S,
+             final_reg.data_ptr() if final_reg is not None else None,
+             u_last.data_ptr() if i64 else None,
+             None if i64 else u_last.data_ptr(), itv.data_ptr(), M,
+             words.data_ptr(), shrink, *(o.data_ptr() for o in out),
+             done.data_ptr(), arg_b.data_ptr(), *sa, entry="tail")
+    return (*out, done, arg_b)
+
+
 def run_scheme(
     index: FMIndex,
     reads: torch.Tensor,
@@ -703,9 +1122,11 @@ def run_scheme(
     steps, band words and cell codes, and has one colMin register.
     track_arg: shadow slots for the colMin registers' witnesses (the
     textless pass; ``FrontierResult.arg_b``).
-    """
-    from columba_tpu_torch.index import kmer as kmer_mod
 
+    On the card the work around kernels A and B is kernels I and J: the
+    seed launch (and the clearing of the run's buffers), the drain and
+    init launches (two more with the two-stage exact loop), and the tail.
+    """
     R, m = reads.shape
     S = sched.num_searches
     C = int(capacity)
@@ -732,34 +1153,37 @@ def run_scheme(
             "the k-mer seed table is 4 wide (no run hints); pass "
             "kmer_table=None for the RLC index")
     L = R * S
-    i64 = dict(dtype=torch.int64, device=dev)
-    ids0 = torch.arange(L, dtype=torch.int32, device=dev)  # rid * S + sid
-    kmer_eff = 0 if dyn is not None else sched.kmer_k
+    seeded = dyn is None and sched.kmer_k > 0
+    if seeded and kmer_table is None:
+        raise ValueError("schedule compiled with k-mer seeding but no "
+                         "table given")
+    kmer_eff = sched.kmer_k if seeded else 0
+    two_stage = E > 0 and 0 < ex_split < E and 0 < ex_cap < L
+    EC = int(ex_cap) if two_stage else 0
 
-    if dyn is not None:
-        ranges0 = index.full_range((L,))
-    elif sched.kmer_k > 0:
-        if kmer_table is None:
-            raise ValueError("schedule compiled with k-mer seeding but no "
-                             "table given")
-        Kk = sched.kmer_k
-        cols = [index.full_range((R,)) if int(ks) < 0
-                else kmer_mod.lookup(kmer_table, reads[:, ks:ks + Kk])
-                for ks in sched.kmer_start]
-        ranges0 = torch.stack(cols, dim=1).reshape(L, 4)
-    else:
-        ranges0 = index.full_range((L,))
-    if search_mask is not None:
-        ranges0 = torch.where(search_mask.reshape(-1)[:, None], ranges0, 0)
-    ranges0 = torch.where((ranges0[:, 1] > ranges0[:, 0])[:, None],
-                          ranges0, 0)
-
-    # in-text buffer: crossover drains and boundary-harvest ghosts; row M
-    # is scratch for the rows that do not fit
+    # the run's buffers, which the seed clears: the in-text buffer (crossover
+    # drains and boundary-harvest ghosts; row M is scratch for the rows that
+    # do not fit), the counter words, the frontier (fill 0 / INF) and the
+    # second exact stage's lanes
     M = max(int(itv_cap), 4096)
-    itv_buf = torch.zeros((M + 1, 4), **i64)
-    itv_cnt = torch.zeros((), **i64)
-    overflow_ex = torch.zeros((), **i64)
+    i64 = dict(dtype=torch.int64, device=dev)
+    i8 = dict(dtype=torch.int8, device=dev)
+    itv_buf = torch.empty((M + 1, 4), **i64)
+    words = torch.empty(RUN_WORDS, **i64)
+    state = [torch.empty((C, rw), **i64),
+             torch.empty(C, dtype=torch.int32, device=dev),
+             torch.empty((C, 2, bw), **i8), torch.empty((C, 2, Wp), **i8)]
+    ex_bufs = ([torch.empty((EC, rw), **i64),
+                torch.empty(EC, dtype=torch.int32, device=dev)]
+               if two_stage else [])
+    clears = [(itv_buf, 0), (words, 0), (state[0], 0), (state[1], 0),
+              (state[2], INF), (state[3], INF), *((t, 0) for t in ex_bufs)]
+    cells = dyn is None and T > 0
+    ranges0, pchars = frontier_seed(
+        index, reads, S, kmer_table if seeded else None,
+        tables["kmer_start"] if seeded else None, search_mask,
+        tables["posw"] if cells else None, tables["code"] if cells else None,
+        clears=clears)
 
     # ---------------- exact prefix ----------------
     if E > 0:
@@ -771,81 +1195,43 @@ def run_scheme(
                 (tables["ex_pos"], tables["ex_dir"], tables["db_ex"]))
         loop = dict(reads=reads, tabs=tabs, per_lane=dyn is not None,
                     gate_t=gate_t, switchpoint=switchpoint)
-        if 0 < ex_split < E and 0 < ex_cap < L:
+        if two_stage:
             ranges0, drows0 = exact_loop(index, ranges0, None, 0, ex_split,
                                          **loop)
-            EC = int(ex_cap)
-            lane = torch.arange(L, **i64)
-            (src,), n1 = _compact(ranges0[:, 1] > ranges0[:, 0], EC,
-                                  [lane], [L])
-            overflow_ex = torch.clamp(n1 - EC, min=0)
-            live1 = src < L
-            srcc = torch.where(live1, src, 0)
-            r2 = torch.where(live1[:, None], ranges0[srcc], 0)
-            r2, dr2 = exact_loop(index, r2, srcc.int(), ex_split, E, **loop)
+            slot = frontier_ex_compact(ranges0, *ex_bufs, words)
+            r2, dr2 = exact_loop(index, ex_bufs[0], ex_bufs[1], ex_split, E,
+                                 **loop)
             # back into the full lane layout (stage-1 survivors had no
             # drain row, so this cannot clobber one)
-            back = torch.where(live1, srcc, L)
-            ranges0 = torch.zeros((L + 1, rw), **i64)
-            ranges0[back] = r2
-            ranges0 = ranges0[:L]
-            drows0 = torch.cat([drows0, torch.zeros((1, 4), **i64)])
-            drows0[back] = dr2
-            drows0 = drows0[:L]
+            frontier_ex_back(ranges0, drows0, r2, dr2, slot)
         else:
             ranges0, drows0 = exact_loop(index, ranges0, None, 0, E, **loop)
         if switchpoint > 0:
-            itv_cnt = _append(itv_buf, itv_cnt, drows0,
-                              drows0[:, 1] > drows0[:, 0], M)
+            frontier_drain(itv_buf, words, drows0)
 
     # ---------------- frontier init ----------------
-    if switchpoint > 0:
-        width = ranges0[:, 1] - ranges0[:, 0]
-        narrow = (width > 0) & (width <= switchpoint)
-        db_exact = (dyn["db_exact"] if dyn is not None
-                    else tables["db_exact"].repeat(R))
-        rows = torch.stack([ranges0[:, 0], ranges0[:, 1], ids0.long(),
-                            db_exact.long()], dim=1)
-        itv_cnt = _append(itv_buf, itv_cnt, rows, narrow, M)
-        ranges0 = torch.where(narrow[:, None], 0, ranges0)
-
-    if dyn is not None:
-        band_init = dyn["band_init"]
-        colmin_init = dyn["colmin_init"].reshape(L, 2, 1)
-    else:
-        band_init = tables["band_init"].repeat(R, 1, 1)
-        colmin_init = tables["colmin_init"].repeat(R, 1, 1)
-    if track_arg:
-        colmin_init = torch.cat([colmin_init, torch.zeros_like(colmin_init)],
-                                dim=-1)
-    state, n_alive0 = _compact(
-        ranges0[:, 1] > ranges0[:, 0], C,
-        [ranges0, ids0, band_init, colmin_init], [0, 0, INF, INF])
-    overflow = torch.clamp(n_alive0 - C, min=0) + overflow_ex
-    visits = torch.zeros((), **i64)
+    src = dyn if dyn is not None else tables
+    frontier_init(ranges0, S, switchpoint, src["db_exact"], src["band_init"],
+                  src["colmin_init"], dyn is not None, W, state, itv_buf,
+                  words)
 
     # ---------------- lockstep band steps ----------------
+    cap, live, moved, shrink_ovf = C, 0, False, 0
     if T > 0:
         if dyn is not None:
             pchars = dyn["pchars"]
             dyn_meta = dyn["meta"].reshape(-1)               # (R*S*T,)
+            mrow = None
         else:
-            posw = tables["posw"]                            # (S, T, BW)
-            pchars = reads[:, posw].to(torch.int8)           # (R, S, T, BW)
-            code = tables["code"]
-            pchars = torch.where(code[None] == 0, pchars, code[None])
-            pchars = pchars.reshape(R * S * T, bw).contiguous()
             mrow, dyn_meta = tables["mrow"], None
 
         # the frontier ping-pongs between two buffer sets of C rows; the
         # host learns each step's live count (kept children, capped) and
         # in-text count from one word, and stops when no lane is live
-        sc = StepScratch(C, dev)
-        sc.ctr[0] = torch.clamp(n_alive0, max=C) | (itv_cnt << 32)
-        sc.ctr[2] = overflow
+        sc = StepScratch(C, dev, words[:4])
         live, cnt = sc.word()
         bufs = [list(state), [torch.empty_like(f) for f in state]]
-        cap, cur, moved, shrink_ovf = C, 0, False, 0
+        cur = 0
 
         def run_steps(t_lo, t_hi):
             nonlocal live, cnt, cur, moved
@@ -872,44 +1258,14 @@ def run_scheme(
         else:
             run_steps(0, T)
         state = [f[:cap] for f in bufs[cur]]
-        if moved:
-            for f in state:
-                f[live:] = 0
-        overflow = sc.ctr[2] + shrink_ovf
-        visits = sc.ctr[1]
-        itv_cnt = sc.ctr[0] >> 32
-    ranges, ids, band, colmin = state
 
     # ---------------- tail ----------------
     # ghosts join the in-text buffer with their stashed death depth
-    ghost = ids < 0
-    grows = torch.stack([ranges[:, 0], ranges[:, 1],
-                         (ids & GHOST_IDM).long(),
-                         ((ids >> 21) & 1023).long()], dim=1)
-    itv_cnt = _append(itv_buf, itv_cnt, grows, ghost, M)
-    ids = (ids & GHOST_IDM).long()
-    sid = ids % S
-    # completion bound: each side's last window register (15 = none => 0);
-    # per-lane schedules have the one register on both sides
-    arg_b = torch.full(sid.shape, -1, dtype=torch.int8, device=dev)
-    if dyn is not None:
-        cm_b, cm_f = colmin[:, 0, 0].long(), colmin[:, 1, 0].long()
-        u_last = dyn["u_last"].long()
-    else:
-        freg = tables["final_reg"][sid]                       # (Cf, 2)
-        cm_b = torch.zeros_like(sid)
-        cm_f = torch.zeros_like(sid)
-        for w in range(W):
-            cm_b = torch.where(freg[:, 0] == w, colmin[:, 0, w].long(), cm_b)
-            cm_f = torch.where(freg[:, 1] == w, colmin[:, 1, w].long(), cm_f)
-            if track_arg:
-                arg_b = torch.where(freg[:, 0] == w, colmin[:, 0, W + w],
-                                    arg_b)
-        u_last = tables["u_last"]
-    ed_lb = cm_b + cm_f
-    alive = (ranges[:, 1] > ranges[:, 0]) & ~ghost
-    done = alive & (ed_lb <= u_last[sid])
+    rid, sid, ed_lb, done, arg_b = frontier_tail(
+        state, live, moved, itv_buf, words, shrink_ovf, S, W,
+        tables["final_reg"] if dyn is None else None,
+        dyn["u_last"] if dyn is not None else tables["u_last"])
     return FrontierResult(
-        ranges=ranges, rid=ids // S, sid=sid, ed_lb=ed_lb, done=done,
-        overflow=overflow, nodes_visited=visits, itv=itv_buf[:M],
-        itv_count=itv_cnt, searches_started=n_alive0, arg_b=arg_b)
+        ranges=state[0], rid=rid, sid=sid, ed_lb=ed_lb, done=done,
+        overflow=words[7], nodes_visited=words[1], itv=itv_buf[:M],
+        itv_count=words[6], searches_started=words[5], arg_b=arg_b)

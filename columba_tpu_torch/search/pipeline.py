@@ -29,16 +29,19 @@ the phi tables (:func:`_match_textless`, numpy).
 
 from __future__ import annotations
 
+import ctypes
 import weakref
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from columba_tpu_torch import native
 from columba_tpu_torch.core import alphabet
 from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import extend, locate, verify
+from columba_tpu_torch.ops.frontier import SCAN_ARGS
 from columba_tpu_torch.search import dynschedule, executor, schedule
 from columba_tpu_torch.search.scheme import SearchScheme
 
@@ -142,13 +145,44 @@ def crossover_caps(capacity: int, max_locate: int, switchpoint: int):
     return 0, 0, 0
 
 
-def stage_candidates(res: executor.FrontierResult, tables: dict, S: int,
-                     dyn: dict | None = None):
-    """Completed frontier lanes + in-text rows [f_lo, f_hi, ids, depth] ->
-    one candidate list (c_lo, c_hi, c_rid, c_estb); estb is the read
-    start's offset from the back-side text depth. The back depth and pivot
-    are per search (``tables``) or, under dynamic partitioning, per (read,
-    search) lane (``dyn``)."""
+_P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+EXPAND = native.Kernel(
+    "expand", "columba_expand_frontier",
+    [_P, _P, _I32, _P, _P, _I64,             # done, ranges, rw, rid, sid, C
+     _P, _P, _I64, _I32,                     # itv, itv_count, M, S
+     _P, _P, _P, _P,                         # t_back, pivot (64 / 32 bit)
+     _P, _P, _P, _P],                        # c_lo, c_hi, c_rid, c_estb
+    source="columba_tpu_torch/csrc/expand.cu",
+    replaces="columba_tpu/search/pipeline.py:132",
+    symbols={
+        "scan": ("columba_expand_scan",
+                 [_P, _P, _I64, _I64, _I64, _P, _P, *SCAN_ARGS]),
+        "ranges": ("columba_expand_scan",
+                   [_P, _P, _I64, _I64, _I64, _P, _P, *SCAN_ARGS]),
+        "rows": ("columba_expand_rows",
+                 [_P, _I64, _I64, _I64, _P, _P, _P, _P, _P]),
+    },
+)
+DEDUP = native.Kernel(
+    "dedup", "columba_dedup_windows",
+    [_P, _P, _P, _P, _I64, _I64, _P, _P],    # pos, c_rid, c_estb, cand, L,
+                                             # kb, rid, win
+    source="columba_tpu_torch/csrc/dedup.cu",
+    replaces="columba_tpu/search/pipeline.py:194",
+    symbols={
+        "keys": ("columba_dedup_keys",
+                 [_P, _P, _P, _I64, _P, _P, _P, _P, _I64]),
+        "compact": ("columba_dedup_compact",
+                    [_P, _P, _P, _I64, _I64, _P, _P, _P, _P,
+                     *SCAN_ARGS]),
+    },
+)
+DEDUP_BIG = 1 << 30      # rid of an invalid row in the sort key: last
+
+
+def stage_candidates_plain(res: executor.FrontierResult, tables: dict,
+                           S: int, dyn: dict | None = None):
+    """Plain version of :func:`stage_candidates`."""
     fr_lo = torch.where(res.done, res.ranges[:, 0], 0)
     fr_hi = torch.where(res.done, res.ranges[:, 1], 0)
     itv = res.itv
@@ -167,45 +201,235 @@ def stage_candidates(res: executor.FrontierResult, tables: dict, S: int,
             torch.cat([res.rid, iv_ids // S]), torch.cat([fr_estb, iv_estb]))
 
 
+def stage_candidates(res: executor.FrontierResult, tables: dict, S: int,
+                     dyn: dict | None = None):
+    """Completed frontier lanes + in-text rows [f_lo, f_hi, ids, depth] ->
+    one candidate list (c_lo, c_hi, c_rid, c_estb); estb is the read
+    start's offset from the back-side text depth. The back depth and pivot
+    are per search (``tables``) or, under dynamic partitioning, per (read,
+    search) lane (``dyn``). On the card one launch of kernel K's
+    ``frontier`` entry."""
+    if not res.ranges.is_cuda:
+        return stage_candidates_plain(res, tables, S, dyn)
+    C, rw = res.ranges.shape
+    M = res.itv.shape[0]
+    dev = res.ranges.device
+    src = dyn if dyn is not None else tables
+    i32 = dyn is not None
+    n_tab = dyn["t_back"].shape[0] if i32 else S
+    executor.check_tensors("kernel K", dev, (
+        (res.done, torch.bool, (C,)), (res.ranges, torch.int64, (C, rw)),
+        (res.rid, torch.int64, (C,)), (res.sid, torch.int64, (C,)),
+        (res.itv, torch.int64, (M, 4)), (res.itv_count, torch.int64, ()),
+        (src["t_back"], torch.int32 if i32 else torch.int64, (n_tab,)),
+        (src["pivot"], torch.int32 if i32 else torch.int64, (n_tab,))))
+    out = [torch.empty(C + M, dtype=torch.int64, device=dev)
+           for _ in range(4)]
+    tb, pv = src["t_back"].data_ptr(), src["pivot"].data_ptr()
+    EXPAND(res.done.data_ptr(), res.ranges.data_ptr(), rw,
+           res.rid.data_ptr(), res.sid.data_ptr(), C, res.itv.data_ptr(),
+           res.itv_count.data_ptr(), M, S, None if i32 else tb,
+           None if i32 else pv, tb if i32 else None, pv if i32 else None,
+           *(o.data_ptr() for o in out), entry="frontier")
+    return tuple(out)
+
+
+def expand_scan_plain(c_lo, c_hi, max_locate: int):
+    """Plain version of kernel K's scan: the candidates' widths clamped at
+    max_locate + 1, their inclusive prefix sums, and the total."""
+    widths = torch.clamp(c_hi - c_lo, min=0).clamp(max=max_locate + 1)
+    offsets = widths.cumsum(0)
+    return offsets, offsets[-1]
+
+
+def expand_rows_plain(c_lo, offsets, total, max_locate: int):
+    """Plain version of kernel K's rows: output row j < max_locate belongs
+    to the first candidate whose prefix sum exceeds j (clipped to the last
+    candidate); (rows, cand, valid)."""
+    n = offsets.shape[0]
+    widths = offsets - torch.cat([offsets.new_zeros(1), offsets[:-1]])
+    j = torch.arange(max_locate, dtype=torch.int64, device=c_lo.device)
+    cand = torch.searchsorted(offsets, j, right=True).clamp(0, n - 1)
+    base = offsets[cand] - widths[cand]
+    valid = j < torch.clamp(total, max=max_locate)
+    rows = torch.where(valid, c_lo[cand] + (j - base), 0)
+    return rows, cand, valid
+
+
+def stage_expand_plain(c_lo, c_hi, max_locate: int):
+    """Plain version of :func:`stage_expand`."""
+    offsets, total = expand_scan_plain(c_lo, c_hi, max_locate)
+    return (*expand_rows_plain(c_lo, offsets, total, max_locate), total)
+
+
+def expand_scan(c_lo, c_hi, max_locate: int):
+    """Kernel K's scan (see :func:`expand_scan_plain`): c_lo and c_hi are
+    (n,) int64 with one stride (1 for the candidate list; kernel E's rows
+    of ranges, read in place, on the k = 0 pass: entry ``ranges``)."""
+    if not c_lo.is_cuda:
+        return expand_scan_plain(c_lo, c_hi, max_locate)
+    n = c_lo.shape[0]
+    stride = c_lo.stride(0)
+    if (c_lo.dim() != 1 or c_hi.shape != c_lo.shape or n < 1
+            or c_hi.stride(0) != stride or stride < 1
+            or c_lo.dtype != torch.int64 or c_hi.dtype != torch.int64
+            or c_hi.device != c_lo.device):
+        raise ValueError("kernel K takes two (n >= 1,) int64 candidate "
+                         "columns of one stride on one device")
+    offsets = torch.empty(n, dtype=torch.int64, device=c_lo.device)
+    total = torch.empty((), dtype=torch.int64, device=c_lo.device)
+    sa, buf = executor.scan_args(c_lo.device, n)
+    EXPAND(c_lo.data_ptr(), c_hi.data_ptr(), stride, n, max_locate,
+           offsets.data_ptr(), total.data_ptr(), *sa,
+           entry="scan" if stride == 1 else "ranges")
+    return offsets, total
+
+
+def expand_rows(c_lo, offsets, total, max_locate: int):
+    """Kernel K's rows (see :func:`expand_rows_plain`)."""
+    if not c_lo.is_cuda:
+        return expand_rows_plain(c_lo, offsets, total, max_locate)
+    n = offsets.shape[0]
+    executor.check_tensors("kernel K's rows", c_lo.device, (
+        (offsets, torch.int64, (n,)), (total, torch.int64, ())))
+    if c_lo.shape != (n,) or c_lo.dtype != torch.int64 or c_lo.stride(0) < 1:
+        raise ValueError("kernel K's rows takes an (n,) int64 column")
+    dev = c_lo.device
+    rows = torch.empty(max_locate, dtype=torch.int64, device=dev)
+    cand = torch.empty(max_locate, dtype=torch.int64, device=dev)
+    valid = torch.empty(max_locate, dtype=torch.bool, device=dev)
+    EXPAND(c_lo.data_ptr(), c_lo.stride(0), n, max_locate, offsets.data_ptr(),
+           total.data_ptr(), rows.data_ptr(), cand.data_ptr(),
+           valid.data_ptr(), entry="rows")
+    return rows, cand, valid
+
+
 def stage_expand(c_lo, c_hi, max_locate: int):
     """Candidate ranges -> at most ``max_locate`` flat SA rows.
 
     Widths are clamped at max_locate + 1 (rows past the cap are dropped
     anyway, and a clamped candidate still forces total > max_locate).
-    Returns (rows, cand, valid, total)."""
-    widths = torch.clamp(c_hi - c_lo, min=0).clamp(max=max_locate + 1)
-    offsets = widths.cumsum(0)
-    total = offsets[-1]
-    j = torch.arange(max_locate, dtype=torch.int64, device=c_lo.device)
-    cand = torch.searchsorted(offsets, j, right=True).clamp(
-        0, widths.shape[0] - 1)
-    base = offsets[cand] - widths[cand]
-    valid = j < torch.clamp(total, max=max_locate)
-    rows = torch.where(valid, c_lo[cand] + (j - base), 0)
-    return rows, cand, valid, total
+    Returns (rows, cand, valid, total). On the card kernel K's scan (or
+    its ``ranges`` entry) and rows entries, two launches."""
+    if not c_lo.is_cuda:
+        return stage_expand_plain(c_lo, c_hi, max_locate)
+    offsets, total = expand_scan(c_lo, c_hi, max_locate)
+    return (*expand_rows(c_lo, offsets, total, max_locate), total)
+
+
+def stage_windows_plain(pos, c_rid, c_estb, cand, kb: int):
+    """Plain version of :func:`stage_windows`."""
+    return c_rid[cand], pos + c_estb[cand] - kb
+
+
+def stage_windows(pos, c_rid, c_estb, cand, kb: int):
+    """The read row and the window start (signed: may be < 0) of each
+    expanded row: c_rid[cand] and pos + c_estb[cand] - kb. On the card
+    kernel L's ``windows`` entry."""
+    if not pos.is_cuda:
+        return stage_windows_plain(pos, c_rid, c_estb, cand, kb)
+    L, n = pos.shape[0], c_rid.shape[0]
+    executor.check_tensors("kernel L's windows", pos.device, (
+        (pos, torch.int64, (L,)), (c_rid, torch.int64, (n,)),
+        (c_estb, torch.int64, (n,)), (cand, torch.int64, (L,))))
+    rid = torch.empty(L, dtype=torch.int64, device=pos.device)
+    win = torch.empty(L, dtype=torch.int64, device=pos.device)
+    DEDUP(pos.data_ptr(), c_rid.data_ptr(), c_estb.data_ptr(),
+          cand.data_ptr(), L, kb, rid.data_ptr(), win.data_ptr(),
+          entry="windows")
+    return rid, win
+
+
+def dedup_keys_plain(rid, win_start, valid, max_verify: int):
+    """Plain version of kernel L's keys: (rid_m << 32) | (win mod 2^32),
+    rid_m = 2^30 and the window 2^32 - 1 on invalid rows; and the
+    compaction's ``max_verify`` output slots, cleared (rid_v, win_v,
+    vlive)."""
+    rid_m = torch.where(valid, rid, DEDUP_BIG)
+    win_m = torch.where(valid, win_start & 0xFFFFFFFF, 0xFFFFFFFF)
+    z = dict(device=rid.device)
+    return (rid_m << 32) | win_m, (
+        torch.zeros(max_verify, dtype=torch.int64, **z),
+        torch.zeros(max_verify, dtype=torch.int64, **z),
+        torch.zeros(max_verify, dtype=torch.bool, **z))
+
+
+def dedup_compact_plain(key_s, order, win_start, outs):
+    """Plain version of kernel L's compact: the first sorted row of each
+    key with a valid rid, in order, into the cleared slots ``outs``
+    (rid_v, win_v, vlive). Returns (rid_v, win_v, vlive, n_unique)."""
+    L = key_s.shape[0]
+    first = torch.ones(L, dtype=torch.bool, device=key_s.device)
+    first[1:] = key_s[1:] != key_s[:-1]
+    uniq = first & ((key_s >> 32) < DEDUP_BIG)
+    (src,), n_uniq = executor._compact(
+        uniq, outs[0].shape[0], [torch.arange(L, device=key_s.device)], [L])
+    vlive = src < L
+    sel = torch.where(vlive, src, 0)
+    outs[0].copy_(torch.where(vlive, key_s[sel] >> 32, 0))
+    outs[1].copy_(torch.where(vlive, win_start[order[sel]], 0))
+    outs[2].copy_(vlive)
+    return (*outs, n_uniq)
+
+
+def stage_dedup_plain(rid, win_start, valid, max_verify: int):
+    """Plain version of :func:`stage_dedup`."""
+    key, outs = dedup_keys_plain(rid, win_start, valid, max_verify)
+    key_s, order = torch.sort(key, stable=True)
+    return dedup_compact_plain(key_s, order, win_start, outs)
+
+
+def dedup_keys(rid, win_start, valid, max_verify: int):
+    """Kernel L's keys (see :func:`dedup_keys_plain`)."""
+    if not rid.is_cuda:
+        return dedup_keys_plain(rid, win_start, valid, max_verify)
+    L = rid.shape[0]
+    dev = rid.device
+    executor.check_tensors("kernel L's keys", dev, (
+        (rid, torch.int64, (L,)), (win_start, torch.int64, (L,)),
+        (valid, torch.bool, (L,))))
+    key = torch.empty(L, dtype=torch.int64, device=dev)
+    outs = (torch.empty(max_verify, dtype=torch.int64, device=dev),
+            torch.empty(max_verify, dtype=torch.int64, device=dev),
+            torch.empty(max_verify, dtype=torch.bool, device=dev))
+    DEDUP(rid.data_ptr(), win_start.data_ptr(), valid.data_ptr(), L,
+          key.data_ptr(), *(o.data_ptr() for o in outs), max_verify,
+          entry="keys")
+    return key, outs
+
+
+def dedup_compact(key_s, order, win_start, outs):
+    """Kernel L's compact (see :func:`dedup_compact_plain`) into the slots
+    ``outs`` that :func:`dedup_keys` cleared."""
+    if not key_s.is_cuda:
+        return dedup_compact_plain(key_s, order, win_start, outs)
+    L = key_s.shape[0]
+    mv = outs[0].shape[0]
+    executor.check_tensors("kernel L's compact", key_s.device, (
+        (key_s, torch.int64, (L,)), (order, torch.int64, (L,)),
+        (win_start, torch.int64, (L,)), (outs[0], torch.int64, (mv,)),
+        (outs[1], torch.int64, (mv,)), (outs[2], torch.bool, (mv,))))
+    if L < 1:
+        raise ValueError("kernel L's compact takes at least one row")
+    n_uniq = torch.empty((), dtype=torch.int64, device=key_s.device)
+    sa, buf = executor.scan_args(key_s.device, L)
+    DEDUP(key_s.data_ptr(), order.data_ptr(), win_start.data_ptr(), L, mv,
+          *(o.data_ptr() for o in outs), n_uniq.data_ptr(), *sa,
+          entry="compact")
+    return (*outs, n_uniq)
 
 
 def stage_dedup(rid, win_start, valid, max_verify: int):
     """Dedup (read, window start) pairs before verification, keeping sort
     order (rid, start as uint32, the reference's order) and compacting the
     first of each pair to ``max_verify`` slots. Returns (rid_v, win_v,
-    vlive, n_unique)."""
-    L = rid.shape[0]
-    big = 1 << 30
-    rid_m = torch.where(valid, rid, big)
-    win_m = torch.where(valid, win_start & 0xFFFFFFFF, 0xFFFFFFFF)
-    key = (rid_m << 32) | win_m
+    vlive, n_unique). On the card kernel L's keys and compact entries
+    around one ``torch.sort(stable=True)``."""
+    if not rid.is_cuda:
+        return stage_dedup_plain(rid, win_start, valid, max_verify)
+    key, outs = dedup_keys(rid, win_start, valid, max_verify)
     key_s, order = torch.sort(key, stable=True)
-    first = torch.ones(L, dtype=torch.bool, device=rid.device)
-    first[1:] = key_s[1:] != key_s[:-1]
-    uniq = first & ((key_s >> 32) < big)
-    (src,), n_uniq = executor._compact(
-        uniq, max_verify, [torch.arange(L, device=rid.device)], [L])
-    vlive = src < L
-    srcc = order[torch.where(vlive, src, 0)]
-    rid_v = torch.where(vlive, rid_m[srcc], 0)
-    win_v = torch.where(vlive, win_start[srcc], 0)
-    return rid_v, win_v, vlive, n_uniq
+    return dedup_compact(key_s, order, win_start, outs)
 
 
 def match_device_core(index: FMIndex, reads: torch.Tensor,
@@ -229,8 +453,8 @@ def match_device_core(index: FMIndex, reads: torch.Tensor,
                                                  sched.num_searches, dyn)
     rows, cand, valid, total = stage_expand(c_lo, c_hi, max_locate)
     pos = locate.locate_rows(index, rows)
-    win_start = pos + c_estb[cand] - kb          # signed: may be < 0
-    rid_v, win_v, vlive, n_uniq = stage_dedup(c_rid[cand], win_start, valid,
+    rid, win_start = stage_windows(pos, c_rid, c_estb, cand, kb)
+    rid_v, win_v, vlive, n_uniq = stage_dedup(rid, win_start, valid,
                                               max_verify)
     final_rows = verify.verify_window(index, reads, rid_v, win_v, kb,
                                       live=n_uniq)

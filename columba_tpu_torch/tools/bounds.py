@@ -370,3 +370,103 @@ def locate_rlc(rows, stats: dict, out) -> dict:
     words = stats.get("bucket", 0) + stats.get("walk", 0)
     return bound(_nbytes(rows, out) + N * 4 + words * 16 + N * 4,
                  (N + steps) * 12 + words * WALK_OPS)
+
+
+# -- kernels I-L: the frontier, candidates and dedup outside the band steps --
+# operations per element: index arithmetic, compares and selects of the
+# entries' loops (csrc/frontier.cu, expand.cu, dedup.cu), and per lane of a
+# scan its share of the block scan and the look-back
+SCAN_OPS = 24
+LANE_OPS = 12
+
+
+def _n(t) -> int:
+    return 0 if t is None else int(t.numel())
+
+
+def entry(name: str, a: dict, post: dict, out) -> dict:
+    """Bound of one call of an entry of kernels I-L. ``a``: the call's
+    arguments by name before it ran, ``post``: the same after (the entries
+    that write in place), ``out``: what it returned. The kept, narrow and
+    ghost rows, the unique pairs and the valid rows are this call's."""
+    if name in ("frontier.seed", "frontier.lookup"):
+        if name == "frontier.lookup":
+            chars, table = a["chars"], a["table"]
+            n = chars.numel() // chars.shape[-1]
+            return bound(chars.numel() + n * 64, n * (3 * chars.shape[-1]
+                                                       + LANE_OPS))
+        reads, S = a["reads"], a["S"]
+        ranges0, pchars = out
+        L = ranges0.shape[0]
+        seeded = 0
+        if a["kmer_table"] is not None:
+            seeded = int((a["kstart"] >= 0).sum()) * reads.shape[0]
+        n_bytes = (_nbytes(reads) + 32 * seeded + _n(a["search_mask"])
+                   + _nbytes(a["posw"], a["code"]) + _nbytes(ranges0)
+                   + _n(pchars) + sum(_nbytes(t) for t, _ in a["clears"]))
+        return bound(n_bytes, L * LANE_OPS + 3 * _n(pchars)
+                     + sum(_nbytes(t) for t, _ in a["clears"]) // 16)
+    if name == "frontier.drain":
+        L = a["drows"].shape[0]
+        kept = int(post["words"][4])
+        return bound(32 * L + 32 * kept + 8, L * SCAN_OPS)
+    if name == "frontier.init":
+        r0, st = a["ranges0"], post["state"]
+        L, rw = r0.shape
+        w = post["words"]
+        narrow = int(w[0] >> 32) - int(a["words"][4])
+        kept = min(int(w[5]), st[0].shape[0])
+        row = rw * 8 + 4 + st[2][0].numel() + st[3][0].numel()
+        n_bytes = (_nbytes(r0) + _nbytes(a["db_exact"], a["band_init"],
+                                         a["colmin_init"])
+                   + 32 * narrow + row * kept + 24)
+        return bound(n_bytes, L * SCAN_OPS)
+    if name == "frontier.ex_compact":
+        r0 = a["ranges0"]
+        L, rw = r0.shape
+        kept = int((out >= 0).sum())
+        return bound(16 * L + (rw - 2) * 8 * kept + 4 * L
+                     + (rw * 8 + 4) * kept + 8, L * SCAN_OPS)
+    if name == "frontier.ex_back":
+        L, rw = a["ranges0"].shape
+        back = int((a["slot"] >= 0).sum())
+        return bound(4 * L + (rw * 8 + 32) * back + rw * 8 * L + 32 * back,
+                     L * LANE_OPS)
+    if name == "frontier.tail":
+        st = a["state"]
+        cap, rw = st[0].shape
+        Wp = st[3].shape[-1]
+        live = cap if not a["moved"] else min(a["live"], cap)
+        zeroed = cap - live
+        row = rw * 8 + 4 + st[2][0].numel() + st[3][0].numel()
+        ghosts = int(post["words"][6]) - int(a["words"][0] >> 32)
+        n_bytes = (live * (16 + 4 + 2 * Wp) + zeroed * row
+                   + cap * (3 * 8 + 2) + 32 * ghosts + 16)
+        return bound(n_bytes, cap * (SCAN_OPS + 2 * Wp))
+    if name == "expand.frontier":
+        res = a["res"]
+        C, M = res.ranges.shape[0], res.itv.shape[0]
+        done = int(res.done.sum())
+        return bound(C * 17 + done * 16 + M * 32 + 32 * (C + M),
+                     (C + M) * LANE_OPS)
+    if name in ("expand.scan", "expand.ranges"):
+        n = a["c_lo"].shape[0]
+        return bound(16 * n + 8 * n + 8, n * SCAN_OPS)
+    if name == "expand.rows":
+        rows, cand, valid = out
+        n, ml = a["offsets"].shape[0], rows.shape[0]
+        live = int(torch.unique(cand[valid]).numel())
+        return bound(8 * n + 8 * live + 17 * ml,
+                     ml * (LANE_OPS + 4 * max(1, n.bit_length())))
+    if name == "dedup.windows":
+        L = a["pos"].shape[0]
+        distinct = int(torch.unique(a["cand"]).numel())
+        return bound(16 * L + 16 * distinct + 16 * L, L * LANE_OPS)
+    if name == "dedup.keys":
+        L = a["rid"].shape[0]
+        return bound(17 * L + 8 * L + 17 * a["max_verify"], L * LANE_OPS)
+    if name == "dedup.compact":
+        L, mv = a["key_s"].shape[0], a["outs"][0].shape[0]
+        kept = min(int(out[3]), mv)
+        return bound(16 * L + 8 * kept + 17 * kept + 8, L * SCAN_OPS)
+    raise ValueError(f"no bound for {name}")

@@ -51,7 +51,16 @@ or B is timed, its ``--rlc --textless`` index, built at once), and:
 4. times kernel E on one row that matches all its 100 chars against one
    that stops at its first: the difference over 99 is the latency of one
    step's chain of dependent reads, and that times a batch's longest row
-   is the batch's latency floor.
+   is the batch's latency floor;
+5. times every entry of kernels I-L (the frontier around kernels A and B,
+   the candidates' expansion, the dedup) on one ``match_device_core``
+   call at the SE ALL path's sizes (and the band-only call and the k = 0
+   pass beside it), by events and the profiler, warm and cold, beside the
+   plain chain, the sort (kernel L's library time) and the bound, and
+   counts the call's launches outside kernel B's band steps and the sort
+   (``torch.profiler``), on both trees with ``--parent``. ``--only
+   frontier,expand,dedup`` times these alone (about two minutes with the
+   Vanilla build).
 
 With ``--parent TREE`` (an earlier commit's ``columba_tpu_torch/``,
 unpacked by ``git archive COMMIT columba_tpu_torch | tar -x -C TREE``) it
@@ -85,8 +94,9 @@ import numpy as np
 import torch
 
 from columba_tpu_torch.tools.path_inputs import (
-    BAND_KINDS, Clocks, band_args, band_call, band_input, capture, describe,
-    live_tensor, log, loop_call, rlc_lane_states, time_inputs,
+    BAND_KINDS, Clocks, band_args, band_call, band_input, capture,
+    capture_entries, describe, launch_census, live_tensor, log, loop_call,
+    replay_plain, rlc_lane_states, sort_ms, time_entry, time_inputs,
 )
 
 SEED = 20260817
@@ -98,32 +108,49 @@ SYNTH_KB = (0, 2, 4, 5, 7, 13)
 PKG = "columba_tpu_torch"
 TREE_MODULES = ("native", "ops.locate", "ops.verify", "ops.extend",
                 "search.dynschedule", "search.executor", "index.bmove",
-                "index.fmindex", "tools.gather_bench")
+                "index.fmindex", "tools.gather_bench", "search.pipeline")
 GATHER_SETS = 16         # index sets a gather timing cycles through
 
 
 # -- an earlier tree's kernels, through its own wrappers ----------------------
 
-def load_tree(tree: str) -> dict:
-    """The tree's own ``native``, kernel wrappers and index classes. This tree's modules are set aside in ``sys.modules`` while the
-    tree's import and put back after, so each tree's wrappers call their
-    own C entries with their own arguments; the tree's kernels build into
-    its own ``_build``."""
+_SCOPES: dict = {}       # a tree's root -> its modules, kept between scopes
+
+
+@contextlib.contextmanager
+def tree_scope(root: str):
+    """``sys.modules`` and ``sys.path`` as the tree at ``root`` has them,
+    inside: every import, a lazy one inside a call included, takes that
+    tree's module. This tree's modules are set aside and put back after.
+    An earlier tree needs it: its ``run_scheme`` imports ``index.kmer``
+    inside the call, which would otherwise be this tree's module and
+    launch this tree's kernel I."""
+    theirs = _SCOPES.setdefault(root, {})
     mine = {k: v for k, v in sys.modules.items()
             if k == PKG or k.startswith(PKG + ".")}
-    root = os.path.abspath(tree)
     for k in mine:
         del sys.modules[k]
+    sys.modules.update(theirs)
     sys.path.insert(0, root)
     try:
-        mods = {m: importlib.import_module(f"{PKG}.{m}")
-                for m in TREE_MODULES}
+        yield
     finally:
         sys.path.remove(root)
         for k in [k for k in sys.modules
                   if k == PKG or k.startswith(PKG + ".")]:
-            del sys.modules[k]
+            theirs[k] = sys.modules.pop(k)
         sys.modules.update(mine)
+
+
+def load_tree(tree: str) -> dict:
+    """The tree's own ``native``, kernel wrappers and index classes,
+    imported in :func:`tree_scope`, so each tree's wrappers call their own
+    C entries with their own arguments; the tree's kernels build into its
+    own ``_build``."""
+    root = os.path.abspath(tree)
+    with tree_scope(root):
+        mods = {m: importlib.import_module(f"{PKG}.{m}")
+                for m in TREE_MODULES}
     for m in mods.values():
         if not os.path.abspath(m.__file__).startswith(root + os.sep):
             raise RuntimeError(f"{m.__name__} did not load from {tree}")
@@ -413,6 +440,105 @@ def chain_floor(label: str, index, text: np.ndarray, clocks: Clocks,
     results.append(rec)
 
 
+def il_entries(index, batch, table, clocks: Clocks, smi: str,
+               results: list, mods=None, parent_root=None) -> None:
+    """Kernels I-L at the SE ALL path's sizes (``batch``: 32,768 rows; C =
+    12,288, max_locate = M = 131,072): every entry of one
+    ``match_device_core`` call (10-mer seeds, switchpoint 4), of the
+    band-only call (switchpoint 0, the two-stage exact loop) and of the
+    k = 0 pass, held to its plain version, then timed by CUDA events and
+    the profiler, warm and with a flushed L2, beside the plain chain's time
+    (events, warm), the sort's for kernel L and the entry's bound. Then the
+    launch census of the first call and of its ``run_scheme``
+    (``path_inputs.launch_census``); with an earlier tree's modules
+    ``mods`` (loaded from ``parent_root``), on both trees in turns (parent,
+    this tree, this tree, parent), each through its own pipeline, the
+    parent's inside its :func:`tree_scope`."""
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import bounds
+
+    R = batch.shape[0]
+    sched = pipeline.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit",
+                                    kmer_k=10)
+    S = sched.num_searches
+    C, ml = pipeline.batch_capacity(R, S, 4), pipeline.batch_max_locate(R)
+    C0 = pipeline.batch_capacity(R, S, 0)
+
+    def core(pl, idx, sc):
+        return lambda: pl.match_device_core(idx, batch, sc, C, ml, K, table,
+                                            4, *pl.crossover_caps(C, ml, 4))
+
+    calls = capture_entries(core(pipeline, index, sched))
+    for fn in (lambda: pipeline.match_device_core(
+                   index, batch, sched, C0, ml, K, table, 0, 0, 0, 0,
+                   ex_split=8, ex_cap=C0),
+               lambda: pipeline._exact_device(index, batch, ml)):
+        calls.update({k: v for k, v in capture_entries(fn).items()
+                      if k not in calls})
+    sort = sort_ms(calls["dedup.compact"], clocks)
+    for name in sorted(calls):
+        c = calls[name]
+        if replay_plain(c) != 0:
+            raise AssertionError(f"kernel {name} differs from its plain "
+                                 "version")
+        t = time_entry(c, clocks)
+        b = bounds.entry(name, c["args"], c["after"], c["out"])
+        lib = sort if name.startswith("dedup.") else None
+        results.append(dict(
+            label="se_all_sizes", kind=name, bound_ms=b["bound_ms"],
+            bound_by=b["bound_by"], bound_bytes=b["bytes"],
+            bound_operations=b["operations"], plain_ms=t["plain_ms"],
+            library_ms=lib, runs={"tree": [t]}))
+        log(f"{smi}: se_all_sizes {name}: events warm "
+            f"{t['events_warm']:.4f} ms, cold {t['events_cold']:.4f}; "
+            f"profiler warm {_fmt(t['prof_warm'])}, cold "
+            f"{_fmt(t['prof_cold'])}; plain {t['plain_ms']:.4f} ms"
+            + (f"; sort {lib:.4f} ms" if lib is not None else "")
+            + f"; bound {b['bound_ms']:.5f} ms by {b['bound_by']}")
+
+    def scheme(pl, idx, sc):
+        ex = pl.executor
+        return lambda: ex.run_scheme(
+            idx, batch, sc, C, table, 4, *pl.crossover_caps(C, ml, 4),
+            itv_min_depth=16, tables=ex.device_tables(sc, batch.device))
+
+    fns = {"tree": (core(pipeline, index, sched),
+                    scheme(pipeline, index, sched), pipeline.executor)}
+    order = ["tree", "tree"]
+    if mods is not None:
+        pl = mods["search.pipeline"]
+        cls = mods["index.fmindex"].FMIndex
+        pidx = cls(**{f.name: getattr(index, f.name)
+                      for f in dataclasses.fields(cls) if f.init})
+        # this tree's scheme: the tree's own looks for schemes/ beside it
+        psched = pl.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit",
+                                   kmer_k=10)
+
+        def scoped(fn):
+            def run():
+                with tree_scope(parent_root):
+                    return fn()
+            return run
+        fns["parent"] = (scoped(core(pl, pidx, psched)),
+                         scoped(scheme(pl, pidx, psched)), pl.executor)
+        order = ["parent", *order, "parent"]
+    census = {}
+    for who in order:
+        core_fn, scheme_fn, ex = fns[who]
+        for what, fn in (("match_device_core", core_fn),
+                         ("run_scheme", scheme_fn)):
+            c = launch_census(fn, ex)
+            census.setdefault(f"{who} {what}", []).append(c)
+            log(f"{smi}: launch census ({who}), one SE ALL {what} call "
+                f"({R} rows, C = {C}, max_locate = {ml}): {c['outside']} "
+                f"outside kernel B's band steps ({c['band']}) and the sort "
+                f"({c['sort']}), {c['total']} in all; by name "
+                f"{json.dumps(c['by_name'], sort_keys=True)}")
+    results.append(dict(label="se_all_sizes", kind="launch_census",
+                        runs=census))
+
+
 def _fmt(v) -> str:
     return "not measured" if v is None else f"{v:.5f}"
 
@@ -463,8 +589,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="comma-separated kernel kinds to time (locate, "
                          "verify, exact, dynpart, dyn_tables, gather, "
-                         "band_step, extend; an entry such as exact.rlc "
-                         "names one); all by default")
+                         "band_step, extend, frontier, expand, dedup; an "
+                         "entry such as exact.rlc names one); all by "
+                         "default")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
 
@@ -485,7 +612,10 @@ def main(argv=None) -> int:
     def ours(line):
         return any(k in line for k in ("locate", "verify", "exact",
                                        "dynpart", "dyn_tables", "gather",
-                                       "band_step", "extend"))
+                                       "band_step", "extend", "seed_",
+                                       "drain_", "init_", "ex_", "tail_",
+                                       "frontier_", "scan_", "rows_",
+                                       "windows_", "keys_", "compact_"))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -560,6 +690,10 @@ def main(argv=None) -> int:
         synth = synthetic(index, text, np.random.default_rng(SEED + 1),
                           2 * BATCH, ("locate", "verify"))
         batch, table = both_strands(reads), build_kmer_table(index, 10)
+        if any(wanted(k) for k in ("frontier", "expand", "dedup")):
+            il_entries(index, batch, table, clocks, smi, results,
+                       mods if parent else None,
+                       os.path.abspath(args.parent) if parent else None)
         synth += exact_part_inputs(index, batch, table)
         synth += tables_inputs(index, batch, table)
         del arrays
@@ -575,6 +709,9 @@ def main(argv=None) -> int:
                         results, parent)
         del captured, synth, index, text
         torch.cuda.empty_cache()
+        if only is not None and only <= {"frontier", "expand", "dedup",
+                                         "gather"}:
+            return _write(args.out, smi, results)
 
         pan = workload.pan_genome()
         workload.write_fasta(fa, pan, "pan")

@@ -28,8 +28,8 @@ Rank 0 prints one JSON line: ``ok``, ``ranks``, ``recalls`` (null for reads
 from a file, whose loci are unknown), ``mapped`` (each rank's share of
 reads with a valid window), ``total``, ``overflow``, each rank's reads/s
 (the ranks share the machine, and on one card its time: not a chip rate),
-peak device memory, index bytes, and launches of kernels A-D (by kernel
-and by entry). ``--out FILE`` saves the occurrence set as an (N, 2) int64
+peak device memory, index bytes, and launches of kernels A-D and I-L (by
+kernel and by entry). ``--out FILE`` saves the occurrence set as an (N, 2) int64
 ``.npy``. Any rank's failure, or a wait past ``TIMEOUT`` seconds, exits
 non-zero.
 
@@ -58,7 +58,9 @@ K = 2
 SWITCHPOINT = 4
 KMER_BUILT = 6           # seed table k on the index built from GENOME_SEED
 KMER_LOADED = 10         # on an --index: cli align's -K, cached beside it
-KERNELS = ("extend", "band_step", "locate", "verify")   # kernels A-D
+# kernels A-D and I-L
+KERNELS = ("extend", "band_step", "locate", "verify", "frontier", "expand",
+           "dedup")
 TIMEOUT = 600            # seconds the orchestrator waits for the ranks
 
 

@@ -27,6 +27,8 @@ Used by ``chip_smoke.py`` and ``tools/kernel_bench.py``.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -628,3 +630,259 @@ def time_inputs(label: str, inputs: list, clocks: Clocks, smi: str,
 
 def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
+
+
+# -- kernels I-L: every entry's first call of a run, and its replay ---------
+
+# an entry's kernel in the profiler's trace
+ENTRY_KERNEL = {
+    "frontier.seed": "seed_kernel", "frontier.lookup": "seed_kernel",
+    "frontier.drain": "drain_kernel", "frontier.init": "init_kernel",
+    "frontier.ex_compact": "ex_compact_kernel",
+    "frontier.ex_back": "ex_back_kernel", "frontier.tail": "tail_kernel",
+    "expand.frontier": "frontier_kernel", "expand.scan": "scan_kernel",
+    "expand.ranges": "scan_kernel", "expand.rows": "rows_kernel",
+    "dedup.windows": "windows_kernel", "dedup.keys": "keys_kernel",
+    "dedup.compact": "compact_kernel",
+}
+# the argument that holds the in-text buffer, whose last row is scratch:
+# the plain version writes its dropped rows there, the kernel nothing
+ITV_ARG = {"frontier.drain": "itv", "frontier.init": "itv",
+           "frontier.tail": "itv"}
+
+
+def entry_table() -> dict:
+    """(module, attribute, plain version) of every dispatching function of
+    kernels I-L, by the entry it launches (``expand_scan`` launches
+    ``expand.ranges`` on strided columns)."""
+    from columba_tpu_torch.index import kmer
+    from columba_tpu_torch.search import executor as ex, pipeline as pl
+
+    return {
+        "frontier.seed": (ex, "frontier_seed", ex.frontier_seed_plain),
+        "frontier.lookup": (kmer, "lookup", kmer.lookup_plain),
+        "frontier.drain": (ex, "frontier_drain", ex.frontier_drain_plain),
+        "frontier.init": (ex, "frontier_init", ex.frontier_init_plain),
+        "frontier.ex_compact": (ex, "frontier_ex_compact",
+                                ex.frontier_ex_compact_plain),
+        "frontier.ex_back": (ex, "frontier_ex_back",
+                             ex.frontier_ex_back_plain),
+        "frontier.tail": (ex, "frontier_tail", ex.frontier_tail_plain),
+        "expand.frontier": (pl, "stage_candidates",
+                            pl.stage_candidates_plain),
+        "expand.scan": (pl, "expand_scan", pl.expand_scan_plain),
+        "expand.rows": (pl, "expand_rows", pl.expand_rows_plain),
+        "dedup.windows": (pl, "stage_windows", pl.stage_windows_plain),
+        "dedup.keys": (pl, "dedup_keys", pl.dedup_keys_plain),
+        "dedup.compact": (pl, "dedup_compact", pl.dedup_compact_plain),
+    }
+
+
+def plain_entries():
+    """Swap every dispatching function of kernels I-L for its plain version
+    (module attributes the library calls through); returns the undo."""
+    saved = []
+    for mod, attr, plain in entry_table().values():
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, plain)
+
+    def restore():
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    return restore
+
+
+def _deep(x, f):
+    """``x`` with every tensor replaced by ``f(tensor)``: through lists,
+    tuples, dicts and FrontierResults (not through an index)."""
+    from columba_tpu_torch.search.executor import FrontierResult
+
+    if isinstance(x, torch.Tensor):
+        return f(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_deep(v, f) for v in x)
+    if isinstance(x, dict):
+        return {k: _deep(v, f) for k, v in x.items()}
+    if isinstance(x, FrontierResult):
+        return dataclasses.replace(x, **{
+            fl.name: _deep(getattr(x, fl.name), f)
+            for fl in dataclasses.fields(x)})
+    return x
+
+
+def _copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy with the same strides (kernel K reads kernel E's ranges in
+    place through their row stride)."""
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def _tensors(x) -> list:
+    out = []
+    _deep(x, lambda t: out.append(t) or t)
+    return out
+
+
+def capture_entries(fn) -> dict:
+    """Runs ``fn()`` with every dispatching function of kernels I-L
+    wrapped, and keeps each entry's first call: its arguments by name
+    before the call (copies), after it, and what it returned."""
+    import inspect
+
+    table = entry_table()
+    calls: dict = {}
+    saved = []
+
+    def wrap(name, real):
+        sig = inspect.signature(real)
+
+        def spy(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            key = name
+            if name == "expand.scan" and bound.arguments["c_lo"].stride(0) != 1:
+                key = "expand.ranges"
+            if key in calls:
+                return real(*args, **kwargs)
+            before = _deep(dict(bound.arguments), _copy)
+            out = real(*args, **kwargs)
+            calls[key] = dict(name=key, real=real, plain=table[name][2],
+                              args=before,
+                              after=_deep(dict(bound.arguments), _copy),
+                              out=_deep(out, _copy))
+            return out
+        return spy
+
+    for name, (mod, attr, plain) in table.items():
+        real = getattr(mod, attr)
+        saved.append((mod, attr, real))
+        setattr(mod, attr, wrap(name, real))
+    try:
+        fn()
+    finally:
+        for mod, attr, real in saved:
+            setattr(mod, attr, real)
+    return calls
+
+
+def _max_err(got, want) -> int:
+    g, w = _tensors(got), _tensors(want)
+    if len(g) != len(w):
+        raise AssertionError("different outputs")
+    err = 0
+    for a, b in zip(g, w):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"shape/dtype {tuple(a.shape)} {a.dtype} "
+                                 f"vs {tuple(b.shape)} {b.dtype}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def replay_plain(call: dict) -> int:
+    """The captured call again through its plain version on copies of its
+    arguments: the max abs difference from the kernel's result and from
+    the arguments it left (the in-text buffer's scratch row aside)."""
+    args = _deep(call["args"], _copy)
+    out = call["plain"](**args)
+    itv = ITV_ARG.get(call["name"])
+    if itv is not None:
+        args[itv][-1] = call["after"][itv][-1]
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return max(_max_err(out, call["out"]), _max_err(args, call["after"]))
+
+
+def time_entry(call: dict, clocks: Clocks) -> dict:
+    """The entry's kernel and its plain version on copies of the captured
+    arguments: CUDA events and the profiler's device time of the kernel,
+    warm and with the L2 flushed; events of the plain version, warm."""
+    kargs = _deep(call["args"], _copy)
+    pargs = _deep(call["args"], _copy)
+    t = clocks.all(lambda: call["real"](**kargs), ENTRY_KERNEL[call["name"]])
+    t["plain_ms"] = clocks.events(lambda: call["plain"](**pargs), False)
+    return t
+
+
+def sort_ms(call: dict, clocks: Clocks) -> float:
+    """kernel L's sort (torch.sort, stable) on a captured compact call's
+    keys: the row's library time."""
+    key = call["args"]["key_s"].clone()
+    return clocks.events(lambda: torch.sort(key, stable=True), False)
+
+
+# the record_function scopes that launch_census books device work to
+SCOPE_WORD, SCOPE_SORT = "census.step_word", "census.sort"
+
+
+def _device_events(fn, scopes=()) -> tuple[dict, dict]:
+    """What the card ran in one profiled ``fn()``: kernel launches, memsets
+    and copies, counted by name (``torch.profiler``), and how many of them
+    were issued inside each ``record_function`` scope named in ``scopes``
+    (the profiler links each device event to the op that issued it; the
+    scope is that op or one of its parents). The scopes' own spans on the
+    device timeline are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    within = dict.fromkeys(scopes, 0)
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            if ev.name not in within:
+                by_name[ev.name] = by_name.get(ev.name, 0) + 1
+        elif ev.kernels:
+            up = ev
+            while up is not None and up.name not in within:
+                up = up.cpu_parent
+            if up is not None:
+                within[up.name] += len(ev.kernels)
+    return by_name, within
+
+
+def launch_census(fn, ex=None) -> dict:
+    """What the card ran in one ``fn()`` (a ``match_device_core`` or
+    ``run_scheme`` call) outside kernel B's band steps and the sort, from
+    ``torch.profiler``. ``fn`` runs once unprofiled first. Kernel B's
+    launches are counted by name; the copies of its step words and the
+    sort's launches and memsets by their own record: during the profiled
+    call ``ex.StepScratch.word`` (``ex``: the tree's executor module, this
+    tree's by default) and ``torch.sort`` run inside scopes of their own,
+    and every device event issued inside one is booked to it. Each step
+    word is one copy, so the word scope must hold one event a call. Returns
+    {"by_name": every launch, memset and copy of the call by name, "band":
+    kernel B's launches and its word copies, "sort", "outside", "total"}."""
+    from torch.profiler import record_function
+
+    if ex is None:
+        from columba_tpu_torch.search import executor as ex
+    word, sort = ex.StepScratch.word, torch.sort
+    calls = dict.fromkeys((SCOPE_WORD, SCOPE_SORT), 0)
+
+    def scoped(name, real):
+        def run(*args, **kwargs):
+            calls[name] += 1
+            with record_function(name):
+                return real(*args, **kwargs)
+        return run
+
+    fn()
+    ex.StepScratch.word = scoped(SCOPE_WORD, word)
+    torch.sort = scoped(SCOPE_SORT, sort)
+    try:
+        by_name, within = _device_events(fn, calls)
+    finally:
+        ex.StepScratch.word, torch.sort = word, sort
+    if within[SCOPE_WORD] != calls[SCOPE_WORD] or (
+            calls[SCOPE_SORT] and not within[SCOPE_SORT]):
+        raise RuntimeError(f"the profiler booked {within} to {calls} calls")
+    steps = sum(n for k, n in by_name.items() if "band_step" in k)
+    band = steps + within[SCOPE_WORD]
+    sort = within[SCOPE_SORT]
+    total = sum(by_name.values())
+    return dict(by_name=by_name, band=band, sort=sort,
+                outside=total - band - sort, total=total)

@@ -338,7 +338,8 @@ def test_kernel_entries_name_their_sources():
 
     from columba_tpu_torch import native
     for mod in ("ops.extend", "ops.locate", "ops.verify", "search.executor",
-                "search.dynschedule", "tools.gather_bench"):
+                "search.dynschedule", "search.pipeline",
+                "tools.gather_bench"):
         importlib.import_module("columba_tpu_torch." + mod)
     root = os.path.dirname(PORT)
     seen = 0
@@ -347,7 +348,10 @@ def test_kernel_entries_name_their_sources():
             with open(os.path.join(root, k.source_of(entry))) as f:
                 assert f"{symbol}(" in f.read(), (k.name, entry)
             seen += 1
-    assert seen == 18      # 8 kernels; A's loop (Vanilla, RLC); 8 RLC
+    # 8 kernels; A's loop (Vanilla, RLC); 8 RLC; I-L: frontier's drain,
+    # init, ex_compact, ex_back, tail, expand's scan, ranges, rows, dedup's
+    # keys, compact and their three main symbols
+    assert seen == 31
     band = native.KERNELS["band_step"]
     assert band.source_of("textless").endswith("csrc/band_step_rlc.cu")
     assert band.source_of("per_lane_rlc").endswith("csrc/band_step_rlc.cu")

@@ -289,12 +289,15 @@ def test_band_step_overflow(setup, rlc_setup, gpu, flavor):
     pchars = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
         np.int8)).to(gpu)
     scratch = executor.StepScratch(state[0].shape[0], gpu)
+    # the scratch's statuses are the stream's scan pool, whose epochs every
+    # scanning launch on the stream shares: each launch takes the next one
+    first = executor.scan_pool(gpu).epoch
     for rep in range(3):
         n, rows = fused_vs_plain(index, state, mrow, pchars, 5, 3, 8, dyn,
                                  track_arg=track, cap=256, M=64, cnt=40,
                                  scratch=scratch)
         assert n > 256 and rows == 64, (n, rows)
-    assert scratch.epoch == 3
+    assert scratch.epoch == first + 3
 
 
 def _random_mrow(rng, S, bw, W):
@@ -1229,3 +1232,103 @@ def test_rlc_select_match_all_vs_plain(rlc_setup, gpu, mode):
     for f in ("read_id", "strand", "begin", "end", "distance"):
         assert np.array_equal(getattr(out[0][0], f), getattr(out[1][0], f)), f
     assert len(out[0][0]) >= 96
+
+
+# ---------------------------------------------------------------------------
+# Kernels I-L: the frontier (seed, drain, init, the two-stage exact loop's
+# compaction and scatter, tail), the candidates' expansion and the dedup
+# ---------------------------------------------------------------------------
+
+FRONTIER_ENTRIES = ("frontier.seed", "frontier.lookup", "frontier.drain",
+                    "frontier.init", "frontier.ex_compact",
+                    "frontier.ex_back", "frontier.tail", "expand.frontier",
+                    "expand.scan", "expand.ranges", "expand.rows",
+                    "dedup.windows", "dedup.keys", "dedup.compact")
+
+
+@pytest.mark.parametrize("path", ["seeded", "band_only", "dynamic", "exact",
+                                  "rlc", "textless", "overflow"])
+def test_frontier_kernels_vs_plain(setup, rlc_setup, gpu, path):
+    """Every entry of kernels I-L that a path launches, captured from one
+    match_device_core (or run_scheme, or the k = 0 pass) on the card and
+    replayed through its plain version on copies of its inputs: the same
+    result and the same buffers it writes in place, exactly."""
+    from columba_tpu_torch.tools import path_inputs
+
+    g, cpu_fm, fm = setup
+    rng = np.random.default_rng(60)
+    m = 100
+    reads = _reads(rng, g, 200, m, 2)
+    batch = torch.from_numpy(np.concatenate(
+        [reads, alphabet.revcomp(reads, axis=-1)])).to(gpu)
+    table = kmer.build_kmer_table(fm, 6)
+    sched = pipeline.compile_cached(get_scheme("kuch1", 2), m, "edit",
+                                    kmer_k=0 if path in ("band_only", "rlc",
+                                                         "textless",
+                                                         "dynamic") else 6)
+
+    def core(index, cap, sw, tab=None, **kw):
+        return pipeline.match_device_core(
+            index, batch, sched, cap, 4096, 2, tab, sw,
+            *pipeline.crossover_caps(cap, 4096, sw), **kw)
+
+    if path == "seeded":
+        fn = lambda: (core(fm, 1024, 4, table),  # noqa: E731
+                      kmer.lookup(table, batch[:, 10:16]))
+    elif path == "overflow":                  # the frontier's capacity
+        fn = lambda: core(fm, 64, 0, table)  # noqa: E731
+    elif path == "band_only":
+        fn = lambda: core(fm, 1024, 0, ex_split=8, ex_cap=96)  # noqa: E731
+    elif path == "dynamic":
+        st = dynschedule.scheme_static(get_scheme("kuch1", 2), m, "edit")
+        pts = dynschedule.dynamic_partition(fm, batch, get_scheme("kuch1", 2),
+                                            table)
+        fn = lambda: core(fm, 1024, 4,  # noqa: E731
+                          dyn=dynschedule.build_tables(st, pts, batch))
+    elif path == "exact":
+        fn = lambda: pipeline._exact_device(fm, batch, 4096)  # noqa: E731
+    else:
+        _, idx = rlc_setup
+        index = idx[path][2]
+        if path == "rlc":
+            fn = lambda: core(index, 1024, 4)  # noqa: E731
+        else:
+            fn = lambda: executor.run_scheme(  # noqa: E731
+                index, batch, sched, 256, track_arg=True)
+    calls = path_inputs.capture_entries(fn)
+    torch.cuda.synchronize()
+    want = {"seeded": ("frontier.seed", "frontier.lookup", "frontier.drain",
+                       "frontier.init", "frontier.tail", "expand.frontier",
+                       "expand.scan", "expand.rows", "dedup.windows",
+                       "dedup.keys", "dedup.compact"),
+            "overflow": ("frontier.seed", "frontier.init", "frontier.tail"),
+            "band_only": ("frontier.ex_compact", "frontier.ex_back",
+                          "frontier.init", "frontier.tail"),
+            "dynamic": ("frontier.seed", "frontier.drain", "frontier.init",
+                        "frontier.tail", "expand.frontier"),
+            "exact": ("expand.ranges", "expand.rows"),
+            "rlc": ("frontier.seed", "frontier.init", "frontier.tail",
+                    "expand.frontier", "dedup.compact"),
+            "textless": ("frontier.seed", "frontier.init",
+                         "frontier.tail")}[path]
+    assert set(want) <= set(calls), sorted(calls)
+    for name, call in calls.items():
+        assert path_inputs.replay_plain(call) == 0, name
+    if path == "overflow":
+        words = calls["frontier.tail"]["after"]["words"]
+        assert int(words[7]) > 0                  # the frontier overflowed
+
+
+def test_frontier_kernels_no_fallback(setup, gpu):
+    """A CUDA tensor reaching kernels I-L launches the kernel or raises."""
+    g, cpu_fm, fm = setup
+    with pytest.raises(ValueError):
+        pipeline.stage_windows(torch.zeros(4, dtype=torch.int32, device=gpu),
+                               torch.zeros(4, dtype=torch.int64, device=gpu),
+                               torch.zeros(4, dtype=torch.int64, device=gpu),
+                               torch.zeros(4, dtype=torch.int64, device=gpu),
+                               2)
+    before = pipeline.EXPAND.launches
+    pipeline.stage_expand(torch.zeros(8, dtype=torch.int64, device=gpu),
+                          torch.ones(8, dtype=torch.int64, device=gpu), 16)
+    assert pipeline.EXPAND.launches == before + 2
