@@ -37,8 +37,15 @@ a CUDA device. It
    ``match_device_core`` call at the SE ALL path's sizes, on the band-only
    call, the k = 0 pass and a k-mer lookup, each held to its plain version
    on copies of its inputs (``tools/path_inputs.py`` ``capture_entries``)
-   and timed, then the launch census of that call outside kernel B's band
-   steps and the sort (``torch.profiler``);
+   and timed, kernel K's ``ranges`` and ``rows`` beside the one PyTorch
+   call of the same function (``torch.cumsum``, ``torch.searchsorted``),
+   then the launch census of that call outside kernel B's band steps and
+   the sort (``torch.profiler``). Kernel B's static entries read each
+   lane's cells at use from the reads and the schedule's cell tables
+   (``executor.StaticCells``); every path prints the device bytes kernel
+   I's seed allocated a ``run_scheme`` call beside the lanes' ranges and
+   fails if that reaches the (L x T, BW) cell array's size (no such array
+   on the card);
 5. builds the 10-mer seed table (kernel A's main entry, counted as the
    path ``kmer_table``) and drives eight paths through ``cli align``, each
    with every kernel's launch count reset just before and read just after
@@ -245,7 +252,7 @@ _RLC_ENTRIES = ("extend.loop_rlc", "band_step.rlc", "locate.rlc")
 PATH_ENTRIES = {
     "se_all": ("extend.loop", "frontier.seed", "frontier.drain",
                "frontier.init", "frontier.tail", "expand.frontier",
-               "expand.scan", "expand.rows", "dedup.windows", "dedup.keys",
+               "expand.rows", "dedup.windows", "dedup.keys",
                "dedup.compact"),
     "pe_all_e0": ("expand.ranges", "expand.rows"),
     "se_best": ("extend.loop",),
@@ -384,7 +391,7 @@ def note_kernel(report, name, shape, rep, b, library_ms=None):
         f"operations), share {b['bound_ms'] / rep['ms']:.4f}")
 
 
-def check_fused(index, state, mrow_t, pchars, T, t, switchpoint,
+def check_fused(index, state, mrow_t, cells, T, t, switchpoint,
                 dyn_meta=None, track=False, cap=None, M=None, cnt=0,
                 reps=20, plain_reps=3):
     """Kernel B (a fused band step over every lane of ``state``) against
@@ -410,7 +417,7 @@ def check_fused(index, state, mrow_t, pchars, T, t, switchpoint,
         sc = executor.StepScratch(C, dev)
 
         def call(fn=fn, out=out, itv=itv, sc=sc):
-            fn(index, state, C, out, itv, cnt, sc, mrow_t, pchars, T, t,
+            fn(index, state, C, out, itv, cnt, sc, mrow_t, cells, T, t,
                switchpoint, dyn_meta, track)
         call()
         torch.cuda.synchronize()
@@ -429,7 +436,7 @@ def check_fused(index, state, mrow_t, pchars, T, t, switchpoint,
     w = int(got["kernel"]["word"])
     rep = dict(max_abs_err=diff, ms=cuda_time(calls["kernel"], reps),
                plain_ms=cuda_time(calls["plain"], plain_reps))
-    o = executor.band_step_plain(index, *state, mrow_t, pchars, T, t,
+    o = executor.band_step_plain(index, *state, mrow_t, cells, T, t,
                                  switchpoint, dyn_meta, track)
     stats = (bounds.rlc_band_stats(index, state, mrow_t, o, cap, dyn_meta,
                                    T, t)
@@ -438,7 +445,7 @@ def check_fused(index, state, mrow_t, pchars, T, t, switchpoint,
     return rep, b, w & 0xFFFFFFFF, w >> 32
 
 
-def check_overflow(what, index, state, mrow_t, pchars, T, t, switchpoint,
+def check_overflow(what, index, state, mrow_t, cells, T, t, switchpoint,
                    dyn_meta=None, track=False):
     """Kernel B against its plain version on a step that overflows both the
     next frontier and the in-text buffer: the plain step runs first with
@@ -452,12 +459,12 @@ def check_overflow(what, index, state, mrow_t, pchars, T, t, switchpoint,
     executor.band_step_compact_plain(
         index, state, C, [torch.empty_like(f) for f in state],
         torch.zeros((4 * C + 1, 4), dtype=torch.int64, device=dev), 0, sc,
-        mrow_t, pchars, T, t, switchpoint, dyn_meta, track)
+        mrow_t, cells, T, t, switchpoint, dyn_meta, track)
     n, rows = sc.word()
     if n < 2 or rows < 2:
         raise AssertionError(f"{what}: the step keeps {n} children and "
                              f"drains {rows}: nothing to overflow")
-    rep, _, n2, rows2 = check_fused(index, state, mrow_t, pchars, T, t,
+    rep, _, n2, rows2 = check_fused(index, state, mrow_t, cells, T, t,
                                     switchpoint, dyn_meta, track,
                                     cap=n // 2, M=rows // 2, plain_reps=1)
     if (n2, rows2) != (n, rows // 2):
@@ -856,9 +863,11 @@ def entry_checks(label, calls, report=None, prof=True) -> None:
     to their plain versions on copies of their inputs (max abs error 0, the
     buffers written in place included), timed (CUDA events, and with
     ``prof`` the profiler's device time, warm and with a flushed L2; the
-    plain version by events) beside their bound; with ``report`` each
-    entry's record is filed there, the sort's time as kernel L's library
-    time."""
+    plain version by events) beside their bound and, where one PyTorch
+    call computes the same function, that call's time
+    (``path_inputs.library``; the profiler's device time with ``prof``,
+    else events); with ``report`` each entry's record is filed there,
+    kernel L's with the sort's time beside it."""
     from columba_tpu_torch.tools import bounds, path_inputs
 
     clocks = path_inputs.Clocks(PATH_INPUT_REPS)
@@ -880,12 +889,20 @@ def entry_checks(label, calls, report=None, prof=True) -> None:
                                                False),
                      events_cold=None, prof_warm=None, prof_cold=None,
                      plain_ms=None)
-        lib = sort_ms if name.startswith("dedup.") else None
+        # one PyTorch call of the same function, where there is one
+        # (kernel K's ranges: torch.cumsum; rows: torch.searchsorted)
+        lib_fn = path_inputs.library(c)
+        lib = None
+        if lib_fn is not None:
+            lib = (clocks.device_ms(lib_fn) if prof
+                   else clocks.events(lib_fn, False))
+        sort = sort_ms if name.startswith("dedup.") else None
         log(f"kernel {name} ({label}): equal to plain; events warm "
             f"{t['events_warm']:.4f} ms, cold {_opt(t['events_cold'])}; "
             f"profiler warm {_opt(t['prof_warm'])}, cold "
-            f"{_opt(t['prof_cold'])}; plain {_opt(t['plain_ms'])} ms"
-            + (f"; sort {lib:.4f} ms" if lib is not None else "")
+            f"{_opt(t['prof_cold'])}; plain {_opt(t['plain_ms'])} ms; "
+            f"library {_opt(lib)} ms"
+            + (f"; sort {sort:.4f} ms" if sort is not None else "")
             + f"; bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
             f"({b['bytes']} bytes), share by events "
             f"{b['bound_ms'] / t['events_warm']:.4f}")
@@ -894,7 +911,8 @@ def entry_checks(label, calls, report=None, prof=True) -> None:
                 max_abs_err=err, ms=t["events_warm"], prof_ms=t["prof_warm"],
                 plain_ms=t["plain_ms"], bound_ms=b["bound_ms"],
                 bound_by=b["bound_by"], bound_bytes=b["bytes"],
-                bound_operations=b["operations"], library_ms=lib)
+                bound_operations=b["operations"], library_ms=lib,
+                sort_ms=sort)
     if report is not None:
         for kern, main in IL_MAIN.items():
             if main in report:
@@ -2419,10 +2437,28 @@ def main() -> int:
 
         runs = [0]                   # run_scheme calls of a path
         run_scheme = executor.run_scheme
+        frontier_seed = executor.frontier_seed
+        # per kernel I seed launch: device bytes it allocated, the lanes'
+        # ranges' bytes, and the (L x T, BW) cell array's bytes at its
+        # run_scheme's shape (the array seeds wrote before the cells were
+        # read at use)
+        seeds: list = []
+        cells_of = [0]
 
         def counted_run_scheme(*a, **kw):
             runs[0] += 1
+            reads = a[1] if len(a) > 1 else kw["reads"]
+            sched = a[2] if len(a) > 2 else kw["sched"]
+            cells_of[0] = (reads.shape[0] * sched.num_searches * sched.t_max
+                           * sched.bw if kw.get("dyn") is None else 0)
             return run_scheme(*a, **kw)
+
+        def measured_seed(*a, **kw):
+            before = torch.cuda.memory_allocated()
+            out = frontier_seed(*a, **kw)
+            seeds.append((torch.cuda.memory_allocated() - before,
+                          out.numel() * out.element_size(), cells_of[0]))
+            return out
 
         def drive(path, genome_what):
             """One path: a warm-up align, then the counted and timed one
@@ -2444,6 +2480,8 @@ def main() -> int:
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             executor.run_scheme = counted_run_scheme
+            executor.frontier_seed = measured_seed
+            seeds.clear()
             blocks: list = []
             t0 = time.time()
             try:
@@ -2454,6 +2492,7 @@ def main() -> int:
                 torch.cuda.synchronize()
             finally:
                 executor.run_scheme = run_scheme
+                executor.frontier_seed = frontier_seed
             dt = time.time() - t0
             launches = {k: v.launches for k, v in native.KERNELS.items()}
             launches_by_path[path] = launches
@@ -2505,6 +2544,21 @@ def main() -> int:
             if missing:
                 raise AssertionError(f"kernels not launched on path {path}: "
                                      f"{missing}")
+            if seeds:
+                got = max(b for b, _, _ in seeds)
+                lanes = max(n for _, n, _ in seeds)
+                cells = max(c for _, _, c in seeds)
+                log(f"  kernel I's seed: at most {got} device bytes "
+                    f"allocated a run_scheme call ({len(seeds)} calls): the "
+                    f"lanes' ranges ({lanes} bytes); no (L x T, BW) cell "
+                    f"array" + (f" (it would take {cells} bytes at this "
+                                f"path's widest call)" if cells else ""))
+                # other threads (a re-run on the emitter's) may allocate
+                # beside a seed call, so the check is against the array
+                if cells and got >= cells:
+                    raise AssertionError(f"path {path}: kernel I's seed "
+                                         f"allocated {got} bytes, as much "
+                                         f"as the cell array's {cells}")
             if path in DYNAMIC_PATHS:
                 batches = -(-n_of[path] // BATCH)
                 log(f"  kernel F: {launches['dynpart']} launches for "
@@ -2785,7 +2839,6 @@ def main() -> int:
                 "frontier.ex_compact": "columba_tpu/search/executor.py:468",
                 "frontier.ex_back": "columba_tpu/search/executor.py:468",
                 "frontier.tail": "columba_tpu/search/executor.py:880",
-                "expand.scan": "columba_tpu/search/pipeline.py:169",
                 "expand.ranges": "columba_tpu/search/pipeline.py:169",
                 "expand.rows": "columba_tpu/search/pipeline.py:169",
                 "dedup.windows": "columba_tpu/search/pipeline.py:268",
@@ -2809,6 +2862,7 @@ def main() -> int:
                 prof_ms=r.get("prof_ms"),
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
+                sort_ms=r.get("sort_ms"),
                 bound_bytes=r["bound_bytes"],
                 bound_operations=r["bound_operations"]))
     log(f"total smoke time {time.time() - t_all:.1f} s")

@@ -42,12 +42,25 @@
 // The step's per-search scalars (S rows of 7 packed int32 words) sit in
 // shared memory; each lane decodes its own row by search id.
 //
+// Cells of static schedules, read at use: the block stages the step's
+// (S, BW) slice of the schedule's cell table beside the scalars (one int
+// a cell: the read position of its diagonal char, or its code, -1 no
+// diagonal, -2 outside the pattern; executor.cell_table), and an active
+// lane reads its BW cells there and its read's chars at those positions
+// (R x m bytes, 3.3 MB a batch of 32,768 reads of 100 bp: L2-resident; a
+// lane's BW chars lie in one or two 32 B sectors). This is the rule of the
+// JAX package's gathered (R * S * T, BW) array
+// (columba_tpu/search/executor.py:576-583, 640), evaluated where it is
+// used, so that no such array is written before the band steps and read
+// back by them.
+//
 // Per-lane entry (DYN, dynamic partitioning): every (read, search) has its
 // own schedule, so a lane reads its own packed word at dyn_meta[id * T + t]
 // (the layout of search/dynschedule.py: creset at bit 2, colo + 1 at bits
 // 3-8, ub at bit 9, back depth at bit 17) and derives the ops of its single
 // register from it (W = 1: dynamic partitions keep every part longer than
-// 2k, so windows never overlap). Same body, no shared memory.
+// 2k, so windows never overlap), and its cells from its own row of kernel
+// G's (R * S * T, BW) codes. Same body, no shared memory.
 //
 // Bound: two random 64 B occ rows per active lane, about 50 B of lane
 // state in, the kept children's state (about 50 B each) and 32 B per
@@ -127,7 +140,11 @@ struct BandArgs {
   const int* mrow;              // (S, 7) this step's packed scalars
   int S;
   const int* dyn_meta;          // (R*S*T,) per-lane words (per-lane entry)
-  const signed char* pchars;    // (R*S*T, BW) per-(lane id, step) cell codes
+  const signed char* pchars;    // (R*S*T, BW) per-(lane id, step) cell
+                                // codes (per-lane entry)
+  const unsigned char* reads;   // (R, m) static entries: the reads and the
+  long long m;                  // schedule's (T, S, BW) cell table
+  const int* cells;
   int T;
   int t;
   int bw;                       // runtime band width and register count,
@@ -148,6 +165,8 @@ struct BandArgs {
   unsigned int epoch;           // this launch's stamp, 1 .. 2^30 - 1
   int block;                    // RLC: threads of a block (64, 128 or 256;
                                 // 0: chosen at launch, see quad_block)
+  unsigned s_recip;             // ceil(2^32 / S): a lane's read row by one
+                                // multiply (static entries)
 };
 
 constexpr int kMaxBW = 2 * 13 + 1;   // ladder cutoff 13 (BEST_CUTOFF)
@@ -186,8 +205,22 @@ __device__ __forceinline__ void band_step(const BandArgs& a) {
   if (threadIdx.x == 0)
     s_tile = static_cast<long long>(atomicAdd(a.ctr + 3, 1ull));
   if (!DYN) {
-    for (int k = threadIdx.x; k < a.S * 7; k += blockDim.x)
-      smeta[k] = a.mrow[k];
+    // the step's scalars and cells, two entries of each a thread a pass,
+    // both reads issued before the stores
+    const int n_meta = a.S * 7, n_cell = a.S * BW;
+    const int* cl = a.cells + a.t * n_cell;
+    const int step = static_cast<int>(blockDim.x);
+    for (int k = threadIdx.x; k < max(n_meta, n_cell); k += 2 * step) {
+      const int k2 = k + step;
+      const int m1 = k < n_meta ? a.mrow[k] : 0;
+      const int c1 = k < n_cell ? cl[k] : 0;
+      const int m2 = k2 < n_meta ? a.mrow[k2] : 0;
+      const int c2 = k2 < n_cell ? cl[k2] : 0;
+      if (k < n_meta) smeta[k] = m1;
+      if (k < n_cell) smeta[n_meta + k] = c1;
+      if (k2 < n_meta) smeta[k2] = m2;
+      if (k2 < n_cell) smeta[n_meta + k2] = c2;
+    }
   }
   __syncthreads();
   const long long tile = s_tile;
@@ -207,6 +240,11 @@ __device__ __forceinline__ void band_step(const BandArgs& a) {
   }
   const bool ghost = ids < 0;
   const int ids_c = ids & kGhostIdMask;
+  // static schedules: the lane's read row and search, ids_c = rid * S + sid
+  // (a multiply by the host's reciprocal, exact for ids below 2^21 and S
+  // below 2^10, in place of a division)
+  const int rid = DYN ? 0 : static_cast<int>(__umulhi(ids_c, a.s_recip));
+  const int sid = DYN ? 0 : ids_c - rid * a.S;
   const bool alive = par[1] > par[0];
   // the step's scalars of this lane: meta word, register ops and inits
   int mr[7] = {0, 0, 0, 0, 0, 0, 0};
@@ -221,7 +259,7 @@ __device__ __forceinline__ void band_step(const BandArgs& a) {
     ub = (word >> 9) & 255;
     dbv = (word >> 17) & 4095;
   } else if (in) {
-    const int* row = smeta + (ids_c % a.S) * 7;
+    const int* row = smeta + sid * 7;
 #pragma unroll
     for (int k = 0; k < 7; ++k) mr[k] = row[k];
     cacc = (mr[0] >> 2) & 15;
@@ -257,18 +295,32 @@ __device__ __forceinline__ void band_step(const BandArgs& a) {
   bool nar[4] = {false, false, false, false};
   bool keepv = false, died = false;
   if (act) {
+    // the step's cells first, so that their reads are in flight beside the
+    // extension's row reads
+    int prev[BWMAX], code[BWMAX], up[BWMAX];
+    if (DYN) {
+      const signed char* pc =
+          a.pchars + (static_cast<long long>(ids_c) * a.T + a.t) * BW;
+#pragma unroll
+      for (int o = 0; o < BW; ++o) code[o] = pc[o];
+    } else {
+      const int* cl = smeta + 7 * a.S + sid * BW;
+      const unsigned char* rd =
+          a.reads + static_cast<long long>(rid) * a.m;
+      // every char read (a code's cell reads the read's first char, in
+      // bounds), then the codes kept: no branch between the reads
+      int ch[BWMAX];
+#pragma unroll
+      for (int o = 0; o < BW; ++o) ch[o] = __ldg(rd + max(cl[o], 0));
+#pragma unroll
+      for (int o = 0; o < BW; ++o) code[o] = cl[o] >= 0 ? ch[o] : cl[o];
+    }
     lane.init(a.fm, a.bm, par, is_b ? 0 : 1);
 #pragma unroll
     for (int c = 0; c < 4; ++c) width[c] = lane.pos(c, 1) - lane.pos(c, 0);
     // banded row update for the 4 chars
-    const signed char* pc =
-        a.pchars + (static_cast<long long>(ids_c) * a.T + a.t) * BW;
-    int prev[BWMAX], code[BWMAX], up[BWMAX];
 #pragma unroll
-    for (int o = 0; o < BW; ++o) {
-      prev[o] = is_b ? band0[o] : band1[o];
-      code[o] = pc[o];
-    }
+    for (int o = 0; o < BW; ++o) prev[o] = is_b ? band0[o] : band1[o];
 #pragma unroll
     for (int o = 0; o < BW; ++o) up[o] = (o + 1 < BW ? prev[o + 1] : INF) + 1;
 #pragma unroll
@@ -510,7 +562,7 @@ int quad_block(long long tiles, size_t smem) {
 
 template <int KB, int WT, bool DYN = false, int RW = 4>
 int launch(const BandArgs& a, cudaStream_t stream) {
-  const size_t smem = DYN ? 0 : sizeof(int) * 7 * a.S;
+  const size_t smem = DYN ? 0 : sizeof(int) * (7 + a.bw) * a.S;
   const unsigned tiles =
       static_cast<unsigned>((a.n_live + kThreads - 1) / kThreads);
   if constexpr (RW == 4) {
@@ -560,11 +612,15 @@ int launch_per_lane(const BandArgs& a, int kb, int W, cudaStream_t stream) {
 
 // Fills the arguments every entry shares; returns false on a shape or a
 // size no entry takes (no live lane, more tiles than statuses, an epoch
-// out of its 30 bits).
+// out of its 30 bits, a static step whose cells do not fit in shared
+// memory). Static entries take `reads` and `cells` and no `pchars`;
+// per-lane entries `pchars`.
 inline bool common_args(BandArgs& a, const long long* ranges, const int* ids,
                         const signed char* band, const signed char* colmin,
                         const int* mrow, int S, const signed char* pchars,
-                        int T, int t, int kb, int W, int switchpoint,
+                        const unsigned char* reads, long long m,
+                        const int* cells, int T, int t, int kb, int W,
+                        int switchpoint,
                         long long n_live, long long cap, long long* o_ranges,
                         int* o_ids, signed char* o_band,
                         signed char* o_colmin, long long* itv, long long M,
@@ -579,6 +635,11 @@ inline bool common_args(BandArgs& a, const long long* ranges, const int* ids,
   a.S = S;
   a.dyn_meta = nullptr;
   a.pchars = pchars;
+  a.reads = reads;
+  a.m = m;
+  a.cells = cells;
+  a.s_recip = S >= 1 && S < 1024
+                  ? static_cast<unsigned>(((1ull << 32) + S - 1) / S) : 0u;
   a.T = T;
   a.t = t;
   a.bw = 2 * kb + 1;
@@ -596,7 +657,15 @@ inline bool common_args(BandArgs& a, const long long* ranges, const int* ids,
   a.ctr = ctr;
   a.status = status;
   a.epoch = epoch;
+  // static entries: the reads and the cell table, fewer than 2^10
+  // searches (s_recip), the step's scalars and cells within 48 KB of
+  // shared memory; per-lane entries: the lanes' codes
+  const bool have_cells =
+      pchars != nullptr ||
+      (reads != nullptr && cells != nullptr && S >= 1 && S < 1024 &&
+       sizeof(int) * (7 + a.bw) * S <= 48 * 1024);
   return !(kb < 0 || W < 1 || a.bw > kMaxBW || W > kMaxW || n_live < 1 ||
+           !have_cells || t < 0 || t >= T ||
            !(a.block == 0 || a.block == 64 || a.block == 128 ||
              a.block == 256) ||
            (n_live + kThreads - 1) / kThreads > tiles || epoch == 0 ||

@@ -20,8 +20,9 @@ extern "C" int columba_band_step_rlc(
     const unsigned* starts, unsigned starts_rev, const int* run_at,
     const int* run_at_rev, int shift, const long long* ranges, const int* ids,
     const signed char* band, const signed char* colmin, const int* mrow,
-    int S, const int* dyn_meta,
-    const signed char* pchars, int T, int t, int kb, int W, int switchpoint,
+    int S, const int* dyn_meta, const signed char* pchars,
+    const unsigned char* reads, long long m, const int* cells, int T, int t,
+    int kb, int W, int switchpoint,
     long long n_live, long long cap, long long* o_ranges, int* o_ids,
     signed char* o_band, signed char* o_colmin, long long* itv, long long M,
     long long cnt, unsigned long long* ctr, unsigned long long* status,
@@ -32,7 +33,8 @@ extern "C" int columba_band_step_rlc(
   a.bm = columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
   a.bt = columba::bm_tables(starts, starts_rev, run_at, run_at_rev, shift);
   if (!columba_band::common_args(a, ranges, ids, band, colmin, mrow, S,
-                                 pchars, T, t, kb, W, switchpoint, n_live,
+                                 pchars, reads, m, cells, T, t, kb, W,
+                                 switchpoint, n_live,
                                  cap, o_ranges, o_ids, o_band, o_colmin, itv,
                                  M, cnt, ctr, status, tiles, epoch))
     return static_cast<int>(cudaErrorInvalidValue);

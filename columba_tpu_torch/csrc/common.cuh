@@ -271,14 +271,40 @@ __device__ __forceinline__ long long take_tile(const ScanArgs& sa) {
   return s_tile;
 }
 
+// Warp 0's part of a tile's scan: the tile's `total` published, the
+// look-back over the earlier tiles, and the tile's inclusive prefix
+// published; returns the sum of the earlier tiles to every lane of warp 0.
+// The block with the last ticket resets the ticket (after its return every
+// block has taken one).
+__device__ __forceinline__ unsigned long long tile_base(
+    unsigned long long total, long long tile, const ScanArgs& sa) {
+  const int lane_id = threadIdx.x & 31;
+  unsigned long long lo = 0, hi = 0;
+  if (tile > 0) {
+    if (lane_id == 0)
+      publish(sa.status, tile, kAggregate, sa.epoch,
+              static_cast<unsigned>(total),
+              static_cast<unsigned>(total >> 32));
+    look_back(sa.status, tile, sa.epoch, lo, hi);
+  }
+  const unsigned long long base = lo + (hi << 32);
+  if (lane_id == 0) {
+    const unsigned long long inc = base + total;
+    publish(sa.status, tile, kPrefix, sa.epoch, static_cast<unsigned>(inc),
+            static_cast<unsigned>(inc >> 32));
+    if (tile == gridDim.x - 1) *sa.ticket = 0;
+  }
+  return base;
+}
+
 // Every thread's exclusive prefix of `v` over the whole grid, in tile
 // order then thread order: a warp scan, one pass over the warps' sums,
 // then warp 0's look-back over the earlier tiles. Sums are 64-bit; a value
 // made of two 32-bit counts (x | y << 32) scans both at once as long as
 // the x total stays below 2^32. `end` is the inclusive prefix at the
-// tile's end: the grand total in the block with the last ticket, which
-// also resets the ticket (after its return every block has taken one).
-// Call once a launch, with every thread of the block.
+// tile's end: the grand total in the block with the last ticket. One lane
+// a thread (kernel J's tail, kernel L's compaction). Call once a launch,
+// with every thread of the block.
 template <int kThreads>
 __device__ __forceinline__ unsigned long long scan_tiles(
     unsigned long long v, long long tile, const ScanArgs& sa,
@@ -299,22 +325,10 @@ __device__ __forceinline__ unsigned long long scan_tiles(
     unsigned long long total = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) total += s_warp[w];
-    unsigned long long lo = 0, hi = 0;
-    if (tile > 0) {
-      if (lane_id == 0)
-        publish(sa.status, tile, kAggregate, sa.epoch,
-                static_cast<unsigned>(total),
-                static_cast<unsigned>(total >> 32));
-      look_back(sa.status, tile, sa.epoch, lo, hi);
-    }
-    const unsigned long long base = lo + (hi << 32);
+    const unsigned long long base = tile_base(total, tile, sa);
     if (lane_id == 0) {
-      const unsigned long long inc = base + total;
-      publish(sa.status, tile, kPrefix, sa.epoch,
-              static_cast<unsigned>(inc), static_cast<unsigned>(inc >> 32));
       s_base = base;
       s_total = total;
-      if (tile == gridDim.x - 1) *sa.ticket = 0;
     }
   }
   __syncthreads();
@@ -323,6 +337,114 @@ __device__ __forceinline__ unsigned long long scan_tiles(
   for (int w = 0; w < kWarps; ++w) before += w < warp ? s_warp[w] : 0ull;
   end = s_base + s_total;
   return s_base + before + x - v;
+}
+
+// ---------------------------------------------------------------------------
+// The multi-lane form (kernels I and K): a tile of kThreads * kItems lanes
+// (512 x 2 there), so that a launch over about 100,000 lanes has about a
+// hundred tiles, one block an SM in one wave, and its look-back waits on
+// at most a few rounds of 32 tiles (the one-lane form of 256: up to 12).
+// More lanes a thread make fewer tiles but a longer serial chain on each
+// thread, on fewer SMs: 8 lanes a thread (48 tiles) timed slower than one
+// (kernel I's notes). Warp w of the block
+// holds the tile's lanes [w * 32 * kItems, (w + 1) * 32 * kItems) in
+// kItems rounds of 32 consecutive lanes (item j of lane l is lane
+// j * 32 + l of the warp's run), so that every load and store of a round
+// is one coalesced access of the warp. Lane order is kept: the prefix of
+// an item is the tile's base, the warps before, the rounds before and the
+// lanes before in its round.
+// ---------------------------------------------------------------------------
+
+// Lane index of the thread's item j in tile `tile`.
+template <int kThreads, int kItems>
+__device__ __forceinline__ long long item_lane(long long tile, int j) {
+  return (tile * kThreads + (threadIdx.x & ~31)) * kItems + j * 32 +
+         (threadIdx.x & 31);
+}
+
+// The block's part after the warps' runs: the warp sums `run` (lane 0's
+// counts) combined across the block and with the earlier tiles; returns
+// the sum before the thread's warp and sets `end` as scan_tiles does.
+template <int kThreads>
+__device__ __forceinline__ unsigned long long warp_runs_base(
+    unsigned long long run, long long tile, const ScanArgs& sa,
+    unsigned long long& end) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ unsigned long long s_warp[kWarps];
+  __shared__ unsigned long long s_base, s_total;
+  const int lane_id = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane_id == 0) s_warp[warp] = run;
+  __syncthreads();
+  if (warp == 0) {
+    unsigned long long total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += s_warp[w];
+    const unsigned long long base = tile_base(total, tile, sa);
+    if (lane_id == 0) {
+      s_base = base;
+      s_total = total;
+    }
+  }
+  __syncthreads();
+  unsigned long long before = s_base;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) before += w < warp ? s_warp[w] : 0ull;
+  end = s_base + s_total;
+  return before;
+}
+
+// Exclusive prefixes of 64-bit values `v` (item j: lane item_lane(tile, j))
+// over the whole grid, into `ex`; `end` as in scan_tiles. A warp scan a
+// round (kernel K's widths). Call once a launch, with every thread.
+template <int kThreads, int kItems>
+__device__ __forceinline__ void scan_items(
+    const unsigned long long (&v)[kItems], unsigned long long (&ex)[kItems],
+    long long tile, const ScanArgs& sa, unsigned long long& end) {
+  const int lane_id = threadIdx.x & 31;
+  unsigned long long run = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    unsigned long long x = v[j];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned long long u = __shfl_up_sync(0xFFFFFFFFu, x, d);
+      if (lane_id >= d) x += u;
+    }
+    ex[j] = run + x - v[j];
+    run += __shfl_sync(0xFFFFFFFFu, x, 31);
+  }
+  const unsigned long long before = warp_runs_base<kThreads>(run, tile, sa,
+                                                             end);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) ex[j] += before;
+}
+
+// The same for two 0/1 flags an item, given as bit masks (bit j of `fx`
+// and of `fy`: item j's flags) and counted apart by ballots: `ex` holds
+// each item's two exclusive counts as x | y << 32, `end` the totals so
+// (kernel I's compactions; the x total must stay below 2^32). Masks, not
+// per-item booleans, carry the flags across the look-back: ptxas keeps
+// them in one register each, where per-item predicates spilled to local
+// memory (seen at 8 items a thread).
+template <int kThreads, int kItems>
+__device__ __forceinline__ void scan_flags(
+    unsigned fx, unsigned fy, unsigned long long (&ex)[kItems],
+    long long tile, const ScanArgs& sa, unsigned long long& end) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  unsigned rx = 0, ry = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const unsigned mx = __ballot_sync(0xFFFFFFFFu, (fx >> j) & 1u);
+    const unsigned my = __ballot_sync(0xFFFFFFFFu, (fy >> j) & 1u);
+    ex[j] = (rx + __popc(mx & below)) |
+            (static_cast<unsigned long long>(ry + __popc(my & below)) << 32);
+    rx += __popc(mx);
+    ry += __popc(my);
+  }
+  const unsigned long long before = warp_runs_base<kThreads>(
+      rx | (static_cast<unsigned long long>(ry) << 32), tile, sa, end);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) ex[j] += before;
 }
 
 // Zero-fills (or fills with one byte value) a device region, 16 B stores

@@ -11,11 +11,14 @@
 //               search's k-mer start packed and looked up in the seed table
 //               (a window with an N, or a search without a start, takes
 //               the empty or the full range), the search mask, empty ranges
-//               zeroed; beside it the band steps' cell codes (one thread a
-//               (lane, step) row: the read's char where the schedule's code
-//               is 0, else the code) and the run's buffers cleared or
-//               filled (the in-text buffer, the run's counter words, the
-//               frontier's fill of 0 / INF, the second exact stage's lanes).
+//               zeroed; beside it the run's buffers cleared or filled (the
+//               in-text buffer, the run's counter words, the frontier's
+//               fill of 0 / INF, the second exact stage's lanes). It writes
+//               no cell codes: kernel B reads a lane's band cells from the
+//               read and the schedule's tables at the step that uses them
+//               (band_step.cuh), where the JAX package gathers an
+//               (R * S * T, BW) array of them up front
+//               (columba_tpu/search/executor.py:576-583).
 //               kmer.lookup's entry on the card is this one with one search
 //               starting at 0 and no zeroing of empty ranges.
 //   drain       the exact loop's drain rows appended to the in-text buffer
@@ -41,9 +44,19 @@
 //               final in-text count and overflow.
 //
 // The order-keeping appends and compactions are one scan across the grid
-// (common.cuh scan_tiles: a block scan, then the decoupled look-back over
-// ticketed tiles that kernel B uses), in lane order, so every array equals
-// the plain version's (executor.py *_plain), row for row.
+// (a block scan, then the decoupled look-back over ticketed tiles that
+// kernel B uses), in lane order, so every array equals the plain version's
+// (executor.py *_plain), row for row. drain, init and ex_compact scan tiles
+// of 1,024 lanes, blocks of 512 threads of 2 lanes (common.cuh scan_flags:
+// a warp holds 64 consecutive lanes in 2 rounds of 32, each round's flags
+// counted by ballots), so that L = 98,304 lanes make 96 tiles, one block
+// an SM in one wave, whose look-back waits on at most three rounds of 32
+// tiles where 256-lane tiles (384) waited on up to 12. Timed on the card
+// against 8 lanes a thread (48 tiles: the threads' serial work on 48 SMs
+// cost more than the look-back saved), 256 x 2, 256 x 4, 512 x 1 and
+// 1024 x 1 or 2, this shape was the fastest or within 5 % on every entry.
+// The tail keeps one lane a thread (scan_tiles, 256-lane tiles: it runs on
+// the 1,024 rows after the shrink).
 //
 // The run's counter words (int64): [0] kernel B's step word (kept | in-text
 // rows << 32), [1] visits, [2] overflow, [3] kernel B's ticket, [4] in-text
@@ -51,15 +64,18 @@
 // after the tail, [7] overflow after the tail. A launch never reads a word
 // its own last block writes.
 //
-// Bound: bytes. The seed reads K chars and one 32 B table row a lane and
-// writes the lane and the cell codes (T x BW bytes a lane, the most bytes
-// of the run outside the band steps); init and the tail read and write a
-// frontier row a lane. The scans' look-back is latency, one wait a tile.
+// Bound: bytes. The seed reads K chars and one 32 B table row a lane,
+// writes the lane and clears the run's buffers (the in-text buffer, M x
+// 32 B, is most of them); init and the tail read and write a frontier row
+// a lane. The scans' look-back is latency, one wait a tile.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;                // seed, ex_back, tail
+constexpr int kWide = 512;                   // drain, init, ex_compact: a
+constexpr int kItems = 2;                    // block of 512 threads, 2 lanes
+constexpr int kTile = kWide * kItems;        // a thread (executor.WIDE_TILE)
 constexpr int kGhostIdMask = (1 << 21) - 1;
 constexpr int kMaxRW = 12;
 constexpr int kMaxClears = 8;
@@ -81,10 +97,6 @@ struct SeedArgs {
   int rw;
   int zero_empty;
   long long* ranges;            // (L, rw)
-  const long long* posw;        // (S, T, BW)
-  const signed char* code;      // (S, T, BW)
-  int T, bw;
-  signed char* pchars;          // (L * T, BW) or null
   Clear clears[kMaxClears];
   int n_clears;
 };
@@ -120,23 +132,6 @@ __global__ void __launch_bounds__(kThreads) seed_kernel(SeedArgs a) {
     for (int k = 0; k < kMaxRW; ++k)
       if (k < a.rw) o[k] = zero ? 0 : out[k];
   }
-  if (a.pchars != nullptr) {
-    const long long rows = a.L * a.T;
-    for (long long it = t0; it < rows; it += stride) {
-      const long long lane = it / a.T;
-      const int t = static_cast<int>(it - lane * a.T);
-      const long long r = lane / a.S;
-      const int s = static_cast<int>(lane - r * a.S);
-      const long long cell = (static_cast<long long>(s) * a.T + t) * a.bw;
-      signed char* o = a.pchars + it * a.bw;
-      for (int k = 0; k < a.bw; ++k) {
-        const signed char cd = a.code[cell + k];
-        o[k] = cd == 0 ? static_cast<signed char>(
-                             a.reads[r * a.m + a.posw[cell + k]])
-                       : cd;
-      }
-    }
-  }
   for (int c = 0; c < a.n_clears; ++c)
     columba::fill_bytes(a.clears[c].p, a.clears[c].n, a.clears[c].v);
 }
@@ -150,16 +145,24 @@ struct DrainArgs {
   columba::ScanArgs sa;
 };
 
-__global__ void __launch_bounds__(kThreads) drain_kernel(DrainArgs a) {
+__global__ void __launch_bounds__(kWide) drain_kernel(DrainArgs a) {
   const long long tile = columba::take_tile(a.sa);
-  const long long i = tile * kThreads + threadIdx.x;
-  const bool keep = i < a.L && a.drows[4 * i + 1] > a.drows[4 * i];
-  unsigned long long end;
-  const unsigned long long q =
-      columba::scan_tiles<kThreads>(keep ? 1ull : 0ull, tile, a.sa, end);
-  if (keep && static_cast<long long>(q) < a.M) {
+  unsigned keep = 0;                  // bit j: item j drains
+  unsigned long long q[kItems];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) a.itv[4 * q + k] = a.drows[4 * i + k];
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = columba::item_lane<kWide, kItems>(tile, j);
+    if (i < a.L && a.drows[4 * i + 1] > a.drows[4 * i]) keep |= 1u << j;
+  }
+  unsigned long long end;
+  columba::scan_flags<kWide, kItems>(keep, 0u, q, tile, a.sa, end);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = columba::item_lane<kWide, kItems>(tile, j);
+    if (((keep >> j) & 1u) && static_cast<long long>(q[j]) < a.M) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) a.itv[4 * q[j] + k] = a.drows[4 * i + k];
+    }
   }
   if (tile == gridDim.x - 1 && threadIdx.x == 0)
     a.words[4] = min(static_cast<long long>(end), a.M);
@@ -184,39 +187,57 @@ struct InitArgs {
   columba::ScanArgs sa;
 };
 
-__global__ void __launch_bounds__(kThreads) init_kernel(InitArgs a) {
+__global__ void __launch_bounds__(kWide) init_kernel(InitArgs a) {
   const long long cnt = a.words[4];
   const long long tile = columba::take_tile(a.sa);
-  const long long i = tile * kThreads + threadIdx.x;
-  const bool in = i < a.L;
-  const long long* r = a.ranges0 + (in ? i : 0) * a.rw;
-  const long long lo = in ? r[0] : 0, hi = in ? r[1] : 0;
-  const long long w = hi - lo;
-  const bool nar = in && a.switchpoint > 0 && w > 0 && w <= a.switchpoint;
-  const bool live = in && !nar && hi > lo;
-  unsigned long long end;
-  const unsigned long long ex = columba::scan_tiles<kThreads>(
-      (live ? 1ull : 0ull) | (nar ? 1ull << 32 : 0ull), tile, a.sa, end);
-  const long long p = static_cast<long long>(ex & 0xFFFFFFFFull);
-  const long long q = cnt + static_cast<long long>(ex >> 32);
-  const long long src = a.per_lane ? i : i % a.S;
-  if (nar && q < a.M) {
-    long long* row = a.itv + 4 * q;
-    row[0] = lo;
-    row[1] = hi;
-    row[2] = i;
-    row[3] = a.db_exact[src];
+  // bit j of live / nar: item j is live / narrow (masks, not per-item
+  // booleans: see scan_flags)
+  unsigned live = 0, nar = 0;
+  unsigned long long ex[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = columba::item_lane<kWide, kItems>(tile, j);
+    if (i < a.L) {
+      const long long* r = a.ranges0 + i * a.rw;
+      const long long lo = r[0], hi = r[1];
+      const long long w = hi - lo;
+      const bool n = a.switchpoint > 0 && w > 0 && w <= a.switchpoint;
+      if (n) nar |= 1u << j;
+      else if (hi > lo) live |= 1u << j;
+    }
   }
-  if (live && p < a.C) {
-    for (int k = 0; k < a.rw; ++k) a.o_ranges[p * a.rw + k] = r[k];
-    a.o_ids[p] = static_cast<int>(i);
-    const signed char* b = a.band_init + src * 2 * a.bw;
-    for (int k = 0; k < 2 * a.bw; ++k) a.o_band[p * 2 * a.bw + k] = b[k];
-    signed char* cm = a.o_colmin + p * 2 * a.Wp;
-    for (int sd = 0; sd < 2; ++sd)
-      for (int k = 0; k < a.Wp; ++k)
-        cm[sd * a.Wp + k] =
-            k < a.W ? a.colmin_init[(src * 2 + sd) * a.W + k] : 0;
+  unsigned long long end;
+  columba::scan_flags<kWide, kItems>(live, nar, ex, tile, a.sa, end);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = columba::item_lane<kWide, kItems>(tile, j);
+    const long long p = static_cast<long long>(ex[j] & 0xFFFFFFFFull);
+    const long long q = cnt + static_cast<long long>(ex[j] >> 32);
+    // L < 2^32 (the entry checks it): a 32-bit remainder, inline
+    const long long src =
+        a.per_lane ? i
+                   : static_cast<long long>(static_cast<unsigned>(i) %
+                                            static_cast<unsigned>(a.S));
+    if (((nar >> j) & 1u) && q < a.M) {
+      const long long* r = a.ranges0 + i * a.rw;
+      long long* row = a.itv + 4 * q;
+      row[0] = r[0];
+      row[1] = r[1];
+      row[2] = i;
+      row[3] = a.db_exact[src];
+    }
+    if (((live >> j) & 1u) && p < a.C) {
+      const long long* r = a.ranges0 + i * a.rw;
+      for (int k = 0; k < a.rw; ++k) a.o_ranges[p * a.rw + k] = r[k];
+      a.o_ids[p] = static_cast<int>(i);
+      const signed char* b = a.band_init + src * 2 * a.bw;
+      for (int k = 0; k < 2 * a.bw; ++k) a.o_band[p * 2 * a.bw + k] = b[k];
+      signed char* cm = a.o_colmin + p * 2 * a.Wp;
+      for (int sd = 0; sd < 2; ++sd)
+        for (int k = 0; k < a.Wp; ++k)
+          cm[sd * a.Wp + k] =
+              k < a.W ? a.colmin_init[(src * 2 + sd) * a.W + k] : 0;
+    }
   }
   if (tile == gridDim.x - 1 && threadIdx.x == 0) {
     const long long n = static_cast<long long>(end & 0xFFFFFFFFull);
@@ -241,20 +262,29 @@ struct ExArgs {
   columba::ScanArgs sa;
 };
 
-__global__ void __launch_bounds__(kThreads) ex_compact_kernel(ExArgs a) {
+__global__ void __launch_bounds__(kWide) ex_compact_kernel(ExArgs a) {
   const long long tile = columba::take_tile(a.sa);
-  const long long i = tile * kThreads + threadIdx.x;
-  const bool keep = i < a.L && a.ranges0[i * a.rw + 1] > a.ranges0[i * a.rw];
+  unsigned keep = 0;                  // bit j: item j is live
+  unsigned long long p[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = columba::item_lane<kWide, kItems>(tile, j);
+    if (i < a.L && a.ranges0[i * a.rw + 1] > a.ranges0[i * a.rw])
+      keep |= 1u << j;
+  }
   unsigned long long end;
-  const long long p = static_cast<long long>(
-      columba::scan_tiles<kThreads>(keep ? 1ull : 0ull, tile, a.sa, end));
-  if (i < a.L) {
-    const bool in = keep && p < a.EC;
-    a.slot[i] = in ? static_cast<int>(p) : -1;
+  columba::scan_flags<kWide, kItems>(keep, 0u, p, tile, a.sa, end);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long i = columba::item_lane<kWide, kItems>(tile, j);
+    if (i >= a.L) continue;
+    const long long q = static_cast<long long>(p[j]);
+    const bool in = ((keep >> j) & 1u) && q < a.EC;
+    a.slot[i] = in ? static_cast<int>(q) : -1;
     if (in) {
       for (int k = 0; k < a.rw; ++k)
-        a.r2[p * a.rw + k] = a.ranges0[i * a.rw + k];
-      a.src[p] = static_cast<int>(i);
+        a.r2[q * a.rw + k] = a.ranges0[i * a.rw + k];
+      a.src[q] = static_cast<int>(i);
     }
   }
   if (tile == gridDim.x - 1 && threadIdx.x == 0) {
@@ -364,9 +394,12 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(TailArgs a) {
   }
 }
 
-inline unsigned tiles_of(long long n) {
-  return static_cast<unsigned>(n < 1 ? 1 : (n + kThreads - 1) / kThreads);
+// tiles of `tile` lanes over n lanes (at least one)
+inline unsigned tiles_of(long long n, long long tile) {
+  return static_cast<unsigned>(n < 1 ? 1 : (n + tile - 1) / tile);
 }
+
+inline unsigned grid_of(long long n) { return tiles_of(n, kThreads); }
 
 inline columba::ScanArgs scan_args(long long* ticket, long long* status,
                                    unsigned epoch) {
@@ -377,8 +410,9 @@ inline columba::ScanArgs scan_args(long long* ticket, long long* status,
 
 inline int launched() { return static_cast<int>(cudaGetLastError()); }
 
-inline bool bad_scan(long long n, long long tiles, unsigned epoch) {
-  return tiles_of(n) > tiles || epoch == 0 || epoch > 0x3FFFFFFFu;
+inline bool bad_scan(long long n, long long tile, long long tiles,
+                     unsigned epoch) {
+  return tiles_of(n, tile) > tiles || epoch == 0 || epoch > 0x3FFFFFFFu;
 }
 
 }  // namespace
@@ -389,9 +423,7 @@ extern "C" int columba_frontier_seed(
     const unsigned char* reads, long long R, int m, int S, int K,
     const long long* table, const int* kstart, const bool* mask,
     const long long* full, int rw, int zero_empty, long long* ranges,
-    const long long* posw, const signed char* code, int T, int bw,
-    signed char* pchars, const long long* clears, int n_clears,
-    cudaStream_t stream) {
+    const long long* clears, int n_clears, cudaStream_t stream) {
   if (rw < 1 || rw > kMaxRW || n_clears < 0 || n_clears > kMaxClears ||
       S < 1 || (K > 0 && table == nullptr) || K > 15)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -408,13 +440,8 @@ extern "C" int columba_frontier_seed(
   a.rw = rw;
   a.zero_empty = zero_empty;
   a.ranges = ranges;
-  a.posw = posw;
-  a.code = code;
-  a.T = T;
-  a.bw = bw;
-  a.pchars = T > 0 ? pchars : nullptr;
   a.n_clears = n_clears;
-  long long most = a.L * (a.pchars != nullptr ? T : 1);
+  long long most = a.L;
   for (int c = 0; c < n_clears; ++c) {
     a.clears[c].p = reinterpret_cast<void*>(clears[3 * c]);
     a.clears[c].n = clears[3 * c + 1];
@@ -433,10 +460,10 @@ extern "C" int columba_frontier_drain(const long long* drows, long long L,
                                       long long* words, long long* ticket,
                                       long long* status, long long tiles,
                                       unsigned epoch, cudaStream_t stream) {
-  if (bad_scan(L, tiles, epoch) || M < 0)
+  if (bad_scan(L, kTile, tiles, epoch) || M < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   DrainArgs a{drows, L, itv, M, words, scan_args(ticket, status, epoch)};
-  drain_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  drain_kernel<<<tiles_of(L, kTile), kWide, 0, stream>>>(a);
   return launched();
 }
 
@@ -448,13 +475,13 @@ extern "C" int columba_frontier_init(
     signed char* o_colmin, long long* itv, long long M, long long* words,
     long long* ticket, long long* status, long long tiles, unsigned epoch,
     cudaStream_t stream) {
-  if (bad_scan(L, tiles, epoch) || rw < 1 || S < 1 || M < 0 || W < 1 ||
-      Wp < W || L >= (1LL << 32))
+  if (bad_scan(L, kTile, tiles, epoch) || rw < 1 || S < 1 || M < 0 ||
+      W < 1 || Wp < W || L >= (1LL << 32))
     return static_cast<int>(cudaErrorInvalidValue);
   InitArgs a{ranges0, L, rw, S, switchpoint, db_exact, band_init,
              colmin_init, per_lane, bw, W, Wp, C, o_ranges, o_ids, o_band,
              o_colmin, itv, M, words, scan_args(ticket, status, epoch)};
-  init_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  init_kernel<<<tiles_of(L, kTile), kWide, 0, stream>>>(a);
   return launched();
 }
 
@@ -462,11 +489,11 @@ extern "C" int columba_frontier_ex_compact(
     long long* ranges0, long long L, int rw, long long EC, long long* r2,
     int* src, int* slot, long long* words, long long* ticket,
     long long* status, long long tiles, unsigned epoch, cudaStream_t stream) {
-  if (bad_scan(L, tiles, epoch) || rw < 2 || EC < 0)
+  if (bad_scan(L, kTile, tiles, epoch) || rw < 2 || EC < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   ExArgs a{ranges0, L, rw, EC, r2, src, slot, nullptr, nullptr, words,
            scan_args(ticket, status, epoch)};
-  ex_compact_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  ex_compact_kernel<<<tiles_of(L, kTile), kWide, 0, stream>>>(a);
   return launched();
 }
 
@@ -480,7 +507,7 @@ extern "C" int columba_frontier_ex_back(long long* ranges0, long long L,
   ExArgs a{ranges0, L, rw, 0, const_cast<long long*>(r2), nullptr,
            const_cast<int*>(slot), drows0, dr2, nullptr,
            columba::ScanArgs{nullptr, nullptr, 0}};
-  ex_back_kernel<<<tiles_of(L), kThreads, 0, stream>>>(a);
+  ex_back_kernel<<<grid_of(L), kThreads, 0, stream>>>(a);
   return launched();
 }
 
@@ -492,13 +519,13 @@ extern "C" int columba_frontier_tail(
     long long shrink, long long* rid, long long* sid, long long* ed_lb,
     bool* done, signed char* arg_b, long long* ticket, long long* status,
     long long tiles, unsigned epoch, cudaStream_t stream) {
-  if (bad_scan(cap, tiles, epoch) || rw < 2 || S < 1 || M < 0 || W < 1 ||
-      Wp < W || (u_last64 == nullptr) == (u_last32 == nullptr))
+  if (bad_scan(cap, kThreads, tiles, epoch) || rw < 2 || S < 1 || M < 0 ||
+      W < 1 || Wp < W || (u_last64 == nullptr) == (u_last32 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   TailArgs a{ranges, ids, band, colmin, cap, live, moved, rw, bw, W, Wp,
              track, S, final_reg, u_last64, u_last32, itv, M, words, shrink,
              rid, sid, ed_lb, done, arg_b,
              scan_args(ticket, status, epoch)};
-  tail_kernel<<<tiles_of(cap), kThreads, 0, stream>>>(a);
+  tail_kernel<<<grid_of(cap), kThreads, 0, stream>>>(a);
   return launched();
 }

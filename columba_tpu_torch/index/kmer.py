@@ -109,5 +109,5 @@ def lookup(table: torch.Tensor, chars: torch.Tensor) -> torch.Tensor:
     if flat.shape[0]:
         FRONTIER(flat.data_ptr(), flat.shape[0], K, 1, K, table.data_ptr(),
                  None, None, ctypes.addressof(full), 4, 0, out.data_ptr(),
-                 None, None, 0, 0, None, None, 0, entry="lookup")
+                 None, 0, entry="lookup")
     return out.reshape(*chars.shape[:-1], 4)

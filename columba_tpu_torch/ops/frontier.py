@@ -4,7 +4,11 @@ Declared here, below both layers that launch them: the index layer's
 ``kmer.lookup`` (entry ``lookup``) and the search layer's frontier wrappers
 (``search/executor.py``: ``seed``, ``drain``, ``init``, ``ex_compact``,
 ``ex_back``, ``tail``). ``SCAN_ARGS`` are the trailing arguments of every
-entry that scans with the shared look-back (kernels I, J, K and L).
+entry that scans with the shared look-back (kernels I, J, K and L);
+``WIDE_TILE`` lanes make a tile of the multi-lane scans (kernel I's
+``drain``, ``init`` and ``ex_compact``, kernel K's ``frontier`` and
+``ranges``: 512 threads of 2 lanes), ``SCAN_TILE`` of the one-lane scans
+(kernel J's ``tail``, kernel L's ``compact``).
 """
 
 from __future__ import annotations
@@ -15,14 +19,15 @@ from columba_tpu_torch import native
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 SCAN_ARGS = [_P, _P, _I64, ctypes.c_uint32]      # ticket, status, tiles, epoch
+# kThreads of the one-lane scans: csrc/frontier.cu tail, csrc/dedup.cu compact
+SCAN_TILE = 256
+WIDE_TILE = 2 * 512      # kTile of csrc/frontier.cu and expand.cu
 FRONTIER = native.Kernel(
     "frontier", "columba_frontier_seed",
     [_P, _I64, _I32, _I32, _I32,                  # reads, R, m, S, K
      _P, _P, _P, _P, _I32, _I32,                  # table, kstart, mask, full,
                                                   # rw, zero_empty
-     _P, _P, _P, _I32, _I32, _P,                  # ranges, posw, code, T, bw,
-                                                  # pchars
-     _P, _I32],                                   # clears, n_clears
+     _P, _P, _I32],                               # ranges, clears, n_clears
     source="columba_tpu_torch/csrc/frontier.cu",
     replaces="columba_tpu/index/kmer.py:91",
     symbols={

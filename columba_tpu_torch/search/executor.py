@@ -48,6 +48,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -57,7 +58,7 @@ from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index import kmer
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import bextend, extend, rank
-from columba_tpu_torch.ops.frontier import FRONTIER
+from columba_tpu_torch.ops.frontier import FRONTIER, SCAN_TILE, WIDE_TILE
 from columba_tpu_torch.search.schedule import INF, Schedule
 
 # Ghost-lane ids (boundary-harvest deaths kept inert in the frontier): bit
@@ -87,12 +88,18 @@ _BAND_OUT = [ctypes.c_int64, ctypes.c_int64,             # n_live, cap
              ctypes.c_int64,                             # rows already in itv
              ctypes.c_void_p, ctypes.c_void_p,           # ctr, tile status
              ctypes.c_int64, ctypes.c_uint32]            # tiles, epoch
+# a step's cells: per-lane codes (per-lane entries), or the reads and the
+# schedule's cell tables (static entries); then T and the step
+_BAND_CELLS = [ctypes.c_void_p,                          # pchars
+               ctypes.c_void_p, ctypes.c_int64,          # reads, m
+               ctypes.c_void_p,                          # cells
+               ctypes.c_int32, ctypes.c_int32]           # T, t
 _BAND_RLC = ("columba_band_step_rlc", [
     *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES,
     ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
     ctypes.c_void_p, ctypes.c_void_p,                   # band, colmin
     ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
-    ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,    # pchars, T, t
+    *_BAND_CELLS,
     ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
     *_BAND_OUT, ctypes.c_int32, ctypes.c_int32],        # ..., rw, block
     "columba_tpu_torch/csrc/band_step_rlc.cu")
@@ -104,7 +111,7 @@ KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
      ctypes.c_void_p, ctypes.c_void_p,                   # band, colmin
      ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
-     ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,    # pchars, T, t
+     *_BAND_CELLS,
      ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
      *_BAND_OUT],
     source="columba_tpu_torch/csrc/band_step.cu",
@@ -113,9 +120,6 @@ KERNEL = native.Kernel(
              "per_lane_rlc": _BAND_RLC},
 )
 
-# lanes of a tile of kernels I-L (kThreads of csrc/frontier.cu, expand.cu
-# and dedup.cu), one look-back status pair a tile
-SCAN_TILE = 256
 # the run's counter words (csrc/frontier.cu): [0] kernel B's step word, [1]
 # visits, [2] overflow, [3] kernel B's ticket, [4] in-text rows after the
 # drain, [5] searches started, [6] in-text rows after the tail, [7]
@@ -146,10 +150,10 @@ def host_tables(sched: Schedule) -> dict:
     """Schedule tables as numpy arrays stacked for the step loops: one
     (T, S, 7) int32 row per step (meta word: bit 0 active, bit 1 side,
     bits 2-5 cacc, 6-9 cfro, 10-17 ub, 18-29 back depth; then the three
-    cops and three cini words), the (E, S) exact-prefix tables, the
-    per-cell band codes (0 = read char, -1 = no diag, -2 = invalid), the
-    per-search back depth and pivot that candidate staging reads, and each
-    search's k-mer start (kernel I's seed)."""
+    cops and three cini words), the (E, S) exact-prefix tables, the band
+    cells of each step (:func:`cell_table`), the per-search back depth and
+    pivot that candidate staging reads, and each search's k-mer start
+    (kernel I's seed)."""
     meta = (
         sched.active.astype(np.int32)
         | (sched.side.astype(np.int32) << 1)
@@ -171,14 +175,24 @@ def host_tables(sched: Schedule) -> dict:
         db_exact=sched.db_exact.astype(np.int32),            # (S,)
         band_init=sched.band_init.astype(np.int8),           # (S, 2, BW)
         colmin_init=sched.colmin_init.astype(np.int8),       # (S, 2, W)
-        posw=sched.posw.astype(np.int64),                    # (S, T, BW)
-        code=code.astype(np.int8),                           # (S, T, BW)
+        cells=cell_table(sched.posw, code),                  # (T, S, BW)
         final_reg=sched.final_reg.astype(np.int64),          # (S, 2)
         u_last=sched.u_last.astype(np.int64),                # (S,)
         t_back=np.asarray(sched.t_back, dtype=np.int64),     # (S,)
         pivot=np.asarray(sched.pivot, dtype=np.int64),       # (S,)
         kmer_start=np.asarray(sched.kmer_start, dtype=np.int32),  # (S,)
     )
+
+
+def cell_table(posw, code) -> np.ndarray:
+    """A static schedule's band cells as one (T, S, BW) int32 table, a
+    step's (S, BW) slice contiguous as its scalars' row is: the read
+    position of the cell's diagonal char where the code is 0, else the
+    code (-1 no diagonal, -2 outside the pattern). ``posw`` / ``code``:
+    the schedule's (S, T, BW) positions and codes (``columba_tpu``'s
+    ``posw`` and its code of ``mvalid`` / ``cvalid``)."""
+    cells = np.where(np.asarray(code) == 0, np.asarray(posw), code)
+    return np.ascontiguousarray(cells.transpose(1, 0, 2), dtype=np.int32)
 
 
 _TABLES: dict = {}
@@ -194,6 +208,32 @@ def device_tables(sched: Schedule, device) -> dict:
                        for k, v in host_tables(sched).items()})
         _TABLES[key] = ent
     return ent[1]
+
+
+class StaticCells(NamedTuple):
+    """A static schedule's band cells, read where a step uses them: lane
+    ``id`` (read ``id // S``, search ``id % S``) at step t has cell k = the
+    read's char at position ``cells[t, s, k]`` where that is >= 0, else
+    that code (-1 no diagonal, -2 outside the pattern; :func:`cell_table`).
+    The JAX package gathers these into an (R * S * T, BW) array before its
+    band steps (``columba_tpu/search/executor.py:576-583``); kernel B reads
+    them at use, and no such array is made."""
+
+    reads: torch.Tensor       # (R, m) uint8
+    cells: torch.Tensor       # (T, S, BW) int32: positions < m, or codes
+
+
+def step_cells(cells, ids_c: torch.Tensor, T: int, t: int) -> torch.Tensor:
+    """The (C, BW) int8 cell codes of lanes ``ids_c`` (ghost bits cleared)
+    at step t: their rows of a per-lane (R * S * T, BW) code array (kernel
+    G's, dynamic partitioning), or the rule of :class:`StaticCells`."""
+    if isinstance(cells, torch.Tensor):
+        return cells[ids_c * T + t]
+    reads, table = cells
+    S = table.shape[1]
+    v = table[t][ids_c % S].long()                          # (C, BW)
+    chars = reads[(ids_c // S)[:, None], v.clamp(min=0)].to(torch.int8)
+    return torch.where(v >= 0, chars, v.to(torch.int8))
 
 
 def _band_row_update(prev: torch.Tensor, pchars: torch.Tensor,
@@ -242,9 +282,11 @@ def _lane_scalars(ids_c, mrow_t, dyn_meta, T: int, t: int):
 
 
 def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
-                    pchars, T: int, t: int, switchpoint: int,
+                    cells, T: int, t: int, switchpoint: int,
                     dyn_meta=None, track_arg: bool = False) -> dict:
     """Plain version of kernel B: one band step's per-lane arithmetic.
+    ``cells``: a :class:`StaticCells`, or under per-lane schedules kernel
+    G's (R * S * T, BW) int8 codes (see :func:`step_cells`).
 
     Returns the children's state (``ch_ranges`` (C,4,rw), ``ch_band``
     (C,4,2,BW), ``ch_colmin`` (C,4,2,Wp)), ``new_ids`` (ghost marks),
@@ -271,7 +313,7 @@ def band_step_plain(index: FMIndex, ranges, ids, band, colmin, mrow_t,
     children = extend.extend_all_plain(
         index, torch.where(act[:, None], ranges, 0), sd.int())
     prev = torch.where(is_b[:, None], band[:, 0], band[:, 1])
-    newD = _band_row_update(prev, pchars[ids_c * T + t], bw)
+    newD = _band_row_update(prev, step_cells(cells, ids_c, T, t), bw)
     nD = newD.long()
 
     cm0, cm1 = colmin[:, 0].long(), colmin[:, 1].long()
@@ -459,7 +501,7 @@ class StepScratch:
 
 
 def band_step_compact_plain(index: FMIndex, state, n_live: int, out, itv,
-                            cnt: int, scratch: StepScratch, mrow_t, pchars,
+                            cnt: int, scratch: StepScratch, mrow_t, cells,
                             T: int, t: int, switchpoint: int, dyn_meta=None,
                             track_arg: bool = False) -> None:
     """Plain version of kernel B: one band step of the first ``n_live``
@@ -473,7 +515,7 @@ def band_step_compact_plain(index: FMIndex, state, n_live: int, out, itv,
     ranges, ids, band, colmin = (f[:n_live] for f in state)
     cap, rw = out[0].shape
     M = itv.shape[0] - 1
-    o = band_step_plain(index, ranges, ids, band, colmin, mrow_t, pchars, T,
+    o = band_step_plain(index, ranges, ids, band, colmin, mrow_t, cells, T,
                         t, switchpoint, dyn_meta, track_arg)
     cnt_new = torch.tensor(cnt, dtype=torch.int64, device=ranges.device)
     if switchpoint > 0:
@@ -525,12 +567,16 @@ def check_disjoint(what: str, outs, ins) -> None:
 
 
 def check_band_step(index: FMIndex, state, n_live: int, out, itv,
-                    scratch: StepScratch, mrow_t, pchars,
-                    dyn_meta=None, track_arg: bool = False) -> tuple:
+                    scratch: StepScratch, mrow_t, cells,
+                    dyn_meta=None, track_arg: bool = False,
+                    T: int | None = None, t: int = 0) -> tuple:
     """What kernel B checks before a launch: lane width, entry and shapes
-    it takes, dtypes, contiguity and device of every buffer, 1..C live
-    lanes within the scratch's tiles, and outputs that overlap neither each
-    other nor an input. Returns (kb, W); raises ValueError otherwise."""
+    it takes, dtypes, contiguity and device of every buffer (the cells: a
+    :class:`StaticCells` with one table row a search of ``mrow_t``, or
+    per-lane codes under per-lane schedules), 1..C live lanes within the
+    scratch's tiles, a step within T (None: the static tables' T), and
+    outputs that overlap neither each other nor an input. Returns (kb, W);
+    raises ValueError otherwise."""
     ranges, ids, band, colmin = state
     C, _, bw = band.shape
     cap = out[0].shape[0]
@@ -548,12 +594,25 @@ def check_band_step(index: FMIndex, state, n_live: int, out, itv,
         raise ValueError("kernel B tracks colMin witnesses on the textless "
                          "index only")
     if dyn_meta is not None:
-        if W != 1 or mrow_t is not None:
-            raise ValueError("kernel B's per-lane entry takes one register "
-                             "and no step row")
+        if W != 1 or mrow_t is not None or not isinstance(cells,
+                                                          torch.Tensor):
+            raise ValueError("kernel B's per-lane entry takes one register, "
+                             "no step row and per-lane cell codes")
         scalars = (dyn_meta, torch.int32, (dyn_meta.shape[0],))
+        cell_args = [(cells, torch.int8, (cells.shape[0], bw))]
     else:
-        scalars = (mrow_t, torch.int32, (mrow_t.shape[0], 7))
+        if not isinstance(cells, StaticCells):
+            raise ValueError("kernel B's static entries take StaticCells")
+        S = mrow_t.shape[0]
+        T = cells.cells.shape[0] if T is None else T
+        scalars = (mrow_t, torch.int32, (S, 7))
+        cell_args = [(cells.reads, torch.uint8, tuple(cells.reads.shape)),
+                     (cells.cells, torch.int32, (T, S, bw))]
+        if (cells.reads.dim() != 2 or S >= 1024
+                or S * (7 + bw) * 4 > 48 * 1024):
+            raise ValueError("kernel B's static entries take (R, m) reads, "
+                             "fewer than 1,024 searches and a step's "
+                             "scalars and cells within 48 KB")
     if bw != 2 * kb + 1 or kb > KERNEL_MAX_KB or not 1 <= W <= KERNEL_MAX_W:
         raise ValueError(
             f"kernel B takes band widths 2kb+1 with kb <= {KERNEL_MAX_KB} "
@@ -563,7 +622,7 @@ def check_band_step(index: FMIndex, state, n_live: int, out, itv,
     check_tensors("kernel B", ranges.device, (
         (ranges, torch.int64, (C, rw)), (ids, torch.int32, (C,)),
         (band, torch.int8, (C, 2, bw)), (colmin, torch.int8, (C, 2, Wp)),
-        scalars, (pchars, torch.int8, (pchars.shape[0], bw)),
+        scalars, *cell_args,
         (out[0], torch.int64, (cap, rw)), (out[1], torch.int32, (cap,)),
         (out[2], torch.int8, (cap, 2, bw)),
         (out[3], torch.int8, (cap, 2, Wp)),
@@ -571,13 +630,15 @@ def check_band_step(index: FMIndex, state, n_live: int, out, itv,
     if not 0 < n_live <= min(C, scratch.tiles * BAND_TILE) or M < 0:
         raise ValueError(f"kernel B reads 1..{C} live lanes within its "
                          f"scratch's {scratch.tiles} tiles, not {n_live}")
+    if T is not None and not 0 <= t < T:
+        raise ValueError(f"kernel B's step {t} is not within 0..{T - 1}")
     check_disjoint("kernel B", [*out, itv, scratch.ctr, scratch.status],
-                   [*state, scalars[0], pchars])
+                   [*state, scalars[0], *(c[0] for c in cell_args)])
     return kb, W
 
 
 def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
-                      cnt: int, scratch: StepScratch, mrow_t, pchars,
+                      cnt: int, scratch: StepScratch, mrow_t, cells,
                       T: int, t: int, switchpoint: int, dyn_meta=None,
                       track_arg: bool = False) -> None:
     """One band step fused with the drain append and the compaction (see
@@ -586,17 +647,24 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
     frontier in its first min(n, capacity) rows (the rows past them are
     not written), the same in-text rows and the same counters.
     ``dyn_meta`` (R*S*T,) int32 selects the per-lane entry (one register;
-    ``mrow_t`` is then None). On the RLC index the lanes are 8 wide (RLC
+    ``mrow_t`` is then None, and ``cells`` kernel G's per-lane codes); the
+    static entries take ``cells`` as :class:`StaticCells` and read each
+    live lane's cells at use. On the RLC index the lanes are 8 wide (RLC
     entry, with ``dyn_meta`` the per-lane RLC entry) or, with
     ``track_arg``, 12 wide with 2W colMin slots (textless entry)."""
     ranges, ids, band, colmin = state
     if not ranges.is_cuda:
         return band_step_compact_plain(index, state, n_live, out, itv, cnt,
-                                       scratch, mrow_t, pchars, T, t,
+                                       scratch, mrow_t, cells, T, t,
                                        switchpoint, dyn_meta, track_arg)
     epoch = scratch.next_epoch()
     kb, W = check_band_step(index, state, n_live, out, itv, scratch, mrow_t,
-                            pchars, dyn_meta, track_arg)
+                            cells, dyn_meta, track_arg, T, t)
+    if dyn_meta is not None:
+        cell_args = (cells.data_ptr(), None, 0, None)
+    else:
+        cell_args = (None, cells.reads.data_ptr(), cells.reads.shape[1],
+                     cells.cells.data_ptr())
     tail = (n_live, out[0].shape[0], *(f.data_ptr() for f in out),
             itv.data_ptr(), itv.shape[0] - 1, cnt, scratch.ctr.data_ptr(),
             scratch.status.data_ptr(), scratch.tiles, epoch)
@@ -605,7 +673,7 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
             mrow_t.data_ptr() if dyn_meta is None else None,
             mrow_t.shape[0] if dyn_meta is None else 0,
             dyn_meta.data_ptr() if dyn_meta is not None else None,
-            pchars.data_ptr(), T, t, kb, W, switchpoint, *tail)
+            *cell_args, T, t, kb, W, switchpoint, *tail)
     if isinstance(index, BMoveIndex):
         KERNEL(*bextend.bm_args(index), *bextend.bt_args(index), *lane,
                index.range_width, BAND_QUAD_BLOCK,
@@ -749,17 +817,15 @@ def exact_loop(index: FMIndex, ranges, ids, t_lo: int, t_hi: int, reads,
 # ---------------------------------------------------------------------------
 
 def frontier_seed_plain(index: FMIndex, reads, S: int, kmer_table=None,
-                        kstart=None, search_mask=None, posw=None,
-                        code=None, clears=()):
+                        kstart=None, search_mask=None, clears=()):
     """Plain version of kernel I's seed: ``clears`` filled (see
-    :func:`frontier_seed`), and the (R * S, rw) start ranges of
-    the (read, search) lanes, rid-major, and, given the schedule's cell
-    tables ``posw`` / ``code`` (S, T, BW), the band steps' (R * S * T, BW)
-    int8 cell codes (else None). A search with a k-mer start (``kstart``,
+    :func:`frontier_seed`), and the (R * S, rw) start ranges of the (read,
+    search) lanes, rid-major. A search with a k-mer start (``kstart``,
     (S,) int32, >= 0) takes the seed table's row of its K chars (empty
     where the window holds an N), the others the full range; no table:
     the full range. ``search_mask`` (R, S) bool empties the masked lanes;
-    every empty range is zeroed."""
+    every empty range is zeroed. The band steps' cells are not made here:
+    kernel B reads them at use (:class:`StaticCells`)."""
     for t, v in clears:
         t.fill_(v)
     R = reads.shape[0]
@@ -774,19 +840,11 @@ def frontier_seed_plain(index: FMIndex, reads, S: int, kmer_table=None,
         ranges0 = torch.stack(cols, dim=1).reshape(L, -1)
     if search_mask is not None:
         ranges0 = torch.where(search_mask.reshape(-1)[:, None], ranges0, 0)
-    ranges0 = torch.where((ranges0[:, 1] > ranges0[:, 0])[:, None],
-                          ranges0, 0)
-    pchars = None
-    if posw is not None:
-        pchars = reads[:, posw].to(torch.int8)            # (R, S, T, BW)
-        pchars = torch.where(code[None] == 0, pchars, code[None])
-        pchars = pchars.reshape(-1, posw.shape[-1]).contiguous()
-    return ranges0, pchars
+    return torch.where((ranges0[:, 1] > ranges0[:, 0])[:, None], ranges0, 0)
 
 
 def frontier_seed(index: FMIndex, reads, S: int, kmer_table=None,
-                  kstart=None, search_mask=None, posw=None, code=None,
-                  clears=()):
+                  kstart=None, search_mask=None, clears=()):
     """Kernel I's seed (see :func:`frontier_seed_plain`), and the run's
     buffers cleared: ``clears`` holds (tensor, byte value) pairs, each
     filled with that byte (the in-text buffer and counter words with 0,
@@ -794,7 +852,7 @@ def frontier_seed(index: FMIndex, reads, S: int, kmer_table=None,
     card."""
     if not reads.is_cuda:
         return frontier_seed_plain(index, reads, S, kmer_table, kstart,
-                                   search_mask, posw, code, clears)
+                                   search_mask, clears)
     R, m = reads.shape
     dev = reads.device
     rw = index.range_width
@@ -810,19 +868,12 @@ def frontier_seed(index: FMIndex, reads, S: int, kmer_table=None,
                    (kstart, torch.int32, (S,))]
     if search_mask is not None:
         expect.append((search_mask, torch.bool, (R, S)))
-    T = bw = 0
-    if posw is not None:
-        _, T, bw = posw.shape
-        expect += [(posw, torch.int64, (S, T, bw)),
-                   (code, torch.int8, (S, T, bw))]
     check_tensors("kernel I's seed", dev, expect)
     if len(clears) > 8 or any(not t.is_contiguous() or t.device != dev
                               for t, _ in clears):
         raise ValueError("kernel I's seed clears up to 8 contiguous "
                          "buffers on its device")
     ranges0 = torch.empty((L, rw), dtype=torch.int64, device=dev)
-    pchars = (torch.empty((L * T, bw), dtype=torch.int8, device=dev)
-              if posw is not None else None)
     full = (ctypes.c_int64 * 12)(*index.full_cols())
     cl = (ctypes.c_int64 * 24)(*[x for t, v in clears for x in (
         t.data_ptr(), t.numel() * t.element_size(), v)])
@@ -831,12 +882,9 @@ def frontier_seed(index: FMIndex, reads, S: int, kmer_table=None,
              kstart.data_ptr() if kmer_table is not None else None,
              search_mask.data_ptr() if search_mask is not None else None,
              ctypes.addressof(full), rw, 1,           # empty ranges zeroed
-             ranges0.data_ptr(),
-             posw.data_ptr() if posw is not None else None,
-             code.data_ptr() if posw is not None else None, T, bw,
-             pchars.data_ptr() if pchars is not None else None,
-             ctypes.addressof(cl), len(clears), entry="seed")
-    return ranges0, pchars
+             ranges0.data_ptr(), ctypes.addressof(cl), len(clears),
+             entry="seed")
+    return ranges0
 
 
 def frontier_drain_plain(itv, words, drows) -> None:
@@ -857,7 +905,7 @@ def frontier_drain(itv, words, drows) -> None:
     check_tensors("kernel I's drain", drows.device, (
         (drows, torch.int64, (L, 4)), (itv, torch.int64, (M + 1, 4)),
         (words, torch.int64, (RUN_WORDS,))))
-    sa, buf = scan_args(drows.device, L)
+    sa, buf = scan_args(drows.device, L, WIDE_TILE)
     FRONTIER(drows.data_ptr(), L, itv.data_ptr(), M, words.data_ptr(), *sa,
              entry="drain")
 
@@ -910,7 +958,7 @@ def frontier_init(ranges0, S: int, switchpoint: int, db_exact, band_init,
                   colmin_init, per_lane: bool, W: int, state, itv,
                   words) -> None:
     """Kernel I's init (see :func:`frontier_init_plain`): one launch, one
-    scan of the live and the narrow lanes."""
+    scan of the live and the narrow lanes (2 lanes a thread)."""
     if not ranges0.is_cuda:
         return frontier_init_plain(ranges0, S, switchpoint, db_exact,
                                    band_init, colmin_init, per_lane, W,
@@ -932,7 +980,7 @@ def frontier_init(ranges0, S: int, switchpoint: int, db_exact, band_init,
         raise ValueError("kernel I's init takes R x S lanes, one register "
                          "per lane, and W or 2W colMin slots")
     check_disjoint("kernel I's init", [*state, itv, words], [ranges0])
-    sa, buf = scan_args(ranges0.device, L)
+    sa, buf = scan_args(ranges0.device, L, WIDE_TILE)
     FRONTIER(ranges0.data_ptr(), L, rw, S, switchpoint, db_exact.data_ptr(),
              band_init.data_ptr(), colmin_init.data_ptr(), int(per_lane),
              bw, W, Wp, C, *(f.data_ptr() for f in state), itv.data_ptr(),
@@ -971,7 +1019,7 @@ def frontier_ex_compact(ranges0, r2, src, words) -> torch.Tensor:
         (ranges0, torch.int64, (L, rw)), (r2, torch.int64, (EC, rw)),
         (src, torch.int32, (EC,)), (words, torch.int64, (RUN_WORDS,))))
     slot = torch.empty(L, dtype=torch.int32, device=ranges0.device)
-    sa, buf = scan_args(ranges0.device, L)
+    sa, buf = scan_args(ranges0.device, L, WIDE_TILE)
     FRONTIER(ranges0.data_ptr(), L, rw, EC, r2.data_ptr(), src.data_ptr(),
              slot.data_ptr(), words.data_ptr(), *sa, entry="ex_compact")
     return slot
@@ -1126,6 +1174,8 @@ def run_scheme(
     On the card the work around kernels A and B is kernels I and J: the
     seed launch (and the clearing of the run's buffers), the drain and
     init launches (two more with the two-stage exact loop), and the tail.
+    Static schedules' band steps read their cells at use
+    (:class:`StaticCells`); per-read schedules take kernel G's codes.
     """
     R, m = reads.shape
     S = sched.num_searches
@@ -1178,11 +1228,9 @@ def run_scheme(
                if two_stage else [])
     clears = [(itv_buf, 0), (words, 0), (state[0], 0), (state[1], 0),
               (state[2], INF), (state[3], INF), *((t, 0) for t in ex_bufs)]
-    cells = dyn is None and T > 0
-    ranges0, pchars = frontier_seed(
+    ranges0 = frontier_seed(
         index, reads, S, kmer_table if seeded else None,
         tables["kmer_start"] if seeded else None, search_mask,
-        tables["posw"] if cells else None, tables["code"] if cells else None,
         clears=clears)
 
     # ---------------- exact prefix ----------------
@@ -1219,10 +1267,12 @@ def run_scheme(
     cap, live, moved, shrink_ovf = C, 0, False, 0
     if T > 0:
         if dyn is not None:
-            pchars = dyn["pchars"]
+            cells = dyn["pchars"]
             dyn_meta = dyn["meta"].reshape(-1)               # (R*S*T,)
             mrow = None
         else:
+            # each step's cells read at use from the reads and the tables
+            cells = StaticCells(reads, tables["cells"])
             mrow, dyn_meta = tables["mrow"], None
 
         # the frontier ping-pongs between two buffer sets of C rows; the
@@ -1241,7 +1291,7 @@ def run_scheme(
                     break
                 band_step_compact(
                     index, bufs[cur], live, nxt[1 - cur], itv_buf, cnt, sc,
-                    mrow[t] if dyn_meta is None else None, pchars, T, t,
+                    mrow[t] if dyn_meta is None else None, cells, T, t,
                     switchpoint, dyn_meta, track_arg)
                 cur, moved = 1 - cur, True
                 n, cnt = sc.word()

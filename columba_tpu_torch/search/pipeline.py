@@ -41,7 +41,7 @@ from columba_tpu_torch.core import alphabet
 from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import extend, locate, verify
-from columba_tpu_torch.ops.frontier import SCAN_ARGS
+from columba_tpu_torch.ops.frontier import SCAN_ARGS, WIDE_TILE
 from columba_tpu_torch.search import dynschedule, executor, schedule
 from columba_tpu_torch.search.scheme import SearchScheme
 
@@ -150,13 +150,14 @@ EXPAND = native.Kernel(
     "expand", "columba_expand_frontier",
     [_P, _P, _I32, _P, _P, _I64,             # done, ranges, rw, rid, sid, C
      _P, _P, _I64, _I32,                     # itv, itv_count, M, S
-     _P, _P, _P, _P,                         # t_back, pivot (64 / 32 bit)
-     _P, _P, _P, _P],                        # c_lo, c_hi, c_rid, c_estb
+     _P, _P, _P, _P, _I64,                   # t_back, pivot (64 / 32 bit),
+                                             # max_locate
+     _P, _P, _P, _P, _P, _P,                 # c_lo, c_hi, c_rid, c_estb,
+                                             # offsets, total
+     *SCAN_ARGS],
     source="columba_tpu_torch/csrc/expand.cu",
     replaces="columba_tpu/search/pipeline.py:132",
     symbols={
-        "scan": ("columba_expand_scan",
-                 [_P, _P, _I64, _I64, _I64, _P, _P, *SCAN_ARGS]),
         "ranges": ("columba_expand_scan",
                    [_P, _P, _I64, _I64, _I64, _P, _P, *SCAN_ARGS]),
         "rows": ("columba_expand_rows",
@@ -181,7 +182,7 @@ DEDUP_BIG = 1 << 30      # rid of an invalid row in the sort key: last
 
 
 def stage_candidates_plain(res: executor.FrontierResult, tables: dict,
-                           S: int, dyn: dict | None = None):
+                           S: int, max_locate: int, dyn: dict | None = None):
     """Plain version of :func:`stage_candidates`."""
     fr_lo = torch.where(res.done, res.ranges[:, 0], 0)
     fr_hi = torch.where(res.done, res.ranges[:, 1], 0)
@@ -197,20 +198,25 @@ def stage_candidates_plain(res: executor.FrontierResult, tables: dict,
     else:
         fr_estb = tables["t_back"][res.sid] - tables["pivot"][res.sid]
         iv_estb = itv[:, 3] - tables["pivot"][iv_ids % S]
-    return (torch.cat([fr_lo, iv_lo]), torch.cat([fr_hi, iv_hi]),
-            torch.cat([res.rid, iv_ids // S]), torch.cat([fr_estb, iv_estb]))
+    c_lo, c_hi = torch.cat([fr_lo, iv_lo]), torch.cat([fr_hi, iv_hi])
+    return (c_lo, c_hi, torch.cat([res.rid, iv_ids // S]),
+            torch.cat([fr_estb, iv_estb]),
+            *expand_scan_plain(c_lo, c_hi, max_locate))
 
 
 def stage_candidates(res: executor.FrontierResult, tables: dict, S: int,
-                     dyn: dict | None = None):
+                     max_locate: int, dyn: dict | None = None):
     """Completed frontier lanes + in-text rows [f_lo, f_hi, ids, depth] ->
     one candidate list (c_lo, c_hi, c_rid, c_estb); estb is the read
     start's offset from the back-side text depth. The back depth and pivot
     are per search (``tables``) or, under dynamic partitioning, per (read,
-    search) lane (``dyn``). On the card one launch of kernel K's
-    ``frontier`` entry."""
+    search) lane (``dyn``). Also the candidates' expansion counts, as
+    :func:`expand_scan` makes them: the inclusive prefix sums of their
+    widths clamped at ``max_locate`` + 1, and the total. Returns (c_lo,
+    c_hi, c_rid, c_estb, offsets, total); :func:`expand_rows` takes the
+    rest. On the card one launch of kernel K's ``frontier`` entry."""
     if not res.ranges.is_cuda:
-        return stage_candidates_plain(res, tables, S, dyn)
+        return stage_candidates_plain(res, tables, S, max_locate, dyn)
     C, rw = res.ranges.shape
     M = res.itv.shape[0]
     dev = res.ranges.device
@@ -224,14 +230,17 @@ def stage_candidates(res: executor.FrontierResult, tables: dict, S: int,
         (src["t_back"], torch.int32 if i32 else torch.int64, (n_tab,)),
         (src["pivot"], torch.int32 if i32 else torch.int64, (n_tab,))))
     out = [torch.empty(C + M, dtype=torch.int64, device=dev)
-           for _ in range(4)]
+           for _ in range(5)]
+    total = torch.empty((), dtype=torch.int64, device=dev)
     tb, pv = src["t_back"].data_ptr(), src["pivot"].data_ptr()
+    sa, buf = executor.scan_args(dev, C + M, WIDE_TILE)
     EXPAND(res.done.data_ptr(), res.ranges.data_ptr(), rw,
            res.rid.data_ptr(), res.sid.data_ptr(), C, res.itv.data_ptr(),
            res.itv_count.data_ptr(), M, S, None if i32 else tb,
            None if i32 else pv, tb if i32 else None, pv if i32 else None,
-           *(o.data_ptr() for o in out), entry="frontier")
-    return tuple(out)
+           max_locate, *(o.data_ptr() for o in out), total.data_ptr(), *sa,
+           entry="frontier")
+    return (*out, total)
 
 
 def expand_scan_plain(c_lo, c_hi, max_locate: int):
@@ -263,9 +272,10 @@ def stage_expand_plain(c_lo, c_hi, max_locate: int):
 
 
 def expand_scan(c_lo, c_hi, max_locate: int):
-    """Kernel K's scan (see :func:`expand_scan_plain`): c_lo and c_hi are
-    (n,) int64 with one stride (1 for the candidate list; kernel E's rows
-    of ranges, read in place, on the k = 0 pass: entry ``ranges``)."""
+    """Kernel K's ``ranges`` entry (see :func:`expand_scan_plain`): c_lo and
+    c_hi are (n,) int64 columns of one stride (kernel E's rows of ranges,
+    read in place, on the k = 0 pass; the candidate list's scan is part of
+    :func:`stage_candidates`)."""
     if not c_lo.is_cuda:
         return expand_scan_plain(c_lo, c_hi, max_locate)
     n = c_lo.shape[0]
@@ -278,15 +288,16 @@ def expand_scan(c_lo, c_hi, max_locate: int):
                          "columns of one stride on one device")
     offsets = torch.empty(n, dtype=torch.int64, device=c_lo.device)
     total = torch.empty((), dtype=torch.int64, device=c_lo.device)
-    sa, buf = executor.scan_args(c_lo.device, n)
+    sa, buf = executor.scan_args(c_lo.device, n, WIDE_TILE)
     EXPAND(c_lo.data_ptr(), c_hi.data_ptr(), stride, n, max_locate,
-           offsets.data_ptr(), total.data_ptr(), *sa,
-           entry="scan" if stride == 1 else "ranges")
+           offsets.data_ptr(), total.data_ptr(), *sa, entry="ranges")
     return offsets, total
 
 
 def expand_rows(c_lo, offsets, total, max_locate: int):
-    """Kernel K's rows (see :func:`expand_rows_plain`)."""
+    """Kernel K's rows (see :func:`expand_rows_plain`): the valid rows
+    merged with the candidates' prefix sums, 2,048 of the two a block
+    (``csrc/expand.cu``)."""
     if not c_lo.is_cuda:
         return expand_rows_plain(c_lo, offsets, total, max_locate)
     n = offsets.shape[0]
@@ -309,8 +320,10 @@ def stage_expand(c_lo, c_hi, max_locate: int):
 
     Widths are clamped at max_locate + 1 (rows past the cap are dropped
     anyway, and a clamped candidate still forces total > max_locate).
-    Returns (rows, cand, valid, total). On the card kernel K's scan (or
-    its ``ranges`` entry) and rows entries, two launches."""
+    Returns (rows, cand, valid, total). On the card kernel K's ``ranges``
+    and ``rows`` entries, two launches (the scheme path's candidates take
+    :func:`stage_candidates` and :func:`expand_rows`, whose scan is in
+    the candidates' launch)."""
     if not c_lo.is_cuda:
         return stage_expand_plain(c_lo, c_hi, max_locate)
     offsets, total = expand_scan(c_lo, c_hi, max_locate)
@@ -449,9 +462,9 @@ def match_device_core(index: FMIndex, reads: torch.Tensor,
         index, reads, sched, capacity, kmer_table, switchpoint, itv_cap,
         split_step, capacity2, itv_min_depth=itv_min_depth, tables=tables,
         ex_split=ex_split, ex_cap=ex_cap, search_mask=search_mask, dyn=dyn)
-    c_lo, c_hi, c_rid, c_estb = stage_candidates(res, tables,
-                                                 sched.num_searches, dyn)
-    rows, cand, valid, total = stage_expand(c_lo, c_hi, max_locate)
+    c_lo, c_hi, c_rid, c_estb, offsets, total = stage_candidates(
+        res, tables, sched.num_searches, max_locate, dyn)
+    rows, cand, valid = expand_rows(c_lo, offsets, total, max_locate)
     pos = locate.locate_rows(index, rows)
     rid, win_start = stage_windows(pos, c_rid, c_estb, cand, kb)
     rid_v, win_v, vlive, n_uniq = stage_dedup(rid, win_start, valid,

@@ -79,10 +79,12 @@ def band_step(state, mrow_t, o: dict, cap: int, M: int, cnt: int,
               stats: dict | None = None) -> dict:
     """Kernel B, one fused step over the lanes of ``state`` (ranges, ids,
     band, colmin; every lane read): each lane's range and id in, the band
-    and registers of its live lanes; the step's scalars (the (S, 7) row,
-    or with ``mrow_t`` None one 4-byte word per lane); per active lane its
-    cell codes and two occ rows (RLC: two endpoint rows, plus the walks of
-    the children written on the run tables, ``stats`` of
+    and registers of its live lanes; the step's scalars (the (S, 7) row and
+    the step's (S, BW) slice of the cell table, 4 B a cell; or
+    with ``mrow_t`` None, per-lane schedules, one 4-byte word per lane);
+    per active lane its BW cells (the read's chars at them, or its row of
+    per-lane codes) and two occ rows (RLC: two endpoint rows, plus the
+    walks of the children written on the run tables, ``stats`` of
     :func:`rlc_band_stats`); the kept
     children's state out (at most ``cap`` rows), the narrow rows out (at
     most ``M - cnt``) and the 32 B of counters. No child state goes to
@@ -100,7 +102,8 @@ def band_step(state, mrow_t, o: dict, cap: int, M: int, cnt: int,
     rows, lane_ops = ((2 * BM_ROW_BYTES, BM_LANE_OPS) if stats is not None
                       else (2 * OCC_ROW_BYTES, EXTEND_OPS))
     n_bytes = (L * (8 * rw + 4) + n_alive * cells
-               + (_nbytes(mrow_t) if mrow_t is not None else 4 * L)
+               + (_nbytes(mrow_t) + mrow_t.shape[0] * bw * 4
+                  if mrow_t is not None else 4 * L)
                + n_act * (rows + bw) + wb
                + kept * (8 * rw + 4 + cells) + narrow * 32 + 32)
     # 4 chars x bw cells x (compare, select, add, 2 min, clamp) for the
@@ -395,16 +398,20 @@ def entry(name: str, a: dict, post: dict, out) -> dict:
             n = chars.numel() // chars.shape[-1]
             return bound(chars.numel() + n * 64, n * (3 * chars.shape[-1]
                                                        + LANE_OPS))
-        reads, S = a["reads"], a["S"]
-        ranges0, pchars = out
+        reads = a["reads"]
+        ranges0 = out
         L = ranges0.shape[0]
         seeded = 0
         if a["kmer_table"] is not None:
+            Kk = int(a["kmer_table"].shape[0]).bit_length() // 2
             seeded = int((a["kstart"] >= 0).sum()) * reads.shape[0]
-        n_bytes = (_nbytes(reads) + 32 * seeded + _n(a["search_mask"])
-                   + _nbytes(a["posw"], a["code"]) + _nbytes(ranges0)
-                   + _n(pchars) + sum(_nbytes(t) for t, _ in a["clears"]))
-        return bound(n_bytes, L * LANE_OPS + 3 * _n(pchars)
+            # each seeded lane's K chars and its 32 B table row
+            read_bytes = seeded * (Kk + 32)
+        else:
+            read_bytes = 0
+        n_bytes = (read_bytes + _n(a["search_mask"]) + _nbytes(ranges0)
+                   + sum(_nbytes(t) for t, _ in a["clears"]))
+        return bound(n_bytes, L * LANE_OPS
                      + sum(_nbytes(t) for t, _ in a["clears"]) // 16)
     if name == "frontier.drain":
         L = a["drows"].shape[0]
@@ -444,20 +451,27 @@ def entry(name: str, a: dict, post: dict, out) -> dict:
                    + cap * (3 * 8 + 2) + 32 * ghosts + 16)
         return bound(n_bytes, cap * (SCAN_OPS + 2 * Wp))
     if name == "expand.frontier":
+        # per frontier lane its done flag, rid and sid (and its range where
+        # done), per in-text row its 32 B; out the four columns and the
+        # prefix sum of every candidate, and the total
         res = a["res"]
         C, M = res.ranges.shape[0], res.itv.shape[0]
         done = int(res.done.sum())
-        return bound(C * 17 + done * 16 + M * 32 + 32 * (C + M),
-                     (C + M) * LANE_OPS)
-    if name in ("expand.scan", "expand.ranges"):
+        return bound(C * 17 + done * 16 + M * 32 + 40 * (C + M) + 8,
+                     (C + M) * (LANE_OPS + SCAN_OPS))
+    if name == "expand.ranges":
         n = a["c_lo"].shape[0]
         return bound(16 * n + 8 * n + 8, n * SCAN_OPS)
     if name == "expand.rows":
+        # what the function needs: every prefix sum, the lo of each
+        # candidate that owns a valid row, 17 B a row out (the kernel's
+        # staging reads every candidate's lo: a cost of the kernel, not of
+        # the function); a row's search among its block's 2,048 staged
+        # prefix sums, 11 probes
         rows, cand, valid = out
         n, ml = a["offsets"].shape[0], rows.shape[0]
         live = int(torch.unique(cand[valid]).numel())
-        return bound(8 * n + 8 * live + 17 * ml,
-                     ml * (LANE_OPS + 4 * max(1, n.bit_length())))
+        return bound(8 * n + 8 * live + 17 * ml, ml * (LANE_OPS + 4 * 11))
     if name == "dedup.windows":
         L = a["pos"].shape[0]
         distinct = int(torch.unique(a["cand"]).numel())

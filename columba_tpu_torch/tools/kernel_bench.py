@@ -56,11 +56,17 @@ or B is timed, its ``--rlc --textless`` index, built at once), and:
    the candidates' expansion, the dedup) on one ``match_device_core``
    call at the SE ALL path's sizes (and the band-only call and the k = 0
    pass beside it), by events and the profiler, warm and cold, beside the
-   plain chain, the sort (kernel L's library time) and the bound, and
+   plain chain, the one PyTorch call of the same function where there is
+   one (kernel K's ``ranges``: ``torch.cumsum`` of the clamped widths;
+   ``rows``: ``torch.searchsorted``), the sort beside kernel L and the
+   bound; with ``--parent`` the earlier tree's entries, captured from the
+   same calls through its own pipeline, in turns with this tree's; and
    counts the call's launches outside kernel B's band steps and the sort
    (``torch.profiler``), on both trees with ``--parent``. ``--only
    frontier,expand,dedup`` times these alone (about two minutes with the
-   Vanilla build).
+   Vanilla build); ``--only frontier,expand,band_step`` adds kernel B's
+   static Vanilla entry (a synthetic step at SE ALL's shape and the
+   captured paths' widest steps) and its RLC entries.
 
 With ``--parent TREE`` (an earlier commit's ``columba_tpu_torch/``,
 unpacked by ``git archive COMMIT columba_tpu_torch | tar -x -C TREE``) it
@@ -108,7 +114,8 @@ SYNTH_KB = (0, 2, 4, 5, 7, 13)
 PKG = "columba_tpu_torch"
 TREE_MODULES = ("native", "ops.locate", "ops.verify", "ops.extend",
                 "search.dynschedule", "search.executor", "index.bmove",
-                "index.fmindex", "tools.gather_bench", "search.pipeline")
+                "index.fmindex", "tools.gather_bench", "search.pipeline",
+                "tools.path_inputs", "tools.bounds")
 GATHER_SETS = 16         # index sets a gather timing cycles through
 
 
@@ -256,6 +263,23 @@ def exact_part_inputs(index, batch: torch.Tensor, table) -> list:
             dict(kind="exact.rlc_lengths" if rlc else "exact.lengths",
                  index=index, pats=pats.reshape(R * p, -1).contiguous(),
                  lengths=lengths)]
+
+
+def vanilla_band_input(index, batch: torch.Tensor, table) -> dict:
+    """Kernel B's static Vanilla entry at the SE ALL path's shape: C = R x
+    S / 8 lanes (12,288 at 32,768 rows) from the batch's live 10-mer seed
+    ranges, kb 2, W 2, the schedule's own step tables and the batch's
+    cells read at use, switchpoint 4 (``path_inputs.band_args``)."""
+    from columba_tpu_torch.index.kmer import lookup
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+
+    sched = pipeline.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit",
+                                    kmer_k=10)
+    seeds = lookup(table, batch[:, 20:30])
+    seeds = seeds[seeds[:, 1] > seeds[:, 0]]
+    return band_input("band_step", band_args(
+        index, sched, batch, seeds, np.random.default_rng(SEED + 5), 4))
 
 
 def band_loop_inputs(bm, tl, batch: torch.Tensor, rng) -> list:
@@ -448,15 +472,20 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
     band-only call (switchpoint 0, the two-stage exact loop) and of the
     k = 0 pass, held to its plain version, then timed by CUDA events and
     the profiler, warm and with a flushed L2, beside the plain chain's time
-    (events, warm), the sort's for kernel L and the entry's bound. Then the
-    launch census of the first call and of its ``run_scheme``
-    (``path_inputs.launch_census``); with an earlier tree's modules
-    ``mods`` (loaded from ``parent_root``), on both trees in turns (parent,
-    this tree, this tree, parent), each through its own pipeline, the
-    parent's inside its :func:`tree_scope`."""
+    (events, warm), the library yardstick where one PyTorch call computes
+    the same function (``path_inputs.library``: kernel K's ``ranges`` and
+    ``rows``; beside ``frontier`` the cumsum of its scan part), the sort
+    for kernel L, and the entry's bound. With an earlier tree's modules
+    ``mods`` (loaded from ``parent_root``), that tree's entries are
+    captured from the same calls through its own pipeline and its own
+    ``tools/path_inputs.py`` (inside its :func:`tree_scope`), held to its
+    plain versions, and timed in turns with this tree's (parent, this
+    tree, this tree, parent); an entry only one tree has is timed alone.
+    Then the launch census of the first call and of its ``run_scheme``
+    (``path_inputs.launch_census``), on both trees in turns."""
     from columba_tpu_torch.search import pipeline
     from columba_tpu_torch.search.scheme import get_scheme
-    from columba_tpu_torch.tools import bounds
+    from columba_tpu_torch.tools import bounds, path_inputs
 
     R = batch.shape[0]
     sched = pipeline.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit",
@@ -469,33 +498,86 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
         return lambda: pl.match_device_core(idx, batch, sc, C, ml, K, table,
                                             4, *pl.crossover_caps(C, ml, 4))
 
-    calls = capture_entries(core(pipeline, index, sched))
-    for fn in (lambda: pipeline.match_device_core(
-                   index, batch, sched, C0, ml, K, table, 0, 0, 0, 0,
-                   ex_split=8, ex_cap=C0),
-               lambda: pipeline._exact_device(index, batch, ml)):
-        calls.update({k: v for k, v in capture_entries(fn).items()
-                      if k not in calls})
-    sort = sort_ms(calls["dedup.compact"], clocks)
-    for name in sorted(calls):
+    def captured(cap, pl, idx, sc):
+        calls = cap(core(pl, idx, sc))
+        for fn in (lambda: pl.match_device_core(
+                       idx, batch, sc, C0, ml, K, table, 0, 0, 0, 0,
+                       ex_split=8, ex_cap=C0),
+                   lambda: pl._exact_device(idx, batch, ml)):
+            calls.update({k: v for k, v in cap(fn).items()
+                          if k not in calls})
+        return calls
+
+    def scoped(fn):
+        def run():
+            with tree_scope(parent_root):
+                return fn()
+        return run
+
+    trees = {"tree": (captured(capture_entries, pipeline, index, sched),
+                      path_inputs, bounds, lambda fn: fn)}
+    if mods is not None:
+        pl, ppi = mods["search.pipeline"], mods["tools.path_inputs"]
+        cls = mods["index.fmindex"].FMIndex
+        pidx = cls(**{f.name: getattr(index, f.name)
+                      for f in dataclasses.fields(cls) if f.init})
+        # this tree's scheme: the tree's own looks for schemes/ beside it
+        psched = pl.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit",
+                                   kmer_k=10)
+        pcalls = scoped(lambda: captured(ppi.capture_entries, pl, pidx,
+                                         psched))()
+        trees["parent"] = (pcalls, ppi, mods["tools.bounds"], scoped)
+    ours = trees["tree"][0]
+    sort = sort_ms(ours["dedup.compact"], clocks)
+    names = sorted({n for calls, *_ in trees.values() for n in calls})
+    for name in names:
+        have = {who: t for who, t in trees.items() if name in t[0]}
+        for who, (calls, pi, _, scope) in have.items():
+            if scope(lambda: pi.replay_plain(calls[name]))() != 0:
+                raise AssertionError(f"kernel {name} ({who}) differs from "
+                                     "its plain version")
+        order = [w for w in ("parent", "tree", "tree", "parent")
+                 if w in have]
+        runs: dict = {}
+        fns = {}
+        for who, (calls, pi, _, scope) in have.items():
+            c = calls[name]
+            kargs = pi._deep(c["args"], pi._copy)
+            fns[who] = scope(lambda c=c, kargs=kargs: c["real"](**kargs))
+        for who in order:
+            kernel = trees[who][1].ENTRY_KERNEL[name]
+            runs.setdefault(who, []).append(clocks.all(fns[who], kernel))
+        calls, pi, bd, scope = have.get("tree", have.get("parent"))
         c = calls[name]
-        if replay_plain(c) != 0:
-            raise AssertionError(f"kernel {name} differs from its plain "
-                                 "version")
-        t = time_entry(c, clocks)
-        b = bounds.entry(name, c["args"], c["after"], c["out"])
-        lib = sort if name.startswith("dedup.") else None
+        b = scope(lambda: bd.entry(name, c["args"], c["after"], c["out"]))()
+        pargs = pi._deep(c["args"], pi._copy)
+        plain_ms = clocks.events(scope(lambda: c["plain"](**pargs)), False)
+        lib_fn = path_inputs.library(c) if "tree" in have else None
+        lib = clocks.device_ms(lib_fn) if lib_fn is not None else None
+        scan_lib = (clocks.device_ms(path_inputs.frontier_widths_cumsum(c))
+                    if name == "expand.frontier" and "tree" in have
+                    else None)
         results.append(dict(
             label="se_all_sizes", kind=name, bound_ms=b["bound_ms"],
             bound_by=b["bound_by"], bound_bytes=b["bytes"],
-            bound_operations=b["operations"], plain_ms=t["plain_ms"],
-            library_ms=lib, runs={"tree": [t]}))
-        log(f"{smi}: se_all_sizes {name}: events warm "
-            f"{t['events_warm']:.4f} ms, cold {t['events_cold']:.4f}; "
-            f"profiler warm {_fmt(t['prof_warm'])}, cold "
-            f"{_fmt(t['prof_cold'])}; plain {t['plain_ms']:.4f} ms"
-            + (f"; sort {lib:.4f} ms" if lib is not None else "")
-            + f"; bound {b['bound_ms']:.5f} ms by {b['bound_by']}")
+            bound_operations=b["operations"], plain_ms=plain_ms,
+            library_ms=lib, scan_cumsum_ms=scan_lib,
+            sort_ms=sort if name.startswith("dedup.") else None,
+            bound_tree="tree" if "tree" in have else "parent", runs=runs))
+        for who, rs in runs.items():
+            for i, t in enumerate(rs):
+                log(f"{smi}: se_all_sizes {name} {who} run {i}: events warm "
+                    f"{t['events_warm']:.4f} ms, cold "
+                    f"{t['events_cold']:.4f}; profiler warm "
+                    f"{_fmt(t['prof_warm'])}, cold {_fmt(t['prof_cold'])}")
+        log(f"{smi}: se_all_sizes {name}: plain {plain_ms:.4f} ms"
+            + (f"; library {lib:.5f} ms" if lib is not None else
+               "; library none")
+            + (f"; cumsum of its widths {scan_lib:.5f} ms"
+               if scan_lib is not None else "")
+            + (f"; sort {sort:.4f} ms" if name.startswith("dedup.") else "")
+            + f"; bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+            f"({b['bytes']} bytes)")
 
     def scheme(pl, idx, sc):
         ex = pl.executor
@@ -507,19 +589,6 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
                     scheme(pipeline, index, sched), pipeline.executor)}
     order = ["tree", "tree"]
     if mods is not None:
-        pl = mods["search.pipeline"]
-        cls = mods["index.fmindex"].FMIndex
-        pidx = cls(**{f.name: getattr(index, f.name)
-                      for f in dataclasses.fields(cls) if f.init})
-        # this tree's scheme: the tree's own looks for schemes/ beside it
-        psched = pl.compile_cached(get_scheme("kuch1", K), READ_LEN, "edit",
-                                   kmer_k=10)
-
-        def scoped(fn):
-            def run():
-                with tree_scope(parent_root):
-                    return fn()
-            return run
         fns["parent"] = (scoped(core(pl, pidx, psched)),
                          scoped(scheme(pl, pidx, psched)), pl.executor)
         order = ["parent", *order, "parent"]
@@ -533,8 +602,13 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
             log(f"{smi}: launch census ({who}), one SE ALL {what} call "
                 f"({R} rows, C = {C}, max_locate = {ml}): {c['outside']} "
                 f"outside kernel B's band steps ({c['band']}) and the sort "
-                f"({c['sort']}), {c['total']} in all; by name "
-                f"{json.dumps(c['by_name'], sort_keys=True)}")
+                f"({c['sort']}), {c['total']} in all; device time "
+                f"{c['ms']:.4f} ms in all, kernel B's steps "
+                f"{c['band_ms']:.4f}; by name "
+                f"{json.dumps(c['by_name'], sort_keys=True)}; device ms by "
+                "name " + json.dumps({k: round(t, 5) for k, t in
+                                      c['ms_by_name'].items()},
+                                     sort_keys=True))
     results.append(dict(label="se_all_sizes", kind="launch_census",
                         runs=census))
 
@@ -694,6 +768,8 @@ def main(argv=None) -> int:
             il_entries(index, batch, table, clocks, smi, results,
                        mods if parent else None,
                        os.path.abspath(args.parent) if parent else None)
+        if wanted("band_step"):
+            synth.append(vanilla_band_input(index, batch, table))
         synth += exact_part_inputs(index, batch, table)
         synth += tables_inputs(index, batch, table)
         del arrays

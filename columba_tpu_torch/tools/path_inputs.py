@@ -4,14 +4,15 @@ inputs an align gives them: capture and timing.
 ``capture(align)`` runs one ``align()`` with wrappers around
 ``locate.locate_rows``, ``verify.verify_window``, ``extend.exact_match``,
 ``dynschedule.dynamic_partition``, ``dynschedule.build_tables``,
-``pipeline.stage_expand``, ``pipeline.stage_dedup``,
+``pipeline.expand_rows``, ``pipeline.stage_dedup``,
 ``executor.band_step_compact`` and ``executor.exact_loop`` (module
 attributes; nothing in the library is hooked) and keeps each locate,
 verify, exact-match, partition and schedule-table launch's inputs, with
 the live counts beside the capacity (``total`` of the expansion,
-``n_unique`` of the dedup) for C and D, and of kernel B's RLC entries and
-kernel A's ``loop_rlc`` the launch with the most live lanes of each entry
-(an align makes hundreds of band steps). ``time_inputs`` holds
+``n_unique`` of the dedup) for C and D, and of kernel B's static
+(``band_step``) and RLC entries and kernel A's ``loop_rlc`` the launch
+with the most live lanes of each entry (an align makes hundreds of band
+steps). ``time_inputs`` holds
 every captured launch to its plain version and times it through the
 wrapper with two clocks: CUDA events over back-to-back launches, and the
 kernel's own device time from ``torch.profiler``; each with a warm L2 and
@@ -46,8 +47,9 @@ KERNEL_NAME = {"verify": "verify", "locate": "locate_kernel",
                                           "band_step_kernel"),
                "band_step.textless": ("band_step_rlc_kernel",
                                       "band_step_kernel"),
-               "extend.loop_rlc": "extend_loop_kernel"}
-BAND_KINDS = ("band_step.rlc", "band_step.per_lane_rlc",
+               "extend.loop_rlc": "extend_loop_kernel",
+               "band_step": "band_step_kernel"}
+BAND_KINDS = ("band_step", "band_step.rlc", "band_step.per_lane_rlc",
               "band_step.textless")
 
 
@@ -58,8 +60,9 @@ def log(msg: str) -> None:
 def band_args(index, sched, batch, ranges, rng, switchpoint, div=8):
     """One band step's inputs at the shapes ``match_all`` gives a batch:
     capacity C = rows x searches / div (8 with the in-text crossover, 2
-    without), real ranges, the schedule's own step tables and cell codes,
-    random band and register state."""
+    without), real ranges, the schedule's own step tables and cells (the
+    batch and the cell tables, read at use), random band and register
+    state."""
     from columba_tpu_torch.search import executor
 
     dev = index.device
@@ -72,11 +75,9 @@ def band_args(index, sched, batch, ranges, rng, switchpoint, div=8):
         np.int8)).to(dev)
     colmin = torch.from_numpy(rng.integers(0, 3, (C, 2, sched.W)).astype(
         np.int8)).to(dev)
-    pchars = batch[:, tables["posw"]].to(torch.int8)
-    pchars = torch.where(tables["code"][None] == 0, pchars,
-                         tables["code"][None]).reshape(-1, sched.bw)
+    cells = executor.StaticCells(batch, tables["cells"])
     return (index, ranges[:C].contiguous(), ids, band, colmin,
-            tables["mrow"][t], pchars, sched.t_max, t, switchpoint)
+            tables["mrow"][t], cells, sched.t_max, t, switchpoint)
 
 
 def rlc_lane_states(index, batch, rng, L, max_len=24):
@@ -110,11 +111,11 @@ def band_input(kind: str, args, track: bool = False, dyn_meta=None,
     """A band step of :func:`band_args` (or its per-lane form: ``args``'s
     step row None and ``dyn_meta`` the lanes' words) as a captured input:
     room for every child and ``M`` in-text rows (4 C, at least 65,536)."""
-    index, ranges, ids, band, colmin, mrow_t, pchars, T, t, sp = args
+    index, ranges, ids, band, colmin, mrow_t, cells, T, t, sp = args
     C = ranges.shape[0]
     return dict(kind=kind, index=index, state=[ranges, ids, band, colmin],
                 cap=C, M=max(1 << 16, 4 * C) if M is None else M, cnt=0,
-                mrow_t=mrow_t, pchars=pchars, T=T, t=t, switchpoint=sp,
+                mrow_t=mrow_t, cells=cells, T=T, t=t, switchpoint=sp,
                 dyn_meta=dyn_meta, track_arg=track)
 
 
@@ -179,6 +180,33 @@ class Clocks:
             return None
         return total / 1000.0 / count      # per launch the trace recorded
 
+    def device_ms(self, fn, cold: bool = False):
+        """Mean device ms of everything one ``fn()`` runs on the card (its
+        kernels, memsets and copies: a library call's), from
+        ``torch.profiler``'s device events; None if it records none."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(self.reps):
+                if cold:
+                    self.flush()
+                fn()
+            torch.cuda.synchronize()
+        flush = "fill" if cold else None
+        total = 0.0
+        seen = False
+        for ev in prof.events():
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                continue
+            if flush is not None and flush in ev.name.lower():
+                continue
+            total += ev.time_range.end - ev.time_range.start
+            seen = True
+        return total / 1000.0 / self.reps if seen else None
+
     def all(self, fn, name: str) -> dict:
         return dict(events_warm=self.events(fn, False),
                     events_cold=self.events(fn, True),
@@ -201,7 +229,7 @@ def capture(align) -> list:
     from columba_tpu_torch.search import dynschedule, executor, pipeline
 
     calls, pending, widest = [], {}, {}
-    saved = (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
+    saved = (locate.locate_rows, verify.verify_window, pipeline.expand_rows,
              pipeline.stage_dedup, extend.exact_match,
              dynschedule.dynamic_partition, dynschedule.build_tables,
              executor.band_step_compact, executor.exact_loop)
@@ -210,20 +238,24 @@ def capture(align) -> list:
         if kind not in widest or lanes > widest[kind]["lanes"]:
             widest[kind] = dict(make(), kind=kind, lanes=lanes)
 
-    def band(index, state, n_live, out, itv, cnt, scratch, mrow_t, pchars,
+    def band(index, state, n_live, out, itv, cnt, scratch, mrow_t, cells,
              T, t, switchpoint, dyn_meta=None, track_arg=False):
+        kind = None
         if isinstance(index, BMoveIndex):
             kind = ("band_step.per_lane_rlc" if dyn_meta is not None else
                     "band_step.textless" if index.textless
                     else "band_step.rlc")
+        elif dyn_meta is None:
+            kind = "band_step"
+        if kind is not None:
             keep_widest(kind, n_live, lambda: dict(
                 index=index, state=[f[:n_live].clone() for f in state],
                 cap=out[0].shape[0], M=itv.shape[0] - 1, cnt=cnt,
-                mrow_t=_clone(mrow_t), pchars=pchars.clone(), T=T, t=t,
-                switchpoint=switchpoint, dyn_meta=_clone(dyn_meta),
-                track_arg=track_arg))
+                mrow_t=_clone(mrow_t), cells=_deep(cells, torch.clone),
+                T=T, t=t, switchpoint=switchpoint,
+                dyn_meta=_clone(dyn_meta), track_arg=track_arg))
         return saved[7](index, state, n_live, out, itv, cnt, scratch,
-                        mrow_t, pchars, T, t, switchpoint, dyn_meta,
+                        mrow_t, cells, T, t, switchpoint, dyn_meta,
                         track_arg)
 
     def loop(index, ranges, ids, t_lo, t_hi, reads, tabs, per_lane, gate_t,
@@ -237,10 +269,9 @@ def capture(align) -> list:
         return saved[8](index, ranges, ids, t_lo, t_hi, reads, tabs,
                         per_lane, gate_t, switchpoint)
 
-    def expand(c_lo, c_hi, max_locate):
-        out = saved[2](c_lo, c_hi, max_locate)
-        pending["total"] = int(out[3])
-        return out
+    def expand(c_lo, offsets, total, max_locate):
+        pending["total"] = int(total)
+        return saved[2](c_lo, offsets, total, max_locate)
 
     def dedup(rid, win_start, valid, max_verify):
         out = saved[3](rid, win_start, valid, max_verify)
@@ -286,14 +317,14 @@ def capture(align) -> list:
         return saved[6](st, pts, reads)
 
     locate.locate_rows, verify.verify_window = loc, ver
-    pipeline.stage_expand, pipeline.stage_dedup = expand, dedup
+    pipeline.expand_rows, pipeline.stage_dedup = expand, dedup
     extend.exact_match, dynschedule.dynamic_partition = exact, part
     dynschedule.build_tables = tables
     executor.band_step_compact, executor.exact_loop = band, loop
     try:
         align()
     finally:
-        (locate.locate_rows, verify.verify_window, pipeline.stage_expand,
+        (locate.locate_rows, verify.verify_window, pipeline.expand_rows,
          pipeline.stage_dedup, extend.exact_match,
          dynschedule.dynamic_partition, dynschedule.build_tables,
          executor.band_step_compact, executor.exact_loop) = saved
@@ -317,6 +348,33 @@ def live_tensor(inp: dict) -> torch.Tensor:
     return inp["live_t"]
 
 
+def static_pchars(cells) -> torch.Tensor:
+    """A static step's cells as the (R * S * T, BW) int8 array that trees
+    before the cells were read at use took (kernel I's seed wrote it):
+    the read's char at each position where the code is 0, else the
+    code."""
+    reads, table = cells
+    v = table.transpose(0, 1).long()                       # (S, T, BW)
+    pchars = reads[:, v.clamp(min=0)].to(torch.int8)       # (R, S, T, BW)
+    pchars = torch.where(v[None] >= 0, pchars, v[None].to(torch.int8))
+    return pchars.reshape(-1, v.shape[-1]).contiguous()
+
+
+def tree_cells(executor, inp: dict):
+    """The cells argument of ``inp``'s band step for a tree's executor:
+    as captured (in the tree's own ``StaticCells`` where it has one), or
+    for a tree whose static entries take a per-lane code array (no
+    ``StaticCells``), that array, made once."""
+    cells = inp["cells"]
+    if isinstance(cells, torch.Tensor):
+        return cells
+    if hasattr(executor, "StaticCells"):
+        return executor.StaticCells(*cells)
+    if "pchars" not in inp:
+        inp["pchars"] = static_pchars(cells)
+    return inp["pchars"]
+
+
 def band_call(executor, index, inp: dict, who: str):
     """One band step of ``inp`` through ``executor.band_step_compact`` (a
     tree's kernel B, or this tree's ``band_step_compact_plain``) on
@@ -337,7 +395,7 @@ def band_call(executor, index, inp: dict, who: str):
     fn = (executor.band_step_compact_plain if who == "plain"
           else executor.band_step_compact)
     fn(index, state, n_live, out, itv, inp["cnt"], sc, inp["mrow_t"],
-       inp["pchars"], inp["T"], inp["t"], inp["switchpoint"],
+       tree_cells(executor, inp), inp["T"], inp["t"], inp["switchpoint"],
        inp["dyn_meta"], inp["track_arg"])
     return dict(ranges=out[0], ids=out[1], band=out[2], colmin=out[3],
                 itv=itv[:inp["M"]], ctr=sc.ctr[:3])
@@ -461,20 +519,27 @@ def _exact_part_counts(inp: dict, want) -> dict:
 
 
 def _band_counts(inp: dict) -> dict:
-    """Kernel B's RLC entries: kept children, the walks of those written
-    on the run tables (a quad's dependent-read rounds a child: its LF-run
-    read where needed and its longest walk) and the bound."""
+    """Kernel B: kept children and the bound; on the RLC entries also the
+    walks of the children written on the run tables (a quad's
+    dependent-read rounds a child: its LF-run read where needed and its
+    longest walk)."""
+    from columba_tpu_torch.index.bmove import BMoveIndex
     from columba_tpu_torch.search import executor
     from columba_tpu_torch.tools import bounds
 
     index, state = inp["index"], inp["state"]
     o = executor.band_step_plain(index, *state, inp["mrow_t"],
-                                 inp["pchars"], inp["T"], inp["t"],
+                                 inp["cells"], inp["T"], inp["t"],
                                  inp["switchpoint"], inp["dyn_meta"],
                                  inp["track_arg"])
-    stats = bounds.rlc_band_stats(index, state, inp["mrow_t"], o,
-                                  inp["cap"], inp["dyn_meta"], inp["T"],
-                                  inp["t"])
+    stats = (bounds.rlc_band_stats(index, state, inp["mrow_t"], o,
+                                   inp["cap"], inp["dyn_meta"], inp["T"],
+                                   inp["t"])
+             if isinstance(index, BMoveIndex) else None)
+    if stats is None:
+        return dict(kept=int(o["ch_alive"].sum()),
+                    bound=bounds.band_step(state, inp["mrow_t"], o,
+                                           inp["cap"], inp["M"], inp["cnt"]))
     kids = max(stats.get("children", 0), 1)
     return dict(kept=int(o["ch_alive"].sum()),
                 walked_children=stats.get("children", 0),
@@ -640,8 +705,8 @@ ENTRY_KERNEL = {
     "frontier.drain": "drain_kernel", "frontier.init": "init_kernel",
     "frontier.ex_compact": "ex_compact_kernel",
     "frontier.ex_back": "ex_back_kernel", "frontier.tail": "tail_kernel",
-    "expand.frontier": "frontier_kernel", "expand.scan": "scan_kernel",
-    "expand.ranges": "scan_kernel", "expand.rows": "rows_kernel",
+    "expand.frontier": "frontier_kernel", "expand.ranges": "scan_kernel",
+    "expand.rows": "rows_kernel",
     "dedup.windows": "windows_kernel", "dedup.keys": "keys_kernel",
     "dedup.compact": "compact_kernel",
 }
@@ -653,8 +718,7 @@ ITV_ARG = {"frontier.drain": "itv", "frontier.init": "itv",
 
 def entry_table() -> dict:
     """(module, attribute, plain version) of every dispatching function of
-    kernels I-L, by the entry it launches (``expand_scan`` launches
-    ``expand.ranges`` on strided columns)."""
+    kernels I-L, by the entry it launches."""
     from columba_tpu_torch.index import kmer
     from columba_tpu_torch.search import executor as ex, pipeline as pl
 
@@ -670,7 +734,7 @@ def entry_table() -> dict:
         "frontier.tail": (ex, "frontier_tail", ex.frontier_tail_plain),
         "expand.frontier": (pl, "stage_candidates",
                             pl.stage_candidates_plain),
-        "expand.scan": (pl, "expand_scan", pl.expand_scan_plain),
+        "expand.ranges": (pl, "expand_scan", pl.expand_scan_plain),
         "expand.rows": (pl, "expand_rows", pl.expand_rows_plain),
         "dedup.windows": (pl, "stage_windows", pl.stage_windows_plain),
         "dedup.keys": (pl, "dedup_keys", pl.dedup_keys_plain),
@@ -699,6 +763,8 @@ def _deep(x, f):
 
     if isinstance(x, torch.Tensor):
         return f(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):      # NamedTuple
+        return type(x)(*(_deep(v, f) for v in x))
     if isinstance(x, (list, tuple)):
         return type(x)(_deep(v, f) for v in x)
     if isinstance(x, dict):
@@ -739,14 +805,11 @@ def capture_entries(fn) -> dict:
         def spy(*args, **kwargs):
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
-            key = name
-            if name == "expand.scan" and bound.arguments["c_lo"].stride(0) != 1:
-                key = "expand.ranges"
-            if key in calls:
+            if name in calls:
                 return real(*args, **kwargs)
             before = _deep(dict(bound.arguments), _copy)
             out = real(*args, **kwargs)
-            calls[key] = dict(name=key, real=real, plain=table[name][2],
+            calls[name] = dict(name=name, real=real, plain=table[name][2],
                               args=before,
                               after=_deep(dict(bound.arguments), _copy),
                               out=_deep(out, _copy))
@@ -804,6 +867,35 @@ def time_entry(call: dict, clocks: Clocks) -> dict:
     return t
 
 
+def library(call: dict):
+    """One PyTorch call that computes the same function as the entry on
+    its captured inputs, as a function of no arguments, or None where no
+    call does: kernel K's ``ranges`` (the clamped widths' prefix sums:
+    ``torch.cumsum`` on the widths) and ``rows`` (each row's candidate:
+    ``torch.searchsorted`` of the rows in the prefix sums, right). The
+    port calls neither; they are yardsticks."""
+    a = call["args"]
+    if call["name"] == "expand.ranges":
+        w = torch.clamp(a["c_hi"] - a["c_lo"], min=0).clamp(
+            max=a["max_locate"] + 1)
+        return lambda: torch.cumsum(w, 0)
+    if call["name"] == "expand.rows":
+        off = a["offsets"]
+        j = torch.arange(a["max_locate"], dtype=off.dtype, device=off.device)
+        return lambda: torch.searchsorted(off, j, right=True)
+    return None
+
+
+def frontier_widths_cumsum(call: dict):
+    """``torch.cumsum`` of the candidates' clamped widths, the scan part of
+    kernel K's fused ``frontier`` entry (a yardstick of that part, not of
+    the entry: no one call makes the candidate list)."""
+    c_lo, c_hi = call["out"][0], call["out"][1]
+    w = torch.clamp(c_hi - c_lo, min=0).clamp(
+        max=call["args"]["max_locate"] + 1)
+    return lambda: torch.cumsum(w, 0)
+
+
 def sort_ms(call: dict, clocks: Clocks) -> float:
     """kernel L's sort (torch.sort, stable) on a captured compact call's
     keys: the row's library time."""
@@ -815,13 +907,13 @@ def sort_ms(call: dict, clocks: Clocks) -> float:
 SCOPE_WORD, SCOPE_SORT = "census.step_word", "census.sort"
 
 
-def _device_events(fn, scopes=()) -> tuple[dict, dict]:
+def _device_events(fn, scopes=()) -> tuple[dict, dict, dict]:
     """What the card ran in one profiled ``fn()``: kernel launches, memsets
-    and copies, counted by name (``torch.profiler``), and how many of them
-    were issued inside each ``record_function`` scope named in ``scopes``
-    (the profiler links each device event to the op that issued it; the
-    scope is that op or one of its parents). The scopes' own spans on the
-    device timeline are not counted."""
+    and copies, counted by name (``torch.profiler``), their device ms by
+    name, and how many of them were issued inside each ``record_function``
+    scope named in ``scopes`` (the profiler links each device event to the
+    op that issued it; the scope is that op or one of its parents). The
+    scopes' own spans on the device timeline are not counted."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -830,18 +922,21 @@ def _device_events(fn, scopes=()) -> tuple[dict, dict]:
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
+    ms: dict = {}
     within = dict.fromkeys(scopes, 0)
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             if ev.name not in within:
                 by_name[ev.name] = by_name.get(ev.name, 0) + 1
+                ms[ev.name] = ms.get(ev.name, 0.0) + (
+                    ev.time_range.end - ev.time_range.start) / 1000.0
         elif ev.kernels:
             up = ev
             while up is not None and up.name not in within:
                 up = up.cpu_parent
             if up is not None:
                 within[up.name] += len(ev.kernels)
-    return by_name, within
+    return by_name, ms, within
 
 
 def launch_census(fn, ex=None) -> dict:
@@ -855,7 +950,9 @@ def launch_census(fn, ex=None) -> dict:
     and every device event issued inside one is booked to it. Each step
     word is one copy, so the word scope must hold one event a call. Returns
     {"by_name": every launch, memset and copy of the call by name, "band":
-    kernel B's launches and its word copies, "sort", "outside", "total"}."""
+    kernel B's launches and its word copies, "sort", "outside", "total",
+    "ms_by_name": their device ms by name, "band_ms": kernel B's launches'
+    device ms, "ms": the call's device ms in all}."""
     from torch.profiler import record_function
 
     if ex is None:
@@ -874,7 +971,7 @@ def launch_census(fn, ex=None) -> dict:
     ex.StepScratch.word = scoped(SCOPE_WORD, word)
     torch.sort = scoped(SCOPE_SORT, sort)
     try:
-        by_name, within = _device_events(fn, calls)
+        by_name, ms, within = _device_events(fn, calls)
     finally:
         ex.StepScratch.word, torch.sort = word, sort
     if within[SCOPE_WORD] != calls[SCOPE_WORD] or (
@@ -885,4 +982,6 @@ def launch_census(fn, ex=None) -> dict:
     sort = within[SCOPE_SORT]
     total = sum(by_name.values())
     return dict(by_name=by_name, band=band, sort=sort,
-                outside=total - band - sort, total=total)
+                outside=total - band - sort, total=total, ms_by_name=ms,
+                band_ms=sum(t for k, t in ms.items() if "band_step" in k),
+                ms=sum(ms.values()))

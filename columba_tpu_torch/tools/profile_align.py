@@ -89,7 +89,9 @@ STAGES = [
     ("columba_tpu_torch.ops.extend", "exact_match", "exact pass (kernel E)"),
     ("columba_tpu_torch.search.pipeline", "stage_candidates",
      "candidates + expand"),
-    ("columba_tpu_torch.search.pipeline", "stage_expand",
+    ("columba_tpu_torch.search.pipeline", "expand_scan",
+     "candidates + expand"),
+    ("columba_tpu_torch.search.pipeline", "expand_rows",
      "candidates + expand"),
     ("columba_tpu_torch.ops.locate", "locate_rows", "locate"),
     ("columba_tpu_torch.search.pipeline", "stage_dedup", "dedup"),

@@ -46,18 +46,25 @@ def _eq(got, want, what=""):
                                   err_msg=what)
 
 
-@pytest.mark.parametrize("case", ["wide", "over_cap", "empty", "fits"])
+@pytest.mark.parametrize("case", ["wide", "over_cap", "empty", "fits",
+                                  "empty_runs"])
 def test_stage_expand_edges(case):
     """stage_expand: candidates wider than max_locate, a total past it, no
-    live candidate (zero and negative widths), and a total that fits."""
+    live candidate (zero and negative widths), a total that fits, and live
+    candidates between runs of empty ones longer than a block of kernel
+    K's rows stages (2,048 merged rows and candidates)."""
     rng = np.random.default_rng(["wide", "over_cap", "empty",
-                                 "fits"].index(case) + 70)
-    n, ml = 300, 256
+                                 "fits", "empty_runs"].index(case) + 70)
+    n, ml = (300, 256) if case != "empty_runs" else (12_000, 512)
     lo = rng.integers(0, 1 << 31, n).astype(np.int64)
+    runs = np.zeros(n, np.int64)
+    if case == "empty_runs":
+        runs[[0, 1, 2500, 2501, 7000, n - 1]] = [3, 1, 40, 2, 7, 5]
     width = {"wide": rng.choice([0, 1, 3, ml + 40, 5 * ml], n),
              "over_cap": rng.integers(0, 6, n),
              "empty": -rng.integers(0, 3, n),
-             "fits": rng.choice([0, 0, 0, 1, 2], n)}[case]
+             "fits": rng.choice([0, 0, 0, 1, 2], n),
+             "empty_runs": runs}[case]
     hi = lo + width
     got = tpipe.stage_expand(torch.from_numpy(lo), torch.from_numpy(hi), ml)
     want = jpipe.stage_expand(jnp.asarray(lo.astype(np.uint32)),
@@ -68,7 +75,7 @@ def test_stage_expand_edges(case):
         _eq(a, b, f)
     total = int(got[3])
     assert {"wide": total > ml, "over_cap": total > ml, "empty": total == 0,
-            "fits": 0 < total < ml}[case]
+            "fits": 0 < total < ml, "empty_runs": total == 58}[case]
     offsets, tot = tpipe.expand_scan_plain(torch.from_numpy(lo),
                                            torch.from_numpy(hi), ml)
     assert int(tot) == total and int(offsets[-1]) == total
@@ -164,14 +171,22 @@ def test_stage_candidates(dyn):
         rid=jnp.asarray(rid.astype(np.int32)),
         sid=jnp.asarray(sid.astype(np.int32)), done=jnp.asarray(done),
         itv=jnp.asarray(itv.astype(np.uint32)), itv_count=jnp.int32(count))
+    ml = 40
     got = tpipe.stage_candidates(
-        tres, texec.device_tables(tsched, "cpu"), S,
+        tres, texec.device_tables(tsched, "cpu"), S, ml,
         {k: torch.from_numpy(v) for k, v in dyn_np.items()} if dyn else None)
     want = jpipe.stage_candidates(
         jres, jsched, {k: jnp.asarray(v) for k, v in dyn_np.items()}
         if dyn else None)
+    assert len(got) == 6
     for a, b, f in zip(got, want, ("c_lo", "c_hi", "c_rid", "c_estb")):
         _eq(a, b, f)
+    # the expansion counts of the same launch: the JAX package's total, and
+    # the prefix sums of the widths clamped at max_locate + 1
+    widths = np.clip(np.asarray(want[1]).astype(np.int64)
+                     - np.asarray(want[0]).astype(np.int64), 0, ml + 1)
+    _eq(got[4], np.cumsum(widths), "offsets")
+    _eq(got[5], jpipe.stage_expand(want[0], want[1], ml)[3], "total")
 
 
 def test_kmer_lookup():

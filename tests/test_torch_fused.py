@@ -329,11 +329,11 @@ def test_exact_loop_plain(vanilla, layout):
 
 
 def compact_three_calls(index, state, n_live, cap, itv, cnt, mrow_t,
-                        pchars, T, t, switchpoint):
+                        cells, T, t, switchpoint):
     """The band step as run_scheme ran it before the fused step: the
     per-lane arithmetic over every row, the drain append, the compaction."""
     M = itv.shape[0] - 1
-    o = texec.band_step_plain(index, *state, mrow_t, pchars, T, t,
+    o = texec.band_step_plain(index, *state, mrow_t, cells, T, t,
                               switchpoint)
     cnt_t = torch.tensor(cnt)
     if switchpoint > 0:
@@ -371,6 +371,41 @@ def frontier(rng, tfm, C, n_live, S, R, bw, W):
     return state
 
 
+def random_cells(rng, R, S, T, bw, m=100, codes=(0, 0, 0, 0, 0, -1)):
+    """Random static cells: reads of chars 0-4 (N included) and random
+    (S, T, BW) cell tables, positions < m and codes drawn from ``codes``
+    (0: the read's char, -1: no diagonal, -2: outside the pattern). The
+    default makes every cell value of -1..4 equally likely, as a uniform
+    random per-lane code array of those values."""
+    posw = rng.integers(0, m, (S, T, bw))
+    code = rng.choice(codes, (S, T, bw)).astype(np.int8)
+    return texec.StaticCells(
+        torch.from_numpy(rng.integers(0, 5, (R, m)).astype(np.uint8)),
+        torch.from_numpy(texec.cell_table(posw, code)))
+
+
+def test_static_cells_rule():
+    """The cells a static step reads at use (executor.step_cells) equal the
+    JAX package's gathered (R * S * T, BW) array at every lane and step
+    (columba_tpu/search/executor.py: reads[:, posw], the codes where they
+    are not 0)."""
+    rng = np.random.default_rng(78)
+    R, S, T, bw, m = 12, 3, 9, 5, 40
+    reads = rng.integers(0, 5, (R, m)).astype(np.uint8)
+    posw = rng.integers(0, m, (S, T, bw))
+    code = rng.choice((0, 0, -1, -2), (S, T, bw)).astype(np.int8)
+    cells = texec.StaticCells(torch.from_numpy(reads), torch.from_numpy(
+        texec.cell_table(posw, code)))
+    want = reads.astype(np.int8)[:, posw]
+    want = np.where(code[None] == 0, want, code[None]).reshape(-1, bw)
+    ids = torch.arange(R * S)
+    for t in range(T):
+        got = texec.step_cells(cells, ids, T, t)
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), want[ids.numpy() * T + t])
+    assert set(np.unique(want)) == {-2, -1, 0, 1, 2, 3, 4}
+
+
 @pytest.mark.parametrize("cap,M,cnt", [(4096, 8192, 0), (300, 8192, 10),
                                        (4096, 200, 150)])
 def test_band_step_compact_plain(vanilla, cap, M, cnt):
@@ -385,19 +420,18 @@ def test_band_step_compact_plain(vanilla, cap, M, cnt):
     S, T, bw, W = sched.num_searches, sched.t_max, sched.bw, sched.W
     R, C, n_live, t = 1024, 2048, 1500, 30
     state = frontier(rng, tfm, C, n_live, S, R, bw, W)
-    pchars = torch.from_numpy(rng.integers(-1, 5, (R * S * T, bw)).astype(
-        np.int8))
+    cells = random_cells(rng, R, S, T, bw)
     itv = torch.zeros((M + 1, 4), dtype=torch.int64)
     itv[:cnt] = 7
     itv_want = itv.clone()
     new, n, cnt_new, visits = compact_three_calls(
-        tfm, state, n_live, cap, itv_want, cnt, tables["mrow"][t], pchars,
+        tfm, state, n_live, cap, itv_want, cnt, tables["mrow"][t], cells,
         T, t, 12)
     out = [torch.full((cap, *f.shape[1:]), 9, dtype=f.dtype) for f in state]
     sc = texec.StepScratch(C, "cpu")
     sc.ctr[2] = 3
     texec.band_step_compact_plain(tfm, state, n_live, out, itv, cnt, sc,
-                                  tables["mrow"][t], pchars, T, t, 12)
+                                  tables["mrow"][t], cells, T, t, 12)
     for a, b in zip(out, new):
         assert torch.equal(a, b)
     assert torch.equal(itv[:M], itv_want[:M])         # row M is scratch
@@ -422,9 +456,10 @@ def _band_call(vanilla):
     state = frontier(rng, vanilla["tfm"], 256, 200, S, 64, bw, W)
     out = [torch.empty_like(f) for f in state]
     itv = torch.zeros((4097, 4), dtype=torch.int64)
-    pchars = torch.zeros((64 * S * T, bw), dtype=torch.int8)
+    cells = texec.StaticCells(torch.zeros((64, 100), dtype=torch.uint8),
+                              tables["cells"])
     return (vanilla["tfm"], state, 200, out, itv,
-            texec.StepScratch(256, "cpu"), tables["mrow"][3], pchars)
+            texec.StepScratch(256, "cpu"), tables["mrow"][3], cells)
 
 
 def test_band_step_checks(vanilla):
@@ -432,18 +467,18 @@ def test_band_step_checks(vanilla):
     output that aliases an input, or the ranges of another dtype."""
     args = _band_call(vanilla)
     assert texec.check_band_step(*args) == (2, 2)
-    index, state, n, out, itv, sc, mrow, pchars = args
+    index, state, n, out, itv, sc, mrow, cells = args
     with pytest.raises(ValueError, match="overlaps"):
         texec.check_band_step(index, state, n, [state[0]] + out[1:], itv,
-                              sc, mrow, pchars)
+                              sc, mrow, cells)
     with pytest.raises(ValueError, match="overlaps"):       # itv = ranges
         texec.check_band_step(index, state, n, out, state[0], sc, mrow,
-                              pchars)
+                              cells)
     bad = [state[0].int()] + state[1:]
     with pytest.raises(ValueError, match="contiguous"):
-        texec.check_band_step(index, bad, n, out, itv, sc, mrow, pchars)
+        texec.check_band_step(index, bad, n, out, itv, sc, mrow, cells)
     with pytest.raises(ValueError, match="live lanes"):
-        texec.check_band_step(index, state, 0, out, itv, sc, mrow, pchars)
+        texec.check_band_step(index, state, 0, out, itv, sc, mrow, cells)
 
 
 def test_exact_loop_checks(vanilla):
@@ -494,6 +529,45 @@ def test_launches_per_run(vanilla, monkeypatch, ex_split, loops):
     assert int(res.nodes_visited) > 0
 
 
+def test_static_steps_read_cells_at_use(vanilla, monkeypatch):
+    """On a static schedule run_scheme's seed returns the lanes' ranges
+    alone (no (L * T, BW) cell array) and every band step takes the batch
+    and the schedule's cell tables as StaticCells; under per-read
+    schedules the steps take kernel G's per-lane codes."""
+    seeds, cells = [], []
+    seed, band = texec.frontier_seed, texec.band_step_compact
+
+    def spy_seed(*a, **kw):
+        out = seed(*a, **kw)
+        seeds.append(out)
+        return out
+
+    def spy_band(*a, **kw):
+        cells.append(a[8])
+        return band(*a, **kw)
+
+    monkeypatch.setattr(texec, "frontier_seed", spy_seed)
+    monkeypatch.setattr(texec, "band_step_compact", spy_band)
+    rng = np.random.default_rng(82)
+    batch = torch.from_numpy(sample_batch(rng, vanilla["g"], 32))
+    sched = tpipe.compile_cached(tscheme("kuch1", 2), 100, "edit", kmer_k=6)
+    tables = texec.device_tables(sched, "cpu")
+    texec.run_scheme(vanilla["tfm"], batch, sched, 1024, vanilla["ttab"], 0,
+                     tables=tables)
+    L = batch.shape[0] * sched.num_searches
+    assert len(seeds) == 1 and isinstance(seeds[0], torch.Tensor)
+    assert tuple(seeds[0].shape) == (L, 4)
+    assert cells and all(isinstance(c, texec.StaticCells) for c in cells)
+    assert all(c.reads is batch and c.cells is tables["cells"]
+               for c in cells)
+    cells.clear()
+    st = tdyn.scheme_static(tscheme("kuch1", 2), 100, "edit")
+    dyn = tdyn.build_tables(st, tdyn.dynamic_partition(
+        vanilla["tfm"], batch, tscheme("kuch1", 2)), batch)
+    texec.run_scheme(vanilla["tfm"], batch, sched, 1024, dyn=dyn)
+    assert cells and all(c is dyn["pchars"] for c in cells)
+
+
 def test_band_step_bound_by_hand():
     """The fused step's bytes on a two-lane frontier, counted by hand: one
     active lane keeps two children and drains one, the other is a ghost
@@ -513,7 +587,8 @@ def test_band_step_bound_by_hand():
     lane = 4 * 8 + 4                              # range and id
     cells = 2 * bw + 2 * W                        # band and registers
     want = (2 * lane + 2 * cells + 3 * 7 * 4      # lanes, the (S, 7) row
-            + (2 * 48 + bw)                       # active: occ rows, codes
+            + 3 * bw * 4                          # the step's cell table
+            + (2 * 48 + bw)                       # active: occ rows, chars
             + 3 * (lane + cells)                  # three children kept
             + 32 + 32)                            # one drain row, counters
     assert b["bytes"] == want
@@ -580,3 +655,62 @@ def test_verify_bound_by_hand(live):
                                         + 53 * 4)
     kb0 = bounds.verify(pats, rid, rid, 0, torch.zeros((B, 1)), live)
     assert kb0["operations"] == dps * (m * bounds.VERIFY_KB0_OPS + 4)
+
+
+@pytest.mark.parametrize("case", ["runs", "none_valid"])
+def test_expand_rows_bound_by_hand(case):
+    """Kernel K's ``rows`` bound counts what the function needs: every
+    candidate's prefix sum (8 B), the lo (8 B) of each candidate that owns
+    a valid row, once however many rows it owns, and 17 B a row out; not
+    the lo of the empty candidates between them, which the kernel's
+    staging reads."""
+    n, ml = 1000, 64
+    offsets = torch.zeros(n, dtype=torch.int64)
+    cand = torch.zeros(ml, dtype=torch.int64)
+    valid = torch.zeros(ml, dtype=torch.bool)
+    if case == "runs":
+        # 3 candidates own 40 rows; the rows past them are clipped
+        cand[:40] = torch.tensor([7] * 10 + [500] * 20 + [999] * 10)
+        cand[40:] = n - 1
+        valid[:40] = True
+    rows = torch.zeros(ml, dtype=torch.int64)
+    b = bounds.entry("expand.rows", {"offsets": offsets}, {},
+                     (rows, cand, valid))
+    live = 3 if case == "runs" else 0
+    assert b["bytes"] == 8 * n + 8 * live + 17 * ml
+    assert b["operations"] == ml * (bounds.LANE_OPS + 4 * 11)
+
+
+def test_bench_steps_a_tree_that_reads_cells_at_use(vanilla, tmp_path):
+    """``kernel_bench --parent`` on a tree whose static band steps take
+    ``StaticCells`` (here a copy of this tree's package, as in an A/A
+    run): the captured cells reach that tree's wrapper in its own class,
+    and its step equals this tree's plain version."""
+    import os
+    import shutil
+
+    from columba_tpu_torch.tools import kernel_bench as kb
+    from columba_tpu_torch.tools import path_inputs as pi
+
+    port = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "columba_tpu_torch")
+    shutil.copytree(port, tmp_path / "columba_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    mods = kb.load_tree(str(tmp_path))
+    assert mods["search.executor"].StaticCells is not texec.StaticCells
+    rng = np.random.default_rng(81)
+    sched = tpipe.compile_cached(tscheme("kuch1", 2), 100, "edit", kmer_k=6)
+    batch = torch.from_numpy(rng.integers(0, 5, (64, 100)).astype(np.uint8))
+    ranges = vanilla["tfm"].full_range((1024,))
+    inp = pi.band_input("band_step", pi.band_args(vanilla["tfm"], sched,
+                                                  batch, ranges, rng, 4))
+    want = pi.plain_call("band_step", vanilla["tfm"], dict(inp))
+    got = kb.tree_launcher(mods)("band_step", dict(inp))
+    assert int(want["ctr"][0]) > 0
+    assert pi.equal_band(got, want)
+    # on the card the tree's wrapper checks the cells' class first
+    ex = mods["search.executor"]
+    index, state, n, out, itv, _, mrow, cells = _band_call(vanilla)
+    assert ex.check_band_step(index, state, n, out, itv,
+                              ex.StepScratch(256, "cpu"), mrow,
+                              pi.tree_cells(ex, {"cells": cells})) == (2, 2)

@@ -16,6 +16,7 @@ from columba_tpu_torch.index import kmer
 from columba_tpu_torch.index.build import build_index_from_codes
 from columba_tpu_torch.index.fmindex import FMIndex
 from columba_tpu_torch.ops import extend, locate, verify
+from columba_tpu_torch.ops.frontier import WIDE_TILE
 from columba_tpu_torch.search import dynschedule, executor, pipeline
 from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
 from columba_tpu_torch.tools import gather_bench
@@ -163,9 +164,9 @@ def _path_rows(index, g, seed, max_locate=1 << 14):
     tables = executor.device_tables(sched, index.device)
     res = executor.run_scheme(index, batch, sched, 2048, None, 4, itv_cap,
                               ss, c2, itv_min_depth=16, tables=tables)
-    c_lo, c_hi, _, _ = pipeline.stage_candidates(res, tables,
-                                                 sched.num_searches)
-    rows, _, _, total = pipeline.stage_expand(c_lo, c_hi, max_locate)
+    c_lo, _, _, _, offsets, total = pipeline.stage_candidates(
+        res, tables, sched.num_searches, max_locate)
+    rows, _, _ = pipeline.expand_rows(c_lo, offsets, total, max_locate)
     assert 0 < int(total) < max_locate
     return rows
 
@@ -180,7 +181,7 @@ def test_locate_kernel_path_rows(setup, gpu):
     assert torch.equal(got, locate.locate_rows_plain(fm, rows))
 
 
-def fused_vs_plain(index, state, mrow_t, pchars, T, t, switchpoint,
+def fused_vs_plain(index, state, mrow_t, cells, T, t, switchpoint,
                    dyn_meta=None, track_arg=False, cap=None, M=4096, cnt=0,
                    scratch=None):
     """Kernel B's fused step against band_step_compact_plain on the same
@@ -200,7 +201,7 @@ def fused_vs_plain(index, state, mrow_t, pchars, T, t, switchpoint,
             sc = scratch
         sc.ctr[1] = 5
         sc.ctr[2] = 7
-        fn(index, state, C, out, itv, cnt, sc, mrow_t, pchars, T, t,
+        fn(index, state, C, out, itv, cnt, sc, mrow_t, cells, T, t,
            switchpoint, dyn_meta, track_arg)
         torch.cuda.synchronize()
         res.append((out, itv, sc.ctr.clone()))
@@ -232,6 +233,23 @@ def _random_state(rng, n, C, R, S, bw, Wp, gpu, cells=64):
                          ).to(gpu)]
 
 
+# cell codes: 0 (the read's char), -1 (no diagonal), -2 (outside the
+# pattern), so weighted that every cell value of -2..4 (or -1..4) is as
+# likely as in a uniform random per-lane code array
+ALL_CODES = (0, 0, 0, 0, 0, -1, -2)
+DIAG_CODES = (0, 0, 0, 0, 0, -1)
+
+
+def _cells(rng, R, S, T, bw, gpu, codes, m=100):
+    """Random static cells, read at use by kernel B's static entries:
+    reads of chars 0-4 (N included) and random (S, T, BW) cell tables."""
+    posw = rng.integers(0, m, (S, T, bw))
+    code = rng.choice(codes, (S, T, bw)).astype(np.int8)
+    return executor.StaticCells(
+        torch.from_numpy(rng.integers(0, 5, (R, m)).astype(np.uint8)).to(gpu),
+        torch.from_numpy(executor.cell_table(posw, code)).to(gpu))
+
+
 @pytest.mark.parametrize("t", [0, 20, 40])
 def test_band_step_kernel(setup, gpu, t):
     """Kernel B on random lane states (ghosts, dead lanes, saturated
@@ -244,9 +262,8 @@ def test_band_step_kernel(setup, gpu, t):
     tables = executor.device_tables(sched, gpu)
     C, R, S, T, bw = 4096, 192, sched.num_searches, sched.t_max, sched.bw
     state = _random_state(rng, cpu_fm.n, C, R, S, bw, sched.W, gpu)
-    pchars = torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(
-        np.int8)).to(gpu)
-    n, _ = fused_vs_plain(fm, state, tables["mrow"][t], pchars, T, t, 4)
+    cells = _cells(rng, R, S, T, bw, gpu, ALL_CODES)
+    n, _ = fused_vs_plain(fm, state, tables["mrow"][t], cells, T, t, 4)
     assert n > 0
 
 
@@ -286,14 +303,17 @@ def test_band_step_overflow(setup, rlc_setup, gpu, flavor):
                  | (3 << 3) | (6 << 9) | (9 << 17))
         dyn = torch.from_numpy(words.astype(np.int32)).to(gpu)
         mrow = None
-    pchars = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
-        np.int8)).to(gpu)
+    if flavor == "per_lane_rlc":              # kernel G's per-lane codes
+        cells = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
+            np.int8)).to(gpu)
+    else:
+        cells = _cells(rng, 96, 7, 5, 5, gpu, DIAG_CODES)
     scratch = executor.StepScratch(state[0].shape[0], gpu)
     # the scratch's statuses are the stream's scan pool, whose epochs every
     # scanning launch on the stream shares: each launch takes the next one
     first = executor.scan_pool(gpu).epoch
     for rep in range(3):
-        n, rows = fused_vs_plain(index, state, mrow, pchars, 5, 3, 8, dyn,
+        n, rows = fused_vs_plain(index, state, mrow, cells, 5, 3, 8, dyn,
                                  track_arg=track, cap=256, M=64, cnt=40,
                                  scratch=scratch)
         assert n > 256 and rows == 64, (n, rows)
@@ -331,9 +351,8 @@ def test_band_step_shapes(setup, gpu, kb, W):
     C, R, S, T, t = 2048, 96, 7, 5, 3
     state = _random_state(rng, cpu_fm.n, C, R, S, bw, W, gpu)
     mrow = torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu)
-    pchars = torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(
-        np.int8)).to(gpu)
-    n, _ = fused_vs_plain(fm, state, mrow, pchars, T, t,
+    cells = _cells(rng, R, S, T, bw, gpu, ALL_CODES)
+    n, _ = fused_vs_plain(fm, state, mrow, cells, T, t,
                           4 if kb % 2 else 0)
     assert n > 0
 
@@ -918,9 +937,8 @@ def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
     state = _random_state(rng, 8, C, R, S, bw, 2 * W if track else W, gpu)
     state[0] = states.to(gpu)
     mrow = torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu)
-    pchars = torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(
-        np.int8)).to(gpu)
-    n, _ = fused_vs_plain(bm, state, mrow, pchars, T, t,
+    cells = _cells(rng, R, S, T, bw, gpu, ALL_CODES)
+    n, _ = fused_vs_plain(bm, state, mrow, cells, T, t,
                           0 if track else 4, track_arg=track)
     assert n > 0
 
@@ -951,12 +969,14 @@ def test_rlc_band_step_block_sizes(rlc_setup, gpu, flavor, block):
                  | (3 << 3) | (6 << 9) | (9 << 17))
         dyn = torch.from_numpy(words.astype(np.int32)).to(gpu)
         mrow = None
-    pchars = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
-        np.int8)).to(gpu)
+        cells = torch.from_numpy(rng.integers(-1, 5, (96 * 7 * 5, 5)).astype(
+            np.int8)).to(gpu)
+    else:
+        cells = _cells(rng, 96, 7, 5, 5, gpu, DIAG_CODES)
     executor.BAND_QUAD_BLOCK = block
     try:
         for cap in (None, 1000):
-            n, _ = fused_vs_plain(bm, state, mrow, pchars, 5, 3, 0, dyn,
+            n, _ = fused_vs_plain(bm, state, mrow, cells, 5, 3, 0, dyn,
                                   track_arg=track, cap=cap)
             assert n > 1000
     finally:
@@ -1242,8 +1262,140 @@ def test_rlc_select_match_all_vs_plain(rlc_setup, gpu, mode):
 FRONTIER_ENTRIES = ("frontier.seed", "frontier.lookup", "frontier.drain",
                     "frontier.init", "frontier.ex_compact",
                     "frontier.ex_back", "frontier.tail", "expand.frontier",
-                    "expand.scan", "expand.ranges", "expand.rows",
+                    "expand.ranges", "expand.rows",
                     "dedup.windows", "dedup.keys", "dedup.compact")
+
+
+def _lanes(rng, L, sw, gpu):
+    """(L, 4) lane ranges: a third empty, a third narrow (width 1..sw),
+    the rest wider; and (L, 4) drain rows, a quarter drained."""
+    lo = rng.integers(0, 1 << 30, L)
+    kind = rng.integers(0, 3, L)
+    width = np.where(kind == 0, 0, np.where(kind == 1,
+                                            rng.integers(1, sw + 1, L),
+                                            rng.integers(sw + 1, 90, L)))
+    ranges = np.stack([lo, lo + width, lo + 7, lo + 7 + width], 1)
+    drows = np.where((rng.random(L) < 0.25)[:, None],
+                     np.stack([lo, lo + 2, rng.integers(0, L, L),
+                               rng.integers(0, 99, L)], 1), 0)
+    return (torch.from_numpy(ranges.astype(np.int64)).to(gpu),
+            torch.from_numpy(drows.astype(np.int64)).to(gpu))
+
+
+# the multi-lane scans (WIDE_TILE lanes a tile, csrc/frontier.cu kTile):
+# one lane, exactly one tile, one lane past it, many tiles with both the
+# frontier and the in-text buffer overflowing
+@pytest.mark.parametrize("case,L", [("one", 1), ("tile", WIDE_TILE),
+                                    ("tile_plus_one", WIDE_TILE + 1),
+                                    ("overflow", 50_001)])
+def test_frontier_wide_scans(gpu, case, L):
+    """Kernel I's drain, init and ex_compact on their multi-lane tiles
+    equal their plain versions on every buffer they write: the in-text
+    rows in lane order (drain rows before narrow lanes), the compacted
+    frontier and its inits, the lanes' slots, the run's counter words."""
+    rng = np.random.default_rng(L)
+    S, sw, bw, W = 1, 4, 5, 2
+    ranges0, drows = _lanes(rng, L, sw, gpu)
+    C, M = (max(1, L // 8), max(1, L // 10)) if case == "overflow" else (
+        L, 2 * L + 8)
+    inits = (torch.from_numpy(rng.integers(0, 60, S).astype(np.int32)),
+             torch.from_numpy(rng.integers(0, 9, (S, 2, bw)).astype(np.int8)),
+             torch.from_numpy(rng.integers(0, 9, (S, 2, W)).astype(np.int8)))
+    inits = [x.to(gpu) for x in inits]
+    got = []
+    for drain, init, exc in (
+            (executor.frontier_drain, executor.frontier_init,
+             executor.frontier_ex_compact),
+            (executor.frontier_drain_plain, executor.frontier_init_plain,
+             executor.frontier_ex_compact_plain)):
+        itv = torch.zeros((M + 1, 4), dtype=torch.int64, device=gpu)
+        words = torch.zeros(executor.RUN_WORDS, dtype=torch.int64,
+                            device=gpu)
+        state = [torch.zeros((C, 4), dtype=torch.int64, device=gpu),
+                 torch.zeros(C, dtype=torch.int32, device=gpu),
+                 torch.full((C, 2, bw), 63, dtype=torch.int8, device=gpu),
+                 torch.full((C, 2, W), 63, dtype=torch.int8, device=gpu)]
+        drain(itv, words, drows)
+        init(ranges0, S, sw, *inits, False, W, state, itv, words)
+        ec = max(1, L // 3)
+        r2 = torch.zeros((ec, 4), dtype=torch.int64, device=gpu)
+        src = torch.zeros(ec, dtype=torch.int32, device=gpu)
+        slot = exc(ranges0, r2, src, words)
+        torch.cuda.synchronize()
+        got.append([itv[:M], words, *state, r2, src, slot])
+    for k, (a, b) in enumerate(zip(*got)):
+        assert torch.equal(a, b), k
+    words = got[0][1]
+    n_live, rows = int(words[5]), int(words[0]) >> 32
+    if case == "overflow":
+        assert n_live > C and int(words[4]) == M and rows == M
+        assert int(words[2]) > 0
+    else:
+        assert rows <= M and (L == 1 or 0 < n_live <= C)
+
+
+def _candidates(rng, case, C, M, gpu):
+    """A final frontier (C lanes, some done) and an in-text buffer (M rows,
+    the first ``count`` valid) as kernel K takes them. "empty_runs": live
+    candidates only every 3,000 or so, runs of empty ones longer than a
+    block of rows stages; "zero": none live; "over": widths that pass
+    max_locate."""
+    lo = rng.integers(0, 1 << 31, C)
+    width = {"empty_runs": np.zeros(C, np.int64),
+             "zero": np.zeros(C, np.int64),
+             "over": rng.integers(0, 300, C)}[case]
+    if case == "empty_runs":
+        width[::3001] = rng.integers(1, 5, len(width[::3001]))
+    ranges = np.stack([lo, lo + width, lo, lo + width], 1)
+    done = rng.random(C) < (1.0 if case == "empty_runs" else 0.5)
+    S, R = 3, 4096
+    itv = np.zeros((M, 4), np.int64)
+    itv[:, 0] = rng.integers(0, 1 << 31, M)
+    iw = np.zeros(M, np.int64) if case != "over" else rng.integers(0, 9, M)
+    if case == "empty_runs":
+        iw[1234::4567] = 3
+    itv[:, 1] = itv[:, 0] + iw
+    itv[:, 2] = rng.integers(0, R * S, M)
+    itv[:, 3] = rng.integers(0, 60, M)
+    count = M - 17
+    t = lambda x: torch.from_numpy(np.asarray(x)).to(gpu)  # noqa: E731
+    res = executor.FrontierResult(
+        ranges=t(ranges.astype(np.int64)), rid=t(rng.integers(0, R, C)),
+        sid=t(rng.integers(0, S, C)), ed_lb=None, done=t(done),
+        overflow=None, nodes_visited=None, itv=t(itv),
+        itv_count=torch.tensor(count, device=gpu), searches_started=None,
+        arg_b=None)
+    tables = dict(t_back=t(rng.integers(20, 70, S)),
+                  pivot=t(rng.integers(0, 60, S)))
+    return res, tables, S
+
+
+@pytest.mark.parametrize("case,ml", [("empty_runs", 1024), ("zero", 4096),
+                                     ("over", 4096)])
+def test_expand_kernels_edges(gpu, case, ml):
+    """Kernel K's fused candidates-and-scan entry and its rows entry equal
+    their plain versions with long runs of empty candidates (longer than
+    a block's staging), with a total of 0, and with a total past
+    max_locate (the clip: rows past it invalid, on the last candidate);
+    and the ranges entry on strided columns."""
+    rng = np.random.default_rng(len(case) + ml)
+    res, tables, S = _candidates(rng, case, 20_000, 24_000, gpu)
+    got = pipeline.stage_candidates(res, tables, S, ml)
+    want = pipeline.stage_candidates_plain(res, tables, S, ml)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), k
+    c_lo, offsets, total = got[0], got[4], got[5]
+    rows = pipeline.expand_rows(c_lo, offsets, total, ml)
+    rows_p = pipeline.expand_rows_plain(c_lo, offsets, total, ml)
+    for k, (a, b) in enumerate(zip(rows, rows_p)):
+        assert torch.equal(a, b), k
+    tot = int(total)
+    assert {"empty_runs": 0 < tot < ml, "zero": tot == 0,
+            "over": tot > ml}[case], tot
+    strided = res.ranges[:, 0], res.ranges[:, 1]
+    assert all(torch.equal(a, b) for a, b in zip(
+        pipeline.expand_scan(*strided, ml),
+        pipeline.expand_scan_plain(*strided, ml)))
 
 
 @pytest.mark.parametrize("path", ["seeded", "band_only", "dynamic", "exact",
@@ -1299,7 +1451,7 @@ def test_frontier_kernels_vs_plain(setup, rlc_setup, gpu, path):
     torch.cuda.synchronize()
     want = {"seeded": ("frontier.seed", "frontier.lookup", "frontier.drain",
                        "frontier.init", "frontier.tail", "expand.frontier",
-                       "expand.scan", "expand.rows", "dedup.windows",
+                       "expand.rows", "dedup.windows",
                        "dedup.keys", "dedup.compact"),
             "overflow": ("frontier.seed", "frontier.init", "frontier.tail"),
             "band_only": ("frontier.ex_compact", "frontier.ex_back",
