@@ -33,14 +33,20 @@ a CUDA device. It
    patterns of scheme selection, and kernel H (the row gather) at 262,144
    lanes beside ``torch.index_select``; every entry of kernels I-L (the
    seeds, drain, init, two-stage compaction and tail around kernels A and
-   B; the candidates' expansion; the dedup around ``torch.sort``) on one
-   ``match_device_core`` call at the SE ALL path's sizes, on the band-only
-   call, the k = 0 pass and a k-mer lookup, each held to its plain version
-   on copies of its inputs (``tools/path_inputs.py`` ``capture_entries``)
-   and timed, kernel K's ``ranges`` and ``rows`` beside the one PyTorch
-   call of the same function (``torch.cumsum``, ``torch.searchsorted``),
-   then the launch census of that call outside kernel B's band steps and
-   the sort (``torch.profiler``). Kernel B's static entries read each
+   B; the candidates' expansion, with kernel J's tail folded into its
+   launch on ``match_device_core``; the dedup's keys, radix passes and
+   compaction) on one ``match_device_core`` call at the SE ALL path's
+   sizes, on the band-only call, the k = 0 pass, a k-mer lookup and (J's
+   own entry) ``run_scheme``, each held to its plain version on copies of
+   its inputs (``tools/path_inputs.py`` ``capture_entries``) and timed,
+   kernel K's ``ranges`` and ``rows`` beside the one PyTorch call of the
+   same function (``torch.cumsum``, ``torch.searchsorted``) and kernel
+   L's passes beside ``torch.sort``; kernel L's and K's ``frontier_tail``
+   entries on synthetic edges (``tools/edges.py``: masks, windows below 0
+   and near 2^32, odd read counts, no valid row, one row, a move or none,
+   with ``torch.sort`` and kin patched to raise); then the launch census
+   of that call outside kernel B's band steps (``torch.profiler``: at most
+   20, no library sort). Kernel B's static entries read each
    lane's cells at use from the reads and the schedule's cell tables
    (``executor.StaticCells``); every path prints the device bytes kernel
    I's seed allocated a ``run_scheme`` call beside the lanes' ranges and
@@ -241,7 +247,8 @@ PATH_KERNELS = {
 }
 # kernels I-L (the frontier around kernels A and B, the candidates'
 # expansion and the dedup) run on every path that runs the scheme executor
-# and verifies: I, J, K and L wherever kernel D runs; on the textless paths
+# and verifies: I, K (J's tail in its launch) and L wherever kernel D runs;
+# on the textless paths
 # (no locate, no verify) I and J; on PE ALL -e 0 (the exact pass) K
 for _p, _k in PATH_KERNELS.items():
     if "verify" in _k:
@@ -251,8 +258,8 @@ for _p, _k in PATH_KERNELS.items():
 _RLC_ENTRIES = ("extend.loop_rlc", "band_step.rlc", "locate.rlc")
 PATH_ENTRIES = {
     "se_all": ("extend.loop", "frontier.seed", "frontier.drain",
-               "frontier.init", "frontier.tail", "expand.frontier",
-               "expand.rows", "dedup.windows", "dedup.keys",
+               "frontier.init", "expand.frontier_tail", "expand.rows",
+               "dedup.windows", "dedup.keys", "dedup.pass",
                "dedup.compact"),
     "pe_all_e0": ("expand.ranges", "expand.rows"),
     "se_best": ("extend.loop",),
@@ -294,7 +301,8 @@ NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate", "dyn_tables",
             "gather_kernel", "extend_", "band_step_", "seed_kernel",
             "drain_kernel", "init_kernel", "ex_compact_kernel",
             "ex_back_kernel", "tail_kernel", "frontier_kernel", "scan_kernel",
-            "rows_kernel", "windows_kernel", "keys_kernel", "compact_kernel")
+            "rows_kernel", "windows_kernel", "keys_kernel", "pass_kernel",
+            "compact_kernel")
 GENERIC_B = ("band_step_kernel<-1", "band_step_rlc_kernel<-1")
 # the paths with -p dynamic: kernel F launches once a batch, however many
 # lossless re-runs the batch takes
@@ -854,7 +862,7 @@ def _prof(rep) -> str:
 
 
 # the record of each of kernels I-L in the kernels line: its main entry's
-IL_MAIN = {"frontier": "frontier.seed", "expand": "expand.frontier",
+IL_MAIN = {"frontier": "frontier.seed", "expand": "expand.frontier_tail",
            "dedup": "dedup.windows"}
 
 
@@ -867,13 +875,16 @@ def entry_checks(label, calls, report=None, prof=True) -> None:
     call computes the same function, that call's time
     (``path_inputs.library``; the profiler's device time with ``prof``,
     else events); with ``report`` each entry's record is filed there,
-    kernel L's with the sort's time beside it."""
+    kernel L's with the library sort's device time beside it
+    (``torch.sort`` of every row's key, as the port sorted before kernel
+    L's passes; the library time of ``dedup.pass``, whose launches, one a
+    digit, do that sort's work with the keys')."""
     from columba_tpu_torch.tools import bounds, path_inputs
 
     clocks = path_inputs.Clocks(PATH_INPUT_REPS)
     sort_ms = None
-    if "dedup.compact" in calls:
-        sort_ms = path_inputs.sort_ms(calls["dedup.compact"], clocks)
+    if "dedup.keys" in calls:
+        sort_ms = path_inputs.sort_ms(calls["dedup.keys"], clocks)
     for name in sorted(calls):
         c = calls[name]
         err = path_inputs.replay_plain(c)
@@ -884,7 +895,7 @@ def entry_checks(label, calls, report=None, prof=True) -> None:
         if prof:
             t = path_inputs.time_entry(c, clocks)
         else:
-            kargs = path_inputs._deep(c["args"], path_inputs._copy)
+            kargs = path_inputs.copies(c["args"])
             t = dict(events_warm=clocks.events(lambda: c["real"](**kargs),
                                                False),
                      events_cold=None, prof_warm=None, prof_cold=None,
@@ -892,7 +903,7 @@ def entry_checks(label, calls, report=None, prof=True) -> None:
         # one PyTorch call of the same function, where there is one
         # (kernel K's ranges: torch.cumsum; rows: torch.searchsorted)
         lib_fn = path_inputs.library(c)
-        lib = None
+        lib = sort_ms if name == "dedup.pass" else None
         if lib_fn is not None:
             lib = (clocks.device_ms(lib_fn) if prof
                    else clocks.events(lib_fn, False))
@@ -929,13 +940,30 @@ def il_checks(index, batch, table, sched, C, ml) -> dict:
     runs, so the call makes band steps): every entry of one
     ``match_device_core`` call as ``match_all`` makes it (10-mer seeds,
     switchpoint 4), of the band-only call (switchpoint 0, the two-stage
-    exact loop), of the k = 0 pass and of a k-mer lookup, held to its plain
-    version and timed; then the launch census of the first call, outside
-    kernel B's band steps and the sort."""
+    exact loop), of the k = 0 pass and of a k-mer lookup, and kernel J's
+    own entry on that call's ``run_scheme`` (its direct callers and the
+    textless pass launch it; ``match_device_core`` leaves the tail to
+    kernel K's ``frontier_tail``), held to its plain version and timed;
+    kernel L's and K's ``frontier_tail`` entries on synthetic edges
+    (``tools/edges.py``); then the launch census of the first call outside
+    kernel B's band steps (kernel L's passes among them)."""
     from columba_tpu_torch.index import kmer
-    from columba_tpu_torch.search import pipeline
-    from columba_tpu_torch.tools import path_inputs
+    from columba_tpu_torch.search import executor, pipeline
+    from columba_tpu_torch.tools import edges, path_inputs
 
+    for case in edges.DEDUP_CASES + ("se_all",):
+        info = edges.dedup_vs_plain(case, batch.device)
+        log(f"kernel L on the synthetic edge {case} ({info['L']} rows, "
+            f"{info['valid']} valid, rids below {info['rows']}: "
+            f"{info['passes']} passes, {info['n_unique']} unique pairs): "
+            f"keys (prefix and mask), every pass, compact and stage_dedup "
+            f"(no library sort) equal to plain")
+    for Ct, Mt, moved in ((1024, 131_072, True), (1024, 131_072, False),
+                          (1500, 4096, True), (12_288, 131_072, True)):
+        info = edges.frontier_tail_vs_plain(Ct, Mt, moved, batch.device)
+        log(f"kernel K's frontier_tail on a synthetic final frontier (C = "
+            f"{Ct}, M = {Mt}, moved {moved}, {info['ghosts']} ghosts): "
+            f"equal to frontier_tail_plain then stage_candidates_plain")
     R, S = batch.shape[0], sched.num_searches
     caps = pipeline.crossover_caps(C, ml, 4)
 
@@ -954,7 +982,7 @@ def il_checks(index, batch, table, sched, C, ml) -> dict:
     calls = path_inputs.capture_entries(se_all)
     band = path_inputs.capture_entries(band_only)
     for what, c in (("SE ALL", calls), ("band-only", band)):
-        w = c["frontier.tail"]["after"]["words"]
+        w = c["expand.frontier_tail"]["after"]["res"].tail["words"]
         log(f"kernels I-L, the {what} call at the SE ALL sizes: {R} rows x "
             f"{S} searches = {R * S} lanes, C = {C}, M = max_locate = {ml};"
             f" {int(w[5])} lanes live after the exact prefix, {int(w[6])} "
@@ -966,15 +994,22 @@ def il_checks(index, batch, table, sched, C, ml) -> dict:
     more = path_inputs.capture_entries(
         lambda: kmer.lookup(table, batch[:, 20:30]))
     calls.update(more)
+    more = path_inputs.capture_entries(
+        lambda: executor.run_scheme(index, batch, sched, C, table, 4, *caps,
+                                    itv_min_depth=16))
+    calls["frontier.tail"] = more["frontier.tail"]
     entry_checks("SE ALL sizes", calls, report)
     entry_checks("SE ALL sizes, the band-only call", band, prof=False)
     census = path_inputs.launch_census(se_all)
     log(f"launch census, one SE ALL match_device_core call ({R} rows, C = "
         f"{C}, max_locate = {ml}; torch.profiler): {census['outside']} "
         f"launches, memsets and copies outside kernel B's band steps "
-        f"({census['band']} with their word copies) and the sort "
-        f"({census['sort']}); {census['total']} in all; by name "
-        f"{json.dumps(census['by_name'], sort_keys=True)}")
+        f"({census['band']} with their word copies), kernel L's sort among "
+        f"them; a library sort's {census['sort']}; {census['total']} in "
+        f"all; by name {json.dumps(census['by_name'], sort_keys=True)}")
+    if census["sort"] or census["outside"] > 20:
+        raise AssertionError("the SE ALL call ran a library sort or more "
+                             "than 20 launches outside kernel B's steps")
     return report
 
 
@@ -2839,10 +2874,12 @@ def main() -> int:
                 "frontier.ex_compact": "columba_tpu/search/executor.py:468",
                 "frontier.ex_back": "columba_tpu/search/executor.py:468",
                 "frontier.tail": "columba_tpu/search/executor.py:880",
+                "expand.frontier_tail": "columba_tpu/search/pipeline.py:132",
                 "expand.ranges": "columba_tpu/search/pipeline.py:169",
                 "expand.rows": "columba_tpu/search/pipeline.py:169",
                 "dedup.windows": "columba_tpu/search/pipeline.py:268",
                 "dedup.keys": "columba_tpu/search/pipeline.py:194",
+                "dedup.pass": "columba_tpu/search/pipeline.py:210",
                 "dedup.compact": "columba_tpu/search/pipeline.py:194"}
     kernels = []
     for k in native.KERNELS.values():

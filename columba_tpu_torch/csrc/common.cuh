@@ -303,8 +303,8 @@ __device__ __forceinline__ unsigned long long tile_base(
 // made of two 32-bit counts (x | y << 32) scans both at once as long as
 // the x total stays below 2^32. `end` is the inclusive prefix at the
 // tile's end: the grand total in the block with the last ticket. One lane
-// a thread (kernel J's tail, kernel L's compaction). Call once a launch,
-// with every thread of the block.
+// a thread (kernel J's tail). Call once a launch, with every thread of the
+// block.
 template <int kThreads>
 __device__ __forceinline__ unsigned long long scan_tiles(
     unsigned long long v, long long tile, const ScanArgs& sa,
@@ -422,7 +422,7 @@ __device__ __forceinline__ void scan_items(
 // The same for two 0/1 flags an item, given as bit masks (bit j of `fx`
 // and of `fy`: item j's flags) and counted apart by ballots: `ex` holds
 // each item's two exclusive counts as x | y << 32, `end` the totals so
-// (kernel I's compactions; the x total must stay below 2^32). Masks, not
+// (kernel I's and L's compactions; the x total must stay below 2^32). Masks, not
 // per-item booleans, carry the flags across the look-back: ptxas keeps
 // them in one register each, where per-item predicates spilled to local
 // memory (seen at 8 items a thread).
@@ -448,11 +448,9 @@ __device__ __forceinline__ void scan_flags(
 }
 
 // Zero-fills (or fills with one byte value) a device region, 16 B stores
-// where the region allows, grid-stride.
-__device__ __forceinline__ void fill_bytes(void* p, long long n, int v) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
+// where the region allows, thread t of `stride` threads.
+__device__ __forceinline__ void fill_bytes(void* p, long long n, int v,
+                                           long long t, long long stride) {
   unsigned char* b = static_cast<unsigned char*>(p);
   const unsigned w = 0x01010101u * static_cast<unsigned char>(v);
   const long long head =
@@ -464,6 +462,13 @@ __device__ __forceinline__ void fill_bytes(void* p, long long n, int v) {
   for (long long i = t; i < n16; i += stride) q[i] = make_uint4(w, w, w, w);
   for (long long i = head + (n16 << 4) + t; i < n; i += stride)
     b[i] = static_cast<unsigned char>(v);
+}
+
+// The same over the whole grid.
+__device__ __forceinline__ void fill_bytes(void* p, long long n, int v) {
+  fill_bytes(p, n, v,
+             blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x,
+             static_cast<long long>(gridDim.x) * blockDim.x);
 }
 
 inline unsigned grid_for(long long n, int threads) {

@@ -2,9 +2,15 @@
 //
 // Replaces columba_tpu/search/pipeline.py stage_candidates (:132-166) and
 // stage_expand (:169-191) (K9), and the k = 0 pass's expansion of kernel
-// E's ranges (:734-740). Entries:
+// E's ranges (:734-740); with them kernel J's tail
+// (columba_tpu/search/executor.py:880-932, K8) on match_device_core's
+// path. Entries:
 //
-//   frontier    the candidate list and its prefix sums in one launch: the
+//   frontier_tail  kernel J's tail (K8) and the candidate list with its
+//               prefix sums in one launch: J's rows of the final frontier
+//               (tail.cuh: rows past the live count zeroed after a move,
+//               ids decoded, ed_lb, done, arg_b; the ghosts appended to the
+//               in-text buffer, its count and the overflow words), then the
 //               C frontier lanes (done lanes' range, else empty) and the M
 //               in-text rows (the first itv_count, the rest empty), each
 //               with its read row and its estb (the read start's offset
@@ -12,7 +18,8 @@
 //               tables, or per lane under dynamic partitioning); then the
 //               candidates' widths, clamped at max_locate + 1, scanned
 //               into their inclusive prefix sums and total. The widths
-//               never go through memory.
+//               never go through memory. At SE ALL's shape 0.0077 ms of
+//               device time against 0.0097 for J's and K's launches before.
 //   ranges      the same scan on two strided columns, read in place
 //               (kernel E's (R, rw) ranges on the k = 0 pass).
 //   rows        output rows j < max_locate: the candidate whose prefix
@@ -42,11 +49,12 @@
 // at 256, 512 and 1,024 threads a block (0.0058, 0.0048 and 0.0042 ms at
 // the SE ALL sizes): a thread then searches about one row, not four.
 //
-// Bound: bytes. frontier reads a frontier row and an in-text row a
-// candidate and writes 40 B (four columns and the prefix sum); ranges
+// Bound: bytes. frontier_tail reads J's bytes (tools/bounds.py) and an
+// in-text row a candidate and writes 40 B (four columns and the prefix
+// sum); ranges
 // reads 16 B and writes 8 B; rows reads each candidate's prefix sum and
 // lo once (a block's staging) and writes 17 B a row.
-#include "common.cuh"
+#include "tail.cuh"
 
 namespace {
 
@@ -57,16 +65,12 @@ constexpr int kRows = 1024;                  // rows: threads a block and
 constexpr int kShare = 2048;                 // merged items a block
 
 struct CandArgs {
-  const bool* done;             // (C,)
-  const long long* ranges;      // (C, rw)
-  int rw;
-  const long long* rid;         // (C,)
-  const long long* sid;         // (C,)
+  columba::TailRows t;          // kernel J's rows: the final frontier
   long long C;
-  const long long* itv;         // (M, 4)
-  const long long* itv_count;   // ()
+  long long* itv;               // (M + 1, 4) the in-text buffer
   long long M;
-  int S;
+  long long* words;             // (8,) the run's counter words
+  long long shrink;             // the overflow of the two-stage shrink
   const long long* t_back64;    // (S,) static tables, or
   const long long* pivot64;
   const int* t_back32;          // (R*S,) per lane
@@ -78,7 +82,8 @@ struct CandArgs {
   long long* c_estb;
   long long* offsets;           // (C + M,) inclusive prefix sums
   long long* total;             // ()
-  columba::ScanArgs sa;
+  columba::ScanArgs sa;         // the widths' statuses, then the ghosts'
+  unsigned long long* ghost_status;  // and their written marks
 };
 
 __device__ __forceinline__ long long clamp_width(long long lo, long long hi,
@@ -87,47 +92,235 @@ __device__ __forceinline__ long long clamp_width(long long lo, long long hi,
   return w < 0 ? 0 : (w > ml + 1 ? ml + 1 : w);
 }
 
+// In-tile exclusive counts of one flag an item (bit j of `f`: item j), in
+// lane order, and the tile's total.
+__device__ __forceinline__ unsigned tile_flags(unsigned f,
+                                               unsigned (&ex)[kItems]) {
+  constexpr int kWarps = kWide / 32;
+  __shared__ unsigned s_w[kWarps];
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  const int warp = threadIdx.x >> 5;
+  unsigned run = 0;
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const unsigned m = __ballot_sync(0xFFFFFFFFu, (f >> j) & 1u);
+    ex[j] = run + __popc(m & below);
+    run += __popc(m);
+  }
+  if ((threadIdx.x & 31) == 0) s_w[warp] = run;
+  __syncthreads();
+  unsigned before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? s_w[w] : 0u;
+    total += s_w[w];
+  }
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) ex[j] += before;
+  return total;
+}
+
+// The in-text buffer's row k as two 16 B loads, through L1 or (fresh)
+// from L2.
+__device__ __forceinline__ void load_row(const long long* itv, long long k,
+                                         bool fresh, long long (&r)[4]) {
+  const longlong2* p = reinterpret_cast<const longlong2*>(itv + 4 * k);
+  const longlong2 x = fresh ? __ldcg(p) : p[0];
+  const longlong2 y = fresh ? __ldcg(p + 1) : p[1];
+  r[0] = x.x;
+  r[1] = x.y;
+  r[2] = y.x;
+  r[3] = y.y;
+}
+
+// Warp 0 waits until the status word of each tile b in [b0, F) (words
+// `stride` apart) carries this launch's epoch and an inclusive prefix;
+// returns the count of tile F - 1's word to every lane of warp 0.
+__device__ __forceinline__ unsigned long long wait_prefixes(
+    const unsigned long long* st, long long b0, long long F, int stride,
+    unsigned epoch) {
+  const volatile unsigned long long* s = st;
+  unsigned long long w = 0;
+  for (long long b = b0 + threadIdx.x; b < F; b += 32) {
+    do {
+      w = s[stride * b];
+    } while (((w >> 32) & 0x3FFFFFFFu) != epoch || (w >> 62) != 2);
+  }
+  __threadfence();
+  __syncwarp();
+  return F > 0 ? s[stride * (F - 1)] & 0xFFFFFFFFull : 0;
+}
+
+// A frontier tile's ghosts into the in-text buffer after `cnt` rows and
+// the `base` ghosts of the earlier tiles (clamped at M), then the tile's
+// written mark: the block's barrier, then one thread's fence and store
+// (the pattern of a grid-wide barrier; every thread's fence timed 0.3-0.8
+// us slower on the card).
+__device__ __forceinline__ void write_ghosts(
+    const CandArgs& a, long long tile, long long cnt, unsigned long long base,
+    unsigned f, const unsigned (&gx)[kItems],
+    const columba::TailRow (&g)[kItems], unsigned long long* written) {
+  const long long q0 = cnt + static_cast<long long>(base);
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) {
+    const long long q = q0 + gx[j];
+    if (((f >> j) & 1u) && q < a.M) columba::ghost_row(a.itv, q, g[j]);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    static_cast<volatile unsigned long long*>(written)[tile] =
+        columba::stamp(columba::kPrefix, a.sa.epoch, 0u);
+  }
+}
+
+// The candidates of a frontier whose tail run_scheme left to this launch.
+// The frontier's tiles do kernel J's rows (tail.cuh) and append the
+// ghosts, in lane order, after the in-text buffer's words[0] >> 32 rows.
+// The ghosts go first, from their ids and range ends alone: a scan of their
+// flags over the tiles that hold frontier lanes, its inclusive prefixes
+// published as soon as known, then the tile's ghost rows written and
+// marked written in a status word of their own; then J's other reads, and
+// its writes only after the widths' scan. A tile that holds in-text lanes
+// loads its rows first; where they reach past that count it waits for the
+// last frontier tile's ghost prefix (the ghosts' total: the in-text
+// count), and only where they reach into the ghosts' rows for every
+// frontier tile's written mark, and loads those rows again from L2 (a line
+// of them may have come into L1 before they were written). The frontier's
+// tiles come first in ticket order, so a waiting tile waits only on
+// running blocks. Timed on the card (PERF.md, PR 16): with the ghosts'
+// rows or J's writes before the widths' scan, every later tile's
+// look-back waited on them, and the launch took longer than J's and K's
+// two launches.
 __global__ void __launch_bounds__(kWide) frontier_kernel(CandArgs a) {
+  __shared__ long long s_count;
+  __shared__ unsigned long long s_gbase;
   const long long tile = columba::take_tile(a.sa);
   const long long n = a.C + a.M;
-  const long long count = *a.itv_count;
+  const long long first = tile * kTile;
+  const long long last = min(first + kTile, n) - 1;
   const bool dyn = a.t_back64 == nullptr;
+  const unsigned S = static_cast<unsigned>(a.t.S);
+  // the ghost scan's statuses (two words a tile), then the written marks
+  unsigned long long* const gst = a.ghost_status;
+  unsigned long long* const written = a.ghost_status + 2 * gridDim.x;
+  const long long cnt = static_cast<long long>(
+      static_cast<unsigned long long>(a.words[0]) >> 32);
+  long long lo[kItems], hi[kItems], rid[kItems], estb[kItems];
   unsigned long long w[kItems], ex[kItems];
+  // the frontier lanes
+  if (first < a.C) {
+    // the ghosts first, from their ids and range ends alone (a row past
+    // the live count after a move is none): their scan, its prefixes out
+    // at once (the in-text count waits on them), their rows written and
+    // marked, and only then the rest of J's rows
+    columba::TailRow gh[kItems];
+    unsigned gx[kItems], fg = 0;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = columba::item_lane<kWide, kItems>(tile, j);
+      gh[j] = columba::TailRow{0, 0, 0, 0, 0u, -1, false, false};
+      if (i >= a.C || (a.t.moved && i >= a.t.live)) continue;
+      gh[j].id = a.t.ids[i];
+      if (gh[j].id >= 0) continue;
+      gh[j].lo = a.t.ranges[i * a.t.rw];
+      gh[j].hi = a.t.ranges[i * a.t.rw + 1];
+      gh[j].lane = static_cast<unsigned>(gh[j].id & columba::kGhostIdMask);
+      fg |= 1u << j;
+    }
+    const unsigned total = tile_flags(fg, gx);
+    if (threadIdx.x < 32) {
+      const unsigned long long base = columba::tile_base(
+          total, tile, columba::ScanArgs{a.sa.ticket, gst, a.sa.epoch});
+      if (threadIdx.x == 0) {
+        s_gbase = base;
+        if (first + kTile >= a.C) {            // the last frontier tile
+          a.words[6] = min(cnt + static_cast<long long>(base + total), a.M);
+          a.words[7] = a.words[2] + a.shrink;
+        }
+      }
+    }
+    __syncthreads();
+    write_ghosts(a, tile, cnt, s_gbase, fg, gx, gh, written);
+    // J's rows: both rows read first (their loads in flight together),
+    // then J's outputs written; the rows past the live count are zeroed
+    // after the widths' scan, off the look-back's path
+    columba::TailRow g[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = columba::item_lane<kWide, kItems>(tile, j);
+      g[j] = columba::TailRow{0, 0, 0, 0, 0u, -1, false, false};
+      if (i < a.C) g[j] = columba::tail_read(a.t, i);
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = columba::item_lane<kWide, kItems>(tile, j);
+      if (i >= a.C) continue;
+      columba::tail_write(a.t, i, g[j], false);
+      lo[j] = g[j].done ? g[j].lo : 0;
+      hi[j] = g[j].done ? g[j].hi : 0;
+      rid[j] = g[j].lane / S;
+      estb[j] = dyn ? static_cast<long long>(a.t_back32[g[j].lane] -
+                                             a.pivot32[g[j].lane])
+                    : a.t_back64[g[j].lane % S] - a.pivot64[g[j].lane % S];
+    }
+  }
+  // the in-text lanes
+  if (last >= a.C) {
+    long long r[kItems][4];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = columba::item_lane<kWide, kItems>(tile, j);
+      if (i >= a.C && i < n) load_row(a.itv, i - a.C, false, r[j]);
+    }
+    long long count = cnt;           // enough for rows below cnt
+    if (last - a.C >= cnt) {
+      // rows from cnt on: the in-text count needs the ghosts' total
+      const long long F = (a.C + kTile - 1) / kTile;
+      if (threadIdx.x < 32) {
+        const long long G = static_cast<long long>(
+            wait_prefixes(gst, F - 1, F, 2, a.sa.epoch));
+        const long long c = min(cnt + G, a.M);
+        // rows of this tile among the ghosts' [cnt, c): wait until they
+        // are written
+        if (c > cnt && first - a.C < c)
+          wait_prefixes(written, 0, F, 1, a.sa.epoch);
+        if (threadIdx.x == 0) s_count = c;
+      }
+      __syncthreads();
+      count = s_count;
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const long long i = columba::item_lane<kWide, kItems>(tile, j);
+        const long long k = i - a.C;
+        if (i >= a.C && i < n && k >= cnt && k < count)
+          load_row(a.itv, k, true, r[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const long long i = columba::item_lane<kWide, kItems>(tile, j);
+      if (i < a.C || i >= n) continue;
+      const bool v = i - a.C < count;
+      lo[j] = v ? r[j][0] : 0;
+      hi[j] = v ? r[j][1] : 0;
+      // a lane id (< 2^21, the ghost encoding): 32-bit division, inline
+      const unsigned ids = static_cast<unsigned>(r[j][2]);
+      rid[j] = ids / S;
+      estb[j] = r[j][3] - (dyn ? static_cast<long long>(a.pivot32[ids])
+                               : a.pivot64[ids % S]);
+    }
+  }
 #pragma unroll
   for (int j = 0; j < kItems; ++j) {
     const long long i = columba::item_lane<kWide, kItems>(tile, j);
     w[j] = 0;
     if (i >= n) continue;
-    long long lo, hi, rid, estb;
-    if (i < a.C) {
-      const bool d = a.done[i];
-      lo = d ? a.ranges[i * a.rw] : 0;
-      hi = d ? a.ranges[i * a.rw + 1] : 0;
-      rid = a.rid[i];
-      const long long s = a.sid[i];
-      if (dyn) {
-        const long long lane = rid * a.S + s;
-        estb = static_cast<long long>(a.t_back32[lane] - a.pivot32[lane]);
-      } else {
-        estb = a.t_back64[s] - a.pivot64[s];
-      }
-    } else {
-      const long long k = i - a.C;
-      const bool v = k < count;
-      const long long* row = a.itv + 4 * k;
-      lo = v ? row[0] : 0;
-      hi = v ? row[1] : 0;
-      // a lane id (< 2^21, the ghost encoding): 32-bit division, inline
-      const unsigned ids = static_cast<unsigned>(row[2]);
-      rid = ids / static_cast<unsigned>(a.S);
-      estb = row[3] - (dyn ? static_cast<long long>(a.pivot32[ids])
-                           : a.pivot64[ids % static_cast<unsigned>(a.S)]);
-    }
-    a.c_lo[i] = lo;
-    a.c_hi[i] = hi;
-    a.c_rid[i] = rid;
-    a.c_estb[i] = estb;
-    w[j] = static_cast<unsigned long long>(clamp_width(lo, hi, a.ml));
+    a.c_lo[i] = lo[j];
+    a.c_hi[i] = hi[j];
+    a.c_rid[i] = rid[j];
+    a.c_estb[i] = estb[j];
+    w[j] = static_cast<unsigned long long>(clamp_width(lo[j], hi[j], a.ml));
   }
   unsigned long long end;
   columba::scan_items<kWide, kItems>(w, ex, tile, a.sa, end);
@@ -138,6 +331,12 @@ __global__ void __launch_bounds__(kWide) frontier_kernel(CandArgs a) {
   }
   if (tile == gridDim.x - 1 && threadIdx.x == 0)
     *a.total = static_cast<long long>(end);
+  if (first < a.C) {
+    // the rows past the live count zeroed by the frontier tiles together
+    const long long F = (a.C + kTile - 1) / kTile;
+    columba::zero_past_live(a.t, a.C, tile * kWide + threadIdx.x,
+                            F * kWide);
+  }
 }
 
 struct WidthArgs {
@@ -270,23 +469,36 @@ inline bool bad_scan(long long n, long long tiles, unsigned epoch) {
 
 }  // namespace
 
-extern "C" int columba_expand_frontier(
-    const bool* done, const long long* ranges, int rw, const long long* rid,
-    const long long* sid, long long C, const long long* itv,
-    const long long* itv_count, long long M, int S, const long long* t_back64,
+// kernel J's tail and the candidates in one launch: the final frontier's
+// fields (C rows, written in place after a move), J's outputs, the
+// in-text buffer itv (M + 1 rows), the run's counter words; the statuses
+// hold two scans and the written marks (3 x the tiles' two words).
+extern "C" int columba_expand_frontier_tail(
+    long long* ranges, int* ids, signed char* band, signed char* colmin,
+    long long C, long long live, int moved, int rw, int bw, int W, int Wp,
+    int track, int S, const long long* final_reg, const long long* u_last64,
+    const int* u_last32, long long* itv, long long M, long long* words,
+    long long shrink, long long* rid, long long* sid, long long* ed_lb,
+    bool* done, signed char* arg_b, const long long* t_back64,
     const long long* pivot64, const int* t_back32, const int* pivot32,
     long long ml, long long* c_lo, long long* c_hi, long long* c_rid,
     long long* c_estb, long long* offsets, long long* total,
     long long* ticket, long long* status, long long tiles, unsigned epoch,
     cudaStream_t stream) {
-  if (rw < 2 || S < 1 || C < 0 || M < 0 || ml < 0 ||
+  const unsigned grid = tiles_of(C + M, kTile);
+  if (rw < 2 || S < 1 || C < 1 || M < 0 || ml < 0 || W < 1 || Wp < W ||
       (t_back64 == nullptr) == (t_back32 == nullptr) ||
-      bad_scan(C + M, tiles, epoch))
+      (u_last64 == nullptr) == (u_last32 == nullptr) ||
+      bad_scan(C + M, tiles, epoch) || 3 * static_cast<long long>(grid) > tiles)
     return static_cast<int>(cudaErrorInvalidValue);
-  CandArgs a{done, ranges, rw, rid, sid, C, itv, itv_count, M, S,
-             t_back64, pivot64, t_back32, pivot32, ml, c_lo, c_hi, c_rid,
-             c_estb, offsets, total, scan_args(ticket, status, epoch)};
-  frontier_kernel<<<tiles_of(C + M, kTile), kWide, 0, stream>>>(a);
+  CandArgs a{columba::TailRows{ranges, ids, band, colmin, live, moved, rw,
+                               bw, W, Wp, track, S, final_reg, u_last64,
+                               u_last32, rid, sid, ed_lb, done, arg_b},
+             C, itv, M, words, shrink, t_back64, pivot64, t_back32, pivot32,
+             ml, c_lo, c_hi, c_rid, c_estb, offsets, total,
+             scan_args(ticket, status, epoch),
+             reinterpret_cast<unsigned long long*>(status) + 2 * grid};
+  frontier_kernel<<<grid, kWide, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

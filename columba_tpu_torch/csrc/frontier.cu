@@ -41,7 +41,10 @@
 //               to the in-text buffer with their decoded id and death depth,
 //               ids decoded into rid and sid, the final colMin registers
 //               (arg_b under track_arg), ed_lb and done against u_last, the
-//               final in-text count and overflow.
+//               final in-text count and overflow (tail.cuh). Launched where
+//               no candidates' launch follows (the textless pass,
+//               run_scheme's direct callers); match_device_core's path does
+//               the same work in kernel K's frontier_tail launch.
 //
 // The order-keeping appends and compactions are one scan across the grid
 // (a block scan, then the decoupled look-back over ticketed tiles that
@@ -68,7 +71,7 @@
 // writes the lane and clears the run's buffers (the in-text buffer, M x
 // 32 B, is most of them); init and the tail read and write a frontier row
 // a lane. The scans' look-back is latency, one wait a tile.
-#include "common.cuh"
+#include "tail.cuh"
 
 namespace {
 
@@ -76,7 +79,6 @@ constexpr int kThreads = 256;                // seed, ex_back, tail
 constexpr int kWide = 512;                   // drain, init, ex_compact: a
 constexpr int kItems = 2;                    // block of 512 threads, 2 lanes
 constexpr int kTile = kWide * kItems;        // a thread (executor.WIDE_TILE)
-constexpr int kGhostIdMask = (1 << 21) - 1;
 constexpr int kMaxRW = 12;
 constexpr int kMaxClears = 8;
 
@@ -307,24 +309,12 @@ __global__ void __launch_bounds__(kThreads) ex_back_kernel(ExArgs a) {
 }
 
 struct TailArgs {
-  long long* ranges;            // (cap, rw) the final frontier (in place)
-  int* ids;                     // (cap,)
-  signed char* band;            // (cap, 2, bw)
-  signed char* colmin;          // (cap, 2, Wp)
-  long long cap, live;
-  int moved, rw, bw, W, Wp, track, S;
-  const long long* final_reg;   // (S, 2), or null: per lane, register 0
-  const long long* u_last64;    // (S,) int64, or
-  const int* u_last32;          // (S,) int32 (per-lane schedules)
+  columba::TailRows t;          // the frontier's rows and J's outputs
+  long long cap;
   long long* itv;
   long long M;
   long long* words;
   long long shrink;
-  long long* rid;               // (cap,) out
-  long long* sid;
-  long long* ed_lb;
-  bool* done;
-  signed char* arg_b;
   columba::ScanArgs sa;
 };
 
@@ -333,61 +323,16 @@ __global__ void __launch_bounds__(kThreads) tail_kernel(TailArgs a) {
       static_cast<unsigned long long>(a.words[0]) >> 32);
   const long long tile = columba::take_tile(a.sa);
   const long long i = tile * kThreads + threadIdx.x;
-  const bool in = i < a.cap;
-  long long lo = 0, hi = 0;
-  int id = 0;
-  if (in) {
-    long long* r = a.ranges + i * a.rw;
-    if (a.moved && i >= a.live) {
-      for (int k = 0; k < a.rw; ++k) r[k] = 0;
-      a.ids[i] = 0;
-      for (int k = 0; k < 2 * a.bw; ++k) a.band[i * 2 * a.bw + k] = 0;
-      for (int k = 0; k < 2 * a.Wp; ++k) a.colmin[i * 2 * a.Wp + k] = 0;
-    } else {
-      lo = r[0];
-      hi = r[1];
-      id = a.ids[i];
-    }
+  columba::TailRow r{0, 0, 0, 0, 0u, -1, false, false};
+  if (i < a.cap) {
+    r = columba::tail_read(a.t, i);
+    columba::tail_write(a.t, i, r);
   }
-  const bool ghost = id < 0;
+  const bool ghost = r.id < 0;
   unsigned long long end;
   const long long q = cnt + static_cast<long long>(columba::scan_tiles<
       kThreads>(ghost ? 1ull : 0ull, tile, a.sa, end));
-  const long long idc = id & kGhostIdMask;
-  if (ghost && q < a.M) {
-    long long* row = a.itv + 4 * q;
-    row[0] = lo;
-    row[1] = hi;
-    row[2] = idc;
-    row[3] = (id >> 21) & 1023;
-  }
-  if (in) {
-    const long long s = idc % a.S;
-    const signed char* cm = a.colmin + i * 2 * a.Wp;
-    long long cm_b = 0, cm_f = 0;
-    signed char arg = -1;
-    if (a.final_reg == nullptr) {
-      cm_b = cm[0];
-      cm_f = cm[a.Wp];
-    } else {
-      const long long f0 = a.final_reg[2 * s], f1 = a.final_reg[2 * s + 1];
-      for (int w = 0; w < a.W; ++w) {
-        if (f0 == w) {
-          cm_b = cm[w];
-          if (a.track) arg = cm[a.W + w];
-        }
-        if (f1 == w) cm_f = cm[a.Wp + w];
-      }
-    }
-    const long long ed = cm_b + cm_f;
-    const long long ub = a.u_last64 != nullptr ? a.u_last64[s]
-                                               : a.u_last32[s];
-    a.rid[i] = idc / a.S;
-    a.sid[i] = s;
-    a.ed_lb[i] = ed;
-    a.done[i] = hi > lo && !ghost && ed <= ub;
-    a.arg_b[i] = arg;
-  }
+  if (ghost && q < a.M) columba::ghost_row(a.itv, q, r);
   if (tile == gridDim.x - 1 && threadIdx.x == 0) {
     a.words[6] = min(cnt + static_cast<long long>(end), a.M);
     a.words[7] = a.words[2] + a.shrink;
@@ -522,10 +467,10 @@ extern "C" int columba_frontier_tail(
   if (bad_scan(cap, kThreads, tiles, epoch) || rw < 2 || S < 1 || M < 0 ||
       W < 1 || Wp < W || (u_last64 == nullptr) == (u_last32 == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  TailArgs a{ranges, ids, band, colmin, cap, live, moved, rw, bw, W, Wp,
-             track, S, final_reg, u_last64, u_last32, itv, M, words, shrink,
-             rid, sid, ed_lb, done, arg_b,
-             scan_args(ticket, status, epoch)};
+  TailArgs a{columba::TailRows{ranges, ids, band, colmin, live, moved, rw,
+                               bw, W, Wp, track, S, final_reg, u_last64,
+                               u_last32, rid, sid, ed_lb, done, arg_b},
+             cap, itv, M, words, shrink, scan_args(ticket, status, epoch)};
   tail_kernel<<<grid_of(cap), kThreads, 0, stream>>>(a);
   return launched();
 }

@@ -6,9 +6,10 @@ Declared here, below both layers that launch them: the index layer's
 ``ex_back``, ``tail``). ``SCAN_ARGS`` are the trailing arguments of every
 entry that scans with the shared look-back (kernels I, J, K and L);
 ``WIDE_TILE`` lanes make a tile of the multi-lane scans (kernel I's
-``drain``, ``init`` and ``ex_compact``, kernel K's ``frontier`` and
-``ranges``: 512 threads of 2 lanes), ``SCAN_TILE`` of the one-lane scans
-(kernel J's ``tail``, kernel L's ``compact``).
+``drain``, ``init`` and ``ex_compact``, kernel K's ``frontier``,
+``frontier_tail`` and ``ranges``, kernel L's ``keys`` and ``compact``: 512
+threads of 2 lanes), ``SCAN_TILE`` of the one-lane scans (kernel J's
+``tail``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from columba_tpu_torch import native
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 SCAN_ARGS = [_P, _P, _I64, ctypes.c_uint32]      # ticket, status, tiles, epoch
-# kThreads of the one-lane scans: csrc/frontier.cu tail, csrc/dedup.cu compact
+# kThreads of the one-lane scans: csrc/frontier.cu tail
 SCAN_TILE = 256
 WIDE_TILE = 2 * 512      # kTile of csrc/frontier.cu and expand.cu
 FRONTIER = native.Kernel(

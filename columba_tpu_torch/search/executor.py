@@ -144,6 +144,10 @@ class FrontierResult:
                               # back window's minimum (track_arg runs; -1
                               # where the back side has no window or
                               # without track_arg)
+    tail: dict | None = None  # run_scheme(defer_tail=True): kernel J's
+                              # arguments by name; rid, sid, ed_lb, done,
+                              # arg_b, overflow and itv_count are written
+                              # by pipeline.stage_tail_candidates
 
 
 def host_tables(sched: Schedule) -> dict:
@@ -416,6 +420,16 @@ class _ScanPool:
         self.device = device
         self.buf = None
         self.epoch = 0
+        self.counts = None
+
+    def hist(self) -> torch.Tensor:
+        """Kernel L's digit counts (8 passes x 256 and a block counter,
+        int32): zero between its keys launches, which leave them so."""
+        with _POOL_LOCK:
+            if self.counts is None:
+                self.counts = torch.zeros(8 * 256 + 1, dtype=torch.int32,
+                                          device=self.device)
+            return self.counts
 
     def grab(self, tiles: int):
         """(buffer, epoch) for a launch of ``tiles`` tiles."""
@@ -1050,7 +1064,8 @@ def frontier_ex_back(ranges0, drows0, r2, dr2, slot) -> None:
 
 
 def frontier_tail_plain(state, live: int, moved: bool, itv, words,
-                        shrink: int, S: int, W: int, final_reg, u_last):
+                        shrink: int, S: int, W: int, final_reg, u_last,
+                        out=None):
     """Plain version of kernel J. ``state``: the final frontier's (cap, ...)
     fields (ranges, ids, band, colmin); after a move its rows from ``live``
     on are zeroed in place. The ghosts (id < 0) append [lo, hi, id,
@@ -1060,7 +1075,8 @@ def frontier_tail_plain(state, live: int, moved: bool, itv, words,
     15 = none; None: per-lane schedules, register 0 on both sides), done
     where a live non-ghost lane has ed_lb <= u_last[sid]; arg_b the back
     register's witness where colmin has 2W slots, else -1. words[6] = the
-    in-text count, words[7] = words[2] + ``shrink``."""
+    in-text count, words[7] = words[2] + ``shrink``. ``out``: the five
+    tensors to write them into, else new ones."""
     ranges, ids, band, colmin = state
     M = itv.shape[0] - 1
     if moved:
@@ -1092,13 +1108,19 @@ def frontier_tail_plain(state, live: int, moved: bool, itv, words,
     ed_lb = cm_b + cm_f
     alive = (ranges[:, 1] > ranges[:, 0]) & ~ghost
     done = alive & (ed_lb <= u_last.long()[sid])
-    return ids // S, sid, ed_lb, done, arg_b
+    got = (ids // S, sid, ed_lb, done, arg_b)
+    if out is None:
+        return got
+    for o, g in zip(out, got):
+        o.copy_(g)
+    return tuple(out)
 
 
 def frontier_tail(state, live: int, moved: bool, itv, words, shrink: int,
                   S: int, W: int, final_reg, u_last):
     """Kernel J (see :func:`frontier_tail_plain`): one launch, one scan of
-    the ghosts."""
+    the ghosts. ``match_device_core`` runs its work in kernel K's
+    ``frontier_tail`` launch instead (``pipeline.stage_tail_candidates``)."""
     if not state[0].is_cuda:
         return frontier_tail_plain(state, live, moved, itv, words, shrink,
                                    S, W, final_reg, u_last)
@@ -1153,6 +1175,7 @@ def run_scheme(
     search_mask: torch.Tensor | None = None,
     dyn: dict | None = None,
     track_arg: bool = False,
+    defer_tail: bool = False,
 ) -> FrontierResult:
     """Execute one compiled scheme over a read batch.
 
@@ -1169,7 +1192,11 @@ def run_scheme(
     starts from the full range without k-mer seeding, reads its own exact
     steps, band words and cell codes, and has one colMin register.
     track_arg: shadow slots for the colMin registers' witnesses (the
-    textless pass; ``FrontierResult.arg_b``).
+    textless pass; ``FrontierResult.arg_b``). defer_tail: leave the tail
+    to the caller's candidates launch (``pipeline.stage_tail_candidates``,
+    kernel K's ``frontier_tail`` entry): the result's rid, sid, ed_lb,
+    done and arg_b are empty, its overflow and in-text count unwritten,
+    and ``tail`` holds kernel J's arguments.
 
     On the card the work around kernels A and B is kernels I and J: the
     seed launch (and the clearing of the run's buffers), the drain and
@@ -1311,11 +1338,20 @@ def run_scheme(
 
     # ---------------- tail ----------------
     # ghosts join the in-text buffer with their stashed death depth
-    rid, sid, ed_lb, done, arg_b = frontier_tail(
-        state, live, moved, itv_buf, words, shrink_ovf, S, W,
-        tables["final_reg"] if dyn is None else None,
-        dyn["u_last"] if dyn is not None else tables["u_last"])
+    tail = dict(state=state, live=live, moved=moved, itv=itv_buf,
+                words=words, shrink=shrink_ovf, S=S, W=W,
+                final_reg=tables["final_reg"] if dyn is None else None,
+                u_last=dyn["u_last"] if dyn is not None else tables["u_last"])
+    if defer_tail:
+        cap = state[0].shape[0]
+        rid, sid, ed_lb = (torch.empty(cap, **i64) for _ in range(3))
+        done = torch.empty(cap, dtype=torch.bool, device=dev)
+        arg_b = torch.empty(cap, **i8)
+    else:
+        rid, sid, ed_lb, done, arg_b = frontier_tail(**tail)
+        tail = None
     return FrontierResult(
         ranges=state[0], rid=rid, sid=sid, ed_lb=ed_lb, done=done,
         overflow=words[7], nodes_visited=words[1], itv=itv_buf[:M],
-        itv_count=words[6], searches_started=words[5], arg_b=arg_b)
+        itv_count=words[6], searches_started=words[5], arg_b=arg_b,
+        tail=tail)

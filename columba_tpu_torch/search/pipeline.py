@@ -30,6 +30,7 @@ the phi tables (:func:`_match_textless`, numpy).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import weakref
 from dataclasses import dataclass
 
@@ -147,9 +148,12 @@ def crossover_caps(capacity: int, max_locate: int, switchpoint: int):
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
 EXPAND = native.Kernel(
-    "expand", "columba_expand_frontier",
-    [_P, _P, _I32, _P, _P, _I64,             # done, ranges, rw, rid, sid, C
-     _P, _P, _I64, _I32,                     # itv, itv_count, M, S
+    "expand", "columba_expand_frontier_tail",
+    [_P, _P, _P, _P, _I64, _I64,             # the frontier's fields, C, live
+     _I32, _I32, _I32, _I32, _I32,           # moved, rw, bw, W, Wp
+     _I32, _I32, _P, _P, _P,                 # track, S, final_reg, u_last
+     _P, _I64, _P, _I64,                     # itv, M, words, shrink
+     _P, _P, _P, _P, _P,                     # rid, sid, ed_lb, done, arg_b
      _P, _P, _P, _P, _I64,                   # t_back, pivot (64 / 32 bit),
                                              # max_locate
      _P, _P, _P, _P, _P, _P,                 # c_lo, c_hi, c_rid, c_estb,
@@ -172,18 +176,35 @@ DEDUP = native.Kernel(
     replaces="columba_tpu/search/pipeline.py:194",
     symbols={
         "keys": ("columba_dedup_keys",
-                 [_P, _P, _P, _I64, _P, _P, _P, _P, _I64]),
+                 [_P, _P, _P, _P, _I64, _I64, _I32,  # rid, win, valid,
+                                                     # total, L, bound, passes
+                  _P, _P, _P, _P, _P,                # key, row, n, starts,
+                                                     # hist
+                  _P, _P, _P, _I64, *SCAN_ARGS]),    # the verify slots, mv
+        "pass": ("columba_dedup_pass",
+                 [_P, _P, _P, _P, _P, _P, _I32, _I64, *SCAN_ARGS]),
         "compact": ("columba_dedup_compact",
-                    [_P, _P, _P, _I64, _I64, _P, _P, _P, _P,
+                    [_P, _P, _P, _P, _I64, _I64, _P, _P, _P, _P,
                      *SCAN_ARGS]),
     },
 )
 DEDUP_BIG = 1 << 30      # rid of an invalid row in the sort key: last
+DIGITS = 256             # kernel L's radix: 8-bit digits
+SORT_TILE = 1024         # records a tile of kernel L's pass (csrc/dedup.cu)
 
 
 def stage_candidates_plain(res: executor.FrontierResult, tables: dict,
                            S: int, max_locate: int, dyn: dict | None = None):
-    """Plain version of :func:`stage_candidates`."""
+    """Completed frontier lanes + in-text rows [f_lo, f_hi, ids, depth] of
+    a finished frontier (its tail done) -> one candidate list (c_lo, c_hi,
+    c_rid, c_estb); estb is the read start's offset from the back-side text
+    depth. The back depth and pivot are per search (``tables``) or, under
+    dynamic partitioning, per (read, search) lane (``dyn``). Also the
+    candidates' expansion counts, as :func:`expand_scan` makes them: the
+    inclusive prefix sums of their widths clamped at ``max_locate`` + 1,
+    and the total. Returns (c_lo, c_hi, c_rid, c_estb, offsets, total);
+    :func:`expand_rows` takes the rest. The plain version of the
+    candidates' part of :func:`stage_tail_candidates`."""
     fr_lo = torch.where(res.done, res.ranges[:, 0], 0)
     fr_hi = torch.where(res.done, res.ranges[:, 1], 0)
     itv = res.itv
@@ -204,42 +225,88 @@ def stage_candidates_plain(res: executor.FrontierResult, tables: dict,
             *expand_scan_plain(c_lo, c_hi, max_locate))
 
 
-def stage_candidates(res: executor.FrontierResult, tables: dict, S: int,
-                     max_locate: int, dyn: dict | None = None):
-    """Completed frontier lanes + in-text rows [f_lo, f_hi, ids, depth] ->
-    one candidate list (c_lo, c_hi, c_rid, c_estb); estb is the read
-    start's offset from the back-side text depth. The back depth and pivot
-    are per search (``tables``) or, under dynamic partitioning, per (read,
-    search) lane (``dyn``). Also the candidates' expansion counts, as
-    :func:`expand_scan` makes them: the inclusive prefix sums of their
-    widths clamped at ``max_locate`` + 1, and the total. Returns (c_lo,
-    c_hi, c_rid, c_estb, offsets, total); :func:`expand_rows` takes the
-    rest. On the card one launch of kernel K's ``frontier`` entry."""
+def _tail_result(res: executor.FrontierResult) -> executor.FrontierResult:
+    """The finished frontier of a result whose tail was deferred: its
+    fields as the tail leaves them (the frontier, the in-text buffer and
+    count, J's outputs)."""
+    t = res.tail
+    return dataclasses.replace(
+        res, ranges=t["state"][0], itv=t["itv"][:-1],
+        itv_count=t["words"][6], tail=None)
+
+
+def stage_tail_candidates_plain(res: executor.FrontierResult, tables: dict,
+                                S: int, max_locate: int,
+                                dyn: dict | None = None):
+    """Plain version of :func:`stage_tail_candidates`: kernel J's tail
+    (``executor.frontier_tail_plain`` on ``res.tail``) into the result's
+    rid, sid, ed_lb, done and arg_b, then :func:`stage_candidates_plain`."""
+    executor.frontier_tail_plain(**res.tail, out=(
+        res.rid, res.sid, res.ed_lb, res.done, res.arg_b))
+    return stage_candidates_plain(_tail_result(res), tables, S, max_locate,
+                                  dyn)
+
+
+def stage_tail_candidates(res: executor.FrontierResult, tables: dict, S: int,
+                          max_locate: int, dyn: dict | None = None):
+    """Kernel J's tail and the candidates of a frontier whose tail
+    ``run_scheme`` deferred (``defer_tail=True``): J's work on the final
+    frontier (rows past the live count zeroed after a move, the ghosts
+    appended to the in-text buffer, rid, sid, ed_lb, done and arg_b written
+    into the result, the in-text count and overflow words), then what
+    :func:`stage_candidates_plain` returns for the finished frontier, in
+    one launch of kernel K's ``frontier_tail`` entry."""
     if not res.ranges.is_cuda:
-        return stage_candidates_plain(res, tables, S, max_locate, dyn)
-    C, rw = res.ranges.shape
-    M = res.itv.shape[0]
-    dev = res.ranges.device
+        return stage_tail_candidates_plain(res, tables, S, max_locate, dyn)
+    t = res.tail
+    state, itv, words = t["state"], t["itv"], t["words"]
+    final_reg, u_last = t["final_reg"], t["u_last"]
+    C, rw = state[0].shape
+    bw, Wp, W = state[2].shape[-1], state[3].shape[-1], t["W"]
+    M = itv.shape[0] - 1
+    dev = state[0].device
     src = dyn if dyn is not None else tables
     i32 = dyn is not None
     n_tab = dyn["t_back"].shape[0] if i32 else S
-    executor.check_tensors("kernel K", dev, (
-        (res.done, torch.bool, (C,)), (res.ranges, torch.int64, (C, rw)),
-        (res.rid, torch.int64, (C,)), (res.sid, torch.int64, (C,)),
-        (res.itv, torch.int64, (M, 4)), (res.itv_count, torch.int64, ()),
-        (src["t_back"], torch.int32 if i32 else torch.int64, (n_tab,)),
-        (src["pivot"], torch.int32 if i32 else torch.int64, (n_tab,))))
+    expect = [(state[0], torch.int64, (C, rw)), (state[1], torch.int32, (C,)),
+              (state[2], torch.int8, (C, 2, bw)),
+              (state[3], torch.int8, (C, 2, Wp)),
+              (itv, torch.int64, (M + 1, 4)),
+              (words, torch.int64, (executor.RUN_WORDS,)),
+              (src["t_back"], torch.int32 if i32 else torch.int64,
+               (n_tab,)),
+              (src["pivot"], torch.int32 if i32 else torch.int64, (n_tab,)),
+              (u_last, u_last.dtype, (S,))]
+    expect += [(getattr(res, f), dt, (C,)) for f, dt in (
+        ("rid", torch.int64), ("sid", torch.int64), ("ed_lb", torch.int64),
+        ("done", torch.bool), ("arg_b", torch.int8))]
+    if final_reg is not None:
+        expect.append((final_reg, torch.int64, (S, 2)))
+    executor.check_tensors("kernel K's frontier_tail", dev, expect)
+    if (t["S"] != S or u_last.dtype not in (torch.int64, torch.int32)
+            or Wp not in (W, 2 * W) or (final_reg is None and W != 1)):
+        raise ValueError("kernel K's frontier_tail takes the run's S, an "
+                         "int64 or int32 u_last and W or 2W colMin slots")
     out = [torch.empty(C + M, dtype=torch.int64, device=dev)
            for _ in range(5)]
     total = torch.empty((), dtype=torch.int64, device=dev)
     tb, pv = src["t_back"].data_ptr(), src["pivot"].data_ptr()
-    sa, buf = executor.scan_args(dev, C + M, WIDE_TILE)
-    EXPAND(res.done.data_ptr(), res.ranges.data_ptr(), rw,
-           res.rid.data_ptr(), res.sid.data_ptr(), C, res.itv.data_ptr(),
-           res.itv_count.data_ptr(), M, S, None if i32 else tb,
-           None if i32 else pv, tb if i32 else None, pv if i32 else None,
-           max_locate, *(o.data_ptr() for o in out), total.data_ptr(), *sa,
-           entry="frontier")
+    u64 = u_last.dtype == torch.int64
+    # two scans a tile (the widths' statuses, then the ghosts') and the
+    # ghosts' written marks
+    tiles = -(-(C + M) // WIDE_TILE)
+    sa, buf = executor.scan_args(dev, 3 * tiles * WIDE_TILE, WIDE_TILE)
+    EXPAND(*(f.data_ptr() for f in state), C, t["live"], int(t["moved"]),
+           rw, bw, W, Wp, int(Wp > W), S,
+           final_reg.data_ptr() if final_reg is not None else None,
+           u_last.data_ptr() if u64 else None,
+           None if u64 else u_last.data_ptr(), itv.data_ptr(), M,
+           words.data_ptr(), t["shrink"],
+           *(getattr(res, f).data_ptr() for f in ("rid", "sid", "ed_lb",
+                                                   "done", "arg_b")),
+           None if i32 else tb, None if i32 else pv, tb if i32 else None,
+           pv if i32 else None, max_locate, *(o.data_ptr() for o in out),
+           total.data_ptr(), *sa, entry="frontier_tail")
     return (*out, total)
 
 
@@ -275,7 +342,7 @@ def expand_scan(c_lo, c_hi, max_locate: int):
     """Kernel K's ``ranges`` entry (see :func:`expand_scan_plain`): c_lo and
     c_hi are (n,) int64 columns of one stride (kernel E's rows of ranges,
     read in place, on the k = 0 pass; the candidate list's scan is part of
-    :func:`stage_candidates`)."""
+    :func:`stage_tail_candidates`)."""
     if not c_lo.is_cuda:
         return expand_scan_plain(c_lo, c_hi, max_locate)
     n = c_lo.shape[0]
@@ -322,7 +389,7 @@ def stage_expand(c_lo, c_hi, max_locate: int):
     anyway, and a clamped candidate still forces total > max_locate).
     Returns (rows, cand, valid, total). On the card kernel K's ``ranges``
     and ``rows`` entries, two launches (the scheme path's candidates take
-    :func:`stage_candidates` and :func:`expand_rows`, whose scan is in
+    :func:`stage_tail_candidates` and :func:`expand_rows`, whose scan is in
     the candidates' launch)."""
     if not c_lo.is_cuda:
         return stage_expand_plain(c_lo, c_hi, max_locate)
@@ -353,96 +420,220 @@ def stage_windows(pos, c_rid, c_estb, cand, kb: int):
     return rid, win
 
 
-def dedup_keys_plain(rid, win_start, valid, max_verify: int):
-    """Plain version of kernel L's keys: (rid_m << 32) | (win mod 2^32),
-    rid_m = 2^30 and the window 2^32 - 1 on invalid rows; and the
-    compaction's ``max_verify`` output slots, cleared (rid_v, win_v,
-    vlive)."""
-    rid_m = torch.where(valid, rid, DEDUP_BIG)
-    win_m = torch.where(valid, win_start & 0xFFFFFFFF, 0xFFFFFFFF)
+def dedup_passes(rows: int | None) -> int:
+    """Kernel L's radix passes: 8-bit digits over the key bits that can
+    vary, the window's 32 and ceil(log2(rows)) rid bits (30 without
+    ``rows``: the bound the invalid rows' sentinel leaves)."""
+    rid_bits = 30 if rows is None else max(0, int(rows) - 1).bit_length()
+    return -(-(32 + rid_bits) // 8)
+
+
+def _rid_bound(rows: int | None) -> int:
+    if rows is not None and not 1 <= int(rows) <= DEDUP_BIG:
+        raise ValueError(f"kernel L takes 1 to 2^30 read rows, not {rows}")
+    return DEDUP_BIG if rows is None else int(rows)
+
+
+def _check_rids(rid, valid, rows):
+    """A valid row's rid must lie in [0, rows) (or [0, 2^30))."""
+    r = rid[valid]
+    if r.numel() and (int(r.min()) < 0 or int(r.max()) >= _rid_bound(rows)):
+        raise ValueError(f"a valid row's rid lies outside [0, "
+                         f"{_rid_bound(rows)})")
+
+
+def dedup_keys_plain(rid, win_start, valid, max_verify: int, key, row,
+                     rows: int | None = None, total=None):
+    """Plain version of kernel L's keys. The valid rows' sort records, in
+    row order, into ``key[:n]`` ((rid << 32) | (win mod 2^32)) and
+    ``row[:n]`` (int32 row index); the rest of both is left as it was.
+    Returns (n, starts, outs): the record count, each radix pass's
+    exclusive digit starts ((dedup_passes(rows), 256) int32: the records
+    whose digit p is below d) and the compaction's ``max_verify`` output
+    slots, cleared (rid_v, win_v, vlive). Raises where a valid row's rid
+    lies outside [0, rows). ``total`` is the kernel's: the valid rows are
+    then the prefix [0, min(total, L)), as ``valid`` must say."""
+    _check_rids(rid, valid, rows)
+    idx = torch.nonzero(valid).flatten()
+    n = idx.numel()
+    k = (rid[idx] << 32) | (win_start[idx] & 0xFFFFFFFF)
+    key[:n] = k
+    row[:n] = idx.int()
+    digits = torch.stack([(k >> (8 * p)) & (DIGITS - 1)
+                          for p in range(dedup_passes(rows))])
+    counts = torch.zeros((digits.shape[0], DIGITS), dtype=torch.int64,
+                         device=rid.device)
+    counts.scatter_add_(1, digits, torch.ones_like(digits))
     z = dict(device=rid.device)
-    return (rid_m << 32) | win_m, (
-        torch.zeros(max_verify, dtype=torch.int64, **z),
-        torch.zeros(max_verify, dtype=torch.int64, **z),
-        torch.zeros(max_verify, dtype=torch.bool, **z))
+    return (torch.tensor(n, dtype=torch.int64, **z),
+            (counts.cumsum(1) - counts).int(),
+            (torch.zeros(max_verify, dtype=torch.int64, **z),
+             torch.zeros(max_verify, dtype=torch.int64, **z),
+             torch.zeros(max_verify, dtype=torch.bool, **z)))
 
 
-def dedup_compact_plain(key_s, order, win_start, outs):
-    """Plain version of kernel L's compact: the first sorted row of each
-    key with a valid rid, in order, into the cleared slots ``outs``
-    (rid_v, win_v, vlive). Returns (rid_v, win_v, vlive, n_unique)."""
-    L = key_s.shape[0]
-    first = torch.ones(L, dtype=torch.bool, device=key_s.device)
+def dedup_pass_plain(key, row, n, starts, p: int, key_out, row_out) -> None:
+    """Plain version of kernel L's pass ``p``: the records [0, n) of (key,
+    row), stably by their digit p (key bits 8p .. 8p + 7), into key_out
+    and row_out: a record goes to its digit's start (``starts[p]``) plus
+    the number of records of its digit before it."""
+    n = int(n)
+    k = key[:n]
+    d = (k >> (8 * p)) & (DIGITS - 1)
+    order = torch.argsort(d, stable=True)
+    ds = d[order]
+    cnt = torch.bincount(d, minlength=DIGITS)
+    first = cnt.cumsum(0) - cnt
+    dest = torch.empty(n, dtype=torch.int64, device=key.device)
+    dest[order] = (starts[p].long()[ds] + torch.arange(n, device=key.device)
+                   - first[ds])
+    key_out[dest] = k
+    row_out[dest] = row[:n]
+
+
+def dedup_compact_plain(key_s, row_s, n, win_start, outs):
+    """Plain version of kernel L's compact: the first of each run of equal
+    keys among the sorted records [0, n), in order, into the cleared slots
+    ``outs`` (rid_v, win_v, vlive): its rid (key >> 32) and its row's full
+    window start. Returns (rid_v, win_v, vlive, n_unique), n_unique the
+    unclamped count."""
+    n = int(n)
+    k = key_s[:n]
+    first = torch.ones(n, dtype=torch.bool, device=k.device)
+    first[1:] = k[1:] != k[:-1]
+    src = torch.nonzero(first).flatten()[:outs[0].shape[0]]
+    m = src.numel()
+    outs[0][:m] = k[src] >> 32
+    outs[1][:m] = win_start[row_s[src].long()]
+    outs[2][:m] = True
+    return (*outs, first.sum())
+
+
+def stage_dedup_plain(rid, win_start, valid, max_verify: int,
+                      rows: int | None = None, total=None):
+    """Plain version of :func:`stage_dedup`: one stable sort of every row's
+    key (invalid rows last: rid 2^30, window 2^32 - 1)."""
+    _check_rids(rid, valid, rows)
+    L = rid.shape[0]
+    key = torch.where(valid, (rid << 32) | (win_start & 0xFFFFFFFF),
+                      (DEDUP_BIG << 32) | 0xFFFFFFFF)
+    key_s, order = torch.sort(key, stable=True)
+    first = torch.ones(L, dtype=torch.bool, device=key.device)
     first[1:] = key_s[1:] != key_s[:-1]
     uniq = first & ((key_s >> 32) < DEDUP_BIG)
     (src,), n_uniq = executor._compact(
-        uniq, outs[0].shape[0], [torch.arange(L, device=key_s.device)], [L])
+        uniq, max_verify, [torch.arange(L, device=key.device)], [L])
     vlive = src < L
     sel = torch.where(vlive, src, 0)
-    outs[0].copy_(torch.where(vlive, key_s[sel] >> 32, 0))
-    outs[1].copy_(torch.where(vlive, win_start[order[sel]], 0))
-    outs[2].copy_(vlive)
-    return (*outs, n_uniq)
+    return (torch.where(vlive, key_s[sel] >> 32, 0),
+            torch.where(vlive, win_start[order[sel]], 0), vlive, n_uniq)
 
 
-def stage_dedup_plain(rid, win_start, valid, max_verify: int):
-    """Plain version of :func:`stage_dedup`."""
-    key, outs = dedup_keys_plain(rid, win_start, valid, max_verify)
-    key_s, order = torch.sort(key, stable=True)
-    return dedup_compact_plain(key_s, order, win_start, outs)
-
-
-def dedup_keys(rid, win_start, valid, max_verify: int):
-    """Kernel L's keys (see :func:`dedup_keys_plain`)."""
+def dedup_keys(rid, win_start, valid, max_verify: int, key, row,
+               rows: int | None = None, total=None):
+    """Kernel L's keys (see :func:`dedup_keys_plain`): with ``total`` the
+    kernel takes the valid rows as the prefix [0, min(total, L)) and skips
+    the tiles past it; without it, it compacts ``valid``. A rid outside
+    [0, rows) stops the kernel (a trap: the next synchronisation raises)."""
     if not rid.is_cuda:
-        return dedup_keys_plain(rid, win_start, valid, max_verify)
+        return dedup_keys_plain(rid, win_start, valid, max_verify, key, row,
+                                rows, total)
     L = rid.shape[0]
     dev = rid.device
-    executor.check_tensors("kernel L's keys", dev, (
-        (rid, torch.int64, (L,)), (win_start, torch.int64, (L,)),
-        (valid, torch.bool, (L,))))
-    key = torch.empty(L, dtype=torch.int64, device=dev)
+    expect = [(rid, torch.int64, (L,)), (win_start, torch.int64, (L,)),
+              (valid, torch.bool, (L,)), (key, torch.int64, (L,)),
+              (row, torch.int32, (L,))]
+    if total is not None:
+        expect.append((total, torch.int64, ()))
+    executor.check_tensors("kernel L's keys", dev, expect)
+    if not 1 <= L < 1 << 31:
+        raise ValueError("kernel L's keys takes 1 to 2^31 - 1 rows")
+    P = dedup_passes(rows)
+    n = torch.empty((), dtype=torch.int64, device=dev)
+    starts = torch.empty((P, DIGITS), dtype=torch.int32, device=dev)
     outs = (torch.empty(max_verify, dtype=torch.int64, device=dev),
             torch.empty(max_verify, dtype=torch.int64, device=dev),
             torch.empty(max_verify, dtype=torch.bool, device=dev))
-    DEDUP(rid.data_ptr(), win_start.data_ptr(), valid.data_ptr(), L,
-          key.data_ptr(), *(o.data_ptr() for o in outs), max_verify,
-          entry="keys")
-    return key, outs
+    sa, buf = executor.scan_args(dev, L, WIDE_TILE)
+    DEDUP(rid.data_ptr(), win_start.data_ptr(), valid.data_ptr(),
+          None if total is None else total.data_ptr(), L, _rid_bound(rows),
+          P, key.data_ptr(), row.data_ptr(), n.data_ptr(), starts.data_ptr(),
+          executor.scan_pool(dev).hist().data_ptr(),
+          *(o.data_ptr() for o in outs), max_verify, *sa, entry="keys")
+    return n, starts, outs
 
 
-def dedup_compact(key_s, order, win_start, outs):
+def dedup_pass(key, row, n, starts, p: int, key_out, row_out) -> None:
+    """Kernel L's pass ``p`` (see :func:`dedup_pass_plain`): one launch,
+    its tiles past n idle."""
+    if not key.is_cuda:
+        return dedup_pass_plain(key, row, n, starts, p, key_out, row_out)
+    L = key.shape[0]
+    executor.check_tensors("kernel L's pass", key.device, (
+        (key, torch.int64, (L,)), (row, torch.int32, (L,)),
+        (key_out, torch.int64, (L,)), (row_out, torch.int32, (L,)),
+        (n, torch.int64, ()), (starts, torch.int32, (starts.shape[0],
+                                                      DIGITS))))
+    if not 0 <= p < starts.shape[0] or not 1 <= L < 1 << 31:
+        raise ValueError(f"kernel L's pass {p} of {starts.shape[0]} on {L} "
+                         "rows")
+    # statuses: one word a (tile, digit), two to a pool tile
+    tiles = -(-L // SORT_TILE)
+    sa, buf = executor.scan_args(key.device, tiles * DIGITS // 2, 1)
+    DEDUP(key.data_ptr(), row.data_ptr(), key_out.data_ptr(),
+          row_out.data_ptr(), n.data_ptr(), starts[p].data_ptr(), 8 * p, L,
+          *sa, entry="pass")
+
+
+def dedup_compact(key_s, row_s, n, win_start, outs):
     """Kernel L's compact (see :func:`dedup_compact_plain`) into the slots
     ``outs`` that :func:`dedup_keys` cleared."""
     if not key_s.is_cuda:
-        return dedup_compact_plain(key_s, order, win_start, outs)
+        return dedup_compact_plain(key_s, row_s, n, win_start, outs)
     L = key_s.shape[0]
     mv = outs[0].shape[0]
     executor.check_tensors("kernel L's compact", key_s.device, (
-        (key_s, torch.int64, (L,)), (order, torch.int64, (L,)),
-        (win_start, torch.int64, (L,)), (outs[0], torch.int64, (mv,)),
-        (outs[1], torch.int64, (mv,)), (outs[2], torch.bool, (mv,))))
-    if L < 1:
-        raise ValueError("kernel L's compact takes at least one row")
+        (key_s, torch.int64, (L,)), (row_s, torch.int32, (L,)),
+        (n, torch.int64, ()), (win_start, torch.int64, (L,)),
+        (outs[0], torch.int64, (mv,)), (outs[1], torch.int64, (mv,)),
+        (outs[2], torch.bool, (mv,))))
+    if not 1 <= L < 1 << 31:
+        raise ValueError("kernel L's compact takes 1 to 2^31 - 1 rows")
     n_uniq = torch.empty((), dtype=torch.int64, device=key_s.device)
-    sa, buf = executor.scan_args(key_s.device, L)
-    DEDUP(key_s.data_ptr(), order.data_ptr(), win_start.data_ptr(), L, mv,
-          *(o.data_ptr() for o in outs), n_uniq.data_ptr(), *sa,
-          entry="compact")
+    sa, buf = executor.scan_args(key_s.device, L, WIDE_TILE)
+    DEDUP(key_s.data_ptr(), row_s.data_ptr(), n.data_ptr(),
+          win_start.data_ptr(), L, mv, *(o.data_ptr() for o in outs),
+          n_uniq.data_ptr(), *sa, entry="compact")
     return (*outs, n_uniq)
 
 
-def stage_dedup(rid, win_start, valid, max_verify: int):
+def stage_dedup(rid, win_start, valid, max_verify: int,
+                rows: int | None = None, total=None):
     """Dedup (read, window start) pairs before verification, keeping sort
     order (rid, start as uint32, the reference's order) and compacting the
     first of each pair to ``max_verify`` slots. Returns (rid_v, win_v,
-    vlive, n_unique). On the card kernel L's keys and compact entries
-    around one ``torch.sort(stable=True)``."""
+    vlive, n_unique). ``rows``: the rids' bound (the batch's read rows),
+    which sets the sort's passes; a valid row's rid must lie below it.
+    ``total``: a () count whose prefix [0, min(total, L)) is exactly the
+    valid rows (``match_device_core``'s expansion total), so that the card
+    sorts those rows without compacting the mask. On the card kernel L: the
+    keys and their digit histograms, one stable radix pass a digit over the
+    valid rows (:func:`dedup_passes`), the compaction."""
     if not rid.is_cuda:
-        return stage_dedup_plain(rid, win_start, valid, max_verify)
-    key, outs = dedup_keys(rid, win_start, valid, max_verify)
-    key_s, order = torch.sort(key, stable=True)
-    return dedup_compact(key_s, order, win_start, outs)
+        return stage_dedup_plain(rid, win_start, valid, max_verify, rows,
+                                 total)
+    L = rid.shape[0]
+    key = [torch.empty(L, dtype=torch.int64, device=rid.device)
+           for _ in range(2)]
+    row = [torch.empty(L, dtype=torch.int32, device=rid.device)
+           for _ in range(2)]
+    n, starts, outs = dedup_keys(rid, win_start, valid, max_verify, key[0],
+                                 row[0], rows, total)
+    P = starts.shape[0]
+    for p in range(P):
+        dedup_pass(key[p % 2], row[p % 2], n, starts, p, key[1 - p % 2],
+                   row[1 - p % 2])
+    return dedup_compact(key[P % 2], row[P % 2], n, win_start, outs)
 
 
 def match_device_core(index: FMIndex, reads: torch.Tensor,
@@ -461,14 +652,16 @@ def match_device_core(index: FMIndex, reads: torch.Tensor,
     res = executor.run_scheme(
         index, reads, sched, capacity, kmer_table, switchpoint, itv_cap,
         split_step, capacity2, itv_min_depth=itv_min_depth, tables=tables,
-        ex_split=ex_split, ex_cap=ex_cap, search_mask=search_mask, dyn=dyn)
-    c_lo, c_hi, c_rid, c_estb, offsets, total = stage_candidates(
+        ex_split=ex_split, ex_cap=ex_cap, search_mask=search_mask, dyn=dyn,
+        defer_tail=True)
+    c_lo, c_hi, c_rid, c_estb, offsets, total = stage_tail_candidates(
         res, tables, sched.num_searches, max_locate, dyn)
     rows, cand, valid = expand_rows(c_lo, offsets, total, max_locate)
     pos = locate.locate_rows(index, rows)
     rid, win_start = stage_windows(pos, c_rid, c_estb, cand, kb)
-    rid_v, win_v, vlive, n_uniq = stage_dedup(rid, win_start, valid,
-                                              max_verify)
+    # valid is the prefix j < min(total, max_locate)
+    rid_v, win_v, vlive, n_uniq = stage_dedup(
+        rid, win_start, valid, max_verify, reads.shape[0], total)
     final_rows = verify.verify_window(index, reads, rid_v, win_v, kb,
                                       live=n_uniq)
     return dict(

@@ -440,25 +440,17 @@ def entry(name: str, a: dict, post: dict, out) -> dict:
         return bound(4 * L + (rw * 8 + 32) * back + rw * 8 * L + 32 * back,
                      L * LANE_OPS)
     if name == "frontier.tail":
-        st = a["state"]
-        cap, rw = st[0].shape
-        Wp = st[3].shape[-1]
-        live = cap if not a["moved"] else min(a["live"], cap)
-        zeroed = cap - live
-        row = rw * 8 + 4 + st[2][0].numel() + st[3][0].numel()
-        ghosts = int(post["words"][6]) - int(a["words"][0] >> 32)
-        n_bytes = (live * (16 + 4 + 2 * Wp) + zeroed * row
-                   + cap * (3 * 8 + 2) + 32 * ghosts + 16)
-        return bound(n_bytes, cap * (SCAN_OPS + 2 * Wp))
-    if name == "expand.frontier":
-        # per frontier lane its done flag, rid and sid (and its range where
-        # done), per in-text row its 32 B; out the four columns and the
-        # prefix sum of every candidate, and the total
-        res = a["res"]
-        C, M = res.ranges.shape[0], res.itv.shape[0]
-        done = int(res.done.sum())
-        return bound(C * 17 + done * 16 + M * 32 + 40 * (C + M) + 8,
-                     (C + M) * (LANE_OPS + SCAN_OPS))
+        return _tail(a, post["words"])
+    if name == "expand.frontier_tail":
+        # kernel J's rows (its bytes: the frontier's row in, J's outputs
+        # and the ghosts' rows out), then per in-text row its 32 B and
+        # per candidate the four columns and the prefix sum out; the done
+        # lanes' ranges, rid and sid stay on the chip
+        t = a["res"].tail
+        C, M = t["state"][0].shape[0], t["itv"].shape[0] - 1
+        j = _tail(t, post["res"].tail["words"])
+        return bound(j["bytes"] + M * 32 + 40 * (C + M) + 8,
+                     j["operations"] + (C + M) * (LANE_OPS + SCAN_OPS))
     if name == "expand.ranges":
         n = a["c_lo"].shape[0]
         return bound(16 * n + 8 * n + 8, n * SCAN_OPS)
@@ -477,10 +469,39 @@ def entry(name: str, a: dict, post: dict, out) -> dict:
         distinct = int(torch.unique(a["cand"]).numel())
         return bound(16 * L + 16 * distinct + 16 * L, L * LANE_OPS)
     if name == "dedup.keys":
+        # the valid rows' rid and window in (and the mask, without the
+        # prefix count), a 12 B record each out, each pass's 256 digit
+        # starts, the verify slots cleared; a digit count a pass a row
+        n, starts = int(out[0]), out[1]
         L = a["rid"].shape[0]
-        return bound(17 * L + 8 * L + 17 * a["max_verify"], L * LANE_OPS)
+        mask = L if a["total"] is None else 8
+        return bound(16 * n + mask + 12 * n + starts.numel() * 4
+                     + 17 * a["max_verify"] + 8,
+                     n * (LANE_OPS + starts.shape[0]))
+    if name == "dedup.pass":
+        # 12 B in and 12 B out a valid row, and the pass's digit starts
+        n = int(a["n"])
+        return bound(24 * n + 4 * 256 + 8, n * (LANE_OPS + SCAN_OPS))
     if name == "dedup.compact":
-        L, mv = a["key_s"].shape[0], a["outs"][0].shape[0]
+        # a record a valid row (its key and row), its window where kept;
+        # 17 B out a kept row
+        n, mv = int(a["n"]), a["outs"][0].shape[0]
         kept = min(int(out[3]), mv)
-        return bound(16 * L + 8 * kept + 17 * kept + 8, L * SCAN_OPS)
+        return bound(12 * n + 8 * kept + 17 * kept + 16, n * SCAN_OPS)
     raise ValueError(f"no bound for {name}")
+
+
+def _tail(t: dict, words_after) -> dict:
+    """Kernel J's bytes and operations: the live rows' range ends, id and
+    colMin registers in, the zeroed rows' fields, rid, sid, ed_lb, done
+    and arg_b out, a 32 B row a ghost."""
+    st = t["state"]
+    cap, rw = st[0].shape
+    Wp = st[3].shape[-1]
+    live = cap if not t["moved"] else min(t["live"], cap)
+    zeroed = cap - live
+    row = rw * 8 + 4 + st[2][0].numel() + st[3][0].numel()
+    ghosts = int(words_after[6]) - int(t["words"][0] >> 32)
+    n_bytes = (live * (16 + 4 + 2 * Wp) + zeroed * row
+               + cap * (3 * 8 + 2) + 32 * ghosts + 16)
+    return bound(n_bytes, cap * (SCAN_OPS + 2 * Wp))

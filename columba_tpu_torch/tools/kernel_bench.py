@@ -58,11 +58,13 @@ or B is timed, its ``--rlc --textless`` index, built at once), and:
    pass beside it), by events and the profiler, warm and cold, beside the
    plain chain, the one PyTorch call of the same function where there is
    one (kernel K's ``ranges``: ``torch.cumsum`` of the clamped widths;
-   ``rows``: ``torch.searchsorted``), the sort beside kernel L and the
+   ``rows``: ``torch.searchsorted``), the library sort (``torch.sort`` of
+   every row's key, the profiler's device time) beside kernel L and the
    bound; with ``--parent`` the earlier tree's entries, captured from the
    same calls through its own pipeline, in turns with this tree's; and
-   counts the call's launches outside kernel B's band steps and the sort
-   (``torch.profiler``), on both trees with ``--parent``. ``--only
+   counts the call's launches outside kernel B's band steps, an earlier
+   tree's ``torch.sort`` booked apart (``torch.profiler``), on both trees
+   with ``--parent``. ``--only
    frontier,expand,dedup`` times these alone (about two minutes with the
    Vanilla build); ``--only frontier,expand,band_step`` adds kernel B's
    static Vanilla entry (a synthetic step at SE ALL's shape and the
@@ -528,7 +530,7 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
                                          psched))()
         trees["parent"] = (pcalls, ppi, mods["tools.bounds"], scoped)
     ours = trees["tree"][0]
-    sort = sort_ms(ours["dedup.compact"], clocks)
+    sort = sort_ms(ours["dedup.keys"], clocks)
     names = sorted({n for calls, *_ in trees.values() for n in calls})
     for name in names:
         have = {who: t for who, t in trees.items() if name in t[0]}
@@ -542,7 +544,7 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
         fns = {}
         for who, (calls, pi, _, scope) in have.items():
             c = calls[name]
-            kargs = pi._deep(c["args"], pi._copy)
+            kargs = _copies(pi, c["args"])
             fns[who] = scope(lambda c=c, kargs=kargs: c["real"](**kargs))
         for who in order:
             kernel = trees[who][1].ENTRY_KERNEL[name]
@@ -550,12 +552,12 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
         calls, pi, bd, scope = have.get("tree", have.get("parent"))
         c = calls[name]
         b = scope(lambda: bd.entry(name, c["args"], c["after"], c["out"]))()
-        pargs = pi._deep(c["args"], pi._copy)
+        pargs = _copies(pi, c["args"])
         plain_ms = clocks.events(scope(lambda: c["plain"](**pargs)), False)
         lib_fn = path_inputs.library(c) if "tree" in have else None
         lib = clocks.device_ms(lib_fn) if lib_fn is not None else None
         scan_lib = (clocks.device_ms(path_inputs.frontier_widths_cumsum(c))
-                    if name == "expand.frontier" and "tree" in have
+                    if name.startswith("expand.frontier") and "tree" in have
                     else None)
         results.append(dict(
             label="se_all_sizes", kind=name, bound_ms=b["bound_ms"],
@@ -599,18 +601,29 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
                          ("run_scheme", scheme_fn)):
             c = launch_census(fn, ex)
             census.setdefault(f"{who} {what}", []).append(c)
+            own = sum(t for k, t in c["ms_by_name"].items()
+                      if "keys_kernel" in k or "pass_kernel" in k)
             log(f"{smi}: launch census ({who}), one SE ALL {what} call "
                 f"({R} rows, C = {C}, max_locate = {ml}): {c['outside']} "
-                f"outside kernel B's band steps ({c['band']}) and the sort "
-                f"({c['sort']}), {c['total']} in all; device time "
+                f"outside kernel B's band steps ({c['band']}) and a library "
+                f"sort ({c['sort']}), {c['total']} in all; device time "
                 f"{c['ms']:.4f} ms in all, kernel B's steps "
-                f"{c['band_ms']:.4f}; by name "
+                f"{c['band_ms']:.4f}, the library sort {c['sort_ms']:.4f}, "
+                f"kernel L's keys and passes {own:.4f}; by name "
                 f"{json.dumps(c['by_name'], sort_keys=True)}; device ms by "
                 "name " + json.dumps({k: round(t, 5) for k, t in
                                       c['ms_by_name'].items()},
                                      sort_keys=True))
     results.append(dict(label="se_all_sizes", kind="launch_census",
                         runs=census))
+
+
+def _copies(pi, x):
+    """Copies of a captured call's arguments through a tree's own
+    ``path_inputs`` (an earlier tree's has no aliasing ``copies``)."""
+    if hasattr(pi, "copies"):
+        return pi.copies(x)
+    return pi._deep(x, pi._copy)
 
 
 def _fmt(v) -> str:

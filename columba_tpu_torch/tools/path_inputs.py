@@ -273,8 +273,8 @@ def capture(align) -> list:
         pending["total"] = int(total)
         return saved[2](c_lo, offsets, total, max_locate)
 
-    def dedup(rid, win_start, valid, max_verify):
-        out = saved[3](rid, win_start, valid, max_verify)
+    def dedup(*args, **kwargs):
+        out = saved[3](*args, **kwargs)
         pending["n_unique"] = int(out[3])
         return out
 
@@ -705,15 +705,18 @@ ENTRY_KERNEL = {
     "frontier.drain": "drain_kernel", "frontier.init": "init_kernel",
     "frontier.ex_compact": "ex_compact_kernel",
     "frontier.ex_back": "ex_back_kernel", "frontier.tail": "tail_kernel",
-    "expand.frontier": "frontier_kernel", "expand.ranges": "scan_kernel",
-    "expand.rows": "rows_kernel",
+    "expand.frontier_tail": "frontier_kernel",
+    "expand.ranges": "scan_kernel", "expand.rows": "rows_kernel",
     "dedup.windows": "windows_kernel", "dedup.keys": "keys_kernel",
-    "dedup.compact": "compact_kernel",
+    "dedup.pass": "pass_kernel", "dedup.compact": "compact_kernel",
 }
-# the argument that holds the in-text buffer, whose last row is scratch:
-# the plain version writes its dropped rows there, the kernel nothing
-ITV_ARG = {"frontier.drain": "itv", "frontier.init": "itv",
-           "frontier.tail": "itv"}
+# the in-text buffer among an entry's arguments, whose last row is
+# scratch: the plain version writes its dropped rows there, the kernel
+# nothing
+ITV_ARG = {"frontier.drain": lambda a: a["itv"],
+           "frontier.init": lambda a: a["itv"],
+           "frontier.tail": lambda a: a["itv"],
+           "expand.frontier_tail": lambda a: a["res"].tail["itv"]}
 
 
 def entry_table() -> dict:
@@ -732,12 +735,13 @@ def entry_table() -> dict:
         "frontier.ex_back": (ex, "frontier_ex_back",
                              ex.frontier_ex_back_plain),
         "frontier.tail": (ex, "frontier_tail", ex.frontier_tail_plain),
-        "expand.frontier": (pl, "stage_candidates",
-                            pl.stage_candidates_plain),
+        "expand.frontier_tail": (pl, "stage_tail_candidates",
+                                 pl.stage_tail_candidates_plain),
         "expand.ranges": (pl, "expand_scan", pl.expand_scan_plain),
         "expand.rows": (pl, "expand_rows", pl.expand_rows_plain),
         "dedup.windows": (pl, "stage_windows", pl.stage_windows_plain),
         "dedup.keys": (pl, "dedup_keys", pl.dedup_keys_plain),
+        "dedup.pass": (pl, "dedup_pass", pl.dedup_pass_plain),
         "dedup.compact": (pl, "dedup_compact", pl.dedup_compact_plain),
     }
 
@@ -776,11 +780,24 @@ def _deep(x, f):
     return x
 
 
-def _copy(t: torch.Tensor) -> torch.Tensor:
-    """A copy with the same strides (kernel K reads kernel E's ranges in
-    place through their row stride)."""
-    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
-                               device=t.device).copy_(t)
+def copies(x):
+    """``x`` with every tensor copied (through what :func:`_deep` walks),
+    the same strides (kernel K reads kernel E's ranges in place through
+    their row stride), and tensors that share memory sharing it in the
+    copy: each storage is copied once and the views are rebuilt on it (a
+    deferred tail's result holds views of the run's buffers)."""
+    memo: dict = {}
+
+    def one(t):
+        st = t.untyped_storage()
+        new = memo.get(st.data_ptr())
+        if new is None:
+            whole = torch.empty(0, dtype=torch.uint8, device=t.device)
+            new = memo[st.data_ptr()] = whole.set_(st).clone(
+                ).untyped_storage()
+        return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+            new, t.storage_offset(), t.shape, t.stride())
+    return _deep(x, one)
 
 
 def _tensors(x) -> list:
@@ -807,12 +824,12 @@ def capture_entries(fn) -> dict:
             bound.apply_defaults()
             if name in calls:
                 return real(*args, **kwargs)
-            before = _deep(dict(bound.arguments), _copy)
+            before = copies(dict(bound.arguments))
             out = real(*args, **kwargs)
             calls[name] = dict(name=name, real=real, plain=table[name][2],
                               args=before,
-                              after=_deep(dict(bound.arguments), _copy),
-                              out=_deep(out, _copy))
+                              after=copies(dict(bound.arguments)),
+                              out=copies(out))
             return out
         return spy
 
@@ -846,11 +863,11 @@ def replay_plain(call: dict) -> int:
     """The captured call again through its plain version on copies of its
     arguments: the max abs difference from the kernel's result and from
     the arguments it left (the in-text buffer's scratch row aside)."""
-    args = _deep(call["args"], _copy)
+    args = copies(call["args"])
     out = call["plain"](**args)
     itv = ITV_ARG.get(call["name"])
     if itv is not None:
-        args[itv][-1] = call["after"][itv][-1]
+        itv(args)[-1] = itv(call["after"])[-1]
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return max(_max_err(out, call["out"]), _max_err(args, call["after"]))
@@ -860,8 +877,8 @@ def time_entry(call: dict, clocks: Clocks) -> dict:
     """The entry's kernel and its plain version on copies of the captured
     arguments: CUDA events and the profiler's device time of the kernel,
     warm and with the L2 flushed; events of the plain version, warm."""
-    kargs = _deep(call["args"], _copy)
-    pargs = _deep(call["args"], _copy)
+    kargs = copies(call["args"])
+    pargs = copies(call["args"])
     t = clocks.all(lambda: call["real"](**kargs), ENTRY_KERNEL[call["name"]])
     t["plain_ms"] = clocks.events(lambda: call["plain"](**pargs), False)
     return t
@@ -897,23 +914,29 @@ def frontier_widths_cumsum(call: dict):
 
 
 def sort_ms(call: dict, clocks: Clocks) -> float:
-    """kernel L's sort (torch.sort, stable) on a captured compact call's
-    keys: the row's library time."""
-    key = call["args"]["key_s"].clone()
-    return clocks.events(lambda: torch.sort(key, stable=True), False)
+    """The library's sort (``torch.sort``, stable) of every row's key of a
+    captured ``dedup.keys`` call, invalid rows last (rid 2^30, window
+    2^32 - 1: ``pipeline.stage_dedup_plain``'s keys), by the profiler's
+    device time (its launches and memsets): kernel L's yardstick, as the
+    port ran it before kernel L sorted on the card."""
+    a = call["args"]
+    key = torch.where(a["valid"], (a["rid"] << 32)
+                      | (a["win_start"] & 0xFFFFFFFF), (1 << 62) | 0xFFFFFFFF)
+    return clocks.device_ms(lambda: torch.sort(key, stable=True))
 
 
 # the record_function scopes that launch_census books device work to
 SCOPE_WORD, SCOPE_SORT = "census.step_word", "census.sort"
 
 
-def _device_events(fn, scopes=()) -> tuple[dict, dict, dict]:
+def _device_events(fn, scopes=()) -> tuple[dict, dict, dict, dict]:
     """What the card ran in one profiled ``fn()``: kernel launches, memsets
     and copies, counted by name (``torch.profiler``), their device ms by
     name, and how many of them were issued inside each ``record_function``
-    scope named in ``scopes`` (the profiler links each device event to the
-    op that issued it; the scope is that op or one of its parents). The
-    scopes' own spans on the device timeline are not counted."""
+    scope named in ``scopes`` and their device ms (the profiler links each
+    device event to the op that issued it; the scope is that op or one of
+    its parents). The scopes' own spans on the device timeline are not
+    counted."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -924,6 +947,7 @@ def _device_events(fn, scopes=()) -> tuple[dict, dict, dict]:
     by_name: dict = {}
     ms: dict = {}
     within = dict.fromkeys(scopes, 0)
+    within_ms = dict.fromkeys(scopes, 0.0)
     for ev in prof.events():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
             if ev.name not in within:
@@ -936,7 +960,9 @@ def _device_events(fn, scopes=()) -> tuple[dict, dict, dict]:
                 up = up.cpu_parent
             if up is not None:
                 within[up.name] += len(ev.kernels)
-    return by_name, ms, within
+                within_ms[up.name] += sum(k.duration
+                                          for k in ev.kernels) / 1000.0
+    return by_name, ms, within, within_ms
 
 
 def launch_census(fn, ex=None) -> dict:
@@ -952,7 +978,9 @@ def launch_census(fn, ex=None) -> dict:
     {"by_name": every launch, memset and copy of the call by name, "band":
     kernel B's launches and its word copies, "sort", "outside", "total",
     "ms_by_name": their device ms by name, "band_ms": kernel B's launches'
-    device ms, "ms": the call's device ms in all}."""
+    device ms, "sort_ms": the library sort's device ms, "ms": the call's
+    device ms in all}. Kernel L's own sort (its keys and passes, since it
+    replaced ``torch.sort``) counts among the launches outside."""
     from torch.profiler import record_function
 
     if ex is None:
@@ -971,7 +999,7 @@ def launch_census(fn, ex=None) -> dict:
     ex.StepScratch.word = scoped(SCOPE_WORD, word)
     torch.sort = scoped(SCOPE_SORT, sort)
     try:
-        by_name, ms, within = _device_events(fn, calls)
+        by_name, ms, within, within_ms = _device_events(fn, calls)
     finally:
         ex.StepScratch.word, torch.sort = word, sort
     if within[SCOPE_WORD] != calls[SCOPE_WORD] or (
@@ -984,4 +1012,4 @@ def launch_census(fn, ex=None) -> dict:
     return dict(by_name=by_name, band=band, sort=sort,
                 outside=total - band - sort, total=total, ms_by_name=ms,
                 band_ms=sum(t for k, t in ms.items() if "band_step" in k),
-                ms=sum(ms.values()))
+                sort_ms=within_ms[SCOPE_SORT], ms=sum(ms.values()))

@@ -87,7 +87,7 @@ STAGES = [
     ("columba_tpu_torch.search.executor", "run_scheme",
      "search: exact prefix + band steps"),
     ("columba_tpu_torch.ops.extend", "exact_match", "exact pass (kernel E)"),
-    ("columba_tpu_torch.search.pipeline", "stage_candidates",
+    ("columba_tpu_torch.search.pipeline", "stage_tail_candidates",
      "candidates + expand"),
     ("columba_tpu_torch.search.pipeline", "expand_scan",
      "candidates + expand"),

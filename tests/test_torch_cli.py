@@ -349,10 +349,10 @@ def test_kernel_entries_name_their_sources():
                 assert f"{symbol}(" in f.read(), (k.name, entry)
             seen += 1
     # 8 kernels; A's loop (Vanilla, RLC); 8 RLC; I-L: frontier's drain,
-    # init, ex_compact, ex_back, tail, expand's ranges, rows (its scan is
-    # in its main symbol, the candidates' launch), dedup's keys, compact
-    # and their three main symbols
-    assert seen == 30
+    # init, ex_compact, ex_back, tail, expand's ranges, rows (its scan, and
+    # kernel J's tail, are in its main symbol, the candidates' launch),
+    # dedup's keys, pass, compact and their three main symbols
+    assert seen == 31
     band = native.KERNELS["band_step"]
     assert band.source_of("textless").endswith("csrc/band_step_rlc.cu")
     assert band.source_of("per_lane_rlc").endswith("csrc/band_step_rlc.cu")

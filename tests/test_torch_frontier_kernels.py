@@ -3,16 +3,21 @@
 Kernels I and J (``csrc/frontier.cu``: the k-mer seeds, the drain and init
 of the frontier, the two-stage exact loop's compaction, the tail) run inside
 ``executor.run_scheme``; kernels K and L (``csrc/expand.cu``,
-``csrc/dedup.cu``) are ``pipeline.stage_candidates``, ``stage_expand``,
-``stage_windows`` and ``stage_dedup``. On CPU tensors each wrapper takes its
-plain version, so these tests hold the plain versions to the JAX package
-with exact equality: the stage functions on inputs made with numpy from a
-seed that push their edges (widths past ``max_locate``, a total past it, no
-candidate at all, duplicate and negative windows, more unique pairs than
-``max_verify``), and run_scheme's whole FrontierResult where the in-text
-buffer clamps at M, the frontier overflows its capacity, ghosts reach the
-tail and the two-stage band loop shrinks, and under track_arg on a textless
-index. The kernels themselves are held to these plain versions on the card
+``csrc/dedup.cu``) are ``pipeline.stage_tail_candidates`` (J's tail in
+K's launch on ``match_device_core``'s path), ``stage_expand``,
+``stage_windows`` and
+``stage_dedup`` (kernel L's keys, radix passes and compaction). On CPU
+tensors each wrapper takes its plain version, so these tests hold the plain
+versions to the JAX package with exact equality: the stage functions on
+inputs made with numpy from a seed that push their edges (widths past
+``max_locate``, a total past it, no candidate at all; kernel L's edges of
+``tools/edges.py``: masks, duplicates, windows below 0 and near 2^32, odd
+read counts, one row, more unique pairs than ``max_verify``, each also
+through the composed plain entries), and run_scheme's whole FrontierResult
+where the in-text buffer clamps at M, the frontier overflows its capacity,
+ghosts reach the tail and the two-stage band loop shrinks (also with the
+tail deferred to the candidates), and under track_arg on a textless index.
+The kernels themselves are held to these plain versions on the card
 (``tests/test_torch_kernels.py``, ``chip_smoke.py``).
 """
 
@@ -34,6 +39,8 @@ from columba_tpu_torch.index import kmer as tkmer
 from columba_tpu_torch.search import executor as texec
 from columba_tpu_torch.search import pipeline as tpipe
 from columba_tpu_torch.search.scheme import get_scheme as tscheme
+from columba_tpu_torch.tools.edges import (DEDUP_CASES, dedup_case,
+                                           dedup_entries, tail_frontier)
 
 from tests.test_torch_executor import FIELDS, world  # noqa: F401
 
@@ -81,26 +88,20 @@ def test_stage_expand_edges(case):
     assert int(tot) == total and int(offsets[-1]) == total
 
 
-@pytest.mark.parametrize("case", ["duplicates", "past_max_verify",
-                                  "negative", "none_valid"])
+@pytest.mark.parametrize("case", DEDUP_CASES)
 def test_stage_dedup_edges(case):
     """stage_dedup: duplicate (rid, window) pairs, more unique pairs than
-    max_verify, negative windows (they sort as uint32), no valid row."""
-    rng = np.random.default_rng(["duplicates", "past_max_verify",
-                                 "negative", "none_valid"].index(case) + 80)
-    L = 400
-    rid = rng.integers(0, 8 if case == "duplicates" else 200, L)
-    win = {"duplicates": rng.integers(0, 5, L),
-           "past_max_verify": rng.integers(0, 1 << 20, L),
-           "negative": rng.integers(-40, 40, L),
-           "none_valid": rng.integers(0, 100, L)}[case].astype(np.int64)
-    valid = (rng.random(L) < 0.8) & (case != "none_valid")
-    mv = 64 if case == "past_max_verify" else 512
-    got = tpipe.stage_dedup(torch.from_numpy(rid), torch.from_numpy(win),
-                            torch.from_numpy(valid), mv)
-    want = jpipe.stage_dedup(jnp.asarray(rid.astype(np.int32)),
-                             jnp.asarray(win.astype(np.uint32)),
-                             jnp.asarray(valid), L, mv)
+    max_verify, negative windows (they sort as uint32), no valid row,
+    duplicates on both sides of a valid prefix's end (the prefix given by
+    its count, as match_device_core gives it), windows past 2^31 and near
+    2^32, read rows that are no power of two with rids up to the last, one
+    row; and kernel L's entries (keys with their digit histograms, one
+    stable pass a digit, the compaction) composed, against the same."""
+    rid, win, valid, mv, rows, total = dedup_case(case)
+    got = tpipe.stage_dedup(rid, win, valid, mv, rows, total)
+    want = jpipe.stage_dedup(jnp.asarray(rid.numpy().astype(np.int32)),
+                             jnp.asarray(win.numpy().astype(np.uint32)),
+                             jnp.asarray(valid.numpy()), rid.shape[0], mv)
     rid_t, win_t, live_t, n_t = (np.asarray(x) for x in got)
     rid_j, win_j, live_j, n_j = (np.asarray(x) for x in want)
     assert int(n_t) == int(n_j)
@@ -112,17 +113,35 @@ def test_stage_dedup_edges(case):
         assert int(n_t) > mv and live_t.all()
     if case == "negative":
         assert (win_t[live_t] < 0).any()
-    if case == "duplicates":
+    if case in ("duplicates", "prefix_dups"):
         assert int(n_t) < int(valid.sum())
-    # kernel L's entries compose to the same
-    key, outs = tpipe.dedup_keys_plain(torch.from_numpy(rid),
-                                       torch.from_numpy(win),
-                                       torch.from_numpy(valid), mv)
-    key_s, order = torch.sort(key, stable=True)
-    for a, b in zip(tpipe.dedup_compact_plain(key_s, order,
-                                              torch.from_numpy(win), outs),
-                    got):
-        assert torch.equal(a, b)
+    if case == "past_2_31":
+        assert (win_t[live_t] >= 1 << 31).any() and (
+            win_t[live_t] < 0).any()
+    if case == "rows_odd":
+        assert rid_t[live_t].max() == rows - 1
+    for a, b in zip(dedup_entries(rid, win, valid, mv, rows, total), got):
+        assert torch.equal(a, b), case
+
+
+def test_stage_dedup_rid_bound():
+    """A valid row whose rid is at or past the read rows stage_dedup is
+    told of (or below 0) raises; an invalid row's rid is not looked at."""
+    rid, win, valid, mv, rows, total = dedup_case("rows_odd")
+    assert tpipe.dedup_passes(rows) == 5 and tpipe.dedup_passes(32_768) == 6
+    assert tpipe.dedup_passes(None) == 8 and tpipe.dedup_passes(1) == 4
+    for bad in (rows, rows + 7, -1):
+        r = rid.clone()
+        r[int(np.flatnonzero(valid.numpy())[3])] = bad
+        with pytest.raises(ValueError):
+            tpipe.stage_dedup(r, win, valid, mv, rows)
+        with pytest.raises(ValueError):
+            tpipe.dedup_keys_plain(r, win, valid, mv, torch.empty_like(r),
+                                   torch.empty_like(r, dtype=torch.int32),
+                                   rows)
+    r = rid.clone()
+    r[~valid] = rows + 50
+    tpipe.stage_dedup(r, win, valid, mv, rows)
 
 
 def test_stage_windows():
@@ -140,7 +159,8 @@ def test_stage_windows():
 
 @pytest.mark.parametrize("dyn", [False, True])
 def test_stage_candidates(dyn):
-    """stage_candidates on a frontier of done and not-done lanes and an
+    """stage_candidates_plain (the candidates' part of kernel K's
+    frontier_tail entry) on a frontier of done and not-done lanes and an
     in-text buffer filled past its count, with per-search or per-lane
     (dynamic partitioning) back depths and pivots."""
     rng = np.random.default_rng(91 + dyn)
@@ -172,7 +192,7 @@ def test_stage_candidates(dyn):
         sid=jnp.asarray(sid.astype(np.int32)), done=jnp.asarray(done),
         itv=jnp.asarray(itv.astype(np.uint32)), itv_count=jnp.int32(count))
     ml = 40
-    got = tpipe.stage_candidates(
+    got = tpipe.stage_candidates_plain(
         tres, texec.device_tables(tsched, "cpu"), S, ml,
         {k: torch.from_numpy(v) for k, v in dyn_np.items()} if dyn else None)
     want = jpipe.stage_candidates(
@@ -187,6 +207,28 @@ def test_stage_candidates(dyn):
                      - np.asarray(want[0]).astype(np.int64), 0, ml + 1)
     _eq(got[4], np.cumsum(widths), "offsets")
     _eq(got[5], jpipe.stage_expand(want[0], want[1], ml)[3], "total")
+    if dyn:
+        return
+    # a deferred tail (run_scheme(defer_tail=True)) on a final frontier
+    # with ghosts, moved: stage_tail_candidates runs kernel J's rows and
+    # the candidates, whose result the JAX package's stage_candidates
+    # takes as it is
+    tables = texec.device_tables(tsched, "cpu")
+    dres, _ = tail_frontier(rng, C + 40, M + 100, True, R, S, "cpu",
+                            bw=tsched.bw, W=int(tsched.W))
+    dres.tail.update(final_reg=tables["final_reg"], u_last=tables["u_last"])
+    got = tpipe.stage_tail_candidates(dres, tables, S, ml)
+    t = dres.tail
+    assert int(t["words"][6]) > int(t["words"][0]) >> 32      # ghosts
+    want = jpipe.stage_candidates(SimpleNamespace(
+        ranges=jnp.asarray(t["state"][0].numpy().astype(np.uint32)),
+        rid=jnp.asarray(dres.rid.numpy().astype(np.int32)),
+        sid=jnp.asarray(dres.sid.numpy().astype(np.int32)),
+        done=jnp.asarray(dres.done.numpy()),
+        itv=jnp.asarray(t["itv"][:-1].numpy().astype(np.uint32)),
+        itv_count=jnp.int32(int(t["words"][6]))), jsched, None)
+    for a, b, f in zip(got, want, ("c_lo", "c_hi", "c_rid", "c_estb")):
+        _eq(a, b, f)
 
 
 def test_kmer_lookup():
@@ -248,6 +290,24 @@ def test_run_scheme_edges(world, case, monkeypatch):  # noqa: F811
         assert int(got.overflow) > 0
     else:
         assert seen[0] > 0 and int(got.itv_count) < got.itv.shape[0]
+    # the tail deferred to kernel K's frontier_tail launch (as
+    # match_device_core runs it): the same result, and the candidates of
+    # frontier_tail_plain then stage_candidates_plain and of the JAX
+    # package's stage_candidates
+    S, ml = tsched.num_searches, 4096
+    tables = texec.device_tables(tsched, "cpu")
+    res = texec.run_scheme(world["tfm"], torch.from_numpy(batch), tsched,
+                           capacity, world["ttab"], tables=tables,
+                           defer_tail=True, **kw)
+    assert res.tail is not None and len(seen) == 1
+    cands = tpipe.stage_tail_candidates(res, tables, S, ml)
+    for f in FIELDS + ("itv", "arg_b"):
+        _eq(getattr(res, f), getattr(got, f), f)
+    for a, b in zip(cands, tpipe.stage_candidates_plain(got, tables, S, ml)):
+        assert torch.equal(a, b)
+    for a, b, f in zip(cands, jpipe.stage_candidates(want, jsched, None),
+                       ("c_lo", "c_hi", "c_rid", "c_estb")):
+        _eq(a, b, f)
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,7 @@ from columba_tpu_torch.ops import extend, locate, verify
 from columba_tpu_torch.ops.frontier import WIDE_TILE
 from columba_tpu_torch.search import dynschedule, executor, pipeline
 from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
-from columba_tpu_torch.tools import gather_bench
+from columba_tpu_torch.tools import edges, gather_bench
 
 pytestmark = pytest.mark.cuda
 
@@ -163,8 +163,9 @@ def _path_rows(index, g, seed, max_locate=1 << 14):
     itv_cap, ss, c2 = pipeline.crossover_caps(2048, max_locate, 4)
     tables = executor.device_tables(sched, index.device)
     res = executor.run_scheme(index, batch, sched, 2048, None, 4, itv_cap,
-                              ss, c2, itv_min_depth=16, tables=tables)
-    c_lo, _, _, _, offsets, total = pipeline.stage_candidates(
+                              ss, c2, itv_min_depth=16, tables=tables,
+                              defer_tail=True)
+    c_lo, _, _, _, offsets, total = pipeline.stage_tail_candidates(
         res, tables, sched.num_searches, max_locate)
     rows, _, _ = pipeline.expand_rows(c_lo, offsets, total, max_locate)
     assert 0 < int(total) < max_locate
@@ -1261,10 +1262,10 @@ def test_rlc_select_match_all_vs_plain(rlc_setup, gpu, mode):
 
 FRONTIER_ENTRIES = ("frontier.seed", "frontier.lookup", "frontier.drain",
                     "frontier.init", "frontier.ex_compact",
-                    "frontier.ex_back", "frontier.tail", "expand.frontier",
-                    "expand.ranges", "expand.rows",
-                    "dedup.windows", "dedup.keys", "dedup.compact")
-
+                    "frontier.ex_back", "frontier.tail",
+                    "expand.frontier_tail", "expand.ranges", "expand.rows",
+                    "dedup.windows", "dedup.keys", "dedup.pass",
+                    "dedup.compact")
 
 def _lanes(rng, L, sw, gpu):
     """(L, 4) lane ranges: a third empty, a third narrow (width 1..sw),
@@ -1335,11 +1336,12 @@ def test_frontier_wide_scans(gpu, case, L):
 
 
 def _candidates(rng, case, C, M, gpu):
-    """A final frontier (C lanes, some done) and an in-text buffer (M rows,
-    the first ``count`` valid) as kernel K takes them. "empty_runs": live
-    candidates only every 3,000 or so, runs of empty ones longer than a
-    block of rows stages; "zero": none live; "over": widths that pass
-    max_locate."""
+    """A final frontier (C lanes, some done; its tail deferred, as
+    run_scheme(defer_tail=True) leaves it: kernel K's frontier_tail takes
+    it) and an in-text buffer (M rows and a scratch row, the first
+    ``count`` valid). "empty_runs": live candidates only every 3,000 or
+    so, runs of empty ones longer than a block of rows stages; "zero": none
+    live; "over": widths that pass max_locate."""
     lo = rng.integers(0, 1 << 31, C)
     width = {"empty_runs": np.zeros(C, np.int64),
              "zero": np.zeros(C, np.int64),
@@ -1349,22 +1351,39 @@ def _candidates(rng, case, C, M, gpu):
     ranges = np.stack([lo, lo + width, lo, lo + width], 1)
     done = rng.random(C) < (1.0 if case == "empty_runs" else 0.5)
     S, R = 3, 4096
-    itv = np.zeros((M, 4), np.int64)
-    itv[:, 0] = rng.integers(0, 1 << 31, M)
-    iw = np.zeros(M, np.int64) if case != "over" else rng.integers(0, 9, M)
+    itv = np.zeros((M + 1, 4), np.int64)
+    itv[:, 0] = rng.integers(0, 1 << 31, M + 1)
+    iw = np.zeros(M + 1, np.int64) if case != "over" else rng.integers(
+        0, 9, M + 1)
     if case == "empty_runs":
         iw[1234::4567] = 3
     itv[:, 1] = itv[:, 0] + iw
-    itv[:, 2] = rng.integers(0, R * S, M)
-    itv[:, 3] = rng.integers(0, 60, M)
+    itv[:, 2] = rng.integers(0, R * S, M + 1)
+    itv[:, 3] = rng.integers(0, 60, M + 1)
     count = M - 17
+    words = np.zeros(executor.RUN_WORDS, np.int64)
+    words[0] = count << 32
     t = lambda x: torch.from_numpy(np.asarray(x)).to(gpu)  # noqa: E731
+    # a lane is done where its range is not empty and its one colMin
+    # register a side (per-lane schedules) stays within u_last = 5
+    colmin = np.where(done, 0, 9)[:, None, None].repeat(2, 1).astype(np.int8)
+    state = [t(ranges.astype(np.int64)),
+             t((rng.integers(0, R, C) * S + rng.integers(0, S, C)).astype(
+                 np.int32)),
+             t(np.zeros((C, 2, 5), np.int8)), t(colmin)]
+    words_t, itv_t = t(words), t(itv)
+
+    def out(dt):
+        return torch.empty(C, dtype=dt, device=gpu)
+
     res = executor.FrontierResult(
-        ranges=t(ranges.astype(np.int64)), rid=t(rng.integers(0, R, C)),
-        sid=t(rng.integers(0, S, C)), ed_lb=None, done=t(done),
-        overflow=None, nodes_visited=None, itv=t(itv),
-        itv_count=torch.tensor(count, device=gpu), searches_started=None,
-        arg_b=None)
+        ranges=state[0], rid=out(torch.int64), sid=out(torch.int64),
+        ed_lb=out(torch.int64), done=out(torch.bool), overflow=words_t[7],
+        nodes_visited=words_t[1], itv=itv_t[:M], itv_count=words_t[6],
+        searches_started=words_t[5], arg_b=out(torch.int8),
+        tail=dict(state=state, live=C, moved=False, itv=itv_t, words=words_t,
+                  shrink=0, S=S, W=1, final_reg=None,
+                  u_last=t(np.full(S, 5, np.int64))))
     tables = dict(t_back=t(rng.integers(20, 70, S)),
                   pivot=t(rng.integers(0, 60, S)))
     return res, tables, S
@@ -1373,15 +1392,18 @@ def _candidates(rng, case, C, M, gpu):
 @pytest.mark.parametrize("case,ml", [("empty_runs", 1024), ("zero", 4096),
                                      ("over", 4096)])
 def test_expand_kernels_edges(gpu, case, ml):
-    """Kernel K's fused candidates-and-scan entry and its rows entry equal
+    """Kernel K's candidates-and-scan entry (kernel J's tail in its launch)
+    and its rows entry equal
     their plain versions with long runs of empty candidates (longer than
     a block's staging), with a total of 0, and with a total past
     max_locate (the clip: rows past it invalid, on the last candidate);
     and the ranges entry on strided columns."""
+    from columba_tpu_torch.tools.path_inputs import copies
+
     rng = np.random.default_rng(len(case) + ml)
     res, tables, S = _candidates(rng, case, 20_000, 24_000, gpu)
-    got = pipeline.stage_candidates(res, tables, S, ml)
-    want = pipeline.stage_candidates_plain(res, tables, S, ml)
+    got = pipeline.stage_tail_candidates(copies(res), tables, S, ml)
+    want = pipeline.stage_tail_candidates_plain(copies(res), tables, S, ml)
     for k, (a, b) in enumerate(zip(got, want)):
         assert torch.equal(a, b), k
     c_lo, offsets, total = got[0], got[4], got[5]
@@ -1450,25 +1472,52 @@ def test_frontier_kernels_vs_plain(setup, rlc_setup, gpu, path):
     calls = path_inputs.capture_entries(fn)
     torch.cuda.synchronize()
     want = {"seeded": ("frontier.seed", "frontier.lookup", "frontier.drain",
-                       "frontier.init", "frontier.tail", "expand.frontier",
-                       "expand.rows", "dedup.windows",
-                       "dedup.keys", "dedup.compact"),
-            "overflow": ("frontier.seed", "frontier.init", "frontier.tail"),
+                       "frontier.init", "expand.frontier_tail",
+                       "expand.rows", "dedup.windows", "dedup.keys",
+                       "dedup.pass", "dedup.compact"),
+            "overflow": ("frontier.seed", "frontier.init",
+                         "expand.frontier_tail"),
             "band_only": ("frontier.ex_compact", "frontier.ex_back",
-                          "frontier.init", "frontier.tail"),
+                          "frontier.init", "expand.frontier_tail"),
             "dynamic": ("frontier.seed", "frontier.drain", "frontier.init",
-                        "frontier.tail", "expand.frontier"),
+                        "expand.frontier_tail"),
             "exact": ("expand.ranges", "expand.rows"),
-            "rlc": ("frontier.seed", "frontier.init", "frontier.tail",
-                    "expand.frontier", "dedup.compact"),
+            "rlc": ("frontier.seed", "frontier.init", "expand.frontier_tail",
+                    "dedup.pass", "dedup.compact"),
             "textless": ("frontier.seed", "frontier.init",
                          "frontier.tail")}[path]
     assert set(want) <= set(calls), sorted(calls)
     for name, call in calls.items():
         assert path_inputs.replay_plain(call) == 0, name
+    assert path == "textless" or "frontier.tail" not in calls
     if path == "overflow":
-        words = calls["frontier.tail"]["after"]["words"]
+        words = calls["expand.frontier_tail"]["after"]["res"].tail["words"]
         assert int(words[7]) > 0                  # the frontier overflowed
+
+
+@pytest.mark.parametrize("case", edges.DEDUP_CASES + ("se_all",))
+def test_dedup_entries(gpu, case):
+    """Kernel L's keys (with the prefix count and with the mask), each
+    pass and the compaction equal their plain versions on every edge, and
+    stage_dedup on CUDA tensors equals stage_dedup_plain with torch.sort,
+    argsort, unique and searchsorted patched to raise
+    (``tools/edges.py``)."""
+    info = edges.dedup_vs_plain(case, gpu)
+    assert info["passes"] == pipeline.dedup_passes(info["rows"])
+    assert case != "se_all" or info["passes"] == 6
+
+
+@pytest.mark.parametrize("moved", [False, True])
+def test_expand_frontier_tail(gpu, moved):
+    """Kernel K's frontier_tail entry (kernel J's rows and K's candidates
+    in one launch) equals frontier_tail_plain then stage_candidates_plain
+    at SE ALL's shape after the shrink (C = 1,024 final rows, M = 131,072
+    in-text rows), with and without a move, and with C not a multiple of
+    the tile (a tile that holds frontier and in-text lanes), and on 12
+    frontier tiles."""
+    for C, M in ((1024, 131_072), (1500, 4096), (12_288, 131_072)):
+        info = edges.frontier_tail_vs_plain(C, M, moved, gpu)
+        assert info["ghosts"] > 0
 
 
 def test_frontier_kernels_no_fallback(setup, gpu):
