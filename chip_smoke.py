@@ -125,6 +125,32 @@ a CUDA device. It
    and of the RLC index with dynamic partitioning and with scheme selection,
    through the plain versions on the card.
 
+   Then the ``readme`` section, on the same index: the README's two
+   ``align`` commands. Kernel B's templated instances at kb 5, 6 and 7
+   (the columba scheme at 150 bp, W 2) and its generic entry at the same
+   steps, each against the plain version and timed in turns; then four
+   paths through the same helper:
+
+   - ``col150_se_best``: ``-a best -S columba`` on 32,768 reads of 150 bp
+     (the first 640 at the runs of N with 3 % substitutions, the rest
+     uniform at 1 %): cutoff 7, the stratum ladder's rungs 0, 1, 3, 5 and
+     7; kernel B must launch at kb 5 and 7 through templated instances;
+   - ``col150_se_all_e5``: ``-a all -e 5 -S columba`` on its first 16,384
+     reads (kb 5 through its instance);
+   - ``ham_se_all``: ``-a all -e 2 -m hamming -S pigeon`` on SE ALL's
+     first 32,768 reads (every read with <= 2 substitutions at its begin,
+     NM at most its substitutions);
+   - ``ham_se_best``: ``-a best -m hamming -S pigeon`` on the same reads
+     (cutoff 5, one pass);
+
+   each with its lossless check, each path's first 4,096 reads again
+   through the plain versions (the same records), and every path's
+   kernel B launches by entry, band radius, registers and instance
+   (``native.Kernel.by_shape``). Last, ``conformance``: the port's fuzz
+   (``columba_tpu_torch/tools/fuzz_conformance.py``), 80 trials against
+   brute-force oracles on the card, 0 failures and 0 crashes, kernels
+   A-D launched. Each section's seconds are printed as it ends.
+
 6. runs the ``dist`` phase at the same width (SE ALL's reads 16,384 to
    49,151, the 10-mer table, switchpoint 4): ``dist_shards``,
    ``dist.mesh.sharded_match`` over 2 shards of 16,384 reads in this
@@ -209,6 +235,25 @@ N_BLK_PAIRS = 16_384     # the blocked PE path (the -p static path's pairs)
 BLK_WARMUP = 4096
 BLOCK_MEM_SLACK = 8 << 20  # device bytes a released block may leave behind
 
+# the readme section: the README's two align commands (-S columba, Hamming
+# -S pigeon) on the smoke genome's index
+COL_LEN = 150            # Columba's reproduction read length
+N_COL_READS = 32_768     # col150_se_best
+N_COL_ALL_READS = 16_384  # col150_se_all_e5: the same reads' first
+COL_RUN_READS = 16       # col150 reads at each run of N (the first reads)
+COL_RUN_ERR = 0.03       # their substitution rate: most reach rung 5
+COL_CUT = 7              # BEST cutoff at 150 bp and -I 95
+COL_E = 5                # -e of col150_se_all_e5
+N_HAM_READS = 32_768     # the Hamming paths: SE ALL's first reads
+HAM_E = 2                # -e of ham_se_all
+HAM_CUT = 5              # BEST cutoff of pigeon at 100 bp and -I 95
+N_README_PLAIN = 4096    # each path's first reads through the plain versions
+README_WARMUP = 4096
+README_PATHS = ("col150_se_best", "col150_se_all_e5", "ham_se_all",
+                "ham_se_best")
+READ_LEN_OF = {"col150_se_best": COL_LEN, "col150_se_all_e5": COL_LEN}
+FUZZ_TRIALS = 80         # tools/fuzz_conformance.py: 40 seeds x 2
+
 # the kernels each path must launch at least once
 PATH_KERNELS = {
     "se_all": ("extend", "band_step", "locate", "verify"),
@@ -244,6 +289,10 @@ PATH_KERNELS = {
     "big_se_all": ("extend", "band_step", "locate", "verify"),
     "big_se_best": ("extend", "locate", "verify"),
     "big_pe_best": ("extend", "locate", "verify"),
+    "col150_se_best": ("extend", "band_step", "locate", "verify"),
+    "col150_se_all_e5": ("extend", "band_step", "locate", "verify"),
+    "ham_se_all": ("extend", "band_step", "locate", "verify"),
+    "ham_se_best": ("extend", "band_step", "locate", "verify"),
 }
 # kernels I-L (the frontier around kernels A and B, the candidates'
 # expansion and the dedup) run on every path that runs the scheme executor
@@ -287,6 +336,10 @@ PATH_ENTRIES = {
     "big_se_all": ("extend.loop",),
     "big_se_best": ("extend.loop",),
     "big_pe_best": ("extend.loop",),
+    "col150_se_best": ("extend.loop",),
+    "col150_se_all_e5": ("extend.loop",),
+    "ham_se_all": ("extend.loop",),
+    "ham_se_best": ("extend.loop",),
 }
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
@@ -347,6 +400,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+class Sections:
+    """The seconds of each section of the run, logged as each ends."""
+
+    def __init__(self):
+        self.t = time.time()
+        self.rows: list = []
+
+    def done(self, name: str) -> None:
+        now = time.time()
+        self.rows.append((name, now - self.t))
+        log(f"section {name}: {now - self.t:.1f} s")
+        self.t = now
+
+
 def cuda_time(fn, reps: int) -> float:
     """Mean ms per call of ``fn`` on the current stream (CUDA events)."""
     fn()
@@ -401,23 +468,31 @@ def note_kernel(report, name, shape, rep, b, library_ms=None):
 
 def check_fused(index, state, mrow_t, cells, T, t, switchpoint,
                 dyn_meta=None, track=False, cap=None, M=None, cnt=0,
-                reps=20, plain_reps=3):
+                reps=20, plain_reps=3, generic=False):
     """Kernel B (a fused band step over every lane of ``state``) against
     ``band_step_compact_plain`` on the same frontier: the next frontier's
     live rows (ranges, ids, band, colMin), the in-text rows and count, the
     kept children, visits and overflow must be equal. Then both are timed
     on their own preallocated outputs, and the bound is worked out from the
-    step's own data. Returns (record, bound, kept children, in-text
-    rows)."""
+    step's own data. ``generic``: the Vanilla static step through the
+    generic entry (``executor.BAND_GENERIC``). Returns (record, bound, kept
+    children, in-text rows)."""
     from columba_tpu_torch.index.bmove import BMoveIndex
     from columba_tpu_torch.search import executor
     from columba_tpu_torch.tools import bounds
+
+    def kernel(*a):
+        executor.BAND_GENERIC = generic
+        try:
+            executor.band_step_compact(*a)
+        finally:
+            executor.BAND_GENERIC = False
 
     C, dev = state[0].shape[0], state[0].device
     cap = C if cap is None else cap
     M = max(1 << 16, 4 * C) if M is None else M
     calls, got = {}, {}
-    for which, fn in (("kernel", executor.band_step_compact),
+    for which, fn in (("kernel", kernel),
                       ("plain", executor.band_step_compact_plain)):
         out = [torch.empty((cap, *f.shape[1:]), dtype=f.dtype, device=dev)
                for f in state]
@@ -612,8 +687,7 @@ def kernel_checks(index, arrays, reads, table) -> dict:
     del dense
 
     # kernel B, the fused step, at the main path's shape (kb 2, W 2, C =
-    # rows x searches / 8), at the other shapes the paths reach, and
-    # through its generic entry (runtime sizes)
+    # rows x searches / 8) and at the other shapes the paths reach
     def fused(args, **kw):
         return check_fused(args[0], list(args[1:5]), *args[5:], **kw)
 
@@ -623,7 +697,8 @@ def kernel_checks(index, arrays, reads, table) -> dict:
     for scheme, k, metric, what in (
             ("kuch1", BEST_CUT, "edit", "BEST cutoff, templated"),
             ("kuch1", K, "hamming", "Hamming band, templated"),
-            ("columba", 5, "edit", "generic entry")):
+            ("columba", 5, "edit", "templated; the generic entry in the "
+             "readme section")):
         sc = pipeline.compile_cached(get_scheme(scheme, k), READ_LEN, metric,
                                      kmer_k=10)
         args = path_inputs.band_args(index, sc, batch, all_ranges, rng,
@@ -1634,6 +1709,240 @@ def dist_ranks(path, idx, reads_fq, want_occ, smi, record) -> None:
                              f"launched (rank, kernel) {missing}")
 
 
+def se_key(q, rn, rev):
+    """A single-end record's or a sampled read's key: read, sequence,
+    strand."""
+    return q * 8 + rn * 2 + rev
+
+
+def all_locus_check(wd, sample, tag, label, n_reads, k, trim=None,
+                    exact=False):
+    """ALL mode: every read among the first ``n_reads`` of ``sample`` =
+    (sequence starts, begins, substitutions, reverse-complemented flags)
+    with <= k substitutions has a record at its locus. On edit distance
+    within k of its begin: an error at a read end has equal-cost alignments
+    that begin up to k bases away, and the traceback may pick one.
+    ``exact`` (Hamming): at its begin, with NM at most its substitutions.
+    ``trim``: the reads' -T (start, end); a trimmed read begins ``start``
+    after its locus, or ``READ_LEN - end`` where it is reverse-complemented.
+    Returns the records (``parse_sam``)."""
+    starts, pos, nsub, flip = sample
+    recs = parse_sam(os.path.join(wd, tag + ".sam"))
+    q, rn, p1, fl, nm = recs
+    want = np.nonzero(nsub[:n_reads] <= k)[0]
+    seq = np.searchsorted(starts, pos[want], side="right") - 1
+    shift = (0 if trim is None else
+             np.where(flip[want], READ_LEN - trim[1], trim[0]))
+    want_key = se_key(want, seq, flip[want])
+    want_p1 = pos[want] - starts[seq] + 1 + shift
+    key = se_key(q, rn - 1, (fl & 16) > 0)
+    if exact:                 # the least NM of the records at each locus
+        code = key * (1 << 33) + p1
+        order = np.lexsort((nm, code))
+        code, nm = code[order], nm[order]
+        wcode = want_key * (1 << 33) + want_p1
+        at = np.minimum(np.searchsorted(code, wcode), len(code) - 1)
+        lost = want[(code[at] != wcode) | (nm[at] > nsub[want])]
+        log(f"{label} lossless check: {len(want)} reads with <= {k} "
+            f"substitutions; {len(want) - len(lost)} at their begin with NM "
+            f"at most their substitutions, {len(lost)} missing; "
+            f"{len(q)} records")
+    else:
+        dist, _ = nearest((key, p1, nm), want_key, want_p1)
+        lost = want[dist > k]
+        log(f"{label} lossless check: {len(want)} reads with <= {k} "
+            f"substitutions; {int((dist == 0).sum())} at their exact "
+            f"begin, {int(((dist > 0) & (dist <= k)).sum())} within {k} "
+            f"(end errors), {len(lost)} missing")
+    if len(lost):
+        raise AssertionError(f"{label}: reads not found at their "
+                             f"locus: {lost[:10].tolist()}")
+    return recs
+
+
+def best_locus_check(wd, sample, tag, label, n_reads, cut) -> None:
+    """BEST mode: every read among the first ``n_reads`` of ``sample``
+    with n <= cut substitutions has a record, its best NM is <= n, and
+    where it equals n the record at its locus is there."""
+    starts, pos, nsub, flip = sample
+    q, rn, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"))
+    best_nm = np.full(n_reads, 1 << 40, np.int64)
+    np.minimum.at(best_nm, q, nm)
+    want = np.nonzero(nsub[:n_reads] <= cut)[0]
+    unmapped = want[best_nm[want] > cut]
+    worse = want[best_nm[want] > nsub[want]]
+    at_n = want[best_nm[want] == nsub[want]]
+    seq = np.searchsorted(starts, pos[at_n], side="right") - 1
+    dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
+                      se_key(at_n, seq, flip[at_n]),
+                      pos[at_n] - starts[seq] + 1)
+    lost = at_n[dist > nsub[at_n]]
+    log(f"{label} check: {len(want)} reads with <= {cut} "
+        f"substitutions; {len(unmapped)} without a record, "
+        f"{len(worse)} with best NM above their substitutions, "
+        f"{len(at_n)} with best NM equal to them of which "
+        f"{len(lost)} miss their locus; "
+        f"{len(want) - len(at_n) - len(worse)} have a better hit "
+        f"elsewhere; {len(q)} records")
+    if len(unmapped) or len(worse) or len(lost):
+        raise AssertionError(
+            f"{label}: unmapped {unmapped[:5].tolist()}, worse "
+            f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
+
+
+def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
+                   drive, files, warm, argv_of, n_of, shapes, smi,
+                   record) -> None:
+    """The README's two ``align`` commands on this index: ``-S columba`` on
+    150 bp reads (BEST: cutoff 7, the stratum ladder's rungs 0, 1, 3, 5 and
+    7; ALL at -e 5) and Hamming ``-S pigeon`` (ALL at -e 2, BEST at cutoff
+    5) on SE ALL's first reads, each through ``drive``. Kernel B's static
+    instances at kb 5, 6 and 7 and its generic entry at the same shapes
+    against the plain version on the 150 bp reads first; after the paths,
+    their lossless checks, kernel B's launches at kb 5 and 7 through the
+    templated instances, each path's first reads again through the plain
+    versions (the same records), and the conformance fuzz on the card.
+    ``sample100``: SE ALL's reads' (sequence starts, begins, substitutions,
+    reverse-complemented flags)."""
+    from columba_tpu_torch import cli, native
+    from columba_tpu_torch.index.kmer import lookup
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import fuzz_conformance, path_inputs, workload
+
+    starts = sample100[0]
+    rng = np.random.default_rng(SEED + 7)
+    at_runs = workload.reads_at_runs(text, starts, *runs, COL_RUN_READS, rng,
+                                     COL_LEN, COL_RUN_ERR)
+    uni = workload.sample_reads(text, starts, N_COL_READS - len(at_runs[0]),
+                                rng, COL_LEN)
+    reads, pos, nsub, flip = (np.concatenate(v) for v in zip(at_runs, uni))
+    log(f"readme: {N_COL_READS} reads x {COL_LEN} bp, the first "
+        f"{len(at_runs[0])} at the {len(runs[0])} runs of N with "
+        f"{COL_RUN_ERR} substitutions a base, the rest uniform with "
+        f"{workload.ERR_RATE}; {int((nsub <= COL_CUT).sum())} with <= "
+        f"{COL_CUT} substitutions")
+
+    # kernel B at kb 5, 6 and 7 (columba at 150 bp: W 2), templated and
+    # through the generic entry, on the reads' 10-mer seed ranges
+    batch = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [reads[:BATCH], reads[:BATCH, ::-1] ^ 3]))).to(index.device)
+    seeds = lookup(table, batch[:, 30:40])
+    seeds = seeds[seeds[:, 1] > seeds[:, 0]]
+    seeds = seeds[torch.from_numpy(rng.integers(
+        0, seeds.shape[0], 12_288)).to(index.device)]
+    for kb in (5, 6, 7):
+        sc = pipeline.compile_cached(get_scheme("columba", kb), COL_LEN,
+                                     "edit", kmer_k=10)
+        args = path_inputs.band_args(index, sc, batch, seeds, rng, 4,
+                                     C=12_288)
+        ms = {}
+        for generic in (False, True):
+            rep, b, n, _ = check_fused(args[0], list(args[1:5]), *args[5:],
+                                       generic=generic)
+            ms[generic] = rep["ms"]
+        log(f"kernel band_step at kb={kb}, W={sc.W} (columba k={kb} at "
+            f"{COL_LEN} bp, C=12288, {n} children kept; {smi}): templated "
+            f"and generic entry each equal to plain ({rep['plain_ms']:.4f} "
+            f"ms); events, the wrapper's host time included: templated "
+            f"{ms[False]:.4f} ms, generic {ms[True]:.4f} ms; bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']}")
+
+    def fq(tag, codes, prefix="r"):
+        path = os.path.join(wd, tag + ".fq")
+        workload.write_fastq(path, codes, prefix)
+        return path
+
+    files["col150_se_best"] = (fq("col150", reads), None)
+    files["col150_se_all_e5"] = (fq("col150a", reads[:N_COL_ALL_READS]),
+                                 None)
+    files["ham_se_all"] = files["ham_se_best"] = (
+        fq("ham", reads100[:N_HAM_READS]), None)
+    warm["col150_se_best"] = warm["col150_se_all_e5"] = (
+        fq("wcol", reads[:README_WARMUP], "w"), None)
+    warm["ham_se_all"] = warm["ham_se_best"] = (
+        fq("wham", reads100[:README_WARMUP], "w"), None)
+    argv_of.update(
+        col150_se_best=["-a", "best", "-S", "columba"],
+        col150_se_all_e5=["-a", "all", "-e", str(COL_E), "-S", "columba"],
+        ham_se_all=["-a", "all", "-e", str(HAM_E), "-m", "hamming", "-S",
+                    "pigeon"],
+        ham_se_best=["-a", "best", "-m", "hamming", "-S", "pigeon"])
+    n_of.update(col150_se_best=N_COL_READS, col150_se_all_e5=N_COL_ALL_READS,
+                ham_se_all=N_HAM_READS, ham_se_best=N_HAM_READS)
+    for path in README_PATHS:
+        drive(path, f"genome {workload.GENOME_N} bp")
+
+    # -- what came out: the sampled loci, by the metric's own rule
+    col = (starts, pos, nsub, flip)
+    best_locus_check(wd, col, "col150_se_best", "col150_se_best",
+                     N_COL_READS, COL_CUT)
+    all_locus_check(wd, col, "col150_se_all_e5", "col150_se_all_e5",
+                    N_COL_ALL_READS, COL_E)
+    all_locus_check(wd, sample100, "ham_se_all", "ham_se_all", N_HAM_READS,
+                    HAM_E, exact=True)
+    best_locus_check(wd, sample100, "ham_se_best", "ham_se_best",
+                     N_HAM_READS, HAM_CUT)
+
+    # kernel B at kb 5 and 7 through the templated instances
+    for path, radii in (("col150_se_best", (5, 7)),
+                        ("col150_se_all_e5", (COL_E,))):
+        for kb in radii:
+            n = sum(v for k, v in shapes[path].items()
+                    if k.startswith(f"static kb{kb} ")
+                    and k.endswith(" templated"))
+            if n == 0:
+                raise AssertionError(f"{path}: kernel B not launched at kb "
+                                     f"{kb} through a templated instance")
+
+    # each path's first reads again through the plain versions
+    restore = plain_patch()
+    try:
+        for path in README_PATHS:
+            src = reads if path.startswith("col150") else reads100
+            plain_fq = fq(f"{path}_plain", src[:N_README_PLAIN])
+            out = os.path.join(wd, f"{path}_plain.sam")
+            t0 = time.time()
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["align", "-r", idx, "-b", str(BATCH), "-f",
+                               plain_fq, "-o", out, *argv_of[path]])
+            same = rc == 0 and (
+                sam_body(out, ordered=False) == sam_body(
+                    os.path.join(wd, path + ".sam"), N_README_PLAIN,
+                    ordered=False))
+            log(f"plain versions on the card, {path}'s first "
+                f"{N_README_PLAIN} reads: "
+                f"{'the same records' if same else 'DIFFERENT records'} "
+                f"({time.time() - t0:.1f} s)")
+            if not same:
+                raise AssertionError(f"{path} through the plain versions "
+                                     f"gives other records")
+    finally:
+        restore()
+
+    # the conformance fuzz on the card: 80 trials against brute force
+    for k in native.KERNELS.values():
+        k.reset()
+    t0 = time.time()
+    trials, fails, crashes = fuzz_conformance.main([])
+    dt = time.time() - t0
+    launches = {k: v.launches for k, v in native.KERNELS.items()}
+    record("conformance", launches,
+           {f"{k}.{e}": n for k, v in native.KERNELS.items()
+            for e, n in v.by_entry.items()})
+    log(f"path conformance: {trials} trials, {fails} failures, {crashes} "
+        f"crashes in {dt:.1f} s ({smi}); kernel launches {launches}; kernel "
+        f"B by entry, radius, registers and instance "
+        f"{native.KERNELS['band_step'].by_shape}")
+    missing = [k for k in ("extend", "band_step", "locate", "verify")
+               if launches[k] == 0]
+    if fails or crashes or trials != FUZZ_TRIALS or missing:
+        raise AssertionError(f"conformance fuzz: {trials} trials, {fails} "
+                             f"failures, {crashes} crashes; kernels not "
+                             f"launched {missing}")
+
+
 def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
                 warm, argv_of, n_of, index_of) -> dict:
     """The RLC and textless indexes: the pan-genome's FASTA, both ``cli
@@ -2104,13 +2413,9 @@ def big_section(wd, smi, st, drive, files, warm, argv_of, n_of, index_of,
     ns = np.load(st["ns"])
     run_lo = ns[np.r_[True, np.diff(ns) > 1]]
     run_hi = ns[np.r_[np.diff(ns) > 1, True]] + 1
-    seq = np.searchsorted(starts, run_lo, side="right") - 1
-    span = np.repeat(run_hi - run_lo, N_BIG_RUN_READS) - READ_LEN
-    at = np.repeat(run_lo, N_BIG_RUN_READS) + rng.integers(
-        np.minimum(span, 0), np.maximum(span, 0) + 1)   # inside, or over it
-    at = np.clip(at, np.repeat(starts[seq], N_BIG_RUN_READS),
-                 np.repeat(starts[seq + 1], N_BIG_RUN_READS) - READ_LEN)
-    runs = workload.reads_at(text, at, rng, READ_LEN)
+    runs = workload.reads_at_runs(text, starts, run_lo, run_hi,
+                                  N_BIG_RUN_READS, rng, READ_LEN)
+    at = runs[1]
     uni = workload.sample_reads(text, starts, N_BIG_READS - len(at), rng,
                                 READ_LEN)
     reads, pos, nsub, flip = (np.concatenate(v) for v in zip(runs, uni))
@@ -2302,6 +2607,7 @@ def main() -> int:
     from columba_tpu_torch.tools import path_inputs, workload
 
     t_all = time.time()
+    sections = Sections()
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2321,6 +2627,7 @@ def main() -> int:
         if (ln.startswith(NO_FRAME) and not ln.startswith(GENERIC_B)
                 and "stack frame" in ln):
             raise AssertionError(f"local memory in {ln}")
+    sections.done("kernels build")
 
     with smoke_dir() as (wd, big):
         # the big genome's FASTA and index build beside every other section
@@ -2328,7 +2635,7 @@ def main() -> int:
         rng = np.random.default_rng(SEED)
         fa, idx = os.path.join(wd, "genome.fa"), os.path.join(wd, "g.cidx")
         t0 = time.time()
-        workload.write_genome(fa, rng)
+        n_runs = workload.runs_of_n(workload.write_genome(fa, rng)[0])
         log(f"genome: {workload.GENOME_N} bp in {workload.N_SEQS} sequences "
             f"with N runs (seed {SEED}), FASTA in {time.time() - t0:.1f} s")
         t0 = time.time()
@@ -2442,7 +2749,9 @@ def main() -> int:
         if kmer_launches["extend"] == 0:
             raise AssertionError("kernel A not launched by the k-mer table "
                                  "build")
+        sections.done("Vanilla genome, build and k-mer table")
         report = kernel_checks(index, arrays, reads, table)
+        sections.done("kernel checks")
 
         index_of = {}                # path -> index dir (default: idx)
         blk_idx = os.path.join(wd, "g_blocked.cidx")
@@ -2470,6 +2779,7 @@ def main() -> int:
             launches_by_path[path] = launches
             entries_by_path[path] = entries
 
+        shapes_by_path: dict = {}    # kernel B's launch census (by_shape)
         runs = [0]                   # run_scheme calls of a path
         run_scheme = executor.run_scheme
         frontier_seed = executor.frontier_seed
@@ -2541,7 +2851,9 @@ def main() -> int:
             unit = "pairs" if files[path][1] else "reads"
             what = ("FASTA" if files[path][0].endswith(".fa") else "FASTQ")
             what += " -> " + (".rhs" if path in RHS_PATHS else "SAM")
-            m = TRIM[1] - TRIM[0] if "-T" in argv_of[path] else READ_LEN
+            m = (TRIM[1] - TRIM[0] if "-T" in argv_of[path]
+                 else READ_LEN_OF.get(path, READ_LEN))
+            shapes_by_path[path] = dict(native.KERNELS["band_step"].by_shape)
             log(f"path {path}: {n_of[path]} {unit} x {m} bp in "
                 f"{dt:.3f} s = {n_of[path] / dt:.1f} {unit}/s ({what}, "
                 f"{genome_what}, {smi}; warm-up "
@@ -2569,7 +2881,9 @@ def main() -> int:
             log(f"  kernel A's loop: {loops} launches in {runs[0]} "
                 f"run_scheme calls"
                 + (f" ({loops / runs[0]:.2f} per call)" if runs[0] else "")
-                + f"; kernel B: {launches['band_step']} launches")
+                + f"; kernel B: {launches['band_step']} launches"
+                + (f", by entry, radius, registers and instance "
+                   f"{shapes_by_path[path]}" if shapes_by_path[path] else ""))
             if loops > 2 * runs[0]:
                 raise AssertionError(f"path {path}: more than two exact "
                                      "loop launches per run_scheme call")
@@ -2608,7 +2922,8 @@ def main() -> int:
                              prof=path == "se_all")
 
         for path in PATH_KERNELS:
-            if path not in (*RLC_PATHS, *BLOCKED_PATHS, *BIG_PATHS):
+            if path not in (*RLC_PATHS, *BLOCKED_PATHS, *BIG_PATHS,
+                            *README_PATHS):
                 drive(path, f"genome {workload.GENOME_N} bp")
         # the monolithic reference of the blocked PE path: its pairs and
         # flags on this index
@@ -2635,36 +2950,11 @@ def main() -> int:
             raise AssertionError("kernel gather not launched by its bench")
 
         # -- checks of what came out --
-        def se_key(q, rn, rev):
-            return q * 8 + rn * 2 + rev
-
+        sample = (starts, pos, nsub, flip)
         seq_of = np.searchsorted(starts, pos, side="right") - 1
-        want_p1 = pos - starts[seq_of] + 1
 
-        # SE ALL: every read with <= K substitutions at its locus
         def se_all_check(tag, label, n_reads=N_READS_ALL, trim=None):
-            """``trim``: the reads' -T (start, end); a trimmed read begins
-            ``start`` after its locus, or ``READ_LEN - end`` where the
-            read is reverse-complemented."""
-            recs = parse_sam(os.path.join(wd, tag + ".sam"))
-            q, rn, p1, fl, nm = recs
-            want = np.nonzero(nsub[:n_reads] <= K)[0]
-            shift = (0 if trim is None else
-                     np.where(flip[want], READ_LEN - trim[1], trim[0]))
-            dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
-                              se_key(want, seq_of[want], flip[want]),
-                              want_p1[want] + shift)
-            # an error at a read end has equal-cost alignments that begin up
-            # to k bases away; the traceback may pick one
-            lost = want[dist > K]
-            log(f"{label} lossless check: {len(want)} reads with <= {K} "
-                f"substitutions; {int((dist == 0).sum())} at their exact "
-                f"begin, {int(((dist > 0) & (dist <= K)).sum())} within {K} "
-                f"(end errors), {len(lost)} missing")
-            if len(lost):
-                raise AssertionError(f"{label}: reads not found at their "
-                                     f"locus: {lost[:10].tolist()}")
-            return recs
+            return all_locus_check(wd, sample, tag, label, n_reads, K, trim)
 
         uni = se_all_check("se_all", "SE ALL")
         dyn = se_all_check("se_all_dynamic", "SE ALL -p dynamic")
@@ -2681,31 +2971,8 @@ def main() -> int:
             raise AssertionError("SE ALL -p dynamic reports another "
                                  "occurrence set than the uniform run")
 
-        # SE BEST: every read with n <= cutoff substitutions has a record,
-        # its best NM is <= n, and where it equals n the true locus is there
         def se_best_check(tag, label, n_reads):
-            q, rn, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"))
-            best_nm = np.full(n_reads, 1 << 40, np.int64)
-            np.minimum.at(best_nm, q, nm)
-            want = np.nonzero(nsub[:n_reads] <= BEST_CUT)[0]
-            unmapped = want[best_nm[want] > BEST_CUT]
-            worse = want[best_nm[want] > nsub[want]]
-            at_n = want[best_nm[want] == nsub[want]]
-            dist, _ = nearest((se_key(q, rn - 1, (fl & 16) > 0), p1, nm),
-                              se_key(at_n, seq_of[at_n], flip[at_n]),
-                              want_p1[at_n])
-            lost = at_n[dist > nsub[at_n]]
-            log(f"{label} check: {len(want)} reads with <= {BEST_CUT} "
-                f"substitutions; {len(unmapped)} without a record, "
-                f"{len(worse)} with best NM above their substitutions, "
-                f"{len(at_n)} with best NM equal to them of which "
-                f"{len(lost)} miss their locus; "
-                f"{len(want) - len(at_n) - len(worse)} have a better hit "
-                f"elsewhere; {len(q)} records")
-            if len(unmapped) or len(worse) or len(lost):
-                raise AssertionError(
-                    f"{label}: unmapped {unmapped[:5].tolist()}, worse "
-                    f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
+            best_locus_check(wd, sample, tag, label, n_reads, BEST_CUT)
 
         se_best_check("se_best", "SE BEST", N_READS)
         se_best_check("se_best_d", "SE BEST -d (two-scheme collection)",
@@ -2813,6 +3080,14 @@ def main() -> int:
             log(f"plain versions on the card, k = {k}, {what}: identical "
                 f"OccArray for one batch ({len(occ_k)} occurrences)")
 
+        sections.done("Vanilla paths and checks")
+
+        # the README's two align commands, and the conformance fuzz
+        readme_section(wd, idx, index, table, text, n_runs, reads, sample,
+                       drive, files, warm, argv_of, n_of, shapes_by_path,
+                       smi, record)
+        sections.done("readme")
+
         # the dist phase at the headline width (SE ALL's reads from
         # DIST_FIRST, the 10-mer table, switchpoint 4): shards in this
         # process, then rank processes joined by gloo on the one card
@@ -2822,6 +3097,7 @@ def main() -> int:
                           smi, record, kmer_table=table, plain=True)
         dist_ranks("dist_ranks", idx, fq("dist", reads[d]), occ, smi, record)
         log(f"dist phase on the Vanilla index: {time.time() - t_dist:.1f} s")
+        sections.done("dist")
 
         del index, table         # card memory for the RLC indexes
         # the blocked build runs beside the RLC section's builds
@@ -2845,14 +3121,18 @@ def main() -> int:
         log(f"cli build -B {BLOCK_BP} (a process beside the RLC section, "
             f"done {time.time() - t_blk:.1f} s after its start): "
             f"{err.strip().splitlines()[-1]}")
+        sections.done("RLC, the blocked build beside it")
         blocked_section(wd, blk_idx, drive, launches_by_path, dict(
             starts=starts, seq_of=seq_of, nsub=nsub, flip=flip,
             se_all_check=se_all_check, se_best_check=se_best_check,
             pe_check=pe_check, nsub1=nsub1, nsub2=nsub2))
+        sections.done("blocked")
         # last, with every other index released: one index past 2^31 bases
         finish_big_build(big)
+        sections.done("wait for the big build")
         big_section(wd, smi, big, drive, files, warm, argv_of, n_of,
                     index_of, launches_by_path)
+        sections.done("big")
 
     # one record per kernel, and one more for each named entry of kernels
     # A, B, C, E and I-L (its launches are a share of its kernel's)
@@ -2902,6 +3182,7 @@ def main() -> int:
                 sort_ms=r.get("sort_ms"),
                 bound_bytes=r["bound_bytes"],
                 bound_operations=r["bound_operations"]))
+    log("sections: " + "; ".join(f"{n} {t:.1f} s" for n, t in sections.rows))
     log(f"total smoke time {time.time() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-// Kernel B, Vanilla entries: the static-schedule entries (kb 0..4 x W 1..2
-// templated, a generic entry above; they take the reads and the schedule's
-// cell table, `pchars` null) and the per-lane entry of dynamic
+// Kernel B, Vanilla entries: the static-schedule entries (kb 0..7 x W 1..2
+// templated, a generic entry above, which `generic` forces; they take the
+// reads and the schedule's cell table, `pchars` null) and the per-lane entry of dynamic
 // partitioning (kernel G's `pchars`, the others null). The body and its
 // notes are in band_step.cuh.
 #include "band_step.cuh"
@@ -18,7 +18,7 @@ extern "C" int columba_band_step(
     long long cap, long long* o_ranges, int* o_ids, signed char* o_band,
     signed char* o_colmin, long long* itv, long long M, long long cnt,
     unsigned long long* ctr, unsigned long long* status, long long tiles,
-    unsigned epoch, cudaStream_t stream) {
+    unsigned epoch, int generic, cudaStream_t stream) {
   BandArgs a{};
   a.fm = columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1);
   if (!columba_band::common_args(a, ranges, ids, band, colmin, mrow, S,
@@ -30,5 +30,5 @@ extern "C" int columba_band_step(
   a.dyn_meta = dyn_meta;
   if (dyn_meta != nullptr)       // per-lane entry
     return columba_band::launch_per_lane<4>(a, kb, W, stream);
-  return columba_band::launch_static<4>(a, kb, W, stream);
+  return columba_band::launch_static<4>(a, kb, W, stream, generic != 0);
 }

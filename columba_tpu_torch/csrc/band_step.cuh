@@ -77,10 +77,12 @@
 // Templated on the band radius KB and the register count W so every array
 // stays in registers: KB 0..4 x W 1..2 are instantiated (what the builtin
 // schemes give at m = 100 and 150 for k <= 4, both metrics; KB = 0 is the
-// Hamming band of one cell). Every other shape a schedule can produce
-// (KB <= 13, W <= MAX_REGS = 10) runs the same body with runtime sizes and
-// arrays sized for the maximum (KB = -1): those arrays live in local memory,
-// so that entry is slower, and it is exact.
+// Hamming band of one cell), and on the Vanilla index KB 5..7 x W 1..2 (the
+// columba scheme's at 150 bp: the BEST ladder's rungs 5 and 7 at -I 95).
+// Every other shape a schedule can produce (KB <= 13, W <= MAX_REGS = 10)
+// runs the same body with runtime sizes and arrays sized for the maximum
+// (KB = -1): those arrays live in local memory, so that entry is slower,
+// and it is exact.
 //
 // RLC and textless entries (K18 inside K7, and K20): the same body on the
 // RLC index, templated on the lane width RW. "rlc" takes 8-wide lanes;
@@ -576,10 +578,26 @@ int launch(const BandArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The static-schedule entries of lane width RW: kb 0..4 x W 1..2 templated,
-// the rest through the generic entry.
+// The static-schedule entries of lane width RW: kb 0..4 x W 1..2 templated
+// on every lane width, and kb 5..7 x W 1..2 on the Vanilla index (the
+// combined columba scheme's rungs at 150 bp; the RLC paths' searches stay
+// at kb <= 4); the rest through the generic entry, which `generic` also
+// forces (to hold and time it against the instances).
 template <int RW>
-int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream) {
+int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream,
+                  bool generic = false) {
+  if (generic) return launch<-1, 0, false, RW>(a, stream);
+  if constexpr (RW == 4) {
+    switch (W <= 2 && kb >= 5 && kb <= 7 ? 2 * kb + W : 0) {
+      case 11: return launch<5, 1, false, RW>(a, stream);
+      case 12: return launch<5, 2, false, RW>(a, stream);
+      case 13: return launch<6, 1, false, RW>(a, stream);
+      case 14: return launch<6, 2, false, RW>(a, stream);
+      case 15: return launch<7, 1, false, RW>(a, stream);
+      case 16: return launch<7, 2, false, RW>(a, stream);
+      default: break;
+    }
+  }
   switch (W <= 2 && kb <= 4 ? 2 * kb + W : 0) {
     case 1: return launch<0, 1, false, RW>(a, stream);
     case 2: return launch<0, 2, false, RW>(a, stream);

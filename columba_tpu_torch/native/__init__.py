@@ -173,7 +173,8 @@ class Kernel:
     lock (the dispatch thread and an emitter thread that re-dispatches may
     both launch); ``by_entry`` splits the same launches by the entry the
     wrapper names (kernel B's per-lane entry, kernel E with lengths, the
-    RLC entries). An entry named in ``symbols`` (entry -> (C symbol,
+    RLC entries), and ``by_shape`` by the shape it names (kernel B: entry,
+    band radius, registers, templated or generic instance). An entry named in ``symbols`` (entry -> (C symbol,
     argtypes) or (C symbol, argtypes, CUDA source) where the entry is built
     from a source of its own) has a C function of its own, with the
     index-specific arguments of the RLC index; the other entries share the
@@ -189,6 +190,7 @@ class Kernel:
         self.replaces = replaces    # the JAX function it ports (file:line)
         self.launches = 0
         self.by_entry: dict[str, int] = {}
+        self.by_shape: dict[str, int] = {}
         self._fns: dict[str, object] = {}
         KERNELS[name] = self
 
@@ -201,8 +203,9 @@ class Kernel:
         with _COUNT_LOCK:
             self.launches = 0
             self.by_entry = {}
+            self.by_shape = {}
 
-    def __call__(self, *args, entry: str = "") -> None:
+    def __call__(self, *args, entry: str = "", shape: str = "") -> None:
         import torch
 
         key = entry if entry in self.symbols else ""
@@ -225,6 +228,8 @@ class Kernel:
             self.launches += 1
             if entry:
                 self.by_entry[entry] = self.by_entry.get(entry, 0) + 1
+            if shape:
+                self.by_shape[shape] = self.by_shape.get(shape, 0) + 1
 
 
 def ptxas_report(build_log: str) -> list:

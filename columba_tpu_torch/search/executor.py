@@ -68,10 +68,17 @@ GHOST_BIT = -(1 << 31)
 GHOST_IDM = (1 << 21) - 1
 
 # Kernel B takes every shape a schedule can produce: band radii 0..4 with
-# 1..2 colMin registers through templated entries, the rest (up to the BEST
-# ladder's cutoff and schedule.MAX_REGS) through its generic entry.
+# 1..2 colMin registers through templated entries (0..7 in the Vanilla
+# static entry; 0..4 with one register in the per-lane entries), the rest
+# (up to the BEST ladder's cutoff and schedule.MAX_REGS) through its generic
+# entry.
 KERNEL_MAX_KB = 13
 KERNEL_MAX_W = 10
+TEMPLATED_KB = 7          # the Vanilla static entry's (csrc/band_step.cuh)
+TEMPLATED_KB_RLC = 4      # the RLC and per-lane entries'
+# True sends every Vanilla static step to the generic entry: the card tests
+# and tools/kernel_bench.py hold and time it against the templated ones
+BAND_GENERIC = False
 # lanes of one kernel B block, one tile of its look-back (kThreads of
 # csrc/band_step.cuh)
 BAND_TILE = 64
@@ -113,7 +120,7 @@ KERNEL = native.Kernel(
      ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
      *_BAND_CELLS,
      ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
-     *_BAND_OUT],
+     *_BAND_OUT, ctypes.c_int32],                        # ..., generic
     source="columba_tpu_torch/csrc/band_step.cu",
     replaces="columba_tpu/search/executor.py:587",
     symbols={"rlc": _BAND_RLC, "textless": _BAND_RLC,
@@ -688,15 +695,31 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
             mrow_t.shape[0] if dyn_meta is None else 0,
             dyn_meta.data_ptr() if dyn_meta is not None else None,
             *cell_args, T, t, kb, W, switchpoint, *tail)
-    if isinstance(index, BMoveIndex):
+    rlc = isinstance(index, BMoveIndex)
+    entry = ("per_lane_rlc" if rlc and dyn_meta is not None else
+             "textless" if rlc and index.textless else "rlc" if rlc else
+             "per_lane" if dyn_meta is not None else "")
+    generic = BAND_GENERIC and not rlc and dyn_meta is None
+    shape = band_shape(entry, kb, W, generic)
+    if rlc:
         KERNEL(*bextend.bm_args(index), *bextend.bt_args(index), *lane,
-               index.range_width, BAND_QUAD_BLOCK,
-               entry=("per_lane_rlc" if dyn_meta is not None else
-                      "textless" if index.textless else "rlc"))
+               index.range_width, BAND_QUAD_BLOCK, entry=entry, shape=shape)
     else:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
-               *index.dollar_host, *lane,
-               entry="per_lane" if dyn_meta is not None else "")
+               *index.dollar_host, *lane, int(generic), entry=entry,
+               shape=shape)
+
+
+def band_shape(entry: str, kb: int, W: int, generic: bool = False) -> str:
+    """Kernel B's launch census key: the entry ("static" for the Vanilla
+    static one), the band radius and registers, and whether the launch
+    takes a templated instance or the generic entry, by the rule of
+    csrc/band_step.cuh ``launch_static`` / ``launch_per_lane``."""
+    per_lane = entry.startswith("per_lane")
+    top = TEMPLATED_KB if entry == "" else TEMPLATED_KB_RLC
+    fixed = kb <= top and (W == 1 if per_lane else W <= 2)
+    return (f"{entry or 'static'} kb{kb} W{W} "
+            f"{'templated' if fixed and not generic else 'generic'}")
 
 
 def _ex_col(tab, per_lane: bool, idl, S: int, t: int):

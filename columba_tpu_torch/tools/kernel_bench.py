@@ -68,7 +68,13 @@ or B is timed, its ``--rlc --textless`` index, built at once), and:
    frontier,expand,dedup`` times these alone (about two minutes with the
    Vanilla build); ``--only frontier,expand,band_step`` adds kernel B's
    static Vanilla entry (a synthetic step at SE ALL's shape and the
-   captured paths' widest steps) and its RLC entries.
+   captured paths' widest steps) and its RLC entries;
+6. with ``--only columba150`` alone: kernel B's static Vanilla entry at the
+   columba scheme's radii on 150 bp reads (``columba_inputs``: the widest
+   step at each radius of one ``-a best -S columba`` batch, and C = 12,288
+   lanes at kb 5, 6, 7 and 13), each step through the instance its launch
+   picks and through the generic entry (``executor.BAND_GENERIC``) in
+   turns: tree, generic, generic, tree.
 
 With ``--parent TREE`` (an earlier commit's ``columba_tpu_torch/``,
 unpacked by ``git archive COMMIT columba_tpu_torch | tar -x -C TREE``) it
@@ -104,7 +110,8 @@ import torch
 from columba_tpu_torch.tools.path_inputs import (
     BAND_KINDS, Clocks, band_args, band_call, band_input, capture,
     capture_entries, describe, launch_census, live_tensor, log, loop_call,
-    replay_plain, rlc_lane_states, sort_ms, time_entry, time_inputs,
+    random_band_args, replay_plain, rlc_lane_states, sort_ms, time_entry,
+    time_inputs,
 )
 
 SEED = 20260817
@@ -113,6 +120,13 @@ READ_LEN = 100
 K = 2
 BEST_CUT = 4             # BEST cutoff of kuch1 at 100 bp (the smoke's)
 SYNTH_KB = (0, 2, 4, 5, 7, 13)
+# kernel B at the columba scheme's radii on 150 bp reads (--only columba150)
+COL_LEN = 150
+COL_RUN_READS = 16       # reads at each run of N, with COL_RUN_ERR
+COL_RUN_ERR = 0.03       # substitutions: most reach the ladder's rung 5
+COL_C = 12_288           # lanes of the synthetic steps
+COL_KB = (5, 6, 7)       # the columba scheme at 150 bp: W 2
+COL_WIDE = (13, 4, 14)   # kb, W and searches of columba k = 13 at 150 bp
 PKG = "columba_tpu_torch"
 TREE_MODULES = ("native", "ops.locate", "ops.verify", "ops.extend",
                 "search.dynschedule", "search.executor", "index.bmove",
@@ -618,6 +632,67 @@ def il_entries(index, batch, table, clocks: Clocks, smi: str,
                         runs=census))
 
 
+def columba_inputs(index, codes: np.ndarray, text: np.ndarray,
+                   starts: np.ndarray, table, rng, align, wd: str) -> list:
+    """Kernel B's static Vanilla entry at the columba scheme's radii on 150
+    bp reads: the widest step at each radius of one ``cli align -a best -S
+    columba`` batch (``chip_smoke.py``'s ``col150_se_best`` reads: 16 at
+    each run of N with 3 % substitutions, the rest uniform; the BEST
+    ladder's rungs 1, 3, 5 and 7), then synthetic steps of C = 12,288 lanes
+    from the reads' 10-mer seed ranges at kb 5, 6 and 7 (the schedule's own
+    tables, W 2) and at kb 13 with W 4 over 14 searches (columba k = 13 at
+    150 bp, whose schedule takes about two minutes to compile on the host:
+    random step tables)."""
+    from columba_tpu_torch.index.kmer import lookup
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import workload
+
+    lo, hi = workload.runs_of_n(codes)
+    runs = workload.reads_at_runs(text, starts, lo, hi, COL_RUN_READS, rng,
+                                  COL_LEN, COL_RUN_ERR)[0]
+    uni = workload.sample_reads(text, starts, BATCH - len(runs), rng,
+                                COL_LEN)[0]
+    reads = np.concatenate([runs, uni])
+    fq = os.path.join(wd, "col150.fq")
+    workload.write_fastq(fq, reads, "r")
+    calls = [c for c in capture(align(["-a", "best", "-S", "columba"],
+                                      [fq]))
+             if c["kind"] == "band_step"]
+    batch = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [reads, reads[:, ::-1] ^ 3]))).cuda()
+    seeds = lookup(table, batch[:, 30:40])
+    seeds = seeds[seeds[:, 1] > seeds[:, 0]]
+    seeds = seeds[torch.from_numpy(rng.integers(0, seeds.shape[0], COL_C)
+                                   ).cuda()]
+    for kb in COL_KB:
+        sched = pipeline.compile_cached(get_scheme("columba", kb), COL_LEN,
+                                        "edit", kmer_k=10)
+        calls.append(band_input("band_step", band_args(
+            index, sched, batch, seeds, rng, 4, C=COL_C)))
+    kb, W, S = COL_WIDE
+    calls.append(band_input("band_step", random_band_args(
+        index, batch, seeds, rng, kb, W, S, COL_LEN + 16, 4)))
+    return calls
+
+
+def generic_variant(kind: str):
+    """Kernel B's static Vanilla steps also through its generic entry
+    (``executor.BAND_GENERIC``), beside the instance the launch picks."""
+    from columba_tpu_torch.search import executor
+
+    if kind != "band_step":
+        return None
+
+    def launch(kind, inp):
+        executor.BAND_GENERIC = True
+        try:
+            return band_call(executor, inp["index"], inp, "generic")
+        finally:
+            executor.BAND_GENERIC = False
+    return {"generic": launch}
+
+
 def _copies(pi, x):
     """Copies of a captured call's arguments through a tree's own
     ``path_inputs`` (an earlier tree's has no aliasing ``copies``)."""
@@ -677,7 +752,9 @@ def main(argv=None) -> int:
                     help="comma-separated kernel kinds to time (locate, "
                          "verify, exact, dynpart, dyn_tables, gather, "
                          "band_step, extend, frontier, expand, dedup; an "
-                         "entry such as exact.rlc names one); all by "
+                         "entry such as exact.rlc names one; columba150: "
+                         "kernel B's static entry at kb 5-7 and 13, its "
+                         "instances beside its generic entry); all by "
                          "default")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
@@ -692,6 +769,7 @@ def main(argv=None) -> int:
     from columba_tpu_torch import cli, native
     from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
     from columba_tpu_torch.index.build import decoded_text, load_index
+    from columba_tpu_torch.index.fmindex import FMIndex
     from columba_tpu_torch.index.kmer import build_kmer_table
     from columba_tpu_torch.search.scheme import get_scheme
     from columba_tpu_torch.tools import workload
@@ -749,7 +827,7 @@ def main(argv=None) -> int:
 
         rng = np.random.default_rng(SEED)
         fa, idx = os.path.join(wd, "genome.fa"), os.path.join(wd, "g.cidx")
-        workload.write_genome(fa, rng)
+        codes, _ = workload.write_genome(fa, rng)
         t0 = time.time()
         assert cli.main(["build", "-r", idx, "-f", fa]) == 0
         log(f"cli build (-s 4): {time.time() - t0:.1f} s")
@@ -759,6 +837,15 @@ def main(argv=None) -> int:
                                       READ_LEN)[0]
         m1, m2 = workload.sample_pairs(text, arrays.seq_starts, BATCH, rng,
                                        READ_LEN)[:2]
+        if only == {"columba150"}:
+            index = FMIndex.from_arrays(arrays, "cuda")
+            time_inputs("columba150", columba_inputs(
+                index, codes, text, arrays.seq_starts,
+                build_kmer_table(index, 10), np.random.default_rng(SEED + 6),
+                lambda argv, fq: align(idx, argv, fq), wd),
+                clocks, smi, results, None, generic_variant)
+            return _write(args.out, smi, results)
+        del codes
         fq = {}
         for tag, codes in (("se", reads), ("p1", m1), ("p2", m2)):
             fq[tag] = os.path.join(wd, tag + ".fq")

@@ -57,17 +57,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def band_args(index, sched, batch, ranges, rng, switchpoint, div=8):
+def band_args(index, sched, batch, ranges, rng, switchpoint, div=8,
+              C=None):
     """One band step's inputs at the shapes ``match_all`` gives a batch:
     capacity C = rows x searches / div (8 with the in-text crossover, 2
-    without), real ranges, the schedule's own step tables and cells (the
-    batch and the cell tables, read at use), random band and register
-    state."""
+    without) unless given, real ranges, the schedule's own step tables and
+    cells (the batch and the cell tables, read at use), random band and
+    register state."""
     from columba_tpu_torch.search import executor
 
     dev = index.device
     R, S = batch.shape[0], sched.num_searches
-    C = max(1024, R * S // div)
+    C = max(1024, R * S // div) if C is None else C
     tables = executor.device_tables(sched, dev)
     t = sched.t_max // 2
     ids = torch.from_numpy(rng.integers(0, R * S, C).astype(np.int32)).to(dev)
@@ -78,6 +79,40 @@ def band_args(index, sched, batch, ranges, rng, switchpoint, div=8):
     cells = executor.StaticCells(batch, tables["cells"])
     return (index, ranges[:C].contiguous(), ids, band, colmin,
             tables["mrow"][t], cells, sched.t_max, t, switchpoint)
+
+
+def random_band_args(index, batch, ranges, rng, kb, W, S, T, switchpoint):
+    """A band step of radius kb with W registers over S searches and T
+    steps on random step tables, in :func:`band_args`' form (one lane a
+    row of ``ranges``): random meta words (half the searches active),
+    register ops and initial values in the layout of
+    ``executor.host_tables``, and random cell tables over ``batch``'s
+    reads; for shapes whose schedule is slow to compile on the host."""
+    from columba_tpu_torch.search import executor
+
+    dev = index.device
+    R, m = batch.shape
+    C, bw = ranges.shape[0], 2 * kb + 1
+    meta = (rng.integers(0, 2, S) | (rng.integers(0, 2, S) << 1)
+            | (rng.choice([*range(W), 15], S) << 2)
+            | (rng.choice([*range(W), 15], S) << 6)
+            | (rng.integers(0, 8, S) << 10) | (rng.integers(0, 2000, S) << 18))
+    words = np.zeros((S, 6), np.int64)
+    for w in range(W):
+        op = rng.choice([*range(bw), 63], S) | (rng.integers(0, 2, S) << 6)
+        words[:, w // 4] |= op << (7 * (w % 4))
+        words[:, 3 + w // 4] |= rng.integers(0, 128, S) << (7 * (w % 4))
+    mrow = np.concatenate([meta[:, None], words], axis=1).astype(np.int32)
+    code = rng.choice([0, 0, 0, 0, 0, -1, -2], (S, T, bw)).astype(np.int8)
+    cells = executor.StaticCells(batch, torch.from_numpy(executor.cell_table(
+        rng.integers(0, m, (S, T, bw)), code)).to(dev))
+    ids = torch.from_numpy(rng.integers(0, R * S, C).astype(np.int32)).to(dev)
+    band = torch.from_numpy(rng.integers(0, 4, (C, 2, bw)).astype(
+        np.int8)).to(dev)
+    colmin = torch.from_numpy(rng.integers(0, 3, (C, 2, W)).astype(
+        np.int8)).to(dev)
+    return (index, ranges.contiguous(), ids, band, colmin,
+            torch.from_numpy(mrow).to(dev), cells, T, T // 2, switchpoint)
 
 
 def rlc_lane_states(index, batch, rng, L, max_len=24):
@@ -221,9 +256,9 @@ def _clone(t):
 def capture(align) -> list:
     """The locate, verify, exact-match, partition and schedule-table
     launches of one ``align()`` call, each with its inputs (cloned) and, for
-    locate and verify, the live counts around it; of kernel B's RLC
-    entries and kernel A's ``loop_rlc`` the launch of each with the most
-    lanes."""
+    locate and verify, the live counts around it; of each of kernel B's
+    entries (at each band radius) and of kernel A's ``loop_rlc`` the launch
+    with the most lanes."""
     from columba_tpu_torch.index.bmove import BMoveIndex
     from columba_tpu_torch.ops import extend, locate, verify
     from columba_tpu_torch.search import dynschedule, executor, pipeline
@@ -234,9 +269,10 @@ def capture(align) -> list:
              dynschedule.dynamic_partition, dynschedule.build_tables,
              executor.band_step_compact, executor.exact_loop)
 
-    def keep_widest(kind, lanes, make):
-        if kind not in widest or lanes > widest[kind]["lanes"]:
-            widest[kind] = dict(make(), kind=kind, lanes=lanes)
+    def keep_widest(kind, lanes, make, kb=None):
+        key = (kind, kb)
+        if key not in widest or lanes > widest[key]["lanes"]:
+            widest[key] = dict(make(), kind=kind, lanes=lanes)
 
     def band(index, state, n_live, out, itv, cnt, scratch, mrow_t, cells,
              T, t, switchpoint, dyn_meta=None, track_arg=False):
@@ -248,12 +284,13 @@ def capture(align) -> list:
         elif dyn_meta is None:
             kind = "band_step"
         if kind is not None:
+            kb = (state[2].shape[-1] - 1) // 2
             keep_widest(kind, n_live, lambda: dict(
                 index=index, state=[f[:n_live].clone() for f in state],
                 cap=out[0].shape[0], M=itv.shape[0] - 1, cnt=cnt,
                 mrow_t=_clone(mrow_t), cells=_deep(cells, torch.clone),
                 T=T, t=t, switchpoint=switchpoint,
-                dyn_meta=_clone(dyn_meta), track_arg=track_arg))
+                dyn_meta=_clone(dyn_meta), track_arg=track_arg, kb=kb), kb)
         return saved[7](index, state, n_live, out, itv, cnt, scratch,
                         mrow_t, cells, T, t, switchpoint, dyn_meta,
                         track_arg)

@@ -96,6 +96,30 @@ def sample_reads(text: np.ndarray, starts: np.ndarray, n: int, rng,
     return reads_at(text, pos, rng, m, err_rate)
 
 
+def runs_of_n(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(begin, end) of each maximal run of N (code 4) of a genome of
+    :func:`write_genome`."""
+    ns = np.flatnonzero(codes == 4)
+    return (ns[np.r_[True, np.diff(ns) > 1]],
+            ns[np.r_[np.diff(ns) > 1, True]] + 1)
+
+
+def reads_at_runs(text: np.ndarray, starts: np.ndarray, run_lo: np.ndarray,
+                  run_hi: np.ndarray, per_run: int, rng, m: int = READ_LEN,
+                  err_rate: float = ERR_RATE):
+    """``per_run`` reads at each run of N, inside it where it is at least
+    m long, else over it, and inside the run's sequence; the index holds
+    every run as the same seed cycle, so these reads lie in a repeat and
+    keep their search lanes wide. Returns what :func:`reads_at` returns."""
+    seq = np.searchsorted(starts, run_lo, side="right") - 1
+    span = np.repeat(run_hi - run_lo, per_run) - m
+    at = np.repeat(run_lo, per_run) + rng.integers(
+        np.minimum(span, 0), np.maximum(span, 0) + 1)
+    at = np.clip(at, np.repeat(starts[seq], per_run),
+                 np.repeat(starts[seq + 1], per_run) - m)
+    return reads_at(text, at, rng, m, err_rate)
+
+
 def reads_at(text: np.ndarray, pos: np.ndarray, rng, m: int = READ_LEN,
              err_rate: float = ERR_RATE):
     """Reads that begin at ``pos``, with substitutions and flips drawn as

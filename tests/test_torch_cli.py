@@ -13,8 +13,8 @@ on both sides), and for dynamic and static partitioning, scheme folders
 (``-c``), scheme collections (``-d``) and the forced selection probe. The
 port runs with ``--device cpu``; without it, it must
 raise here, where there is no card. The static test parses every module
-of the port and fails on any import of JAX or of the JAX package, and on
-any call that builds a path into the JAX package.
+of the port and fails on any import of JAX, of the JAX package or of the
+tests, and on any call that builds a path into the JAX package.
 """
 
 import ast
@@ -207,16 +207,21 @@ def pairs(built):
                       "--probe-selection", "-p", "dynamic"], False),
     ("se_best_ladder_edit", ["-a", "best", "-S", "pigeon", "-I", "86"],
      False),
+    ("se_all_hamming_pigeon", ["-a", "all", "-e", "2", "-m", "hamming",
+                               "-S", "pigeon"], False),
+    ("se_all_columba_e5", ["-S", "columba", "-a", "all", "-e", "5"], False),
 ])
 def test_align_modes_identical_sam(built, pairs, tag, opts, paired):
     """Byte-identical SAM records from the two packages in BEST(+x) mode,
     through the exact pass, paired-end in BEST and ALL mode, and with
     dynamic and static partitioning, a scheme folder with its mirror (-c)
     and alone with its static fractions (-c -nD), a scheme collection (-d: kuch_k+1's searches twice, as the JAX package's
-    own CLI test builds it), the forced probe of the columba set, and the
+    own CLI test builds it), the forced probe of the columba set, the
     edit-metric stratum ladder (pigeon at -I 86: cutoff 7 at 50 bp, above
     the single pass's 6, so every stratum goes through kernel D's generic
-    radii)."""
+    radii), and the README's two align commands: Hamming ALL with pigeon
+    at -e 2, and the columba scheme at -e 5 (at 50 bp bw 11 with W 3 and
+    6 searches: the shape of kernel B's generic entry)."""
     wd, idx = built
     if tag == "se_best_ladder_edit":
         cfg = strategy.MappingConfig(scheme_name="pigeon", metric="edit",
@@ -289,7 +294,8 @@ def test_port_imports_no_jax():
     for need in ("search/dynschedule.py", "tools/gather_bench.py",
                  "tools/profile_align.py", "native/__init__.py",
                  "index/blocked.py", "dist/mesh.py", "dist/multihost.py",
-                 "tools/multihost_dryrun.py", "tools/bigbuild.py"):
+                 "tools/multihost_dryrun.py", "tools/bigbuild.py",
+                 "tools/fuzz_conformance.py", "tools/oracle.py"):
         assert any(f.replace(os.sep, "/").endswith(need) for f in files), need
     # the record path, the blocked indexes, data parallelism and the
     # GRCh38-scale tool are in the modules checked
@@ -316,7 +322,7 @@ def test_port_imports_no_jax():
             tree = ast.parse(f.read(), path)
         for mod in _imports(tree):
             root = mod.split(".")[0]
-            if root in ("jax", "jaxlib", "columba_tpu"):
+            if root in ("jax", "jaxlib", "columba_tpu", "tests"):
                 bad.append((path, mod))
         bad += [(path, hit) for hit in _path_into_jax_package(tree)]
     assert not bad, bad

@@ -338,7 +338,7 @@ def _random_mrow(rng, S, bw, W):
     return np.concatenate([meta[:, None], words], axis=1).astype(np.int32)
 
 
-# kb 0..4 x W 1..2 are templated entries of csrc/band_step.cu; the others
+# kb 0..7 x W 1..2 are templated entries of csrc/band_step.cu; the others
 # run its generic entry (runtime sizes, up to kb 13 and W 10)
 @pytest.mark.parametrize("kb,W", [
     (0, 1), (0, 2), (1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (4, 1),
@@ -356,6 +356,35 @@ def test_band_step_shapes(setup, gpu, kb, W):
     n, _ = fused_vs_plain(fm, state, mrow, cells, T, t,
                           4 if kb % 2 else 0)
     assert n > 0
+
+
+@pytest.mark.parametrize("kb,W", [(5, 1), (5, 2), (6, 1), (6, 2), (7, 1),
+                                  (7, 2)])
+def test_band_step_instances(setup, gpu, kb, W):
+    """Kernel B's templated instances at kb 5..7 x W 1..2 (the Vanilla
+    static entry's) and its generic entry at the same shape, each on the
+    same random lane states and step tables, equal the plain version on
+    every output, so each other bit for bit; the launch census names the
+    instance each took."""
+    _, cpu_fm, fm = setup
+    rng = np.random.default_rng(300 + 10 * kb + W)
+    bw = 2 * kb + 1
+    C, R, S, T, t = 2048, 96, 7, 5, 3
+    state = _random_state(rng, cpu_fm.n, C, R, S, bw, W, gpu)
+    mrow = torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu)
+    cells = _cells(rng, R, S, T, bw, gpu, ALL_CODES, m=150)
+    got = []
+    for generic in (False, True):
+        executor.KERNEL.reset()
+        executor.BAND_GENERIC = generic
+        try:
+            got.append(fused_vs_plain(fm, state, mrow, cells, T, t,
+                                      4 if kb % 2 else 0))
+        finally:
+            executor.BAND_GENERIC = False
+        inst = "generic" if generic else "templated"
+        assert executor.KERNEL.by_shape == {f"static kb{kb} W{W} {inst}": 1}
+    assert got[0] == got[1] and got[0][0] > 0
 
 
 @pytest.mark.parametrize("kmer_k,switchpoint,capacity", [
