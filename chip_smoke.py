@@ -5,10 +5,11 @@ a CUDA device. It
 
 1. prints the card (torch name, and nvidia-smi's name and power limit);
 2. builds the eleven CUDA kernels from ``columba_tpu_torch/csrc`` into
-   ``columba_tpu_torch/_build`` (one nvcc per source, started together;
-   kernel B's RLC entries are a source of their own) and prints ptxas's
-   registers and spills per entry, failing if any entry but kernel B's
-   generic one keeps a stack frame (local memory);
+   ``columba_tpu_torch/_build`` (one nvcc per source, started together,
+   each source's seconds printed; kernel B's RLC and textless entries are
+   sources of their own) and prints ptxas's registers and spills per entry,
+   failing if any entry but kernel B's generic one keeps a stack frame
+   (local memory);
 3. generates a random genome from a fixed seed (128 Mbp in 4 sequences, with
    runs of N), writes it as FASTA and builds the index with the port's
    ``cli build`` (default SA sparseness 4, so locate walks LF);
@@ -52,8 +53,10 @@ a CUDA device. It
    I's seed allocated a ``run_scheme`` call beside the lanes' ranges and
    fails if that reaches the (L x T, BW) cell array's size (no such array
    on the card);
-5. builds the 10-mer seed table (kernel A's main entry, counted as the
-   path ``kmer_table``) and drives eight paths through ``cli align``, each
+5. builds the 10-mer seed table (kernel A's table entry, one launch,
+   counted as the path ``kmer_table``; held to the ten-launch build of its
+   plain version and timed among the kernel checks) and drives eight paths
+   through ``cli align``, each
    with every kernel's launch count reset just before and read just after
    (and kernel A's loop launches per ``run_scheme`` call printed), with its
    peak device memory:
@@ -101,8 +104,10 @@ a CUDA device. It
    ``locate.rlc``, ``exact.rlc``, ``exact.rlc_lengths``, ``dynpart.rlc``
    with every column of its final part ranges) against their plain
    versions at the paths' shapes with their bounds, builds the RLC index's
-   10-mer table (path ``rlc_kmer_table``: ``extend.rlc``, sampled rows held
-   to the plain exact match) and drives eight more paths:
+   10-mer table (path ``rlc_kmer_table``: kernel A's ``table_rlc``, one
+   launch; path ``rlc_kmer_steps``: a library caller's ten ``extend_char``
+   calls, ``extend.rlc``; the two tables equal, sampled rows held to the
+   plain exact match) and drives eight more paths:
 
    - ``rlc_se_all``: ``-a all -e 2 -S kuch1 -b 16384 -nD`` (the JAX
      package's RLC bench) on 65,536 reads of the pan-genome;
@@ -123,7 +128,17 @@ a CUDA device. It
    locus; BEST: its best distance; PE: its pair, unless another haplotype
    holds a better one), and one batch of the RLC and of the textless index,
    and of the RLC index with dynamic partitioning and with scheme selection,
-   through the plain versions on the card.
+   through the plain versions on the card. Then the reference's default
+   run on the b-move indexes (``rlc_default_run``), 16,384 reads of 150 bp
+   (the first 1,024 at 3 % substitutions): ``rlc_col150_se_best`` (``-a
+   best -S columba``), ``rlc_col150_se_best_dyn`` (the same with ``-p
+   dynamic``; its sorted records must be the uniform run's) and
+   ``tl_col150_se_best`` (textless), each checked at cutoff 7, its first
+   1,024 reads again through the plain versions, and kernel B required at
+   kb 5 and 7 through the instances of the path's entry
+   (``PATH_SHAPES``, with kernels F and G's shapes under ``-p
+   dynamic``). On every path a kernel B launch at kb 5-7 with one or two
+   registers through the generic entry fails the run.
 
    Then the ``readme`` section, on the same index: the README's two
    ``align`` commands. Kernel B's templated instances at kb 5, 6 and 7
@@ -142,6 +157,11 @@ a CUDA device. It
      NM at most its substitutions);
    - ``ham_se_best``: ``-a best -m hamming -S pigeon`` on the same reads
      (cutoff 5, one pass);
+   - ``col150_se_best_dyn``: ``col150_se_best`` with ``-p dynamic``, the
+     reference's default run (kernel F at 6 and 8 parts, G at kb 5 and 7,
+     kernel B's per-lane kb 5 and 7 instances; its sorted records must be
+     ``col150_se_best``'s; its first 1,024 reads through the plain
+     versions);
 
    each with its lossless check, each path's first 4,096 reads again
    through the plain versions (the same records), and every path's
@@ -250,8 +270,17 @@ HAM_CUT = 5              # BEST cutoff of pigeon at 100 bp and -I 95
 N_README_PLAIN = 4096    # each path's first reads through the plain versions
 README_WARMUP = 4096
 README_PATHS = ("col150_se_best", "col150_se_all_e5", "ham_se_all",
-                "ham_se_best")
-READ_LEN_OF = {"col150_se_best": COL_LEN, "col150_se_all_e5": COL_LEN}
+                "ham_se_best", "col150_se_best_dyn")
+# the reference's default run (BEST, -p dynamic, 150 bp) on the b-move
+# indexes: 16,384 pan-genome reads, the first 1,024 at 3 % substitutions
+# (rungs 5 and 7 get lanes), the rest at 1 %
+RLC_COL_PATHS = ("rlc_col150_se_best", "rlc_col150_se_best_dyn",
+                 "tl_col150_se_best")
+N_RLC_COL_READS = 16_384
+N_RLC_COL_HARD = 1024
+N_DEFAULT_PLAIN = 1024   # the default-run paths' first reads, plain versions
+READ_LEN_OF = {p: COL_LEN for p in ("col150_se_best", "col150_se_all_e5",
+                                    "col150_se_best_dyn", *RLC_COL_PATHS)}
 FUZZ_TRIALS = 80         # tools/fuzz_conformance.py: 40 seeds x 2
 
 # the kernels each path must launch at least once
@@ -293,6 +322,12 @@ PATH_KERNELS = {
     "col150_se_all_e5": ("extend", "band_step", "locate", "verify"),
     "ham_se_all": ("extend", "band_step", "locate", "verify"),
     "ham_se_best": ("extend", "band_step", "locate", "verify"),
+    "col150_se_best_dyn": ("extend", "band_step", "locate", "verify",
+                           "dynpart", "dyn_tables"),
+    "rlc_col150_se_best": ("extend", "band_step", "locate", "verify"),
+    "rlc_col150_se_best_dyn": ("extend", "band_step", "locate", "verify",
+                               "dynpart", "dyn_tables"),
+    "tl_col150_se_best": ("extend", "band_step", "frontier"),
 }
 # kernels I-L (the frontier around kernels A and B, the candidates'
 # expansion and the dedup) run on every path that runs the scheme executor
@@ -340,6 +375,32 @@ PATH_ENTRIES = {
     "col150_se_all_e5": ("extend.loop",),
     "ham_se_all": ("extend.loop",),
     "ham_se_best": ("extend.loop",),
+    "col150_se_best_dyn": ("extend.loop", "band_step.per_lane"),
+    "rlc_col150_se_best": _RLC_ENTRIES,
+    "rlc_col150_se_best_dyn": ("extend.loop_rlc", "band_step.per_lane_rlc",
+                               "locate.rlc", "dynpart.rlc"),
+    "tl_col150_se_best": ("extend.loop_rlc", "band_step.textless"),
+}
+# the launches by shape (``native.Kernel.by_shape``) a path must make:
+# kernel B at kb 5 and 7 through the templated instances of the path's
+# entry (the columba scheme at 150 bp: W 2, per-lane W 1), and kernels F
+# and G's shapes under -p dynamic (columba at k = 5 and 7: 6 and 8 parts)
+PATH_SHAPES = {
+    "col150_se_best": {"band_step": ("static kb5 W2 templated",
+                                     "static kb7 W2 templated")},
+    "col150_se_all_e5": {"band_step": ("static kb5 W2 templated",)},
+    "col150_se_best_dyn": {"band_step": ("per_lane kb5 W1 templated",
+                                         "per_lane kb7 W1 templated"),
+                           "dynpart": ("parts6", "parts8"),
+                           "dyn_tables": ("kb5 parts6", "kb7 parts8")},
+    "rlc_col150_se_best": {"band_step": ("rlc kb5 W2 templated",
+                                         "rlc kb7 W2 templated")},
+    "rlc_col150_se_best_dyn": {"band_step": ("per_lane_rlc kb5 W1 templated",
+                                             "per_lane_rlc kb7 W1 templated"),
+                               "dynpart": ("parts6", "parts8"),
+                               "dyn_tables": ("kb5 parts6", "kb7 parts8")},
+    "tl_col150_se_best": {"band_step": ("textless kb5 W2 templated",
+                                        "textless kb7 W2 templated")},
 }
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
@@ -355,7 +416,7 @@ NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate", "dyn_tables",
             "drain_kernel", "init_kernel", "ex_compact_kernel",
             "ex_back_kernel", "tail_kernel", "frontier_kernel", "scan_kernel",
             "rows_kernel", "windows_kernel", "keys_kernel", "pass_kernel",
-            "compact_kernel")
+            "compact_kernel", "table_")
 GENERIC_B = ("band_step_kernel<-1", "band_step_rlc_kernel<-1")
 # the paths with -p dynamic: kernel F launches once a batch, however many
 # lossless re-runs the batch takes
@@ -583,6 +644,22 @@ def check_loop(index, ranges, ids, t_lo, t_hi, reads, tabs, per_lane,
     return rep, b, out["ranges"], out["drows"]
 
 
+def table_check(report, name, index, K) -> None:
+    """Kernel A's table entry (``kmer.build_kmer_table`` on the card: the
+    (4^K, rw) seed table in one launch) against its plain version, K
+    ``extend_char`` launches of kernel A's per-step entry, bit for bit,
+    timed, with its bound."""
+    from columba_tpu_torch.index import kmer
+    from columba_tpu_torch.tools import bounds
+
+    out, rep = check_kernel(name, lambda: kmer.build_kmer_table(index, K),
+                            lambda: kmer.build_kmer_table_plain(index, K),
+                            reps=5, plain_reps=2)
+    note_kernel(report, name, f"K={K}, {4 ** K} k-mers x {out.shape[1]}, "
+                f"{int((out[:, 1] > out[:, 0]).sum())} occur; plain: K "
+                f"launches", rep, bounds.kmer_table(K, out))
+
+
 def kernel_checks(index, arrays, reads, table) -> dict:
     """Each kernel vs its plain version on the card, at the paths' shapes
     (a batch of 16384 reads, both strands), with its bound."""
@@ -672,6 +749,10 @@ def kernel_checks(index, arrays, reads, table) -> dict:
             f"{b['bound_ms']:.5f} ms by {b['bound_by']} ({b['bytes']} bytes, "
             f"{b['operations']} operations), share "
             f"{b['bound_ms'] / rep['ms']:.4f}")
+
+    # kernel A's table entry: the 10-mer seed table in one launch against
+    # its plain version, the ten extend_char launches of the K-step build
+    table_check(report, "extend.table", index, 10)
 
     # the library call of kernel C's function: with a dense suffix array,
     # SA[row] is one gather. The dense array comes from kernel C itself.
@@ -1108,6 +1189,9 @@ def rlc_kernel_checks(bm, tl, batch) -> dict:
     L = R * S
     states = path_inputs.rlc_lane_states(bm, batch, rng, max(1024, L // 8))
 
+    # kernel A's table entry on the RLC index (a quad a k-mer)
+    table_check(report, "extend.table_rlc", bm, 10)
+
     # kernel B (band_step.rlc): C = R x S / 8 lanes with the crossover on
     ba = path_inputs.band_args(bm, sched, batch, states, rng, 4)
     rep, b, n, _ = check_fused(bm, list(ba[1:5]), *ba[5:], plain_reps=2)
@@ -1204,7 +1288,7 @@ def rlc_select_checks(bm, batch, rng, states) -> dict:
     tables, and kernel E with lengths (``exact.rlc_lengths``: the -d
     probe's 5 x R part patterns of 20 chars at the BEST cutoff)."""
     from columba_tpu_torch.ops import bextend, extend
-    from columba_tpu_torch.search import dynschedule, executor, schedule
+    from columba_tpu_torch.search import dynschedule, schedule
     from columba_tpu_torch.search.scheme import get_scheme
     from columba_tpu_torch.tools import bounds, path_inputs
 
@@ -1790,9 +1874,50 @@ def best_locus_check(wd, sample, tag, label, n_reads, cut) -> None:
             f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
 
 
+def same_sam(path, twin, wd) -> None:
+    """A path's records, sorted, equal its twin's on the same reads (the
+    -p dynamic paths: both lossless, so the same records)."""
+    a, b = (sam_body(os.path.join(wd, p + ".sam"), ordered=False)
+            for p in (path, twin))
+    log(f"{path} against {twin} on the same FASTQ: {len(a[1])} and "
+        f"{len(b[1])} records, sorted "
+        f"{'the same' if a == b else 'DIFFERENT'}")
+    if a != b:
+        raise AssertionError(f"{path} reports other records than {twin}")
+
+
+def plain_records(wd, idx, path, reads, argv) -> None:
+    """``reads`` (a path's first) through ``cli align`` with the plain
+    versions swapped in (``plain_patch``) give the path's own records for
+    them, sorted."""
+    from columba_tpu_torch import cli
+    from columba_tpu_torch.tools import workload
+
+    plain_fq = os.path.join(wd, f"{path}_plain.fq")
+    workload.write_fastq(plain_fq, reads, "r")
+    out = os.path.join(wd, f"{path}_plain.sam")
+    t0 = time.time()
+    restore = plain_patch()
+    try:
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["align", "-r", idx, "-b", str(BATCH), "-f",
+                           plain_fq, "-o", out, *argv])
+    finally:
+        restore()
+    same = rc == 0 and (
+        sam_body(out, ordered=False) == sam_body(
+            os.path.join(wd, path + ".sam"), len(reads), ordered=False))
+    log(f"plain versions on the card, {path}'s first {len(reads)} reads: "
+        f"{'the same records' if same else 'DIFFERENT records'} "
+        f"({time.time() - t0:.1f} s)")
+    if not same:
+        raise AssertionError(f"{path} through the plain versions gives "
+                             f"other records")
+
+
 def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
-                   drive, files, warm, argv_of, n_of, shapes, smi,
-                   record) -> None:
+                   drive, files, warm, argv_of, n_of, smi, record) -> None:
     """The README's two ``align`` commands on this index: ``-S columba`` on
     150 bp reads (BEST: cutoff 7, the stratum ladder's rungs 0, 1, 3, 5 and
     7; ALL at -e 5) and Hamming ``-S pigeon`` (ALL at -e 2, BEST at cutoff
@@ -1804,7 +1929,7 @@ def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
     versions (the same records), and the conformance fuzz on the card.
     ``sample100``: SE ALL's reads' (sequence starts, begins, substitutions,
     reverse-complemented flags)."""
-    from columba_tpu_torch import cli, native
+    from columba_tpu_torch import native
     from columba_tpu_torch.index.kmer import lookup
     from columba_tpu_torch.search import pipeline
     from columba_tpu_torch.search.scheme import get_scheme
@@ -1853,13 +1978,15 @@ def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
         workload.write_fastq(path, codes, prefix)
         return path
 
-    files["col150_se_best"] = (fq("col150", reads), None)
+    files["col150_se_best"] = files["col150_se_best_dyn"] = (
+        fq("col150", reads), None)
     files["col150_se_all_e5"] = (fq("col150a", reads[:N_COL_ALL_READS]),
                                  None)
     files["ham_se_all"] = files["ham_se_best"] = (
         fq("ham", reads100[:N_HAM_READS]), None)
-    warm["col150_se_best"] = warm["col150_se_all_e5"] = (
-        fq("wcol", reads[:README_WARMUP], "w"), None)
+    warm["col150_se_best"] = warm["col150_se_all_e5"] = \
+        warm["col150_se_best_dyn"] = (fq("wcol", reads[:README_WARMUP], "w"),
+                                      None)
     warm["ham_se_all"] = warm["ham_se_best"] = (
         fq("wham", reads100[:README_WARMUP], "w"), None)
     argv_of.update(
@@ -1867,9 +1994,12 @@ def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
         col150_se_all_e5=["-a", "all", "-e", str(COL_E), "-S", "columba"],
         ham_se_all=["-a", "all", "-e", str(HAM_E), "-m", "hamming", "-S",
                     "pigeon"],
-        ham_se_best=["-a", "best", "-m", "hamming", "-S", "pigeon"])
+        ham_se_best=["-a", "best", "-m", "hamming", "-S", "pigeon"],
+        # the reference's default run: BEST, -p dynamic, 150 bp
+        col150_se_best_dyn=["-a", "best", "-S", "columba", "-p", "dynamic"])
     n_of.update(col150_se_best=N_COL_READS, col150_se_all_e5=N_COL_ALL_READS,
-                ham_se_all=N_HAM_READS, ham_se_best=N_HAM_READS)
+                ham_se_all=N_HAM_READS, ham_se_best=N_HAM_READS,
+                col150_se_best_dyn=N_COL_READS)
     for path in README_PATHS:
         drive(path, f"genome {workload.GENOME_N} bp")
 
@@ -1883,43 +2013,15 @@ def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
                     HAM_E, exact=True)
     best_locus_check(wd, sample100, "ham_se_best", "ham_se_best",
                      N_HAM_READS, HAM_CUT)
-
-    # kernel B at kb 5 and 7 through the templated instances
-    for path, radii in (("col150_se_best", (5, 7)),
-                        ("col150_se_all_e5", (COL_E,))):
-        for kb in radii:
-            n = sum(v for k, v in shapes[path].items()
-                    if k.startswith(f"static kb{kb} ")
-                    and k.endswith(" templated"))
-            if n == 0:
-                raise AssertionError(f"{path}: kernel B not launched at kb "
-                                     f"{kb} through a templated instance")
+    best_locus_check(wd, col, "col150_se_best_dyn", "col150_se_best_dyn",
+                     N_COL_READS, COL_CUT)
+    same_sam("col150_se_best_dyn", "col150_se_best", wd)
 
     # each path's first reads again through the plain versions
-    restore = plain_patch()
-    try:
-        for path in README_PATHS:
-            src = reads if path.startswith("col150") else reads100
-            plain_fq = fq(f"{path}_plain", src[:N_README_PLAIN])
-            out = os.path.join(wd, f"{path}_plain.sam")
-            t0 = time.time()
-            err = io.StringIO()
-            with contextlib.redirect_stderr(err):
-                rc = cli.main(["align", "-r", idx, "-b", str(BATCH), "-f",
-                               plain_fq, "-o", out, *argv_of[path]])
-            same = rc == 0 and (
-                sam_body(out, ordered=False) == sam_body(
-                    os.path.join(wd, path + ".sam"), N_README_PLAIN,
-                    ordered=False))
-            log(f"plain versions on the card, {path}'s first "
-                f"{N_README_PLAIN} reads: "
-                f"{'the same records' if same else 'DIFFERENT records'} "
-                f"({time.time() - t0:.1f} s)")
-            if not same:
-                raise AssertionError(f"{path} through the plain versions "
-                                     f"gives other records")
-    finally:
-        restore()
+    for path in README_PATHS:
+        src = reads if path.startswith("col150") else reads100
+        n = N_DEFAULT_PLAIN if path.endswith("_dyn") else N_README_PLAIN
+        plain_records(wd, idx, path, src[:n], argv_of[path])
 
     # the conformance fuzz on the card: 80 trials against brute force
     for k in native.KERNELS.values():
@@ -1943,6 +2045,76 @@ def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
                              f"launched {missing}")
 
 
+def pan_best_check(wd, tag, pos, nsub, flip, cut) -> None:
+    """BEST mode on the pan-genome (one sequence): every read with n <= cut
+    substitutions has a record, its best NM is <= n, and where it equals n
+    the record at its locus is there (another haplotype may hold a better
+    hit)."""
+    q, _, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"), {"pan": 0})
+    best_nm = np.full(len(nsub), 1 << 40, np.int64)
+    np.minimum.at(best_nm, q, nm)
+    want = np.nonzero(nsub <= cut)[0]
+    unmapped = want[best_nm[want] > cut]
+    worse = want[best_nm[want] > nsub[want]]
+    at_n = want[best_nm[want] == nsub[want]]
+    dist, _ = nearest((q * 2 + ((fl & 16) > 0), p1, nm),
+                      at_n * 2 + flip[at_n], pos[at_n] + 1)
+    lost = at_n[dist > nsub[at_n]]
+    log(f"{tag} check: {len(want)} reads with <= {cut} substitutions; "
+        f"{len(unmapped)} without a record, {len(worse)} with best NM above "
+        f"their substitutions, {len(at_n)} with best NM equal to them of "
+        f"which {len(lost)} miss their locus; {len(q)} records")
+    if len(unmapped) or len(worse) or len(lost):
+        raise AssertionError(
+            f"{tag}: unmapped {unmapped[:5].tolist()}, worse "
+            f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
+
+
+def rlc_default_run(wd, pan, idx_of, drive, files, warm, argv_of, n_of,
+                    index_of) -> None:
+    """The reference's default run (BEST, ``-S columba``, 150 bp) on the
+    b-move indexes, through ``drive``: ``rlc_col150_se_best`` (uniform),
+    ``rlc_col150_se_best_dyn`` (-p dynamic: kernel F's RLC entry, kernel B's
+    per-lane RLC entry; its sorted records must be the uniform twin's) and
+    ``tl_col150_se_best`` (the textless index; its ladder reaches kb 5 and
+    7 too). Each path's BEST check on the sampled loci (cutoff 7) and its
+    first reads again through the plain versions (the same records)."""
+    from columba_tpu_torch.tools import workload
+
+    rng = np.random.default_rng(SEED + 8)
+    starts = np.array([0, len(pan)], np.int64)
+    hard = workload.sample_reads(pan, starts, N_RLC_COL_HARD, rng, COL_LEN,
+                                 COL_RUN_ERR)
+    rest = workload.sample_reads(pan, starts,
+                                 N_RLC_COL_READS - N_RLC_COL_HARD, rng,
+                                 COL_LEN)
+    reads, pos, nsub, flip = (np.concatenate(v) for v in zip(hard, rest))
+    log(f"default run: {N_RLC_COL_READS} pan-genome reads x {COL_LEN} bp, "
+        f"the first {N_RLC_COL_HARD} with {COL_RUN_ERR} substitutions a "
+        f"base, the rest with {workload.ERR_RATE}; "
+        f"{int((nsub <= COL_CUT).sum())} with <= {COL_CUT} substitutions")
+    fq, wq = (os.path.join(wd, f"{t}.fq") for t in ("pan_col", "pan_wcol"))
+    workload.write_fastq(fq, reads, "r")
+    workload.write_fastq(wq, reads[:README_WARMUP], "w")
+    best = ["-a", "best", "-S", "columba"]
+    argv_of.update(rlc_col150_se_best=best,
+                   rlc_col150_se_best_dyn=best + ["-p", "dynamic"],
+                   tl_col150_se_best=best)
+    for path in RLC_COL_PATHS:
+        index_of[path] = idx_of["textless" if path.startswith("tl")
+                                else "rlc"]
+        files[path], warm[path] = (fq, None), (wq, None)
+        n_of[path] = N_RLC_COL_READS
+        drive(path, f"pan-genome {len(pan)} bp, "
+              f"{'textless' if path.startswith('tl') else 'rlc'} index")
+    for path in RLC_COL_PATHS:
+        pan_best_check(wd, path, pos, nsub, flip, COL_CUT)
+    same_sam("rlc_col150_se_best_dyn", "rlc_col150_se_best", wd)
+    for path in RLC_COL_PATHS:
+        plain_records(wd, index_of[path], path, reads[:N_DEFAULT_PLAIN],
+                      argv_of[path])
+
+
 def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
                 warm, argv_of, n_of, index_of) -> dict:
     """The RLC and textless indexes: the pan-genome's FASTA, both ``cli
@@ -1954,7 +2126,8 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
     through the plain versions. Returns the kernel records."""
     from columba_tpu_torch import native
     from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
-    from columba_tpu_torch.index.kmer import build_kmer_table
+    from columba_tpu_torch.index.kmer import (build_kmer_table,
+                                              build_kmer_table_plain)
     from columba_tpu_torch.ops import extend
     from columba_tpu_torch.search import pipeline
     from columba_tpu_torch.search.scheme import get_multi_scheme, get_scheme
@@ -2026,38 +2199,46 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
     report = rlc_kernel_checks(bm, tl, batch)
     del batch
 
-    # kernel A's per-step RLC entry through its caller on the card: the
-    # 10-mer seed table of the RLC index (index/kmer.py; cli align builds
-    # none on RLC, a library caller may pass one to match_all), 4^10 lanes
-    # x 10 extend_char steps; 65,536 sampled rows held to the plain exact
-    # match of their k-mers
-    for k in native.KERNELS.values():
-        k.reset()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    table = build_kmer_table(bm, 10)
-    torch.cuda.synchronize()
-    dt = time.time() - t0
-    record("rlc_kmer_table",
-           {k: v.launches for k, v in native.KERNELS.items()},
-           {f"{k}.{e}": c for k, v in native.KERNELS.items()
-            for e, c in v.by_entry.items()})
+    # kernel A on the RLC index's 10-mer seed table (index/kmer.py; cli
+    # align builds none on RLC, a library caller may pass one to
+    # match_all): its table entry, one launch of 4^10 quads; then a library
+    # caller's ten extend_char calls over the same 4^10 lanes (kernel A's
+    # per-step RLC entry), which must leave the same table; 65,536 sampled
+    # rows held to the plain exact match of their k-mers
+    tables = {}
+    for path, build, entry, n in (
+            ("rlc_kmer_table", build_kmer_table, "table_rlc", 1),
+            ("rlc_kmer_steps", build_kmer_table_plain, "rlc", 10)):
+        for k in native.KERNELS.values():
+            k.reset()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tables[path] = build(bm, 10)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        entries = {f"{k}.{e}": c for k, v in native.KERNELS.items()
+                   for e, c in v.by_entry.items()}
+        record(path, {k: v.launches for k, v in native.KERNELS.items()},
+               entries)
+        log(f"path {path}: 10-mer table of the RLC index ({4 ** 10} lanes "
+            f"x 8) in {dt:.3f} s; kernel A launches by entry {entries}")
+        if entries != {f"extend.{entry}": n}:
+            raise AssertionError(f"{path}: launched {entries}, not {n} of "
+                                 f"extend.{entry}")
+    table = tables["rlc_kmer_table"]
     codes = torch.from_numpy(rng.integers(0, 4 ** 10, 65_536)).to(dev)
     kmers = ((codes[:, None] >> (2 * torch.arange(9, -1, -1, device=dev)))
              & 3).to(torch.uint8).contiguous()
     want = extend.zero_empty(extend.exact_match_plain(bm, kmers))
-    if not torch.equal(table[codes], want):
-        raise AssertionError("the RLC k-mer table differs from the plain "
-                             "exact match of its k-mers")
-    log(f"path rlc_kmer_table: 10-mer table of the RLC index ({4 ** 10} "
-        f"lanes x 8) in {dt:.3f} s, {int((table[:, 1] > table[:, 0]).sum())}"
-        f" k-mers occur; 65,536 sampled rows equal the plain exact match; "
-        f"kernel A's RLC entry launched "
-        f"{native.KERNELS['extend'].by_entry.get('rlc', 0)} times")
-    if native.KERNELS["extend"].by_entry.get("rlc", 0) == 0:
-        raise AssertionError("extend.rlc not launched by the RLC k-mer "
-                             "table build")
-    del table, codes, kmers, want
+    if (not torch.equal(table, tables["rlc_kmer_steps"])
+            or not torch.equal(table[codes], want)):
+        raise AssertionError("the RLC k-mer table differs from the ten "
+                             "extend_char steps' or from the plain exact "
+                             "match of its k-mers")
+    log(f"rlc k-mer tables: {int((table[:, 1] > table[:, 0]).sum())} "
+        f"k-mers occur; the table entry's equals the ten steps'; 65,536 "
+        f"sampled rows equal the plain exact match")
+    del table, tables, codes, kmers, want
 
     def fq(tag, codes, prefix="r"):
         path = os.path.join(wd, tag + ".fq")
@@ -2141,25 +2322,7 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
                              f"{len(hits)} lines, mapped sets differ: "
                              f"{rhs_mapped != sam_mapped}")
     for tag in ("rlc_se_best", "tl_se_best", "rlc_se_best_d"):
-        q, _, p1, fl, nm = parse_sam(os.path.join(wd, tag + ".sam"), seq_ids)
-        best_nm = np.full(N_RLC_READS, 1 << 40, np.int64)
-        np.minimum.at(best_nm, q, nm)
-        want = np.nonzero(nsub <= BEST_CUT)[0]
-        unmapped = want[best_nm[want] > BEST_CUT]
-        worse = want[best_nm[want] > nsub[want]]
-        at_n = want[best_nm[want] == nsub[want]]
-        dist, _ = nearest((key(q, (fl & 16) > 0), p1, nm),
-                          key(at_n, flip[at_n]), want_p1[at_n])
-        lost = at_n[dist > nsub[at_n]]
-        log(f"{tag} check: {len(want)} reads with <= {BEST_CUT} "
-            f"substitutions; {len(unmapped)} without a record, {len(worse)} "
-            f"with best NM above their substitutions, {len(at_n)} with best "
-            f"NM equal to them of which {len(lost)} miss their locus; "
-            f"{len(q)} records")
-        if len(unmapped) or len(worse) or len(lost):
-            raise AssertionError(
-                f"{tag}: unmapped {unmapped[:5].tolist()}, worse "
-                f"{worse[:5].tolist()}, lost {lost[:5].tolist()}")
+        pan_best_check(wd, tag, pos, nsub, flip, BEST_CUT)
     # PE BEST reports the pairs of least total distance; on the pan-genome
     # another haplotype may hold a better pair than the sampled one, so a
     # pair is missing when its best reported total is above its
@@ -2215,6 +2378,11 @@ def rlc_section(wd, dev, smi, vanilla_idx, drive, record, collection, files,
         log(f"plain versions on the card, {what}, k = {K}: identical "
             f"OccArray for one batch of {nr} reads ({len(occ_k)} "
             f"occurrences)")
+    # the reference's default run on the b-move indexes
+    t_col = time.time()
+    rlc_default_run(wd, pan, idx_of, drive, files, warm, argv_of, n_of,
+                    index_of)
+    log(f"default run on the b-move indexes: {time.time() - t_col:.1f} s")
     # the dist phase on the RLC index
     t_dist = time.time()
     dist_shards("rlc_dist_shards", bm, reads[:N_RLC_DIST_READS], nsub, pos,
@@ -2621,7 +2789,10 @@ def main() -> int:
     t0 = time.time()
     native.load_kernels()
     log(f"kernels built in {time.time() - t0:.1f} s "
-        f"(nvcc {native.build_seconds.get('kernels', 0.0):.1f} s)")
+        f"(nvcc {native.build_seconds.get('kernels', 0.0):.1f} s; by "
+        f"source, all started together: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in sorted(native.build_seconds.items())
+            if k.endswith(".cu")) + ")")
     for ln in native.ptxas_report(native.build_log.get("kernels", "")):
         log(f"  ptxas {ln}")
         if (ln.startswith(NO_FRAME) and not ln.startswith(GENERIC_B)
@@ -2734,21 +2905,23 @@ def main() -> int:
                 "blk_se_rhs": N_BLK_READS, "blk_pe_best": N_BLK_PAIRS}
 
         index = FMIndex.from_arrays(arrays, dev)
-        # kernel A's main entry: the 10-mer seed table, built through the
-        # cached table build that cli align calls (10 launches of
-        # extend_char)
+        # kernel A's table entry: the 10-mer seed table, built through the
+        # cached table build that cli align calls, in one launch
         for k in native.KERNELS.values():
             k.reset()
         t0 = time.time()
         table = build_kmer_table_cached(index, 10, idx)
         torch.cuda.synchronize()
         kmer_launches = {k: v.launches for k, v in native.KERNELS.items()}
+        kmer_entries = {f"{k}.{e}": n for k, v in native.KERNELS.items()
+                        for e, n in v.by_entry.items()}
         log(f"index on device: {index.nbytes()} bytes + k-mer table "
             f"{table.nbytes} bytes, built in {time.time() - t0:.2f} s with "
-            f"{kmer_launches['extend']} launches of kernel A")
-        if kmer_launches["extend"] == 0:
-            raise AssertionError("kernel A not launched by the k-mer table "
-                                 "build")
+            f"{kmer_launches['extend']} launch of kernel A ({kmer_entries})")
+        if kmer_launches["extend"] != 1 or kmer_entries != {
+                "extend.table": 1}:
+            raise AssertionError(f"the k-mer table build launched "
+                                 f"{kmer_entries}, not one extend.table")
         sections.done("Vanilla genome, build and k-mer table")
         report = kernel_checks(index, arrays, reads, table)
         sections.done("kernel checks")
@@ -2773,7 +2946,7 @@ def main() -> int:
             return err.getvalue()
 
         launches_by_path = {"kmer_table": kmer_launches}
-        entries_by_path = {"kmer_table": {}}
+        entries_by_path = {"kmer_table": kmer_entries}
 
         def record(path, launches, entries):
             launches_by_path[path] = launches
@@ -2853,7 +3026,10 @@ def main() -> int:
             what += " -> " + (".rhs" if path in RHS_PATHS else "SAM")
             m = (TRIM[1] - TRIM[0] if "-T" in argv_of[path]
                  else READ_LEN_OF.get(path, READ_LEN))
-            shapes_by_path[path] = dict(native.KERNELS["band_step"].by_shape)
+            shapes_by_path[path] = {k: dict(v.by_shape)
+                                    for k, v in native.KERNELS.items()
+                                    if v.by_shape}
+            band_shapes = shapes_by_path[path].get("band_step", {})
             log(f"path {path}: {n_of[path]} {unit} x {m} bp in "
                 f"{dt:.3f} s = {n_of[path] / dt:.1f} {unit}/s ({what}, "
                 f"{genome_what}, {smi}; warm-up "
@@ -2883,7 +3059,24 @@ def main() -> int:
                 + (f" ({loops / runs[0]:.2f} per call)" if runs[0] else "")
                 + f"; kernel B: {launches['band_step']} launches"
                 + (f", by entry, radius, registers and instance "
-                   f"{shapes_by_path[path]}" if shapes_by_path[path] else ""))
+                   f"{band_shapes}" if band_shapes else "")
+                + "".join(f"; kernel {k} by shape {v}"
+                          for k, v in shapes_by_path[path].items()
+                          if k != "band_step"))
+            # kb 5..7 with one or two registers: a templated instance in
+            # every entry, never the generic one
+            generic = [k for k in band_shapes if k.endswith(" generic")
+                       and re.search(r" kb[5-7] W[12] ", k)]
+            if generic:
+                raise AssertionError(f"path {path}: kernel B's generic "
+                                     f"entry at {generic}")
+            missing_shapes = [
+                f"{k} {sh}" for k, need in PATH_SHAPES.get(
+                    path, {}).items() for sh in need
+                if shapes_by_path[path].get(k, {}).get(sh, 0) == 0]
+            if missing_shapes:
+                raise AssertionError(f"path {path}: no launch of "
+                                     f"{missing_shapes}")
             if loops > 2 * runs[0]:
                 raise AssertionError(f"path {path}: more than two exact "
                                      "loop launches per run_scheme call")
@@ -2922,8 +3115,8 @@ def main() -> int:
                              prof=path == "se_all")
 
         for path in PATH_KERNELS:
-            if path not in (*RLC_PATHS, *BLOCKED_PATHS, *BIG_PATHS,
-                            *README_PATHS):
+            if path not in (*RLC_PATHS, *RLC_COL_PATHS, *BLOCKED_PATHS,
+                            *BIG_PATHS, *README_PATHS):
                 drive(path, f"genome {workload.GENOME_N} bp")
         # the monolithic reference of the blocked PE path: its pairs and
         # flags on this index
@@ -3084,8 +3277,7 @@ def main() -> int:
 
         # the README's two align commands, and the conformance fuzz
         readme_section(wd, idx, index, table, text, n_runs, reads, sample,
-                       drive, files, warm, argv_of, n_of, shapes_by_path,
-                       smi, record)
+                       drive, files, warm, argv_of, n_of, smi, record)
         sections.done("readme")
 
         # the dist phase at the headline width (SE ALL's reads from
@@ -3145,6 +3337,8 @@ def main() -> int:
                 "exact.rlc": "columba_tpu/ops/bextend.py:259",
                 "locate.rlc": "columba_tpu/ops/blocate.py:40",
                 "extend.rlc": "columba_tpu/ops/bextend.py:259",
+                "extend.table": "columba_tpu/index/kmer.py:48",
+                "extend.table_rlc": "columba_tpu/index/kmer.py:48",
                 "exact.rlc_lengths": "columba_tpu/search/pipeline.py:381",
                 "dynpart.rlc": "columba_tpu/search/dynschedule.py:283",
                 "band_step.per_lane_rlc":

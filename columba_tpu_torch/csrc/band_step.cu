@@ -1,8 +1,8 @@
 // Kernel B, Vanilla entries: the static-schedule entries (kb 0..7 x W 1..2
-// templated, a generic entry above, which `generic` forces; they take the
-// reads and the schedule's cell table, `pchars` null) and the per-lane entry of dynamic
-// partitioning (kernel G's `pchars`, the others null). The body and its
-// notes are in band_step.cuh.
+// templated; they take the reads and the schedule's cell table, `pchars`
+// null) and the per-lane entry of dynamic partitioning (kb 0..7 templated;
+// kernel G's `pchars`, the others null), each with a generic entry above,
+// which `generic` forces. The body and its notes are in band_step.cuh.
 #include "band_step.cuh"
 
 using columba_band::BandArgs;
@@ -29,6 +29,7 @@ extern "C" int columba_band_step(
     return static_cast<int>(cudaErrorInvalidValue);
   a.dyn_meta = dyn_meta;
   if (dyn_meta != nullptr)       // per-lane entry
-    return columba_band::launch_per_lane<4>(a, kb, W, stream);
+    return columba_band::launch_per_lane<4>(a, kb, W, stream,
+                                            generic != 0);
   return columba_band::launch_static<4>(a, kb, W, stream, generic != 0);
 }

@@ -75,10 +75,11 @@
 // writes and hint walks.
 //
 // Templated on the band radius KB and the register count W so every array
-// stays in registers: KB 0..4 x W 1..2 are instantiated (what the builtin
-// schemes give at m = 100 and 150 for k <= 4, both metrics; KB = 0 is the
-// Hamming band of one cell), and on the Vanilla index KB 5..7 x W 1..2 (the
-// columba scheme's at 150 bp: the BEST ladder's rungs 5 and 7 at -I 95).
+// stays in registers: KB 0..7 x W 1..2 are instantiated in every entry (W 1
+// in the per-lane ones): what the builtin schemes give at m = 100 and 150
+// for k <= 4, both metrics (KB = 0 is the Hamming band of one cell), and
+// the columba scheme's at 150 bp, the BEST ladder's rungs 5 and 7 at -I 95
+// (the reference's default run, with -p dynamic the per-lane entries).
 // Every other shape a schedule can produce (KB <= 13, W <= MAX_REGS = 10)
 // runs the same body with runtime sizes and arrays sized for the maximum
 // (KB = -1): those arrays live in local memory, so that entry is slower,
@@ -115,8 +116,9 @@
 // words each), then per child written its walks' 16 B reads of STARTs
 // (a bucket read past eight runs) and an LF-run read where its rows are
 // not c-runs: latency, not bytes.
-// These entries are in band_step_rlc.cu, the Vanilla ones in band_step.cu;
-// this header holds the one body.
+// These entries are in band_step_rlc.cu (8-wide lanes) and
+// band_step_textless.cu (12-wide), the Vanilla ones in band_step.cu; this
+// header holds the one body.
 #pragma once
 
 #include "bm_quad.cuh"
@@ -578,27 +580,14 @@ int launch(const BandArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The static-schedule entries of lane width RW: kb 0..4 x W 1..2 templated
-// on every lane width, and kb 5..7 x W 1..2 on the Vanilla index (the
-// combined columba scheme's rungs at 150 bp; the RLC paths' searches stay
-// at kb <= 4); the rest through the generic entry, which `generic` also
+// The static-schedule entries of lane width RW: kb 0..7 x W 1..2 templated
+// (kb 5..7: the combined columba scheme's rungs at 150 bp, the BEST ladder's
+// at -I 95), the rest through the generic entry, which `generic` also
 // forces (to hold and time it against the instances).
 template <int RW>
 int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream,
-                  bool generic = false) {
-  if (generic) return launch<-1, 0, false, RW>(a, stream);
-  if constexpr (RW == 4) {
-    switch (W <= 2 && kb >= 5 && kb <= 7 ? 2 * kb + W : 0) {
-      case 11: return launch<5, 1, false, RW>(a, stream);
-      case 12: return launch<5, 2, false, RW>(a, stream);
-      case 13: return launch<6, 1, false, RW>(a, stream);
-      case 14: return launch<6, 2, false, RW>(a, stream);
-      case 15: return launch<7, 1, false, RW>(a, stream);
-      case 16: return launch<7, 2, false, RW>(a, stream);
-      default: break;
-    }
-  }
-  switch (W <= 2 && kb <= 4 ? 2 * kb + W : 0) {
+                  bool generic) {
+  switch (generic || W > 2 || kb > 7 ? 0 : 2 * kb + W) {
     case 1: return launch<0, 1, false, RW>(a, stream);
     case 2: return launch<0, 2, false, RW>(a, stream);
     case 3: return launch<1, 1, false, RW>(a, stream);
@@ -609,21 +598,33 @@ int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream,
     case 8: return launch<3, 2, false, RW>(a, stream);
     case 9: return launch<4, 1, false, RW>(a, stream);
     case 10: return launch<4, 2, false, RW>(a, stream);
+    case 11: return launch<5, 1, false, RW>(a, stream);
+    case 12: return launch<5, 2, false, RW>(a, stream);
+    case 13: return launch<6, 1, false, RW>(a, stream);
+    case 14: return launch<6, 2, false, RW>(a, stream);
+    case 15: return launch<7, 1, false, RW>(a, stream);
+    case 16: return launch<7, 2, false, RW>(a, stream);
     default: return launch<-1, 0, false, RW>(a, stream);
   }
 }
 
 // The per-lane entry of lane width RW (per-read schedules): one register,
-// kb 0..4 templated, the rest through the generic entry.
+// kb 0..7 templated (a -p dynamic run of the columba scheme at 150 bp
+// reaches kb 5 and 7), the rest through the generic entry, which `generic`
+// also forces.
 template <int RW>
-int launch_per_lane(const BandArgs& a, int kb, int W, cudaStream_t stream) {
+int launch_per_lane(const BandArgs& a, int kb, int W, cudaStream_t stream,
+                    bool generic) {
   if (W != 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (kb) {
+  switch (generic ? -1 : kb) {
     case 0: return launch<0, 1, true, RW>(a, stream);
     case 1: return launch<1, 1, true, RW>(a, stream);
     case 2: return launch<2, 1, true, RW>(a, stream);
     case 3: return launch<3, 1, true, RW>(a, stream);
     case 4: return launch<4, 1, true, RW>(a, stream);
+    case 5: return launch<5, 1, true, RW>(a, stream);
+    case 6: return launch<6, 1, true, RW>(a, stream);
+    case 7: return launch<7, 1, true, RW>(a, stream);
     default: return launch<-1, 0, true, RW>(a, stream);
   }
 }

@@ -37,6 +37,23 @@
 // four-lane step a child (extend_all: four, the rows read again from the
 // L1).
 //
+// Entries "table" (Vanilla) and "table_rlc" (RLC, 8 or 12 wide) build the
+// k-mer seed table (index/kmer.py build_kmer_table; replaces the K
+// lockstep extend_char calls of columba_tpu/index/kmer.py
+// build_kmer_table, :48) in one launch: a thread (RLC: a quad) a k-mer walks
+// its K backward steps from the full range, the step's char from the
+// code's digits in registers (step s consumes digit s, the last char
+// first), so no per-step char tensor is made. Thread t takes the code
+// whose digits are t's in reverse order, so step s's char is digit K-1-s
+// of t: the threads of a warp (or the quads of one) share t's high digits,
+// so they walk the same range, and read the same rows, through every step
+// but their last two or three, and part only there. Each step is
+// extend_char's arithmetic, so the table is bit for bit what K calls of
+// it leave, ranges that empty included: on the Vanilla index an empty
+// range keeps stepping (extend_char zeroes only N), so a k-mer's lane runs
+// all K steps; on the RLC index extend_char turns an empty range into the
+// zero range, which every later step keeps, so the quad stops there.
+//
 // Bound: memory latency, not bandwidth or arithmetic. Vanilla: two random
 // 64 B occ rows per lane and step; one thread reads its two rows with 16 B
 // loads, so each row costs one 64 B transaction, and the four children fall
@@ -147,6 +164,69 @@ int launch_rlc(const columba::BmParams& bm, const columba::BmTables& bt,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int kTableThreads = 128;   // Vanilla: a thread a k-mer
+
+// the K 2-bit digits of t in reverse order: a table thread's k-mer code
+__device__ __forceinline__ long long reverse_digits(uint32_t t, int K) {
+  uint32_t code = 0;
+  for (int s = 0; s < K; ++s) code = (code << 2) | ((t >> (2 * s)) & 3u);
+  return code;
+}
+
+__global__ void __launch_bounds__(kTableThreads)
+table_kernel(columba::FmParams fm, const long long* __restrict__ full, int K,
+             long long* __restrict__ out, long long n) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (i >= n) return;
+  uint32_t r[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r[k] = static_cast<uint32_t>(__ldg(full + k));
+  const uint32_t t = static_cast<uint32_t>(i);
+  for (int s = 0; s < K; ++s) {
+    columba::FmLane lane;
+    lane.init(fm, columba::BmParams{}, r, 0);
+    uint32_t o[4];
+    columba::fm_child(lane, static_cast<int>((t >> (2 * (K - 1 - s))) & 3u),
+                      o);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r[k] = o[k];
+  }
+  const long long code = reverse_digits(t, K);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[4 * code + k] = r[k];
+}
+
+template <int RW>
+__global__ void __launch_bounds__(kQuadThreads)
+table_rlc_kernel(columba::BmParams bm, columba::BmTables bt,
+                 const long long* __restrict__ full, int K,
+                 long long* __restrict__ out, long long n) {
+  const long long i = (blockIdx.x * static_cast<long long>(blockDim.x) +
+                       threadIdx.x) >> 2;
+  if (i >= n) return;                  // a quad leaves together
+  const int q = threadIdx.x & 3;
+  const unsigned qmask = 0xFu << (threadIdx.x & 28);
+  uint32_t r[RW];
+#pragma unroll
+  for (int k = 0; k < RW; ++k) r[k] = static_cast<uint32_t>(__ldg(full + k));
+  const uint32_t t = static_cast<uint32_t>(i);
+  for (int s = 0; s < K; ++s) {
+    if (r[1] <= r[0]) {                // empty: zero from here on
+#pragma unroll
+      for (int k = 0; k < RW; ++k) r[k] = 0u;
+      break;
+    }
+    uint32_t o[RW];
+    columba::quad_extend<RW>(
+        bm, bt, r, static_cast<int>((t >> (2 * (K - 1 - s))) & 3u), 0, q,
+        qmask, o);
+#pragma unroll
+    for (int k = 0; k < RW; ++k) r[k] = o[k];
+  }
+  quad_store<RW>(out + RW * reverse_digits(t, K), r, q);
 }
 
 struct LoopArgs {
@@ -308,6 +388,45 @@ extern "C" int columba_extend_loop_rlc(
   if (rw == 12)
     return launch_loop<12>(columba::FmParams{}, bm, bt, a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the k-mer seed table: 4^K rows from the full range `full` (one row)
+extern "C" int columba_extend_table(const int* occ, long long blocks,
+                                    unsigned c0, unsigned c1, unsigned c2,
+                                    unsigned c3, unsigned d0, unsigned d1,
+                                    const long long* full, int K,
+                                    long long* out, cudaStream_t stream) {
+  if (K < 1 || K > 15) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = 1LL << (2 * K);
+  table_kernel<<<columba::grid_for(n, kTableThreads), kTableThreads, 0,
+                 stream>>>(
+      columba::fm_params(occ, blocks, c0, c1, c2, c3, d0, d1), full, K, out,
+      n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int columba_extend_table_rlc(
+    const int* fused, unsigned r_fwd, unsigned r_rev, unsigned f0,
+    unsigned f1, unsigned f2, unsigned f3, unsigned n, const unsigned* starts,
+    unsigned starts_rev, const int* run_at, const int* run_at_rev, int shift,
+    const long long* full, int K, long long* out, int rw,
+    cudaStream_t stream) {
+  if (K < 1 || K > 15) return static_cast<int>(cudaErrorInvalidValue);
+  const columba::BmParams bm =
+      columba::bm_params(fused, r_fwd, r_rev, f0, f1, f2, f3, n);
+  const columba::BmTables bt =
+      columba::bm_tables(starts, starts_rev, run_at, run_at_rev, shift);
+  const long long rows = 1LL << (2 * K);
+  const unsigned grid = columba::grid_for(4 * rows, kQuadThreads);
+  if (rw == 8)
+    table_rlc_kernel<8><<<grid, kQuadThreads, 0, stream>>>(bm, bt, full, K,
+                                                          out, rows);
+  else if (rw == 12)
+    table_rlc_kernel<12><<<grid, kQuadThreads, 0, stream>>>(bm, bt, full, K,
+                                                           out, rows);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* columba_error_string(int code) {

@@ -1,9 +1,11 @@
 """Dense k-mer seed table: bidirectional SA ranges of every k-mer.
 
 The counterpart of ``columba_tpu/index/kmer.py``: a direct-addressed
-(4^K, 4) table of range pairs indexed by the 2-bit packed k-mer, built by K
-lockstep backward ``extend_char`` steps over all 4^K patterns (kernel A on
-the card). Lookup is one row gather (kernel I's seed entry on the card).
+(4^K, 4) table of range pairs indexed by the 2-bit packed k-mer (rw wide on
+the RLC index), what K lockstep backward ``extend_char`` steps over all
+4^K patterns leave (the plain version; on the card one launch of kernel
+A's table entry walks every k-mer's K steps). Lookup is one row gather
+(kernel I's seed entry on the card).
 
 Code convention: code(P) = sum_j P[j] * 4^(K-1-j) (first char = most
 significant digits). The on-disk cache ``kmer{K}.npy`` (uint32) is the
@@ -19,8 +21,9 @@ import os
 import numpy as np
 import torch
 
+from columba_tpu_torch.index.bmove import BMoveIndex
 from columba_tpu_torch.index.fmindex import FMIndex
-from columba_tpu_torch.ops import extend
+from columba_tpu_torch.ops import bextend, extend
 from columba_tpu_torch.ops.frontier import FRONTIER
 
 DEFAULT_K = 10  # reference default k-mer size
@@ -46,8 +49,10 @@ def table_k(table) -> int:
     return K
 
 
-def build_kmer_table(index: FMIndex, K: int = DEFAULT_K) -> torch.Tensor:
-    """(4^K, 4) int64 ranges of all K-mers, on the index's device."""
+def build_kmer_table_plain(index: FMIndex, K: int = DEFAULT_K
+                           ) -> torch.Tensor:
+    """Plain version of :func:`build_kmer_table`: K lockstep
+    ``extend_char`` calls over all 4^K codes from the full range."""
     n = 4 ** K
     codes = torch.arange(n, dtype=torch.int32, device=index.device)
     ranges = index.full_range((n,))
@@ -57,6 +62,29 @@ def build_kmer_table(index: FMIndex, K: int = DEFAULT_K) -> torch.Tensor:
         chars = ((codes >> (2 * step)) & 3).contiguous()
         ranges = extend.extend_char(index, ranges, chars, dirs)
     return ranges
+
+
+def build_kmer_table(index: FMIndex, K: int = DEFAULT_K) -> torch.Tensor:
+    """(4^K, rw) int64 ranges of all K-mers, on the index's device: the
+    plain version on the CPU, one launch of kernel A's table entry on the
+    card (``extend.table``, RLC ``extend.table_rlc``), bit for bit what the
+    plain version's K steps leave."""
+    if index.device.type != "cuda":
+        return build_kmer_table_plain(index, K)
+    if not 1 <= K <= 15:
+        raise ValueError(f"kernel A's table entry takes K in 1..15, not {K}")
+    rw = index.range_width
+    full = index.full_range((1,))
+    out = torch.empty((4 ** K, rw), dtype=torch.int64, device=index.device)
+    if isinstance(index, BMoveIndex):
+        extend.KERNEL(*bextend.bm_args(index), *bextend.bt_args(index),
+                      full.data_ptr(), K, out.data_ptr(), rw,
+                      entry="table_rlc")
+    else:
+        extend.KERNEL(index.occ_fused.data_ptr(), index.blocks,
+                      *index.counts_host, *index.dollar_host,
+                      full.data_ptr(), K, out.data_ptr(), entry="table")
+    return out
 
 
 def build_kmer_table_cached(index: FMIndex, K: int,

@@ -75,9 +75,11 @@ def load(name: str, sources: list[str]) -> ctypes.CDLL | None:
 
 def _nvcc_objects(srcs: list[str]) -> tuple[list[str], str]:
     """Compile every source to an object file, one nvcc process each, all
-    started together. Returns (object paths, the compilers' stderr)."""
+    started together; each source's seconds go to ``build_seconds`` under
+    its file name. Returns (object paths, the compilers' stderr)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     jobs = []
+    t0 = time.time()
     for src in srcs:
         obj = os.path.join(
             BUILD_DIR, f"{os.path.basename(src)}.{os.getpid()}.o")
@@ -86,15 +88,26 @@ def _nvcc_objects(srcs: list[str]) -> tuple[list[str], str]:
              "-O3", "-c", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
              "-I", CUDA_SRC_DIR, src, "-o", obj],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
-    logs, failed = [], []
-    for src, obj, proc in jobs:
+    errs: dict[str, bytes] = {}
+
+    def wait(src, proc):
         try:
-            _, err = proc.communicate(timeout=900)
+            _, errs[src] = proc.communicate(timeout=900)
         except subprocess.TimeoutExpired:
             proc.kill()
             _, err = proc.communicate()
-            failed.append(f"{src}: timed out")
-        err = err.decode(errors="replace")
+            errs[src] = err + b"\ntimed out"
+        build_seconds[os.path.basename(src)] = time.time() - t0
+
+    waits = [threading.Thread(target=wait, args=(src, proc))
+             for src, _, proc in jobs]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        err = errs[src].decode(errors="replace")
         logs.append(err)
         if proc.returncode != 0:
             failed.append(f"{src}:\n{err}")
@@ -174,7 +187,8 @@ class Kernel:
     both launch); ``by_entry`` splits the same launches by the entry the
     wrapper names (kernel B's per-lane entry, kernel E with lengths, the
     RLC entries), and ``by_shape`` by the shape it names (kernel B: entry,
-    band radius, registers, templated or generic instance). An entry named in ``symbols`` (entry -> (C symbol,
+    band radius, registers, templated or generic instance; kernel F its
+    part count; kernel G its band radius and part count). An entry named in ``symbols`` (entry -> (C symbol,
     argtypes) or (C symbol, argtypes, CUDA source) where the entry is built
     from a source of its own) has a C function of its own, with the
     index-specific arguments of the RLC index; the other entries share the

@@ -13,7 +13,8 @@ Ranges are int64 tensors holding uint32 values (see ``ops/rank.py``).
 tensors and launch kernel A (``csrc/extend.cu``) for CUDA tensors. Kernel
 A's loop entries (``loop``, ``loop_rlc``), which walk every exact-prefix
 step of a lane in one launch, are registered here and called by
-``search/executor.py`` (``exact_loop``).
+``search/executor.py`` (``exact_loop``); its table entries (``table``,
+``table_rlc``), the k-mer seed table in one launch, by ``index/kmer.py``.
 ``exact_match`` (the k = 0 pass, and with per-row lengths the part ranges
 of scheme selection) is kernel E (``csrc/exact.cu``) on the card.
 On the RLC index (``index/bmove.py``) ranges are 8 or 12 wide and the three
@@ -66,6 +67,14 @@ KERNEL = native.Kernel(
         "loop_rlc": ("columba_extend_loop_rlc", [
             *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES, *_LOOP_ARGTYPES,
             ctypes.c_int32]),                                   # rw
+        # the k-mer seed table in one launch (index/kmer.py)
+        "table": ("columba_extend_table", [
+            *_FM_ARGTYPES, ctypes.c_void_p, ctypes.c_int32,     # full, K
+            ctypes.c_void_p]),                                  # out
+        "table_rlc": ("columba_extend_table_rlc", [
+            *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES,
+            ctypes.c_void_p, ctypes.c_int32,                    # full, K
+            ctypes.c_void_p, ctypes.c_int32]),                  # out, rw
     },
 )
 

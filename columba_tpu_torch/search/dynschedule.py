@@ -391,7 +391,8 @@ def build_tables(st: SchemeStatic, pts: torch.Tensor,
                       out["db_ex_steps"].data_ptr(),
                       out["band_init"].data_ptr(),
                       out["colmin_init"].data_ptr(), out["t_back"].data_ptr(),
-                      out["pivot"].data_ptr(), out["db_exact"].data_ptr())
+                      out["pivot"].data_ptr(), out["db_exact"].data_ptr(),
+                      shape=f"kb{kb} parts{p}")
     return out
 
 
@@ -580,9 +581,10 @@ def dynamic_partition(index: FMIndex, reads: torch.Tensor,
         if rlc:
             PARTITION_KERNEL(*bextend.bm_args(index),
                              *bextend.bt_args(index), reads.data_ptr(), m,
-                             *tail, entry="rlc")
+                             *tail, entry="rlc", shape=f"parts{p}")
         else:
             PARTITION_KERNEL(
                 index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
-                *index.dollar_host, reads.data_ptr(), m, index.n, *tail)
+                *index.dollar_host, reads.data_ptr(), m, index.n, *tail,
+                shape=f"parts{p}")
     return pts

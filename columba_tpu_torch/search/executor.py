@@ -67,17 +67,15 @@ from columba_tpu_torch.search.schedule import INF, Schedule
 GHOST_BIT = -(1 << 31)
 GHOST_IDM = (1 << 21) - 1
 
-# Kernel B takes every shape a schedule can produce: band radii 0..4 with
-# 1..2 colMin registers through templated entries (0..7 in the Vanilla
-# static entry; 0..4 with one register in the per-lane entries), the rest
-# (up to the BEST ladder's cutoff and schedule.MAX_REGS) through its generic
-# entry.
+# Kernel B takes every shape a schedule can produce: band radii 0..7 with
+# 1..2 colMin registers through templated instances in every entry (one
+# register in the per-lane entries), the rest (up to the BEST ladder's
+# cutoff and schedule.MAX_REGS) through its generic entry.
 KERNEL_MAX_KB = 13
 KERNEL_MAX_W = 10
-TEMPLATED_KB = 7          # the Vanilla static entry's (csrc/band_step.cuh)
-TEMPLATED_KB_RLC = 4      # the RLC and per-lane entries'
-# True sends every Vanilla static step to the generic entry: the card tests
-# and tools/kernel_bench.py hold and time it against the templated ones
+TEMPLATED_KB = 7          # every entry's (csrc/band_step.cuh)
+# True sends every step, of every entry, to the generic entry: the card
+# tests and tools/kernel_bench.py hold and time it against the instances
 BAND_GENERIC = False
 # lanes of one kernel B block, one tile of its look-back (kThreads of
 # csrc/band_step.cuh)
@@ -101,15 +99,19 @@ _BAND_CELLS = [ctypes.c_void_p,                          # pchars
                ctypes.c_void_p, ctypes.c_int64,          # reads, m
                ctypes.c_void_p,                          # cells
                ctypes.c_int32, ctypes.c_int32]           # T, t
-_BAND_RLC = ("columba_band_step_rlc", [
+_BAND_RLC_ARGS = [
     *bextend.BM_ARGTYPES, *bextend.BT_ARGTYPES,
     ctypes.c_void_p, ctypes.c_void_p,                   # ranges, ids
     ctypes.c_void_p, ctypes.c_void_p,                   # band, colmin
     ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,   # mrow_t, S, dyn_meta
     *_BAND_CELLS,
     ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,     # kb, W, switchpoint
-    *_BAND_OUT, ctypes.c_int32, ctypes.c_int32],        # ..., rw, block
-    "columba_tpu_torch/csrc/band_step_rlc.cu")
+    *_BAND_OUT, ctypes.c_int32, ctypes.c_int32,         # ..., rw, block
+    ctypes.c_int32]                                     # generic
+_BAND_RLC = ("columba_band_step_rlc", _BAND_RLC_ARGS,
+             "columba_tpu_torch/csrc/band_step_rlc.cu")
+_BAND_TEXTLESS = ("columba_band_step_textless", _BAND_RLC_ARGS,
+                  "columba_tpu_torch/csrc/band_step_textless.cu")
 KERNEL = native.Kernel(
     "band_step", "columba_band_step",
     [ctypes.c_void_p, ctypes.c_int64,                    # occ_fused, blocks
@@ -123,7 +125,7 @@ KERNEL = native.Kernel(
      *_BAND_OUT, ctypes.c_int32],                        # ..., generic
     source="columba_tpu_torch/csrc/band_step.cu",
     replaces="columba_tpu/search/executor.py:587",
-    symbols={"rlc": _BAND_RLC, "textless": _BAND_RLC,
+    symbols={"rlc": _BAND_RLC, "textless": _BAND_TEXTLESS,
              "per_lane_rlc": _BAND_RLC},
 )
 
@@ -699,14 +701,14 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
     entry = ("per_lane_rlc" if rlc and dyn_meta is not None else
              "textless" if rlc and index.textless else "rlc" if rlc else
              "per_lane" if dyn_meta is not None else "")
-    generic = BAND_GENERIC and not rlc and dyn_meta is None
-    shape = band_shape(entry, kb, W, generic)
+    shape = band_shape(entry, kb, W, BAND_GENERIC)
     if rlc:
         KERNEL(*bextend.bm_args(index), *bextend.bt_args(index), *lane,
-               index.range_width, BAND_QUAD_BLOCK, entry=entry, shape=shape)
+               index.range_width, BAND_QUAD_BLOCK, int(BAND_GENERIC),
+               entry=entry, shape=shape)
     else:
         KERNEL(index.occ_fused.data_ptr(), index.blocks, *index.counts_host,
-               *index.dollar_host, *lane, int(generic), entry=entry,
+               *index.dollar_host, *lane, int(BAND_GENERIC), entry=entry,
                shape=shape)
 
 
@@ -714,10 +716,9 @@ def band_shape(entry: str, kb: int, W: int, generic: bool = False) -> str:
     """Kernel B's launch census key: the entry ("static" for the Vanilla
     static one), the band radius and registers, and whether the launch
     takes a templated instance or the generic entry, by the rule of
-    csrc/band_step.cuh ``launch_static`` / ``launch_per_lane``."""
-    per_lane = entry.startswith("per_lane")
-    top = TEMPLATED_KB if entry == "" else TEMPLATED_KB_RLC
-    fixed = kb <= top and (W == 1 if per_lane else W <= 2)
+    csrc/band_step.cuh ``launch_static`` / ``launch_per_lane`` (the
+    per-lane entries take one register)."""
+    fixed = kb <= TEMPLATED_KB and W <= 2
     return (f"{entry or 'static'} kb{kb} W{W} "
             f"{'templated' if fixed and not generic else 'generic'}")
 

@@ -863,10 +863,15 @@ def match_all_start(
         search_mask = torch.from_numpy(mask_np).to(dev)
 
     if (partitioning == "dynamic" and partition_pts is None
-            and m < scheme.num_parts * (2 * kb + 1)):
+            and (scheme.num_parts == 1
+                 or m < scheme.num_parts * (2 * kb + 1))):
         # per-read schedules need every part >= 2*kb+1 (the overshoot
         # construction); a read too short for that takes the static
-        # compiler's short-part path (rotating colMin registers)
+        # compiler's short-part path (rotating colMin registers). One part
+        # has no boundary to place (the exact rung of the BEST ladder with
+        # a seed table): its uniform partition is the only one. The JAX
+        # package's dynamic_partition raises there
+        # (columba_tpu/search/dynschedule.py:314: two seeds for one part).
         partitioning = "uniform"
     make_dyn = None
     if partitioning == "dynamic" or partition_pts is not None:

@@ -75,6 +75,20 @@ def extend(ranges, dirs, chars, out) -> dict:
                  L * EXTEND_OPS)
 
 
+def kmer_table(K: int, out) -> dict:
+    """Kernel A's table entry, the (4^K, rw) k-mer seed table: the table
+    out and, for each of the 4^s distinct suffixes a step s extends (every
+    k-mer ending in the same s chars walks the same range so far), its
+    two occ rows (RLC: two endpoint rows) once. The kernel walks every
+    k-mer's K steps alone; a build that shared the suffixes' steps would
+    read no less."""
+    rw = out.shape[1]
+    parents = sum(4 ** s for s in range(K))
+    rows, ops = ((2 * BM_ROW_BYTES, BM_LANE_OPS) if rw > 4
+                 else (2 * OCC_ROW_BYTES, EXTEND_OPS))
+    return bound(_nbytes(out) + parents * rows, parents * ops)
+
+
 def band_step(state, mrow_t, o: dict, cap: int, M: int, cnt: int,
               stats: dict | None = None) -> dict:
     """Kernel B, one fused step over the lanes of ``state`` (ranges, ids,

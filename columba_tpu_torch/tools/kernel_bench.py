@@ -74,7 +74,14 @@ or B is timed, its ``--rlc --textless`` index, built at once), and:
    step at each radius of one ``-a best -S columba`` batch, and C = 12,288
    lanes at kb 5, 6, 7 and 13), each step through the instance its launch
    picks and through the generic entry (``executor.BAND_GENERIC``) in
-   turns: tree, generic, generic, tree.
+   turns: tree, generic, generic, tree;
+7. with ``--only default_run`` alone: the reference's default run (BEST,
+   ``-S columba``, 150 bp, with and without ``-p dynamic``) on both
+   workloads (``default_run``): kernel A's table entry against the
+   K-launch build it replaced, and kernel B's kb 5-7 instances of its
+   per-lane, RLC, per-lane RLC and textless entries against the generic
+   entry and the plain version in turns, on the paths' widest steps and at
+   C = 12,288 (about ten minutes with both builds).
 
 With ``--parent TREE`` (an earlier commit's ``columba_tpu_torch/``,
 unpacked by ``git archive COMMIT columba_tpu_torch | tar -x -C TREE``) it
@@ -127,6 +134,9 @@ COL_RUN_ERR = 0.03       # substitutions: most reach the ladder's rung 5
 COL_C = 12_288           # lanes of the synthetic steps
 COL_KB = (5, 6, 7)       # the columba scheme at 150 bp: W 2
 COL_WIDE = (13, 4, 14)   # kb, W and searches of columba k = 13 at 150 bp
+COL_PAN_HARD = 1024      # --only default_run: pan-genome reads at 3 %
+COL_TABLE_READS = 4096   # reads whose kernel G tables feed the synthetic
+                         # per-lane steps (8,192 rows)
 PKG = "columba_tpu_torch"
 TREE_MODULES = ("native", "ops.locate", "ops.verify", "ops.extend",
                 "search.dynschedule", "search.executor", "index.bmove",
@@ -677,11 +687,11 @@ def columba_inputs(index, codes: np.ndarray, text: np.ndarray,
 
 
 def generic_variant(kind: str):
-    """Kernel B's static Vanilla steps also through its generic entry
+    """Kernel B's steps, of every entry, also through its generic entry
     (``executor.BAND_GENERIC``), beside the instance the launch picks."""
     from columba_tpu_torch.search import executor
 
-    if kind != "band_step":
+    if kind not in BAND_KINDS:
         return None
 
     def launch(kind, inp):
@@ -691,6 +701,194 @@ def generic_variant(kind: str):
         finally:
             executor.BAND_GENERIC = False
     return {"generic": launch}
+
+
+def generic_and_plain(kind: str):
+    """:func:`generic_variant`, and the plain version on outputs of its own
+    (its events' time: it launches no kernel B for the profiler)."""
+    from columba_tpu_torch.search import executor
+
+    more = generic_variant(kind)
+    if more is not None:
+        more["plain_timed"] = lambda kind, inp: band_call(
+            executor, inp["index"], inp, "plain_timed")
+    return more
+
+
+def time_tables(label: str, index, Ks, clocks: Clocks, smi: str,
+                results: list) -> None:
+    """Kernel A's table entry (``kmer.build_kmer_table``: the k-mer seed
+    table in one launch) against the K-launch build it replaced
+    (``build_kmer_table_plain``: K ``extend_char`` calls through kernel A's
+    per-step entry) at each K, held equal first, then in turns (table,
+    steps, steps, table): events, and the profiler's device time of all a
+    build runs on the card (the K-launch build's elementwise ops and
+    copies included), warm and with the L2 flushed; with the bound."""
+    from columba_tpu_torch.index import kmer
+    from columba_tpu_torch.tools import bounds
+
+    for K in Ks:
+        fns = {"table": lambda K=K: kmer.build_kmer_table(index, K),
+               "steps": lambda K=K: kmer.build_kmer_table_plain(index, K)}
+        got, want = fns["table"](), fns["steps"]()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: the table entry differs from "
+                                 f"the K-launch build at K = {K}")
+        b = bounds.kmer_table(K, got)
+        what = (f"K={K}, {4 ** K} k-mers x {got.shape[1]}, "
+                f"{int((got[:, 1] > got[:, 0]).sum())} occur")
+        del got, want
+        runs = {k: [] for k in fns}
+        for who in ("table", "steps", "steps", "table"):
+            fn = fns[who]
+            runs[who].append(dict(events_warm=clocks.events(fn, False),
+                                  device_warm=clocks.device_ms(fn),
+                                  device_cold=clocks.device_ms(fn, True)))
+            r = runs[who][-1]
+            log(f"{smi}: {label} extend.table [{what}] {who}: events warm "
+                f"{r['events_warm']:.4f} ms; profiler device warm "
+                f"{_fmt(r['device_warm'])}, cold {_fmt(r['device_cold'])}; "
+                f"bound {b['bound_ms']:.5f} ms by {b['bound_by']}")
+        results.append(dict(label=label, kind="extend.table", what=what,
+                            bound_ms=b["bound_ms"], bound_by=b["bound_by"],
+                            bound_bytes=b["bytes"],
+                            bound_operations=b["operations"], runs=runs))
+
+
+def _both_strands(codes: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [codes, codes[:, ::-1] ^ 3]))).cuda()
+
+
+def _widest_deep(calls: list, kind: str) -> list:
+    """The captured widest steps of one kernel B entry at kb 5 and 7."""
+    return [c for c in calls if c["kind"] == kind and c.get("kb") in (5, 7)]
+
+
+def per_lane_inputs(kind: str, index, batch, ranges, table, rng) -> list:
+    """Kernel B's per-lane entry at C = 12,288 lanes of ``ranges`` at the
+    columba scheme's radii on 150 bp reads (kb 5, 6 and 7, one register):
+    kernel G's tables of kernel F's boundaries of ``batch`` (the seed
+    table ``table`` where given), step T - m / 3, random band state."""
+    from columba_tpu_torch.search import dynschedule
+    from columba_tpu_torch.search.scheme import get_scheme
+
+    dev = batch.device
+    R = batch.shape[0]
+    out = []
+    for kb in COL_KB:
+        scheme = get_scheme("columba", kb)
+        st = dynschedule.scheme_static(scheme, COL_LEN, "edit")
+        dyn = dynschedule.build_tables(st, dynschedule.dynamic_partition(
+            index, batch, scheme, table), batch)
+        S, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
+        lanes = (index, ranges[:COL_C].contiguous(),
+                 torch.from_numpy(rng.integers(0, R * S, COL_C).astype(
+                     np.int32)).to(dev),
+                 torch.from_numpy(rng.integers(0, 4, (COL_C, 2, bw)).astype(
+                     np.int8)).to(dev),
+                 torch.from_numpy(rng.integers(0, 3, (COL_C, 2, 1)).astype(
+                     np.int8)).to(dev),
+                 None, dyn["pchars"], T, T - COL_LEN // 3, 4)
+        out.append(band_input(kind, lanes, dyn_meta=dyn["meta"].reshape(-1)))
+    return out
+
+
+def default_run(wd: str, idx: str, codes: np.ndarray, text: np.ndarray,
+                starts: np.ndarray, align, clocks: Clocks, smi: str,
+                results: list) -> None:
+    """``--only default_run``: the reference's default run (BEST, ``-S
+    columba``, 150 bp; with and without ``-p dynamic``) on the Vanilla and
+    b-move indexes. Kernel A's table entry against the K-launch build
+    (Vanilla K = 10 and 12, RLC K = 10); kernel B's kb 5-7 instances of
+    the per-lane, RLC, per-lane RLC and textless entries, each against its
+    generic entry in turns, on the widest step at kb 5 and at kb 7 of one
+    ``cli align`` batch of each path (``chip_smoke.py``'s reads: the
+    ``col150`` reads on the Vanilla index, 16 at each run of N with 3 %
+    substitutions; on the pan-genome the first 1,024 at 3 %, the rest at
+    1 %) and at C = 12,288 synthetic lanes (RLC 8 wide, textless 12 wide
+    with 2W colMin slots; the per-lane entries on kernel G's tables of
+    kernel F's boundaries); the plain version in the same turns."""
+    from columba_tpu_torch.index.bmove import BMoveIndex, load_bmove
+    from columba_tpu_torch.index.build import load_index
+    from columba_tpu_torch.index.fmindex import FMIndex
+    from columba_tpu_torch.index.kmer import build_kmer_table, lookup
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import workload
+
+    rng = np.random.default_rng(SEED + 6)
+    best = ["-a", "best", "-S", "columba"]
+    dyn = best + ["-p", "dynamic"]
+    index = FMIndex.from_arrays(load_index(idx), "cuda")
+    time_tables("vanilla", index, (10, 12), clocks, smi, results)
+    table = build_kmer_table(index, 10)
+    lo, hi = workload.runs_of_n(codes)
+    runs = workload.reads_at_runs(text, starts, lo, hi, COL_RUN_READS, rng,
+                                  COL_LEN, COL_RUN_ERR)[0]
+    uni = workload.sample_reads(text, starts, BATCH - len(runs), rng,
+                                COL_LEN)[0]
+    reads = np.concatenate([runs, uni])
+    fq = os.path.join(wd, "col150.fq")
+    workload.write_fastq(fq, reads, "r")
+    calls = _widest_deep(capture(align(idx, dyn, [fq])),
+                         "band_step.per_lane")
+    batch = _both_strands(reads[:COL_TABLE_READS])
+    seeds = lookup(table, batch[:, 30:40])
+    seeds = seeds[seeds[:, 1] > seeds[:, 0]]
+    seeds = seeds[torch.from_numpy(rng.integers(0, seeds.shape[0], COL_C)
+                                   ).cuda()]
+    calls += per_lane_inputs("band_step.per_lane", index, batch, seeds,
+                             table, rng)
+    time_inputs("default_run", calls, clocks, smi, results, None,
+                generic_and_plain)
+    del index, table, calls, batch, seeds
+    torch.cuda.empty_cache()
+
+    pan = workload.pan_genome()
+    fa = os.path.join(wd, "pan.fa")
+    workload.write_fasta(fa, pan, "pan")
+    ridx, tidx = os.path.join(wd, "rlc.cidx"), os.path.join(wd, "tl.cidx")
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, "-m", f"{PKG}.cli", "build",
+                               "-r", out, "-f", fa, *flags])
+             for out, flags in ((ridx, ["--rlc"]),
+                                (tidx, ["--rlc", "--textless"]))]
+    assert all(p.wait() == 0 for p in procs)
+    log(f"cli build --rlc and --rlc --textless, at once: "
+        f"{time.time() - t0:.1f} s")
+    bm = BMoveIndex.from_arrays(load_bmove(ridx), "cuda")
+    tl = BMoveIndex.from_arrays(load_bmove(tidx), "cuda")
+    time_tables("rlc", bm, (10,), clocks, smi, results)
+    span = np.array([0, len(pan)], np.int64)
+    hard = workload.sample_reads(pan, span, COL_PAN_HARD, rng, COL_LEN,
+                                 COL_RUN_ERR)[0]
+    rest = workload.sample_reads(pan, span, BATCH - COL_PAN_HARD, rng,
+                                 COL_LEN)[0]
+    preads = np.concatenate([hard, rest])
+    workload.write_fastq(fq, preads, "r")
+    calls = []
+    for argv, at, kind in ((best, ridx, "band_step.rlc"),
+                           (dyn, ridx, "band_step.per_lane_rlc"),
+                           (best, tidx, "band_step.textless")):
+        calls += _widest_deep(capture(align(at, argv, [fq])), kind)
+    batch = _both_strands(preads[:COL_TABLE_READS])
+    states = rlc_lane_states(bm, batch, rng, COL_C)
+    tl_states = rlc_lane_states(tl, batch, rng, COL_C)
+    for kb in COL_KB:
+        sched = pipeline.compile_cached(get_scheme("columba", kb), COL_LEN,
+                                        "edit")
+        calls.append(band_input("band_step.rlc", band_args(
+            bm, sched, batch, states, rng, 4, C=COL_C)))
+        tb = list(band_args(tl, sched, batch, tl_states, rng, 0, C=COL_C))
+        tb[4] = torch.from_numpy(rng.integers(
+            0, 3, (COL_C, 2, 2 * sched.W)).astype(np.int8)).cuda()
+        calls.append(band_input("band_step.textless", tb, track=True))
+    calls += per_lane_inputs("band_step.per_lane_rlc", bm, batch, states,
+                             None, rng)
+    time_inputs("default_run_rlc", calls, clocks, smi, results, None,
+                generic_and_plain)
 
 
 def _copies(pi, x):
@@ -754,8 +952,10 @@ def main(argv=None) -> int:
                          "band_step, extend, frontier, expand, dedup; an "
                          "entry such as exact.rlc names one; columba150: "
                          "kernel B's static entry at kb 5-7 and 13, its "
-                         "instances beside its generic entry); all by "
-                         "default")
+                         "instances beside its generic entry; default_run: "
+                         "kernel A's table entry and kernel B's per-lane, "
+                         "RLC and textless entries at kb 5-7 on the "
+                         "reference's default run); all by default")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
 
@@ -837,6 +1037,11 @@ def main(argv=None) -> int:
                                       READ_LEN)[0]
         m1, m2 = workload.sample_pairs(text, arrays.seq_starts, BATCH, rng,
                                        READ_LEN)[:2]
+        if only == {"default_run"}:
+            default_run(wd, idx, codes, text, arrays.seq_starts,
+                        lambda at, argv, fq: align(at, argv, fq), clocks,
+                        smi, results)
+            return _write(args.out, smi, results)
         if only == {"columba150"}:
             index = FMIndex.from_arrays(arrays, "cuda")
             time_inputs("columba150", columba_inputs(

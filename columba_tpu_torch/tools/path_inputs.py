@@ -48,9 +48,10 @@ KERNEL_NAME = {"verify": "verify", "locate": "locate_kernel",
                "band_step.textless": ("band_step_rlc_kernel",
                                       "band_step_kernel"),
                "extend.loop_rlc": "extend_loop_kernel",
-               "band_step": "band_step_kernel"}
-BAND_KINDS = ("band_step", "band_step.rlc", "band_step.per_lane_rlc",
-              "band_step.textless")
+               "band_step": "band_step_kernel",
+               "band_step.per_lane": "band_step_kernel"}
+BAND_KINDS = ("band_step", "band_step.per_lane", "band_step.rlc",
+              "band_step.per_lane_rlc", "band_step.textless")
 
 
 def log(msg: str) -> None:
@@ -281,8 +282,8 @@ def capture(align) -> list:
             kind = ("band_step.per_lane_rlc" if dyn_meta is not None else
                     "band_step.textless" if index.textless
                     else "band_step.rlc")
-        elif dyn_meta is None:
-            kind = "band_step"
+        else:
+            kind = "band_step" if dyn_meta is None else "band_step.per_lane"
         if kind is not None:
             kb = (state[2].shape[-1] - 1) // 2
             keep_widest(kind, n_live, lambda: dict(
@@ -416,9 +417,10 @@ def band_call(executor, index, inp: dict, who: str):
     """One band step of ``inp`` through ``executor.band_step_compact`` (a
     tree's kernel B, or this tree's ``band_step_compact_plain``) on
     outputs kept in ``inp`` for ``who`` and reused by every call; returns
-    the next frontier's live rows, the in-text rows and the counters. The
-    counters add up the visits and overflow of every call, so only a
-    ``who``'s first call is held to the plain version."""
+    the next frontier's live rows, the in-text rows and the counters (a
+    ``who`` named "plain..." runs the plain version). The counters add up
+    the visits and overflow of every call, so only a ``who``'s first call
+    is held to the plain version."""
     state = inp["state"]
     n_live, dev = state[0].shape[0], state[0].device
     key = "bufs_" + who
@@ -429,7 +431,7 @@ def band_call(executor, index, inp: dict, who: str):
             torch.full((inp["M"] + 1, 4), -1, dtype=torch.int64, device=dev),
             executor.StepScratch(n_live, dev))
     out, itv, sc = inp[key]
-    fn = (executor.band_step_compact_plain if who == "plain"
+    fn = (executor.band_step_compact_plain if who.startswith("plain")
           else executor.band_step_compact)
     fn(index, state, n_live, out, itv, inp["cnt"], sc, inp["mrow_t"],
        tree_cells(executor, inp), inp["T"], inp["t"], inp["switchpoint"],

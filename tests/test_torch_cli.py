@@ -337,9 +337,10 @@ def test_port_imports_no_jax():
 
 def test_kernel_entries_name_their_sources():
     """Each kernel entry's C function is defined in the CUDA source it names
-    (the smoke's record reports that source): kernel B's RLC and textless
-    entries in band_step_rlc.cu, the other entries (kernel A's loop among
-    them) in their kernel's file."""
+    (the smoke's record reports that source): kernel B's RLC entries in
+    band_step_rlc.cu and its textless entry in band_step_textless.cu, the
+    other entries (kernel A's loop and table entries among them) in their
+    kernel's file."""
     import importlib
 
     from columba_tpu_torch import native
@@ -354,13 +355,14 @@ def test_kernel_entries_name_their_sources():
             with open(os.path.join(root, k.source_of(entry))) as f:
                 assert f"{symbol}(" in f.read(), (k.name, entry)
             seen += 1
-    # 8 kernels; A's loop (Vanilla, RLC); 8 RLC; I-L: frontier's drain,
-    # init, ex_compact, ex_back, tail, expand's ranges, rows (its scan, and
-    # kernel J's tail, are in its main symbol, the candidates' launch),
-    # dedup's keys, pass, compact and their three main symbols
-    assert seen == 31
+    # 8 kernels; A's loop and table (Vanilla, RLC); 8 RLC; I-L: frontier's
+    # drain, init, ex_compact, ex_back, tail, expand's ranges, rows (its
+    # scan, and kernel J's tail, are in its main symbol, the candidates'
+    # launch), dedup's keys, pass, compact and their three main symbols
+    assert seen == 33
     band = native.KERNELS["band_step"]
-    assert band.source_of("textless").endswith("csrc/band_step_rlc.cu")
+    assert band.source_of("textless").endswith("csrc/band_step_textless.cu")
+    assert band.source_of("rlc").endswith("csrc/band_step_rlc.cu")
     assert band.source_of("per_lane_rlc").endswith("csrc/band_step_rlc.cu")
     assert band.source_of("per_lane") == band.source
 

@@ -387,6 +387,26 @@ def test_band_step_instances(setup, gpu, kb, W):
     assert got[0] == got[1] and got[0][0] > 0
 
 
+def instance_and_generic(step, entry, kb, W):
+    """``step()`` (one kernel B launch held to its plain version, returning
+    what it kept) through the templated instance and through the forced
+    generic entry (``executor.BAND_GENERIC``): both equal the plain
+    version, so each other, and the launch census names the entry taken."""
+    got = []
+    for generic in (False, True):
+        executor.KERNEL.reset()
+        executor.BAND_GENERIC = generic
+        try:
+            got.append(step())
+        finally:
+            executor.BAND_GENERIC = False
+        inst = "generic" if generic else "templated"
+        assert set(executor.KERNEL.by_shape) == {
+            f"{entry} kb{kb} W{W} {inst}"}
+    assert got[0] == got[1]
+    return got[0]
+
+
 @pytest.mark.parametrize("kmer_k,switchpoint,capacity", [
     (6, 4, 2048), (0, 0, 1024), (6, 0, 256)])
 def test_scheme_kernels_vs_plain(setup, gpu, kmer_k, switchpoint, capacity):
@@ -619,11 +639,13 @@ def test_dyn_tables_kernel_shapes(gpu, case):
 
 @pytest.mark.parametrize("k,metric", [(0, "edit"), (1, "edit"), (2, "edit"),
                                       (3, "edit"), (4, "edit"), (5, "edit"),
+                                      (6, "edit"), (7, "edit"),
                                       (2, "hamming")])
 def test_band_step_per_lane(setup, gpu, k, metric):
-    """Kernel B's per-lane entry (kb 0..4 templated, kb 5 generic) on kernel
-    G's tables and random lane states equals band_step_compact_plain with
-    the same switch, at steps where searches idle, reset and accumulate."""
+    """Kernel B's per-lane entry (kb 0..7 templated) on kernel G's tables
+    and random lane states equals band_step_compact_plain with the same
+    switch, at steps where searches idle, reset and accumulate; at kb 5..7
+    (-p dynamic on 150 bp reads) its forced generic entry too."""
     g, cpu_fm, fm = setup
     rng = np.random.default_rng(26 + k)
     m, R = 100, 128
@@ -637,8 +659,11 @@ def test_band_step_per_lane(setup, gpu, k, metric):
     state = _random_state(rng, cpu_fm.n, 4096, R, S, bw, 1, gpu)
     kept = 0
     for t in (0, T // 3, T // 2, T - 20, T - 1):
-        n, _ = fused_vs_plain(fm, state, None, dyn["pchars"], T, t,
-                              4 if k % 2 else 0, dyn["meta"].reshape(-1))
+        def step():
+            return fused_vs_plain(fm, state, None, dyn["pchars"], T, t,
+                                  4 if k % 2 else 0, dyn["meta"].reshape(-1))
+        n, _ = (instance_and_generic(step, "per_lane", k, 1) if k >= 5
+                else step())
         kept += n
     assert kept > 0
 
@@ -947,16 +972,18 @@ def test_rlc_exact_kernel(rlc_setup, gpu):
 
 
 # every templated (kb, W) of both RLC lane widths (kb 0: the Hamming band),
-# and the generic entry above kb 4
+# and the generic entry above kb 7 or W 2
 @pytest.mark.parametrize("flavor,kb,W", [
-    (f, kb, W) for f in ("rlc", "textless") for kb in range(5)
+    (f, kb, W) for f in ("rlc", "textless") for kb in range(8)
     for W in (1, 2)] + [("rlc", 5, 3), ("rlc", 7, 5), ("textless", 5, 3),
                         ("textless", 13, 10)])
 def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
     """Kernel B's RLC and textless entries (templated and generic) on valid
     RLC lane states and random step tables equal band_step_compact_plain on
     every output, witness slots included: the kept children's intervals
-    from the lanes' threads, their run hints and toeholds from the quads."""
+    from the lanes' threads, their run hints and toeholds from the quads.
+    At kb 5..7 (the columba scheme's at 150 bp) the instance and the forced
+    generic entry both."""
     _, idx = rlc_setup
     _, cpu_bm, bm = idx[flavor]
     rng = np.random.default_rng(43 + 10 * kb + W)
@@ -967,9 +994,15 @@ def test_rlc_band_step_kernel(rlc_setup, gpu, flavor, kb, W):
     state = _random_state(rng, 8, C, R, S, bw, 2 * W if track else W, gpu)
     state[0] = states.to(gpu)
     mrow = torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu)
-    cells = _cells(rng, R, S, T, bw, gpu, ALL_CODES)
-    n, _ = fused_vs_plain(bm, state, mrow, cells, T, t,
-                          0 if track else 4, track_arg=track)
+    cells = _cells(rng, R, S, T, bw, gpu, ALL_CODES,
+                   m=150 if kb >= 5 else 100)
+
+    def step():
+        return fused_vs_plain(bm, state, mrow, cells, T, t,
+                              0 if track else 4, track_arg=track)
+
+    n, _ = (instance_and_generic(step, flavor, kb, W)
+            if 5 <= kb <= 7 and W <= 2 else step())
     assert n > 0
 
 
@@ -1127,6 +1160,29 @@ def test_rlc_extend_kernel(rlc_setup, gpu, flavor):
     assert extend.KERNEL.by_entry.get("rlc", 0) >= 2
 
 
+@pytest.mark.parametrize("flavor", ["vanilla", "rlc", "textless"])
+@pytest.mark.parametrize("K", [6, 10])
+def test_kmer_table_kernel(setup, rlc_setup, gpu, flavor, K):
+    """Kernel A's table entry (the k-mer seed table in one launch) equals
+    the K-launch build (``build_kmer_table_plain``: K ``extend_char`` calls
+    through kernel A's per-step entries) bit for bit, empty ranges
+    included: on the Vanilla index they keep stepping, on the RLC indexes
+    they are zero."""
+    index = setup[2] if flavor == "vanilla" else rlc_setup[1][flavor][2]
+    extend.KERNEL.reset()
+    got = kmer.build_kmer_table(index, K)
+    torch.cuda.synchronize()
+    assert extend.KERNEL.by_entry == {
+        "table" if flavor == "vanilla" else "table_rlc": 1}
+    want = kmer.build_kmer_table_plain(index, K)
+    assert torch.equal(got, want)
+    empty = want[:, 1] <= want[:, 0]
+    assert int(empty.sum()) < 4 ** K
+    if K == 10:
+        assert bool(empty.any())
+        assert bool((want[empty] != 0).any()) == (flavor == "vanilla")
+
+
 @pytest.mark.parametrize("k", [2, 4])
 def test_rlc_dynpart_kernel(rlc_setup, gpu, k):
     """Kernel F's RLC entry equals the plain partition scan on the
@@ -1229,13 +1285,13 @@ def test_rlc_exact_kernel_lengths(rlc_setup, gpu):
     assert stats["bucket"] > 0 and "probes" not in stats
 
 
-@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4, 5, 6, 7])
 def test_rlc_band_step_per_lane(rlc_setup, gpu, k):
-    """Kernel B's per-lane RLC entry (kb 0..4 templated, kb 5 and 7
-    generic) on kernel G's tables of kernel F's boundaries and valid RLC
-    lane states equals band_step_compact_plain, at steps where searches
-    idle, reset and accumulate; then kernel A's loop entry on the same
-    per-read tables."""
+    """Kernel B's per-lane RLC entry (kb 0..7 templated; at kb 5..7 its
+    forced generic entry too) on kernel G's tables of kernel F's boundaries
+    and valid RLC lane states equals band_step_compact_plain, at steps
+    where searches idle, reset and accumulate; then kernel A's loop entry
+    on the same per-read tables."""
     g, idx = rlc_setup
     _, cpu_bm, bm = idx["rlc"]
     rng = np.random.default_rng(50 + k)
@@ -1251,13 +1307,18 @@ def test_rlc_band_step_per_lane(rlc_setup, gpu, k):
     C = states.shape[0]
     state = _random_state(rng, 8, C, R, S, bw, 1, gpu)
     state[0] = states.to(gpu)
-    kept = 0
+    kept, launches = 0, 0
     for t in (0, T // 3, T // 2, T - 20, T - 1):
-        n, _ = fused_vs_plain(bm, state, None, dyn["pchars"], T, t,
-                              4 if k % 2 else 0, dyn["meta"].reshape(-1))
+        def step():
+            return fused_vs_plain(bm, state, None, dyn["pchars"], T, t,
+                                  4 if k % 2 else 0, dyn["meta"].reshape(-1))
+        n, _ = (instance_and_generic(step, "per_lane_rlc", k, 1) if k >= 5
+                else step())
         kept += n
+        launches += executor.KERNEL.by_entry.get("per_lane_rlc", 0)
+        executor.KERNEL.reset()
     assert kept > 0
-    assert executor.KERNEL.by_entry.get("per_lane_rlc", 0) >= 5
+    assert launches >= 5
     out, _ = loop_vs_plain(
         bm, bm.full_range((R * S,)), None, 0, dyn["ex_pos"].shape[1], batch,
         (dyn["ex_pos"], dyn["ex_dir"], dyn["db_ex_steps"]), True, 19, 4)
