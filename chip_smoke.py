@@ -6,10 +6,12 @@ a CUDA device. It
 1. prints the card (torch name, and nvidia-smi's name and power limit);
 2. builds the eleven CUDA kernels from ``columba_tpu_torch/csrc`` into
    ``columba_tpu_torch/_build`` (one nvcc per source, started together,
-   each source's seconds printed; kernel B's RLC and textless entries are
-   sources of their own) and prints ptxas's registers and spills per entry,
-   failing if any entry but kernel B's generic one keeps a stack frame
-   (local memory);
+   each source's seconds printed; kernel B's RLC and textless entries and
+   its quad body's static and per-lane instances are sources of their own)
+   and prints ptxas's registers and spills per entry, failing if any entry
+   but kernel B's generic one keeps a stack frame (local memory), the quad
+   body's 25 instances (every RW 4 shape at kb 8-13) included, or if one of
+   those is missing;
 3. generates a random genome from a fixed seed (128 Mbp in 4 sequences, with
    runs of N), writes it as FASTA and builds the index with the port's
    ``cli build`` (default SA sparseness 4, so locate walks LF);
@@ -169,7 +171,24 @@ a CUDA device. It
    (``native.Kernel.by_shape``). Last, ``conformance``: the port's fuzz
    (``columba_tpu_torch/tools/fuzz_conformance.py``), 80 trials against
    brute-force oracles on the card, 0 failures and 0 crashes, kernels
-   A-D launched. Each section's seconds are printed as it ends.
+   A-D launched.
+
+   Then ``col250``, the same run on 250 bp reads (Illumina's 2 x 250):
+   16,384 reads, the first 1,024 at 4 % substitutions (8 at each run of
+   N), the rest at 1 %; BEST cutoff 12, the ladder's rungs 0, 1, 3, 5, 9
+   and 12. Kernel B's quad body (a quad of threads a lane, the Vanilla
+   entries at kb 8-13) against the plain version and the forced generic
+   entry in turns at C = 12,288 at kb 8-13, per-lane at kb 9, and on a kb
+   12 step that overflows both buffers; then ``col250_se_best`` (``-a
+   best -S columba``: the quad body at kb 9, W 2 and kb 12, W 3; kernel D
+   at both) and ``col250_se_best_dyn`` (``-p dynamic``: F at 10 parts, G
+   and the per-lane quad body at kb 9; rung 12 runs the static entry, as
+   13 parts of 25 do not fit in 250 bp), each checked at cutoff 12, the
+   twin's sorted records equal to the uniform run's, each path's first 512
+   reads again through the plain versions. On every path a Vanilla launch
+   at kb 8-13 with a register count of the quad body's through the
+   generic entry fails the run. Each section's seconds are printed as it
+   ends.
 
 6. runs the ``dist`` phase at the same width (SE ALL's reads 16,384 to
    49,151, the 10-mer table, switchpoint 4): ``dist_shards``,
@@ -279,8 +298,30 @@ RLC_COL_PATHS = ("rlc_col150_se_best", "rlc_col150_se_best_dyn",
 N_RLC_COL_READS = 16_384
 N_RLC_COL_HARD = 1024
 N_DEFAULT_PLAIN = 1024   # the default-run paths' first reads, plain versions
+# the reference's default run on 250 bp reads (Illumina's 2 x 250): BEST
+# cutoff 12 at -I 95, the ladder's rungs 0, 1, 3, 5, 9 and 12; kernel B's
+# quad body at kb 9 (W 2) and 12 (W 3). The first 1,024 reads at 4 %
+# substitutions (about 10 a read: rungs 9 and 12 get lanes), 8 of them at
+# each run of N, the rest at 1 %
+COL250_LEN = 250
+COL250_PATHS = ("col250_se_best", "col250_se_best_dyn")
+N_COL250_READS = 16_384
+N_COL250_HARD = 1024
+COL250_RUN_READS = 8
+COL250_ERR = 0.04
+COL250_CUT = 12
+N_COL250_PLAIN = 512     # each path's first reads through the plain versions
+COL250_WARMUP = 2048
+# kernel B at C = 12,288 at kb 8..13 in the smoke: the columba scheme's W
+# and searches at 250 bp (kb 9 and 12 on the schedule's own tables, the
+# paths' radii; the others on random tables, which spares the host
+# loading and checking the columba scheme at k = 11 and 13;
+# tools/kernel_bench.py --only columba250 takes the schedules' own)
+COL250_STEPS = {8: (2, 9), 9: (2, 10), 10: (2, 11), 11: (3, 12),
+                12: (3, 13), 13: (3, 14)}
 READ_LEN_OF = {p: COL_LEN for p in ("col150_se_best", "col150_se_all_e5",
                                     "col150_se_best_dyn", *RLC_COL_PATHS)}
+READ_LEN_OF.update({p: COL250_LEN for p in COL250_PATHS})
 FUZZ_TRIALS = 80         # tools/fuzz_conformance.py: 40 seeds x 2
 
 # the kernels each path must launch at least once
@@ -328,6 +369,9 @@ PATH_KERNELS = {
     "rlc_col150_se_best_dyn": ("extend", "band_step", "locate", "verify",
                                "dynpart", "dyn_tables"),
     "tl_col150_se_best": ("extend", "band_step", "frontier"),
+    "col250_se_best": ("extend", "band_step", "locate", "verify"),
+    "col250_se_best_dyn": ("extend", "band_step", "locate", "verify",
+                           "dynpart", "dyn_tables"),
 }
 # kernels I-L (the frontier around kernels A and B, the candidates'
 # expansion and the dedup) run on every path that runs the scheme executor
@@ -380,11 +424,17 @@ PATH_ENTRIES = {
     "rlc_col150_se_best_dyn": ("extend.loop_rlc", "band_step.per_lane_rlc",
                                "locate.rlc", "dynpart.rlc"),
     "tl_col150_se_best": ("extend.loop_rlc", "band_step.textless"),
+    "col250_se_best": ("extend.loop",),
+    "col250_se_best_dyn": ("extend.loop", "band_step.per_lane"),
 }
 # the launches by shape (``native.Kernel.by_shape``) a path must make:
 # kernel B at kb 5 and 7 through the templated instances of the path's
 # entry (the columba scheme at 150 bp: W 2, per-lane W 1), and kernels F
-# and G's shapes under -p dynamic (columba at k = 5 and 7: 6 and 8 parts)
+# and G's shapes under -p dynamic (columba at k = 5 and 7: 6 and 8 parts);
+# at 250 bp kernel B at kb 9 (W 2) and 12 (W 3) through the quad body and
+# kernel D at both radii; under -p dynamic the per-lane entry, F and G at
+# kb 9 (10 parts) only: per-read schedules need k + 1 parts of 2k + 1, and
+# 13 parts of 25 do not fit in 250 bp, so rung 12 runs the static entry
 PATH_SHAPES = {
     "col150_se_best": {"band_step": ("static kb5 W2 templated",
                                      "static kb7 W2 templated")},
@@ -401,6 +451,14 @@ PATH_SHAPES = {
                                "dyn_tables": ("kb5 parts6", "kb7 parts8")},
     "tl_col150_se_best": {"band_step": ("textless kb5 W2 templated",
                                         "textless kb7 W2 templated")},
+    "col250_se_best": {"band_step": ("static kb9 W2 quad",
+                                     "static kb12 W3 quad"),
+                       "verify": ("kb9", "kb12")},
+    "col250_se_best_dyn": {"band_step": ("per_lane kb9 W1 quad",
+                                         "static kb12 W3 quad"),
+                           "verify": ("kb9", "kb12"),
+                           "dynpart": ("parts10",),
+                           "dyn_tables": ("kb9 parts10",)},
 }
 RLC_PATHS = ("rlc_se_all", "rlc_se_best", "rlc_pe_best", "tl_se_all",
              "tl_se_best", "rlc_se_all_dynamic", "rlc_se_best_d",
@@ -410,7 +468,8 @@ BLOCKED_PATHS = ("blk_se_all", "blk_se_best", "blk_se_rhs", "blk_pe_best")
 RHS_PATHS = ("rlc_se_all_rhs", "blk_se_rhs")
 # the kernels whose state must stay out of local memory (ptxas: no stack
 # frame): every entry but kernel B's generic one (KB = -1, runtime sizes),
-# whose arrays are sized for the largest band
+# whose arrays are sized for the largest band; kernel B's quad body
+# (band_step_quad_kernel: every RW 4 instance at kb 8..13) among them
 NO_FRAME = ("dynpart_", "exact_", "verify_kernel", "locate", "dyn_tables",
             "gather_kernel", "extend_", "band_step_", "seed_kernel",
             "drain_kernel", "init_kernel", "ex_compact_kernel",
@@ -455,6 +514,17 @@ BIG_FASTA = ("import sys; import numpy as np; "
              "np.random.default_rng(int(sys.argv[2])), int(sys.argv[3]), "
              "seq_len=workload.BIG_SEQ); "
              "np.save(sys.argv[4], np.flatnonzero(codes == 4))")
+
+
+def quad_shape(shape: str) -> bool:
+    """Whether kernel B's census key names a shape of the quad body: the
+    Vanilla static or per-lane entry at kb 8..13 with at most
+    ``executor.QUAD_MAX_W[kb]`` registers."""
+    from columba_tpu_torch.search import executor
+
+    m = re.match(r"(static|per_lane) kb(\d+) W(\d+) ", shape)
+    return m is not None and int(m.group(3)) <= executor.QUAD_MAX_W.get(
+        int(m.group(2)), 0)
 
 
 def log(msg: str) -> None:
@@ -2045,6 +2115,125 @@ def readme_section(wd, idx, index, table, text, runs, reads100, sample100,
                              f"launched {missing}")
 
 
+def col250_section(wd, idx, index, table, text, runs, starts, drive, files,
+                   warm, argv_of, n_of, smi, report) -> None:
+    """The reference's default run on 250 bp reads (``-a best -S columba``,
+    cutoff 12: the ladder's rungs 0, 1, 3, 5, 9 and 12), on this index
+    through ``drive``. First kernel B's quad body against its plain version
+    and the forced generic entry, in turns (quad, generic, generic, quad),
+    at C = 12,288 lanes from the reads' 10-mer seed ranges at kb 8-13 (the
+    columba scheme's W at 250 bp; kb 9 and 12 on the schedule's own step
+    tables), the per-lane entry at kb 9 on kernel G's tables, and a kb 12
+    step that overflows both buffers; then ``col250_se_best`` and its ``-p
+    dynamic`` twin ``col250_se_best_dyn`` (its sorted records must be the
+    uniform run's), each with its lossless check at cutoff 12 and its first
+    reads again through the plain versions."""
+    from columba_tpu_torch.index.kmer import lookup
+    from columba_tpu_torch.search import dynschedule, pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import path_inputs, workload
+
+    rng = np.random.default_rng(SEED + 9)
+    reads, pos, nsub, flip = workload.ladder_reads(
+        text, starts, runs, N_COL250_READS, N_COL250_HARD, COL250_RUN_READS,
+        COL250_ERR, rng, COL250_LEN)
+    log(f"col250: {N_COL250_READS} reads x {COL250_LEN} bp, the first "
+        f"{N_COL250_HARD} with {COL250_ERR} substitutions a base "
+        f"({COL250_RUN_READS * len(runs[0])} of them at the {len(runs[0])} "
+        f"runs of N), the rest with {workload.ERR_RATE}; "
+        f"{int((nsub <= COL250_CUT).sum())} with <= {COL250_CUT} "
+        f"substitutions, {int((nsub >= 9).sum())} with 9 or more")
+
+    # kernel B's quad body at kb 8..13, the generic entry in turns
+    dev = index.device
+    C = 12_288
+    batch = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+        [reads[:BATCH], reads[:BATCH, ::-1] ^ 3]))).to(dev)
+    seeds = lookup(table, batch[:, 30:40])
+    seeds = seeds[seeds[:, 1] > seeds[:, 0]]
+    seeds = seeds[torch.from_numpy(rng.integers(0, seeds.shape[0], C)).to(
+        dev)]
+    for kb, (W, S) in COL250_STEPS.items():
+        if kb in (9, COL250_CUT):
+            sc = pipeline.compile_cached(get_scheme("columba", kb),
+                                         COL250_LEN, "edit", kmer_k=10)
+            assert (sc.W, sc.num_searches) == (W, S)
+            args = path_inputs.band_args(index, sc, batch, seeds, rng, 4, C=C)
+            what = f"columba k={kb} at {COL250_LEN} bp, its step tables"
+        else:
+            args = path_inputs.random_band_args(index, batch, seeds, rng, kb,
+                                                W, S, 260, 4)
+            what = (f"random step tables, {S} searches: the columba "
+                    f"scheme's at {COL250_LEN} bp")
+        ms = {False: [], True: []}
+        for generic in (False, True, True, False):
+            rep, b, n, rows = check_fused(args[0], list(args[1:5]),
+                                          *args[5:], generic=generic)
+            ms[generic].append(rep["ms"])
+            if not generic and len(ms[False]) == 1:
+                first = rep
+        log(f"kernel band_step (quad body) at kb={kb}, W={W} ({what}; "
+            f"C={C}, {n} children kept, {rows} in-text rows; {smi}): quad "
+            f"body and generic entry each equal to plain "
+            f"({first['plain_ms']:.4f} ms); events, the wrapper's host time "
+            f"included, in turns: quad {ms[False]} ms, generic {ms[True]} "
+            f"ms; bound {b['bound_ms']:.5f} ms by {b['bound_by']}")
+        if kb == COL250_CUT:
+            note_kernel(report, "band_step.quad",
+                        f"quad body, static entry, kb={kb}, W={W}, C={C} "
+                        f"lanes live, columba k={kb} at {COL250_LEN} bp; {n} "
+                        f"children kept", first, b)
+            check_overflow(f"band_step (quad body, kb {kb}, W {W})",
+                           args[0], list(args[1:5]), *args[5:9], 30)
+    # the per-lane entry at kb 9 on kernel G's tables of 4,096 of the reads
+    scheme = get_scheme("columba", 9)
+    lb = batch[:4096].contiguous()
+    st = dynschedule.scheme_static(scheme, COL250_LEN, "edit")
+    dyn = dynschedule.build_tables(st, dynschedule.dynamic_partition(
+        index, lb, scheme, table), lb)
+    S, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
+    state = [seeds, torch.from_numpy(rng.integers(0, 4096 * S, C).astype(
+                 np.int32)).to(dev),
+             torch.from_numpy(rng.integers(0, 4, (C, 2, bw)).astype(
+                 np.int8)).to(dev),
+             torch.from_numpy(rng.integers(0, 3, (C, 2, 1)).astype(
+                 np.int8)).to(dev)]
+    ms = {False: [], True: []}
+    for generic in (False, True, True, False):
+        rep, b, n, _ = check_fused(index, state, None, dyn["pchars"], T,
+                                   T - COL250_LEN // 3, 4,
+                                   dyn["meta"].reshape(-1), generic=generic)
+        ms[generic].append(rep["ms"])
+    log(f"kernel band_step.per_lane (quad body) at kb=9 (kernel G's tables "
+        f"of 4,096 reads, C={C}, {n} children kept; {smi}): quad body and "
+        f"generic entry each equal to plain; events in turns: quad "
+        f"{ms[False]} ms, generic {ms[True]} ms; bound {b['bound_ms']:.5f} "
+        f"ms by {b['bound_by']}")
+    del batch, seeds, lb, dyn, state
+
+    def fq(tag, codes, prefix="r"):
+        path = os.path.join(wd, tag + ".fq")
+        workload.write_fastq(path, codes, prefix)
+        return path
+
+    files["col250_se_best"] = files["col250_se_best_dyn"] = (
+        fq("col250", reads), None)
+    warm["col250_se_best"] = warm["col250_se_best_dyn"] = (
+        fq("wcol250", reads[:COL250_WARMUP], "w"), None)
+    best = ["-a", "best", "-S", "columba"]
+    argv_of.update(col250_se_best=best,
+                   col250_se_best_dyn=best + ["-p", "dynamic"])
+    n_of.update({p: N_COL250_READS for p in COL250_PATHS})
+    for path in COL250_PATHS:
+        drive(path, f"genome {workload.GENOME_N} bp")
+    col = (starts, pos, nsub, flip)
+    for path in COL250_PATHS:
+        best_locus_check(wd, col, path, path, N_COL250_READS, COL250_CUT)
+    same_sam("col250_se_best_dyn", "col250_se_best", wd)
+    for path in COL250_PATHS:
+        plain_records(wd, idx, path, reads[:N_COL250_PLAIN], argv_of[path])
+
+
 def pan_best_check(wd, tag, pos, nsub, flip, cut) -> None:
     """BEST mode on the pan-genome (one sequence): every read with n <= cut
     substitutions has a record, its best NM is <= n, and where it equals n
@@ -2787,17 +2976,31 @@ def main() -> int:
     log(smi)
 
     t0 = time.time()
+    # built from the checkout's sources on every run (a library left by an
+    # earlier run would skip nvcc, and with it ptxas's report below)
+    lib = os.path.join(native.BUILD_DIR, "libcolumba_kernels.so")
+    if os.path.exists(lib):
+        os.remove(lib)
     native.load_kernels()
     log(f"kernels built in {time.time() - t0:.1f} s "
         f"(nvcc {native.build_seconds.get('kernels', 0.0):.1f} s; by "
         f"source, all started together: " + ", ".join(
             f"{k} {v:.2f}" for k, v in sorted(native.build_seconds.items())
             if k.endswith(".cu")) + ")")
+    quad = 0
     for ln in native.ptxas_report(native.build_log.get("kernels", "")):
         log(f"  ptxas {ln}")
         if (ln.startswith(NO_FRAME) and not ln.startswith(GENERIC_B)
                 and "stack frame" in ln):
             raise AssertionError(f"local memory in {ln}")
+        quad += ln.startswith("band_step_quad_kernel<")
+    # the quad body: every static (kb, W <= QUAD_MAX_W[kb]) and per-lane kb
+    want = sum(executor.QUAD_MAX_W.values()) + len(executor.QUAD_MAX_W)
+    log(f"  kernel B's quad body: {quad} instances in ptxas's report, none "
+        f"with a stack frame (want {want})")
+    if quad != want:
+        raise AssertionError(f"ptxas reports {quad} quad-body instances, "
+                             f"not {want}")
     sections.done("kernels build")
 
     with smoke_dir() as (wd, big):
@@ -3030,6 +3233,10 @@ def main() -> int:
                                     for k, v in native.KERNELS.items()
                                     if v.by_shape}
             band_shapes = shapes_by_path[path].get("band_step", {})
+            quads = sum(n for sh, n in band_shapes.items()
+                        if sh.endswith(" quad"))
+            if quads:                # kernel B's quad body, for the record
+                entries["band_step.quad"] = quads
             log(f"path {path}: {n_of[path]} {unit} x {m} bp in "
                 f"{dt:.3f} s = {n_of[path] / dt:.1f} {unit}/s ({what}, "
                 f"{genome_what}, {smi}; warm-up "
@@ -3064,9 +3271,10 @@ def main() -> int:
                           for k, v in shapes_by_path[path].items()
                           if k != "band_step"))
             # kb 5..7 with one or two registers: a templated instance in
-            # every entry, never the generic one
+            # every entry, never the generic one; kb 8..13 with a W of the
+            # quad body's in the Vanilla entries: the quad body
             generic = [k for k in band_shapes if k.endswith(" generic")
-                       and re.search(r" kb[5-7] W[12] ", k)]
+                       and (re.search(r" kb[5-7] W[12] ", k) or quad_shape(k))]
             if generic:
                 raise AssertionError(f"path {path}: kernel B's generic "
                                      f"entry at {generic}")
@@ -3116,7 +3324,7 @@ def main() -> int:
 
         for path in PATH_KERNELS:
             if path not in (*RLC_PATHS, *RLC_COL_PATHS, *BLOCKED_PATHS,
-                            *BIG_PATHS, *README_PATHS):
+                            *BIG_PATHS, *README_PATHS, *COL250_PATHS):
                 drive(path, f"genome {workload.GENOME_N} bp")
         # the monolithic reference of the blocked PE path: its pairs and
         # flags on this index
@@ -3279,6 +3487,10 @@ def main() -> int:
         readme_section(wd, idx, index, table, text, n_runs, reads, sample,
                        drive, files, warm, argv_of, n_of, smi, record)
         sections.done("readme")
+        # the default run on 250 bp reads: kernel B's quad body
+        col250_section(wd, idx, index, table, text, n_runs, starts, drive,
+                       files, warm, argv_of, n_of, smi, report)
+        sections.done("col250")
 
         # the dist phase at the headline width (SE ALL's reads from
         # DIST_FIRST, the 10-mer table, switchpoint 4): shards in this
@@ -3355,6 +3567,8 @@ def main() -> int:
                 "dedup.keys": "columba_tpu/search/pipeline.py:194",
                 "dedup.pass": "columba_tpu/search/pipeline.py:210",
                 "dedup.compact": "columba_tpu/search/pipeline.py:194"}
+    sources = {"band_step.quad": "columba_tpu_torch/csrc/band_step_wide.cuh"}
+    replaces["band_step.quad"] = "columba_tpu/search/executor.py:587"
     kernels = []
     for k in native.KERNELS.values():
         entries = [k.name] + [n for n in report if n.startswith(k.name + ".")]
@@ -3366,7 +3580,8 @@ def main() -> int:
                 raise AssertionError(f"kernel {entry} launched on no path")
             kernels.append(dict(
                 name=entry, route="cuda",
-                source=k.source_of(entry.partition(".")[2]),
+                source=sources.get(entry,
+                                   k.source_of(entry.partition(".")[2])),
                 replaces=replaces.get(entry, k.replaces),
                 launches=sum(by_path.values()), launches_by_path=by_path,
                 max_abs_err=r["max_abs_err"], ms=r["ms"],

@@ -1,8 +1,10 @@
 // Kernel B, Vanilla entries: the static-schedule entries (kb 0..7 x W 1..2
 // templated; they take the reads and the schedule's cell table, `pchars`
 // null) and the per-lane entry of dynamic partitioning (kb 0..7 templated;
-// kernel G's `pchars`, the others null), each with a generic entry above,
-// which `generic` forces. The body and its notes are in band_step.cuh.
+// kernel G's `pchars`, the others null), each with the quad body at kb
+// 8..13 (band_step_wide.cu, band_step_wide_lane.cu) and a generic entry
+// above, which `generic` forces. The body and its notes are in
+// band_step.cuh, the quad body's in band_step_wide.cuh.
 #include "band_step.cuh"
 
 using columba_band::BandArgs;

@@ -80,10 +80,14 @@
 // for k <= 4, both metrics (KB = 0 is the Hamming band of one cell), and
 // the columba scheme's at 150 bp, the BEST ladder's rungs 5 and 7 at -I 95
 // (the reference's default run, with -p dynamic the per-lane entries).
-// Every other shape a schedule can produce (KB <= 13, W <= MAX_REGS = 10)
-// runs the same body with runtime sizes and arrays sized for the maximum
-// (KB = -1): those arrays live in local memory, so that entry is slower,
-// and it is exact.
+// The Vanilla entries at KB 8..13 (the ladder's deep rungs: 160 bp reads
+// and longer at -I 95) take the quad body of band_step_wide.cuh, a quad of
+// threads a lane, with every W the shipped schemes' schedules give there.
+// Every other shape a schedule can produce (KB <= 13, W <= MAX_REGS = 10;
+// the RLC and textless entries at KB >= 8) runs this body with runtime
+// sizes and arrays sized for the maximum (KB = -1, the generic entry):
+// those arrays live in local memory, so that entry is slower, and it is
+// exact.
 //
 // RLC and textless entries (K18 inside K7, and K20): the same body on the
 // RLC index, templated on the lane width RW. "rlc" takes 8-wide lanes;
@@ -564,6 +568,12 @@ int quad_block(long long tiles, size_t smem) {
   return kThreads;
 }
 
+// The quad body's Vanilla entries (band_step_wide.cu, band_step_wide_lane.cu):
+// kNoQuad where no instance takes the shape.
+constexpr int kNoQuad = -1;
+int launch_quad_static(const BandArgs& a, int kb, int W, cudaStream_t stream);
+int launch_quad_per_lane(const BandArgs& a, int kb, cudaStream_t stream);
+
 template <int KB, int WT, bool DYN = false, int RW = 4>
 int launch(const BandArgs& a, cudaStream_t stream) {
   const size_t smem = DYN ? 0 : sizeof(int) * (7 + a.bw) * a.S;
@@ -582,11 +592,18 @@ int launch(const BandArgs& a, cudaStream_t stream) {
 
 // The static-schedule entries of lane width RW: kb 0..7 x W 1..2 templated
 // (kb 5..7: the combined columba scheme's rungs at 150 bp, the BEST ladder's
-// at -I 95), the rest through the generic entry, which `generic` also
-// forces (to hold and time it against the instances).
+// at -I 95), on the Vanilla index kb 8..13 through the quad body, the rest
+// through the generic entry, which `generic` also forces (to hold and time
+// it against the instances).
 template <int RW>
 int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream,
                   bool generic) {
+  if constexpr (RW == 4) {
+    if (!generic && kb > 7) {
+      const int rc = launch_quad_static(a, kb, W, stream);
+      if (rc != kNoQuad) return rc;
+    }
+  }
   switch (generic || W > 2 || kb > 7 ? 0 : 2 * kb + W) {
     case 1: return launch<0, 1, false, RW>(a, stream);
     case 2: return launch<0, 2, false, RW>(a, stream);
@@ -610,12 +627,19 @@ int launch_static(const BandArgs& a, int kb, int W, cudaStream_t stream,
 
 // The per-lane entry of lane width RW (per-read schedules): one register,
 // kb 0..7 templated (a -p dynamic run of the columba scheme at 150 bp
-// reaches kb 5 and 7), the rest through the generic entry, which `generic`
-// also forces.
+// reaches kb 5 and 7), on the Vanilla index kb 8..13 through the quad body
+// (at 250 bp: kb 9 and 12), the rest through the generic entry, which
+// `generic` also forces.
 template <int RW>
 int launch_per_lane(const BandArgs& a, int kb, int W, cudaStream_t stream,
                     bool generic) {
   if (W != 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (RW == 4) {
+    if (!generic && kb > 7) {
+      const int rc = launch_quad_per_lane(a, kb, stream);
+      if (rc != kNoQuad) return rc;
+    }
+  }
   switch (generic ? -1 : kb) {
     case 0: return launch<0, 1, true, RW>(a, stream);
     case 1: return launch<1, 1, true, RW>(a, stream);

@@ -187,8 +187,9 @@ class Kernel:
     both launch); ``by_entry`` splits the same launches by the entry the
     wrapper names (kernel B's per-lane entry, kernel E with lengths, the
     RLC entries), and ``by_shape`` by the shape it names (kernel B: entry,
-    band radius, registers, templated or generic instance; kernel F its
-    part count; kernel G its band radius and part count). An entry named in ``symbols`` (entry -> (C symbol,
+    band radius, registers, templated instance, quad body or generic entry;
+    kernel D its band radius; kernel F its part count; kernel G its band
+    radius and part count). An entry named in ``symbols`` (entry -> (C symbol,
     argtypes) or (C symbol, argtypes, CUDA source) where the entry is built
     from a source of its own) has a C function of its own, with the
     index-specific arguments of the RLC index; the other entries share the

@@ -124,5 +124,6 @@ def verify_window(index, patterns: torch.Tensor, rid: torch.Tensor,
         KERNEL(index.text.data_ptr(), index.text.numel(), index.n,
                patterns.data_ptr(), patterns.shape[1], rid.data_ptr(),
                window_start.data_ptr(), kb,
-               None if live is None else live.data_ptr(), out.data_ptr(), B)
+               None if live is None else live.data_ptr(), out.data_ptr(), B,
+               shape=f"kb{kb}")
     return out

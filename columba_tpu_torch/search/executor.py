@@ -69,11 +69,18 @@ GHOST_IDM = (1 << 21) - 1
 
 # Kernel B takes every shape a schedule can produce: band radii 0..7 with
 # 1..2 colMin registers through templated instances in every entry (one
-# register in the per-lane entries), the rest (up to the BEST ladder's
-# cutoff and schedule.MAX_REGS) through its generic entry.
+# register in the per-lane entries), radii 8..13 on the Vanilla index
+# through the quad body (csrc/band_step_wide.cuh) with up to QUAD_MAX_W[kb]
+# registers, the rest (up to the BEST ladder's cutoff and
+# schedule.MAX_REGS; the RLC and textless entries above kb 7) through its
+# generic entry.
 KERNEL_MAX_KB = 13
 KERNEL_MAX_W = 10
 TEMPLATED_KB = 7          # every entry's (csrc/band_step.cuh)
+# the quad body's instances, the Vanilla static and per-lane entries'
+# (csrc/band_step_wide.cuh quad_max_w): the most colMin registers the
+# shipped schemes' schedules give at each radius at 160..270 bp
+QUAD_MAX_W = {8: 2, 9: 3, 10: 3, 11: 3, 12: 4, 13: 4}
 # True sends every step, of every entry, to the generic entry: the card
 # tests and tools/kernel_bench.py hold and time it against the instances
 BAND_GENERIC = False
@@ -715,12 +722,19 @@ def band_step_compact(index: FMIndex, state, n_live: int, out, itv,
 def band_shape(entry: str, kb: int, W: int, generic: bool = False) -> str:
     """Kernel B's launch census key: the entry ("static" for the Vanilla
     static one), the band radius and registers, and whether the launch
-    takes a templated instance or the generic entry, by the rule of
-    csrc/band_step.cuh ``launch_static`` / ``launch_per_lane`` (the
-    per-lane entries take one register)."""
-    fixed = kb <= TEMPLATED_KB and W <= 2
-    return (f"{entry or 'static'} kb{kb} W{W} "
-            f"{'templated' if fixed and not generic else 'generic'}")
+    takes a templated instance, the quad body or the generic entry, by the
+    rule of csrc/band_step.cuh ``launch_static`` / ``launch_per_lane`` (the
+    per-lane entries take one register; the quad body serves the Vanilla
+    entries only)."""
+    if generic:
+        inst = "generic"
+    elif kb <= TEMPLATED_KB and W <= 2:
+        inst = "templated"
+    elif entry in ("", "per_lane") and W <= QUAD_MAX_W.get(kb, 0):
+        inst = "quad"
+    else:
+        inst = "generic"
+    return f"{entry or 'static'} kb{kb} W{W} {inst}"
 
 
 def _ex_col(tab, per_lane: bool, idl, S: int, t: int):

@@ -75,7 +75,19 @@ or B is timed, its ``--rlc --textless`` index, built at once), and:
    lanes at kb 5, 6, 7 and 13), each step through the instance its launch
    picks and through the generic entry (``executor.BAND_GENERIC``) in
    turns: tree, generic, generic, tree;
-7. with ``--only default_run`` alone: the reference's default run (BEST,
+7. with ``--only columba250`` alone: kernel B's quad body
+   (``csrc/band_step_wide.cuh``) on 250 bp reads (``columba250_inputs``):
+   the widest static step at kb 9 and 12 of one ``-a best -S columba``
+   batch (``chip_smoke.py``'s ``col250_se_best`` reads) and the widest
+   steps of its ``-p dynamic`` twin (per-lane at kb 9, static at kb 12),
+   C = 12,288 lanes at kb 8-13 on the columba scheme's step tables at 250
+   and 270 bp (static entry) and at kb 8-10 on kernel G's tables of 250 bp
+   reads (per-lane entry), each through the quad body and the forced
+   generic entry in turns, with the plain version: tree, generic, plain,
+   plain, generic, tree, and with ``--parent`` the earlier tree's kernel
+   around them (about 13 minutes with the build, much of it the host
+   loading the columba scheme at k = 11-13 and the plain versions);
+8. with ``--only default_run`` alone: the reference's default run (BEST,
    ``-S columba``, 150 bp, with and without ``-p dynamic``) on both
    workloads (``default_run``): kernel A's table entry against the
    K-launch build it replaced, and kernel B's kb 5-7 instances of its
@@ -137,6 +149,16 @@ COL_WIDE = (13, 4, 14)   # kb, W and searches of columba k = 13 at 150 bp
 COL_PAN_HARD = 1024      # --only default_run: pan-genome reads at 3 %
 COL_TABLE_READS = 4096   # reads whose kernel G tables feed the synthetic
                          # per-lane steps (8,192 rows)
+# kernel B's quad body on 250 bp reads (--only columba250): the reads of
+# chip_smoke.py's col250 paths
+COL250_LEN = 250
+COL250_HARD = 1024       # the first reads, at COL250_ERR substitutions
+COL250_RUN_READS = 8     # of those, at each run of N
+COL250_ERR = 0.04
+COL250_KB = (8, 9, 10, 11, 12, 13)
+COL250_LENS = (250, 270)  # the step tables of the synthetic static steps
+COL250_LANE_KB = (8, 9, 10)  # per-read schedules at 250 bp (k + 1 parts of
+                             # 2k + 1 at least: kb <= 10)
 PKG = "columba_tpu_torch"
 TREE_MODULES = ("native", "ops.locate", "ops.verify", "ops.extend",
                 "search.dynschedule", "search.executor", "index.bmove",
@@ -766,20 +788,22 @@ def _widest_deep(calls: list, kind: str) -> list:
     return [c for c in calls if c["kind"] == kind and c.get("kb") in (5, 7)]
 
 
-def per_lane_inputs(kind: str, index, batch, ranges, table, rng) -> list:
+def per_lane_inputs(kind: str, index, batch, ranges, table, rng,
+                    kbs=COL_KB) -> list:
     """Kernel B's per-lane entry at C = 12,288 lanes of ``ranges`` at the
-    columba scheme's radii on 150 bp reads (kb 5, 6 and 7, one register):
-    kernel G's tables of kernel F's boundaries of ``batch`` (the seed
-    table ``table`` where given), step T - m / 3, random band state."""
+    columba scheme's radii ``kbs`` (default kb 5, 6 and 7: 150 bp reads;
+    one register) on ``batch``'s reads: kernel G's tables of kernel F's
+    boundaries of ``batch`` (the seed table ``table`` where given), step
+    T - m / 3, random band state."""
     from columba_tpu_torch.search import dynschedule
     from columba_tpu_torch.search.scheme import get_scheme
 
     dev = batch.device
-    R = batch.shape[0]
+    R, m = batch.shape
     out = []
-    for kb in COL_KB:
+    for kb in kbs:
         scheme = get_scheme("columba", kb)
-        st = dynschedule.scheme_static(scheme, COL_LEN, "edit")
+        st = dynschedule.scheme_static(scheme, m, "edit")
         dyn = dynschedule.build_tables(st, dynschedule.dynamic_partition(
             index, batch, scheme, table), batch)
         S, T, bw = st.num_searches, st.t_max, 2 * st.kb + 1
@@ -790,9 +814,58 @@ def per_lane_inputs(kind: str, index, batch, ranges, table, rng) -> list:
                      np.int8)).to(dev),
                  torch.from_numpy(rng.integers(0, 3, (COL_C, 2, 1)).astype(
                      np.int8)).to(dev),
-                 None, dyn["pchars"], T, T - COL_LEN // 3, 4)
+                 None, dyn["pchars"], T, T - m // 3, 4)
         out.append(band_input(kind, lanes, dyn_meta=dyn["meta"].reshape(-1)))
     return out
+
+
+def columba250_inputs(index, codes: np.ndarray, text: np.ndarray,
+                      starts: np.ndarray, table, rng, align,
+                      wd: str) -> list:
+    """Kernel B's Vanilla entries at kb 8-13, where the quad body takes
+    them: the widest static step at kb 9 and 12 of one ``cli align -a best
+    -S columba`` batch of 250 bp reads (cutoff 12, the ladder's rungs 0,
+    1, 3, 5, 9 and 12; ``chip_smoke.py``'s ``col250`` reads: the first
+    1,024 at 4 % substitutions, 8 at each run of N, the rest at 1 %), the
+    widest steps of its ``-p dynamic`` twin (the per-lane entry at kb 9;
+    at kb 12 the static one, since 13 parts of 25 do not fit in 250 bp);
+    synthetic steps of C = 12,288 lanes from the reads' 10-mer seed ranges
+    at kb 8-13 on the columba scheme's own step tables at 250 and 270 bp
+    (random band state), and the per-lane entry at kb 8-10 on kernel G's
+    tables of 4,096 of the reads."""
+    from columba_tpu_torch.index.kmer import lookup
+    from columba_tpu_torch.search import pipeline
+    from columba_tpu_torch.search.scheme import get_scheme
+    from columba_tpu_torch.tools import workload
+
+    reads = workload.ladder_reads(
+        text, starts, workload.runs_of_n(codes), BATCH, COL250_HARD,
+        COL250_RUN_READS, COL250_ERR, rng, COL250_LEN)[0]
+    fq = os.path.join(wd, "col250.fq")
+    workload.write_fastq(fq, reads, "r")
+    best = ["-a", "best", "-S", "columba"]
+    calls = [c for c in capture(align(best, [fq]))
+             if c["kind"] == "band_step" and c["kb"] in (9, 12)]
+    calls += [c for c in capture(align(best + ["-p", "dynamic"], [fq]))
+              if c["kind"] in ("band_step", "band_step.per_lane")
+              and c["kb"] in (9, 12)]
+    batch = _both_strands(reads)
+    seeds = lookup(table, batch[:, 30:40])
+    seeds = seeds[seeds[:, 1] > seeds[:, 0]]
+    seeds = seeds[torch.from_numpy(rng.integers(0, seeds.shape[0], COL_C)
+                                   ).cuda()]
+    for m in COL250_LENS:
+        mb = batch if m <= COL250_LEN else torch.cat(
+            [batch, batch[:, :m - COL250_LEN]], dim=1).contiguous()
+        for kb in COL250_KB:
+            sched = pipeline.compile_cached(get_scheme("columba", kb), m,
+                                            "edit", kmer_k=10)
+            calls.append(band_input("band_step", band_args(
+                index, sched, mb, seeds, rng, 4, C=COL_C)))
+    calls += per_lane_inputs("band_step.per_lane", index,
+                             batch[:COL_TABLE_READS].contiguous(), seeds,
+                             table, rng, COL250_LANE_KB)
+    return calls
 
 
 def default_run(wd: str, idx: str, codes: np.ndarray, text: np.ndarray,
@@ -955,7 +1028,9 @@ def main(argv=None) -> int:
                          "instances beside its generic entry; default_run: "
                          "kernel A's table entry and kernel B's per-lane, "
                          "RLC and textless entries at kb 5-7 on the "
-                         "reference's default run); all by default")
+                         "reference's default run; columba250: kernel B's "
+                         "quad body at kb 8-13 on 250 bp reads beside its "
+                         "generic entry); all by default")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
 
@@ -1041,6 +1116,14 @@ def main(argv=None) -> int:
             default_run(wd, idx, codes, text, arrays.seq_starts,
                         lambda at, argv, fq: align(at, argv, fq), clocks,
                         smi, results)
+            return _write(args.out, smi, results)
+        if only == {"columba250"}:
+            index = FMIndex.from_arrays(arrays, "cuda")
+            time_inputs("columba250", columba250_inputs(
+                index, codes, text, arrays.seq_starts,
+                build_kmer_table(index, 10), np.random.default_rng(SEED + 9),
+                lambda argv, fq: align(idx, argv, fq), wd),
+                clocks, smi, results, parent, generic_and_plain)
             return _write(args.out, smi, results)
         if only == {"columba150"}:
             index = FMIndex.from_arrays(arrays, "cuda")

@@ -48,8 +48,10 @@ KERNEL_NAME = {"verify": "verify", "locate": "locate_kernel",
                "band_step.textless": ("band_step_rlc_kernel",
                                       "band_step_kernel"),
                "extend.loop_rlc": "extend_loop_kernel",
-               "band_step": "band_step_kernel",
-               "band_step.per_lane": "band_step_kernel"}
+               # kb 8..13 on the Vanilla index: the quad body's kernel
+               "band_step": ("band_step_kernel", "band_step_quad_kernel"),
+               "band_step.per_lane": ("band_step_kernel",
+                                      "band_step_quad_kernel")}
 BAND_KINDS = ("band_step", "band_step.per_lane", "band_step.rlc",
               "band_step.per_lane_rlc", "band_step.textless")
 

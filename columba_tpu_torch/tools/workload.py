@@ -120,6 +120,21 @@ def reads_at_runs(text: np.ndarray, starts: np.ndarray, run_lo: np.ndarray,
     return reads_at(text, at, rng, m, err_rate)
 
 
+def ladder_reads(text: np.ndarray, starts: np.ndarray, runs, n: int,
+                 n_hard: int, per_run: int, hard_err: float, rng,
+                 m: int = READ_LEN):
+    """``n`` reads for the BEST ladder's deep rungs: the first ``n_hard``
+    at ``hard_err`` substitutions a base, ``per_run`` of them at each run
+    of N (``runs``: :func:`runs_of_n`'s; a repeat, so their lanes stay
+    wide) and the rest uniform; then uniform reads at ``ERR_RATE``.
+    Returns what :func:`reads_at` returns."""
+    at_runs = reads_at_runs(text, starts, *runs, per_run, rng, m, hard_err)
+    hard = sample_reads(text, starts, n_hard - len(at_runs[0]), rng, m,
+                        hard_err)
+    rest = sample_reads(text, starts, n - n_hard, rng, m)
+    return tuple(np.concatenate(v) for v in zip(at_runs, hard, rest))
+
+
 def reads_at(text: np.ndarray, pos: np.ndarray, rng, m: int = READ_LEN,
              err_rate: float = ERR_RATE):
     """Reads that begin at ``pos``, with substitutions and flips drawn as

@@ -152,21 +152,34 @@ def test_default_run_identical_sam(world, monkeypatch, jax_locate_cap,
 
 
 def test_band_shape_names_the_instance_taken():
-    """``executor.band_shape`` names a launch templated or generic by the
-    rule of ``csrc/band_step.cuh`` (``launch_static``, ``launch_per_lane``):
-    every entry templated at kb 0..7 with one or two registers (the
-    per-lane entries take one), generic above, and generic wherever
+    """``executor.band_shape`` names a launch templated, quad or generic by
+    the rule of ``csrc/band_step.cuh`` (``launch_static``,
+    ``launch_per_lane``): every entry templated at kb 0..7 with one or two
+    registers (the per-lane entries take one); the Vanilla static and
+    per-lane entries through the quad body at kb 8..13 with the registers
+    the shipped schemes' schedules give there at 160..270 bp (kb 8: W 1-2;
+    9 and 10: 1-3; 11: 1 and 3; 12 and 13: 1, 3 and 4) and any fewer;
+    generic above, in the RLC and textless entries past kb 7, and wherever
     ``generic`` forces it."""
+    listed = {8: (1, 2), 9: (1, 2, 3), 10: (1, 2, 3), 11: (1, 3),
+              12: (1, 3, 4), 13: (1, 3, 4)}
     for entry, name in (("", "static"), ("per_lane", "per_lane"),
                         ("rlc", "rlc"), ("textless", "textless"),
                         ("per_lane_rlc", "per_lane_rlc")):
-        for W in ((1,) if entry.startswith("per_lane") else (1, 2, 3)):
-            for kb in range(4, 9):
-                inst = "templated" if kb <= 7 and W <= 2 else "generic"
+        for W in ((1,) if entry.startswith("per_lane") else range(1, 6)):
+            for kb in range(4, 14):
+                quad = (name in ("static", "per_lane") and kb in listed
+                        and W <= max(listed[kb]))
+                inst = ("templated" if kb <= 7 and W <= 2 else
+                        "quad" if quad else "generic")
                 assert executor.band_shape(entry, kb, W) == \
                     f"{name} kb{kb} W{W} {inst}"
                 assert executor.band_shape(entry, kb, W, True) == \
                     f"{name} kb{kb} W{W} generic"
+    for kb, ws in listed.items():
+        for W in ws:
+            assert executor.band_shape("", kb, W).endswith(" quad")
+        assert executor.band_shape("per_lane", kb, 1).endswith(" quad")
 
 
 def test_kmer_table_plain_equals_jax(world):

@@ -338,7 +338,8 @@ def _random_mrow(rng, S, bw, W):
     return np.concatenate([meta[:, None], words], axis=1).astype(np.int32)
 
 
-# kb 0..7 x W 1..2 are templated entries of csrc/band_step.cu; the others
+# kb 0..7 x W 1..2 are templated entries of csrc/band_step.cu; kb 8..13
+# with up to executor.QUAD_MAX_W[kb] registers its quad body; the others
 # run its generic entry (runtime sizes, up to kb 13 and W 10)
 @pytest.mark.parametrize("kb,W", [
     (0, 1), (0, 2), (1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (4, 1),
@@ -389,9 +390,10 @@ def test_band_step_instances(setup, gpu, kb, W):
 
 def instance_and_generic(step, entry, kb, W):
     """``step()`` (one kernel B launch held to its plain version, returning
-    what it kept) through the templated instance and through the forced
-    generic entry (``executor.BAND_GENERIC``): both equal the plain
-    version, so each other, and the launch census names the entry taken."""
+    what it kept) through the instance the shape takes (templated, or the
+    quad body) and through the forced generic entry
+    (``executor.BAND_GENERIC``): both equal the plain version, so each
+    other, and the launch census names the body taken."""
     got = []
     for generic in (False, True):
         executor.KERNEL.reset()
@@ -400,11 +402,97 @@ def instance_and_generic(step, entry, kb, W):
             got.append(step())
         finally:
             executor.BAND_GENERIC = False
-        inst = "generic" if generic else "templated"
-        assert set(executor.KERNEL.by_shape) == {
-            f"{entry} kb{kb} W{W} {inst}"}
+        name = executor.band_shape("" if entry == "static" else entry, kb, W,
+                                   generic)
+        assert name.endswith("generic" if generic else
+                             ("quad" if kb > 7 else "templated"))
+        assert set(executor.KERNEL.by_shape) == {name}
     assert got[0] == got[1]
     return got[0]
+
+
+# the quad body's shapes (csrc/band_step_wide.cuh): kb 8..13 with the
+# registers the shipped schemes' schedules give there, and any fewer
+QUAD_SHAPES = [(kb, W) for kb, top in executor.QUAD_MAX_W.items()
+               for W in range(1, top + 1)]
+
+
+@pytest.mark.parametrize("kb,W", QUAD_SHAPES)
+def test_band_step_quad(setup, gpu, kb, W):
+    """Kernel B's quad body in the Vanilla static entry at every shape it
+    takes, and the forced generic entry at the same shape, on the same
+    random lane states and step tables (ghosts, dead lanes, saturated
+    cells, narrow children), each equal the plain version on every
+    output."""
+    _, cpu_fm, fm = setup
+    rng = np.random.default_rng(500 + 10 * kb + W)
+    bw = 2 * kb + 1
+    C, R, S, T, t = 4096, 96, 7, 5, 3
+    state = _random_state(rng, cpu_fm.n, C, R, S, bw, W, gpu)
+    mrow = torch.from_numpy(_random_mrow(rng, S, bw, W)).to(gpu)
+    cells = _cells(rng, R, S, T, bw, gpu, ALL_CODES, m=250)
+    n, rows = instance_and_generic(
+        lambda: fused_vs_plain(fm, state, mrow, cells, T, t,
+                               4 if kb % 2 else 0), "static", kb, W)
+    assert n > 0 and (rows > 0) == (kb % 2 == 1)
+
+
+def _random_words(rng, L, bw):
+    """Random per-lane schedule words (search/dynschedule.py layout):
+    mostly active, either side, a register reset or not on a random cell
+    or none (colo + 1 = 0), bounds 0..12, back depths 0..2000."""
+    return torch.from_numpy((
+        (rng.random(L) < 0.8) | (rng.integers(0, 2, L) << 1)
+        | (rng.integers(0, 2, L) << 2) | (rng.integers(0, bw + 1, L) << 3)
+        | (rng.integers(0, 13, L) << 9) | (rng.integers(0, 2001, L) << 17)
+    ).astype(np.int32))
+
+
+@pytest.mark.parametrize("kb", sorted(executor.QUAD_MAX_W))
+def test_band_step_quad_per_lane(setup, gpu, kb):
+    """Kernel B's quad body in the Vanilla per-lane entry (one register)
+    at kb 8..13, and the forced generic entry, on random lane states,
+    per-lane words and per-lane cell codes, each equal the plain version
+    on every output."""
+    _, cpu_fm, fm = setup
+    rng = np.random.default_rng(600 + kb)
+    bw = 2 * kb + 1
+    C, R, S, T = 4096, 96, 7, 5
+    state = _random_state(rng, cpu_fm.n, C, R, S, bw, 1, gpu)
+    words = _random_words(rng, R * S * T, bw).to(gpu)
+    codes = torch.from_numpy(rng.integers(-2, 5, (R * S * T, bw)).astype(
+        np.int8)).to(gpu)
+    kept = 0
+    for t in (0, 2, 4):
+        n, _ = instance_and_generic(
+            lambda: fused_vs_plain(fm, state, None, codes, T, t, 4, words),
+            "per_lane", kb, 1)
+        kept += n
+    assert kept > 0
+
+
+def test_band_step_quad_overflow(setup, gpu):
+    """The quad body at kb 12, W 3 (the columba scheme at 250 bp) on a
+    step whose kept children overflow the next frontier and whose narrow
+    rows overflow the in-text buffer: the clamps, the dropped rows and the
+    overflow count equal the plain version's and the forced generic
+    entry's, over three launches on one scratch."""
+    _, cpu_fm, fm = setup
+    rng = np.random.default_rng(13)
+    kb, W, bw = 12, 3, 25
+    state = _random_state(rng, cpu_fm.n, 4096, 96, 7, bw, W, gpu, cells=4)
+    mrow = torch.from_numpy(_random_mrow(rng, 7, bw, W)).to(gpu)
+    mrow[:, 0] |= 1                            # every search active
+    mrow[:, 0] &= ~(255 << 10)
+    mrow[:, 0] |= 6 << 10                      # a loose bound: most survive
+    cells = _cells(rng, 96, 7, 5, bw, gpu, DIAG_CODES, m=250)
+    scratch = executor.StepScratch(4096, gpu)
+    for rep in range(3):
+        n, rows = instance_and_generic(
+            lambda: fused_vs_plain(fm, state, mrow, cells, 5, 3, 8,
+                                   cap=256, M=64, cnt=40, scratch=scratch),
+            "static", kb, W)
+        assert n > 256 and rows == 64, (n, rows)
 
 
 @pytest.mark.parametrize("kmer_k,switchpoint,capacity", [
